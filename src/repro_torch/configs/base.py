@@ -1,0 +1,175 @@
+"""Model configs, the registry of ported archs, and reduced variants.
+
+A copy of ``repro.configs.base`` (``ModelConfig``, ``get_config``,
+``reduced``) kept here so the port imports nothing of the JAX package.
+``get_config`` knows only the archs the port can serve; the rest of the
+JAX zoo arrives slice by slice (see ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
+    source: str  # citation from the assignment table
+
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+
+    # attention features
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    attn_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    sliding_window: Optional[int] = None  # window for "local" layers
+    # per-layer mixer pattern, repeated over depth. entries:
+    #   "attn" | "local" | "global" | "mamba" | "ssd"
+    layer_pattern: Tuple[str, ...] = ("attn",)
+    rope_theta: float = 10_000.0
+    norm: str = "rmsnorm"  # "rmsnorm" | "layernorm"
+    tie_embeddings: bool = False
+    post_block_norm: bool = False  # gemma2-style pre+post norms
+
+    # MLA (deepseek-style multi-head latent attention)
+    use_mla: bool = False
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+    # MoE
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    moe_layer_period: int = 1
+    moe_layer_offset: int = 0
+    moe_capacity_factor: float = 1.25
+    first_dense_layers: int = 0
+    router_aux_loss: float = 0.01
+
+    # SSM (mamba / mamba2-SSD)
+    ssm_d_state: int = 0
+    ssm_d_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+
+    # encoder-decoder
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+
+    # frontend: "tokens" (ids) or "embeddings" (precomputed frames/patches)
+    input_mode: str = "tokens"
+
+    # numerics
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def padded_vocab(self) -> int:
+        return ((self.vocab_size + 255) // 256) * 256
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Mixer kind for each of num_layers layers."""
+        pat = self.layer_pattern
+        return tuple(pat[i % len(pat)] for i in range(self.num_layers))
+
+    def mlp_kinds(self) -> Tuple[str, ...]:
+        """'dense' | 'moe' | 'none' per layer."""
+        out = []
+        for i in range(self.num_layers):
+            if self.layer_kinds()[i] == "ssd" and self.family == "ssm":
+                out.append("none")
+            elif (
+                self.num_experts > 0
+                and i >= self.first_dense_layers
+                and (i % self.moe_layer_period) == self.moe_layer_offset
+            ):
+                out.append("moe")
+            elif self.d_ff > 0:
+                out.append("dense")
+            else:
+                out.append("none")
+        return tuple(out)
+
+
+# the archs this slice of the port serves; the JAX registry lists the rest
+ARCHS = ["tinyllama-1.1b", "gemma2-2b"]
+
+
+def _module_name(arch_id: str) -> str:
+    return arch_id.replace("-", "_").replace(".", "_")
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if _module_name(arch_id) not in {_module_name(a) for a in ARCHS}:
+        raise ValueError(
+            f"arch {arch_id!r} is not ported to repro_torch yet (ported: "
+            f"{ARCHS}); the remaining archs are queued in ROADMAP.md")
+    mod = importlib.import_module(f"repro_torch.configs.{_module_name(arch_id)}")
+    return mod.CONFIG
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """Same family/features, CPU-sized: <=2 layers, d_model<=512, <=4 experts."""
+    changes = {}
+    changes["num_layers"] = min(cfg.num_layers, 2)
+    d_model = min(cfg.d_model, 256)
+    changes["d_model"] = d_model
+    if cfg.num_heads:
+        heads = min(cfg.num_heads, 4)
+        kv = max(1, min(cfg.num_kv_heads, heads, 2))
+        changes["num_heads"] = heads
+        changes["num_kv_heads"] = kv
+        changes["head_dim"] = 64
+    if cfg.d_ff:
+        changes["d_ff"] = 512
+    changes["vocab_size"] = min(cfg.vocab_size, 512)
+    if cfg.num_experts:
+        changes["num_experts"] = min(cfg.num_experts, 4)
+        changes["num_shared_experts"] = min(cfg.num_shared_experts, 1)
+        changes["top_k"] = min(cfg.top_k, 2)
+        changes["moe_d_ff"] = 256
+        changes["moe_capacity_factor"] = changes["num_experts"] / changes["top_k"]
+    changes["first_dense_layers"] = min(cfg.first_dense_layers, 1 if cfg.num_layers > 1 else 0)
+    if cfg.use_mla:
+        changes["kv_lora_rank"] = 64
+        changes["qk_nope_dim"] = 32
+        changes["qk_rope_dim"] = 16
+        changes["v_head_dim"] = 32
+        changes["head_dim"] = 48
+    if cfg.ssm_d_state:
+        changes["ssm_d_state"] = min(cfg.ssm_d_state, 16)
+        changes["ssm_head_dim"] = 32
+        changes["ssm_chunk"] = 32
+    if cfg.sliding_window:
+        changes["sliding_window"] = 32
+    if cfg.is_encoder_decoder:
+        changes["num_encoder_layers"] = min(cfg.num_encoder_layers, 2)
+    pat = cfg.layer_pattern
+    if len(pat) > changes["num_layers"]:
+        kinds = list(dict.fromkeys(pat))[: changes["num_layers"]]
+        changes["layer_pattern"] = tuple(kinds) or ("attn",)
+    changes["dtype"] = "float32"
+    changes["param_dtype"] = "float32"
+    return dataclasses.replace(cfg, **changes)

@@ -1,0 +1,50 @@
+"""Weights from the JAX package's param tree into the port's modules.
+
+``params_from_numpy`` takes the tree ``repro.models.init_params`` returns,
+with every leaf turned into a numpy array (the caller converts; this module
+imports no JAX). The JAX package stacks each stage's layers on a leading
+``repeats`` axis (``repro.models.transformer.init_stack``): layer ``j`` of
+repeat ``r`` of a stage is absolute layer ``offset + r * period + j``. JAX
+stores dense weights ``(d_in, d_out)`` and applies ``x @ W``; the port's
+``nn.Linear`` stores ``(d_out, d_in)``, so they are transposed.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import CausalLM, empty_params
+from repro_torch.models.transformer import compute_stages
+
+_LINEARS = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_gate", "w_up", "w_down")}
+_NORMS = ("pre_norm", "post_norm", "mlp_norm", "mlp_post_norm")
+
+
+def _put(param: torch.Tensor, arr, transpose: bool = False) -> None:
+    a = torch.from_numpy(np.array(arr, dtype=np.float32))
+    param.copy_(a.T if transpose else a)
+
+
+@torch.no_grad()
+def params_from_numpy(tree, cfg, device="cuda") -> CausalLM:
+    model = empty_params(cfg, device)
+    _put(model.embedding, tree["embed"]["embedding"])
+    if model.lm_head is not None:
+        _put(model.lm_head.weight, tree["embed"]["lm_head"], transpose=True)
+    _put(model.final_norm.scale, tree["final_norm"]["scale"])
+    offset = 0
+    for si, st in enumerate(compute_stages(cfg)):
+        period = len(st.pattern)
+        for r in range(st.repeats):
+            for j in range(period):
+                src = tree["stages"][si][f"l{j}"]
+                layer = model.layers[offset + r * period + j]
+                for norm in _NORMS:
+                    if hasattr(layer, norm):
+                        _put(getattr(layer, norm).scale, src[norm]["scale"][r])
+                for block, names in _LINEARS.items():
+                    for name in names:
+                        _put(getattr(getattr(layer, block), name).weight,
+                             src[block][name][r], transpose=True)
+        offset += st.repeats * period
+    return model

@@ -1,0 +1,20 @@
+"""Attention dispatch, the counterpart of ``repro.kernels.ops``: a single
+query token goes to the decode kernel, everything else to the prefill
+(flash) kernel. ``plain=True`` takes the kernels' plain versions on any
+device (the kernel-versus-plain parity runs on the card)."""
+from __future__ import annotations
+
+from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.flash_attention import flash_attention_plain
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                    q_offset=0, kv_len=None, scale=None, plain=False):
+    if q.shape[1] == 1:
+        fn = decode_attention_plain if plain else decode_attention
+        return fn(q, k, v, q_offset=q_offset, kv_len=kv_len, window=window,
+                  softcap=softcap, scale=scale)
+    fn = flash_attention_plain if plain else _flash
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset, kv_len=kv_len, scale=scale)

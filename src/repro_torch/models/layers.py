@@ -1,0 +1,93 @@
+"""Shared building blocks: norms, rotary embeddings, the MLP, embeddings
+and the LM head — the counterpart of ``repro.models.layers``.
+
+Parameters live in ``nn.Module``s; the apply functions keep the JAX
+package's names and numerics:
+
+* RMSNorm multiplies by the plain ``scale`` (not ``1 + scale``), eps 1e-6,
+  computed in fp32 and cast back;
+* RoPE rotates split halves, not interleaved pairs;
+* gemma2's MLP uses the tanh-approximated GELU (``jax.nn.gelu``'s default);
+* gemma2 scales embeddings by ``sqrt(d_model)`` cast to the activation
+  dtype;
+* logits are cast to fp32 before the final softcap.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class RMSNorm(nn.Module):
+    """Counterpart of ``init_norm`` for rmsnorm models: an fp32 scale."""
+
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, dtype=torch.float32, device=device))
+
+
+def init_norm(cfg, device=None) -> RMSNorm:
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(
+            f"norm {cfg.norm!r} is not ported yet (see ROADMAP.md)")
+    return RMSNorm(cfg.d_model, device)
+
+
+def apply_norm(p: RMSNorm, x, eps=1e-6):
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * p.scale).to(x.dtype)
+
+
+def rope_freqs(head_dim, theta, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta):
+    """x: (..., S, H, Dh) ; positions: (..., S) integer."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)  # (Dh/2,)
+    ang = positions[..., :, None, None].float() * freqs  # (...,S,1,Dh/2)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+class MLP(nn.Module):
+    """SwiGLU / GeGLU feed-forward (counterpart of ``init_mlp``)."""
+
+    def __init__(self, cfg, device=None, dtype=None):
+        super().__init__()
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.w_gate = nn.Linear(cfg.d_model, cfg.d_ff, **kw)
+        self.w_up = nn.Linear(cfg.d_model, cfg.d_ff, **kw)
+        self.w_down = nn.Linear(cfg.d_ff, cfg.d_model, **kw)
+
+
+def apply_mlp(p: MLP, x, cfg):
+    gate = p.w_gate(x)
+    if cfg.name.startswith("gemma2"):
+        act = F.gelu(gate, approximate="tanh")
+    else:
+        act = F.silu(gate)
+    return p.w_down(act * p.w_up(x))
+
+
+def embed_tokens(embedding, ids, cfg):
+    x = F.embedding(ids, embedding)
+    if cfg.name.startswith("gemma2"):
+        x = x * torch.tensor(float(cfg.d_model), dtype=torch.float32).sqrt().to(x.dtype)
+    return x
+
+
+def lm_logits(embedding, lm_head, x, cfg):
+    """``embedding`` (V, d) when tied, else ``lm_head`` (an ``nn.Linear``)."""
+    logits = F.linear(x, embedding) if cfg.tie_embeddings else lm_head(x)
+    logits = logits.float()
+    if cfg.final_softcap:
+        c = cfg.final_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits

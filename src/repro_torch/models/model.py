@@ -1,0 +1,134 @@
+"""Top-level model API: the counterpart of ``repro.models.model``.
+
+  params         = init_params(cfg, seed, device)
+  cache          = init_cache(cfg, B, max_len, device)
+  logits, cache  = prefill(params, cfg, tokens, cache, ctx)
+  logits, cache  = decode_step(params, cfg, token, cache, pos, ctx)
+
+``params`` is a :class:`CausalLM` module. Caches are updated in place,
+which replaces the JAX package's buffer donation: ``prefill``,
+``decode_step`` and ``write_cache_slot(s)`` return the same tensors they
+were given. This slice is inference-only, so parameters carry no gradient.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import apply_norm, embed_tokens, init_norm, lm_logits
+from repro_torch.sharding.context import ExecContext
+
+
+def resolve_device(device) -> torch.device:
+    """The entry points run on the card unless the caller asks for the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
+                           "the plain versions on the CPU")
+    return dev
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+class CausalLM(nn.Module):
+    """Decoder-only LM: embedding, layers in absolute order, final norm and
+    an untied LM head where the config has one."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        if cfg.is_encoder_decoder or cfg.input_mode != "tokens":
+            raise NotImplementedError("encoder-decoder and embedding-input models are "
+                                      "not ported yet (see ROADMAP.md)")
+        dt = dtype_of(cfg.param_dtype)
+        self.embedding = nn.Parameter(torch.empty(cfg.padded_vocab, cfg.d_model, dtype=dt,
+                                                  device=device))
+        self.lm_head = (None if cfg.tie_embeddings else
+                        nn.Linear(cfg.d_model, cfg.padded_vocab, bias=False, device=device,
+                                  dtype=dt))
+        self.layers = nn.ModuleList(
+            tfm.Block(cfg, kind, mlp, device, dt)
+            for kind, mlp in zip(cfg.layer_kinds(), cfg.mlp_kinds()))
+        self.final_norm = init_norm(cfg, device)
+        self.requires_grad_(False)
+
+
+def empty_params(cfg, device) -> CausalLM:
+    """A model whose weights are allocated on ``device`` but not set."""
+    return CausalLM(cfg, device="meta").to_empty(device=resolve_device(device))
+
+
+@torch.no_grad()
+def init_params(cfg, seed: int = 0, device="cuda") -> CausalLM:
+    """Seeded random weights with the JAX init's distributions: dense
+    weights N(0,1)/sqrt(d_in), embedding and LM head N(0,1)*0.02, norm
+    scales 1. Drawn in fp32 from a ``torch.Generator`` on ``device``, then
+    cast to the param dtype (the bits differ from JAX's)."""
+    model = empty_params(cfg, device)
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(t, scale):
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev, dtype=torch.float32) * scale)
+
+    for name, p in model.named_parameters():
+        if name.endswith("scale"):
+            p.fill_(1.0)
+        elif name in ("embedding", "lm_head.weight"):
+            normal(p, 0.02)
+        else:  # nn.Linear weight (d_out, d_in)
+            normal(p, p.shape[1] ** -0.5)
+    return model
+
+
+def init_cache(cfg, batch, max_len, device="cuda"):
+    return tfm.init_stack_cache(cfg, batch, max_len, dtype_of(cfg.dtype),
+                                resolve_device(device))
+
+
+def write_cache_slot(pool_cache, one_cache, slot: int):
+    """Copy a batch-1 cache into row ``slot`` of a slot-pool cache."""
+    for name, big in pool_cache.items():
+        big[:, slot] = one_cache[name][:, 0].to(big.dtype)
+    return pool_cache
+
+
+def write_cache_slots(pool_cache, group_cache, slots):
+    """Scatter the rows of a batched prefill cache into the slot rows named
+    by ``slots`` (G,), one indexed copy per cache tensor. Rows whose slot is
+    out of range (the pow2 batch padding carries ``n_slots``) are dropped,
+    as JAX's ``mode="drop"`` does, so padding never clobbers a live slot."""
+    slots = np.asarray(slots, dtype=np.int64)
+    n_slots = pool_cache["k"].shape[1]
+    rows = np.nonzero((slots >= 0) & (slots < n_slots))[0]
+    dev = pool_cache["k"].device
+    dst = torch.as_tensor(slots[rows], device=dev)
+    src = torch.as_tensor(rows, device=dev)
+    for name, big in pool_cache.items():
+        big[:, dst] = group_cache[name][:, src].to(big.dtype)
+    return pool_cache
+
+
+def prefill(params: CausalLM, cfg, inputs, cache, ctx=ExecContext(), last_only=False):
+    """Run the prompt (B, S) through the model, writing K/V into ``cache``.
+    Returns (logits, cache): logits at every position, or at the last one
+    only with ``last_only`` (the serving path; it spares a (B, S, V) fp32
+    tensor)."""
+    x = embed_tokens(params.embedding, inputs, cfg).to(dtype_of(cfg.dtype))
+    x = tfm.apply_stack(params.layers, cfg, x, ctx, "prefill", cache)
+    if last_only:
+        x = x[:, -1:]
+    x = apply_norm(params.final_norm, x)
+    return lm_logits(params.embedding, params.lm_head, x, cfg), cache
+
+
+def decode_step(params: CausalLM, cfg, token, cache, pos, ctx=ExecContext()):
+    """token (B,1) ids; pos an int (position-synchronous batch) or a (B,)
+    tensor of per-row write positions (ragged continuous batching)."""
+    x = embed_tokens(params.embedding, token, cfg).to(dtype_of(cfg.dtype))
+    x = tfm.apply_stack(params.layers, cfg, x, ctx, "decode", cache, pos=pos)
+    x = apply_norm(params.final_norm, x)
+    return lm_logits(params.embedding, params.lm_head, x, cfg), cache

@@ -1,0 +1,111 @@
+"""Per-model serving worker: prefill/decode against a preallocated KV cache,
+batch generation, and the slot-pool primitives the continuous engine
+drives — the counterpart of ``repro.serving.workers.ModelWorker``.
+
+The worker runs on the device its params lie on. Caches are updated in
+place. ``prefill_calls`` and ``decode_calls`` count the model passes, so a
+run can check how often each attention kernel must have launched (one
+prefill or decode launch per attention layer per pass). The speculative
+``decode_verify`` waits for the speculative slice (see ROADMAP.md).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models import model as model_lib
+from repro_torch.sharding.context import ExecContext
+
+
+class ModelWorker:
+    def __init__(self, name: str, cfg, params, max_len: int = 512,
+                 ctx: ExecContext = ExecContext()):
+        self.name = name
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self.ctx = ctx
+        self.device = params.embedding.device
+        self.prefill_calls = 0
+        self.decode_calls = 0
+
+    def _ids(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device).long()
+
+    def _prefill(self, cache, tokens):
+        self.prefill_calls += 1
+        logits, cache = model_lib.prefill(self.params, self.cfg, tokens, cache, self.ctx,
+                                          last_only=True)
+        return logits[:, -1], cache
+
+    def _decode(self, cache, token, pos):
+        self.decode_calls += 1
+        logits, cache = model_lib.decode_step(self.params, self.cfg, token, cache, pos,
+                                              self.ctx)
+        return logits[:, -1], cache
+
+    @torch.no_grad()
+    def generate(self, prompts: np.ndarray, max_new: int, temperature: float = 0.0,
+                 seed: int = 0) -> np.ndarray:
+        """prompts (B, S) equal-length. Greedy (T=0) or sampled decode (one
+        generator seeded by ``seed``, shared across rows)."""
+        B, S = prompts.shape
+        cache = model_lib.init_cache(self.cfg, B, self.max_len, self.device)
+        logits, cache = self._prefill(cache, self._ids(prompts))
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        out = np.zeros((B, max_new), np.int32)
+        tok = self._pick(logits, temperature, gen)
+        for i in range(max_new):
+            out[:, i] = tok[:, 0].cpu().numpy()
+            if i == max_new - 1:
+                break
+            logits, cache = self._decode(cache, tok, S + i)
+            tok = self._pick(logits, temperature, gen)
+        return out
+
+    @staticmethod
+    def _pick(logits, temperature, gen):
+        if temperature <= 0.0:
+            return logits.argmax(dim=-1, keepdim=True)
+        probs = torch.softmax(logits / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)
+
+    # ---- continuous-batching primitives (slot-pool cache) ----
+
+    def init_pool(self, max_slots: int):
+        """Preallocated KV cache with one row per request slot."""
+        return model_lib.init_cache(self.cfg, max_slots, self.max_len, self.device)
+
+    def prefill_one(self, prompt: np.ndarray):
+        """Prefill one request at its exact length. Returns (last-position
+        logits (1,V), batch-1 cache to scatter into a slot)."""
+        return self.prefill_batch(prompt[None])
+
+    @torch.no_grad()
+    def prefill_batch(self, prompts: np.ndarray):
+        """Batched admission prefill: ``prompts`` (G, S) equal-length (the
+        caller pads G to a pow2 bucket). Returns (last-position logits
+        (G,V), batch-G cache whose rows scatter into slots via
+        ``write_slots``)."""
+        cache = model_lib.init_cache(self.cfg, prompts.shape[0], self.max_len, self.device)
+        return self._prefill(cache, self._ids(prompts))
+
+    def write_slot(self, pool_cache, one_cache, slot: int):
+        return model_lib.write_cache_slot(pool_cache, one_cache, slot)
+
+    def write_slots(self, pool_cache, group_cache, slots: np.ndarray):
+        """Scatter a batched prefill cache into the rows named by ``slots``;
+        out-of-range entries (pow2 batch padding) are dropped."""
+        return model_lib.write_cache_slots(pool_cache, group_cache, slots)
+
+    @torch.no_grad()
+    def decode_pool(self, pool_cache, tokens: np.ndarray, pos: np.ndarray):
+        """One ragged decode step over the whole slot pool. ``tokens``
+        (max_slots,1), ``pos`` (max_slots,) per-slot write positions.
+        Returns (greedy next tokens (max_slots,) np.int32, logits
+        (max_slots, V) for per-slot sampling, cache)."""
+        logits, pool_cache = self._decode(pool_cache, self._ids(tokens),
+                                          torch.as_tensor(np.asarray(pos, np.int32),
+                                                          device=self.device))
+        next_tok = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+        return next_tok, logits, pool_cache
