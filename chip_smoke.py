@@ -3,24 +3,35 @@
 
     python3 chip_smoke.py                   # every phase, as the check runs it
     python3 chip_smoke.py --phases kernels  # build + kernel-vs-plain only
+    python3 chip_smoke.py --phases kernels,scheduled  # + the scheduled serve
     python3 chip_smoke.py --phases profile  # a profiled, warm serve (not in the default run)
+    python3 chip_smoke.py --phases profile_scheduled  # the same for the scheduled serve
 
 Phases:
-  1. device   the card's name and count, its power limit from nvidia-smi,
-              and the kernels' build from ``src/repro_torch/kernels/csrc``
-  2. kernels  every kernel against its plain PyTorch version on the card at
-              the serving path's shapes, bf16 and fp32
-  3. times    CUDA-event times of each kernel, its plain version and one
-              PyTorch library call (a yardstick only), beside the bound
-  4. parity   both models at full width, cut to 2 layers, fp32: prefill and
-              8 ragged decode steps through the kernels and through the
-              plain versions agree
-  5. serve    the port's main path: tinyllama-1.1b and gemma2-2b at their
-              full configs served concurrently by one continuous engine;
-              every attention kernel must have launched there
-  profile     (only when asked for) the serve phase's run again, warm:
-              its untraced wall time, then under torch.profiler the device
-              time by kernel and the device's idle share of the wall time
+  1. device     the card's name and count, its power limit from nvidia-smi,
+                and the kernels' build from ``src/repro_torch/kernels/csrc``
+  2. kernels    every kernel against its plain PyTorch version on the card
+                at the serving paths' shapes, bf16 and fp32
+  3. times      CUDA-event times of each kernel, its plain version and one
+                PyTorch library call (a yardstick only), beside the bound
+  4. parity     each model at full width, cut to 2 layers, fp32: prefill
+                (mamba2: a masked pow2 bucket) and 8 ragged decode steps
+                through the kernels and through the plain versions agree
+  5. serve      the FIFO path: tinyllama-1.1b and gemma2-2b at their full
+                configs served concurrently by one continuous engine; every
+                attention kernel must have launched there
+  6. scheduled  the AdaOper-scheduled path (``repro_torch.launch.serve``'s
+                default): tinyllama-1.1b, gemma2-2b and mamba2-2.7b at their
+                full configs in one engine under ``AdaOperScheduler``; all
+                three kernels must have launched there. Its joules are the
+                device simulator's mobile-SoC predictions, not the card's.
+  profile       (only when asked for) the serve phase's run again, warm:
+                its untraced wall time, then under torch.profiler the device
+                time by kernel and the device's idle share of the wall time
+  profile_scheduled  (only when asked for) the same for the scheduled phase
+
+Each serving phase sets every kernel's launch count to 0 just before it
+drives its path and reads the counts just after.
 
 It prints a ``kernels`` JSON line, the nvidia-smi line and, last, the
 ``{"ok": true, "device": ...}`` line. Any failure exits nonzero with no
@@ -39,23 +50,34 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("device", "kernels", "times", "parity", "serve")
+PHASES = ("device", "kernels", "times", "parity", "serve", "scheduled")
+EXTRA = ("profile", "profile_scheduled")  # run only when asked for
 SERVE = dict(names=("tinyllama-1.1b", "gemma2-2b"), requests=8, prompt_lens=(64, 128, 256, 512),
-             max_new=16, max_slots=8, max_len=1024, seed=0, device="cuda", full=True)
+             max_new=16, max_slots=8, max_len=1024, seed=0, device="cuda", full=True,
+             scheduler=False)
+# prompt lengths off the pow2 grid, so mamba2 admits masked, left-padded groups
+SCHEDULED = dict(SERVE, names=("tinyllama-1.1b", "gemma2-2b", "mamba2-2.7b"),
+                 prompt_lens=(64, 96, 200, 512), scheduler=True, workload="moderate")
 # NVIDIA H100 SXM data sheet: HBM rate and dense peaks (bf16 on the tensor
 # cores, fp32 on the CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+# the SSD scan sums up to 256 x 128 fp32 products per output in another
+# order than its plain version; its final state is fp32 in both dtypes
+SSD_TOL = {"bfloat16": 3e-2, "float32": 1e-3}
 MODEL_TOL = 1e-3
 TINY = dict(H=32, Hkv=4, D=64, softcap=None)   # tinyllama-1.1b attention
 GEMMA = dict(H=8, Hkv=4, D=256, softcap=50.0)  # gemma2-2b attention
+MAMBA = dict(H=80, P=64, N=128, chunk=256)     # mamba2-2.7b SSD heads
 DECODE_POS = (0, 1, 63, 64, 500, 1023, 2046, 2047)
 SOURCES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:106"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:87"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:92"),
 }
 
 
@@ -101,6 +123,35 @@ def decode_bound(pos, Smax, H, Hkv, D, window, dtype_name, elem):
     kept = sum(kept_keys(p, p + 1, Smax, False, window) for p in pos)
     nbytes = elem * (kept * Hkv * 2 * D + 2 * len(pos) * H * D)
     return bound(4 * H * D * kept, nbytes, dtype_name)
+
+
+def ssd_inputs(torch, gen, B, S, dtype):
+    """Scan inputs as the model makes them: dt = softplus(.) > 0, per-head
+    A = -(1..16), dA = dt * A in fp32; x, B, C in ``dtype``."""
+    H, P, N = MAMBA["H"], MAMBA["P"], MAMBA["N"]
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(r(B, S, H) - 4.0)
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    return r(B, S, H, P).to(dtype), dt * A, dt, r(B, S, N).to(dtype), r(B, S, N).to(dtype)
+
+
+def ssd_bound(B, S, dtype_name, elem):
+    """Operations: per (row, chunk) C.B^T over the causal lower triangle
+    once (B and C are shared by all heads), per head the masked decay
+    matrix times x, C.h and the state update. Bytes: x, dA, dt, B, C read
+    once, y and the fp32 final state written once."""
+    H, P, N, Qmax = MAMBA["H"], MAMBA["P"], MAMBA["N"], MAMBA["chunk"]
+    Q = min(Qmax, S)
+    flops = 0
+    for c0 in range(0, S, Q):
+        q = min(Q, S - c0)
+        tri = q * (q + 1) // 2
+        flops += B * (2 * tri * N + H * (2 * tri * P + 4 * q * P * N))
+    nbytes = (2 * elem * B * S * H * P + 2 * 4 * B * S * H + 2 * elem * B * S * N
+              + 4 * B * H * P * N)
+    return bound(flops, nbytes, dtype_name)
 
 
 def time_ms(torch, fn, flush, iters=20, warmup=3):
@@ -152,12 +203,13 @@ def phase_device(torch, report):
 def phase_kernels(torch, report):
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ssd_scan as smod
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {"flash_attention": {}, "decode_attention": {}}
+    errs = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}}
     misses = []
 
-    def compare(kernel, case, dtype, out, ref):
-        tol = TOL[str(dtype).split(".")[-1]]
+    def compare(kernel, case, dtype, out, ref, tols=TOL):
+        tol = tols[str(dtype).split(".")[-1]]
         a, b = out.float(), ref.float()
         err = (a - b).abs()
         ok = bool(torch.isfinite(a).all()) and bool((err <= tol + tol * b.abs()).all())
@@ -188,6 +240,21 @@ def phase_kernels(torch, report):
                 ref = dmod.decode_attention_plain(q, k, v, **kw)
                 compare("decode_attention", f"{name} Smax={Smax} w={window} {dtype}",
                         dtype, out, ref)
+        for B in (1, 8):
+            for S in (64, 200, 512, 1024):  # one short chunk, a tail chunk, 2 and 4 chunks
+                args = ssd_inputs(torch, gen, B, S, dtype)
+                masks = [None]
+                if S == 200:  # left-padded rows, as a mamba2 pow2 prefill bucket has
+                    m = torch.ones(B, S, dtype=torch.bool, device="cuda")
+                    m[0, :104] = False
+                    m[B - 1, :37] = False
+                    masks.append(m)
+                for mask in masks:
+                    y, h = smod.ssd_scan(*args, mask=mask, chunk=MAMBA["chunk"])
+                    ry, rh = smod.ssd_scan_plain(*args, mask=mask, chunk=MAMBA["chunk"])
+                    case = f"B={B} S={S} masked={mask is not None} {dtype}"
+                    compare("ssd_scan", case + " y", dtype, y, ry, SSD_TOL)
+                    compare("ssd_scan", case + " state", torch.float32, h, rh, SSD_TOL)
     torch.cuda.synchronize()
     report["errors"] = errs
     log("kernel vs plain, max abs err:", json.dumps(errs))
@@ -239,6 +306,14 @@ def phase_times(torch, report):
             rows.append(dict(kernel="decode_attention", model=name, B=B, S=Smax,
                              dtype="bfloat16", ms=ms, plain_ms=plain, library_ms=lib,
                              bound_ms=b_ms, bound_by=b_by))
+    from repro_torch.kernels import ssd_scan as smod
+    for B, S in ((8, 512), (1, 512)):
+        args = ssd_inputs(torch, gen, B, S, bf16)
+        ms = time_ms(torch, lambda: smod.ssd_scan(*args, chunk=MAMBA["chunk"]), flush)
+        plain = time_ms(torch, lambda: smod.ssd_scan_plain(*args, chunk=MAMBA["chunk"]), flush)
+        b_ms, b_by = ssd_bound(B, S, "bfloat16", 2)
+        rows.append(dict(kernel="ssd_scan", model="mamba2", B=B, S=S, dtype="bfloat16",
+                         ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by))
     report["timings"] = rows
     log("timings:", json.dumps({"smi": report.get("smi"), "timings": rows}))
 
@@ -287,45 +362,165 @@ def phase_parity(torch, report):
                                f"(max abs err {err:.3g}, tokens identical {same})")
         report.setdefault("parity", {})[arch] = err
         del params
+    phase_parity_mamba2(torch, report)
+
+
+def phase_parity_mamba2(torch, report):
+    """mamba2 at full width, 2 layers, fp32: a 96- and a 128-token prompt
+    LEFT-padded into one masked 128 bucket (the SSD kernel on the scan), then
+    8 ragged decode steps, against the same run on the plain scan."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.workers import ModelWorker
+    from repro_torch.sharding.context import ExecContext
+    arch, lens, bucket = "mamba2-2.7b", (96, 128), 128
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32",
+                              param_dtype="float32")
+    params = init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(7)
+    prompts = np.zeros((len(lens), bucket), np.int32)
+    mask = np.zeros((len(lens), bucket), bool)
+    for i, n in enumerate(lens):
+        prompts[i, bucket - n:] = rng.integers(1, cfg.vocab_size, n)
+        mask[i, bucket - n:] = True
+    runs = {}
+    for impl in (None, "plain"):
+        w = ModelWorker(arch, cfg, params, max_len=256, ctx=ExecContext(attn_impl=impl))
+        pool = w.init_pool(len(lens))
+        lg, c = w.prefill_batch(prompts, pad_mask=mask)
+        pool = w.write_slots(pool, c, list(range(len(lens))))
+        pos = np.asarray(lens, np.int32)
+        logits, toks = [], []
+        for _ in range(9):  # prefill logits + 8 ragged decode steps
+            logits.append(lg)
+            tok = lg.argmax(dim=-1).to(torch.int32).cpu().numpy()
+            toks.append(tok)
+            _, lg, pool = w.decode_pool(pool, tok[:, None], pos)
+            pos = pos + 1
+        runs[impl] = (torch.stack(logits), toks)
+    a, b = runs[None][0], runs["plain"][0]
+    err = float((a - b).abs().max())
+    ok = bool(torch.isfinite(a).all()) and bool(
+        ((a - b).abs() <= MODEL_TOL + MODEL_TOL * b.abs()).all())
+    same = all((x == y).all() for x, y in zip(runs[None][1], runs["plain"][1]))
+    log(f"parity {arch} (2 layers, full width, fp32, masked 128 bucket of {lens}): "
+        f"logits max abs err {err:.3g}, greedy tokens identical: {same}")
+    if not ok or not same:
+        raise SmokeFailure(f"{arch}: kernel path disagrees with the plain path "
+                           f"(max abs err {err:.3g}, tokens identical {same})")
+    report.setdefault("parity", {})[arch] = err
+
+
+def kernel_wrappers():
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ssd_scan as smod
+    return {"flash_attention": fmod.flash_attention, "decode_attention": dmod.decode_attention,
+            "ssd_scan": smod.ssd_scan}
+
+
+def drive(fn, **kw):
+    """Run one serving path with every kernel's launch count set to 0 just
+    before it; returns (fn's result, the counts read just after)."""
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn(**kw)
+    return out, {name: w.launches for name, w in wrappers.items()}
+
+
+def attention_launches_expected(eng):
+    attn = [w for w in eng.workers.values() if "ssd" not in w.cfg.layer_kinds()]
+    return {"flash_attention": sum(w.cfg.num_layers * w.prefill_calls for w in attn),
+            "decode_attention": sum(w.cfg.num_layers * w.decode_calls for w in attn)}
+
+
+def check_responses(phase, eng, responses, n_expected, max_new):
+    bad = [r for r in responses if r.error is not None or len(r.tokens) != max_new]
+    if len(responses) != n_expected or bad:
+        raise SmokeFailure(f"{phase}: {len(responses)} responses of {n_expected}, {len(bad)} bad")
+    vocab = max(w.cfg.padded_vocab for w in eng.workers.values())
+    if any(((r.tokens < 0) | (r.tokens >= vocab)).any() for r in responses):
+        raise SmokeFailure(f"{phase}: a token id lies outside the vocabulary")
 
 
 def phase_serve(torch, report):
-    from repro_torch.kernels import decode_attention as dmod
-    from repro_torch.kernels import flash_attention as fmod
     from repro_torch.launch.serve import serve
     names, max_new = SERVE["names"], SERVE["max_new"]
-    fmod.flash_attention.launches = 0
-    dmod.decode_attention.launches = 0
-    eng, responses, rep = serve(**SERVE)
-    launches = {"flash_attention": fmod.flash_attention.launches,
-                "decode_attention": dmod.decode_attention.launches}
+    (eng, responses, rep), launches = drive(serve, **SERVE)
     report["launches"] = launches
     log(f"serve: {rep['requests']} requests, {rep['tokens']} tokens, "
         f"{rep['wall_s']:.3f} s wall, peak memory {rep['peak_mem_bytes'] / 2**30:.2f} GiB, "
         f"{rep['prefill_batches']} prefill batches; {json.dumps(rep['models'])}")
     log(f"serve launches: {json.dumps(launches)}")
     report["serve"] = rep
-    bad = [r for r in responses if r.error is not None or len(r.tokens) != max_new]
-    if len(responses) != 8 * len(names) or bad:
-        raise SmokeFailure(f"serve: {len(responses)} responses, {len(bad)} bad")
-    vocab = max(w.cfg.padded_vocab for w in eng.workers.values())
-    if any(((r.tokens < 0) | (r.tokens >= vocab)).any() for r in responses):
-        raise SmokeFailure("serve: a token id lies outside the vocabulary")
-    want = {"flash_attention": sum(w.cfg.num_layers * w.prefill_calls
-                                   for w in eng.workers.values()),
-            "decode_attention": sum(w.cfg.num_layers * w.decode_calls
-                                    for w in eng.workers.values())}
-    if launches != want or min(launches.values()) == 0:
+    check_responses("serve", eng, responses, SERVE["requests"] * len(names), max_new)
+    want = dict(attention_launches_expected(eng), ssd_scan=0)
+    if launches != want or min(launches["flash_attention"], launches["decode_attention"]) == 0:
         raise SmokeFailure(f"serve: kernel launches {launches}, expected {want}")
 
 
+def phase_scheduled(torch, report):
+    """The AdaOper-scheduled main path through ``repro_torch.launch.serve``."""
+    from repro_torch.launch.serve import serve
+    names, max_new = SCHEDULED["names"], SCHEDULED["max_new"]
+    (eng, responses, rep), launches = drive(serve, **SCHEDULED)
+    report["launches_scheduled"] = launches
+    report["scheduled"] = rep
+    log(f"scheduled: {rep['requests']} requests, {rep['tokens']} tokens, calibration "
+        f"{rep['calibration_s']:.3f} s, weights {rep['init_s']:.3f} s, {rep['wall_s']:.3f} s "
+        f"wall, peak memory {rep['peak_mem_bytes'] / 2**30:.2f} GiB, "
+        f"{rep['prefill_batches']} prefill batches; {json.dumps(rep['models'])}")
+    log(f"scheduled plan cache {json.dumps(rep['plan_cache'])}, admission reasons "
+        f"{json.dumps(rep['admission_reasons'])}, drift events {rep['drift_events']}, "
+        f"preemptions {json.dumps(rep['preemptions'])}")
+    log(f"scheduled joules, {rep['energy_j']['label']} (not the card's): "
+        f"{json.dumps(rep['energy_j'])}")
+    log(f"scheduled launches: {json.dumps(launches)}")
+    check_responses("scheduled", eng, responses, SCHEDULED["requests"] * len(names), max_new)
+    mamba = eng.workers["mamba2-2.7b"]
+    want = dict(attention_launches_expected(eng),
+                ssd_scan=mamba.cfg.num_layers * mamba.prefill_calls)
+    if launches != want or min(launches.values()) == 0 or launches["ssd_scan"] < 64:
+        raise SmokeFailure(f"scheduled: kernel launches {launches}, expected {want}")
+    reasons = set(rep["admission_reasons"])
+    if not reasons - {"idle-pool"}:
+        raise SmokeFailure(f"scheduled: admission never priced a decision ({reasons})")
+    seen = {(e.kind, e.model) for e in eng.ledger.events}
+    missing = [(k, m) for k in ("prefill", "decode", "request") for m in names
+               if (k, m) not in seen]
+    if missing:
+        raise SmokeFailure(f"scheduled: the ledger lacks events {missing}")
+
+
+def engine_for(kw):
+    """The engine ``serve(**kw)`` would build, not yet run."""
+    from repro_torch.launch.serve import build_engine, make_scheduler, model_configs
+    kw = dict(kw)
+    scheduled, workload = kw.pop("scheduler"), kw.pop("workload", "moderate")
+    sched = (make_scheduler(model_configs(kw["names"], kw["full"]).values(),
+                            max(kw["prompt_lens"]), kw["max_new"], workload, kw["seed"])
+             if scheduled else None)
+    return build_engine(**kw, scheduler=sched)
+
+
 def phase_profile(torch, report):
+    profile_workload(torch, report, "profile", SERVE)
+
+
+def phase_profile_scheduled(torch, report):
+    profile_workload(torch, report, "profile_scheduled", SCHEDULED)
+
+
+def profile_workload(torch, report, key, kw):
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.serve import build_engine, serve
-    serve(**SERVE)  # warm-up: cuBLAS handles, the allocator's pools
-    warm = serve(**SERVE)[2]["wall_s"]  # the same run, warm and untraced
-    eng = build_engine(**SERVE)
+    from repro_torch.launch.serve import serve
+    serve(**kw)  # warm-up: cuBLAS handles, the allocator's pools
+    warm = serve(**kw)[2]["wall_s"]  # the same run, warm and untraced
+    eng = engine_for(kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -349,6 +544,8 @@ def phase_profile(torch, report):
             return "flash_attention"
         if "decode_kernel" in name:
             return "decode_attention"
+        if "ssd_scan_kernel" in name:
+            return "ssd_scan"
         low = name.lower()
         if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
             return "matmul"
@@ -364,18 +561,24 @@ def phase_profile(torch, report):
            "groups_ms": {g: {"launches": n, "ms": t} for g, (n, t) in groups.items()},
            "top": [{"kernel": k[:90], "launches": c, "ms": us * 1e-3}
                    for k, c, us in kernels[:15]]}
-    report["profile"] = out
-    log("profile:", json.dumps(out))
+    report[key] = out
+    log(f"{key}:", json.dumps(out))
 
 
 def kernels_line(report):
     rows = {r["kernel"]: r for r in report.get("timings", [])
-            if r["model"] == "tinyllama" and r["B"] == 8 and r["S"] in (512, 2048)}
+            if r["model"] in ("tinyllama", "mamba2") and r["B"] == 8 and r["S"] in (512, 2048)}
+    paths = {"serve": report.get("launches", {}),
+             "scheduled": report.get("launches_scheduled", {})}
     out = []
     for name, (src, replaces) in SOURCES.items():
         t = rows.get(name, {})
+        by_path = {p: c[name] for p, c in paths.items() if name in c}
+        # each kernel's count on the path of its own slice: attention on the
+        # FIFO serve path, the SSD scan on the scheduled path
+        main = "scheduled" if name == "ssd_scan" else "serve"
         out.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                    "launches": report.get("launches", {}).get(name),
+                    "launches": by_path.get(main), "launches_by_path": by_path,
                     "max_abs_err": max(report.get("errors", {}).get(name, {}).values(),
                                        default=None),
                     "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
@@ -387,7 +590,7 @@ def kernels_line(report):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {PHASES + ('profile',)}")
+                    help=f"comma-separated subset of {PHASES + EXTRA}")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -400,10 +603,11 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     report = {}
     fns = {"device": phase_device, "kernels": phase_kernels, "times": phase_times,
-           "parity": phase_parity, "serve": phase_serve, "profile": phase_profile}
+           "parity": phase_parity, "serve": phase_serve, "scheduled": phase_scheduled,
+           "profile": phase_profile, "profile_scheduled": phase_profile_scheduled}
     t_start = time.perf_counter()
     try:
-        for ph in ("device",) + tuple(p for p in PHASES + ("profile",)
+        for ph in ("device",) + tuple(p for p in PHASES + EXTRA
                                       if p in phases and p != "device"):
             t0 = time.perf_counter()
             log(f"== phase {ph}")

@@ -78,6 +78,14 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
 
     @property
+    def d_inner(self) -> int:  # SSM inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_num_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_head_dim else 0
+
+    @property
     def q_dim(self) -> int:
         return self.num_heads * self.head_dim
 
@@ -114,7 +122,7 @@ class ModelConfig:
 
 
 # the archs this slice of the port serves; the JAX registry lists the rest
-ARCHS = ["tinyllama-1.1b", "gemma2-2b"]
+ARCHS = ["tinyllama-1.1b", "gemma2-2b", "mamba2-2.7b"]
 
 
 def _module_name(arch_id: str) -> str:

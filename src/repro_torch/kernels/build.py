@@ -39,6 +39,8 @@ ARGTYPES = {
     # q, k, v, o, q_offset, kv_len, B, Smax, H, Hkv, Dk, Dv, window,
     # softcap, scale, dtype, stream
     "decode_attention_fwd": [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P],
+    # x, dA, dt, Bm, Cm, y, h_out, B, S, H, P, N, Q, dtype, stream
+    "ssd_scan_fwd": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 

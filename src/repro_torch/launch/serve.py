@@ -1,41 +1,69 @@
 """Serving driver of the port: several models served concurrently by one
-continuous engine, FIFO admission (no scheduler yet).
+continuous engine under AdaOper energy-aware scheduling (the default, as in
+``repro.launch.serve``), or FIFO admission with ``--no-scheduler``.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve \
-        --models tinyllama-1.1b,gemma2-2b --requests 8 --full
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --models tinyllama-1.1b,gemma2-2b,mamba2-2.7b --requests 8 --full
 
 runs the full published configs on the card (bf16, seeded random
 weights); the default ``--reduced`` runs the CPU-sized variants, and
-``--device cpu`` runs on the CPU with the kernels' plain versions.
+``--device cpu`` runs on the CPU with the kernels' plain versions. The
+scheduler prices every step against ``DeviceSim(--workload)`` with a
+runtime energy profiler calibrated offline on the models' op graphs; the
+joules in the report are that simulator's predictions for a mobile SoC's
+CPU, GPU and bus rails, not energy drawn by the device that serves.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
-from typing import Dict, Sequence
+from collections import Counter
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.configs.base import reduced as make_reduced
+from repro_torch.core.opgraph import build_transformer_graph
+from repro_torch.core.profiler import RuntimeEnergyProfiler
+from repro_torch.core.simulator import PRESETS, DeviceSim
 from repro_torch.models.model import init_params, resolve_device
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.scheduler import AdaOperScheduler
 from repro_torch.serving.slots import Request
+
+
+CALIB_SAMPLES = 1200  # the offline calibration pass of repro.launch.serve
+
+
+def make_scheduler(cfgs, prompt_len: int, max_new: int, workload: str = "moderate",
+                   seed: int = 0) -> AdaOperScheduler:
+    """``AdaOperScheduler`` over ``DeviceSim(workload)`` with a profiler
+    calibrated offline (the GBDT pass) on each config's batch-4 op graph at
+    ``prompt_len + max_new``, as ``repro.launch.serve`` calibrates."""
+    graphs = [build_transformer_graph(c, 4, prompt_len + max_new) for c in cfgs]
+    profiler = RuntimeEnergyProfiler(seed=seed)
+    profiler.offline_calibrate(graphs, n_samples=CALIB_SAMPLES)
+    return AdaOperScheduler(profiler, DeviceSim(workload, seed=seed))
+
+
+def model_configs(names: Sequence[str], full: bool):
+    return {n: get_config(n) if full else make_reduced(get_config(n)) for n in names}
 
 
 def build_engine(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[int] = (32,),
                  max_new: int = 8, max_slots: int = 8, max_len: int = 64, seed: int = 0,
-                 device="cuda", full: bool = False) -> ServingEngine:
+                 device="cuda", full: bool = False,
+                 scheduler: Optional[AdaOperScheduler] = None) -> ServingEngine:
     """One engine serving ``names`` (seed-initialised weights on ``device``)
     with ``requests`` per model queued, prompt lengths drawn from
-    ``prompt_lens``."""
+    ``prompt_lens``; FIFO admission unless a ``scheduler`` is given."""
     dev = resolve_device(device)
-    eng = ServingEngine(max_slots=max_slots)
+    eng = ServingEngine(scheduler=scheduler, max_slots=max_slots)
     rng = np.random.default_rng(seed)
-    for n in names:
-        cfg = get_config(n) if full else make_reduced(get_config(n))
+    for n, cfg in model_configs(names, full).items():
         eng.add_model(n, cfg, init_params(cfg, seed, dev), max_len=max_len)
         for i in range(requests):
             plen = int(rng.choice(prompt_lens))
@@ -44,14 +72,38 @@ def build_engine(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[
     return eng
 
 
+def scheduler_report(eng: ServingEngine, workload: str) -> dict:
+    """What the scheduler decided and what the simulated device was charged."""
+    sch = eng.scheduler
+    label = f"simulated (DeviceSim {workload})"
+    return {
+        "plan_cache": {"hits": sch.plan_cache_hits, "misses": sch.plan_cache_misses},
+        "admission_reasons": dict(Counter(r["reason"] for r in eng.admission.log)),
+        "drift_events": eng.drift_events,
+        "preemptions": dict(eng.preemptions),
+        "energy_j": {
+            "label": label,
+            "per_model": {m: e.total_j for m, e in eng.ledger.energy_by_model("request").items()},
+            "per_rail": eng.ledger.total_energy("request").rails_dict(),
+            "events": dict(Counter(e.kind for e in eng.ledger.events)),
+        },
+    }
+
+
 def serve(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[int] = (32,),
           max_new: int = 8, max_slots: int = 8, max_len: int = 64, seed: int = 0,
-          device="cuda", full: bool = False):
+          device="cuda", full: bool = False, scheduler: bool = True,
+          workload: str = "moderate"):
     """Build the engine and serve every queued request. Returns (engine,
     responses, report dict)."""
     dev = resolve_device(device)
+    t0 = time.perf_counter()
+    sched = (make_scheduler(model_configs(names, full).values(), max(prompt_lens), max_new,
+                            workload, seed) if scheduler else None)
+    calibration_s = time.perf_counter() - t0
     eng = build_engine(names, requests, prompt_lens, max_new, max_slots, max_len, seed, dev,
-                       full)
+                       full, sched)
+    init_s = time.perf_counter() - t0 - calibration_s
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -65,13 +117,19 @@ def serve(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[int] = 
         per_model[n] = {"prefill_calls": w.prefill_calls, "decode_calls": w.decode_calls,
                         "rounds": len(eng.stats[n])}
     report = {
-        "device": str(dev), "full": full, "requests": len(responses),
+        "device": str(dev), "full": full,
+        "scheduler": "adaoper" if eng.scheduler is not None else "fifo",
+        "requests": len(responses),
         "errors": sum(r.error is not None for r in responses),
         "tokens": int(sum(len(r.tokens) for r in responses)),
-        "wall_s": wall, "prefill_batches": eng.prefill_batches, "models": per_model,
+        "calibration_s": calibration_s, "init_s": init_s, "wall_s": wall,
+        "prefill_batches": eng.prefill_batches,
+        "models": per_model,
         "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
                            if dev.type == "cuda" else None),
     }
+    if eng.scheduler is not None:
+        report.update(scheduler_report(eng, workload))
     return eng, responses, report
 
 
@@ -86,6 +144,10 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--workload", default="moderate", choices=sorted(PRESETS),
+                    help="DeviceSim preset the scheduler prices against")
+    ap.add_argument("--no-scheduler", action="store_true",
+                    help="FIFO admission, no energy accounting")
     size = ap.add_mutually_exclusive_group()
     size.add_argument("--full", dest="full", action="store_true",
                       help="full published configs (bf16)")
@@ -94,7 +156,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     _, _, report = serve(args.models.split(","), args.requests,
                          [int(x) for x in args.prompt_lens.split(",")], args.max_new,
-                         args.max_slots, args.max_len, args.seed, args.device, args.full)
+                         args.max_slots, args.max_len, args.seed, args.device, args.full,
+                         not args.no_scheduler, args.workload)
     print(json.dumps(report))
     return report
 

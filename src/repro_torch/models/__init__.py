@@ -1,1 +1,1 @@
-"""Model zoo of the port (dense decoders in this slice)."""
+"""Model zoo of the port (dense decoders and Mamba2 in this slice)."""

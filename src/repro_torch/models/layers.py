@@ -35,9 +35,15 @@ def init_norm(cfg, device=None) -> RMSNorm:
 
 
 def apply_norm(p: RMSNorm, x, eps=1e-6):
+    return rms_norm_head(x, p.scale, eps)
+
+
+def rms_norm_head(x, scale, eps=1e-6):
+    """RMSNorm over the last axis with a plain fp32 ``scale`` (Mamba2's gated
+    norm), computed in fp32 and cast back to ``x``'s dtype."""
     xf = x.float()
     ms = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * p.scale).to(x.dtype)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
 
 
 def rope_freqs(head_dim, theta, device=None):

@@ -65,8 +65,10 @@ def empty_params(cfg, device) -> CausalLM:
 def init_params(cfg, seed: int = 0, device="cuda") -> CausalLM:
     """Seeded random weights with the JAX init's distributions: dense
     weights N(0,1)/sqrt(d_in), embedding and LM head N(0,1)*0.02, norm
-    scales 1. Drawn in fp32 from a ``torch.Generator`` on ``device``, then
-    cast to the param dtype (the bits differ from JAX's)."""
+    scales 1, Mamba2 conv weights N(0,1)*0.1 and its constant leaves as
+    ``Mamba2.init_constants`` sets them. Drawn in fp32 from a
+    ``torch.Generator`` on ``device``, then cast to the param dtype (the
+    bits differ from JAX's)."""
     model = empty_params(cfg, device)
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -74,12 +76,18 @@ def init_params(cfg, seed: int = 0, device="cuda") -> CausalLM:
     def normal(t, scale):
         t.copy_(torch.randn(t.shape, generator=gen, device=dev, dtype=torch.float32) * scale)
 
+    for layer in model.layers:
+        if layer.kind == "ssd":
+            layer.mixer.init_constants(cfg.ssm_num_heads)
     for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
         if name.endswith("scale"):
             p.fill_(1.0)
         elif name in ("embedding", "lm_head.weight"):
             normal(p, 0.02)
-        else:  # nn.Linear weight (d_out, d_in)
+        elif leaf == "conv_w":
+            normal(p, 0.1)
+        elif leaf == "weight":  # nn.Linear weight (d_out, d_in)
             normal(p, p.shape[1] ** -0.5)
     return model
 
@@ -102,9 +110,10 @@ def write_cache_slots(pool_cache, group_cache, slots):
     out of range (the pow2 batch padding carries ``n_slots``) are dropped,
     as JAX's ``mode="drop"`` does, so padding never clobbers a live slot."""
     slots = np.asarray(slots, dtype=np.int64)
-    n_slots = pool_cache["k"].shape[1]
+    leaf = next(iter(pool_cache.values()))
+    n_slots = leaf.shape[1]
     rows = np.nonzero((slots >= 0) & (slots < n_slots))[0]
-    dev = pool_cache["k"].device
+    dev = leaf.device
     dst = torch.as_tensor(slots[rows], device=dev)
     src = torch.as_tensor(rows, device=dev)
     for name, big in pool_cache.items():
@@ -112,13 +121,18 @@ def write_cache_slots(pool_cache, group_cache, slots):
     return pool_cache
 
 
-def prefill(params: CausalLM, cfg, inputs, cache, ctx=ExecContext(), last_only=False):
-    """Run the prompt (B, S) through the model, writing K/V into ``cache``.
-    Returns (logits, cache): logits at every position, or at the last one
-    only with ``last_only`` (the serving path; it spares a (B, S, V) fp32
-    tensor)."""
+def prefill(params: CausalLM, cfg, inputs, cache, ctx=ExecContext(), last_only=False,
+            pad_mask=None):
+    """Run the prompt (B, S) through the model, writing mixer state into
+    ``cache``. Returns (logits, cache): logits at every position, or at the
+    last one only with ``last_only`` (the serving path; it spares a
+    (B, S, V) fp32 tensor).
+
+    ``pad_mask`` (B, S) bool, True at valid positions, makes LEFT-padded
+    (bucketed) prompts safe for pure-SSM stacks: masked positions neither
+    update nor decay the scan state (attention layers raise)."""
     x = embed_tokens(params.embedding, inputs, cfg).to(dtype_of(cfg.dtype))
-    x = tfm.apply_stack(params.layers, cfg, x, ctx, "prefill", cache)
+    x = tfm.apply_stack(params.layers, cfg, x, ctx, "prefill", cache, ssm_mask=pad_mask)
     if last_only:
         x = x[:, -1:]
     x = apply_norm(params.final_norm, x)

@@ -7,14 +7,18 @@ graph small. PyTorch runs eagerly, so the port keeps the layers as one
 ``compute_stages`` stays to map the JAX params onto that order
 (``repro_torch.convert``).
 
-Modes: ``prefill`` (full causal forward writing K/V into the cache at
-positions [0, S)) and ``decode`` (one token per row at ``pos`` against the
-cache). The cache is one stacked tensor per K and V, (layers, batch,
-max_len, kv heads, head dim), updated in place.
+Modes: ``prefill`` (full causal forward writing mixer state into the cache
+at positions [0, S)) and ``decode`` (one token per row at ``pos`` against
+the cache). The cache is a dict of stacked tensors, layer axis first and
+batch second, updated in place: ``k``/``v`` (layers, batch, max_len, kv
+heads, head dim) for attention stacks; ``conv`` (layers, batch, W-1,
+d_inner + 2N) in the activation dtype and ``ssm`` (layers, batch, heads,
+head dim, N) in fp32 for Mamba2 stacks.
 
 This slice serves dense attention stacks (``attn``/``local``/``global``
-mixers, dense MLPs, gemma2's post-block norms); SSM, MoE and
-cross-attention layers raise (see ROADMAP.md).
+mixers, dense MLPs, gemma2's post-block norms) and pure Mamba2 (``ssd``)
+stacks; Mamba1, hybrid, MoE and cross-attention layers raise (see
+ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as att
+from repro_torch.models import ssm
 from repro_torch.models.layers import MLP, apply_mlp, apply_norm, init_norm
 
 ATTN_KINDS = ("attn", "local", "global")
@@ -60,13 +65,18 @@ class Block(nn.Module):
 
     def __init__(self, cfg, kind: str, mlp_kind: str, device=None, dtype=None):
         super().__init__()
-        if kind not in ATTN_KINDS or mlp_kind != "dense" or cfg.use_mla:
+        ported = ((kind in ATTN_KINDS and mlp_kind == "dense" and not cfg.use_mla)
+                  or (kind == "ssd" and mlp_kind == "none"))
+        if not ported:
             raise NotImplementedError(
                 f"layer ({kind!r}, {mlp_kind!r}, mla={cfg.use_mla}) is not ported "
-                "yet: this slice serves dense GQA stacks (see ROADMAP.md)")
+                "yet: this slice serves dense GQA and Mamba2 stacks (see ROADMAP.md)")
         self.kind = kind
         self.window = cfg.sliding_window if kind == "local" else None
         self.pre_norm = init_norm(cfg, device)
+        if kind == "ssd":
+            self.mixer = ssm.Mamba2(cfg, device, dtype)
+            return
         self.attn = att.GQA(cfg, device, dtype)
         self.mlp_norm = init_norm(cfg, device)
         self.mlp = MLP(cfg, device, dtype)
@@ -76,23 +86,57 @@ class Block(nn.Module):
 
 
 def init_stack_cache(cfg, batch, max_len, dtype, device=None):
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    kinds = set(cfg.layer_kinds())
+    L = cfg.num_layers
+    if kinds == {"ssd"}:
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_d_state
+        return {"conv": torch.zeros((L, batch, cfg.ssm_d_conv - 1, conv_dim), dtype=dtype,
+                                    device=device),
+                "ssm": torch.zeros((L, batch, cfg.ssm_num_heads, cfg.ssm_head_dim,
+                                    cfg.ssm_d_state), dtype=torch.float32, device=device)}
+    if not kinds <= set(ATTN_KINDS):
+        raise NotImplementedError(f"a cache for layer kinds {sorted(kinds)} is not ported "
+                                  "yet (see ROADMAP.md)")
+    shape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def apply_layer(lp: Block, x, cfg, ctx, mode, cache_k, cache_v, pos):
-    """cache_k/v: this layer's (batch, max_len, Hkv, Dh) views, written in
-    place. Returns the layer's output."""
-    h = apply_norm(lp.pre_norm, x)
+def _apply_mixer(lp: Block, h, cfg, ctx, mode, cache, pos, ssm_mask):
+    """The layer's mixer; ``cache`` holds this layer's (batch, ...) views,
+    written in place."""
+    if lp.kind == "ssd":
+        if mode == "decode":
+            if h.shape[1] != 1:
+                raise ValueError(f"SSM decode is single-token; got {h.shape[1]} positions")
+            mix, (conv_s, ssm_s) = ssm.mamba2_decode(lp.mixer, h, cfg, cache["conv"],
+                                                     cache["ssm"])
+        else:
+            mix, (conv_s, ssm_s) = ssm.mamba2_forward(lp.mixer, h, cfg, mask=ssm_mask,
+                                                      impl=ctx.attn_impl)
+        cache["conv"].copy_(conv_s)
+        cache["ssm"].copy_(ssm_s)
+        return mix
+    if ssm_mask is not None:
+        raise ValueError("pad_mask/ssm_mask is only supported for pure-SSM stacks; "
+                         f"layer kind {lp.kind!r} attends over absolute positions")
     if mode == "decode":
-        mix, _ = att.gqa_decode(lp.attn, h, cfg, cache_k, cache_v, pos,
+        mix, _ = att.gqa_decode(lp.attn, h, cfg, cache["k"], cache["v"], pos,
                                 window=lp.window, impl=ctx.attn_impl)
-    else:
-        mix, (k, v) = att.gqa_forward(lp.attn, h, cfg, window=lp.window, impl=ctx.attn_impl)
-        S = k.shape[1]
-        cache_k[:, :S] = k.to(cache_k.dtype)
-        cache_v[:, :S] = v.to(cache_v.dtype)
+        return mix
+    mix, (k, v) = att.gqa_forward(lp.attn, h, cfg, window=lp.window, impl=ctx.attn_impl)
+    S = k.shape[1]
+    cache["k"][:, :S] = k.to(cache["k"].dtype)
+    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    return mix
+
+
+def apply_layer(lp: Block, x, cfg, ctx, mode, cache, pos, ssm_mask=None):
+    """``cache``: this layer's views of the stacked cache. Returns the
+    layer's output."""
+    mix = _apply_mixer(lp, apply_norm(lp.pre_norm, x), cfg, ctx, mode, cache, pos, ssm_mask)
+    if lp.kind == "ssd":  # a pure-SSM layer has no MLP
+        return x + mix
     if cfg.post_block_norm:
         mix = apply_norm(lp.post_norm, mix)
     x = x + mix
@@ -102,9 +146,10 @@ def apply_layer(lp: Block, x, cfg, ctx, mode, cache_k, cache_v, pos):
     return x + y
 
 
-def apply_stack(layers: nn.ModuleList, cfg, x, ctx, mode, cache, pos=0):
+def apply_stack(layers: nn.ModuleList, cfg, x, ctx, mode, cache, pos=0, ssm_mask=None):
     if mode not in MODES:
         raise NotImplementedError(f"mode {mode!r}: this slice runs {MODES}")
     for i, lp in enumerate(layers):
-        x = apply_layer(lp, x, cfg, ctx, mode, cache["k"][i], cache["v"][i], pos)
+        x = apply_layer(lp, x, cfg, ctx, mode, {n: c[i] for n, c in cache.items()}, pos,
+                        ssm_mask)
     return x

@@ -1,1 +1,1 @@
-"""Continuous-batching serving engine of the port (no scheduler yet)."""
+"""Continuous-batching serving engine of the port, FIFO or AdaOper-scheduled."""

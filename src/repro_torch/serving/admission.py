@@ -1,11 +1,13 @@
-"""Iteration-level admission and batched prefill — the counterpart of
-``repro.serving.admission`` on its ``scheduler=None`` branch (FIFO: every
-valid request is admitted while a slot is free).
+"""Energy-aware iteration-level admission and batched prefill — the
+counterpart of ``repro.serving.admission``.
 
-``admit_requests`` / ``prefill_group`` operate *on* a ``ServingEngine`` so
-the engine module stays pure orchestration. The energy-aware branch of
-``AdmissionPolicy.decide`` arrives with the scheduler slice (see
-ROADMAP.md).
+``AdmissionPolicy`` is the decision rule (the AdaOper objective applied at
+token granularity); ``admit_requests`` / ``prefill_group`` are the engine's
+admission machinery: pull waiting requests into free slots while the policy
+approves, then prefill the approved set in bucketed same-shape batches.
+They operate *on* a ``ServingEngine`` so the engine module stays pure
+orchestration. Risk-aware pricing (the uncertainty layer) and speculative
+pricing wait (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -13,39 +15,78 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.telemetry import EnergyBreakdown
 from repro_torch.serving.robustness import reject_request
+from repro_torch.serving.scheduler import AdaOperScheduler
 from repro_torch.serving.slots import Request, Response, _ActiveSeq, _SlotPool
 from repro_torch.serving.workers import ModelWorker
 
-
-def _len_bucket(n: int) -> int:
-    """Next power of two (min 16), ``AdaOperScheduler._len_bucket``."""
-    return max(16, 1 << (max(int(n), 1) - 1).bit_length())
-
-
-def _new_bucket(n: int) -> int:
-    """Next power of two (min 1), ``AdaOperScheduler._new_bucket``: the
-    pow2 prefill batch bucket."""
-    return 1 << (max(int(n), 1) - 1).bit_length()
+_len_bucket = AdaOperScheduler._len_bucket
+_new_bucket = AdaOperScheduler._new_bucket
 
 
 class AdmissionPolicy:
-    """Admission decision rule. With no scheduler (this slice) it admits
-    every request a free slot can take; the log keeps the JAX engine's
-    record format."""
+    """Energy-aware iteration-level admission: admit a waiting request into
+    the slot pool only when the profiler/partitioner fast path predicts the
+    per-request energy-delay product of a decode step does not worsen, and
+    the added step latency does not push the pool past the SLO. A
+    starvation guard admits regardless once the request's queueing delay
+    exceeds the SLO, and an empty pool always admits (idle silicon costs
+    leakage only). Without a scheduler every request a free slot can take
+    is admitted (FIFO)."""
 
-    def __init__(self):
+    def __init__(self, scheduler: Optional[AdaOperScheduler] = None,
+                 slo_s: Optional[float] = None, edp_slack: float = 1.05):
+        self.scheduler = scheduler
+        self.slo_s = slo_s
+        self.edp_slack = edp_slack
         self.log: List[dict] = []
+        # engine-attached ledger: denials are counted at the source
         self.ledger = None
 
-    def decide(self) -> Tuple[bool, str]:
-        return True, "no-scheduler"
+    def decide(self, cfg, n_active: int, seq_len: int, max_new: int,
+               wait_s: float, plan_fn=None) -> Tuple[bool, str]:
+        """``plan_fn(batch)`` overrides the plan source (the engine passes
+        its drift-scoped memo so steady-state decisions cost dict lookups)."""
+        if self.scheduler is None:
+            return True, "no-scheduler"
+        if n_active == 0:
+            return True, "idle-pool"
+        if self.slo_s is not None and wait_s > self.slo_s:
+            return True, "slo-starvation"
+        if plan_fn is None:
+            plan_fn = lambda b: self.scheduler.step_plan(cfg, b, seq_len, max_new)  # noqa: E731
+        cur = plan_fn(n_active)
+        new = plan_fn(n_active + 1)
+        # per-request EDP of one decode step: latency is shared by the actual
+        # batch, energy scales ~linearly with the plan's (bucketed) batch
+        edp_cur = (cur["step_latency"] / n_active) * (cur["step_energy"] / cur["batch"])
+        edp_new = ((new["step_latency"] / (n_active + 1))
+                   * (new["step_energy"] / new["batch"]))
+        if self.slo_s is not None and new["step_latency"] * max_new > self.slo_s:
+            return False, "slo-violation"
+        if edp_new <= edp_cur * self.edp_slack:
+            return True, "edp-improves"
+        return False, "edp-worsens"
 
     def _record(self, admit: bool, reason: str, n_active: int, uid) -> None:
         self.log.append({"admit": admit, "reason": reason,
                          "n_active": n_active, "uid": uid})
         if self.ledger is not None and not admit:
             self.ledger.count("admission_denials")
+
+
+def ssm_prompt_bucketed(eng, w: ModelWorker) -> bool:
+    """True when ``w``'s admission groups key on the pow2 prompt-length
+    bucket instead of the exact length: pure-SSM stacks with batched
+    prefill — the pad-safe scan makes a LEFT-padded, masked bucket prefill
+    match an exact-length prefill, so mixed-length admissions share one
+    prefill. Attention stacks keep exact-length grouping (padding would
+    corrupt their KV caches)."""
+    if not eng.batch_prefill:
+        return False
+    kinds = w.cfg.layer_kinds()
+    return bool(kinds) and all(k in ("mamba", "ssd") for k in kinds)
 
 
 def validate_request(w: ModelWorker, req: Request) -> Optional[str]:
@@ -59,7 +100,7 @@ def validate_request(w: ModelWorker, req: Request) -> Optional[str]:
 def admit_requests(eng, model: str, pool: _SlotPool, out: List[Response],
                    temperature: float = 0.0) -> int:
     """Pull waiting requests into free slots while the policy approves,
-    then prefill the admitted set in same-length batches
+    then prefill the admitted set in same-shape batches
     (``batch_prefill=False`` keeps the serial batch-1 reference). A request
     that can never be served is rejected with an error ``Response`` and the
     loop keeps draining. Returns #admitted."""
@@ -73,19 +114,27 @@ def admit_requests(eng, model: str, pool: _SlotPool, out: List[Response],
             eng.admission._record(False, f"invalid: {err}", len(pool.active), req.uid)
             reject_request(eng, model, req, err, out)
             continue
-        admit, reason = eng.admission.decide()
+        seq_len, max_new = eng._plan_shape(pool, extra=req)
+        plan_fn = (None if eng.scheduler is None else
+                   (lambda b: eng._plan_for(model, b, seq_len, max_new)))
+        admit, reason = eng.admission.decide(
+            w.cfg, len(pool.active), seq_len, max_new,
+            eng._now() - req.t_submit, plan_fn=plan_fn)
         eng.admission._record(admit, reason, len(pool.active), req.uid)
         if not admit:
             break
         q.pop(0)
         slot = pool.alloc.alloc()
         seq = _ActiveSeq(req, slot, pos=len(req.prompt), model=model)
+        # resident immediately so the next decision's plan shape sees it
         pool.active[slot] = seq
         admitted.append(seq)
     if eng.batch_prefill:
+        bucketed = ssm_prompt_bucketed(eng, w)
         groups: Dict[int, List[_ActiveSeq]] = {}
         for seq in admitted:
-            groups.setdefault(len(seq.req.prompt), []).append(seq)
+            plen = len(seq.req.prompt)
+            groups.setdefault(_len_bucket(plen) if bucketed else plen, []).append(seq)
         group_list = list(groups.values())
     else:
         group_list = [[seq] for seq in admitted]
@@ -94,19 +143,48 @@ def admit_requests(eng, model: str, pool: _SlotPool, out: List[Response],
     return len(admitted)
 
 
+def _left_padded(group: List[_ActiveSeq], length: int, pad_rows: int):
+    """(prompts, mask) (G + pad_rows, length): each prompt LEFT-padded to
+    ``length`` with a validity mask; the pad rows repeat the first row."""
+    G = len(group)
+    prompts = np.zeros((G, length), np.int32)
+    mask = np.zeros((G, length), bool)
+    for i, s in enumerate(group):
+        n = len(s.req.prompt)
+        prompts[i, length - n:] = s.req.prompt
+        mask[i, length - n:] = True
+    return (np.concatenate([prompts, prompts[:1].repeat(pad_rows, 0)]),
+            np.concatenate([mask, mask[:1].repeat(pad_rows, 0)]))
+
+
 def prefill_group(eng, model: str, pool: _SlotPool,
                   group: List[_ActiveSeq], out: List[Response],
                   temperature: float) -> None:
-    """One prefill for a same-length group of admitted requests: the batch
-    is padded to a pow2 bucket (padding rows repeat the first prompt), and
-    the resulting caches scatter into the slots in one ``write_slots`` call
-    (padding rows carry slot ``n_slots`` and are dropped)."""
+    """One prefill for a same-shape group of admitted requests: the batch
+    is padded to a pow2 bucket (padding rows repeat the first prompt), the
+    resulting caches scatter into the slots in one ``write_slots`` call
+    (padding rows carry slot ``n_slots`` and are dropped), and with a
+    scheduler the admission plan is charged once per bucket — per-request
+    energy normalised by the plan's bucketed batch, the simulated battery
+    drained, one ``prefill`` event appended to the ledger.
+
+    Pure-SSM groups share a pow2 prompt-length bucket: every prompt is
+    LEFT-padded to it with a mask (the pad-safe scan leaves masked
+    positions out of the state), and per-slot positions stay the true
+    prompt lengths."""
     w = eng.workers[model]
     G = len(group)
     b = _new_bucket(G)
-    pad = b - G
-    prompts = np.stack([s.req.prompt for s in group] + [group[0].req.prompt] * pad)
-    logits, g_cache = w.prefill_batch(prompts)
+    lens = [len(s.req.prompt) for s in group]
+    plan_len = lens[0]
+    pad_mask = None
+    if ssm_prompt_bucketed(eng, w):
+        plan_len = _len_bucket(max(lens))
+        if any(n != plan_len for n in lens):
+            prompts, pad_mask = _left_padded(group, plan_len, b - G)
+    if pad_mask is None:
+        prompts = np.stack([s.req.prompt for s in group] + [group[0].req.prompt] * (b - G))
+    logits, g_cache = w.prefill_batch(prompts, pad_mask=pad_mask)
     slots = np.full(b, pool.alloc.n_slots, np.int32)
     slots[:G] = [s.slot for s in group]
     pool.cache = w.write_slots(pool.cache, g_cache, slots)
@@ -114,8 +192,19 @@ def prefill_group(eng, model: str, pool: _SlotPool,
         toks = eng._sample_batch(model, group, logits[:G], temperature)
     else:
         toks = [int(t) for t in logits[:G].argmax(dim=-1).cpu().numpy()]
+    pp = None
+    if eng.scheduler is not None:
+        # bucketed SSM groups charge the bucket-length plan (the same pow2
+        # length bucket the planner keys on)
+        pp = eng._prefill_plan_for(model, G, plan_len)
+        charge = EnergyBreakdown.from_total(pp["energy"] * G / pp["batch"], pp["rails"])
+        eng.scheduler.sim.drain(pp["energy"] * G / pp["batch"])
+        eng.ledger.emit("prefill", pp["latency"], charge, t_s=eng._now(), model=model,
+                        n_active=G)
     for seq, tok in zip(group, toks):
         seq.tokens.append(tok)
+        if pp is not None:
+            seq.rails += EnergyBreakdown.from_total(pp["energy"] / pp["batch"], pp["rails"])
         pool.tokens[seq.slot, 0] = tok
         pool.pos[seq.slot] = seq.pos
         if len(seq.tokens) >= seq.req.max_new_tokens:

@@ -5,14 +5,30 @@ from __future__ import annotations
 
 from typing import List
 
+from repro_torch.core.telemetry import EnergyBreakdown
 from repro_torch.serving.slots import Response, _SlotPool
 
 
 def plain_step(eng, model: str, pool: _SlotPool, out: List[Response],
-               temperature: float) -> None:
-    """One single-token ragged decode step over the whole slot pool."""
+               temperature: float, t0: float) -> None:
+    """One single-token ragged decode step over the whole slot pool, charged
+    once per iteration when the engine has a scheduler: the simulator steps
+    by the plan's latency and drains what the resident requests are charged
+    (step_energy/batch each), and one ``decode`` event goes to the ledger."""
     w = eng.workers[model]
     next_tok, logits, pool.cache = w.decode_pool(pool.cache, pool.tokens, pool.pos)
+    n_active = len(pool.active)
+    step_energy = 0.0
+    if eng.scheduler is not None:
+        seq_len, max_new = eng._plan_shape(pool)
+        sp = eng._plan_for(model, n_active, seq_len, max_new)
+        step_energy = sp["step_energy"]
+        eng.scheduler.sim.step(sp["step_latency"])
+        eng.scheduler.sim.drain(step_energy * n_active / sp["batch"])
+        eng.ledger.emit(
+            "decode", sp["step_latency"],
+            EnergyBreakdown.from_total(step_energy * n_active / sp["batch"], sp["rails"]),
+            t_s=t0, model=model, n_active=n_active)
     seqs = list(pool.active.values())
     if temperature > 0.0:
         rows = logits[[seq.slot for seq in seqs]]
@@ -22,6 +38,9 @@ def plain_step(eng, model: str, pool: _SlotPool, out: List[Response],
     for seq, tok in zip(seqs, toks):
         seq.tokens.append(tok)
         seq.pos += 1
+        if eng.scheduler is not None:
+            # energy of the (bucketed-batch) step plan, shared per slot
+            seq.rails += EnergyBreakdown.from_total(step_energy / sp["batch"], sp["rails"])
         pool.tokens[seq.slot, 0] = tok
         pool.pos[seq.slot] = seq.pos
         if len(seq.tokens) >= seq.req.max_new_tokens:

@@ -1,29 +1,40 @@
-"""Concurrent serving engine, continuous mode — the counterpart of
-``repro.serving.engine.ServingEngine`` with ``scheduler=None``.
+"""Concurrent serving engine with AdaOper energy-aware scheduling, continuous
+mode — the counterpart of ``repro.serving.engine.ServingEngine``.
 
-Several models share the engine. Each iteration (``step_continuous``)
-admits waiting requests into a model's slot pool in FIFO order, prefills
-them in same-length batches, runs one ragged decode step over the whole
-pool and retires finished requests; ``run_all`` round-robins over the busy
-models until every queue drains. This module is orchestration only: the
-machinery lives in ``slots``, ``sampling``, ``workers``, ``admission``,
-``decoding`` and ``robustness``. Every retirement appends a ``request``
-event to the :class:`~repro_torch.core.telemetry.EnergyLedger`.
+Several models share the engine. Each round (``_serve_round``) declares the
+co-execution level to the device simulator, runs the drift check once,
+preempts the lowest-priority decoding worker on a drift event, then steps
+each busy model at token granularity (``step_continuous``): degradation
+pass, energy-aware admission into the model's slot pool, batched prefill,
+one ragged decode step over the whole pool, retirement. ``run_all``
+repeats rounds until every queue drains. This module is orchestration
+only: the machinery lives in ``slots``, ``sampling``, ``workers``,
+``admission``, ``scheduler``, ``planning``, ``decoding`` and
+``robustness``.
 
-Not ported yet (each raises; see ROADMAP.md): the AdaOper scheduler,
-``mode="bucketed"``, ``run_trace`` and speculative drafts.
+With a scheduler (``AdaOperScheduler``) every energy number goes to the
+simulator's :class:`~repro_torch.core.telemetry.EnergyLedger`: ``prefill``
+and ``decode`` events per iteration, one ``request`` event per retirement,
+split per rail by the plan's fractions. Those joules are the device
+simulator's predictions for a mobile SoC (``core.simulator``), not the
+energy the serving device draws. ``scheduler=None`` is FIFO admission with
+an engine-private ledger of ``request`` events.
+
+Not ported yet (each raises; see ROADMAP.md): ``mode="bucketed"``,
+``run_trace`` and speculative drafts.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from repro_torch.core.telemetry import EnergyLedger
 from repro_torch.serving import admission as adm
-from repro_torch.serving import decoding, robustness, sampling
+from repro_torch.serving import decoding, planning, robustness, sampling
 from repro_torch.serving.admission import AdmissionPolicy
+from repro_torch.serving.scheduler import AdaOperScheduler
 from repro_torch.serving.slots import Request, Response, _ActiveSeq, _SlotPool
 from repro_torch.serving.workers import ModelWorker
 from repro_torch.sharding.context import ExecContext
@@ -34,27 +45,40 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 class ServingEngine:
-    def __init__(self, scheduler=None, mode: str = "continuous", max_slots: int = 8,
-                 sampling_seed: int = 0, batch_prefill: bool = True, max_retries: int = 1,
-                 deadline_backoff: float = 1.5):
-        if scheduler is not None:
-            raise _not_ported("the AdaOper scheduler")
+    def __init__(self, scheduler: Optional[AdaOperScheduler] = None,
+                 mode: str = "continuous", max_slots: int = 8,
+                 slo_s: Optional[float] = None, sampling_seed: int = 0,
+                 batch_prefill: bool = True, max_retries: int = 1,
+                 deadline_backoff: float = 1.5, shed_below_priority: int = 1):
         if mode != "continuous":
             raise _not_ported(f"serving mode {mode!r}")
         self.workers: Dict[str, ModelWorker] = {}
         self.queues: Dict[str, List[Request]] = {}
+        self.scheduler = scheduler
         self.stats: Dict[str, list] = {}
         self.max_slots = max_slots
         self.sampling_seed = sampling_seed
+        # batched admission: one prefill per same-shape group; False = serial
         self.batch_prefill = batch_prefill
         self.prefill_batches = 0
         self.prefill_batch_requests = 0
-        self.ledger = EnergyLedger()
-        self.admission = AdmissionPolicy()
+        # telemetry spine: the simulator's ledger when a scheduler is attached
+        self.ledger: EnergyLedger = (scheduler.sim.ledger if scheduler is not None
+                                     else EnergyLedger())
+        self.admission = AdmissionPolicy(scheduler, slo_s=slo_s)
         self.admission.ledger = self.ledger
         self.pools: Dict[str, _SlotPool] = {}
+        self.priorities: Dict[str, int] = {}
+        self.preemptions: Dict[str, int] = {}
+        self.drift_events = 0
+        # drift-scoped step-plan memo (see repro_torch.serving.planning)
+        self._plan_memo: Dict = {}
+        self._drift_ref = None
+        # graceful degradation (repro_torch.serving.robustness): deadline
+        # requeue with backoff then error Response; battery-critical shedding
         self.max_retries = max_retries
         self.deadline_backoff = deadline_backoff
+        self.shed_below_priority = shed_below_priority
 
     def _now(self) -> float:
         return time.time()
@@ -66,12 +90,15 @@ class ServingEngine:
                 seq.rng = sampling.stream_key(self.sampling_seed, model, seq.req.uid)
         return sampling.sample_batch(seqs, logits, temperature)
 
-    def add_model(self, name, cfg, params, max_len=512, ctx=ExecContext(), draft=None):
+    def add_model(self, name, cfg, params, max_len=512, ctx=ExecContext(),
+                  priority: int = 0, draft=None):
         if draft is not None:
             raise _not_ported("speculative decoding")
         self.workers[name] = ModelWorker(name, cfg, params, max_len, ctx)
         self.queues[name] = []
         self.stats[name] = []
+        self.priorities[name] = priority
+        self.preemptions[name] = 0
 
     def submit(self, model: str, req: Request):
         if req.t_submit == 0.0:
@@ -80,6 +107,17 @@ class ServingEngine:
 
     def run_trace(self, arrivals, start_t: float = 0.0, temperature: float = 0.0):
         raise _not_ported("trace-driven serving (run_trace)")
+
+    # drift-scoped plan memoisation lives in repro_torch.serving.planning
+
+    def _plan_for(self, model: str, batch: int, seq_len: int, max_new: int):
+        return planning.step_plan_for(self, model, batch, seq_len, max_new)
+
+    def _prefill_plan_for(self, model: str, batch: int, prompt_len: int):
+        return planning.prefill_plan_for(self, model, batch, prompt_len)
+
+    def _drift_event(self) -> bool:
+        return planning.drift_event(self)
 
     def _pool(self, model: str) -> _SlotPool:
         pool = self.pools.get(model)
@@ -91,41 +129,84 @@ class ServingEngine:
         return bool(self.queues[model]) or bool(
             model in self.pools and self.pools[model].active)
 
+    def _plan_shape(self, pool: _SlotPool, extra: Optional[Request] = None):
+        """(seq-length, remaining-tokens) envelope of the pool for planning."""
+        seqs = [int(a.pos) for a in pool.active.values()]
+        rems = [a.req.max_new_tokens - len(a.tokens) for a in pool.active.values()]
+        if extra is not None:
+            seqs.append(len(extra.prompt))
+            rems.append(extra.max_new_tokens)
+        return max(seqs, default=1), max(max(rems, default=1), 1)
+
     def _retire(self, pool: _SlotPool, seq: _ActiveSeq, out: List[Response]):
         pool.alloc.free(seq.slot)
         del pool.active[seq.slot]
+        energy = seq.energy_j if self.scheduler is not None else float("nan")
         latency = self._now() - seq.req.t_submit
         self.ledger.emit("request", latency, seq.rails, t_s=seq.req.t_submit,
                          model=seq.model, uid=seq.req.uid)
         out.append(Response(seq.req.uid,
                             np.asarray(seq.tokens[: seq.req.max_new_tokens], np.int32),
-                            latency, float("nan"), rails=seq.rails))
+                            latency, energy, rails=seq.rails))
 
-    def step_continuous(self, model: str, temperature: float = 0.0) -> List[Response]:
-        """One engine iteration for ``model``: deadline pass, admission, one
-        ragged decode step over the slot pool, retirement."""
+    def step_continuous(self, model: str, decode: bool = True, check_drift: bool = True,
+                        temperature: float = 0.0) -> List[Response]:
+        """One engine iteration for ``model``: degradation pass, admission,
+        one ragged decode step over the slot pool, retirement.
+        ``decode=False`` (a preempted worker) holds the pool's state — no
+        admitted request is dropped; ``check_drift=False`` is for drivers
+        that already ran the round's drift check."""
+        if check_drift and self.scheduler is not None:
+            self._drift_event()
         pool = self._pool(model)
         out: List[Response] = []
-        robustness.expire_deadlines(self, model, pool, out)
+        robustness.expire_and_shed(self, model, pool, out)
         t0 = self._now()
         n_admitted = adm.admit_requests(self, model, pool, out, temperature)
-        if pool.active:
-            decoding.plain_step(self, model, pool, out, temperature)
+        if decode and pool.active:
+            decoding.plain_step(self, model, pool, out, temperature, t0)
         if n_admitted or pool.active or out:
             self.stats[model].append({
                 "mode": "continuous", "active": len(pool.active),
                 "admitted": n_admitted, "retired": len(out),
-                "wall_s": self._now() - t0, "pred_energy_j": float("nan")})
+                "wall_s": self._now() - t0,
+                "pred_energy_j": float(sum(r.energy_j_pred for r in out))
+                if self.scheduler is not None else float("nan")})
         return out
 
+    def _serve_round(self, busy: List[str], out: List[Response],
+                     temperature: float = 0.0) -> None:
+        """One continuous round over the busy models: declare the
+        co-execution level, run the drift check once, preempt the
+        lowest-priority decoding worker on a drift event, then step each
+        model at token granularity."""
+        if self.scheduler is not None:
+            self.scheduler.sim.set_coexec(len(busy))
+            self.scheduler.set_resident(busy)
+        victim = None
+        if self.scheduler is not None and self._drift_event():
+            decoding_models = [m for m in busy if m in self.pools and self.pools[m].active]
+            if len(decoding_models) > 1:
+                # the cached plans just got invalidated: yield the
+                # lowest-priority worker's iteration to the higher-priority
+                # pools while the planner re-solves
+                victim = min(decoding_models, key=lambda m: (self.priorities[m], m))
+                self.preemptions[victim] += 1
+                self.ledger.count("preemptions")
+        for m in busy:
+            out.extend(self.step_continuous(m, decode=(m != victim), check_drift=False,
+                                            temperature=temperature))
+
     def run_all(self, temperature: float = 0.0) -> List[Response]:
-        """Round-robin across models, one continuous iteration each, until
-        all queues drain."""
+        """Rounds over the busy models until every queue drains (the paper's
+        concurrent-DNN workload), interleaved at token granularity under the
+        declared co-execution level."""
         out: List[Response] = []
         while True:
             busy = [m for m in self.workers if self._busy(m)]
             if not busy:
+                if self.scheduler is not None:
+                    self.scheduler.sim.set_coexec(1)
                 break
-            for m in busy:
-                out.extend(self.step_continuous(m, temperature=temperature))
+            self._serve_round(busy, out, temperature)
         return out

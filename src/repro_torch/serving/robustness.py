@@ -1,12 +1,12 @@
 """Graceful degradation for the serving engine: per-request deadlines with
-bounded requeue-and-backoff — the counterpart of
+bounded requeue-and-backoff, and priority-aware load shedding under the
+simulator's ``battery_critical`` — the counterpart of
 ``repro.serving.robustness``.
 
 The invariant: every admitted request ends in a completion or an explicit
 error ``Response``, and each rejection lands in the ledger (a ``rejected``
-event plus its counter). Priority shedding under ``battery_critical`` reads
-the device simulator, which arrives with the scheduler slice (see
-ROADMAP.md); without a scheduler the JAX engine never sheds either.
+event plus its counter). All checks are inert on requests without
+deadlines and devices that never go battery-critical.
 """
 from __future__ import annotations
 
@@ -47,14 +47,32 @@ def _timeout(eng, model: str, req: Request,
     return None
 
 
-def expire_deadlines(eng, model: str, pool: _SlotPool,
-                     out: List[Response]) -> None:
-    """One degradation pass over ``model``'s queue and slot pool: expired
-    waiters are requeued with backoff or errored out; an expired resident
-    is evicted (slot freed, generated tokens discarded) and then
-    requeued/errored like a waiter."""
+def expire_and_shed(eng, model: str, pool: _SlotPool,
+                    out: List[Response]) -> None:
+    """One degradation pass over ``model``'s queue and slot pool.
+
+    1. ``battery_critical`` (the scheduler's simulated battery): shed queued
+       requests below the engine's priority floor with explicit error
+       responses (residents finish — their energy is already sunk).
+    2. Deadlines, queued: expired waiters are requeued with backoff or
+       errored out (``_timeout``).
+    3. Deadlines, active: an expired resident is evicted (its slot freed,
+       generated tokens discarded) and then requeued/errored like a waiter.
+    """
     now = eng._now()
     q = eng.queues[model]
+    sim = eng.scheduler.sim if eng.scheduler is not None else None
+    if sim is not None and sim.battery_critical and q:
+        keep: List[Request] = []
+        for req in q:
+            if req.priority < eng.shed_below_priority:
+                eng.ledger.count("shed")
+                reject_request(eng, model, req,
+                               f"shed: battery critical (priority "
+                               f"{req.priority} < {eng.shed_below_priority})", out)
+            else:
+                keep.append(req)
+        q = eng.queues[model] = keep
     if not any(r.deadline_s is not None for r in q) and not pool.active:
         return
     keep = []

@@ -4,8 +4,9 @@ drives — the counterpart of ``repro.serving.workers.ModelWorker``.
 
 The worker runs on the device its params lie on. Caches are updated in
 place. ``prefill_calls`` and ``decode_calls`` count the model passes, so a
-run can check how often each attention kernel must have launched (one
-prefill or decode launch per attention layer per pass). The speculative
+run can check how often each kernel must have launched (one prefill
+attention or SSD scan launch per layer per prefill, one decode attention
+launch per attention layer per decode pass). The speculative
 ``decode_verify`` waits for the speculative slice (see ROADMAP.md).
 """
 from __future__ import annotations
@@ -32,10 +33,10 @@ class ModelWorker:
     def _ids(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).long()
 
-    def _prefill(self, cache, tokens):
+    def _prefill(self, cache, tokens, pad_mask=None):
         self.prefill_calls += 1
         logits, cache = model_lib.prefill(self.params, self.cfg, tokens, cache, self.ctx,
-                                          last_only=True)
+                                          last_only=True, pad_mask=pad_mask)
         return logits[:, -1], cache
 
     def _decode(self, cache, token, pos):
@@ -82,13 +83,18 @@ class ModelWorker:
         return self.prefill_batch(prompt[None])
 
     @torch.no_grad()
-    def prefill_batch(self, prompts: np.ndarray):
+    def prefill_batch(self, prompts: np.ndarray, pad_mask=None):
         """Batched admission prefill: ``prompts`` (G, S) equal-length (the
         caller pads G to a pow2 bucket). Returns (last-position logits
         (G,V), batch-G cache whose rows scatter into slots via
-        ``write_slots``)."""
+        ``write_slots``). ``pad_mask`` (G, S) bool marks the valid tokens
+        of LEFT-padded prompts bucketed to a shared length — pure-SSM
+        stacks only (masked positions neither write into nor decay the scan
+        state, so the caches match exact-length prefill)."""
         cache = model_lib.init_cache(self.cfg, prompts.shape[0], self.max_len, self.device)
-        return self._prefill(cache, self._ids(prompts))
+        mask = None if pad_mask is None else torch.as_tensor(np.asarray(pad_mask),
+                                                             device=self.device)
+        return self._prefill(cache, self._ids(prompts), mask)
 
     def write_slot(self, pool_cache, one_cache, slot: int):
         return model_lib.write_cache_slot(pool_cache, one_cache, slot)

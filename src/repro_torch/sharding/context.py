@@ -11,5 +11,12 @@ from typing import Optional
 @dataclass(frozen=True)
 class ExecContext:
     # None: the tensors' device decides (the CUDA kernels on the card, their
-    # plain versions on the CPU); "plain": the plain versions on any device
+    # plain versions on the CPU); "plain": the plain versions on any device.
+    # It selects both the attention kernels and the SSD scan.
     attn_impl: Optional[str] = None
+
+    @property
+    def model_parallel(self) -> int:
+        """Tensor-parallel shard count, read by ``sharding.comm``: 1 until
+        sharded serving is ported."""
+        return 1

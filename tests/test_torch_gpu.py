@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels against their plain versions, on the card.
+"""The hand-written CUDA kernels (attention, SSD scan) against their plain
+versions, on the card.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one. Run on the GPU machine with
@@ -11,6 +12,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as dmod
 from repro_torch.kernels import flash_attention as fmod
+from repro_torch.kernels import ssd_scan as smod
 
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
@@ -66,3 +68,35 @@ def test_decode_kernel_matches_plain_on_card(dtype, H, Hkv, D, softcap, window):
     out = dmod.decode_attention(q, k, v, **kw)
     assert dmod.decode_attention.launches == before + 1
     _close(out, dmod.decode_attention_plain(q, k, v, **kw), dtype)
+
+
+# sums of up to 256 x 128 fp32 products in another order than the plain
+# version's; bf16: y is rounded to bf16 on both sides
+SSD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,masked", [(1, 64, False), (2, 200, True), (1, 1024, False)])
+def test_ssd_scan_kernel_matches_plain_on_card(dtype, B, S, masked):
+    """mamba2-2.7b heads (H 80, P 64, N 128, chunk 256): one chunk shorter
+    than 256, a tail chunk with left-padded rows, four full chunks."""
+    dev = _card()
+    H, P, N = 80, 64, 128
+    r = np.random.default_rng(6)
+    dt = torch.from_numpy(np.log1p(np.exp(r.standard_normal((B, S, H)) - 4.0))
+                          .astype(np.float32)).to(dev)
+    A = -torch.exp(torch.linspace(0.0, float(np.log(16.0)), H, device=dev))
+    x = _randn(7, (B, S, H, P), dtype, dev)
+    Bm, Cm = (_randn(s, (B, S, N), dtype, dev) for s in (8, 9))
+    mask = None
+    if masked:
+        mask = torch.ones(B, S, dtype=torch.bool, device=dev)
+        mask[0, :57] = False
+    before = smod.ssd_scan.launches
+    y, h = smod.ssd_scan(x, dt * A, dt, Bm, Cm, mask=mask, chunk=256)
+    assert smod.ssd_scan.launches == before + 1
+    ry, rh = smod.ssd_scan_plain(x, dt * A, dt, Bm, Cm, mask=mask, chunk=256)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), ry.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, rh, atol=SSD_TOL["float32"], rtol=SSD_TOL["float32"])

@@ -41,6 +41,22 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert "repro_torch.launch.serve" in got["modules"]
 
 
+@pytest.mark.parametrize("module", ["repro_torch.serving.scheduler", "repro_torch.core.profiler",
+                                    "repro_torch.kernels.ssd_scan"])
+def test_scheduled_path_modules_load_no_jax_and_no_repro(module):
+    """Each module of the scheduled path, imported alone in a fresh process."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "print(json.dumps(bad))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 @pytest.mark.parametrize("path", sorted(_sources()) + [SMOKE],
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_sources_import_no_jax_and_no_library_attention(path):

@@ -49,7 +49,7 @@ def _close(t, j):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["mamba2-2.7b"])
 def test_configs_are_copies_of_the_jax_configs(arch):
     j, t = jax_configs.get_config(arch), configs.get_config(arch)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -58,7 +58,7 @@ def test_configs_are_copies_of_the_jax_configs(arch):
 
 def test_unported_arch_names_the_roadmap():
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        configs.get_config("mamba2-2.7b")
+        configs.get_config("jamba-v0.1-52b")
 
 
 def test_layer_primitives_match_jax():

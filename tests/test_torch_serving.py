@@ -14,9 +14,12 @@ from repro.serving.engine import Request as JaxRequest  # noqa: E402
 from repro.serving.engine import ServingEngine as JaxEngine  # noqa: E402
 from repro_torch.configs import base as configs  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.core.profiler import RuntimeEnergyProfiler  # noqa: E402
+from repro_torch.core.simulator import DeviceSim  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.serving import sampling  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.scheduler import AdaOperScheduler  # noqa: E402
 from repro_torch.serving.slots import Request, _ActiveSeq  # noqa: E402
 
 ARCHS = ["tinyllama-1.1b", "gemma2-2b"]
@@ -141,9 +144,10 @@ def test_deadline_miss_ends_in_an_error_response(models):
 
 def test_unported_paths_raise_naming_the_roadmap(models):
     jcfg, jp, tcfg, tp = models["tinyllama-1.1b"]
-    for kw in (dict(scheduler=object()), dict(mode="bucketed")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ServingEngine(**kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ServingEngine(mode="bucketed")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):  # core/coexec.py waits
+        AdaOperScheduler(RuntimeEnergyProfiler(), DeviceSim(), coexec=object())
     eng = ServingEngine()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         eng.add_model("m", tcfg, tp, draft=(tcfg, tp))
@@ -153,7 +157,8 @@ def test_unported_paths_raise_naming_the_roadmap(models):
 
 def test_serve_entry_point_on_cpu(capsys):
     report = serve_cli.main(["--device", "cpu", "--requests", "3", "--prompt-lens", "8,12",
-                             "--max-new", "3", "--max-slots", "2"])
+                             "--max-new", "3", "--max-slots", "2", "--no-scheduler"])
+    assert report["scheduler"] == "fifo"
     assert report["requests"] == 6 and report["errors"] == 0 and report["tokens"] == 18
     for m in report["models"].values():
         assert m["prefill_calls"] >= 1 and m["decode_calls"] >= 2
