@@ -12,11 +12,14 @@ Phases:
                 and the kernels' build from ``src/repro_torch/kernels/csrc``
   2. kernels    every kernel against its plain PyTorch version on the card
                 at the serving paths' shapes, bf16 and fp32
-  3. times      CUDA-event times of each kernel, its plain version and one
-                PyTorch library call (a yardstick only), beside the bound
-  4. parity     each model at full width, cut to 2 layers, fp32: prefill
-                (mamba2: a masked pow2 bucket) and 8 ragged decode steps
-                through the kernels and through the plain versions agree
+  3. times      CUDA-event device times of each kernel, its plain version
+                and one PyTorch library call (a yardstick only), beside the
+                bound; for the attention kernels and the library call also
+                the wall time per call back to back (host enqueue included)
+  4. parity     each model at full width, cut to 2 layers, fp32 and (the
+                attention models) bf16: prefill (mamba2: a masked pow2
+                bucket) and 8 ragged decode steps through the kernels and
+                through the plain versions agree
   5. serve      the FIFO path: tinyllama-1.1b and gemma2-2b at their full
                 configs served concurrently by one continuous engine; every
                 attention kernel must have launched there
@@ -67,18 +70,36 @@ TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 # order than its plain version; its final state is fp32 in both dtypes
 SSD_TOL = {"bfloat16": 3e-2, "float32": 1e-3}
 MODEL_TOL = 1e-3
+SPIN_CYCLES = 2_000_000  # ~1 ms of device clock, longer than the host takes to enqueue a call
+# bf16 model parity: the two paths round at different places (the
+# tensor-core kernel rounds P to bf16 before P.V, the plain path keeps it in
+# fp32), and bf16 keeps 8 significant bits (an ulp is 0.4-0.8% of a value),
+# so after 2 layers the logits may differ by a few ulps of their own scale:
+# 3e-2 of the step's largest logit, the bf16 kernel tolerance at that scale
+MODEL_TOL_BF16 = 3e-2
 TINY = dict(H=32, Hkv=4, D=64, softcap=None)   # tinyllama-1.1b attention
 GEMMA = dict(H=8, Hkv=4, D=256, softcap=50.0)  # gemma2-2b attention
 MAMBA = dict(H=80, P=64, N=128, chunk=256)     # mamba2-2.7b SSD heads
 DECODE_POS = (0, 1, 63, 64, 500, 1023, 2046, 2047)
+# the kernels line's source is the bf16 route's, whose times it carries;
+# flash's fp32 route (exact fp32 for the parity checks) is
+# csrc/flash_attention.cu
 SOURCES = {
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
                         "src/repro/kernels/flash_attention.py:106"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:87"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:92"),
 }
+
+
+# the device kernels' names (csrc/*.cu) by the wrapper that launches them,
+# for the profile's device time by group
+KERNEL_GROUPS = {"flash_fwd_bf16_kernel": "flash_attention",
+                 "flash_fwd_fp32_kernel": "flash_attention",
+                 "decode_split_kernel": "decode_attention",
+                 "ssd_scan_kernel": "ssd_scan"}
 
 
 class SmokeFailure(Exception):
@@ -155,15 +176,18 @@ def ssd_bound(B, S, dtype_name, elem):
 
 
 def time_ms(torch, fn, flush, iters=20, warmup=3):
-    """Median CUDA-event time of one call; the L2 cache is flushed before
-    each call, as the serving path finds it cold (each layer reads its own
-    weights and KV)."""
+    """Median CUDA-event device time of one call. The L2 cache is flushed
+    before each call, as the serving path finds it cold (each layer reads its
+    own weights and KV), and a spin kernel then holds the device while the
+    host enqueues the call, so the events bracket the call's device work and
+    not the host's time to enqueue it (``call_ms`` sees that)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
@@ -172,6 +196,19 @@ def time_ms(torch, fn, flush, iters=20, warmup=3):
         times.append(s.elapsed_time(e))
     times.sort()
     return times[len(times) // 2]
+
+
+def call_ms(torch, fn, n=200):
+    """Wall time per call of n calls back to back, then one synchronize:
+    the larger of the host's time to enqueue a call and the device's time to
+    run it (L2 warm), what a host-bound serve pays per launch."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +277,10 @@ def phase_kernels(torch, report):
                 ref = dmod.decode_attention_plain(q, k, v, **kw)
                 compare("decode_attention", f"{name} Smax={Smax} w={window} {dtype}",
                         dtype, out, ref)
+        for case, out, ref in flash_edge_cases(torch, gen, fmod, dtype):
+            compare("flash_attention", f"edge {case} {dtype}", dtype, out, ref)
+        for case, out, ref in decode_edge_cases(torch, gen, dmod, dtype):
+            compare("decode_attention", f"edge {case} {dtype}", dtype, out, ref)
         for B in (1, 8):
             for S in (64, 200, 512, 1024):  # one short chunk, a tail chunk, 2 and 4 chunks
                 args = ssd_inputs(torch, gen, B, S, dtype)
@@ -260,6 +301,49 @@ def phase_kernels(torch, report):
     log("kernel vs plain, max abs err:", json.dumps(errs))
     if misses:
         raise SmokeFailure("kernel disagrees with its plain version:\n  " + "\n  ".join(misses))
+
+
+def flash_edge_cases(torch, gen, fmod, dtype):
+    """(case, kernel output, plain output) at the tensor-core kernel's tile
+    edges (128-row q tiles, 64-key K/V tiles): lengths on and beside them,
+    per-row q_offset / kv_len with kv_len < q_offset + S (and a row that
+    keeps no key), a window crossing tiles, every GQA group and Dv 32."""
+    def run(case, B, Sq, Sk, H, Hkv, Dk, Dv=None, **kw):
+        q, k, _ = qkv(torch, gen, B, Sq, Sk, H, Hkv, Dk, dtype)
+        v = qkv(torch, gen, B, 1, Sk, 1, Hkv, Dv or Dk, dtype)[2]
+        return case, fmod.flash_attention(q, k, v, **kw), fmod.flash_attention_plain(q, k, v, **kw)
+
+    for S in (1, 17, 64, 65, 128, 129, 200, 1024):
+        yield run(f"tinyllama S={S}", 2, S, S, TINY["H"], TINY["Hkv"], TINY["D"])
+        yield run(f"gemma2 S={S} w={S // 3 + 1}", 1, S, S, GEMMA["H"], GEMMA["Hkv"], GEMMA["D"],
+                  window=S // 3 + 1, softcap=GEMMA["softcap"])
+    dev = "cuda"
+    yield run("per-row kv_len < q_offset + S", 4, 65, 300, 8, 2, 64,
+              q_offset=torch.tensor([0, 100, 230, 5], device=dev),
+              kv_len=torch.tensor([40, 120, 260, 0], device=dev))
+    yield run("window 100 across tiles", 2, 300, 300, 8, 4, 64, window=100)
+    for G in (1, 2, 4, 8):
+        yield run(f"G={G}", 2, 130, 130, 2 * G, 2, 128)
+    yield run("Dk 64 Dv 32", 2, 130, 130, 4, 2, 64, Dv=32)
+
+
+def decode_edge_cases(torch, gen, dmod, dtype):
+    """(case, kernel output, plain output) at the split-KV kernel's split
+    edges: Smax 1000 (not a multiple of the planned split), kv_len on a
+    split boundary, one before and one past it, a window that starts inside
+    a split and one that spans splits, every GQA group and Dv."""
+    B, Smax, Hkv = 8, 1000, 2
+    L = dmod.plan_splits(Smax, B, Hkv)[1]
+    pos = torch.tensor([0, L - 2, L - 1, L, 2 * L - 1, 2 * L, Smax - 2, Smax - 1],
+                       dtype=torch.int32, device="cuda")
+    for G in (1, 2, 4, 8):
+        for D in (64, 128, 256):
+            q, _, _ = qkv(torch, gen, B, 1, 1, G * Hkv, Hkv, D, dtype)
+            _, k, v = qkv(torch, gen, B, 1, Smax, G * Hkv, Hkv, D, dtype)
+            for window, softcap in ((None, None), (L // 2 + 3, None), (2 * L + 5, 50.0)):
+                kw = dict(q_offset=pos, kv_len=pos + 1, window=window, softcap=softcap)
+                yield (f"G={G} D={D} Smax={Smax} split={L} w={window} cap={softcap}",
+                       dmod.decode_attention(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw))
 
 
 def phase_times(torch, report):
@@ -288,7 +372,10 @@ def phase_times(torch, report):
             b_ms, b_by = flash_bound(B, S, hd["H"], hd["Hkv"], hd["D"], None, "bfloat16", 2)
             rows.append(dict(kernel="flash_attention", model=name, B=B, S=S, dtype="bfloat16",
                              ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                             bound_by=b_by))
+                             bound_by=b_by,
+                             call_ms=call_ms(torch, lambda: fmod.flash_attention(q, k, v, **kw)),
+                             library_call_ms=None if lib is None else call_ms(
+                                 torch, lambda: sdpa(q, k, v, is_causal=True))))
         for Smax in (1024, 2048):
             pos_list = [min(p, Smax - 1) for p in DECODE_POS]
             B = len(pos_list)
@@ -305,7 +392,10 @@ def phase_times(torch, report):
                                       "bfloat16", 2)
             rows.append(dict(kernel="decode_attention", model=name, B=B, S=Smax,
                              dtype="bfloat16", ms=ms, plain_ms=plain, library_ms=lib,
-                             bound_ms=b_ms, bound_by=b_by))
+                             bound_ms=b_ms, bound_by=b_by,
+                             call_ms=call_ms(torch, lambda: dmod.decode_attention(q, k, v, **kw)),
+                             library_call_ms=None if lib is None else call_ms(
+                                 torch, lambda: sdpa(q, k, v, attn_mask=mask))))
     from repro_torch.kernels import ssd_scan as smod
     for B, S in ((8, 512), (1, 512)):
         args = ssd_inputs(torch, gen, B, S, bf16)
@@ -319,50 +409,65 @@ def phase_times(torch, report):
 
 
 def phase_parity(torch, report):
+    """tinyllama and gemma2 at full width, cut to 2 layers: prefill and 8
+    ragged decode steps through the kernels against the same run through
+    the plain versions, in fp32 (the fp32 kernel routes) and in bf16 (the
+    tensor-core flash kernel and the bf16 decode kernel). Both runs are fed
+    the plain run's greedy tokens, so a near-tie that rounds the other way
+    in bf16 cannot send the two runs down different sequences."""
+    for dtype in ("float32", "bfloat16"):
+        for arch in ("tinyllama-1.1b", "gemma2-2b"):
+            model_parity(torch, report, arch, dtype)
+    phase_parity_mamba2(torch, report)
+
+
+def model_parity(torch, report, arch, dtype):
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import init_params
     from repro_torch.serving.workers import ModelWorker
     from repro_torch.sharding.context import ExecContext
     prompt_lens = (37, 64, 100)
-    for arch in ("tinyllama-1.1b", "gemma2-2b"):
-        cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32",
-                                  param_dtype="float32")
-        params = init_params(cfg, seed=0, device="cuda")
-        rng = torch.Generator().manual_seed(7)
-        prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=rng).numpy()
-                   for n in prompt_lens]
-        runs = {}
-        for impl in (None, "plain"):
-            w = ModelWorker(arch, cfg, params, max_len=256, ctx=ExecContext(attn_impl=impl))
-            pool = w.init_pool(len(prompts))
-            logits, toks = [], []
-            first = []
-            for slot, p in enumerate(prompts):
-                lg, c = w.prefill_one(p)
-                pool = w.write_slots(pool, c, [slot])
-                first.append(lg[0])
-            lg = torch.stack(first)
-            pos = torch.tensor(prompt_lens, dtype=torch.int32).numpy()
-            for _ in range(9):  # prefill logits + 8 ragged decode steps
-                logits.append(lg)
-                tok = lg.argmax(dim=-1).to(torch.int32).cpu().numpy()
-                toks.append(tok)
-                _, lg, pool = w.decode_pool(pool, tok[:, None], pos)
-                pos = pos + 1
-            runs[impl] = (torch.stack(logits), toks)
-        a, b = runs[None][0], runs["plain"][0]
-        err = float((a - b).abs().max())
-        ok = bool(torch.isfinite(a).all()) and bool(
-            ((a - b).abs() <= MODEL_TOL + MODEL_TOL * b.abs()).all())
-        same = all((x == y).all() for x, y in zip(runs[None][1], runs["plain"][1]))
-        log(f"parity {arch} (2 layers, full width, fp32): logits max abs err {err:.3g}, "
-            f"greedy tokens identical: {same}")
-        if not ok or not same:
-            raise SmokeFailure(f"{arch}: kernel path disagrees with the plain path "
-                               f"(max abs err {err:.3g}, tokens identical {same})")
-        report.setdefault("parity", {})[arch] = err
-        del params
-    phase_parity_mamba2(torch, report)
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype=dtype, param_dtype=dtype)
+    params = init_params(cfg, seed=0, device="cuda")
+    rng = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=rng).numpy()
+               for n in prompt_lens]
+    runs, toks = {}, None
+    for impl in ("plain", None):
+        w = ModelWorker(arch, cfg, params, max_len=256, ctx=ExecContext(attn_impl=impl))
+        pool = w.init_pool(len(prompts))
+        first = []
+        for slot, p in enumerate(prompts):
+            lg, c = w.prefill_one(p)
+            pool = w.write_slots(pool, c, [slot])
+            first.append(lg[0])
+        lg = torch.stack(first)
+        pos = torch.tensor(prompt_lens, dtype=torch.int32).numpy()
+        logits, greedy = [], []
+        for i in range(9):  # prefill logits + 8 ragged decode steps
+            logits.append(lg.float())
+            greedy.append(lg.argmax(dim=-1).to(torch.int32).cpu().numpy())
+            tok = greedy[-1] if toks is None else toks[i]
+            _, lg, pool = w.decode_pool(pool, tok[:, None], pos)
+            pos = pos + 1
+        runs[impl] = (torch.stack(logits), greedy)
+        toks = greedy if toks is None else toks
+    a, b = runs[None][0], runs["plain"][0]
+    err = float((a - b).abs().max())
+    same = sum(int((x == y).sum()) for x, y in zip(runs[None][1], runs["plain"][1]))
+    n = sum(x.size for x in runs["plain"][1])
+    if dtype == "float32":
+        ok = bool(((a - b).abs() <= MODEL_TOL + MODEL_TOL * b.abs()).all()) and same == n
+    else:  # per step, against the largest logit of the step
+        scale = b.abs().amax(dim=-1, keepdim=True)
+        ok = bool(((a - b).abs() <= MODEL_TOL_BF16 * scale).all())
+    ok = ok and bool(torch.isfinite(a).all())
+    log(f"parity {arch} (2 layers, full width, {dtype}): logits max abs err {err:.3g} "
+        f"(largest logit {float(b.abs().max()):.3g}), greedy tokens agreeing {same}/{n}")
+    if not ok:
+        raise SmokeFailure(f"{arch} {dtype}: kernel path disagrees with the plain path "
+                           f"(max abs err {err:.3g}, greedy tokens agreeing {same}/{n})")
+    report.setdefault("parity", {})[f"{arch} {dtype}"] = err
 
 
 def phase_parity_mamba2(torch, report):
@@ -540,12 +645,9 @@ def profile_workload(torch, report, key, kw):
     busy_s = sum(k[2] for k in kernels) * 1e-6
 
     def group(name):
-        if "flash_fwd_kernel" in name:
-            return "flash_attention"
-        if "decode_kernel" in name:
-            return "decode_attention"
-        if "ssd_scan_kernel" in name:
-            return "ssd_scan"
+        for kernel, g in KERNEL_GROUPS.items():
+            if kernel in name:
+                return g
         low = name.lower()
         if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
             return "matmul"
@@ -556,6 +658,11 @@ def profile_workload(torch, report, key, kw):
         g = group(name)
         n, t = groups.get(g, (0, 0.0))
         groups[g] = (n + count, t + us * 1e-3)
+    # every launch of an attention kernel must land in its own group
+    for g, n in attention_launches_expected(eng).items():
+        if groups.get(g, (0, 0.0))[0] != n:
+            raise SmokeFailure(f"{key}: the profile counts {groups.get(g)} for {g}, "
+                               f"the engine launched it {n} times")
     out = {"warm_untraced_wall_s": warm, "traced_wall_s": wall, "device_busy_s": busy_s,
            "idle_share_traced": 1.0 - busy_s / wall, "idle_share_untraced": 1.0 - busy_s / warm,
            "groups_ms": {g: {"launches": n, "ms": t} for g, (n, t) in groups.items()},

@@ -32,13 +32,15 @@ DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_FLASH = [_P] * 6 + [_I] * 9 + [_F, _F, _P]
 ARGTYPES = {
     # q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, Dv, causal,
-    # window, softcap, scale, dtype, stream
-    "flash_attention_fwd": [_P] * 6 + [_I] * 9 + [_F, _F, _I, _P],
-    # q, k, v, o, q_offset, kv_len, B, Smax, H, Hkv, Dk, Dv, window,
-    # softcap, scale, dtype, stream
-    "decode_attention_fwd": [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P],
+    # window, softcap, scale, stream
+    "flash_attention_fwd_bf16": _FLASH,  # tensor cores (flash_attention_bf16.cu)
+    "flash_attention_fwd_fp32": _FLASH,  # CUDA cores (flash_attention.cu)
+    # q, k, v, o, q_offset, kv_len, part, counters, B, Smax, H, Hkv, Dk, Dv,
+    # window, n_splits, split_len, softcap, scale, dtype, stream
+    "decode_attention_fwd": [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P],
     # x, dA, dt, Bm, Cm, y, h_out, B, S, H, P, N, Q, dtype, stream
     "ssd_scan_fwd": [_P] * 7 + [_I] * 7 + [_P],
 }

@@ -1,25 +1,24 @@
-// Prefill attention for Hopper (sm_90a): blockwise online-softmax attention
-// with causal mask, sliding window, logit softcap, GQA and per-row
-// q_offset / kv_len.
+// Prefill attention for Hopper (sm_90a), the fp32 route: blockwise
+// online-softmax attention with causal mask, sliding window, logit softcap,
+// GQA and per-row q_offset / kv_len, in exact fp32 on the CUDA cores. It
+// serves the fp32 parity checks, which need 1e-4 and must not run in TF32;
+// bf16, the serving dtype, goes to the tensor-core kernel in
+// flash_attention_bf16.cu and never here.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (flash_attention, body _flash_kernel).
+// (flash_attention, body _flash_kernel), for fp32 inputs.
 //
-// Bound on an H100: operations. At the serving path's prefill shapes
-// (S = 64..1024 per request, D = 64 or 256) the kernel does 4*B*H*D FLOPs
-// per kept (query, key) pair against (q + k + v + o) bytes, hundreds of
-// FLOPs per byte, above the card's ~295 FLOP/byte ridge for bf16.
+// Bound on an H100: operations (4*B*H*D FLOPs per kept (query, key) pair,
+// hundreds of FLOPs per byte), here against the 67 TFLOP/s fp32 CUDA-core
+// peak, since exact fp32 has no tensor-core path.
 //
 // Design: one thread block per (batch row, q head, 64-row q tile). The
 // TPU's sequential KV grid axis becomes a loop over 32-key K/V tiles staged
-// in shared memory (fp32); the loop starts and stops at the window, causal
-// and kv_len edges of the q tile, so masked-out tiles are never read. Each
-// of the 8 warps owns 8 query rows: for QK^T a lane owns one key of the
-// tile, for PV a lane owns Dv/32 output columns, and the fp32 (acc, m, l)
-// state lives in registers. GQA reads kv head h / G directly, with no
-// repeated-KV copy. This version runs on the CUDA cores in fp32; it is far
-// from the tensor-core bound (wgmma + TMA + warp specialisation are the
-// next step, see PERF.md).
+// in shared memory; the loop starts and stops at the window, causal and
+// kv_len edges of the q tile, so masked-out tiles are never read. Each of
+// the 8 warps owns 8 query rows: for QK^T a lane owns one key of the tile,
+// for PV a lane owns Dv/32 output columns, and the (acc, m, l) state lives
+// in registers. GQA reads kv head h / G directly, with no repeated-KV copy.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -37,12 +36,13 @@ size_t flash_smem_bytes(int Dk, int Dv) {
                           kBlockK * Dv + kWarps * kRows * kBlockK);
 }
 
-template <typename T, int NC>  // NC = Dv / 32 output columns per lane
+template <int NC>  // NC = Dv / 32 output columns per lane
 __global__ void __launch_bounds__(kWarps * 32)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, const int32_t* __restrict__ q_offset,
-                 const int32_t* __restrict__ kv_len, int Sq, int Sk, int H, int Hkv, int Dk,
-                 int causal, int window, float softcap, float scale) {
+flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      const int32_t* __restrict__ q_offset,
+                      const int32_t* __restrict__ kv_len, int Sq, int Sk, int H, int Hkv,
+                      int Dk, int causal, int window, float softcap, float scale) {
   constexpr int Dv = NC * 32;
   extern __shared__ float smem[];
   const int ldk = Dk + 1;  // pad: lane j reads row j, conflict-free
@@ -65,7 +65,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = tid; i < kBlockQ * Dk; i += blockDim.x) {
     const int r = i / Dk, d = i - r * Dk;
     const int sq = q0 + r;
-    qs[i] = sq < Sq ? to_float(q[((static_cast<size_t>(b) * Sq + sq) * H + h) * Dk + d]) : 0.f;
+    qs[i] = sq < Sq ? q[((static_cast<size_t>(b) * Sq + sq) * H + h) * Dk + d] : 0.f;
   }
 
   // keys any row of this tile can keep: [k_lo, k_hi)
@@ -91,12 +91,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int j = i / Dk, d = i - j * Dk;
       const int sk = kt + j;
       ks[j * ldk + d] =
-          sk < Sk ? to_float(k[((static_cast<size_t>(b) * Sk + sk) * Hkv + hk) * Dk + d]) : 0.f;
+          sk < Sk ? k[((static_cast<size_t>(b) * Sk + sk) * Hkv + hk) * Dk + d] : 0.f;
     }
     for (int i = tid; i < kBlockK * Dv; i += blockDim.x) {
       const int j = i / Dv, d = i - j * Dv;
       const int sk = kt + j;
-      vs[i] = sk < Sk ? to_float(v[((static_cast<size_t>(b) * Sk + sk) * Hkv + hk) * Dv + d]) : 0.f;
+      vs[i] = sk < Sk ? v[((static_cast<size_t>(b) * Sk + sk) * Hkv + hk) * Dv + d] : 0.f;
     }
     __syncthreads();
 
@@ -152,44 +152,43 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (sq >= Sq) continue;
     // a row that kept no key has l == 0 and acc == 0: it writes 0
     const float denom = fmaxf(l[r], 1e-30f);
-    T* orow = o + ((static_cast<size_t>(b) * Sq + sq) * H + h) * Dv;
+    float* orow = o + ((static_cast<size_t>(b) * Sq + sq) * H + h) * Dv;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) store(orow + lane + 32 * c, acc[r][c] / denom);
+    for (int c = 0; c < NC; ++c) orow[lane + 32 * c] = acc[r][c] / denom;
   }
 }
 
-template <typename T, int NC>
+template <int NC>
 int launch(const void* q, const void* k, const void* v, void* o, const void* q_offset,
            const void* kv_len, int B, int Sq, int Sk, int H, int Hkv, int Dk, int causal,
            int window, float softcap, float scale, cudaStream_t stream) {
   const size_t smem = flash_smem_bytes(Dk, NC * 32);
-  const cudaError_t attr = allow_smem(flash_fwd_kernel<T, NC>, smem);
+  const cudaError_t attr = allow_smem(flash_fwd_fp32_kernel<NC>, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd_kernel<T, NC><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<const int32_t*>(q_offset),
+  flash_fwd_fp32_kernel<NC><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<const int32_t*>(q_offset),
       static_cast<const int32_t*>(kv_len), Sq, Sk, H, Hkv, Dk, causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch(int Dv, const void* q, const void* k, const void* v, void* o, const void* q_offset,
              const void* kv_len, int B, int Sq, int Sk, int H, int Hkv, int Dk, int causal,
              int window, float softcap, float scale, cudaStream_t stream) {
   switch (Dv) {
     case 32:
-      return launch<T, 1>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
-                          softcap, scale, stream);
+      return launch<1>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
+                       softcap, scale, stream);
     case 64:
-      return launch<T, 2>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
-                          softcap, scale, stream);
+      return launch<2>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
+                       softcap, scale, stream);
     case 128:
-      return launch<T, 4>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
-                          softcap, scale, stream);
+      return launch<4>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
+                       softcap, scale, stream);
     case 256:
-      return launch<T, 8>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
-                          softcap, scale, stream);
+      return launch<8>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
+                       softcap, scale, stream);
     default:
       return -1;
   }
@@ -199,21 +198,13 @@ int dispatch(int Dv, const void* q, const void* k, const void* v, void* o, const
 }  // namespace repro_torch
 
 // q (B,Sq,H,Dk), k (B,Sk,Hkv,Dk), v (B,Sk,Hkv,Dv), o (B,Sq,H,Dv), all
-// contiguous and of one dtype; q_offset and kv_len (B,) int32 on the device.
-// window <= 0 means no window, softcap <= 0 no softcap. Returns the CUDA
-// error of the launch, or -1 for a shape the kernel does not take.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   const void* q_offset, const void* kv_len, int B, int Sq,
-                                   int Sk, int H, int Hkv, int Dk, int Dv, int causal,
-                                   int window, float softcap, float scale, int dtype,
-                                   void* stream) {
-  using namespace repro_torch;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return dispatch<float>(Dv, q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal,
-                           window, softcap, scale, st);
-  if (dtype == kBFloat16)
-    return dispatch<__nv_bfloat16>(Dv, q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk,
-                                   causal, window, softcap, scale, st);
-  return -1;
+// contiguous fp32; q_offset and kv_len (B,) int32 on the device. window <= 0
+// means no window, softcap <= 0 no softcap. Returns the CUDA error of the
+// launch, or -1 for a shape the kernel does not take.
+extern "C" int flash_attention_fwd_fp32(const void* q, const void* k, const void* v, void* o,
+                                        const void* q_offset, const void* kv_len, int B, int Sq,
+                                        int Sk, int H, int Hkv, int Dk, int Dv, int causal,
+                                        int window, float softcap, float scale, void* stream) {
+  return repro_torch::dispatch(Dv, q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal,
+                               window, softcap, scale, static_cast<cudaStream_t>(stream));
 }

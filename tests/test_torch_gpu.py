@@ -70,6 +70,65 @@ def test_decode_kernel_matches_plain_on_card(dtype, H, Hkv, D, softcap, window):
     _close(out, dmod.decode_attention_plain(q, k, v, **kw), dtype)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 17, 64, 65, 128, 129, 200, 1024])
+@pytest.mark.parametrize("H,Hkv,D,softcap", [(32, 4, 64, None), (8, 4, 256, 50.0)])
+def test_flash_kernel_at_tile_edges(dtype, S, H, Hkv, D, softcap):
+    """Lengths on and beside the 128-row q tiles and 64-key K/V tiles, with
+    a window that crosses tiles."""
+    dev = _card()
+    q = _randn(10, (1, S, H, D), dtype, dev)
+    k, v = (_randn(s, (1, S, Hkv, D), dtype, dev) for s in (11, 12))
+    for window in (None, S // 3 + 1):
+        kw = dict(causal=True, window=window, softcap=softcap)
+        _close(fmod.flash_attention(q, k, v, **kw), fmod.flash_attention_plain(q, k, v, **kw),
+               dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,Dk,Dv", [(1, 64, 64), (2, 64, 32), (4, 128, 128), (8, 64, 64),
+                                     (2, 256, 256)])
+def test_flash_kernel_groups_head_dims_and_per_row_positions(dtype, G, Dk, Dv):
+    """Every GQA group, Dv != Dk, and per-row q_offset / kv_len with
+    kv_len < q_offset + S (one row keeps no key and must write 0)."""
+    dev = _card()
+    Hkv, Sq, Sk = 2, 65, 300
+    q = _randn(13, (4, Sq, G * Hkv, Dk), dtype, dev)
+    k = _randn(14, (4, Sk, Hkv, Dk), dtype, dev)
+    v = _randn(15, (4, Sk, Hkv, Dv), dtype, dev)
+    kw = dict(causal=True, q_offset=torch.tensor([0, 100, 230, 5], device=dev),
+              kv_len=torch.tensor([40, 120, 260, 0], device=dev))
+    for window in (None, 100):
+        out = fmod.flash_attention(q, k, v, window=window, **kw)
+        _close(out, fmod.flash_attention_plain(q, k, v, window=window, **kw), dtype)
+        assert float(out[3].float().abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_decode_kernel_at_split_edges(dtype, G, D):
+    """kv_len on a split boundary, one before and one past it, Smax 1000
+    (not a multiple of the split), windows inside one split and across
+    splits, with and without softcap."""
+    dev = _card()
+    B, Smax, Hkv = 8, 1000, 2
+    L = dmod.plan_splits(Smax, B, Hkv)[1]
+    pos = torch.tensor([0, L - 2, L - 1, L, 2 * L - 1, 2 * L, Smax - 2, Smax - 1],
+                       dtype=torch.int32, device=dev)
+    q = _randn(16, (B, 1, G * Hkv, D), dtype, dev)
+    k, v = (_randn(s, (B, Smax, Hkv, D), dtype, dev) for s in (17, 18))
+    for window, softcap in ((None, None), (L // 2 + 3, None), (2 * L + 5, 50.0)):
+        kw = dict(q_offset=pos, kv_len=pos + 1, window=window, softcap=softcap)
+        before = dmod.decode_attention.launches
+        out = dmod.decode_attention(q, k, v, **kw)
+        assert dmod.decode_attention.launches == before + 1
+        _close(out, dmod.decode_attention_plain(q, k, v, **kw), dtype)
+
+
 # sums of up to 256 x 128 fp32 products in another order than the plain
 # version's; bf16: y is rounded to bf16 on both sides
 SSD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}

@@ -146,3 +146,38 @@ def test_cuda_input_checks():
         fmod.check_cuda_inputs(q, k, v[..., :48].contiguous(), fmod.FLASH_DV)
     with pytest.raises(ValueError, match="kv heads"):
         fmod.check_cuda_inputs(q[:, :, :3].contiguous(), k, v, fmod.FLASH_DV)
+
+
+def test_flash_route_by_dtype():
+    """bf16 goes to the tensor-core kernel and fp32 to the exact CUDA-core
+    kernel, by dtype alone; any other dtype has no kernel."""
+    assert fmod.flash_route(torch.bfloat16) == "flash_attention_fwd_bf16"
+    assert fmod.flash_route(torch.float32) == "flash_attention_fwd_fp32"
+    with pytest.raises(ValueError, match="no kernel"):
+        fmod.flash_route(torch.float16)
+    for dtype, route in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        q, k, v = (t.to(dtype) for t in _qkv(9, 1, 4, 4, 4, 2, 64, 32)[1])
+        assert fmod.flash_checks(q, k, v).endswith(route)
+
+
+@pytest.mark.parametrize("Dk", [8, 72, 100, 272])
+def test_bf16_flash_refuses_head_dims_it_does_not_take(Dk):
+    """The tensor-core kernel takes Dk a multiple of 16 up to 256; any other
+    bf16 Dk raises before a launch (it never goes to the fp32 kernel)."""
+    q, k, v = (t.to(torch.bfloat16) for t in _qkv(10, 1, 4, 4, 4, 2, Dk, 64)[1])
+    with pytest.raises(ValueError, match="bf16 flash kernel"):
+        fmod.flash_checks(q, k, v)
+    fmod.flash_checks(q.float(), k.float(), v.float())  # the fp32 route takes them
+
+
+def test_c_entry_points_match_their_ctypes_signatures():
+    """Every C entry point of csrc/*.cu takes as many arguments as
+    ``build.ARGTYPES`` passes it (nothing compiles them here)."""
+    import re
+
+    from repro_torch.kernels import build
+    sigs = {}
+    for cu in build.CSRC.glob("*.cu"):
+        for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', cu.read_text()):
+            sigs[name] = len(args.split(","))
+    assert sigs == {name: len(types) for name, types in build.ARGTYPES.items()}
