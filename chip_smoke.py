@@ -12,22 +12,26 @@ Phases:
                 and the kernels' build from ``src/repro_torch/kernels/csrc``
   2. kernels    every kernel against its plain PyTorch version on the card
                 at the serving paths' shapes, bf16 and fp32
-  3. times      CUDA-event device times of each kernel, its plain version
-                and one PyTorch library call (a yardstick only), beside the
-                bound; for the attention kernels and the library call also
-                the wall time per call back to back (host enqueue included)
-  4. parity     each model at full width, cut to 2 layers, fp32 and (the
+  3. parity     each model at full width, cut to 2 layers, fp32 and (the
                 attention models) bf16: prefill (mamba2: a masked pow2
                 bucket) and 8 ragged decode steps through the kernels and
                 through the plain versions agree
-  5. serve      the FIFO path: tinyllama-1.1b and gemma2-2b at their full
+  4. serve      the FIFO path: tinyllama-1.1b and gemma2-2b at their full
                 configs served concurrently by one continuous engine; every
                 attention kernel must have launched there
-  6. scheduled  the AdaOper-scheduled path (``repro_torch.launch.serve``'s
+  5. scheduled  the AdaOper-scheduled path (``repro_torch.launch.serve``'s
                 default): tinyllama-1.1b, gemma2-2b and mamba2-2.7b at their
                 full configs in one engine under ``AdaOperScheduler``; all
                 three kernels must have launched there. Its joules are the
                 device simulator's mobile-SoC predictions, not the card's.
+                It records the (B, S) of every SSD scan call.
+  6. times      CUDA-event device times of each kernel, its plain version
+                and one PyTorch library call (a yardstick only), beside the
+                bound; for the attention kernels and the library call also
+                the wall time per call back to back (host enqueue included);
+                the SSD scan also at each (B, S) the scheduled serve gave it
+                (``--ssd-shapes`` names them instead; without either, the
+                scheduled serve runs once first to record them)
   profile       (only when asked for) the serve phase's run again, warm:
                 its untraced wall time, then under torch.profiler the device
                 time by kernel and the device's idle share of the wall time
@@ -43,6 +47,7 @@ result line. It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import os
@@ -53,7 +58,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("device", "kernels", "times", "parity", "serve", "scheduled")
+PHASES = ("device", "kernels", "parity", "serve", "scheduled", "times")
 EXTRA = ("profile", "profile_scheduled")  # run only when asked for
 SERVE = dict(names=("tinyllama-1.1b", "gemma2-2b"), requests=8, prompt_lens=(64, 128, 256, 512),
              max_new=16, max_slots=8, max_len=1024, seed=0, device="cuda", full=True,
@@ -82,14 +87,14 @@ GEMMA = dict(H=8, Hkv=4, D=256, softcap=50.0)  # gemma2-2b attention
 MAMBA = dict(H=80, P=64, N=128, chunk=256)     # mamba2-2.7b SSD heads
 DECODE_POS = (0, 1, 63, 64, 500, 1023, 2046, 2047)
 # the kernels line's source is the bf16 route's, whose times it carries;
-# flash's fp32 route (exact fp32 for the parity checks) is
-# csrc/flash_attention.cu
+# the fp32 routes (exact fp32 for the parity checks) are
+# csrc/flash_attention.cu and csrc/ssd_scan.cu
 SOURCES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
                         "src/repro/kernels/flash_attention.py:106"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:87"),
-    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan_bf16.cu",
                  "src/repro/kernels/ssd_scan.py:92"),
 }
 
@@ -99,7 +104,9 @@ SOURCES = {
 KERNEL_GROUPS = {"flash_fwd_bf16_kernel": "flash_attention",
                  "flash_fwd_fp32_kernel": "flash_attention",
                  "decode_split_kernel": "decode_attention",
-                 "ssd_scan_kernel": "ssd_scan"}
+                 "ssd_state_bf16_kernel": "ssd_scan",
+                 "ssd_out_bf16_kernel": "ssd_scan",
+                 "ssd_scan_fp32_kernel": "ssd_scan"}
 
 
 class SmokeFailure(Exception):
@@ -146,10 +153,9 @@ def decode_bound(pos, Smax, H, Hkv, D, window, dtype_name, elem):
     return bound(4 * H * D * kept, nbytes, dtype_name)
 
 
-def ssd_inputs(torch, gen, B, S, dtype):
+def ssd_inputs(torch, gen, B, S, dtype, H=MAMBA["H"], P=MAMBA["P"], N=MAMBA["N"]):
     """Scan inputs as the model makes them: dt = softplus(.) > 0, per-head
     A = -(1..16), dA = dt * A in fp32; x, B, C in ``dtype``."""
-    H, P, N = MAMBA["H"], MAMBA["P"], MAMBA["N"]
 
     def r(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
@@ -233,7 +239,8 @@ def phase_device(torch, report):
     build_log = build.BUILD_DIR / "build.log"
     if build_log.exists():
         for line in build_log.read_text().splitlines():
-            if "registers" in line or "spill" in line.lower() or line.startswith("=="):
+            if ("registers" in line or "spill" in line.lower() or "entry function" in line
+                    or line.startswith("==")):
                 log("  ptxas:", line.strip())
 
 
@@ -281,21 +288,9 @@ def phase_kernels(torch, report):
             compare("flash_attention", f"edge {case} {dtype}", dtype, out, ref)
         for case, out, ref in decode_edge_cases(torch, gen, dmod, dtype):
             compare("decode_attention", f"edge {case} {dtype}", dtype, out, ref)
-        for B in (1, 8):
-            for S in (64, 200, 512, 1024):  # one short chunk, a tail chunk, 2 and 4 chunks
-                args = ssd_inputs(torch, gen, B, S, dtype)
-                masks = [None]
-                if S == 200:  # left-padded rows, as a mamba2 pow2 prefill bucket has
-                    m = torch.ones(B, S, dtype=torch.bool, device="cuda")
-                    m[0, :104] = False
-                    m[B - 1, :37] = False
-                    masks.append(m)
-                for mask in masks:
-                    y, h = smod.ssd_scan(*args, mask=mask, chunk=MAMBA["chunk"])
-                    ry, rh = smod.ssd_scan_plain(*args, mask=mask, chunk=MAMBA["chunk"])
-                    case = f"B={B} S={S} masked={mask is not None} {dtype}"
-                    compare("ssd_scan", case + " y", dtype, y, ry, SSD_TOL)
-                    compare("ssd_scan", case + " state", torch.float32, h, rh, SSD_TOL)
+        for case, (y, h), (ry, rh) in ssd_edge_cases(torch, gen, smod, dtype):
+            compare("ssd_scan", f"{case} {dtype} y", dtype, y, ry, SSD_TOL)
+            compare("ssd_scan", f"{case} {dtype} state", torch.float32, h, rh, SSD_TOL)
     torch.cuda.synchronize()
     report["errors"] = errs
     log("kernel vs plain, max abs err:", json.dumps(errs))
@@ -346,6 +341,41 @@ def decode_edge_cases(torch, gen, dmod, dtype):
                        dmod.decode_attention(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw))
 
 
+def left_padded(torch, B, S):
+    """A (B, S) mask whose rows are left-padded by different widths, as a
+    mamba2 pow2 prefill bucket is (row 0 by S // 3, the last by S // 2)."""
+    m = torch.ones(B, S, dtype=torch.bool, device="cuda")
+    m[0, :S // 3] = False
+    m[B - 1, :S // 2] = False
+    return m
+
+
+def ssd_edge_cases(torch, gen, smod, dtype):
+    """(case, kernel (y, state), plain (y, state)) for the SSD scan at
+    mamba2-2.7b's heads: S on and beside the 64-position tiles and the
+    256-position chunk (1, 63, 64, 65, 255, 256, 257, 1024 and the serving
+    buckets 200, 512), B 1 and 8, unmasked and with left-padded rows; then
+    head counts that are not a multiple of the bf16 kernel's head pair, and
+    P, N below the tiles' widths."""
+    chunk = MAMBA["chunk"]
+
+    def run(case, B, S, mask=None, **hpn):
+        args = ssd_inputs(torch, gen, B, S, dtype, **hpn)
+        return (f"{case} B={B} S={S} masked={mask is not None}",
+                smod.ssd_scan(*args, mask=mask, chunk=chunk),
+                smod.ssd_scan_plain(*args, mask=mask, chunk=chunk))
+
+    for B in (1, 8):
+        for S in (1, 63, 64, 65, 200, 255, 256, 257, 512, 1024):
+            yield run("mamba2", B, S)
+            if S > 1:
+                yield run("mamba2", B, S, left_padded(torch, B, S))
+    for H in (1, 5, 79):
+        yield run(f"H={H}", 2, 300, left_padded(torch, 2, 300), H=H)
+    yield run("H=3 P=32 N=64", 2, 130, H=3, P=32, N=64)
+    yield run("H=4 P=16 N=16", 1, 70, H=4, P=16, N=16)
+
+
 def phase_times(torch, report):
     import torch.nn.functional as F
 
@@ -361,8 +391,9 @@ def phase_times(torch, report):
                                               v.transpose(1, 2), enable_gqa=True, **kw)
 
     bf16 = torch.bfloat16
+    timed = report.get("times_kernels", tuple(SOURCES))
     for name, hd in (("tinyllama", TINY), ("gemma2", GEMMA)):
-        for B, S in ((1, 64), (8, 256), (8, 512), (8, 1024)):
+        for B, S in ((1, 64), (8, 256), (8, 512), (8, 1024)) if "flash_attention" in timed else ():
             q, k, v = qkv(torch, gen, B, S, S, hd["H"], hd["Hkv"], hd["D"], bf16)
             kw = dict(causal=True, softcap=hd["softcap"])
             ms = time_ms(torch, lambda: fmod.flash_attention(q, k, v, **kw), flush)
@@ -376,7 +407,7 @@ def phase_times(torch, report):
                              call_ms=call_ms(torch, lambda: fmod.flash_attention(q, k, v, **kw)),
                              library_call_ms=None if lib is None else call_ms(
                                  torch, lambda: sdpa(q, k, v, is_causal=True))))
-        for Smax in (1024, 2048):
+        for Smax in (1024, 2048) if "decode_attention" in timed else ():
             pos_list = [min(p, Smax - 1) for p in DECODE_POS]
             B = len(pos_list)
             pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
@@ -396,16 +427,30 @@ def phase_times(torch, report):
                              call_ms=call_ms(torch, lambda: dmod.decode_attention(q, k, v, **kw)),
                              library_call_ms=None if lib is None else call_ms(
                                  torch, lambda: sdpa(q, k, v, attn_mask=mask))))
-    from repro_torch.kernels import ssd_scan as smod
-    for B, S in ((8, 512), (1, 512)):
-        args = ssd_inputs(torch, gen, B, S, bf16)
-        ms = time_ms(torch, lambda: smod.ssd_scan(*args, chunk=MAMBA["chunk"]), flush)
-        plain = time_ms(torch, lambda: smod.ssd_scan_plain(*args, chunk=MAMBA["chunk"]), flush)
-        b_ms, b_by = ssd_bound(B, S, "bfloat16", 2)
-        rows.append(dict(kernel="ssd_scan", model="mamba2", B=B, S=S, dtype="bfloat16",
-                         ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    if "ssd_scan" in timed:
+        from repro_torch.kernels import ssd_scan as smod
+        serve_shapes = ssd_serve_shapes(torch, report)
+        log("ssd serve shapes:", ",".join(f"{B}:{S}" for B, S in serve_shapes))
+        for B, S in dict.fromkeys([(8, 512), (1, 512)] + serve_shapes):
+            args = ssd_inputs(torch, gen, B, S, bf16)
+            ms = time_ms(torch, lambda: smod.ssd_scan(*args, chunk=MAMBA["chunk"]), flush)
+            plain = time_ms(torch, lambda: smod.ssd_scan_plain(*args, chunk=MAMBA["chunk"]),
+                            flush)
+            b_ms, b_by = ssd_bound(B, S, "bfloat16", 2)
+            rows.append(dict(kernel="ssd_scan", model="mamba2", B=B, S=S, dtype="bfloat16",
+                             ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                             bound_by=b_by, serve_calls=report.get("ssd_calls", {}).get((B, S))))
     report["timings"] = rows
     log("timings:", json.dumps({"smi": report.get("smi"), "timings": rows}))
+
+
+def ssd_serve_shapes(torch, report):
+    """The distinct (B, S) of the scheduled serve's SSD scan calls: from
+    ``--ssd-shapes``, else from this run's scheduled phase, else from a
+    scheduled serve run now to record them."""
+    if "ssd_shapes" not in report and "ssd_calls" not in report:
+        phase_scheduled(torch, report)
+    return report.get("ssd_shapes") or sorted(report["ssd_calls"])
 
 
 def phase_parity(torch, report):
@@ -570,8 +615,24 @@ def phase_serve(torch, report):
 def phase_scheduled(torch, report):
     """The AdaOper-scheduled main path through ``repro_torch.launch.serve``."""
     from repro_torch.launch.serve import serve
+    from repro_torch.models import ssm
     names, max_new = SCHEDULED["names"], SCHEDULED["max_new"]
-    (eng, responses, rep), launches = drive(serve, **SCHEDULED)
+    shapes, scan = [], ssm.ssd_scan
+
+    def recorded_scan(x, *args, **kw):  # the (B, S) of each call, then the wrapper itself
+        shapes.append(tuple(x.shape[:2]))
+        return scan(x, *args, **kw)
+    ssm.ssd_scan = recorded_scan
+    try:
+        (eng, responses, rep), launches = drive(serve, **SCHEDULED)
+    finally:
+        ssm.ssd_scan = scan
+    if len(shapes) != launches["ssd_scan"]:
+        raise SmokeFailure(f"scheduled: {len(shapes)} SSD calls recorded, "
+                           f"{launches['ssd_scan']} launches counted")
+    report["ssd_calls"] = calls = collections.Counter(shapes)
+    log("scheduled SSD scan calls by (B, S):",
+        json.dumps({f"{B}:{S}": n for (B, S), n in sorted(calls.items())}))
     report["launches_scheduled"] = launches
     report["scheduled"] = rep
     log(f"scheduled: {rep['requests']} requests, {rep['tokens']} tokens, calibration "
@@ -698,6 +759,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES + EXTRA}")
+    ap.add_argument("--ssd-shapes", default=None,
+                    help="B:S,B:S,... at which the times phase also times the SSD scan "
+                         "(default: the shapes the scheduled serve gives it)")
+    ap.add_argument("--times-kernels", default=",".join(SOURCES),
+                    help=f"comma-separated subset of {tuple(SOURCES)} the times phase times")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -708,7 +774,10 @@ def main(argv=None):
     import repro_torch  # noqa: F401  (fails outside the repository)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report = {}
+    report = {"times_kernels": tuple(args.times_kernels.split(","))}
+    if args.ssd_shapes:
+        report["ssd_shapes"] = [tuple(int(v) for v in shape.split(":"))
+                                for shape in args.ssd_shapes.split(",")]
     fns = {"device": phase_device, "kernels": phase_kernels, "times": phase_times,
            "parity": phase_parity, "serve": phase_serve, "scheduled": phase_scheduled,
            "profile": phase_profile, "profile_scheduled": phase_profile_scheduled}

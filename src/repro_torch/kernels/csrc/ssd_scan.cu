@@ -1,4 +1,6 @@
-// Mamba2 SSD chunked scan for Hopper (sm_90a).
+// Mamba2 SSD chunked scan for Hopper (sm_90a), fp32 on the CUDA cores: the
+// exact route, for the fp32 parity checks. The bf16 route, which the
+// serving path runs, is ssd_scan_bf16.cu (tensor cores).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan.py (ssd_scan,
 // body _ssd_kernel). For each (batch row b, head h) and each chunk of Q
@@ -6,12 +8,15 @@
 //   y_i  = sum_{j<=i} exp(cum_i - cum_j) (C_i . B_j) dt_j x_j   (intra-chunk)
 //        + exp(cum_i) C_i . h                                 (inter-chunk)
 //   h   <- exp(cum_last) h + sum_j exp(cum_last - cum_j) dt_j x_j (x) B_j
-// x (B,S,H,P) and y in the activation dtype, dA and dt (B,S,H) fp32, B/C
-// (B,S,N) shared by all heads (ngroups = 1), final state (B,H,P,N) fp32.
+// x (B,S,H,P), y, dA and dt (B,S,H), B/C (B,S,N) shared by all heads
+// (ngroups = 1) and the final state (B,H,P,N), all fp32.
 //
-// Bound on an H100: operations. At mamba2-2.7b's shapes (H 80, P 64,
-// N 128, Q 256) one chunk of one head does ~24 MFLOP (C.B^T over the lower
-// triangle, M.x, C.h and the state update) against ~130 KB of inputs.
+// Bound on an H100: operations in fp32. mamba2-2.7b at B=8 S=512
+// (H 80, P 64, N 128, chunk 256) moves its inputs and outputs once in
+// 0.058 ms in fp32 at 3.35 TB/s, against 0.243 ms for its 16.3 GFLOP of
+// unique work at the 67 TFLOP/s fp32 peak: in fp32, operations bound it.
+// This design recomputes C.B^T per head (43% of its work) and runs far
+// from either bound; it is kept for exactness, not speed.
 //
 // Design: one thread block per (b, h); the TPU's sequential chunk grid axis
 // becomes a loop inside the block, and the running P x N fp32 state (32 KB
@@ -26,9 +31,7 @@
 // micro-tile, so every shared-memory read is a broadcast or conflict-free
 // (rows padded to N + 1 and 64 + 1 floats). Positions past S (a tail
 // chunk) read as zeros: dA = dt = 0 there, so they neither decay nor write
-// the state, as the TPU kernel's zero padding does. Everything runs in fp32
-// on the CUDA cores; tensor cores, TMA and splitting the scan across
-// chunks are later work (see PERF.md).
+// the state, as the TPU kernel's zero padding does.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -53,22 +56,20 @@ size_t ssd_smem_bytes() {
 
 // dst[r * ld + k] = src[base + (s0 + r) * stride + k] for the tile's rows
 // r < kTile and k < cols; rows past `rows` or past S read as zero.
-template <typename T>
-__device__ void load_rows(float* dst, int ld, const T* __restrict__ src, size_t base,
+__device__ void load_rows(float* dst, int ld, const float* __restrict__ src, size_t base,
                           size_t stride, int s0, int S, int rows, int cols) {
   for (int i = threadIdx.x; i < kTile * cols; i += kThreads) {
     const int r = i / cols, k = i - r * cols;
     const int s = s0 + r;
-    dst[r * ld + k] = (r < rows && s < S) ? to_float(src[base + s * stride + k]) : 0.f;
+    dst[r * ld + k] = (r < rows && s < S) ? src[base + s * stride + k] : 0.f;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dA,
-                const float* __restrict__ dt, const T* __restrict__ Bm,
-                const T* __restrict__ Cm, T* __restrict__ y, float* __restrict__ h_out, int S,
-                int H, int P, int N, int Q) {
+ssd_scan_fp32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
+                     const float* __restrict__ dt, const float* __restrict__ Bm,
+                     const float* __restrict__ Cm, float* __restrict__ y,
+                     float* __restrict__ h_out, int S, int H, int P, int N, int Q) {
   extern __shared__ float smem[];
   float* hs = smem;                // state, kMaxP x kLdN
   float* cs = hs + kMaxP * kLdN;   // C rows of the row tile
@@ -201,7 +202,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dA,
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int p = tx + 16 * q;
-          if (p < P) store(y + x_base + s * x_stride + p, acc[r][q]);
+          if (p < P) y[x_base + s * x_stride + p] = acc[r][q];
         }
       }
       __syncthreads();  // cs, bs, xs, ms are free again
@@ -253,17 +254,16 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dA,
   }
 }
 
-template <typename T>
 int launch(const void* x, const void* dA, const void* dt, const void* Bm, const void* Cm,
            void* y, void* h_out, int B, int S, int H, int P, int N, int Q,
            cudaStream_t stream) {
   const size_t smem = ssd_smem_bytes();
-  const cudaError_t attr = allow_smem(ssd_scan_kernel<T>, smem);
+  const cudaError_t attr = allow_smem(ssd_scan_fp32_kernel, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(H, B);
-  ssd_scan_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dA), static_cast<const float*>(dt),
-      static_cast<const T*>(Bm), static_cast<const T*>(Cm), static_cast<T*>(y),
+  ssd_scan_fp32_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dA), static_cast<const float*>(dt),
+      static_cast<const float*>(Bm), static_cast<const float*>(Cm), static_cast<float*>(y),
       static_cast<float*>(h_out), S, H, P, N, Q);
   return static_cast<int>(cudaGetLastError());
 }
@@ -271,19 +271,15 @@ int launch(const void* x, const void* dA, const void* dt, const void* Bm, const 
 }  // namespace
 }  // namespace repro_torch
 
-// x (B,S,H,P), Bm/Cm (B,S,N) and y (B,S,H,P) contiguous in one dtype; dA, dt
-// (B,S,H) and h_out (B,H,P,N) contiguous fp32. Q = chunk length (<= 256,
-// <= S); P <= 64, N <= 128. Returns the CUDA error of the launch, or -1 for
-// a shape or dtype the kernel does not take.
-extern "C" int ssd_scan_fwd(const void* x, const void* dA, const void* dt, const void* Bm,
-                            const void* Cm, void* y, void* h_out, int B, int S, int H, int P,
-                            int N, int Q, int dtype, void* stream) {
+// x (B,S,H,P), Bm/Cm (B,S,N), y (B,S,H,P), dA, dt (B,S,H) and h_out
+// (B,H,P,N), all contiguous fp32. Q = chunk length (<= 256, <= S);
+// P <= 64, N <= 128. Returns the CUDA error of the launch, or -1 for a
+// shape the kernel does not take.
+extern "C" int ssd_scan_fwd_fp32(const void* x, const void* dA, const void* dt, const void* Bm,
+                                 const void* Cm, void* y, void* h_out, int B, int S, int H, int P,
+                                 int N, int Q, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || S <= 0 || Q <= 0 || Q > kMaxQ || P <= 0 || P > kMaxP || N <= 0 || N > kMaxN)
     return -1;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch<float>(x, dA, dt, Bm, Cm, y, h_out, B, S, H, P, N, Q, st);
-  if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(x, dA, dt, Bm, Cm, y, h_out, B, S, H, P, N, Q, st);
-  return -1;
+  return launch(x, dA, dt, Bm, Cm, y, h_out, B, S, H, P, N, Q, static_cast<cudaStream_t>(stream));
 }

@@ -130,32 +130,52 @@ def test_decode_kernel_at_split_edges(dtype, G, D):
 
 
 # sums of up to 256 x 128 fp32 products in another order than the plain
-# version's; bf16: y is rounded to bf16 on both sides
+# version's; bf16: y is rounded to bf16 on both sides, and the tensor-core
+# kernels feed their fp32 operands as bf16 hi + lo (~2^-17 per product)
 SSD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,masked", [(1, 64, False), (2, 200, True), (1, 1024, False)])
-def test_ssd_scan_kernel_matches_plain_on_card(dtype, B, S, masked):
-    """mamba2-2.7b heads (H 80, P 64, N 128, chunk 256): one chunk shorter
-    than 256, a tail chunk with left-padded rows, four full chunks."""
+def _ssd_check(dtype, B, S, H=80, P=64, N=128, pad=None):
+    """The SSD wrapper on the card against its plain version; ``pad``: the
+    widths of left padding of rows 0 and B - 1 (a prefill bucket's mask)."""
     dev = _card()
-    H, P, N = 80, 64, 128
-    r = np.random.default_rng(6)
+    r = np.random.default_rng(6 + S + H)
     dt = torch.from_numpy(np.log1p(np.exp(r.standard_normal((B, S, H)) - 4.0))
                           .astype(np.float32)).to(dev)
     A = -torch.exp(torch.linspace(0.0, float(np.log(16.0)), H, device=dev))
     x = _randn(7, (B, S, H, P), dtype, dev)
     Bm, Cm = (_randn(s, (B, S, N), dtype, dev) for s in (8, 9))
     mask = None
-    if masked:
+    if pad is not None:
         mask = torch.ones(B, S, dtype=torch.bool, device=dev)
-        mask[0, :57] = False
+        mask[0, :pad[0]] = False
+        mask[B - 1, :pad[1]] = False
     before = smod.ssd_scan.launches
     y, h = smod.ssd_scan(x, dt * A, dt, Bm, Cm, mask=mask, chunk=256)
-    assert smod.ssd_scan.launches == before + 1
+    assert smod.ssd_scan.launches == before + 1  # one per call, whatever the route launches
     ry, rh = smod.ssd_scan_plain(x, dt * A, dt, Bm, Cm, mask=mask, chunk=256)
     tol = SSD_TOL[dtype]
     torch.testing.assert_close(y.float(), ry.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h, rh, atol=SSD_TOL["float32"], rtol=SSD_TOL["float32"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("S,masked", [(S, m) for S in (1, 63, 64, 65, 200, 255, 256, 257, 1024)
+                                      for m in (False, True) if S > 1 or not m])
+def test_ssd_scan_kernel_matches_plain_on_card(dtype, B, S, masked):
+    """mamba2-2.7b heads (H 80, P 64, N 128, chunk 256) at S on and beside
+    the 64-position tiles and the 256-position chunk, with and without
+    left-padded rows."""
+    _ssd_check(dtype, B, S, pad=(S // 3, S // 2) if masked else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,P,N,S", [(1, 64, 128, 300), (5, 64, 128, 300), (79, 64, 128, 257),
+                                     (3, 32, 64, 130), (4, 16, 16, 70)])
+def test_ssd_scan_kernel_head_counts_and_widths_on_card(dtype, H, P, N, S):
+    """Head counts that are not a multiple of the bf16 kernel's head pair,
+    and P, N below the tiles' widths (zero-filled columns)."""
+    _ssd_check(dtype, 2, S, H=H, P=P, N=N, pad=(S // 3, 7))
