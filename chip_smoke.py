@@ -12,10 +12,9 @@ Phases:
                 and the kernels' build from ``src/repro_torch/kernels/csrc``
   2. kernels    every kernel against its plain PyTorch version on the card
                 at the serving paths' shapes, bf16 and fp32
-  3. parity     each model at full width, cut to 2 layers, fp32 and (the
-                attention models) bf16: prefill (mamba2: a masked pow2
-                bucket) and 8 ragged decode steps through the kernels and
-                through the plain versions agree
+  3. parity     each model at full width, cut to 2 layers, fp32 and bf16:
+                prefill (mamba2: a masked pow2 bucket) and 8 ragged decode
+                steps through the kernels and through the plain versions agree
   4. serve      the FIFO path: tinyllama-1.1b and gemma2-2b at their full
                 configs served concurrently by one continuous engine; every
                 attention kernel must have launched there
@@ -29,9 +28,8 @@ Phases:
                 and one PyTorch library call (a yardstick only), beside the
                 bound; for the attention kernels and the library call also
                 the wall time per call back to back (host enqueue included);
-                the SSD scan also at each (B, S) the scheduled serve gave it
-                (``--ssd-shapes`` names them instead; without either, the
-                scheduled serve runs once first to record them)
+                the SSD scan also at the scheduled serve's (B, S)
+                (``SSD_SERVE``, and any other this run's scheduled phase gave it)
   profile       (only when asked for) the serve phase's run again, warm:
                 its untraced wall time, then under torch.profiler the device
                 time by kernel and the device's idle share of the wall time
@@ -85,6 +83,9 @@ MODEL_TOL_BF16 = 3e-2
 TINY = dict(H=32, Hkv=4, D=64, softcap=None)   # tinyllama-1.1b attention
 GEMMA = dict(H=8, Hkv=4, D=256, softcap=50.0)  # gemma2-2b attention
 MAMBA = dict(H=80, P=64, N=128, chunk=256)     # mamba2-2.7b SSD heads
+# the scheduled serve's SSD scan calls: (B, S, every row's left padding), the
+# 96- and 200-token prompts in their pow2 buckets of 128 and 256
+SSD_SERVE = ((1, 64, 0), (2, 256, 56), (2, 512, 0), (4, 128, 32))
 DECODE_POS = (0, 1, 63, 64, 500, 1023, 2046, 2047)
 # the kernels line's source is the bf16 route's, whose times it carries;
 # the fp32 routes (exact fp32 for the parity checks) are
@@ -153,13 +154,15 @@ def decode_bound(pos, Smax, H, Hkv, D, window, dtype_name, elem):
     return bound(4 * H * D * kept, nbytes, dtype_name)
 
 
-def ssd_inputs(torch, gen, B, S, dtype, H=MAMBA["H"], P=MAMBA["P"], N=MAMBA["N"]):
-    """Scan inputs as the model makes them: dt = softplus(.) > 0, per-head
-    A = -(1..16), dA = dt * A in fp32; x, B, C in ``dtype``."""
+def ssd_inputs(torch, gen, B, S, dtype, H=MAMBA["H"], P=MAMBA["P"], N=MAMBA["N"],
+               dt_shift=-4.0):
+    """Scan inputs as the model makes them: dt = softplus(randn + dt_shift)
+    > 0 (~0.02 at -4, ~0.7 at 0), per-head A = -(1..16), dA = dt * A in
+    fp32; x, B, C in ``dtype``."""
 
     def r(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
-    dt = torch.nn.functional.softplus(r(B, S, H) - 4.0)
+    dt = torch.nn.functional.softplus(r(B, S, H) + dt_shift)
     A = -torch.linspace(1.0, 16.0, H, device="cuda")
     return r(B, S, H, P).to(dtype), dt * A, dt, r(B, S, N).to(dtype), r(B, S, N).to(dtype)
 
@@ -354,13 +357,14 @@ def ssd_edge_cases(torch, gen, smod, dtype):
     """(case, kernel (y, state), plain (y, state)) for the SSD scan at
     mamba2-2.7b's heads: S on and beside the 64-position tiles and the
     256-position chunk (1, 63, 64, 65, 255, 256, 257, 1024 and the serving
-    buckets 200, 512), B 1 and 8, unmasked and with left-padded rows; then
-    head counts that are not a multiple of the bf16 kernel's head pair, and
-    P, N below the tiles' widths."""
+    buckets 200, 512), B 1 and 8, unmasked and with left-padded rows; the
+    scheduled serve's (B, S) and masks at dt ~0.02 and ~0.7; then head
+    counts that are not a multiple of the bf16 kernel's head pair, and P, N
+    below the tiles' widths."""
     chunk = MAMBA["chunk"]
 
-    def run(case, B, S, mask=None, **hpn):
-        args = ssd_inputs(torch, gen, B, S, dtype, **hpn)
+    def run(case, B, S, mask=None, **kw):
+        args = ssd_inputs(torch, gen, B, S, dtype, **kw)
         return (f"{case} B={B} S={S} masked={mask is not None}",
                 smod.ssd_scan(*args, mask=mask, chunk=chunk),
                 smod.ssd_scan_plain(*args, mask=mask, chunk=chunk))
@@ -370,6 +374,13 @@ def ssd_edge_cases(torch, gen, smod, dtype):
             yield run("mamba2", B, S)
             if S > 1:
                 yield run("mamba2", B, S, left_padded(torch, B, S))
+    for dt_shift in (-4.0, 0.0):
+        for B, S, pad in SSD_SERVE:
+            mask = torch.ones(B, S, dtype=torch.bool, device="cuda")
+            mask[:, :pad] = False
+            yield run(f"serve pad={pad} dt_shift={dt_shift}", B, S, mask, dt_shift=dt_shift)
+    yield run("dt_shift=0", 8, 512, dt_shift=0.0)
+    yield run("dt_shift=0", 2, 300, left_padded(torch, 2, 300), dt_shift=0.0)
     for H in (1, 5, 79):
         yield run(f"H={H}", 2, 300, left_padded(torch, 2, 300), H=H)
     yield run("H=3 P=32 N=64", 2, 130, H=3, P=32, N=64)
@@ -391,9 +402,8 @@ def phase_times(torch, report):
                                               v.transpose(1, 2), enable_gqa=True, **kw)
 
     bf16 = torch.bfloat16
-    timed = report.get("times_kernels", tuple(SOURCES))
     for name, hd in (("tinyllama", TINY), ("gemma2", GEMMA)):
-        for B, S in ((1, 64), (8, 256), (8, 512), (8, 1024)) if "flash_attention" in timed else ():
+        for B, S in ((1, 64), (8, 256), (8, 512), (8, 1024)):
             q, k, v = qkv(torch, gen, B, S, S, hd["H"], hd["Hkv"], hd["D"], bf16)
             kw = dict(causal=True, softcap=hd["softcap"])
             ms = time_ms(torch, lambda: fmod.flash_attention(q, k, v, **kw), flush)
@@ -407,7 +417,7 @@ def phase_times(torch, report):
                              call_ms=call_ms(torch, lambda: fmod.flash_attention(q, k, v, **kw)),
                              library_call_ms=None if lib is None else call_ms(
                                  torch, lambda: sdpa(q, k, v, is_causal=True))))
-        for Smax in (1024, 2048) if "decode_attention" in timed else ():
+        for Smax in (1024, 2048):
             pos_list = [min(p, Smax - 1) for p in DECODE_POS]
             B = len(pos_list)
             pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
@@ -427,30 +437,18 @@ def phase_times(torch, report):
                              call_ms=call_ms(torch, lambda: dmod.decode_attention(q, k, v, **kw)),
                              library_call_ms=None if lib is None else call_ms(
                                  torch, lambda: sdpa(q, k, v, attn_mask=mask))))
-    if "ssd_scan" in timed:
-        from repro_torch.kernels import ssd_scan as smod
-        serve_shapes = ssd_serve_shapes(torch, report)
-        log("ssd serve shapes:", ",".join(f"{B}:{S}" for B, S in serve_shapes))
-        for B, S in dict.fromkeys([(8, 512), (1, 512)] + serve_shapes):
-            args = ssd_inputs(torch, gen, B, S, bf16)
-            ms = time_ms(torch, lambda: smod.ssd_scan(*args, chunk=MAMBA["chunk"]), flush)
-            plain = time_ms(torch, lambda: smod.ssd_scan_plain(*args, chunk=MAMBA["chunk"]),
-                            flush)
-            b_ms, b_by = ssd_bound(B, S, "bfloat16", 2)
-            rows.append(dict(kernel="ssd_scan", model="mamba2", B=B, S=S, dtype="bfloat16",
-                             ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
-                             bound_by=b_by, serve_calls=report.get("ssd_calls", {}).get((B, S))))
+    from repro_torch.kernels import ssd_scan as smod
+    serve_shapes = [(B, S) for B, S, _ in SSD_SERVE] + sorted(report.get("ssd_calls", {}))
+    for B, S in dict.fromkeys([(8, 512), (1, 512)] + serve_shapes):
+        args = ssd_inputs(torch, gen, B, S, bf16)
+        ms = time_ms(torch, lambda: smod.ssd_scan(*args, chunk=MAMBA["chunk"]), flush)
+        plain = time_ms(torch, lambda: smod.ssd_scan_plain(*args, chunk=MAMBA["chunk"]), flush)
+        b_ms, b_by = ssd_bound(B, S, "bfloat16", 2)
+        rows.append(dict(kernel="ssd_scan", model="mamba2", B=B, S=S, dtype="bfloat16",
+                         ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                         bound_by=b_by, serve_calls=report.get("ssd_calls", {}).get((B, S))))
     report["timings"] = rows
     log("timings:", json.dumps({"smi": report.get("smi"), "timings": rows}))
-
-
-def ssd_serve_shapes(torch, report):
-    """The distinct (B, S) of the scheduled serve's SSD scan calls: from
-    ``--ssd-shapes``, else from this run's scheduled phase, else from a
-    scheduled serve run now to record them."""
-    if "ssd_shapes" not in report and "ssd_calls" not in report:
-        phase_scheduled(torch, report)
-    return report.get("ssd_shapes") or sorted(report["ssd_calls"])
 
 
 def phase_parity(torch, report):
@@ -516,51 +514,68 @@ def model_parity(torch, report, arch, dtype):
 
 
 def phase_parity_mamba2(torch, report):
-    """mamba2 at full width, 2 layers, fp32: a 96- and a 128-token prompt
-    LEFT-padded into one masked 128 bucket (the SSD kernel on the scan), then
-    8 ragged decode steps, against the same run on the plain scan."""
+    """mamba2 at full width, 2 layers, fp32 (the exact route) and bf16 (the
+    tensor-core route): a 96- and a 128-token prompt LEFT-padded into one
+    masked 128 bucket (the SSD kernel on the scan), then 8 ragged decode
+    steps, against the same run on the plain scan. Both runs are fed the
+    plain run's greedy tokens; fp32 must also pick the same ones. The
+    kernel run must launch the SSD kernel once per layer, the plain run
+    never."""
     import numpy as np
 
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ssd_scan as smod
     from repro_torch.models.model import init_params
     from repro_torch.serving.workers import ModelWorker
     from repro_torch.sharding.context import ExecContext
     arch, lens, bucket = "mamba2-2.7b", (96, 128), 128
-    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32",
-                              param_dtype="float32")
-    params = init_params(cfg, seed=0, device="cuda")
-    rng = np.random.default_rng(7)
-    prompts = np.zeros((len(lens), bucket), np.int32)
-    mask = np.zeros((len(lens), bucket), bool)
-    for i, n in enumerate(lens):
-        prompts[i, bucket - n:] = rng.integers(1, cfg.vocab_size, n)
-        mask[i, bucket - n:] = True
-    runs = {}
-    for impl in (None, "plain"):
-        w = ModelWorker(arch, cfg, params, max_len=256, ctx=ExecContext(attn_impl=impl))
-        pool = w.init_pool(len(lens))
-        lg, c = w.prefill_batch(prompts, pad_mask=mask)
-        pool = w.write_slots(pool, c, list(range(len(lens))))
-        pos = np.asarray(lens, np.int32)
-        logits, toks = [], []
-        for _ in range(9):  # prefill logits + 8 ragged decode steps
-            logits.append(lg)
-            tok = lg.argmax(dim=-1).to(torch.int32).cpu().numpy()
-            toks.append(tok)
-            _, lg, pool = w.decode_pool(pool, tok[:, None], pos)
-            pos = pos + 1
-        runs[impl] = (torch.stack(logits), toks)
-    a, b = runs[None][0], runs["plain"][0]
-    err = float((a - b).abs().max())
-    ok = bool(torch.isfinite(a).all()) and bool(
-        ((a - b).abs() <= MODEL_TOL + MODEL_TOL * b.abs()).all())
-    same = all((x == y).all() for x, y in zip(runs[None][1], runs["plain"][1]))
-    log(f"parity {arch} (2 layers, full width, fp32, masked 128 bucket of {lens}): "
-        f"logits max abs err {err:.3g}, greedy tokens identical: {same}")
-    if not ok or not same:
-        raise SmokeFailure(f"{arch}: kernel path disagrees with the plain path "
-                           f"(max abs err {err:.3g}, tokens identical {same})")
-    report.setdefault("parity", {})[arch] = err
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype=dtype,
+                                  param_dtype=dtype)
+        params = init_params(cfg, seed=0, device="cuda")
+        rng = np.random.default_rng(7)
+        prompts = np.zeros((len(lens), bucket), np.int32)
+        mask = np.zeros((len(lens), bucket), bool)
+        for i, n in enumerate(lens):
+            prompts[i, bucket - n:] = rng.integers(1, cfg.vocab_size, n)
+            mask[i, bucket - n:] = True
+        runs, fed, launches = {}, None, {}
+        for impl in ("plain", None):
+            smod.ssd_scan.launches = 0
+            w = ModelWorker(arch, cfg, params, max_len=256, ctx=ExecContext(attn_impl=impl))
+            pool = w.init_pool(len(lens))
+            lg, c = w.prefill_batch(prompts, pad_mask=mask)
+            pool = w.write_slots(pool, c, list(range(len(lens))))
+            pos = np.asarray(lens, np.int32)
+            logits, toks = [], []
+            for i in range(9):  # prefill logits + 8 ragged decode steps
+                logits.append(lg.float())
+                toks.append(lg.argmax(dim=-1).to(torch.int32).cpu().numpy())
+                tok = toks[-1] if fed is None else fed[i]
+                _, lg, pool = w.decode_pool(pool, tok[:, None], pos)
+                pos = pos + 1
+            runs[impl] = (torch.stack(logits), toks)
+            fed = toks if fed is None else fed
+            launches[impl or "kernel"] = smod.ssd_scan.launches
+        a, b = runs[None][0], runs["plain"][0]
+        err = float((a - b).abs().max())
+        same = all((x == y).all() for x, y in zip(runs[None][1], runs["plain"][1]))
+        if dtype == "float32":
+            ok = bool(((a - b).abs() <= MODEL_TOL + MODEL_TOL * b.abs()).all()) and same
+        else:  # per step, against the largest logit of the step
+            scale = b.abs().amax(dim=-1, keepdim=True)
+            ok = bool(((a - b).abs() <= MODEL_TOL_BF16 * scale).all())
+        ok = ok and bool(torch.isfinite(a).all())
+        log(f"parity {arch} (2 layers, full width, {dtype}, masked 128 bucket of {lens}): "
+            f"logits max abs err {err:.3g} (largest logit {float(b.abs().max()):.3g}), "
+            f"greedy tokens identical: {same}; SSD kernel launches {launches}")
+        if not ok:
+            raise SmokeFailure(f"{arch} {dtype}: kernel path disagrees with the plain path "
+                               f"(max abs err {err:.3g}, tokens identical {same})")
+        if launches != {"plain": 0, "kernel": cfg.num_layers}:
+            raise SmokeFailure(f"{arch} {dtype}: SSD kernel launches {launches}, expected "
+                               f"{cfg.num_layers} on the kernel run and 0 on the plain run")
+        report.setdefault("parity", {})[f"{arch} {dtype}"] = err
 
 
 def kernel_wrappers():
@@ -633,6 +648,10 @@ def phase_scheduled(torch, report):
     report["ssd_calls"] = calls = collections.Counter(shapes)
     log("scheduled SSD scan calls by (B, S):",
         json.dumps({f"{B}:{S}": n for (B, S), n in sorted(calls.items())}))
+    unchecked = set(calls) - {(B, S) for B, S, _ in SSD_SERVE}
+    if unchecked:  # the kernels phase checks the kernel at SSD_SERVE's shapes only
+        raise SmokeFailure(f"scheduled: SSD calls at (B, S) {sorted(unchecked)}, "
+                           f"not in SSD_SERVE")
     report["launches_scheduled"] = launches
     report["scheduled"] = rep
     log(f"scheduled: {rep['requests']} requests, {rep['tokens']} tokens, calibration "
@@ -759,11 +778,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES + EXTRA}")
-    ap.add_argument("--ssd-shapes", default=None,
-                    help="B:S,B:S,... at which the times phase also times the SSD scan "
-                         "(default: the shapes the scheduled serve gives it)")
-    ap.add_argument("--times-kernels", default=",".join(SOURCES),
-                    help=f"comma-separated subset of {tuple(SOURCES)} the times phase times")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -774,10 +788,7 @@ def main(argv=None):
     import repro_torch  # noqa: F401  (fails outside the repository)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report = {"times_kernels": tuple(args.times_kernels.split(","))}
-    if args.ssd_shapes:
-        report["ssd_shapes"] = [tuple(int(v) for v in shape.split(":"))
-                                for shape in args.ssd_shapes.split(",")]
+    report = {}
     fns = {"device": phase_device, "kernels": phase_kernels, "times": phase_times,
            "parity": phase_parity, "serve": phase_serve, "scheduled": phase_scheduled,
            "profile": phase_profile, "profile_scheduled": phase_profile_scheduled}

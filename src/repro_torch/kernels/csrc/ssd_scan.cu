@@ -26,7 +26,10 @@
 // for each row tile i the block stages C_i, starts the accumulator with the
 // inter-chunk term, then walks the column tiles j <= i, staging B_j and x_j,
 // forming the masked decay tile M_ij = (C_i B_j^T) * exp(cum_i - cum_j) * dt_j
-// in shared memory and accumulating M_ij x_j. cum comes from a block scan.
+// in shared memory and accumulating M_ij x_j. cum comes from a block scan
+// in fp64: at dt ~0.7 and A = -16 it reaches -2900 over a chunk, where an
+// fp32 ulp (2.4e-4) in cum_i - cum_j would put an error of that size on
+// each decay factor, and so ~1e-3 on y, the whole of its tolerance.
 // 256 threads as a 16 x 16 grid each own a 4 x 4 (rows strided by 16)
 // micro-tile, so every shared-memory read is a broadcast or conflict-free
 // (rows padded to N + 1 and 64 + 1 floats). Positions past S (a tail
@@ -51,7 +54,7 @@ size_t ssd_smem_bytes() {
   return sizeof(float) * (static_cast<size_t>(kMaxP) * kLdN  // state h (p, n)
                           + 2 * kTile * kLdN                 // C rows, B rows
                           + 2 * kTile * kLdT                 // x rows (j, p), M tile (i, j)
-                          + 3 * kMaxQ);                      // cum, dt, state weights
+                          + 2 * kMaxQ);                      // dt, state weights
 }
 
 // dst[r * ld + k] = src[base + (s0 + r) * stride + k] for the tile's rows
@@ -76,10 +79,10 @@ ssd_scan_fp32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
   float* bs = cs + kTile * kLdN;   // B rows of the column tile
   float* xs = bs + kTile * kLdN;   // x rows of the column tile, (j, p)
   float* ms = xs + kTile * kLdT;   // masked decay tile, (i, j)
-  float* cum = ms + kTile * kLdT;  // inclusive sum of dA over the chunk
-  float* dts = cum + kMaxQ;        // dt over the chunk
+  float* dts = ms + kTile * kLdT;  // dt over the chunk
   float* ws = dts + kMaxQ;         // exp(cum_last - cum_j) dt_j
-  __shared__ float warp_tot[kThreads / 32];
+  __shared__ double cum[kMaxQ];    // inclusive sum of dA over the chunk
+  __shared__ double warp_tot[kThreads / 32];
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -98,7 +101,7 @@ ssd_scan_fp32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
     const int s0 = c * Q;
     __syncthreads();  // the previous chunk's state update and scan are done
     // cum: inclusive scan of dA over the chunk, one position per thread
-    float a = 0.f;
+    double a = 0.0;
     if (tid < Q) {
       const int s = s0 + tid;
       const size_t k = (static_cast<size_t>(b) * S + s) * H + h;
@@ -107,7 +110,7 @@ ssd_scan_fp32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
     }
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const float v = __shfl_up_sync(0xffffffffu, a, o);
+      const double v = __shfl_up_sync(0xffffffffu, a, o);
       if (lane >= o) a += v;
     }
     if (lane == 31) warp_tot[warp] = a;
@@ -115,8 +118,8 @@ ssd_scan_fp32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
     for (int w = 0; w < warp; ++w) a += warp_tot[w];
     if (tid < Q) cum[tid] = a;
     __syncthreads();
-    const float cum_last = cum[Q - 1];
-    if (tid < Q) ws[tid] = expf(cum_last - cum[tid]) * dts[tid];
+    const double cum_last = cum[Q - 1];
+    if (tid < Q) ws[tid] = expf(static_cast<float>(cum_last - cum[tid])) * dts[tid];
 
     for (int it = 0; it < nt; ++it) {
       const int i0 = it * kTile;
@@ -142,7 +145,7 @@ ssd_scan_fp32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int i = i0 + ty + 16 * r;
-        const float e = i < Q ? expf(cum[i]) : 0.f;
+        const float e = i < Q ? expf(static_cast<float>(cum[i])) : 0.f;
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[r][q] *= e;
       }
@@ -178,7 +181,8 @@ ssd_scan_fp32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
             const int j = j0 + tx + 16 * q;
             // j <= i < Q: the causal lower triangle; exp never sees cum_i > cum_j
             ms[(ty + 16 * r) * kLdT + tx + 16 * q] =
-                (j <= i && i < Q) ? m[r][q] * expf(cum[i] - cum[j]) * dts[j] : 0.f;
+                (j <= i && i < Q) ? m[r][q] * expf(static_cast<float>(cum[i] - cum[j])) * dts[j]
+                              : 0.f;
           }
         }
         __syncthreads();
@@ -234,7 +238,7 @@ ssd_scan_fp32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
           for (int q = 0; q < 8; ++q) u[r][q] = fmaf(xv[r], bv[q], u[r][q]);
       }
     }
-    const float decay = expf(cum_last);
+    const float decay = expf(static_cast<float>(cum_last));
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int p = ty + 16 * r;

@@ -45,8 +45,10 @@ def _apply_mask(x, dA, dt, Bm, mask):
 
 def ssd_scan_plain(x, dA, dt, Bm, Cm, *, mask=None, chunk=256):
     """x (B,S,H,P); dA, dt (B,S,H); Bm, Cm (B,S,N) -> (y (B,S,H,P) in x's
-    dtype, final state (B,H,P,N) fp32). The SSD dual form in fp32: the tail
-    is padded with zeros to a multiple of ``min(chunk, S)``."""
+    dtype, final state (B,H,P,N) fp32). The SSD dual form in fp32, with cum
+    summed and differenced in fp64 (at large dt an fp32 cum costs y ~1e-3,
+    as in the fp32 kernel): the tail is padded with zeros to a multiple of
+    ``min(chunk, S)``."""
     x, dA, dt, Bm = _apply_mask(x, dA, dt, Bm, mask)
     B, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -59,25 +61,25 @@ def ssd_scan_plain(x, dA, dt, Bm, Cm, *, mask=None, chunk=256):
     Bc = F.pad(Bm.float(), (0, 0, 0, pad)).reshape(B, nc, Q, N)
     Cc = F.pad(Cm.float(), (0, 0, 0, pad)).reshape(B, nc, Q, N)
     with exact_fp32():
-        cum = torch.cumsum(dAc, dim=2)  # (B,nc,Q,H)
+        cum = torch.cumsum(dAc.double(), dim=2)  # (B,nc,Q,H)
         # intra-chunk "attention": M[i,j] = exp(cum_i - cum_j) (C_i . B_j) dt_j, i >= j
-        seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Q,Q,H)
+        seg = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).float()  # (B,nc,Q,Q,H)
         tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
         L = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
         cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
         M = cb[..., None] * L * dtc[:, :, None, :, :]
         y_diag = torch.einsum("bcijh,bcjhp->bcihp", M, xc)
         # per-chunk state: S_c = sum_j exp(cum_last - cum_j) dt_j x_j (x) B_j
-        w = torch.exp(cum[:, :, -1:, :] - cum) * dtc  # (B,nc,Q,H)
+        w = torch.exp((cum[:, :, -1:, :] - cum).float()) * dtc  # (B,nc,Q,H)
         Sc = torch.einsum("bcjhp,bcjn->bchpn", xc * w[..., None], Bc)
-        a_chunk = torch.exp(cum[:, :, -1, :])  # (B,nc,H)
+        a_chunk = torch.exp(cum[:, :, -1, :].float())  # (B,nc,H)
         h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
         h_prev = []
         for c in range(nc):  # inter-chunk recurrence
             h_prev.append(h)
             h = h * a_chunk[:, c, :, None, None] + Sc[:, c]
         h_in = torch.stack(h_prev, dim=1)  # (B,nc,H,P,N): state entering each chunk
-        y_off = torch.einsum("bcin,bchpn->bcihp", Cc, h_in) * torch.exp(cum)[..., None]
+        y_off = torch.einsum("bcin,bchpn->bcihp", Cc, h_in) * torch.exp(cum.float())[..., None]
         y = (y_diag + y_off).reshape(B, nc * Q, H, P)[:, :S]
     return y.to(x.dtype), h
 

@@ -135,12 +135,13 @@ def test_decode_kernel_at_split_edges(dtype, G, D):
 SSD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
 
 
-def _ssd_check(dtype, B, S, H=80, P=64, N=128, pad=None):
-    """The SSD wrapper on the card against its plain version; ``pad``: the
-    widths of left padding of rows 0 and B - 1 (a prefill bucket's mask)."""
+def _ssd_check(dtype, B, S, H=80, P=64, N=128, pad=None, dt_shift=-4.0):
+    """The SSD wrapper on the card against its plain version; ``pad``: each
+    row's width of left padding (a prefill bucket's mask); dt =
+    softplus(randn + dt_shift): ~0.02 at -4, ~0.7 at 0."""
     dev = _card()
-    r = np.random.default_rng(6 + S + H)
-    dt = torch.from_numpy(np.log1p(np.exp(r.standard_normal((B, S, H)) - 4.0))
+    r = np.random.default_rng(6)
+    dt = torch.from_numpy(np.log1p(np.exp(r.standard_normal((B, S, H)) + dt_shift))
                           .astype(np.float32)).to(dev)
     A = -torch.exp(torch.linspace(0.0, float(np.log(16.0)), H, device=dev))
     x = _randn(7, (B, S, H, P), dtype, dev)
@@ -148,8 +149,8 @@ def _ssd_check(dtype, B, S, H=80, P=64, N=128, pad=None):
     mask = None
     if pad is not None:
         mask = torch.ones(B, S, dtype=torch.bool, device=dev)
-        mask[0, :pad[0]] = False
-        mask[B - 1, :pad[1]] = False
+        for row, width in enumerate(pad):
+            mask[row, :width] = False
     before = smod.ssd_scan.launches
     y, h = smod.ssd_scan(x, dt * A, dt, Bm, Cm, mask=mask, chunk=256)
     assert smod.ssd_scan.launches == before + 1  # one per call, whatever the route launches
@@ -159,16 +160,33 @@ def _ssd_check(dtype, B, S, H=80, P=64, N=128, pad=None):
     torch.testing.assert_close(h, rh, atol=SSD_TOL["float32"], rtol=SSD_TOL["float32"])
 
 
+def _edge_pad(B, S):
+    """Row 0 left-padded by S // 3 and the last row by S // 2."""
+    return tuple(S // 2 if row == B - 1 else S // 3 if row == 0 else 0 for row in range(B))
+
+
+# the scheduled serve's SSD calls: (B, S, every row's left padding), the
+# 96- and 200-token prompts in their pow2 buckets of 128 and 256
+SSD_SERVE = ((1, 64, 0), (2, 256, 56), (2, 512, 0), (4, 128, 32))
+SSD_CASES = (
+    # one chunk shorter than 256, a tail chunk with row 0 left-padded, four full chunks
+    [(1, 64, None, -4.0), (2, 200, (57, 0), -4.0), (1, 1024, None, -4.0)]
+    # S on and beside the 64-position tiles and the 256-position chunk
+    + [(B, S, pad, -4.0) for B in (1, 8) for S in (1, 63, 64, 65, 200, 255, 256, 257, 1024)
+       for pad in ((None, _edge_pad(B, S)) if S > 1 else (None,))]
+    # the serve's own shapes and masks, at dt ~0.02 and ~0.7
+    + [(B, S, (p,) * B, shift) for B, S, p in SSD_SERVE for shift in (-4.0, 0.0)]
+    + [(8, 512, None, 0.0), (2, 300, (100, 7), 0.0)])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B", [1, 8])
-@pytest.mark.parametrize("S,masked", [(S, m) for S in (1, 63, 64, 65, 200, 255, 256, 257, 1024)
-                                      for m in (False, True) if S > 1 or not m])
-def test_ssd_scan_kernel_matches_plain_on_card(dtype, B, S, masked):
+@pytest.mark.parametrize("B,S,pad,dt_shift", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain_on_card(dtype, B, S, pad, dt_shift):
     """mamba2-2.7b heads (H 80, P 64, N 128, chunk 256) at S on and beside
     the 64-position tiles and the 256-position chunk, with and without
-    left-padded rows."""
-    _ssd_check(dtype, B, S, pad=(S // 3, S // 2) if masked else None)
+    left-padded rows, and at the scheduled serve's (B, S) and masks."""
+    _ssd_check(dtype, B, S, pad=pad, dt_shift=dt_shift)
 
 
 @pytest.mark.gpu
