@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases kernels,scheduled  # + the scheduled serve
     python3 chip_smoke.py --phases profile  # a profiled, warm serve (not in the default run)
     python3 chip_smoke.py --phases profile_scheduled  # the same for the scheduled serve
+    python3 chip_smoke.py --phases kernels,spec  # the kernels and the speculative serves
 
 Phases:
   1. device     the card's name and count, its power limit from nvidia-smi,
@@ -24,16 +25,28 @@ Phases:
                 three kernels must have launched there. Its joules are the
                 device simulator's mobile-SoC predictions, not the card's.
                 It records the (B, S) of every SSD scan call.
-  6. times      CUDA-event device times of each kernel, its plain version
+  6. spec       speculative decoding through the port's engine API: a
+                2-layer fp32 spec-vs-plain run per model (token-identical),
+                then full depth in bf16: tinyllama-1.1b with its truncated
+                self-draft under the AdaOper scheduler (``run_trace`` and
+                ``run_all``, greedy and at temperature 0.8) and gemma2-2b
+                with a random 1-layer draft under FIFO, each beside the same
+                engine without a draft; tokens identical to it, or apart
+                only from a near-tie of its logits (printed)
+  7. times      CUDA-event device times of each kernel, its plain version
                 and one PyTorch library call (a yardstick only), beside the
                 bound; for the attention kernels and the library call also
                 the wall time per call back to back (host enqueue included);
-                the SSD scan also at the scheduled serve's (B, S)
-                (``SSD_SERVE``, and any other this run's scheduled phase gave it)
+                flash also at the verify's shapes (T query rows per slot
+                against the cache); the SSD scan also at the scheduled
+                serve's (B, S) (``SSD_SERVE``, and any other this run's
+                scheduled phase gave it)
   profile       (only when asked for) the serve phase's run again, warm:
                 its untraced wall time, then under torch.profiler the device
                 time by kernel and the device's idle share of the wall time
   profile_scheduled  (only when asked for) the same for the scheduled phase
+  profile_spec  (only when asked for) the same for the spec phase's
+                scheduled tinyllama-1.1b engine with its draft (``run_all``)
 
 Each serving phase sets every kernel's launch count to 0 just before it
 drives its path and reads the counts just after.
@@ -56,8 +69,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("device", "kernels", "parity", "serve", "scheduled", "times")
-EXTRA = ("profile", "profile_scheduled")  # run only when asked for
+PHASES = ("device", "kernels", "parity", "serve", "scheduled", "spec", "times")
+EXTRA = ("profile", "profile_scheduled", "profile_spec")  # run only when asked for
 SERVE = dict(names=("tinyllama-1.1b", "gemma2-2b"), requests=8, prompt_lens=(64, 128, 256, 512),
              max_new=16, max_slots=8, max_len=1024, seed=0, device="cuda", full=True,
              scheduler=False)
@@ -87,6 +100,14 @@ MAMBA = dict(H=80, P=64, N=128, chunk=256)     # mamba2-2.7b SSD heads
 # 96- and 200-token prompts in their pow2 buckets of 128 and 256
 SSD_SERVE = ((1, 64, 0), (2, 256, 56), (2, 512, 0), (4, 128, 32))
 DECODE_POS = (0, 1, 63, 64, 500, 1023, 2046, 2047)
+# the speculative serves: 8 requests per engine at the serve's shapes; the
+# target verifies T = k + 1 <= 5 positions per slot (SpecConfig.k_max 4)
+SPEC = dict(requests=8, prompt_lens=(64, 128, 256, 512), max_new=16, max_slots=8,
+            max_len=1024, seed=0)
+VERIFY_T = (2, 3, 5, 16)
+# the verify's q_offset per slot in the times phase: the serve's prompt
+# lengths 8 tokens into their generation
+VERIFY_POS = (72, 136, 264, 520, 136, 264, 520, 72)
 # the kernels line's source is the bf16 route's, whose times it carries;
 # the fp32 routes (exact fp32 for the parity checks) are
 # csrc/flash_attention.cu and csrc/ssd_scan.cu
@@ -152,6 +173,23 @@ def decode_bound(pos, Smax, H, Hkv, D, window, dtype_name, elem):
     kept = sum(kept_keys(p, p + 1, Smax, False, window) for p in pos)
     nbytes = elem * (kept * Hkv * 2 * D + 2 * len(pos) * H * D)
     return bound(4 * H * D * kept, nbytes, dtype_name)
+
+
+def verify_offsets(Smax, T):
+    """Per-row q_offset of a speculative verify over 8 slots: 0, 63, 64,
+    500, Smax - T (the last position that fits) and Smax - 2 (q_offset + T
+    past the cache), and two more inside it."""
+    return [0, 63, 64, 500, Smax - T, Smax - 2, 127, Smax // 2 + 1]
+
+
+def verify_bound(offs, T, Smax, H, Hkv, D, window, dtype_name, elem):
+    """Flash at a verify's shape: the (query, key) pairs the causal mask
+    keeps; q and o once, and K and V of the keys some query of the row
+    keeps (the rest of the cache is never needed)."""
+    pairs = sum(kept_keys(o + t, Smax, Smax, True, window) for o in offs for t in range(T))
+    keys = sum(min(Smax, o + T) - (max(0, o - window + 1) if window else 0) for o in offs)
+    nbytes = elem * (2 * len(offs) * T * H * D + 2 * keys * Hkv * D)
+    return bound(4 * H * D * pairs, nbytes, dtype_name)
 
 
 def ssd_inputs(torch, gen, B, S, dtype, H=MAMBA["H"], P=MAMBA["P"], N=MAMBA["N"],
@@ -253,6 +291,7 @@ def phase_kernels(torch, report):
     from repro_torch.kernels import ssd_scan as smod
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}}
+    verify_errs = {}
     misses = []
 
     def compare(kernel, case, dtype, out, ref, tols=TOL):
@@ -289,6 +328,11 @@ def phase_kernels(torch, report):
                         dtype, out, ref)
         for case, out, ref in flash_edge_cases(torch, gen, fmod, dtype):
             compare("flash_attention", f"edge {case} {dtype}", dtype, out, ref)
+        for case, out, ref in flash_verify_cases(torch, gen, fmod, dtype):
+            compare("flash_attention", f"verify {case} {dtype}", dtype, out, ref)
+            key = str(dtype).split(".")[-1]
+            verify_errs[key] = max(verify_errs.get(key, 0.0),
+                                   float((out.float() - ref.float()).abs().max()))
         for case, out, ref in decode_edge_cases(torch, gen, dmod, dtype):
             compare("decode_attention", f"edge {case} {dtype}", dtype, out, ref)
         for case, (y, h), (ry, rh) in ssd_edge_cases(torch, gen, smod, dtype):
@@ -297,6 +341,7 @@ def phase_kernels(torch, report):
     torch.cuda.synchronize()
     report["errors"] = errs
     log("kernel vs plain, max abs err:", json.dumps(errs))
+    log("flash at verify shapes, max abs err:", json.dumps(verify_errs))
     if misses:
         raise SmokeFailure("kernel disagrees with its plain version:\n  " + "\n  ".join(misses))
 
@@ -323,6 +368,23 @@ def flash_edge_cases(torch, gen, fmod, dtype):
     for G in (1, 2, 4, 8):
         yield run(f"G={G}", 2, 130, 130, 2 * G, 2, 128)
     yield run("Dk 64 Dv 32", 2, 130, 130, 4, 2, 64, Dv=32)
+
+
+def flash_verify_cases(torch, gen, fmod, dtype):
+    """(case, kernel output, plain output) at the speculative verify's
+    shapes: 8 slots of T query rows against the whole cache (Smax 1024 and
+    1000) at per-row offsets (``verify_offsets``), kv_len None and causal,
+    random K/V in every cache row (the stale entries of rejected drafts);
+    tinyllama's heads, and gemma2's with softcap 50 and window 4096."""
+    for name, hd, window in (("tinyllama", TINY, None), ("gemma2", GEMMA, 4096)):
+        for Smax in (1024, 1000):
+            for T in VERIFY_T:
+                q, _, _ = qkv(torch, gen, 8, T, 1, hd["H"], hd["Hkv"], hd["D"], dtype)
+                _, k, v = qkv(torch, gen, 8, 1, Smax, hd["H"], hd["Hkv"], hd["D"], dtype)
+                offs = torch.tensor(verify_offsets(Smax, T), dtype=torch.int32, device="cuda")
+                kw = dict(causal=True, window=window, softcap=hd["softcap"], q_offset=offs)
+                yield (f"{name} T={T} Smax={Smax}", fmod.flash_attention(q, k, v, **kw),
+                       fmod.flash_attention_plain(q, k, v, **kw))
 
 
 def decode_edge_cases(torch, gen, dmod, dtype):
@@ -435,6 +497,27 @@ def phase_times(torch, report):
                              dtype="bfloat16", ms=ms, plain_ms=plain, library_ms=lib,
                              bound_ms=b_ms, bound_by=b_by,
                              call_ms=call_ms(torch, lambda: dmod.decode_attention(q, k, v, **kw)),
+                             library_call_ms=None if lib is None else call_ms(
+                                 torch, lambda: sdpa(q, k, v, attn_mask=mask))))
+    for name, hd in (("tinyllama", TINY), ("gemma2", GEMMA)):
+        for T in (2, 5):
+            B, Smax = len(VERIFY_POS), 1024
+            pos = torch.tensor(VERIFY_POS, dtype=torch.int32, device="cuda")
+            q, _, _ = qkv(torch, gen, B, T, 1, hd["H"], hd["Hkv"], hd["D"], bf16)
+            _, k, v = qkv(torch, gen, B, 1, Smax, hd["H"], hd["Hkv"], hd["D"], bf16)
+            kw = dict(causal=True, softcap=hd["softcap"], q_offset=pos)
+            qpos = pos[:, None] + torch.arange(T, device="cuda")  # (B, T)
+            mask = (torch.arange(Smax, device="cuda") <= qpos[..., None])[:, None]  # (B,1,T,Smax)
+            ms = time_ms(torch, lambda: fmod.flash_attention(q, k, v, **kw), flush)
+            plain = time_ms(torch, lambda: fmod.flash_attention_plain(q, k, v, **kw), flush)
+            lib = (None if hd["softcap"] else
+                   time_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask), flush))
+            b_ms, b_by = verify_bound(VERIFY_POS, T, Smax, hd["H"], hd["Hkv"], hd["D"], None,
+                                      "bfloat16", 2)
+            rows.append(dict(kernel="flash_attention", model=name, B=B, S=Smax, T=T,
+                             shape="verify", dtype="bfloat16", ms=ms, plain_ms=plain,
+                             library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                             call_ms=call_ms(torch, lambda: fmod.flash_attention(q, k, v, **kw)),
                              library_call_ms=None if lib is None else call_ms(
                                  torch, lambda: sdpa(q, k, v, attn_mask=mask))))
     from repro_torch.kernels import ssd_scan as smod
@@ -597,8 +680,13 @@ def drive(fn, **kw):
 
 
 def attention_launches_expected(eng):
-    attn = [w for w in eng.workers.values() if "ssd" not in w.cfg.layer_kinds()]
-    return {"flash_attention": sum(w.cfg.num_layers * w.prefill_calls for w in attn),
+    """Per attention layer: flash once for each prefill and each
+    multi-position pass (the verify, a draft's catch-up of Tc > 1 tokens),
+    decode once for each single-token pass; draft workers included."""
+    workers = list(eng.workers.values()) + [s.worker for s in eng.spec.values()]
+    attn = [w for w in workers if "ssd" not in w.cfg.layer_kinds()]
+    return {"flash_attention": sum(w.cfg.num_layers * (w.prefill_calls + w.verify_calls)
+                                   for w in attn),
             "decode_attention": sum(w.cfg.num_layers * w.decode_calls for w in attn)}
 
 
@@ -680,6 +768,240 @@ def phase_scheduled(torch, report):
         raise SmokeFailure(f"scheduled: the ledger lacks events {missing}")
 
 
+def spec_requests(cfg, n, prompt_lens, max_new, seed):
+    """(uid, prompt, max_new) of ``n`` requests, prompt lengths drawn from
+    ``prompt_lens``; each run makes its own ``Request`` objects of them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(i, rng.integers(1, cfg.vocab_size, int(rng.choice(prompt_lens)), dtype=np.int32),
+             max_new) for i in range(n)]
+
+
+def spec_engine(cfg, params, draft, calib_cfgs, max_slots, max_len):
+    """One engine serving ``cfg`` (with ``draft`` or without), under the
+    AdaOper scheduler calibrated on ``calib_cfgs`` (the target's and the
+    draft's graphs for both arms, so both price the target alike) or FIFO
+    when ``calib_cfgs`` is None."""
+    from repro_torch.launch.serve import make_scheduler
+    from repro_torch.serving.engine import ServingEngine
+    sched = (None if calib_cfgs is None else
+             make_scheduler(calib_cfgs, max(SPEC["prompt_lens"]), SPEC["max_new"], "moderate",
+                            SPEC["seed"]))
+    eng = ServingEngine(scheduler=sched, max_slots=max_slots)
+    eng.add_model(cfg.name, cfg, params, max_len=max_len, draft=draft)
+    return eng
+
+
+def spec_run(torch, eng, reqs, trace, temperature):
+    """Serve ``reqs`` on ``eng``: a ``run_trace`` with every arrival at t = 0
+    or ``run_all``, with the kernels' launch counts set to 0 just before.
+    Returns (responses, launches, wall s, peak device bytes)."""
+    from repro_torch.serving.slots import Request
+    name = next(iter(eng.workers))
+    items = [Request(uid, p, n) for uid, p, n in reqs]
+
+    def go():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if trace:
+            out = eng.run_trace([(0.0, name, r) for r in items], temperature=temperature)
+        else:
+            for r in items:
+                eng.submit(name, r)
+            out = eng.run_all(temperature=temperature)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    (out, wall, peak), launches = drive(go)
+    return out, launches, wall, peak
+
+
+def decision_gaps(torch, rows, keys, idx, temperature):
+    """Per row of ``rows`` (n, V) logits: the top-2 gap of the scores a
+    token is decided on (the logits; at temperature > 0 the logits over the
+    temperature plus the Gumbel noise of token ``idx`` of stream ``key``)
+    and the largest |logit| (over the temperature)."""
+    from repro_torch.serving import sampling
+    rows = rows.double()
+    scores = rows
+    if temperature > 0.0:
+        rows = rows / temperature
+        noise = torch.stack([sampling._noise(k, i, rows.shape[-1]) for k, i in zip(keys, idx)])
+        scores = rows + noise.to(rows.device)
+    top = scores.topk(2, dim=-1).values
+    return list(zip((top[:, 0] - top[:, 1]).tolist(), rows.abs().amax(dim=-1).tolist()))
+
+
+def record_gaps(torch, eng, reqs, temperature):
+    """(uid, token index) -> ``decision_gaps`` of the engine's plain decode
+    steps, recorded as they run; a first token (decided on the prefill's
+    logits) is recomputed from a prefill of its prompt when asked for."""
+    name = next(iter(eng.workers))
+    w = eng.workers[name]
+    plain_pool = w.decode_pool
+    prompts = {uid: p for uid, p, _ in reqs}
+
+    class Gaps(dict):
+        def __missing__(self, key):
+            uid, i = key
+            if i != 0:
+                return None, None
+            lg, _ = w.prefill_one(prompts[uid])
+            return decision_gaps(torch, lg, [eng._stream_key(name, uid)], [0], temperature)[0]
+
+    gaps = Gaps()
+
+    def recorded(cache, tokens, pos):
+        nt, logits, cache = plain_pool(cache, tokens, pos)
+        active = list(eng.pools[name].active.values())
+        for s, g in zip(active, decision_gaps(torch, logits[[s.slot for s in active]],
+                                              [s.rng for s in active],
+                                              [len(s.tokens) for s in active], temperature)):
+            gaps[(s.req.uid, len(s.tokens))] = g
+        return nt, logits, cache
+
+    w.decode_pool = recorded
+    return gaps
+
+
+def token_check(label, spec_out, plain_out, gaps, exact):
+    """Spec tokens against the plain run's per uid: identical, or (unless
+    ``exact``) apart only from the first divergence on, where the plain
+    run's decision had a top-2 gap within MODEL_TOL_BF16 of its largest
+    |logit| (a near-tie that the verify's and the step's rounding may
+    split). Returns the number of uids that diverged."""
+    spec = {r.uid: [int(t) for t in r.tokens] for r in spec_out}
+    plain = {r.uid: [int(t) for t in r.tokens] for r in plain_out}
+    if sorted(spec) != sorted(plain):
+        raise SmokeFailure(f"{label}: spec and plain runs served other uids")
+    diverged = 0
+    for uid in sorted(plain):
+        a, b = spec[uid], plain[uid]
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        diverged += 1
+        gap, scale = gaps[(uid, i)]
+        log(f"{label}: uid {uid} diverges at token {i} ({b[i]} plain, {a[i]} spec); "
+            f"plain top-2 gap {gap} at largest |logit| {scale}")
+        if exact or gap is None or gap > MODEL_TOL_BF16 * scale:
+            raise SmokeFailure(f"{label}: uid {uid} diverges at token {i} "
+                               f"(plain top-2 gap {gap}, largest |logit| {scale})")
+    log(f"{label}: tokens identical for {len(plain) - diverged} of {len(plain)} uids")
+    return diverged
+
+
+def spec_summary(eng, out, launches, wall, peak, trace):
+    """The run's speculation counters and decisions, committed tokens per
+    target pass, virtual makespan (trace runs), wall and memory."""
+    c = eng.ledger.counters
+    w = eng.workers[next(iter(eng.workers))]
+    # decode-phase tokens (the first of each request comes from its
+    # prefill) over the target's passes over the pool and, as
+    # benchmarks/bench_spec.py counts them from the ledger (scheduled
+    # runs), over its per-slot steps: plain decode makes exactly 1 per step
+    dec_tokens = sum(len(r.tokens) for r in out) - len(out)
+    passes = w.decode_calls + w.verify_calls
+    slot_steps = sum(e.n_active for e in eng.ledger.events
+                     if e.kind in ("decode", "spec_verify"))
+    return {
+        "requests": len(out), "tokens": dec_tokens + len(out),
+        "counters": {k: c.get(k, 0) for k in ("spec_rounds", "spec_drafted", "spec_accepted",
+                                              "spec_fallbacks")},
+        "spec_log": dict(collections.Counter(d["reason"] for d in eng.admission.spec_log)),
+        "tokens_per_pool_pass": dec_tokens / passes if passes else None,
+        "tokens_per_target_step": dec_tokens / slot_steps if slot_steps else None,
+        "target_passes": {"decode": w.decode_calls, "verify": w.verify_calls},
+        "makespan_s": max(r.latency_s for r in out) if trace else None,
+        "wall_s": wall, "peak_mem_bytes": peak, "launches": launches}
+
+
+def spec_checks(label, eng, out, launches, n, max_new):
+    check_responses(label, eng, out, n, max_new)
+    want = dict(attention_launches_expected(eng), ssd_scan=0)
+    w = eng.workers[next(iter(eng.workers))]
+    if launches != want:
+        raise SmokeFailure(f"{label}: kernel launches {launches}, expected {want}")
+    if eng.spec and not (w.verify_calls > 0 and launches["flash_attention"]
+                         > w.cfg.num_layers * w.prefill_calls):
+        raise SmokeFailure(f"{label}: the target never verified through the flash kernel")
+    if eng.spec and not eng.ledger.counters.get("spec_rounds"):
+        raise SmokeFailure(f"{label}: no speculative round ran")
+
+
+def spec_pair(torch, report, label, cfg, params, draft, calib, reqs, trace, temperature,
+              max_slots, max_len, exact=False):
+    """The same requests through the engine without a draft (its decisions'
+    gaps recorded) and with it; checks each run and the tokens. Returns
+    (spec engine, summaries)."""
+    plain = spec_engine(cfg, params, None, calib, max_slots, max_len)
+    gaps = record_gaps(torch, plain, reqs, temperature)
+    p_out, p_launch, p_wall, p_peak = spec_run(torch, plain, reqs, trace, temperature)
+    spec_checks(f"{label} plain", plain, p_out, p_launch, len(reqs), reqs[0][2])
+    eng = spec_engine(cfg, params, draft, calib, max_slots, max_len)
+    out, launches, wall, peak = spec_run(torch, eng, reqs, trace, temperature)
+    spec_checks(f"{label} spec", eng, out, launches, len(reqs), reqs[0][2])
+    diverged = token_check(label, out, p_out, gaps, exact)
+    res = {"spec": spec_summary(eng, out, launches, wall, peak, trace),
+           "plain": spec_summary(plain, p_out, p_launch, p_wall, p_peak, trace),
+           "uids_diverged": diverged}
+    log(f"{label}: {json.dumps(res)}")
+    report.setdefault("spec", {})[label] = res
+    return eng, res
+
+
+def phase_spec(torch, report):
+    """Speculative decoding through the port's engine API, as
+    benchmarks/bench_spec.py builds its engines."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.speculative import truncated_draft
+    # 2 layers at full width, fp32, random 1-layer drafts: exact. tinyllama's
+    # draft rejects most proposals, so its verifies run over the stale K/V
+    # of rolled-back rounds; random-init gemma2 (tied embeddings) and its
+    # draft both mostly repeat the last token, so they agree
+    for arch in ("tinyllama-1.1b", "gemma2-2b"):
+        cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32",
+                                  param_dtype="float32")
+        params = init_params(cfg, seed=0, device="cuda")
+        dcfg = dataclasses.replace(cfg, name=f"{cfg.name}-draft1", num_layers=1)
+        dparams = init_params(dcfg, seed=7, device="cuda")
+        reqs = spec_requests(cfg, 4, (37, 64, 100), 12, SPEC["seed"])
+        label = f"parity {arch} fp32 2 layers"
+        _, res = spec_pair(torch, report, label, cfg, params, (dcfg, dparams), None, reqs, False,
+                           0.0, 4, 256, exact=True)
+        c = res["spec"]["counters"]
+        if arch == "tinyllama-1.1b" and c["spec_accepted"] * 2 > c["spec_drafted"]:
+            raise SmokeFailure(f"{label}: the random draft was not mostly rejected ({c})")
+    n, lens, max_new, slots, max_len = (SPEC[k] for k in ("requests", "prompt_lens", "max_new",
+                                                          "max_slots", "max_len"))
+    cfg = get_config("tinyllama-1.1b")
+    dcfg, dparams, tparams = truncated_draft(cfg, init_params(cfg, seed=SPEC["seed"],
+                                                              device="cuda"))
+    reqs = spec_requests(cfg, n, lens, max_new, SPEC["seed"])
+    calib = [cfg, dcfg]
+    eng, res = spec_pair(torch, report, "tinyllama scheduled trace", cfg, tparams,
+                         (dcfg, dparams), calib, reqs, True, 0.0, slots, max_len)
+    report["launches_spec"] = res["spec"]["launches"]
+    spec_pair(torch, report, "tinyllama scheduled run_all", cfg, tparams, (dcfg, dparams), calib,
+              reqs, False, 0.0, slots, max_len)
+    spec_pair(torch, report, "tinyllama scheduled trace sampled", cfg, tparams, (dcfg, dparams),
+              calib, reqs, True, 0.8, slots, max_len)
+    del eng, tparams, dparams
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma2-2b")
+    dcfg = dataclasses.replace(cfg, name=f"{cfg.name}-draft1", num_layers=1)
+    params = init_params(cfg, seed=SPEC["seed"], device="cuda")
+    dparams = init_params(dcfg, seed=7, device="cuda")
+    _, res = spec_pair(torch, report, "gemma2 fifo random draft", cfg, params, (dcfg, dparams),
+                       None, spec_requests(cfg, n, lens, max_new, SPEC["seed"]), False, 0.0,
+                       slots, max_len)
+    c = res["spec"]["counters"]
+    if c["spec_accepted"] >= c["spec_drafted"]:
+        raise SmokeFailure(f"gemma2 fifo random draft: no draft was rejected ({c})")
+
+
 def engine_for(kw):
     """The engine ``serve(**kw)`` would build, not yet run."""
     from repro_torch.launch.serve import build_engine, make_scheduler, model_configs
@@ -692,20 +1014,44 @@ def engine_for(kw):
 
 
 def phase_profile(torch, report):
-    profile_workload(torch, report, "profile", SERVE)
+    profile_workload(torch, report, "profile", lambda: engine_for(SERVE))
 
 
 def phase_profile_scheduled(torch, report):
-    profile_workload(torch, report, "profile_scheduled", SCHEDULED)
+    profile_workload(torch, report, "profile_scheduled", lambda: engine_for(SCHEDULED))
 
 
-def profile_workload(torch, report, key, kw):
+def phase_profile_spec(torch, report):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.slots import Request
+    from repro_torch.serving.speculative import truncated_draft
+    cfg = get_config("tinyllama-1.1b")
+    dcfg, dparams, tparams = truncated_draft(cfg, init_params(cfg, seed=SPEC["seed"],
+                                                              device="cuda"))
+    reqs = spec_requests(cfg, SPEC["requests"], SPEC["prompt_lens"], SPEC["max_new"],
+                         SPEC["seed"])
+
+    def build():
+        eng = spec_engine(cfg, tparams, (dcfg, dparams), [cfg, dcfg], SPEC["max_slots"],
+                          SPEC["max_len"])
+        for uid, p, n in reqs:
+            eng.submit(cfg.name, Request(uid, p, n))
+        return eng
+    profile_workload(torch, report, "profile_spec", build)
+
+
+def profile_workload(torch, report, key, build):
+    """``build()`` gives an engine with its requests queued, not yet run."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.launch.serve import serve
-    serve(**kw)  # warm-up: cuBLAS handles, the allocator's pools
-    warm = serve(**kw)[2]["wall_s"]  # the same run, warm and untraced
-    eng = engine_for(kw)
+    build().run_all()  # warm-up: cuBLAS handles, the allocator's pools
+    eng = build()  # the same run, warm and untraced
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_all()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    eng = build()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -754,9 +1100,11 @@ def profile_workload(torch, report, key, kw):
 
 def kernels_line(report):
     rows = {r["kernel"]: r for r in report.get("timings", [])
-            if r["model"] in ("tinyllama", "mamba2") and r["B"] == 8 and r["S"] in (512, 2048)}
+            if r["model"] in ("tinyllama", "mamba2") and r["B"] == 8 and r["S"] in (512, 2048)
+            and "shape" not in r}
     paths = {"serve": report.get("launches", {}),
-             "scheduled": report.get("launches_scheduled", {})}
+             "scheduled": report.get("launches_scheduled", {}),
+             "spec": report.get("launches_spec", {})}
     out = []
     for name, (src, replaces) in SOURCES.items():
         t = rows.get(name, {})
@@ -791,7 +1139,8 @@ def main(argv=None):
     report = {}
     fns = {"device": phase_device, "kernels": phase_kernels, "times": phase_times,
            "parity": phase_parity, "serve": phase_serve, "scheduled": phase_scheduled,
-           "profile": phase_profile, "profile_scheduled": phase_profile_scheduled}
+           "spec": phase_spec, "profile": phase_profile,
+           "profile_scheduled": phase_profile_scheduled, "profile_spec": phase_profile_spec}
     t_start = time.perf_counter()
     try:
         for ph in ("device",) + tuple(p for p in PHASES + EXTRA

@@ -1,7 +1,8 @@
 """Model configs, the registry of ported archs, and reduced variants.
 
-A copy of ``repro.configs.base`` (``ModelConfig``, ``get_config``,
-``reduced``) kept here so the port imports nothing of the JAX package.
+A copy of ``repro.configs.base`` (``ModelConfig`` with its parameter
+counts, ``get_config``, ``reduced``) kept here so the port imports nothing
+of the JAX package.
 ``get_config`` knows only the archs the port can serve; the rest of the
 JAX zoo arrives slice by slice (see ROADMAP.md).
 """
@@ -119,6 +120,64 @@ class ModelConfig:
             else:
                 out.append("none")
         return tuple(out)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks), as
+        ``repro.configs.base.ModelConfig.param_count`` counts it."""
+        n = self.padded_vocab * self.d_model
+        if not self.tie_embeddings:
+            n += self.padded_vocab * self.d_model
+        kinds, mlps = self.layer_kinds(), self.mlp_kinds()
+        for k, m in zip(kinds, mlps):
+            if k in ("attn", "local", "global"):
+                if self.use_mla:
+                    r = self.kv_lora_rank
+                    qk = self.qk_nope_dim + self.qk_rope_dim
+                    n += self.d_model * (self.num_heads * qk)  # q proj
+                    n += self.d_model * (r + self.qk_rope_dim)  # kv down
+                    n += r * self.num_heads * (self.qk_nope_dim + self.v_head_dim)
+                    n += self.num_heads * self.v_head_dim * self.d_model
+                else:
+                    n += self.d_model * (self.q_dim + 2 * self.kv_dim)
+                    n += self.q_dim * self.d_model
+            elif k in ("mamba", "ssd"):
+                di, ds = self.d_inner, self.ssm_d_state
+                if k == "ssd":
+                    ng = 1
+                    n += self.d_model * (2 * di + 2 * ng * ds + self.ssm_num_heads)
+                else:
+                    n += self.d_model * 2 * di + di * 2 * ds + di * (di // 16) * 2
+                n += di * self.d_model
+            if m == "dense":
+                n += 3 * self.d_model * self.d_ff
+            elif m == "moe":
+                n += (self.num_experts + self.num_shared_experts) * 3 * self.d_model * self.moe_d_ff
+                n += self.d_model * self.num_experts
+            n += 2 * self.d_model  # norms
+        if self.is_encoder_decoder:
+            # encoder blocks: self-attn + mlp; decoder already counted above,
+            # add cross-attention per decoder layer
+            enc = self.num_encoder_layers * (
+                self.d_model * (self.q_dim + 2 * self.kv_dim)
+                + self.q_dim * self.d_model
+                + 3 * self.d_model * self.d_ff
+            )
+            xattn = self.num_layers * (
+                self.d_model * (self.q_dim + 2 * self.kv_dim) + self.q_dim * self.d_model
+            )
+            n += enc + xattn
+        return n
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE top-k instead of all experts); the
+        scheduler-less speculative round prices its draft with it."""
+        if self.num_experts == 0:
+            return self.param_count()
+        full = self.param_count()
+        moe_layers = sum(1 for m in self.mlp_kinds() if m == "moe")
+        all_e = moe_layers * self.num_experts * 3 * self.d_model * self.moe_d_ff
+        act_e = moe_layers * self.top_k * 3 * self.d_model * self.moe_d_ff
+        return full - all_e + act_e
 
 
 # the archs this slice of the port serves; the JAX registry lists the rest

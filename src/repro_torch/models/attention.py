@@ -106,22 +106,30 @@ def gqa_forward(p: GQA, x, cfg, *, window=None, impl=None):
 
 
 def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None):
-    """One-token decode. x (B,1,D); cache_k/v (B,Smax,Hkv,Dh), updated in
-    place (the JAX package donates the buffers instead).
+    """Decode against the cache. x (B,T,D); cache_k/v (B,Smax,Hkv,Dh),
+    updated in place (the JAX package donates the buffers instead).
 
-    ``pos`` is an int (position-synchronous batch) or a (B,) tensor of
-    per-row write positions (the continuous engine's ragged slot pool): each
-    row writes its K/V at its own position and attends with
+    ``pos`` is an int (position-synchronous batch, one token) or a (B,)
+    tensor of per-row write positions (the continuous engine's ragged slot
+    pool): each row writes its K/V at its own position and attends with
     kv_len = pos + 1. A row whose position is past the cache (a retired slot
     parked at ``max_len``) writes nothing, as JAX's ``mode="drop"`` scatter
-    does. Returns (out, (cache_k, cache_v))."""
+    does.
+
+    Speculative verify (a (B,) ``pos`` with T > 1): each row scores T
+    candidate positions pos..pos+T-1 in one forward, through the flash
+    kernel. K/V scatter at the (B,T) position grid, writes past the cache
+    dropped; the new queries attend causally with no kv_len. Stale entries
+    past a row's committed frontier (a rejected draft suffix of an earlier
+    round) sit at kpos > qpos, so the causal mask hides them until they are
+    overwritten. Returns (out, (cache_k, cache_v))."""
     B, T = x.shape[0], x.shape[1]
     pos = torch.as_tensor(pos, device=x.device)
-    if pos.dim() and T > 1:
-        raise NotImplementedError(
-            "multi-position (speculative verify) decode is not ported yet; "
-            "it is queued in ROADMAP.md")
     Smax = cache_k.shape[1]
+    if T > 1:
+        if not pos.dim():
+            raise ValueError("multi-position decode takes (B,) per-row positions")
+        return _verify(p, x, cfg, cache_k, cache_v, pos, window, impl)
     q, k, v = _project_qkv(p, x, cfg, pos.reshape(-1, 1).expand(B, 1))
     if pos.dim():  # ragged: per-slot positions
         bidx = torch.arange(B, device=x.device)
@@ -140,3 +148,25 @@ def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None)
     o = attend(q, cache_k, cache_v, causal=False, window=window,
                softcap=cfg.attn_softcap, q_offset=idx, kv_len=idx + 1, impl=impl)
     return p.wo(o.reshape(B, 1, cfg.q_dim)), (cache_k, cache_v)
+
+
+def _verify(p: GQA, x, cfg, cache_k, cache_v, pos, window, impl):
+    """The multi-position branch of ``gqa_decode``. One indexed write per
+    cache holds the whole (B,T) grid; a position past the cache takes the
+    index and value of its row's last position inside it, and a row with
+    none writes the cache's last entry back unchanged, so every repeated
+    index carries one value and the drop needs no host sync."""
+    B, T = x.shape[0], x.shape[1]
+    Smax = cache_k.shape[1]
+    ar = torch.arange(T, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, pos[:, None] + ar)
+    t_src = torch.minimum(ar, (Smax - 1 - pos).clamp(min=0)[:, None])  # (B,T)
+    rows = (pos[:, None] + t_src).long().clamp(max=Smax - 1)
+    live = (pos < Smax)[:, None, None, None]
+    bidx = torch.arange(B, device=x.device)[:, None]
+    for new, cache in ((k, cache_k), (v, cache_v)):
+        src = new[bidx, t_src].to(cache.dtype)
+        cache[bidx, rows] = torch.where(live, src, cache[bidx, rows])
+    o = attend(q, cache_k, cache_v, causal=True, window=window, softcap=cfg.attn_softcap,
+               q_offset=pos, kv_len=None, impl=impl)
+    return p.wo(o.reshape(B, T, cfg.q_dim)), (cache_k, cache_v)

@@ -141,7 +141,10 @@ def prefill(params: CausalLM, cfg, inputs, cache, ctx=ExecContext(), last_only=F
 
 def decode_step(params: CausalLM, cfg, token, cache, pos, ctx=ExecContext()):
     """token (B,1) ids; pos an int (position-synchronous batch) or a (B,)
-    tensor of per-row write positions (ragged continuous batching)."""
+    tensor of per-row write positions (ragged continuous batching). With
+    (B,) positions, token may be (B,T): row b feeds positions
+    pos[b]..pos[b]+T-1 (the speculative verify; attention stacks only) and
+    the logits are (B,T,V)."""
     x = embed_tokens(params.embedding, token, cfg).to(dtype_of(cfg.dtype))
     x = tfm.apply_stack(params.layers, cfg, x, ctx, "decode", cache, pos=pos)
     x = apply_norm(params.final_norm, x)

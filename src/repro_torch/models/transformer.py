@@ -9,7 +9,9 @@ graph small. PyTorch runs eagerly, so the port keeps the layers as one
 
 Modes: ``prefill`` (full causal forward writing mixer state into the cache
 at positions [0, S)) and ``decode`` (one token per row at ``pos`` against
-the cache). The cache is a dict of stacked tensors, layer axis first and
+the cache, or T > 1 tokens per row at pos..pos+T-1 for the speculative
+verify, attention stacks only: an SSM's state cannot roll back a rejected
+draft). The cache is a dict of stacked tensors, layer axis first and
 batch second, updated in place: ``k``/``v`` (layers, batch, max_len, kv
 heads, head dim) for attention stacks; ``conv`` (layers, batch, W-1,
 d_inner + 2N) in the activation dtype and ``ssm`` (layers, batch, heads,

@@ -6,8 +6,10 @@ token granularity); ``admit_requests`` / ``prefill_group`` are the engine's
 admission machinery: pull waiting requests into free slots while the policy
 approves, then prefill the approved set in bucketed same-shape batches.
 They operate *on* a ``ServingEngine`` so the engine module stays pure
-orchestration. Risk-aware pricing (the uncertainty layer) and speculative
-pricing wait (see ROADMAP.md).
+orchestration. ``AdmissionPolicy.spec_decision`` prices a speculative round
+against the plain step it replaces, and ``prefill_group`` warms an
+attached draft's cache beside the target's. Risk-aware pricing (the
+uncertainty layer) waits (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.telemetry import EnergyBreakdown
+from repro_torch.serving import planning, speculative
 from repro_torch.serving.robustness import reject_request
 from repro_torch.serving.scheduler import AdaOperScheduler
 from repro_torch.serving.slots import Request, Response, _ActiveSeq, _SlotPool
@@ -41,6 +44,9 @@ class AdmissionPolicy:
         self.slo_s = slo_s
         self.edp_slack = edp_slack
         self.log: List[dict] = []
+        # speculation pricing decisions, kept apart from the admission log
+        # so denial counts stay request-scoped
+        self.spec_log: List[dict] = []
         # engine-attached ledger: denials are counted at the source
         self.ledger = None
 
@@ -74,6 +80,28 @@ class AdmissionPolicy:
                          "n_active": n_active, "uid": uid})
         if self.ledger is not None and not admit:
             self.ledger.count("admission_denials")
+
+    def spec_decision(self, base: dict, draft: dict, k: int,
+                      alpha: float) -> Tuple[bool, str]:
+        """Price one speculative round against the plain step it replaces:
+        speculate only when the per-token EDP of the round (k draft steps +
+        one k+1-position verify, divided by the expected committed tokens)
+        beats the base step's per-token EDP. Verify latency amortises across
+        positions but verify energy does not
+        (``planning.SPEC_VERIFY_MARGINAL_*``), so a latency win can still
+        lose on EDP; those rounds fall back to the plain step. Both sides
+        are priced at the plans' point estimates."""
+        if self.scheduler is None:
+            return True, "no-scheduler"
+        lat_b, en_b = base["step_latency"], base["step_energy"]
+        lat_s, en_s = planning.spec_round_cost(lat_b, en_b, draft["step_latency"],
+                                               draft["step_energy"], k)
+        tau = planning.expected_tokens(alpha, k)
+        edp_spec = (lat_s / tau) * (en_s / (tau * base["batch"]))
+        edp_base = lat_b * (en_b / base["batch"])
+        if edp_spec <= edp_base * self.edp_slack:
+            return True, "spec-edp-wins"
+        return False, "spec-edp-loses"
 
 
 def ssm_prompt_bucketed(eng, w: ModelWorker) -> bool:
@@ -201,6 +229,12 @@ def prefill_group(eng, model: str, pool: _SlotPool,
         eng.scheduler.sim.drain(pp["energy"] * G / pp["batch"])
         eng.ledger.emit("prefill", pp["latency"], charge, t_s=eng._now(), model=model,
                         n_active=G)
+        eng._advance_vtime(pp["latency"])
+    spec = eng.spec.get(model)
+    if spec is not None:
+        # warm the draft cache for the admitted group (same prompts, the
+        # draft's own params) so verify rounds only catch up 1-2 tokens
+        speculative.prefill_draft(eng, model, spec, group, prompts, slots, G, plan_len)
     for seq, tok in zip(group, toks):
         seq.tokens.append(tok)
         if pp is not None:

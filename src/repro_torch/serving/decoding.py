@@ -1,12 +1,27 @@
-"""The engine's per-iteration decode step over a model's slot pool — the
-counterpart of ``repro.serving.decoding.plain_step``. Speculative rounds
-(``decode_round``) wait for the speculative slice (see ROADMAP.md)."""
+"""The engine's per-iteration decode round over a model's slot pool — the
+counterpart of ``repro.serving.decoding``. ``decode_round`` dispatches each
+iteration: a model registered with a draft (``add_model(draft=...)``) tries
+a speculative draft-verify round first (``serving.speculative``) and falls
+back to ``plain_step`` when speculation is declined or not worth it, so
+``draft=None`` runs exactly the plain step."""
 from __future__ import annotations
 
 from typing import List
 
 from repro_torch.core.telemetry import EnergyBreakdown
+from repro_torch.serving import speculative
 from repro_torch.serving.slots import Response, _SlotPool
+
+
+def decode_round(eng, model: str, pool: _SlotPool, out: List[Response],
+                 temperature: float, t0: float) -> None:
+    """One decode iteration for ``model``'s pool: a speculative round when a
+    draft is attached and the policy approves, else the plain ragged step."""
+    spec = eng.spec.get(model)
+    if spec is not None and speculative.step_round(eng, model, pool, spec, out,
+                                                   temperature, t0):
+        return
+    plain_step(eng, model, pool, out, temperature, t0)
 
 
 def plain_step(eng, model: str, pool: _SlotPool, out: List[Response],
@@ -14,7 +29,8 @@ def plain_step(eng, model: str, pool: _SlotPool, out: List[Response],
     """One single-token ragged decode step over the whole slot pool, charged
     once per iteration when the engine has a scheduler: the simulator steps
     by the plan's latency and drains what the resident requests are charged
-    (step_energy/batch each), and one ``decode`` event goes to the ledger."""
+    (step_energy/batch each), one ``decode`` event goes to the ledger and a
+    trace replay's virtual clock advances by the plan's latency."""
     w = eng.workers[model]
     next_tok, logits, pool.cache = w.decode_pool(pool.cache, pool.tokens, pool.pos)
     n_active = len(pool.active)
@@ -29,6 +45,7 @@ def plain_step(eng, model: str, pool: _SlotPool, out: List[Response],
             "decode", sp["step_latency"],
             EnergyBreakdown.from_total(step_energy * n_active / sp["batch"], sp["rails"]),
             t_s=t0, model=model, n_active=n_active)
+        eng._advance_vtime(sp["step_latency"])
     seqs = list(pool.active.values())
     if temperature > 0.0:
         rows = logits[[seq.slot for seq in seqs]]

@@ -6,10 +6,13 @@ co-execution level to the device simulator, runs the drift check once,
 preempts the lowest-priority decoding worker on a drift event, then steps
 each busy model at token granularity (``step_continuous``): degradation
 pass, energy-aware admission into the model's slot pool, batched prefill,
-one ragged decode step over the whole pool, retirement. ``run_all``
-repeats rounds until every queue drains. This module is orchestration
-only: the machinery lives in ``slots``, ``sampling``, ``workers``,
-``admission``, ``scheduler``, ``planning``, ``decoding`` and
+one decode round over the whole pool (a ragged single-token step, or a
+speculative draft-verify round for a model registered with a draft),
+retirement. ``run_all`` repeats rounds until every queue drains;
+``run_trace`` replays timed arrivals on a virtual clock that advances by
+the planner's predicted latencies. This module is orchestration only: the
+machinery lives in ``slots``, ``sampling``, ``workers``, ``admission``,
+``scheduler``, ``planning``, ``decoding``, ``speculative`` and
 ``robustness``.
 
 With a scheduler (``AdaOperScheduler``) every energy number goes to the
@@ -20,8 +23,7 @@ simulator's predictions for a mobile SoC (``core.simulator``), not the
 energy the serving device draws. ``scheduler=None`` is FIFO admission with
 an engine-private ledger of ``request`` events.
 
-Not ported yet (each raises; see ROADMAP.md): ``mode="bucketed"``,
-``run_trace`` and speculative drafts.
+Not ported yet (it raises; see ROADMAP.md): ``mode="bucketed"``.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import numpy as np
 
 from repro_torch.core.telemetry import EnergyLedger
 from repro_torch.serving import admission as adm
-from repro_torch.serving import decoding, planning, robustness, sampling
+from repro_torch.serving import decoding, planning, robustness, sampling, speculative
 from repro_torch.serving.admission import AdmissionPolicy
 from repro_torch.serving.scheduler import AdaOperScheduler
 from repro_torch.serving.slots import Request, Response, _ActiveSeq, _SlotPool
@@ -68,6 +70,9 @@ class ServingEngine:
         self.admission = AdmissionPolicy(scheduler, slo_s=slo_s)
         self.admission.ledger = self.ledger
         self.pools: Dict[str, _SlotPool] = {}
+        # speculative decoding state per target model; empty unless
+        # add_model was given a draft
+        self.spec: Dict[str, speculative.SpecState] = {}
         self.priorities: Dict[str, int] = {}
         self.preemptions: Dict[str, int] = {}
         self.drift_events = 0
@@ -79,34 +84,49 @@ class ServingEngine:
         self.max_retries = max_retries
         self.deadline_backoff = deadline_backoff
         self.shed_below_priority = shed_below_priority
+        # virtual clock for run_trace: None => wall time; a float advances
+        # by predicted prefill/decode latencies
+        self._vtime: Optional[float] = None
 
     def _now(self) -> float:
-        return time.time()
+        return self._vtime if self._vtime is not None else time.time()
+
+    def _advance_vtime(self, dt: float) -> None:
+        """Advance the virtual clock (no-op in wall mode) and mirror it to
+        the simulator so fault timestamps line up with the replay."""
+        if self._vtime is not None:
+            self._vtime += dt
+            if self.scheduler is not None:
+                self.scheduler.sim.now_s = self._vtime
+
+    def _stream_key(self, model: str, uid) -> int:
+        return sampling.stream_key(self.sampling_seed, model, uid)
 
     def _sample_batch(self, model: str, seqs: List[_ActiveSeq], logits,
                       temperature: float) -> List[int]:
         for seq in seqs:
             if seq.rng is None:
-                seq.rng = sampling.stream_key(self.sampling_seed, model, seq.req.uid)
+                seq.rng = self._stream_key(model, seq.req.uid)
         return sampling.sample_batch(seqs, logits, temperature)
 
     def add_model(self, name, cfg, params, max_len=512, ctx=ExecContext(),
-                  priority: int = 0, draft=None):
-        if draft is not None:
-            raise _not_ported("speculative decoding")
+                  priority: int = 0, draft=None, spec=None):
+        """``draft=(draft_cfg, draft_params)`` attaches a speculative-decoding
+        draft worker to this model (``spec`` is an optional
+        ``speculative.SpecConfig``); the default ``draft=None`` leaves every
+        decode the plain step."""
         self.workers[name] = ModelWorker(name, cfg, params, max_len, ctx)
         self.queues[name] = []
         self.stats[name] = []
         self.priorities[name] = priority
         self.preemptions[name] = 0
+        if draft is not None:
+            self.spec[name] = speculative.attach_draft(self, name, draft, spec)
 
     def submit(self, model: str, req: Request):
         if req.t_submit == 0.0:
             req.t_submit = self._now()
         self.queues[model].append(req)
-
-    def run_trace(self, arrivals, start_t: float = 0.0, temperature: float = 0.0):
-        raise _not_ported("trace-driven serving (run_trace)")
 
     # drift-scoped plan memoisation lives in repro_torch.serving.planning
 
@@ -152,7 +172,7 @@ class ServingEngine:
     def step_continuous(self, model: str, decode: bool = True, check_drift: bool = True,
                         temperature: float = 0.0) -> List[Response]:
         """One engine iteration for ``model``: degradation pass, admission,
-        one ragged decode step over the slot pool, retirement.
+        one decode round over the slot pool, retirement.
         ``decode=False`` (a preempted worker) holds the pool's state — no
         admitted request is dropped; ``check_drift=False`` is for drivers
         that already ran the round's drift check."""
@@ -164,7 +184,7 @@ class ServingEngine:
         t0 = self._now()
         n_admitted = adm.admit_requests(self, model, pool, out, temperature)
         if decode and pool.active:
-            decoding.plain_step(self, model, pool, out, temperature, t0)
+            decoding.decode_round(self, model, pool, out, temperature, t0)
         if n_admitted or pool.active or out:
             self.stats[model].append({
                 "mode": "continuous", "active": len(pool.active),
@@ -209,4 +229,48 @@ class ServingEngine:
                     self.scheduler.sim.set_coexec(1)
                 break
             self._serve_round(busy, out, temperature)
+        return out
+
+    def run_trace(self, arrivals, start_t: float = 0.0,
+                  temperature: float = 0.0) -> List[Response]:
+        """Trace-driven serving in *virtual* time: ``arrivals`` is an
+        iterable of ``(t_arrival_s, model_name, Request)`` (any order). The
+        clock starts at ``start_t`` and advances by the planner's
+        *predicted* prefill/decode latencies; idle gaps jump to the next
+        arrival while the simulator relaxes and drains at the leakage floor.
+        Latencies are deterministic simulated seconds measured from arrival
+        (queueing included). Requires a scheduler."""
+        if self.scheduler is None:
+            raise ValueError("run_trace requires a scheduler (the virtual clock "
+                             "advances by predicted step latencies)")
+        items = sorted(((float(t), m, r) for t, m, r in arrivals), key=lambda it: it[0])
+        unknown = {m for _, m, _ in items} - set(self.workers)
+        if unknown:
+            raise ValueError(f"run_trace arrivals name models with no registered worker: "
+                             f"{sorted(unknown)}")
+        sim = self.scheduler.sim
+        out: List[Response] = []
+        self._vtime = float(start_t)
+        i = 0
+        try:
+            while True:
+                # fault/recovery boundaries scheduled up to now take effect
+                # before this round (no-op without an attached injector)
+                sim.advance_faults(self._vtime)
+                while i < len(items) and items[i][0] <= self._vtime + 1e-12:
+                    t_arr, model, req = items[i]
+                    req.t_submit = t_arr
+                    self.queues[model].append(req)
+                    i += 1
+                busy = [m for m in self.workers if self._busy(m)]
+                if not busy:
+                    if i >= len(items):
+                        sim.set_coexec(1)
+                        break
+                    sim.advance_idle(items[i][0] - self._vtime)
+                    self._vtime = items[i][0]
+                    continue
+                self._serve_round(busy, out, temperature)
+        finally:
+            self._vtime = None
         return out

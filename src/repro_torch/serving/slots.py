@@ -84,6 +84,12 @@ class _ActiveSeq:
     # path): token i draws from stream (rng, i), so sampled decode is
     # reproducible under any admission order / slot placement
     rng: Optional[int] = None
+    # speculative decode (repro_torch.serving.speculative; inert without a
+    # draft): draft_pos is the draft cache's frontier, the next position
+    # the draft worker writes; spec_hist is the sliding (accepted, offered)
+    # window behind the per-slot adaptive k
+    draft_pos: int = 0
+    spec_hist: List = field(default_factory=list)
 
     @property
     def energy_j(self) -> float:

@@ -3,11 +3,12 @@ batch generation, and the slot-pool primitives the continuous engine
 drives — the counterpart of ``repro.serving.workers.ModelWorker``.
 
 The worker runs on the device its params lie on. Caches are updated in
-place. ``prefill_calls`` and ``decode_calls`` count the model passes, so a
-run can check how often each kernel must have launched (one prefill
-attention or SSD scan launch per layer per prefill, one decode attention
-launch per attention layer per decode pass). The speculative
-``decode_verify`` waits for the speculative slice (see ROADMAP.md).
+place. ``prefill_calls``, ``decode_calls`` and ``verify_calls`` count the
+model passes, so a run can check how often each kernel must have launched:
+one prefill attention or SSD scan launch per layer per prefill, one decode
+attention launch per attention layer per single-token pass, one prefill
+(flash) attention launch per attention layer per multi-position pass (the
+speculative verify and the draft's catch-up, ``decode_verify``).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ class ModelWorker:
         self.device = params.embedding.device
         self.prefill_calls = 0
         self.decode_calls = 0
+        self.verify_calls = 0
 
     def _ids(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).long()
@@ -115,3 +117,17 @@ class ModelWorker:
                                                           device=self.device))
         next_tok = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
         return next_tok, logits, pool_cache
+
+    @torch.no_grad()
+    def decode_verify(self, pool_cache, tokens: np.ndarray, pos: np.ndarray):
+        """Multi-position ragged decode over the slot pool, the speculative
+        verify and draft catch-up primitive. ``tokens`` (max_slots, T), T > 1,
+        feed positions pos..pos+T-1 per row against the cache (writes past
+        the cache drop; stale entries past a slot's frontier are causally
+        masked, see ``gqa_decode``). Returns (greedy tokens (max_slots, T)
+        np.int32, logits (max_slots, T, V), cache)."""
+        self.verify_calls += 1
+        logits, pool_cache = model_lib.decode_step(
+            self.params, self.cfg, self._ids(tokens), pool_cache,
+            torch.as_tensor(np.asarray(pos, np.int32), device=self.device), self.ctx)
+        return logits.argmax(dim=-1).to(torch.int32).cpu().numpy(), logits, pool_cache

@@ -1,11 +1,13 @@
 """The hand-written CUDA kernels (attention, SSD scan) against their plain
-versions, on the card.
+versions, on the card, and the speculative serve through them.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one. Run on the GPU machine with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_*.py``. This file
 imports no JAX (the GPU machine has none): inputs come from numpy.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -104,6 +106,81 @@ def test_flash_kernel_groups_head_dims_and_per_row_positions(dtype, G, Dk, Dv):
         out = fmod.flash_attention(q, k, v, window=window, **kw)
         _close(out, fmod.flash_attention_plain(q, k, v, window=window, **kw), dtype)
         assert float(out[3].float().abs().max()) == 0.0
+
+
+def verify_offsets(Smax, T):
+    """Per-row q_offset of a speculative verify over 8 slots: 0, 63, 64,
+    500, Smax - T (the last position that fits) and Smax - 2 (q_offset + T
+    past the cache), and two more inside it."""
+    return [0, 63, 64, 500, Smax - T, Smax - 2, 127, Smax // 2 + 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [2, 3, 5, 16])
+@pytest.mark.parametrize("Smax", [1024, 1000])
+@pytest.mark.parametrize("H,Hkv,D,softcap,window", [
+    (32, 4, 64, None, None),     # tinyllama-1.1b
+    (8, 4, 256, 50.0, 4096),     # gemma2-2b local layer
+])
+def test_flash_kernel_at_verify_shapes(dtype, T, Smax, H, Hkv, D, softcap, window):
+    """The speculative verify's call: T query rows per slot against the
+    whole cache at per-row offsets, kv_len None and causal, random K/V in
+    every cache row (the stale entries a rejected draft leaves)."""
+    dev = _card()
+    q = _randn(20, (8, T, H, D), dtype, dev)
+    k, v = (_randn(s, (8, Smax, Hkv, D), dtype, dev) for s in (21, 22))
+    kw = dict(causal=True, window=window, softcap=softcap,
+              q_offset=torch.tensor(verify_offsets(Smax, T), dtype=torch.int32, device=dev))
+    before = fmod.flash_attention.launches
+    out = fmod.flash_attention(q, k, v, **kw)
+    assert fmod.flash_attention.launches == before + 1
+    _close(out, fmod.flash_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("kind", ["truncated", "random"])
+def test_speculative_serve_on_card(kind, temperature):
+    """Reduced tinyllama (fp32) with its truncated self-draft (every
+    proposal accepted) or a random 1-layer draft (most rolled back), FIFO on
+    the card: the tokens are the plain decode's, and the flash kernel ran
+    once per attention layer for every prefill and verify pass."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.slots import Request
+    from repro_torch.serving.speculative import truncated_draft
+    dev = _card()
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    dcfg, dparams, tparams = truncated_draft(cfg, init_params(cfg, 0, dev))
+    if kind == "random":
+        dcfg = dataclasses.replace(cfg, name=f"{cfg.name}-draft", num_layers=1)
+        dparams, tparams = init_params(dcfg, 7, dev), init_params(cfg, 0, dev)
+    r = np.random.default_rng(0)
+    reqs = [(i, r.integers(1, cfg.vocab_size, int(r.integers(4, 40)), dtype=np.int32),
+             int(r.integers(3, 14))) for i in range(6)]
+
+    def serve(draft):
+        eng = ServingEngine(max_slots=4)
+        eng.add_model("m", cfg, tparams, max_len=64, draft=draft)
+        for uid, prompt, n in reqs:
+            eng.submit("m", Request(uid, prompt, n))
+        before = fmod.flash_attention.launches
+        out = {x.uid: x.tokens.tolist() for x in eng.run_all(temperature=temperature)}
+        return out, eng, fmod.flash_attention.launches - before
+
+    base, _, _ = serve(None)
+    spec, eng, flash = serve((dcfg, dparams))
+    assert spec == base
+    workers = [eng.workers["m"], eng.spec["m"].worker]
+    assert eng.workers["m"].verify_calls > 0
+    assert flash == sum(w.cfg.num_layers * (w.prefill_calls + w.verify_calls) for w in workers)
+    c = eng.ledger.counters
+    if kind == "truncated":
+        assert c["spec_accepted"] == c["spec_drafted"] > 0
+    elif temperature == 0.0:
+        assert c["spec_accepted"] < c["spec_drafted"]  # rolled back over stale K/V
 
 
 @pytest.mark.gpu

@@ -38,13 +38,16 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["bad"] == []
     assert "repro_torch.serving.engine" in got["modules"]
+    assert "repro_torch.serving.speculative" in got["modules"]
     assert "repro_torch.launch.serve" in got["modules"]
 
 
 @pytest.mark.parametrize("module", ["repro_torch.serving.scheduler", "repro_torch.core.profiler",
-                                    "repro_torch.kernels.ssd_scan"])
+                                    "repro_torch.kernels.ssd_scan",
+                                    "repro_torch.serving.speculative"])
 def test_scheduled_path_modules_load_no_jax_and_no_repro(module):
-    """Each module of the scheduled path, imported alone in a fresh process."""
+    """Each module of the scheduled and speculative paths, imported alone in
+    a fresh process."""
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module({module!r})\n"

@@ -205,5 +205,10 @@ def test_speculative_verify_branch_is_not_ported():
     p = tmodel.init_params(cfg, device="cpu")
     c = tmodel.init_cache(cfg, 2, 16, device="cpu")
     x = torch.zeros(2, 3, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tatt.gqa_decode(p.layers[0].attn, x, cfg, c["k"][0], c["v"][0], torch.tensor([1, 2]))
+    # the (B,) branch is ported (tests/test_torch_speculative.py holds it
+    # against JAX); a single shared position for T > 1 stays refused
+    out, _ = tatt.gqa_decode(p.layers[0].attn, x, cfg, c["k"][0], c["v"][0],
+                             torch.tensor([1, 2]))
+    assert out.shape == (2, 3, cfg.d_model)
+    with pytest.raises(ValueError, match="per-row positions"):
+        tatt.gqa_decode(p.layers[0].attn, x, cfg, c["k"][0], c["v"][0], 1)

@@ -142,17 +142,15 @@ def test_deadline_miss_ends_in_an_error_response(models):
     assert eng.ledger.counters["deadline_misses"] == 1
 
 
-def test_unported_paths_raise_naming_the_roadmap(models):
-    jcfg, jp, tcfg, tp = models["tinyllama-1.1b"]
+def test_unported_paths_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ServingEngine(mode="bucketed")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):  # core/coexec.py waits
         AdaOperScheduler(RuntimeEnergyProfiler(), DeviceSim(), coexec=object())
-    eng = ServingEngine()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.add_model("m", tcfg, tp, draft=(tcfg, tp))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.run_trace([])
+    # speculative drafts and run_trace are ported (tests/test_torch_speculative.py);
+    # a trace replay still needs a scheduler to advance its virtual clock
+    with pytest.raises(ValueError, match="scheduler"):
+        ServingEngine().run_trace([])
 
 
 def test_serve_entry_point_on_cpu(capsys):
