@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases profile  # a profiled, warm serve (not in the default run)
     python3 chip_smoke.py --phases profile_scheduled  # the same for the scheduled serve
     python3 chip_smoke.py --phases kernels,spec  # the kernels and the speculative serves
+    python3 chip_smoke.py --phases kernels,joint  # the kernels and the joint-planned serve
 
 Phases:
   1. device     the card's name and count, its power limit from nvidia-smi,
@@ -25,7 +26,17 @@ Phases:
                 three kernels must have launched there. Its joules are the
                 device simulator's mobile-SoC predictions, not the card's.
                 It records the (B, S) of every SSD scan call.
-  6. spec       speculative decoding through the port's engine API: a
+  6. joint      contention-aware joint planning on the scheduled path: the
+                scheduled workload under ``AdaOperScheduler(coexec=
+                CoexecPlanner())`` and, on fresh weights, without it; each
+                arm warms up once and is measured once. All three kernels
+                must have launched in the joint arm, at SSD shapes the
+                kernels phase checked, and some plan must have been solved
+                under a joint key; tokens per uid identical to the
+                independent arm's, or apart only from a near-tie of its
+                logits (printed). It prints each arm's plan-cache counters,
+                DP solves, warm wall, launches and simulated joules.
+  7. spec       speculative decoding through the port's engine API: a
                 2-layer fp32 spec-vs-plain run per model (token-identical),
                 then full depth in bf16: tinyllama-1.1b with its truncated
                 self-draft under the AdaOper scheduler (``run_trace`` and
@@ -33,7 +44,7 @@ Phases:
                 with a random 1-layer draft under FIFO, each beside the same
                 engine without a draft; tokens identical to it, or apart
                 only from a near-tie of its logits (printed)
-  7. times      CUDA-event device times of each kernel, its plain version
+  8. times      CUDA-event device times of each kernel, its plain version
                 and one PyTorch library call (a yardstick only), beside the
                 bound; for the attention kernels and the library call also
                 the wall time per call back to back (host enqueue included);
@@ -69,7 +80,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("device", "kernels", "parity", "serve", "scheduled", "spec", "times")
+PHASES = ("device", "kernels", "parity", "serve", "scheduled", "joint", "spec", "times")
 EXTRA = ("profile", "profile_scheduled", "profile_spec")  # run only when asked for
 SERVE = dict(names=("tinyllama-1.1b", "gemma2-2b"), requests=8, prompt_lens=(64, 128, 256, 512),
              max_new=16, max_slots=8, max_len=1024, seed=0, device="cuda", full=True,
@@ -768,6 +779,149 @@ def phase_scheduled(torch, report):
         raise SmokeFailure(f"scheduled: the ledger lacks events {missing}")
 
 
+def joint_run(torch, coexec, gaps=None):
+    """One serve of the SCHEDULED workload on a fresh engine (``engine_for``:
+    seeded weights, uids k·requests + i for the k-th model) under a fresh
+    scheduler calibrated as the scheduled phase's, joint planning or not;
+    ``gaps`` (a dict) gets each model's recorded decision gaps. Returns
+    (engine, responses, launches, wall s, {"solves", "solve_s"}, SSD calls'
+    (B, S))."""
+    from repro_torch.models import ssm
+    from repro_torch.serving import scheduler as sched_mod
+    eng = engine_for(SCHEDULED, coexec)
+    if gaps is not None:
+        for name in eng.workers:
+            reqs = [(r.uid, r.prompt, r.max_new_tokens) for r in eng.queues[name]]
+            gaps[name] = record_gaps(torch, eng, reqs, 0.0, name)
+    solves, shapes = {"solves": 0, "solve_s": 0.0}, []
+    dp, scan = sched_mod.dp_partition, ssm.ssd_scan
+
+    def timed_dp(*a, **k):  # every DP solve of the scheduler, and its host time
+        t0 = time.perf_counter()
+        out = dp(*a, **k)
+        solves["solves"] += 1
+        solves["solve_s"] += time.perf_counter() - t0
+        return out
+
+    def recorded_scan(x, *a, **k):  # the (B, S) of each call, then the wrapper itself
+        shapes.append(tuple(x.shape[:2]))
+        return scan(x, *a, **k)
+
+    def go():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run_all()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    sched_mod.dp_partition, ssm.ssd_scan = timed_dp, recorded_scan
+    try:
+        (out, wall), launches = drive(go)
+    finally:
+        sched_mod.dp_partition, ssm.ssd_scan = dp, scan
+    return eng, out, launches, wall, solves, shapes
+
+
+def joint_summary(eng, out, launches, wall, solves):
+    """What one arm's scheduler decided, what it cost the host, and the
+    simulated device's charges."""
+    sch = eng.scheduler
+    keys = [k for k in sch._plan_cache if "coex" in k]
+    per_model = {m: e.total_j for m, e in eng.ledger.energy_by_model("request").items()}
+    return {
+        "requests": len(out), "tokens": int(sum(len(r.tokens) for r in out)),
+        "warm_wall_s": wall, "launches": launches,
+        "plan_cache": {"hits": sch.plan_cache_hits, "misses": sch.plan_cache_misses,
+                       "entries": len(sch._plan_cache)},
+        "joint_keys": len(keys),
+        "joint_resident_sets": sorted({"+".join(k[-3]) for k in keys}),
+        "dp_solves": solves["solves"], "dp_solve_s": solves["solve_s"],
+        "prefill_batches": eng.prefill_batches,
+        "calls": {n: {"prefill": w.prefill_calls, "decode": w.decode_calls}
+                  for n, w in eng.workers.items()},
+        "admission_reasons": dict(collections.Counter(r["reason"] for r in eng.admission.log)),
+        "drift_events": eng.drift_events, "preemptions": dict(eng.preemptions),
+        "simulated_joules": {
+            "label": f"DeviceSim {SCHEDULED['workload']} (a mobile SoC's rails), not the card's",
+            "per_request": sum(per_model.values()) / max(len(out), 1),
+            "per_model": per_model,
+            "per_rail": eng.ledger.total_energy("request").rails_dict()}}
+
+
+def phase_joint(torch, report):
+    """Contention-aware joint planning on the scheduled path: the SCHEDULED
+    workload under ``AdaOperScheduler(coexec=CoexecPlanner())`` (joint arm)
+    and without ``coexec`` (independent arm), built through the API; each
+    arm serves once to warm up and once measured, on fresh engines,
+    schedulers and weights, and its weights are freed before the next arm."""
+    n, names, max_new = SCHEDULED["requests"], SCHEDULED["names"], SCHEDULED["max_new"]
+    arms, tokens, gaps = {}, {}, {}
+    for arm in ("joint", "independent"):
+        label = f"joint {arm}"
+        # the independent arm's warm-up records the decision gaps that the
+        # token check reads
+        warm_eng, warm_out = joint_run(torch, arm == "joint",
+                                       gaps if arm == "independent" else None)[:2]
+        check_responses(f"{label} warm-up", warm_eng, warm_out, n * len(names), max_new)
+        del warm_eng
+        eng, out, launches, wall, solves, shapes = joint_run(torch, arm == "joint")
+        check_responses(label, eng, out, n * len(names), max_new)
+        mamba = eng.workers["mamba2-2.7b"]
+        want = dict(attention_launches_expected(eng),
+                    ssd_scan=mamba.cfg.num_layers * mamba.prefill_calls)
+        if launches != want or min(launches.values()) == 0:
+            raise SmokeFailure(f"{label}: kernel launches {launches}, expected {want}")
+        calls = collections.Counter(shapes)
+        if len(shapes) != launches["ssd_scan"]:
+            raise SmokeFailure(f"{label}: {len(shapes)} SSD calls recorded, "
+                               f"{launches['ssd_scan']} launches counted")
+        unchecked = set(calls) - {(B, S) for B, S, _ in SSD_SERVE}
+        if unchecked:  # the kernels phase checks the kernel at SSD_SERVE's shapes only
+            raise SmokeFailure(f"{label}: SSD calls at (B, S) {sorted(unchecked)}, "
+                               f"not in SSD_SERVE")
+        seen = {(e.kind, e.model) for e in eng.ledger.events}
+        missing = [(k, m) for k in ("prefill", "decode", "request") for m in names
+                   if (k, m) not in seen]
+        if missing:
+            raise SmokeFailure(f"{label}: the ledger lacks events {missing}")
+        res = joint_summary(eng, out, launches, wall, solves)
+        res["ssd_calls"] = {f"{B}:{S}": c for (B, S), c in sorted(calls.items())}
+        if (res["joint_keys"] > 0) != (arm == "joint"):
+            raise SmokeFailure(f"{label}: {res['joint_keys']} plans solved under a joint key")
+        log(f"{label}: {json.dumps(res)}")
+        arms[arm] = res
+        tokens[arm] = {"measured": out, "warm-up": warm_out}
+        if arm == "joint":
+            report["launches_joint"] = launches
+        del eng, out, warm_out
+        torch.cuda.empty_cache()
+    # greedy tokens per uid against the independent arm's warm-up run (its
+    # decision gaps recorded): identical, or apart only from a near-tie
+    ref = tokens["independent"]["warm-up"]
+    diverged = {}
+    for k, name in enumerate(names):
+        mine = [r for r in ref if r.uid // n == k]
+        for arm, run in (("joint", "measured"), ("independent", "measured"),
+                         ("joint", "warm-up")):
+            theirs = [r for r in tokens[arm][run] if r.uid // n == k]
+            diverged[f"{name} {arm} {run}"] = token_check(
+                f"joint {name}: {arm} {run} vs independent warm-up", theirs, mine, gaps[name],
+                exact=False)
+    j, i = arms["joint"], arms["independent"]
+    summary = {
+        "warm_wall_s": [j["warm_wall_s"], i["warm_wall_s"]],
+        "wall_ratio": j["warm_wall_s"] / i["warm_wall_s"],
+        "plan_cache_misses": [j["plan_cache"]["misses"], i["plan_cache"]["misses"]],
+        "dp_solves": [j["dp_solves"], i["dp_solves"]],
+        "dp_solve_s": [j["dp_solve_s"], i["dp_solve_s"]],
+        "launches": [j["launches"], i["launches"]],
+        "simulated_joules_per_request (DeviceSim, not the card's)": [
+            j["simulated_joules"]["per_request"], i["simulated_joules"]["per_request"]],
+        "uids_diverged": diverged}
+    report["joint"] = dict(summary, arms=arms)
+    log("joint vs independent: " + json.dumps(summary))
+
+
 def spec_requests(cfg, n, prompt_lens, max_new, seed):
     """(uid, prompt, max_new) of ``n`` requests, prompt lengths drawn from
     ``prompt_lens``; each run makes its own ``Request`` objects of them."""
@@ -833,11 +987,12 @@ def decision_gaps(torch, rows, keys, idx, temperature):
     return list(zip((top[:, 0] - top[:, 1]).tolist(), rows.abs().amax(dim=-1).tolist()))
 
 
-def record_gaps(torch, eng, reqs, temperature):
-    """(uid, token index) -> ``decision_gaps`` of the engine's plain decode
-    steps, recorded as they run; a first token (decided on the prefill's
-    logits) is recomputed from a prefill of its prompt when asked for."""
-    name = next(iter(eng.workers))
+def record_gaps(torch, eng, reqs, temperature, name=None):
+    """(uid, token index) -> ``decision_gaps`` of the plain decode steps of
+    the engine's worker ``name`` (its first by default), recorded as they
+    run; a first token (decided on the prefill's logits) is recomputed from
+    a prefill of its prompt when asked for."""
+    name = next(iter(eng.workers)) if name is None else name
     w = eng.workers[name]
     plain_pool = w.decode_pool
     prompts = {uid: p for uid, p, _ in reqs}
@@ -1002,13 +1157,14 @@ def phase_spec(torch, report):
         raise SmokeFailure(f"gemma2 fifo random draft: no draft was rejected ({c})")
 
 
-def engine_for(kw):
-    """The engine ``serve(**kw)`` would build, not yet run."""
+def engine_for(kw, coexec=False):
+    """The engine ``serve(**kw)`` would build, not yet run; ``coexec``: its
+    scheduler plans the busy models jointly."""
     from repro_torch.launch.serve import build_engine, make_scheduler, model_configs
     kw = dict(kw)
     scheduled, workload = kw.pop("scheduler"), kw.pop("workload", "moderate")
     sched = (make_scheduler(model_configs(kw["names"], kw["full"]).values(),
-                            max(kw["prompt_lens"]), kw["max_new"], workload, kw["seed"])
+                            max(kw["prompt_lens"]), kw["max_new"], workload, kw["seed"], coexec)
              if scheduled else None)
     return build_engine(**kw, scheduler=sched)
 
@@ -1104,6 +1260,7 @@ def kernels_line(report):
             and "shape" not in r}
     paths = {"serve": report.get("launches", {}),
              "scheduled": report.get("launches_scheduled", {}),
+             "joint": report.get("launches_joint", {}),
              "spec": report.get("launches_spec", {})}
     out = []
     for name, (src, replaces) in SOURCES.items():
@@ -1139,7 +1296,7 @@ def main(argv=None):
     report = {}
     fns = {"device": phase_device, "kernels": phase_kernels, "times": phase_times,
            "parity": phase_parity, "serve": phase_serve, "scheduled": phase_scheduled,
-           "spec": phase_spec, "profile": phase_profile,
+           "joint": phase_joint, "spec": phase_spec, "profile": phase_profile,
            "profile_scheduled": phase_profile_scheduled, "profile_spec": phase_profile_spec}
     t_start = time.perf_counter()
     try:

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid | audio | vlm
+    family: str  # dense | moe | ssm | hybrid | audio | vlm | conv
     source: str  # citation from the assignment table
 
     num_layers: int = 0
@@ -71,7 +71,8 @@ class ModelConfig:
     is_encoder_decoder: bool = False
     num_encoder_layers: int = 0
 
-    # frontend: "tokens" (ids) or "embeddings" (precomputed frames/patches)
+    # frontend: "tokens" (ids), "embeddings" (precomputed frames/patches)
+    # or "image" (the conv family)
     input_mode: str = "tokens"
 
     # numerics
@@ -183,13 +184,15 @@ class ModelConfig:
 # the archs this slice of the port serves; the JAX registry lists the rest
 ARCHS = ["tinyllama-1.1b", "gemma2-2b", "mamba2-2.7b"]
 
+EXTRA_ARCHS = ["yolo-v2-tiny"]  # the paper's own evaluation model
+
 
 def _module_name(arch_id: str) -> str:
     return arch_id.replace("-", "_").replace(".", "_")
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if _module_name(arch_id) not in {_module_name(a) for a in ARCHS}:
+    if _module_name(arch_id) not in {_module_name(a) for a in ARCHS + EXTRA_ARCHS}:
         raise ValueError(
             f"arch {arch_id!r} is not ported to repro_torch yet (ported: "
             f"{ARCHS}); the remaining archs are queued in ROADMAP.md")

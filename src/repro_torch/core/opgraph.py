@@ -6,9 +6,10 @@ grain so the partitioner knows which ops can be fractionally co-executed
 across processor classes (CoDL-style channel/height splits) and which must
 be placed whole (e.g. an SSM scan step along time).
 
-A copy of ``repro.core.opgraph`` holding ``build_transformer_graph`` (per-layer
-ops for every assigned arch: attention / MLA / MoE / SSD). ``build_yolo_graph``
-waits for the YOLO family (see ROADMAP.md).
+A copy of ``repro.core.opgraph``. Graph constructors:
+  * ``build_yolo_graph``        — the paper's evaluation model (conv chain).
+  * ``build_transformer_graph`` — per-layer ops for every assigned arch
+    (attention / MLA / MoE / SSD).
 """
 from __future__ import annotations
 
@@ -91,6 +92,36 @@ class OpGraph:
 
     def __len__(self):
         return len(self.nodes)
+
+
+# ---------------------------------------------------------------------------
+# YOLOv2-tiny (the paper's Fig. 2 model)
+# ---------------------------------------------------------------------------
+
+
+def build_yolo_graph(batch: int = 1, resolution: int = 416, dtype_bytes: int = 4) -> OpGraph:
+    from repro_torch.configs.yolo_v2_tiny import YOLO_STAGES
+
+    g = OpGraph("yolo-v2-tiny")
+    h = w = resolution
+    ch = 3
+    for i, (out_ch, pool) in enumerate(YOLO_STAGES):
+        ksz = 1 if out_ch == 125 else 3
+        flops = 2.0 * batch * h * w * ksz * ksz * ch * out_ch
+        b_in = batch * h * w * ch * dtype_bytes
+        b_out = batch * h * w * out_ch * dtype_bytes
+        wb = ksz * ksz * ch * out_ch * dtype_bytes
+        # convs split along output channels (16+ channels everywhere), so the
+        # co-execution ratio grain is fine; a split re-reads the input on
+        # both classes -> boundary traffic is the input activation
+        g.nodes.append(OpNode(f"conv{i}", "conv", flops, b_in, b_out, wb,
+                              splittable=True, split_grain=16,
+                              comm_bytes_if_split=b_in))
+        ch = out_ch
+        if pool == 2:
+            h //= 2
+            w //= 2
+    return g
 
 
 # ---------------------------------------------------------------------------

@@ -141,6 +141,10 @@ class RuntimeEnergyProfiler:
         # of the feedback history). Caches key on it for invalidation.
         self._version = 0
         self.table_cache = CostTableCache(max_entries=table_cache_entries)
+        # the quantile/conformal layer's slot: always None until the
+        # uncertainty layer is ported, which keeps every prediction, cache
+        # key and feedback path the reference's inert default
+        self.uncertainty = None
 
     def attach_uncertainty(self, model) -> "RuntimeEnergyProfiler":
         raise NotImplementedError(
@@ -263,6 +267,18 @@ class RuntimeEnergyProfiler:
             graph.nodes[:len(alphas)], alphas, prevs, obs_state,
             static_block=graph.static_feature_matrix()[:len(alphas)]))
         return float(lat.sum()), float(en.sum())
+
+    def take_interval_outside(self):
+        """Per-op outside-interval mask of the last ``feedback_batch`` (the
+        interval-drift trigger); None without an attached model."""
+        return (None if self.uncertainty is None
+                else self.uncertainty.take_outside())
+
+    def take_interval_stats(self):
+        """Last ``feedback_batch``'s coverage/width tallies for ledger
+        counters; None without an attached model."""
+        return (None if self.uncertainty is None
+                else self.uncertainty.take_stats())
 
     def feedback(self, op: OpNode, alpha: float, prev_alpha: float,
                  obs_state: DeviceState, observed_lat: float, observed_en: float):

@@ -1,11 +1,14 @@
 """Telemetry spine: the energy ledger, copied from ``repro.core.telemetry``.
 
 Every layer emits :class:`StepEvent` records into one :class:`EnergyLedger`
-instead of keeping private tallies. Without a scheduler (this slice of the
-port) the serving engine still emits a ``request`` event per retirement and
-a ``rejected`` event per error response; the energy-pricing ``prefill`` /
-``decode`` events arrive with the scheduler slice (see ROADMAP.md). Plain
-Python and numpy: no framework.
+instead of keeping private tallies: the device simulator computes per-rail
+(CPU / GPU / bus) joules for every executed op; the closed-loop controller
+(``core.controller``) appends one ``infer`` event per graph inference and
+one ``request`` event per replayed arrival; the serving engine under
+``AdaOperScheduler`` appends ``prefill`` / ``decode`` events for every
+iteration, split per rail by the plan's fractions, and, with or without a
+scheduler, a ``request`` event per retirement and a ``rejected`` event per
+error response. Plain Python and numpy: no framework.
 """
 from __future__ import annotations
 

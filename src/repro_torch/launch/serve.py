@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.configs.base import reduced as make_reduced
+from repro_torch.core.coexec import CoexecPlanner
 from repro_torch.core.opgraph import build_transformer_graph
 from repro_torch.core.profiler import RuntimeEnergyProfiler
 from repro_torch.core.simulator import PRESETS, DeviceSim
@@ -39,14 +40,16 @@ CALIB_SAMPLES = 1200  # the offline calibration pass of repro.launch.serve
 
 
 def make_scheduler(cfgs, prompt_len: int, max_new: int, workload: str = "moderate",
-                   seed: int = 0) -> AdaOperScheduler:
+                   seed: int = 0, coexec: bool = False) -> AdaOperScheduler:
     """``AdaOperScheduler`` over ``DeviceSim(workload)`` with a profiler
     calibrated offline (the GBDT pass) on each config's batch-4 op graph at
-    ``prompt_len + max_new``, as ``repro.launch.serve`` calibrates."""
+    ``prompt_len + max_new``, as ``repro.launch.serve`` calibrates; with
+    ``coexec`` it plans the busy models jointly through a ``CoexecPlanner``."""
     graphs = [build_transformer_graph(c, 4, prompt_len + max_new) for c in cfgs]
     profiler = RuntimeEnergyProfiler(seed=seed)
     profiler.offline_calibrate(graphs, n_samples=CALIB_SAMPLES)
-    return AdaOperScheduler(profiler, DeviceSim(workload, seed=seed))
+    return AdaOperScheduler(profiler, DeviceSim(workload, seed=seed),
+                            coexec=CoexecPlanner() if coexec else None)
 
 
 def model_configs(names: Sequence[str], full: bool):
@@ -59,15 +62,17 @@ def build_engine(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[
                  scheduler: Optional[AdaOperScheduler] = None) -> ServingEngine:
     """One engine serving ``names`` (seed-initialised weights on ``device``)
     with ``requests`` per model queued, prompt lengths drawn from
-    ``prompt_lens``; FIFO admission unless a ``scheduler`` is given."""
+    ``prompt_lens``, uids ``k * requests + i`` for the k-th model (so that a
+    response's uid names its model); FIFO admission unless a ``scheduler``
+    is given."""
     dev = resolve_device(device)
     eng = ServingEngine(scheduler=scheduler, max_slots=max_slots)
     rng = np.random.default_rng(seed)
-    for n, cfg in model_configs(names, full).items():
+    for k, (n, cfg) in enumerate(model_configs(names, full).items()):
         eng.add_model(n, cfg, init_params(cfg, seed, dev), max_len=max_len)
         for i in range(requests):
             plen = int(rng.choice(prompt_lens))
-            eng.submit(n, Request(uid=i, max_new_tokens=max_new,
+            eng.submit(n, Request(uid=k * requests + i, max_new_tokens=max_new,
                                   prompt=rng.integers(1, cfg.vocab_size, plen, dtype=np.int32)))
     return eng
 

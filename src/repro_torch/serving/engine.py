@@ -202,7 +202,13 @@ class ServingEngine:
         model at token granularity."""
         if self.scheduler is not None:
             self.scheduler.sim.set_coexec(len(busy))
-            self.scheduler.set_resident(busy)
+            # joint planning: the scheduler prices contention per resident
+            # set; its plan caches key on residency, but the engine's memo
+            # does not — clear it when the busy set moves under a coexec
+            # planner (a no-op on the default independent path)
+            if (self.scheduler.set_resident(busy)
+                    and getattr(self.scheduler, "coexec", None) is not None):
+                self._plan_memo.clear()
         victim = None
         if self.scheduler is not None and self._drift_event():
             decoding_models = [m for m in busy if m in self.pools and self.pools[m].active]

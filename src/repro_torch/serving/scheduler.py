@@ -10,19 +10,18 @@ its per-rail (cpu/gpu/bus) energy *fractions* from the device simulator's
 physics, so the engine can attribute predicted joules per rail in the
 telemetry ledger (``repro_torch.core.telemetry``). The joules are the
 simulator's mobile-SoC model, not the energy of the device the models run
-on.
-
-Contention-aware joint planning (``coexec=``, ``repro.core.coexec``) and
-the uncertainty layer's plan intervals wait (see ROADMAP.md): a scheduler
-built with ``coexec`` raises.
+on. With a ``CoexecPlanner`` (``coexec=``) and two or more busy models, every
+DP solve prices contention with the co-runners (``core.coexec``); the
+uncertainty layer's plan intervals wait (see ROADMAP.md).
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from typing import List, Optional, Tuple
 
+from repro_torch.core.coexec import FULL_DUTY, CoexecPlanner
 from repro_torch.core.opgraph import build_transformer_graph
-from repro_torch.core.partitioner import dp_partition
+from repro_torch.core.partitioner import dp_partition, score_plan
 from repro_torch.core.profiler import state_bucket
 from repro_torch.faults.recovery import pinned_partition, surviving_alpha
 
@@ -59,17 +58,18 @@ class AdaOperScheduler:
 
     def __init__(self, profiler, sim, objective: str = "edp",
                  candidate_batches=(1, 2, 4, 8), plan_cache_size: int = 256,
-                 graph_cache_size: int = 64, coexec=None):
-        if coexec is not None:
-            raise NotImplementedError(
-                "contention-aware joint planning (coexec=) is not ported to repro_torch "
-                "yet: core/coexec.py is queued in ROADMAP.md")
+                 graph_cache_size: int = 64,
+                 coexec: Optional[CoexecPlanner] = None):
         self.profiler = profiler
         self.sim = sim
         self.objective = objective
         self.candidates = candidate_batches
         self.plan_cache_size = plan_cache_size
         self.graph_cache_size = graph_cache_size
+        # contention-aware joint planning (repro_torch.core.coexec): None (the
+        # default) and single-resident serving keep every plan, cache key
+        # and solve bit-identical to the independent path
+        self.coexec = coexec
         self._resident: tuple = ()
         self._graph_cache: OrderedDict = OrderedDict()
         self._plan_cache: OrderedDict = OrderedDict()
@@ -78,12 +78,29 @@ class AdaOperScheduler:
 
     def set_resident(self, models) -> bool:
         """Declare the currently-busy worker set (the engine calls this each
-        serve round). Returns True when the set changed."""
+        serve round). Returns True when the set changed — the engine's
+        drift-scoped plan memo must be cleared then under a coexec planner,
+        since its keys do not carry residency."""
         names = tuple(sorted(models))
         if names == self._resident:
             return False
         self._resident = names
         return True
+
+    def _coexec_cost(self, cost_fn):
+        """(possibly contention-wrapped cost_fn, extra plan-cache key).
+
+        With joint planning active (a coexec planner and >= 2 resident
+        workers), ops are priced against a full-duty co-runner profile —
+        admission runs before co-runners' plan shapes are known, and the
+        ledger-feedback corrections scale each rail from there. Inactive:
+        returns the inputs untouched, so cache keys stay byte-identical."""
+        if self.coexec is None or len(self._resident) <= 1:
+            return cost_fn, ()
+        n = max(len(self._resident), getattr(self.sim, "coexec", 1))
+        wrapped = self.coexec.model.wrap(cost_fn, n, FULL_DUTY)
+        return wrapped, ("coex", self._resident, n,
+                         self.coexec.model.version())
 
     def _cache_key(self, obs) -> tuple:
         """Plan-cache scope: quantized device state, profiler correction
@@ -127,8 +144,16 @@ class AdaOperScheduler:
     def _plan_one(self, cfg, b: int, seq: int, kind: str, cost_fn, cache_key):
         """One cached DP solve for a (batch, seq, kind) graph, stamped on a
         fresh solve with ``rail_fractions`` — the simulator's per-rail
-        energy shares of the planned split — for ledger attribution."""
-        key = (cfg.name, b, seq, kind) + cache_key
+        energy shares of the planned split — for ledger attribution.
+
+        With joint planning active (>= 2 resident workers and a coexec
+        planner) the DP is solved against the contention-priced cost model
+        and the winning alphas are re-scored on the base predictor, under a
+        cache key extended with the resident set + contention version —
+        single-resident serving takes the original key and solve,
+        bit-identically."""
+        joint_cost, joint_key = self._coexec_cost(cost_fn)
+        key = (cfg.name, b, seq, kind) + cache_key + joint_key
         ent = self._plan_cache.get(key)
         if ent is not None:
             self.plan_cache_hits += 1
@@ -139,7 +164,11 @@ class AdaOperScheduler:
         pinned = (surviving_alpha(self.sim)
                   if getattr(self.sim, "faulted_rails", None) else None)
         if pinned is None:
-            ent = dp_partition(g, cost_fn, objective=self.objective)
+            ent = dp_partition(g, joint_cost, objective=self.objective)
+            if joint_cost is not cost_fn:
+                # contention priced the search; the accounting (admission,
+                # EDP scoring, ledger charges) stays on the base predictor
+                ent = score_plan(g, ent.alphas, cost_fn)
         else:
             # processor fallback: a rail is down, pin every op to the
             # survivor (cache-scoped to the fault epoch via cache_key)

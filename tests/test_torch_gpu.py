@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (attention, SSD scan) against their plain
-versions, on the card, and the speculative serve through them.
+versions, on the card, and the speculative and joint-planned serves
+through them.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one. Run on the GPU machine with
@@ -274,3 +275,40 @@ def test_ssd_scan_kernel_head_counts_and_widths_on_card(dtype, H, P, N, S):
     """Head counts that are not a multiple of the bf16 kernel's head pair,
     and P, N below the tiles' widths (zero-filled columns)."""
     _ssd_check(dtype, 2, S, H=H, P=P, N=N, pad=(S // 3, 7))
+
+
+@pytest.mark.gpu
+def test_joint_planned_serve_on_card():
+    """The contention-aware joint-planned serve (``AdaOperScheduler(coexec=
+    CoexecPlanner())``) on the card: tinyllama-1.1b, gemma2-2b and
+    mamba2-2.7b at full width cut to 2 layers, bf16, served together; every
+    kernel's launches are counted as the passes require, and plans were
+    solved under a joint key (all three models resident)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import make_scheduler
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.slots import Request
+    dev = _card()
+    names = ("tinyllama-1.1b", "gemma2-2b", "mamba2-2.7b")
+    cfgs = {n: dataclasses.replace(get_config(n), num_layers=2) for n in names}
+    sched = make_scheduler(cfgs.values(), 64, 6, "moderate", 0, coexec=True)
+    eng = ServingEngine(scheduler=sched, max_slots=4)
+    r = np.random.default_rng(0)
+    for k, (n, cfg) in enumerate(cfgs.items()):
+        eng.add_model(n, cfg, init_params(cfg, 0, dev), max_len=128)
+        for i in range(5):
+            eng.submit(n, Request(100 * k + i, r.integers(1, cfg.vocab_size, int(r.choice(
+                (16, 24, 48, 64))), dtype=np.int32), 6))
+    wrappers = (fmod.flash_attention, dmod.decode_attention, smod.ssd_scan)
+    before = [w.launches for w in wrappers]
+    out = eng.run_all()
+    flash, decode, ssd = (w.launches - b for w, b in zip(wrappers, before))
+    assert len(out) == 15 and all(x.error is None and len(x.tokens) == 6 for x in out)
+    attn = [w for w in eng.workers.values() if "ssd" not in w.cfg.layer_kinds()]
+    mamba = eng.workers["mamba2-2.7b"]
+    assert flash == sum(w.cfg.num_layers * w.prefill_calls for w in attn) > 0
+    assert decode == sum(w.cfg.num_layers * w.decode_calls for w in attn) > 0
+    assert ssd == mamba.cfg.num_layers * mamba.prefill_calls > 0
+    joint = [k for k in sched._plan_cache if "coex" in k]
+    assert joint and all(len(k[-3]) >= 2 for k in joint)

@@ -40,14 +40,19 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert "repro_torch.serving.engine" in got["modules"]
     assert "repro_torch.serving.speculative" in got["modules"]
     assert "repro_torch.launch.serve" in got["modules"]
+    for name in ("core.controller", "core.coexec", "core.baselines", "configs.yolo_v2_tiny"):
+        assert f"repro_torch.{name}" in got["modules"]
 
 
 @pytest.mark.parametrize("module", ["repro_torch.serving.scheduler", "repro_torch.core.profiler",
                                     "repro_torch.kernels.ssd_scan",
-                                    "repro_torch.serving.speculative"])
+                                    "repro_torch.serving.speculative",
+                                    "repro_torch.core", "repro_torch.core.controller",
+                                    "repro_torch.core.coexec", "repro_torch.core.baselines",
+                                    "repro_torch.configs.yolo_v2_tiny"])
 def test_scheduled_path_modules_load_no_jax_and_no_repro(module):
-    """Each module of the scheduled and speculative paths, imported alone in
-    a fresh process."""
+    """Each module of the scheduled, speculative and joint-planning paths and
+    of the closed loop, imported alone in a fresh process."""
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module({module!r})\n"

@@ -5,13 +5,16 @@ converted weights and the same requests. The numpy planning core is a copy,
 and the port calls ``sim.observe()`` at the reference's points, so the
 admission log, the ledger (kinds, models, n_active, simulated joules to
 1e-9) and the plan-cache counters must match exactly; the greedy tokens
-per uid must be identical. Then the port's own scheduled-path invariants."""
+per uid must be identical, with independent planning and with
+contention-aware joint planning (``coexec=CoexecPlanner()``). Then the
+port's own scheduled-path invariants."""
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")  # the reference; the GPU machine has no JAX
 
 from repro.configs import base as jax_configs  # noqa: E402
+from repro.core import CoexecPlanner as JaxCoexecPlanner  # noqa: E402
 from repro.core import DeviceSim as JaxSim  # noqa: E402
 from repro.core import RuntimeEnergyProfiler as JaxProfiler  # noqa: E402
 from repro.core import build_transformer_graph as jax_graph  # noqa: E402
@@ -21,6 +24,7 @@ from repro.serving.engine import Request as JaxRequest  # noqa: E402
 from repro.serving.engine import ServingEngine as JaxEngine  # noqa: E402
 from repro_torch.configs import base as configs  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.core.coexec import CoexecPlanner  # noqa: E402
 from repro_torch.core.opgraph import build_transformer_graph  # noqa: E402
 from repro_torch.core.profiler import RuntimeEnergyProfiler  # noqa: E402
 from repro_torch.core.simulator import DeviceSim  # noqa: E402
@@ -48,14 +52,15 @@ def models():
     return out
 
 
-def _scheduler(models, port, preset="moderate"):
+def _scheduler(models, port, preset="moderate", coexec=False):
     cfgs = [models[a][2 if port else 0] for a in ARCHS]
-    graph, prof, sim, sched = ((build_transformer_graph, RuntimeEnergyProfiler, DeviceSim,
-                                AdaOperScheduler) if port else
-                               (jax_graph, JaxProfiler, JaxSim, JaxScheduler))
+    graph, prof, sim, sched, planner = (
+        (build_transformer_graph, RuntimeEnergyProfiler, DeviceSim, AdaOperScheduler,
+         CoexecPlanner) if port else
+        (jax_graph, JaxProfiler, JaxSim, JaxScheduler, JaxCoexecPlanner))
     p = prof(seed=0)
     p.offline_calibrate([graph(c, 4, 40) for c in cfgs], n_samples=CALIB)
-    return sched(p, sim(preset, seed=0))
+    return sched(p, sim(preset, seed=0), coexec=planner() if coexec else None)
 
 
 def _serve(eng, models, port):
@@ -75,9 +80,13 @@ def _events(eng):
     return [(e.kind, e.model, e.n_active, e.uid) for e in eng.ledger.events]
 
 
-def test_scheduled_engine_matches_jax_engine(models):
-    jeng = JaxEngine(scheduler=_scheduler(models, port=False), max_slots=4)
-    teng = ServingEngine(scheduler=_scheduler(models, port=True), max_slots=4)
+def _joint_keys(sched):
+    return [k for k in sched._plan_cache if "coex" in k]
+
+
+def _engines_match(models, coexec):
+    jeng = JaxEngine(scheduler=_scheduler(models, port=False, coexec=coexec), max_slots=4)
+    teng = ServingEngine(scheduler=_scheduler(models, port=True, coexec=coexec), max_slots=4)
     jres, tres = _serve(jeng, models, port=False), _serve(teng, models, port=True)
     assert sorted(tres) == sorted(jres) and len(tres) == 2 * len(MIXED)
     for uid, r in jres.items():
@@ -99,12 +108,31 @@ def test_scheduled_engine_matches_jax_engine(models):
     tsch, jsch = teng.scheduler, jeng.scheduler
     assert (tsch.plan_cache_hits, tsch.plan_cache_misses) == (
         jsch.plan_cache_hits, jsch.plan_cache_misses)
+    assert list(tsch._plan_cache) == list(jsch._plan_cache)
+    joint = _joint_keys(tsch)
+    if coexec:  # plans were solved under the joint key: both models resident
+        assert joint and all(k[-4:-2] == ("coex", tuple(sorted(ARCHS))) for k in joint), joint
+        assert {k[-2] for k in joint} == {2}
+    else:
+        assert joint == []
     assert teng.drift_events == jeng.drift_events
     assert teng.preemptions == jeng.preemptions
     assert teng.prefill_batches == jeng.prefill_batches
     # mamba2's mixed lengths went through left-padded, masked pow2 buckets
     assert teng.prefill_batch_requests == jeng.prefill_batch_requests
     assert teng.workers["mamba2-2.7b"].prefill_calls < len(MIXED)
+
+
+def test_scheduled_engine_matches_jax_engine(models):
+    _engines_match(models, coexec=False)
+
+
+def test_joint_scheduled_engine_matches_jax_engine(models):
+    """Contention-aware joint planning (``AdaOperScheduler(coexec=
+    CoexecPlanner())``) with both models busy: the same tokens, admission
+    log, ledger and plan-cache counters as the JAX engine, and plans solved
+    under the joint key."""
+    _engines_match(models, coexec=True)
 
 
 def test_choose_matches_jax(models):
@@ -119,6 +147,67 @@ def test_choose_matches_jax(models):
         np.testing.assert_allclose([t["score"], t["latency"], t["energy"], *t["rails"]],
                                    [j["score"], j["latency"], j["energy"], *j["rails"]],
                                    rtol=1e-12)
+
+
+def test_coexec_none_keeps_keys_and_plans(models):
+    """``coexec=None`` with two models resident, and a planner with one,
+    give the plain scheduler's cache keys, plans and choices bit for bit."""
+    plain = _scheduler(models, port=True)
+    none2 = _scheduler(models, port=True)
+    none2.set_resident(ARCHS)
+    joint1 = _scheduler(models, port=True, coexec=True)
+    joint1.set_resident(ARCHS[:1])
+    joint2 = _scheduler(models, port=True, coexec=True)
+    joint2.set_resident(ARCHS)
+    out = {}
+    for name, sch in (("plain", plain), ("none2", none2), ("joint1", joint1),
+                      ("joint2", joint2)):
+        out[name] = [sch.choose(models[a][2], 5, 20, 6) for a in ARCHS] + [
+            sch.step_plan(models[a][2], 3, 20, 6) for a in ARCHS] + [
+            sch.prefill_plan(models[a][2], 2, 30) for a in ARCHS]
+    for name in ("none2", "joint1"):
+        sch = {"none2": none2, "joint1": joint1}[name]
+        assert list(sch._plan_cache) == list(plain._plan_cache)
+        assert (sch.plan_cache_hits, sch.plan_cache_misses) == (
+            plain.plan_cache_hits, plain.plan_cache_misses)
+        for a, b in zip(out[name], out["plain"]):
+            assert a.keys() == b.keys()
+            for k in a:
+                if k.startswith("plan_"):
+                    assert np.array_equal(a[k].alphas, b[k].alphas)
+                    assert (a[k].pred_energy, a[k].pred_latency) == (
+                        b[k].pred_energy, b[k].pred_latency)
+                else:
+                    assert a[k] == b[k], (name, k)
+    # two resident under a planner: every key carries the joint suffix, and
+    # the plans are priced under contention (re-scored on the base predictor)
+    assert len(joint2._plan_cache) == len(plain._plan_cache)
+    assert all(k[-4] == "coex" for k in joint2._plan_cache)
+    assert [k[:-4] for k in joint2._plan_cache] == list(plain._plan_cache)
+
+
+@pytest.mark.parametrize("coexec", [False, True], ids=["independent", "joint"])
+def test_engine_clears_plan_memo_only_when_busy_set_moves_under_planner(models, coexec):
+    """``_serve_round`` clears the engine's drift-scoped plan memo when the
+    busy set changes and a coexec planner is attached, and only then; the
+    JAX engine does the same on the same sequence of busy sets."""
+    seq = [["a", "b"], ["b", "a"], ["a"], ["a"], ["a", "b"], []]
+    res = {}
+    for port in (True, False):
+        eng = (ServingEngine if port else JaxEngine)(
+            scheduler=_scheduler(models, port=port, coexec=coexec))
+        eng.step_continuous = lambda *a, **k: []
+        eng._drift_event = lambda: False
+        cleared = []
+        for busy in seq:
+            eng._plan_memo["sentinel"] = 1
+            eng._serve_round(busy, [])
+            cleared.append("sentinel" not in eng._plan_memo)
+            assert eng.scheduler.sim.coexec == max(1, len(busy))
+        res[port] = cleared
+    assert res[True] == res[False]
+    want = [True, False, True, False, True, True] if coexec else [False] * len(seq)
+    assert res[True] == want
 
 
 @pytest.mark.parametrize("slo_s", [None, 1e-9, 1e-3, 10.0])
@@ -203,3 +292,31 @@ def test_scheduled_serve_entry_point_on_cpu():
     assert set(energy["per_model"]) == set(ARCHS)
     assert sum(energy["per_rail"].values()) == pytest.approx(sum(energy["per_model"].values()))
     assert {"prefill", "decode", "request"} <= set(energy["events"])
+
+
+def test_joint_planned_serve_through_the_api_on_cpu():
+    """The serve that chip_smoke.py's joint phase drives, on reduced models:
+    ``make_scheduler(coexec=True)`` + ``build_engine``. Every request
+    completes and plans are solved under the joint key of both models; at
+    these shapes the joint plans pick the independent ones' alphas, so the
+    tokens, the admission log and the simulated joules equal the
+    independent serve's."""
+    cfgs = serve_cli.model_configs(ARCHS, full=False)
+    out = {}
+    for coexec in (True, False):
+        sched = serve_cli.make_scheduler(cfgs.values(), 12, 3, "moderate", 0, coexec=coexec)
+        eng = serve_cli.build_engine(ARCHS, 3, (8, 12), 3, 2, 64, 0, "cpu", scheduler=sched)
+        res = {r.uid: r for r in eng.run_all()}
+        assert len(res) == 6 and all(r.error is None and len(r.tokens) == 3
+                                     for r in res.values())
+        joint = [k for k in sched._plan_cache if "coex" in k]
+        assert bool(joint) == coexec
+        assert {k[-3] for k in joint} <= {tuple(sorted(ARCHS))}
+        out[coexec] = (res, eng)
+    (jres, jeng), (ires, ieng) = out[True], out[False]
+    assert sorted(jres) == list(range(6))  # uids k * requests + i name their model
+    for uid, r in ires.items():
+        np.testing.assert_array_equal(jres[uid].tokens, r.tokens)
+        np.testing.assert_allclose(jres[uid].energy_j_pred, r.energy_j_pred, rtol=1e-9)
+    assert jeng.admission.log == ieng.admission.log
+    assert jeng.scheduler.plan_cache_misses == ieng.scheduler.plan_cache_misses

@@ -14,6 +14,7 @@ from repro.serving.engine import Request as JaxRequest  # noqa: E402
 from repro.serving.engine import ServingEngine as JaxEngine  # noqa: E402
 from repro_torch.configs import base as configs  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.core.coexec import CoexecPlanner  # noqa: E402
 from repro_torch.core.profiler import RuntimeEnergyProfiler  # noqa: E402
 from repro_torch.core.simulator import DeviceSim  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
@@ -145,8 +146,9 @@ def test_deadline_miss_ends_in_an_error_response(models):
 def test_unported_paths_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ServingEngine(mode="bucketed")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):  # core/coexec.py waits
-        AdaOperScheduler(RuntimeEnergyProfiler(), DeviceSim(), coexec=object())
+    # joint planning is ported (tests/test_torch_coexec.py): coexec= is accepted
+    planner = CoexecPlanner()
+    assert AdaOperScheduler(RuntimeEnergyProfiler(), DeviceSim(), coexec=planner).coexec is planner
     # speculative drafts and run_trace are ported (tests/test_torch_speculative.py);
     # a trace replay still needs a scheduler to advance its virtual clock
     with pytest.raises(ValueError, match="scheduler"):
