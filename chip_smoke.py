@@ -8,15 +8,21 @@
     python3 chip_smoke.py --phases profile_scheduled  # the same for the scheduled serve
     python3 chip_smoke.py --phases kernels,spec  # the kernels and the speculative serves
     python3 chip_smoke.py --phases kernels,joint  # the kernels and the joint-planned serve
+    python3 chip_smoke.py --phases kernels,archs  # the kernels and the serves of the new archs
 
 Phases:
   1. device     the card's name and count, its power limit from nvidia-smi,
                 and the kernels' build from ``src/repro_torch/kernels/csrc``
   2. kernels    every kernel against its plain PyTorch version on the card
-                at the serving paths' shapes, bf16 and fp32
+                at the serving paths' shapes, bf16 and fp32: flash, decode
+                (GQA groups 1-8, qwen2's 7), the absorbed-MLA decode
+                (deepseek-v2-lite's 16 heads, Dk 576, Dv 512) and the SSD scan
   3. parity     each model at full width, cut to 2 layers, fp32 and bf16:
                 prefill (mamba2: a masked pow2 bucket) and 8 ragged decode
-                steps through the kernels and through the plain versions agree
+                steps through the kernels and through the plain versions
+                agree; for deepseek-v2-lite (layer 0 dense, layer 1 MoE) the
+                kernel run replays the plain run's expert choices and each
+                router disagreement must sit at a printed near-tie
   4. serve      the FIFO path: tinyllama-1.1b and gemma2-2b at their full
                 configs served concurrently by one continuous engine; every
                 attention kernel must have launched there
@@ -41,10 +47,19 @@ Phases:
                 then full depth in bf16: tinyllama-1.1b with its truncated
                 self-draft under the AdaOper scheduler (``run_trace`` and
                 ``run_all``, greedy and at temperature 0.8) and gemma2-2b
-                with a random 1-layer draft under FIFO, each beside the same
-                engine without a draft; tokens identical to it, or apart
-                only from a near-tie of its logits (printed)
-  8. times      CUDA-event device times of each kernel, its plain version
+                with a random 1-layer draft under FIFO, and tinyllama-1.1b
+                with a differently seeded 1-layer draft under FIFO (most
+                drafts rolled back), each beside the same engine without a
+                draft; tokens identical to it, or apart only from a near-tie
+                of its logits (printed)
+  8. archs      the archs of the seventh slice through
+                ``repro_torch.launch.serve``: deepseek-v2-lite-16b (MLA,
+                MoE) and qwen2-7b (qkv bias, G = 7) at their full configs
+                under the AdaOper scheduler, then granite-3-8b at its full
+                config and chameleon-34b at full width cut to 8 of its 48
+                layers (qk-norm) under FIFO; flash, decode and the MLA decode
+                kernel must have launched as the workers' passes imply
+  9. times      CUDA-event device times of each kernel, its plain version
                 and one PyTorch library call (a yardstick only), beside the
                 bound; for the attention kernels and the library call also
                 the wall time per call back to back (host enqueue included);
@@ -58,6 +73,8 @@ Phases:
   profile_scheduled  (only when asked for) the same for the scheduled phase
   profile_spec  (only when asked for) the same for the spec phase's
                 scheduled tinyllama-1.1b engine with its draft (``run_all``)
+  profile_archs (only when asked for) the same for the archs phase's
+                scheduled serve of deepseek-v2-lite-16b and qwen2-7b
 
 Each serving phase sets every kernel's launch count to 0 just before it
 drives its path and reads the counts just after.
@@ -80,8 +97,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("device", "kernels", "parity", "serve", "scheduled", "joint", "spec", "times")
-EXTRA = ("profile", "profile_scheduled", "profile_spec")  # run only when asked for
+PHASES = ("device", "kernels", "parity", "serve", "scheduled", "joint", "spec", "archs",
+          "times")
+EXTRA = ("profile", "profile_scheduled", "profile_spec", "profile_archs")  # only when asked for
 SERVE = dict(names=("tinyllama-1.1b", "gemma2-2b"), requests=8, prompt_lens=(64, 128, 256, 512),
              max_new=16, max_slots=8, max_len=1024, seed=0, device="cuda", full=True,
              scheduler=False)
@@ -111,6 +129,24 @@ MAMBA = dict(H=80, P=64, N=128, chunk=256)     # mamba2-2.7b SSD heads
 # 96- and 200-token prompts in their pow2 buckets of 128 and 256
 SSD_SERVE = ((1, 64, 0), (2, 256, 56), (2, 512, 0), (4, 128, 32))
 DECODE_POS = (0, 1, 63, 64, 500, 1023, 2046, 2047)
+QWEN2 = dict(H=28, Hkv=4, D=128, softcap=None)  # qwen2-7b attention, G = 7
+# deepseek-v2-lite-16b: the naive-form MLA prefill (16 heads, Dk = nope +
+# rope = 192, Dv 128) and the absorbed decode (16 heads on one latent head
+# of 512 + 64, values its first 512 columns), scale 192^-0.5 in both
+MLA_PREFILL = dict(H=16, Hkv=16, Dk=192, Dv=128)
+MLA_DECODE = dict(H=16, Hkv=1, Dk=576, Dv=512)
+MLA_SCALE = 192 ** -0.5
+# the archs phase: (a) the two archs that need the new kernels, under the
+# scheduler at the scheduled phase's parameters; (b) the other two FIFO,
+# chameleon-34b cut to 8 of its 48 layers (63.9 GiB in bf16 at full depth)
+ARCHS_SCHEDULED = dict(SCHEDULED, names=("deepseek-v2-lite-16b", "qwen2-7b"))
+ARCHS_FIFO = dict(SCHEDULED, names=("granite-3-8b", "chameleon-34b"), scheduler=False,
+                  layers={"chameleon-34b": 8})
+# a router top-k flip between the kernel and plain runs of the bf16 parity
+# (the MoE layer's input differs by the attention kernels' rounding) is
+# allowed only where the plain run's k-th and (k+1)-th router logits lie
+# within this of each other
+ROUTER_TIE = 0.05
 # the speculative serves: 8 requests per engine at the serve's shapes; the
 # target verifies T = k + 1 <= 5 positions per slot (SpecConfig.k_max 4)
 SPEC = dict(requests=8, prompt_lens=(64, 128, 256, 512), max_new=16, max_slots=8,
@@ -129,6 +165,8 @@ SOURCES = {
                          "src/repro/kernels/decode_attention.py:87"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan_bf16.cu",
                  "src/repro/kernels/ssd_scan.py:92"),
+    "decode_attention_mla": ("src/repro_torch/kernels/csrc/decode_attention_mla.cu",
+                             "src/repro/kernels/decode_attention.py:87"),
 }
 
 
@@ -137,6 +175,7 @@ SOURCES = {
 KERNEL_GROUPS = {"flash_fwd_bf16_kernel": "flash_attention",
                  "flash_fwd_fp32_kernel": "flash_attention",
                  "decode_split_kernel": "decode_attention",
+                 "mla_decode_kernel": "decode_attention_mla",
                  "ssd_state_bf16_kernel": "ssd_scan",
                  "ssd_out_bf16_kernel": "ssd_scan",
                  "ssd_scan_fp32_kernel": "ssd_scan"}
@@ -174,16 +213,28 @@ def bound(flops, nbytes, dtype_name):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def flash_bound(B, S, H, Hkv, D, window, dtype_name, elem):
+def flash_bound(B, S, H, Hkv, D, window, dtype_name, elem, Dv=None):
+    """2·H·(Dk + Dv) FLOPs per kept (query, key) pair; q, k, v, o once."""
+    Dv = D if Dv is None else Dv
     pairs = B * sum(kept_keys(i, S, S, True, window) for i in range(S))
-    nbytes = elem * (2 * B * S * H * D + 2 * B * S * Hkv * D)
-    return bound(4 * H * D * pairs, nbytes, dtype_name)
+    nbytes = elem * (B * S * H * (D + Dv) + B * S * Hkv * (D + Dv))
+    return bound(2 * H * (D + Dv) * pairs, nbytes, dtype_name)
 
 
 def decode_bound(pos, Smax, H, Hkv, D, window, dtype_name, elem):
     kept = sum(kept_keys(p, p + 1, Smax, False, window) for p in pos)
     nbytes = elem * (kept * Hkv * 2 * D + 2 * len(pos) * H * D)
     return bound(4 * H * D * kept, nbytes, dtype_name)
+
+
+def mla_decode_bound(pos, Smax, dtype_name, elem):
+    """The absorbed-MLA decode: each kept latent row read once (its first
+    512 columns are the values), q and o once; 2·H·(Dk + Dv) FLOPs per
+    kept key."""
+    H, Hkv, Dk, Dv = (MLA_DECODE[x] for x in ("H", "Hkv", "Dk", "Dv"))
+    kept = sum(kept_keys(p, p + 1, Smax, False, None) for p in pos)
+    nbytes = elem * (kept * Hkv * Dk + len(pos) * H * (Dk + Dv))
+    return bound(2 * H * (Dk + Dv) * kept, nbytes, dtype_name)
 
 
 def verify_offsets(Smax, T):
@@ -301,7 +352,8 @@ def phase_kernels(torch, report):
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import ssd_scan as smod
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}}
+    errs = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {},
+            "decode_attention_mla": {}}
     verify_errs = {}
     misses = []
 
@@ -346,6 +398,10 @@ def phase_kernels(torch, report):
                                    float((out.float() - ref.float()).abs().max()))
         for case, out, ref in decode_edge_cases(torch, gen, dmod, dtype):
             compare("decode_attention", f"edge {case} {dtype}", dtype, out, ref)
+        for kernel, case, out, ref in arch_decode_cases(torch, gen, dmod, dtype):
+            compare(kernel, f"{case} {dtype}", dtype, out, ref)
+        for case, out, ref in arch_flash_cases(torch, gen, fmod, dtype):
+            compare("flash_attention", f"{case} {dtype}", dtype, out, ref)
         for case, (y, h), (ry, rh) in ssd_edge_cases(torch, gen, smod, dtype):
             compare("ssd_scan", f"{case} {dtype} y", dtype, y, ry, SSD_TOL)
             compare("ssd_scan", f"{case} {dtype} state", torch.float32, h, rh, SSD_TOL)
@@ -376,7 +432,7 @@ def flash_edge_cases(torch, gen, fmod, dtype):
               q_offset=torch.tensor([0, 100, 230, 5], device=dev),
               kv_len=torch.tensor([40, 120, 260, 0], device=dev))
     yield run("window 100 across tiles", 2, 300, 300, 8, 4, 64, window=100)
-    for G in (1, 2, 4, 8):
+    for G in (1, 2, 4, 7, 8):
         yield run(f"G={G}", 2, 130, 130, 2 * G, 2, 128)
     yield run("Dk 64 Dv 32", 2, 130, 130, 4, 2, 64, Dv=32)
 
@@ -407,7 +463,7 @@ def decode_edge_cases(torch, gen, dmod, dtype):
     L = dmod.plan_splits(Smax, B, Hkv)[1]
     pos = torch.tensor([0, L - 2, L - 1, L, 2 * L - 1, 2 * L, Smax - 2, Smax - 1],
                        dtype=torch.int32, device="cuda")
-    for G in (1, 2, 4, 8):
+    for G in (1, 2, 4, 7, 8):
         for D in (64, 128, 256):
             q, _, _ = qkv(torch, gen, B, 1, 1, G * Hkv, Hkv, D, dtype)
             _, k, v = qkv(torch, gen, B, 1, Smax, G * Hkv, Hkv, D, dtype)
@@ -415,6 +471,68 @@ def decode_edge_cases(torch, gen, dmod, dtype):
                 kw = dict(q_offset=pos, kv_len=pos + 1, window=window, softcap=softcap)
                 yield (f"G={G} D={D} Smax={Smax} split={L} w={window} cap={softcap}",
                        dmod.decode_attention(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw))
+
+
+def mla_inputs(torch, gen, B, Smax, dtype):
+    """q (B,1,16,576) and a latent cache (B,Smax,1,576) whose first 512
+    columns are the values, as ``models.attention.mla_decode`` passes them."""
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    H, Hkv, Dk, Dv = (MLA_DECODE[x] for x in ("H", "Hkv", "Dk", "Dv"))
+    q, k = r(B, 1, H, Dk), r(B, Smax, Hkv, Dk)
+    return q, k, k[..., :Dv]
+
+
+def arch_decode_cases(torch, gen, dmod, dtype):
+    """(kernel wrapper, case, kernel output, plain output): decode at
+    qwen2-7b's heads (28 on 4, D 128, G = 7) and at the absorbed-MLA shape
+    (the MLA kernel, values the latent rows' first 512 columns), 8 slots at
+    DECODE_POS (clipped to the cache) with Smax 2048 and 1024 (the serve's
+    max_len), and with the last slot parked at Smax (a retired slot); then
+    the MLA kernel at its split edges (Smax 1000), with a window and a
+    softcap, which DeepSeek does not use."""
+    B = len(DECODE_POS)
+    for Smax in (2048, 1024):
+        for parked in (False, True):
+            pos_list = [min(p, Smax - 1) for p in DECODE_POS]
+            if parked:
+                pos_list[-1] = Smax
+            pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+            kw = dict(q_offset=pos, kv_len=pos + 1)
+            q, _, _ = qkv(torch, gen, B, 1, 1, QWEN2["H"], QWEN2["Hkv"], QWEN2["D"], dtype)
+            _, k, v = qkv(torch, gen, B, 1, Smax, QWEN2["H"], QWEN2["Hkv"], QWEN2["D"], dtype)
+            yield ("decode_attention", f"qwen2 G=7 Smax={Smax} parked={parked}",
+                   dmod.decode_attention(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw))
+            q, k, v = mla_inputs(torch, gen, B, Smax, dtype)
+            kw = dict(kw, scale=MLA_SCALE)
+            yield ("decode_attention_mla", f"MLA Smax={Smax} parked={parked}",
+                   dmod.decode_attention(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw))
+    Smax = 1000
+    L = dmod.plan_splits(Smax, B, 1)[1]
+    pos = torch.tensor([0, L - 2, L - 1, L, 2 * L - 1, 2 * L, Smax - 2, Smax - 1],
+                       dtype=torch.int32, device="cuda")
+    q, k, v = mla_inputs(torch, gen, B, Smax, dtype)
+    for window, softcap in ((None, None), (L // 2 + 3, None), (2 * L + 5, 50.0)):
+        kw = dict(q_offset=pos, kv_len=pos + 1, window=window, softcap=softcap, scale=MLA_SCALE)
+        yield ("decode_attention_mla", f"MLA edge Smax={Smax} split={L} w={window} cap={softcap}",
+               dmod.decode_attention_mla(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw))
+
+
+def arch_flash_cases(torch, gen, fmod, dtype):
+    """(case, kernel output, plain output): flash at deepseek-v2-lite's
+    naive-form MLA prefill (16 heads, Dk 192, Dv 128, scale 192^-0.5) and
+    at qwen2-7b's G = 7 (28 on 4, D 128), causal, at the archs serve's
+    prefill shapes and beside the kernel's tile edges."""
+    for B, S in ((1, 64), (2, 96), (2, 200), (8, 512), (1, 17), (2, 129), (4, 65)):
+        q, k, _ = qkv(torch, gen, B, S, S, MLA_PREFILL["H"], MLA_PREFILL["Hkv"],
+                      MLA_PREFILL["Dk"], dtype)
+        v = qkv(torch, gen, B, 1, S, 1, MLA_PREFILL["Hkv"], MLA_PREFILL["Dv"], dtype)[2]
+        kw = dict(causal=True, scale=MLA_SCALE)
+        yield (f"MLA prefill B={B} S={S}", fmod.flash_attention(q, k, v, **kw),
+               fmod.flash_attention_plain(q, k, v, **kw))
+        q, k, v = qkv(torch, gen, B, S, S, QWEN2["H"], QWEN2["Hkv"], QWEN2["D"], dtype)
+        yield (f"qwen2 G=7 B={B} S={S}", fmod.flash_attention(q, k, v, causal=True),
+               fmod.flash_attention_plain(q, k, v, causal=True))
 
 
 def left_padded(torch, B, S):
@@ -531,6 +649,7 @@ def phase_times(torch, report):
                              call_ms=call_ms(torch, lambda: fmod.flash_attention(q, k, v, **kw)),
                              library_call_ms=None if lib is None else call_ms(
                                  torch, lambda: sdpa(q, k, v, attn_mask=mask))))
+    rows += arch_times(torch, gen, flush, sdpa)
     from repro_torch.kernels import ssd_scan as smod
     serve_shapes = [(B, S) for B, S, _ in SSD_SERVE] + sorted(report.get("ssd_calls", {}))
     for B, S in dict.fromkeys([(8, 512), (1, 512)] + serve_shapes):
@@ -545,21 +664,122 @@ def phase_times(torch, report):
     log("timings:", json.dumps({"smi": report.get("smi"), "timings": rows}))
 
 
+PARITY_ARCHS = ("tinyllama-1.1b", "gemma2-2b", "qwen2-7b", "chameleon-34b",
+                "deepseek-v2-lite-16b")
+
+
+def arch_times(torch, gen, flush, sdpa):
+    """The seventh slice's kernel shapes, bf16: decode at qwen2-7b's G = 7
+    (8 slots x 2048 at DECODE_POS), the MLA decode kernel (8 slots x 1024,
+    DECODE_POS clipped to the cache, values the latent rows' first 512
+    columns) and flash at the MLA prefill (B 8, S 512; Dk 192, Dv 128);
+    each beside its plain version, its bound and SDPA (+ mask) on the same
+    tensors."""
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    bf16, rows = torch.bfloat16, []
+
+    def row(kernel, model, B, S, fn, plain, lib, b, **extra):
+        ms = time_ms(torch, fn, flush)
+        rows.append(dict(kernel=kernel, model=model, B=B, S=S, dtype="bfloat16", ms=ms,
+                         plain_ms=time_ms(torch, plain, flush),
+                         library_ms=time_ms(torch, lib, flush), bound_ms=b[0], bound_by=b[1],
+                         call_ms=call_ms(torch, fn), library_call_ms=call_ms(torch, lib),
+                         **extra))
+
+    for model, Smax, kernel in (("qwen2", 2048, "decode_attention"),
+                                ("mla", 1024, "decode_attention_mla")):
+        pos_list = [min(p, Smax - 1) for p in DECODE_POS]
+        B = len(pos_list)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(Smax, device="cuda")[None, :] <= pos[:, None])[:, None, None]
+        if model == "qwen2":
+            q, _, _ = qkv(torch, gen, B, 1, 1, QWEN2["H"], QWEN2["Hkv"], QWEN2["D"], bf16)
+            _, k, v = qkv(torch, gen, B, 1, Smax, QWEN2["H"], QWEN2["Hkv"], QWEN2["D"], bf16)
+            kw = dict(q_offset=pos, kv_len=pos + 1)
+            b = decode_bound(pos_list, Smax, QWEN2["H"], QWEN2["Hkv"], QWEN2["D"], None,
+                             "bfloat16", 2)
+            lib_kw = dict(attn_mask=mask)
+        else:
+            q, k, v = mla_inputs(torch, gen, B, Smax, bf16)
+            kw = dict(q_offset=pos, kv_len=pos + 1, scale=MLA_SCALE)
+            b = mla_decode_bound(pos_list, Smax, "bfloat16", 2)
+            lib_kw = dict(attn_mask=mask, scale=MLA_SCALE)
+        row(kernel, model, B, Smax, lambda: dmod.decode_attention(q, k, v, **kw),
+            lambda: dmod.decode_attention_plain(q, k, v, **kw),
+            lambda: sdpa(q, k, v, **lib_kw), b)
+    B, S, hd = 8, 512, MLA_PREFILL
+    q, k, _ = qkv(torch, gen, B, S, S, hd["H"], hd["Hkv"], hd["Dk"], bf16)
+    v = qkv(torch, gen, B, 1, S, 1, hd["Hkv"], hd["Dv"], bf16)[2]
+    kw = dict(causal=True, scale=MLA_SCALE)
+    row("flash_attention", "mla", B, S, lambda: fmod.flash_attention(q, k, v, **kw),
+        lambda: fmod.flash_attention_plain(q, k, v, **kw),
+        lambda: sdpa(q, k, v, is_causal=True, scale=MLA_SCALE),
+        flash_bound(B, S, hd["H"], hd["Hkv"], hd["Dk"], None, "bfloat16", 2, Dv=hd["Dv"]),
+        shape="mla prefill")
+    return rows
+
+
 def phase_parity(torch, report):
-    """tinyllama and gemma2 at full width, cut to 2 layers: prefill and 8
-    ragged decode steps through the kernels against the same run through
-    the plain versions, in fp32 (the fp32 kernel routes) and in bf16 (the
-    tensor-core flash kernel and the bf16 decode kernel). Both runs are fed
-    the plain run's greedy tokens, so a near-tie that rounds the other way
-    in bf16 cannot send the two runs down different sequences."""
+    """The attention and MLA archs at full width, cut to 2 layers
+    (deepseek-v2-lite: layer 0 dense, layer 1 MoE): prefill and 8 ragged
+    decode steps through the kernels against the same run through the
+    plain versions, in fp32 (the fp32 kernel routes) and in bf16 (the
+    tensor-core flash kernel and the bf16 decode kernels). Both runs are
+    fed the plain run's greedy tokens, so a near-tie that rounds the other
+    way in bf16 cannot send the two runs down different sequences."""
     for dtype in ("float32", "bfloat16"):
-        for arch in ("tinyllama-1.1b", "gemma2-2b"):
+        for arch in PARITY_ARCHS:
             model_parity(torch, report, arch, dtype)
     phase_parity_mamba2(torch, report)
 
 
+class RouterReplay:
+    """Wraps ``models.moe.route`` for a parity pair: the plain run's calls
+    are recorded; each call of the kernel run (in the same order) computes
+    its own routing, counts where its top-k expert set differs from the
+    plain run's, and goes on with the plain run's experts (gated by its own
+    probabilities), as both runs are fed the plain run's tokens. A flip is
+    allowed only where the plain run's router logits of the experts
+    swapped lie within ROUTER_TIE of each other (printed)."""
+
+    def __init__(self, moe):
+        self.moe, self.route = moe, moe.route
+        self.plain, self.mode, self.step, self.i = [], "plain", None, 0
+        self.agree, self.flips = {}, []
+
+    def __enter__(self):
+        self.moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def __call__(self, xt, router, k):
+        probs, gates, ids = self.route(xt, router, k)
+        if self.mode == "plain":
+            self.plain.append((probs, ids))
+            return probs, gates, ids
+        pprobs, pids = self.plain[self.i]
+        self.i += 1
+        mine = ids.sort(dim=-1).values
+        theirs = pids.sort(dim=-1).values
+        rows = (mine != theirs).any(dim=-1).nonzero().flatten().tolist()
+        n, ok = self.agree.get(self.step, (0, 0))
+        self.agree[self.step] = (n + ids.shape[0], ok + ids.shape[0] - len(rows))
+        logit = pprobs.double().log()
+        for r in rows:
+            took = sorted(set(ids[r].tolist()) - set(pids[r].tolist()))
+            left = sorted(set(pids[r].tolist()) - set(ids[r].tolist()))
+            margin = float(logit[r, left].max() - logit[r, took].min())
+            self.flips.append((self.step, r, left, took, margin))
+        gates = probs.gather(1, pids)
+        return probs, gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9), pids
+
+
 def model_parity(torch, report, arch, dtype):
     from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
     from repro_torch.models.model import init_params
     from repro_torch.serving.workers import ModelWorker
     from repro_torch.sharding.context import ExecContext
@@ -570,25 +790,39 @@ def model_parity(torch, report, arch, dtype):
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=rng).numpy()
                for n in prompt_lens]
     runs, toks = {}, None
-    for impl in ("plain", None):
-        w = ModelWorker(arch, cfg, params, max_len=256, ctx=ExecContext(attn_impl=impl))
-        pool = w.init_pool(len(prompts))
-        first = []
-        for slot, p in enumerate(prompts):
-            lg, c = w.prefill_one(p)
-            pool = w.write_slots(pool, c, [slot])
-            first.append(lg[0])
-        lg = torch.stack(first)
-        pos = torch.tensor(prompt_lens, dtype=torch.int32).numpy()
-        logits, greedy = [], []
-        for i in range(9):  # prefill logits + 8 ragged decode steps
-            logits.append(lg.float())
-            greedy.append(lg.argmax(dim=-1).to(torch.int32).cpu().numpy())
-            tok = greedy[-1] if toks is None else toks[i]
-            _, lg, pool = w.decode_pool(pool, tok[:, None], pos)
-            pos = pos + 1
-        runs[impl] = (torch.stack(logits), greedy)
-        toks = greedy if toks is None else toks
+    with RouterReplay(moe) as replay:
+        for impl in ("plain", None):
+            replay.mode = impl or "kernel"
+            w = ModelWorker(arch, cfg, params, max_len=256, ctx=ExecContext(attn_impl=impl))
+            pool = w.init_pool(len(prompts))
+            first = []
+            for slot, p in enumerate(prompts):
+                replay.step = "prefill"
+                lg, c = w.prefill_one(p)
+                pool = w.write_slots(pool, c, [slot])
+                first.append(lg[0])
+            lg = torch.stack(first)
+            pos = torch.tensor(prompt_lens, dtype=torch.int32).numpy()
+            logits, greedy = [], []
+            for i in range(9):  # prefill logits + 8 ragged decode steps
+                logits.append(lg.float())
+                greedy.append(lg.argmax(dim=-1).to(torch.int32).cpu().numpy())
+                tok = greedy[-1] if toks is None else toks[i]
+                replay.step = f"decode {i}"
+                _, lg, pool = w.decode_pool(pool, tok[:, None], pos)
+                pos = pos + 1
+            runs[impl] = (torch.stack(logits), greedy)
+            toks = greedy if toks is None else toks
+    if replay.plain:
+        log(f"parity {arch} {dtype}: router top-{cfg.top_k} sets agreeing, rows per step: "
+            + json.dumps({st: f"{ok}/{n}" for st, (n, ok) in replay.agree.items()}))
+        for st, r, left, took, margin in replay.flips:
+            log(f"  router flip at {st}, row {r}: plain {left} -> kernel {took}, plain logit "
+                f"gap {margin:.4g} (near-tie bound {ROUTER_TIE})")
+        far = [f for f in replay.flips if f[-1] > ROUTER_TIE]
+        if far:
+            raise SmokeFailure(f"{arch} {dtype}: router flips away from a near-tie: {far}")
+        report.setdefault("router_flips", {})[f"{arch} {dtype}"] = len(replay.flips)
     a, b = runs[None][0], runs["plain"][0]
     err = float((a - b).abs().max())
     same = sum(int((x == y).sum()) for x, y in zip(runs[None][1], runs["plain"][1]))
@@ -677,7 +911,7 @@ def kernel_wrappers():
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import ssd_scan as smod
     return {"flash_attention": fmod.flash_attention, "decode_attention": dmod.decode_attention,
-            "ssd_scan": smod.ssd_scan}
+            "ssd_scan": smod.ssd_scan, "decode_attention_mla": dmod.decode_attention_mla}
 
 
 def drive(fn, **kw):
@@ -693,12 +927,16 @@ def drive(fn, **kw):
 def attention_launches_expected(eng):
     """Per attention layer: flash once for each prefill and each
     multi-position pass (the verify, a draft's catch-up of Tc > 1 tokens),
-    decode once for each single-token pass; draft workers included."""
+    decode once for each single-token pass (the MLA decode kernel for an
+    MLA stack); draft workers included."""
     workers = list(eng.workers.values()) + [s.worker for s in eng.spec.values()]
     attn = [w for w in workers if "ssd" not in w.cfg.layer_kinds()]
     return {"flash_attention": sum(w.cfg.num_layers * (w.prefill_calls + w.verify_calls)
                                    for w in attn),
-            "decode_attention": sum(w.cfg.num_layers * w.decode_calls for w in attn)}
+            "decode_attention": sum(w.cfg.num_layers * w.decode_calls for w in attn
+                                    if not w.cfg.use_mla),
+            "decode_attention_mla": sum(w.cfg.num_layers * w.decode_calls for w in attn
+                                        if w.cfg.use_mla)}
 
 
 def check_responses(phase, eng, responses, n_expected, max_new):
@@ -767,7 +1005,8 @@ def phase_scheduled(torch, report):
     mamba = eng.workers["mamba2-2.7b"]
     want = dict(attention_launches_expected(eng),
                 ssd_scan=mamba.cfg.num_layers * mamba.prefill_calls)
-    if launches != want or min(launches.values()) == 0 or launches["ssd_scan"] < 64:
+    if (launches != want or launches["ssd_scan"] < 64
+            or min(launches[k] for k in ("flash_attention", "decode_attention")) == 0):
         raise SmokeFailure(f"scheduled: kernel launches {launches}, expected {want}")
     reasons = set(rep["admission_reasons"])
     if not reasons - {"idle-pool"}:
@@ -869,7 +1108,8 @@ def phase_joint(torch, report):
         mamba = eng.workers["mamba2-2.7b"]
         want = dict(attention_launches_expected(eng),
                     ssd_scan=mamba.cfg.num_layers * mamba.prefill_calls)
-        if launches != want or min(launches.values()) == 0:
+        if launches != want or min(launches[k] for k in ("flash_attention", "decode_attention",
+                                                         "ssd_scan")) == 0:
             raise SmokeFailure(f"{label}: kernel launches {launches}, expected {want}")
         calls = collections.Counter(shapes)
         if len(shapes) != launches["ssd_scan"]:
@@ -1155,6 +1395,96 @@ def phase_spec(torch, report):
     c = res["spec"]["counters"]
     if c["spec_accepted"] >= c["spec_drafted"]:
         raise SmokeFailure(f"gemma2 fifo random draft: no draft was rejected ({c})")
+    del params, dparams
+    torch.cuda.empty_cache()
+    # full-width bf16 rollback in quantity: tinyllama (untied LM head) with a
+    # differently seeded 1-layer draft, FIFO, so every round speculates and
+    # most drafts are rejected: the verifies run over the stale K/V of
+    # rolled-back rounds
+    cfg = get_config("tinyllama-1.1b")
+    dcfg = dataclasses.replace(cfg, name=f"{cfg.name}-draft1", num_layers=1)
+    params = init_params(cfg, seed=SPEC["seed"], device="cuda")
+    dparams = init_params(dcfg, seed=7, device="cuda")
+    label = "tinyllama fifo random draft"
+    _, res = spec_pair(torch, report, label, cfg, params, (dcfg, dparams), None,
+                       spec_requests(cfg, n, lens, max_new, SPEC["seed"]), False, 0.0, slots,
+                       max_len)
+    c = res["spec"]["counters"]
+    rolled = c["spec_drafted"] - c["spec_accepted"]
+    log(f"{label}: drafted {c['spec_drafted']}, accepted {c['spec_accepted']}, rolled back "
+        f"{rolled} (acceptance {c['spec_accepted'] / max(c['spec_drafted'], 1):.3f})")
+    if rolled * 2 < c["spec_drafted"]:
+        raise SmokeFailure(f"{label}: most drafts were accepted ({c})")
+
+
+def phase_archs(torch, report):
+    """The seventh slice's archs through ``repro_torch.launch.serve``: (a)
+    deepseek-v2-lite-16b and qwen2-7b at their full configs under the
+    AdaOper scheduler (the default), at the scheduled phase's parameters;
+    (b) granite-3-8b at its full config and chameleon-34b at full width,
+    8 of its 48 layers, FIFO. Every request completes and each kernel
+    launched as the workers' passes imply; the MoE layers' dropped
+    assignments (capacity factor 1.25) are counted on the device, and the
+    scheduler's DP solves and their host seconds."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import moe
+    from repro_torch.serving import scheduler as sched_mod
+    dispatch, dp = moe.dispatch, sched_mod.dp_partition
+    for key, kw in (("archs", ARCHS_SCHEDULED), ("archs_fifo", ARCHS_FIFO)):
+        drops, solves = [], [0, 0.0]
+
+        def counted(ids, E, C):  # (dropped, assignments, tokens) per MoE call
+            order, slot, valid = dispatch(ids, E, C)
+            drops.append(((~valid).sum(), valid.numel(), ids.shape[0]))
+            return order, slot, valid
+
+        def timed_dp(*a, **k):  # every DP solve of the scheduler, and its host time
+            t0 = time.perf_counter()
+            out = dp(*a, **k)
+            solves[0] += 1
+            solves[1] += time.perf_counter() - t0
+            return out
+        moe.dispatch, sched_mod.dp_partition = counted, timed_dp
+        try:
+            (eng, responses, rep), launches = drive(serve, **kw)
+        finally:
+            moe.dispatch, sched_mod.dp_partition = dispatch, dp
+        report[f"launches_{key}"] = launches
+        report[key] = rep
+        log(f"{key}: {rep['requests']} requests, {rep['tokens']} tokens, {rep['scheduler']}, "
+            f"calibration {rep['calibration_s']:.3f} s, weights {rep['init_s']:.3f} s, "
+            f"{rep['wall_s']:.3f} s wall, peak memory {rep['peak_mem_bytes'] / 2**30:.2f} GiB, "
+            f"{rep['prefill_batches']} prefill batches; {json.dumps(rep['models'])}")
+        log(f"{key} launches: {json.dumps(launches)}")
+        if drops:
+            by = {"prefill": [0, 0], "decode": [0, 0]}
+            for d, n, t in drops:  # a decode pass routes one token per slot
+                row = by["decode" if t == kw["max_slots"] else "prefill"]
+                row[0] += int(d)
+                row[1] += n
+            log(f"{key} MoE assignments dropped at capacity factor 1.25: "
+                + json.dumps({k: f"{d} of {n}" for k, (d, n) in by.items()}))
+            report[f"{key}_moe_drops"] = by
+        if rep["scheduler"] == "adaoper":
+            rep["dp_solves"], rep["dp_solve_s"] = solves
+            log(f"{key} DP solves {solves[0]} taking {solves[1]:.3f} s of the "
+                f"{rep['wall_s']:.3f} s wall")
+            log(f"{key} plan cache {json.dumps(rep['plan_cache'])}, admission reasons "
+                f"{json.dumps(rep['admission_reasons'])}, drift events {rep['drift_events']}, "
+                f"preemptions {json.dumps(rep['preemptions'])}")
+        check_responses(key, eng, responses, kw["requests"] * len(kw["names"]), kw["max_new"])
+        want = dict(attention_launches_expected(eng), ssd_scan=0)
+        need = ["flash_attention", "decode_attention"]
+        if any(w.cfg.use_mla for w in eng.workers.values()):
+            need.append("decode_attention_mla")
+        if launches != want or min(launches[k] for k in need) == 0:
+            raise SmokeFailure(f"{key}: kernel launches {launches}, expected {want}")
+        if any(w.cfg.num_layers != kw.get("layers", {}).get(n, get_config(n).num_layers)
+               for n, w in eng.workers.items()):
+            raise SmokeFailure(f"{key}: a model was not served at its stated depth")
+        del eng, responses
+        torch.cuda.empty_cache()
 
 
 def engine_for(kw, coexec=False):
@@ -1163,7 +1493,7 @@ def engine_for(kw, coexec=False):
     from repro_torch.launch.serve import build_engine, make_scheduler, model_configs
     kw = dict(kw)
     scheduled, workload = kw.pop("scheduler"), kw.pop("workload", "moderate")
-    sched = (make_scheduler(model_configs(kw["names"], kw["full"]).values(),
+    sched = (make_scheduler(model_configs(kw["names"], kw["full"], kw.get("layers")).values(),
                             max(kw["prompt_lens"]), kw["max_new"], workload, kw["seed"], coexec)
              if scheduled else None)
     return build_engine(**kw, scheduler=sched)
@@ -1175,6 +1505,10 @@ def phase_profile(torch, report):
 
 def phase_profile_scheduled(torch, report):
     profile_workload(torch, report, "profile_scheduled", lambda: engine_for(SCHEDULED))
+
+
+def phase_profile_archs(torch, report):
+    profile_workload(torch, report, "profile_archs", lambda: engine_for(ARCHS_SCHEDULED))
 
 
 def phase_profile_spec(torch, report):
@@ -1207,6 +1541,7 @@ def profile_workload(torch, report, key, build):
     eng.run_all()
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
+    del eng  # one engine's weights at a time
     eng = build()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1254,21 +1589,27 @@ def profile_workload(torch, report, key, build):
     log(f"{key}:", json.dumps(out))
 
 
+# each kernel's row of the times phase in the kernels line: (model, B, S)
+LINE_ROWS = {"flash_attention": ("tinyllama", 8, 512), "decode_attention": ("tinyllama", 8, 2048),
+             "ssd_scan": ("mamba2", 8, 512), "decode_attention_mla": ("mla", 8, 1024)}
+# each kernel's count on the path of its own slice: attention on the FIFO
+# serve path, the SSD scan on the scheduled path, the MLA decode on the
+# scheduled serve of the archs phase
+MAIN_PATH = {"flash_attention": "serve", "decode_attention": "serve", "ssd_scan": "scheduled",
+             "decode_attention_mla": "archs"}
+
+
 def kernels_line(report):
     rows = {r["kernel"]: r for r in report.get("timings", [])
-            if r["model"] in ("tinyllama", "mamba2") and r["B"] == 8 and r["S"] in (512, 2048)
-            and "shape" not in r}
-    paths = {"serve": report.get("launches", {}),
-             "scheduled": report.get("launches_scheduled", {}),
-             "joint": report.get("launches_joint", {}),
-             "spec": report.get("launches_spec", {})}
+            if (r["model"], r["B"], r["S"]) == LINE_ROWS[r["kernel"]] and "shape" not in r}
+    paths = {p: report.get(f"launches_{p}", {})
+             for p in ("scheduled", "joint", "spec", "archs", "archs_fifo")}
+    paths = {"serve": report.get("launches", {}), **paths}
     out = []
     for name, (src, replaces) in SOURCES.items():
         t = rows.get(name, {})
         by_path = {p: c[name] for p, c in paths.items() if name in c}
-        # each kernel's count on the path of its own slice: attention on the
-        # FIFO serve path, the SSD scan on the scheduled path
-        main = "scheduled" if name == "ssd_scan" else "serve"
+        main = MAIN_PATH[name]
         out.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                     "launches": by_path.get(main), "launches_by_path": by_path,
                     "max_abs_err": max(report.get("errors", {}).get(name, {}).values(),
@@ -1296,8 +1637,10 @@ def main(argv=None):
     report = {}
     fns = {"device": phase_device, "kernels": phase_kernels, "times": phase_times,
            "parity": phase_parity, "serve": phase_serve, "scheduled": phase_scheduled,
-           "joint": phase_joint, "spec": phase_spec, "profile": phase_profile,
-           "profile_scheduled": phase_profile_scheduled, "profile_spec": phase_profile_spec}
+           "joint": phase_joint, "spec": phase_spec, "archs": phase_archs,
+           "profile": phase_profile,
+           "profile_scheduled": phase_profile_scheduled, "profile_spec": phase_profile_spec,
+           "profile_archs": phase_profile_archs}
     t_start = time.perf_counter()
     try:
         for ph in ("device",) + tuple(p for p in PHASES + EXTRA

@@ -4,9 +4,16 @@
 with every leaf turned into a numpy array (the caller converts; this module
 imports no JAX). The JAX package stacks each stage's layers on a leading
 ``repeats`` axis (``repro.models.transformer.init_stack``): layer ``j`` of
-repeat ``r`` of a stage is absolute layer ``offset + r * period + j``. JAX
-stores dense weights ``(d_in, d_out)`` and applies ``x @ W``; the port's
-``nn.Linear`` stores ``(d_out, d_in)``, so they are transposed.
+repeat ``r`` of a stage is absolute layer ``offset + r * period + j``
+(deepseek-v2-lite: a 1-layer dense prefix stage, then a 26-repeat MoE
+stage). Each leaf of a layer's dict lands on the port's attribute of the
+same name: JAX stores dense weights ``(d_in, d_out)`` and applies
+``x @ W``, the port's ``nn.Linear`` stores ``(d_out, d_in)``, so those are
+transposed (``wq``, ``w_dkv``, ``wo``, the shared experts...); a leaf
+that is a plain parameter in the port (MLA's ``w_ukv`` (lr, H, nope+vd),
+the experts (E, D, F) / (E, F, D), the router (D, E), the qkv biases,
+Mamba2's constants) keeps its layout; a norm's scale (``q_norm``,
+``kv_norm``, a ``{"scale": ...}`` dict) goes to its ``RMSNorm``.
 
 ``gru_params_from_numpy`` carries the JAX ``GRUCorrector``'s parameter dict
 (numpy leaves) into the port's corrector.
@@ -15,19 +22,33 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
+from repro_torch.models.layers import RMSNorm
 from repro_torch.models.model import CausalLM, empty_params
 from repro_torch.models.transformer import compute_stages
-
-_LINEARS = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_gate", "w_up", "w_down"),
-            "mixer": ("in_proj", "out_proj")}
-_NORMS = ("pre_norm", "post_norm", "mlp_norm", "mlp_post_norm")
-_MIXER_LEAVES = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm")  # Mamba2, untransposed
 
 
 def _put(param: torch.Tensor, arr, transpose: bool = False) -> None:
     a = torch.from_numpy(np.array(arr, dtype=np.float32))
     param.copy_(a.T if transpose else a)
+
+
+def _load(module: nn.Module, src: dict, r: int) -> None:
+    """Set ``module``'s parameters from the JAX layer dict ``src``, taking
+    repeat ``r`` of every leaf."""
+    for name, leaf in src.items():
+        dst = getattr(module, name)
+        if isinstance(leaf, dict):
+            _load(dst, leaf, r)
+        elif isinstance(dst, nn.Linear):
+            _put(dst.weight, leaf[r], transpose=True)
+        elif isinstance(dst, RMSNorm):
+            _put(dst.scale, leaf[r])
+        elif isinstance(dst, nn.Parameter):
+            _put(dst, leaf[r])
+        else:
+            raise TypeError(f"no rule to load {name!r} into {type(dst).__name__}")
 
 
 @torch.no_grad()
@@ -42,20 +63,7 @@ def params_from_numpy(tree, cfg, device="cuda") -> CausalLM:
         period = len(st.pattern)
         for r in range(st.repeats):
             for j in range(period):
-                src = tree["stages"][si][f"l{j}"]
-                layer = model.layers[offset + r * period + j]
-                for norm in _NORMS:
-                    if hasattr(layer, norm):
-                        _put(getattr(layer, norm).scale, src[norm]["scale"][r])
-                for block, names in _LINEARS.items():
-                    if block not in src:
-                        continue
-                    for name in names:
-                        _put(getattr(getattr(layer, block), name).weight,
-                             src[block][name][r], transpose=True)
-                if "mixer" in src:
-                    for name in _MIXER_LEAVES:
-                        _put(getattr(layer.mixer, name), src["mixer"][name][r])
+                _load(model.layers[offset + r * period + j], tree["stages"][si][f"l{j}"], r)
         offset += st.repeats * period
     return model
 

@@ -41,6 +41,10 @@ ARGTYPES = {
     # q, k, v, o, q_offset, kv_len, part, counters, B, Smax, H, Hkv, Dk, Dv,
     # window, n_splits, split_len, softcap, scale, dtype, stream
     "decode_attention_fwd": [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P],
+    # q, k, v, o, q_offset, kv_len, part, counters, B, Smax, H, Hkv, Dk, Dv,
+    # k_row, v_row, v_head, v_shared, window, n_splits, split_len, softcap,
+    # scale, dtype, stream (decode_attention_mla.cu)
+    "decode_attention_mla_fwd": [_P] * 8 + [_I] * 13 + [_F, _F, _I, _P],
     # x, dA, dt, Bm, Cm, y, h_out, h_in, cdt, B, S, H, P, N, Q, stream
     "ssd_scan_fwd_bf16": [_P] * 9 + [_I] * 6 + [_P],  # tensor cores (ssd_scan_bf16.cu)
     # x, dA, dt, Bm, Cm, y, h_out, B, S, H, P, N, Q, stream

@@ -69,15 +69,20 @@ __device__ __forceinline__ void load_vec(float (&out)[4], const float* p) {
   out[3] = f.w;
 }
 
+constexpr int pow2_ceil(int x) { return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2); }
+
 // A lane group of kLanes lanes takes one key at a time. Fewer lanes per
 // key mean shorter shuffle reductions and more keys in flight, more lanes
-// fewer accumulators per lane (G * DV / kLanes): the fewest lanes, 8 or
-// more, that keep 64 or fewer accumulators.
+// fewer accumulators per lane (G * DV / kLanes): the fewest lanes, a power
+// of two from 8 to 32, that keep 64 or fewer accumulators. A power of two
+// divides the warp, so a group never straddles two warps and its xor
+// shuffles stay inside it (G = 7 at DV = 128 wants 14 lanes and takes 16).
 template <typename T, int G, int DV>
 struct Shape {
   static constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
-  static constexpr int kWant = G * DV / 64 < 8 ? 8 : G * DV / 64 > 32 ? 32 : G * DV / 64;
+  static constexpr int kWant = pow2_ceil(G * DV / 64 < 8 ? 8 : G * DV / 64 > 32 ? 32 : G * DV / 64);
   static constexpr int kLanes = kWant < DV / kVec ? kWant : DV / kVec;  // lanes per key
+  static_assert(32 % kLanes == 0, "a lane group must divide the warp");
   static constexpr int kVecs = DV / (kVec * kLanes);  // V vectors per lane
   static constexpr int kGroups = kThreads / kLanes;   // keys in flight per block
 };
@@ -366,6 +371,8 @@ int dispatch(int G, int Dv, const void* q, const void* k, const void* v, void* o
       return dispatch_dv<T, 2>(Dv, REPRO_DECODE_ARGS);
     case 4:
       return dispatch_dv<T, 4>(Dv, REPRO_DECODE_ARGS);
+    case 7:  // qwen2-7b's 28 q heads on 4 kv heads
+      return dispatch_dv<T, 7>(Dv, REPRO_DECODE_ARGS);
     case 8:
       return dispatch_dv<T, 8>(Dv, REPRO_DECODE_ARGS);
     default:

@@ -6,8 +6,10 @@ continuous engine under AdaOper energy-aware scheduling (the default, as in
         --models tinyllama-1.1b,gemma2-2b,mamba2-2.7b --requests 8 --full
 
 runs the full published configs on the card (bf16, seeded random
-weights); the default ``--reduced`` runs the CPU-sized variants, and
-``--device cpu`` runs on the CPU with the kernels' plain versions. The
+weights); ``--layers chameleon-34b=8`` cuts a model to its first layers
+where the full depth does not fit the card; the default ``--reduced``
+runs the CPU-sized variants, and ``--device cpu`` runs on the CPU with the
+kernels' plain versions. The
 scheduler prices every step against ``DeviceSim(--workload)`` with a
 runtime energy profiler calibrated offline on the models' op graphs; the
 joules in the report are that simulator's predictions for a mobile SoC's
@@ -16,6 +18,7 @@ CPU, GPU and bus rails, not energy drawn by the device that serves.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from collections import Counter
@@ -52,23 +55,29 @@ def make_scheduler(cfgs, prompt_len: int, max_new: int, workload: str = "moderat
                             coexec=CoexecPlanner() if coexec else None)
 
 
-def model_configs(names: Sequence[str], full: bool):
-    return {n: get_config(n) if full else make_reduced(get_config(n)) for n in names}
+def model_configs(names: Sequence[str], full: bool, layers: Optional[Dict[str, int]] = None):
+    """Each model's config, full or reduced, cut to ``layers[name]`` layers
+    where given."""
+    cfgs = {n: get_config(n) if full else make_reduced(get_config(n)) for n in names}
+    for n, depth in (layers or {}).items():
+        cfgs[n] = dataclasses.replace(cfgs[n], num_layers=min(depth, cfgs[n].num_layers))
+    return cfgs
 
 
 def build_engine(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[int] = (32,),
                  max_new: int = 8, max_slots: int = 8, max_len: int = 64, seed: int = 0,
                  device="cuda", full: bool = False,
-                 scheduler: Optional[AdaOperScheduler] = None) -> ServingEngine:
+                 scheduler: Optional[AdaOperScheduler] = None,
+                 layers: Optional[Dict[str, int]] = None) -> ServingEngine:
     """One engine serving ``names`` (seed-initialised weights on ``device``)
     with ``requests`` per model queued, prompt lengths drawn from
     ``prompt_lens``, uids ``k * requests + i`` for the k-th model (so that a
     response's uid names its model); FIFO admission unless a ``scheduler``
-    is given."""
+    is given; ``layers`` cuts models as ``model_configs`` does."""
     dev = resolve_device(device)
     eng = ServingEngine(scheduler=scheduler, max_slots=max_slots)
     rng = np.random.default_rng(seed)
-    for k, (n, cfg) in enumerate(model_configs(names, full).items()):
+    for k, (n, cfg) in enumerate(model_configs(names, full, layers).items()):
         eng.add_model(n, cfg, init_params(cfg, seed, dev), max_len=max_len)
         for i in range(requests):
             plen = int(rng.choice(prompt_lens))
@@ -98,16 +107,16 @@ def scheduler_report(eng: ServingEngine, workload: str) -> dict:
 def serve(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[int] = (32,),
           max_new: int = 8, max_slots: int = 8, max_len: int = 64, seed: int = 0,
           device="cuda", full: bool = False, scheduler: bool = True,
-          workload: str = "moderate"):
+          workload: str = "moderate", layers: Optional[Dict[str, int]] = None):
     """Build the engine and serve every queued request. Returns (engine,
     responses, report dict)."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    sched = (make_scheduler(model_configs(names, full).values(), max(prompt_lens), max_new,
-                            workload, seed) if scheduler else None)
+    sched = (make_scheduler(model_configs(names, full, layers).values(), max(prompt_lens),
+                            max_new, workload, seed) if scheduler else None)
     calibration_s = time.perf_counter() - t0
     eng = build_engine(names, requests, prompt_lens, max_new, max_slots, max_len, seed, dev,
-                       full, sched)
+                       full, sched, layers)
     init_s = time.perf_counter() - t0 - calibration_s
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -119,8 +128,8 @@ def serve(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[int] = 
     wall = time.perf_counter() - t0
     per_model: Dict[str, dict] = {}
     for n, w in eng.workers.items():
-        per_model[n] = {"prefill_calls": w.prefill_calls, "decode_calls": w.decode_calls,
-                        "rounds": len(eng.stats[n])}
+        per_model[n] = {"layers": w.cfg.num_layers, "prefill_calls": w.prefill_calls,
+                        "decode_calls": w.decode_calls, "rounds": len(eng.stats[n])}
     report = {
         "device": str(dev), "full": full,
         "scheduler": "adaoper" if eng.scheduler is not None else "fifo",
@@ -153,16 +162,19 @@ def main(argv=None):
                     help="DeviceSim preset the scheduler prices against")
     ap.add_argument("--no-scheduler", action="store_true",
                     help="FIFO admission, no energy accounting")
+    ap.add_argument("--layers", default="",
+                    help="comma-separated NAME=N: serve model NAME cut to its first N layers")
     size = ap.add_mutually_exclusive_group()
     size.add_argument("--full", dest="full", action="store_true",
                       help="full published configs (bf16)")
     size.add_argument("--reduced", dest="full", action="store_false",
                       help="CPU-sized variants (fp32, the default)")
     args = ap.parse_args(argv)
+    layers = {n: int(d) for n, d in (x.split("=") for x in args.layers.split(",") if x)}
     _, _, report = serve(args.models.split(","), args.requests,
                          [int(x) for x in args.prompt_lens.split(",")], args.max_new,
                          args.max_slots, args.max_len, args.seed, args.device, args.full,
-                         not args.no_scheduler, args.workload)
+                         not args.no_scheduler, args.workload, layers)
     print(json.dumps(report))
     return report
 

@@ -1,11 +1,19 @@
-"""Attention, GQA half: the counterpart of ``repro.models.attention``.
+"""Attention: GQA (qkv bias, qk-norm, softcap, sliding window) and MLA,
+the counterpart of ``repro.models.attention``.
 
 ``attend`` routes to the hand-written kernels through ``kernels.ops``: on
 CUDA tensors the flash (prefill) and decode kernels, on CPU tensors their
 plain versions; ``impl="plain"`` takes the plain versions on any device.
 ``full_attention`` is the JAX package's XLA path, kept as a reference.
 
-MLA, cross-attention and the chunked path wait for later slices (see
+MLA (DeepSeek's multi-head latent attention) keeps one latent cache row
+per position, ``[c_kv | k_rope]`` of width ``kv_lora_rank + qk_rope_dim``:
+the JAX package's two caches side by side in one tensor, written with the
+same values at the same positions. Its absorbed decode attends with that
+row as the single KV head and its first ``kv_lora_rank`` columns as the
+values, views of one tensor, so no step concatenates the cache.
+
+Cross-attention and the chunked path wait for later slices (see
 ROADMAP.md).
 """
 from __future__ import annotations
@@ -14,7 +22,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import RMSNorm, apply_rope, rms_norm_head
 
 IMPLS = (None, "plain")
 
@@ -71,25 +79,41 @@ def attend(q, k, v, *, causal=True, window=None, softcap=None, q_offset=0,
 
 
 class GQA(nn.Module):
-    """GQA projections (counterpart of ``init_gqa``'s param dict)."""
+    """GQA projections (counterpart of ``init_gqa``'s param dict). The qkv
+    biases (qwen2) and the per-head qk-norm scales (chameleon) are fp32, as
+    in the JAX package."""
 
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
-        if cfg.qkv_bias or cfg.qk_norm:
-            raise NotImplementedError(
-                "qkv bias and qk-norm are not ported yet (see ROADMAP.md)")
         kw = dict(bias=False, device=device, dtype=dtype)
         self.wq = nn.Linear(cfg.d_model, cfg.q_dim, **kw)
         self.wk = nn.Linear(cfg.d_model, cfg.kv_dim, **kw)
         self.wv = nn.Linear(cfg.d_model, cfg.kv_dim, **kw)
         self.wo = nn.Linear(cfg.q_dim, cfg.d_model, **kw)
+        if cfg.qkv_bias:
+            f32 = dict(dtype=torch.float32, device=device)
+            self.bq = nn.Parameter(torch.zeros(cfg.q_dim, **f32))
+            self.bk = nn.Parameter(torch.zeros(cfg.kv_dim, **f32))
+            self.bv = nn.Parameter(torch.zeros(cfg.kv_dim, **f32))
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(cfg.head_dim, device)
+            self.k_norm = RMSNorm(cfg.head_dim, device)
 
 
 def _project_qkv(p: GQA, x, cfg, positions):
+    """Each bias is added after its projection, cast to the projection's
+    dtype (not fused into a bf16 ``nn.Linear``, which would round at another
+    place); the qk-norm runs before rope, as in the JAX package."""
     B, S, _ = x.shape
-    q = p.wq(x).view(B, S, cfg.num_heads, cfg.head_dim)
-    k = p.wk(x).view(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = p.wv(x).view(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q, k, v = p.wq(x), p.wk(x), p.wv(x)
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq.to(q.dtype), k + p.bk.to(k.dtype), v + p.bv.to(v.dtype)
+    q = q.view(B, S, cfg.num_heads, cfg.head_dim)
+    k = k.view(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.view(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm_head(q, p.q_norm.scale)
+        k = rms_norm_head(k, p.k_norm.scale)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -132,17 +156,12 @@ def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None)
         return _verify(p, x, cfg, cache_k, cache_v, pos, window, impl)
     q, k, v = _project_qkv(p, x, cfg, pos.reshape(-1, 1).expand(B, 1))
     if pos.dim():  # ragged: per-slot positions
-        bidx = torch.arange(B, device=x.device)
-        keep = (pos < Smax)[:, None, None]
-        row = pos.long().clamp(max=Smax - 1)
-        cache_k[bidx, row] = torch.where(keep, k[:, 0].to(cache_k.dtype), cache_k[bidx, row])
-        cache_v[bidx, row] = torch.where(keep, v[:, 0].to(cache_v.dtype), cache_v[bidx, row])
+        write_rows(cache_k, k[:, 0], pos)
+        write_rows(cache_v, v[:, 0], pos)
         o = attend(q, cache_k, cache_v, causal=False, window=window,
                    softcap=cfg.attn_softcap, q_offset=pos, kv_len=pos + 1, impl=impl)
         return p.wo(o.reshape(B, 1, cfg.q_dim)), (cache_k, cache_v)
-    idx = int(pos)
-    if not 0 <= idx < Smax:
-        raise ValueError(f"decode position {idx} outside the cache of {Smax}")
+    idx = _scalar_pos(pos, Smax)
     cache_k[:, idx] = k[:, 0].to(cache_k.dtype)
     cache_v[:, idx] = v[:, 0].to(cache_v.dtype)
     o = attend(q, cache_k, cache_v, causal=False, window=window,
@@ -150,23 +169,157 @@ def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None)
     return p.wo(o.reshape(B, 1, cfg.q_dim)), (cache_k, cache_v)
 
 
-def _verify(p: GQA, x, cfg, cache_k, cache_v, pos, window, impl):
-    """The multi-position branch of ``gqa_decode``. One indexed write per
-    cache holds the whole (B,T) grid; a position past the cache takes the
-    index and value of its row's last position inside it, and a row with
-    none writes the cache's last entry back unchanged, so every repeated
-    index carries one value and the drop needs no host sync."""
-    B, T = x.shape[0], x.shape[1]
-    Smax = cache_k.shape[1]
-    ar = torch.arange(T, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, pos[:, None] + ar)
+def _scalar_pos(pos, Smax: int) -> int:
+    idx = int(pos)
+    if not 0 <= idx < Smax:
+        raise ValueError(f"decode position {idx} outside the cache of {Smax}")
+    return idx
+
+
+def write_rows(cache, new, pos):
+    """cache (B, Smax, ...) [b, pos[b]] = new (B, ...), cast to the cache's
+    dtype; a row whose position is past the cache writes nothing (JAX's
+    ``mode="drop"``)."""
+    Smax = cache.shape[1]
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    keep = (pos < Smax).view(-1, *([1] * (new.dim() - 1)))
+    row = pos.long().clamp(max=Smax - 1)
+    cache[bidx, row] = torch.where(keep, new.to(cache.dtype), cache[bidx, row])
+
+
+def write_grid(cache, new, pos):
+    """cache (B, Smax, ...) [b, pos[b] + t] = new (B, T, ...) for every t,
+    writes past the cache dropped, in one indexed write: a position past
+    the cache takes the index and value of its row's last position inside
+    it, and a row with none writes the cache's last entry back unchanged,
+    so every repeated index carries one value and the drop needs no host
+    sync."""
+    B, T = new.shape[:2]
+    Smax = cache.shape[1]
+    ar = torch.arange(T, device=cache.device)
     t_src = torch.minimum(ar, (Smax - 1 - pos).clamp(min=0)[:, None])  # (B,T)
     rows = (pos[:, None] + t_src).long().clamp(max=Smax - 1)
-    live = (pos < Smax)[:, None, None, None]
-    bidx = torch.arange(B, device=x.device)[:, None]
-    for new, cache in ((k, cache_k), (v, cache_v)):
-        src = new[bidx, t_src].to(cache.dtype)
-        cache[bidx, rows] = torch.where(live, src, cache[bidx, rows])
+    live = (pos < Smax).view(-1, 1, *([1] * (new.dim() - 2)))
+    bidx = torch.arange(B, device=cache.device)[:, None]
+    src = new[bidx, t_src].to(cache.dtype)
+    cache[bidx, rows] = torch.where(live, src, cache[bidx, rows])
+
+
+def _verify(p: GQA, x, cfg, cache_k, cache_v, pos, window, impl):
+    """The multi-position branch of ``gqa_decode``: K/V scattered at the
+    (B,T) grid (``write_grid``), then causal attention over the cache."""
+    B, T = x.shape[0], x.shape[1]
+    ar = torch.arange(T, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, pos[:, None] + ar)
+    write_grid(cache_k, k, pos)
+    write_grid(cache_v, v, pos)
     o = attend(q, cache_k, cache_v, causal=True, window=window, softcap=cfg.attn_softcap,
                q_offset=pos, kv_len=None, impl=impl)
     return p.wo(o.reshape(B, T, cfg.q_dim)), (cache_k, cache_v)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+class MLA(nn.Module):
+    """MLA projections (counterpart of ``init_mla``'s param dict): the
+    up-projection ``w_ukv`` is stored (lr, H, nope + vd), as in the JAX
+    package, for the absorbed decode's slices; ``kv_norm`` is fp32."""
+
+    def __init__(self, cfg, device=None, dtype=None):
+        super().__init__()
+        H, nope, rope_d, vd, lr = (cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                                   cfg.v_head_dim, cfg.kv_lora_rank)
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.wq = nn.Linear(cfg.d_model, H * (nope + rope_d), **kw)
+        self.w_dkv = nn.Linear(cfg.d_model, lr + rope_d, **kw)
+        self.kv_norm = RMSNorm(lr, device)
+        self.w_ukv = nn.Parameter(torch.empty(lr, H, nope + vd, device=device, dtype=dtype))
+        self.wo = nn.Linear(H * vd, cfg.d_model, **kw)
+
+
+def latent_width(cfg) -> int:
+    """Width of one MLA latent cache row, ``[c_kv | k_rope]``."""
+    return cfg.kv_lora_rank + cfg.qk_rope_dim
+
+
+def _mla_scale(cfg):
+    return (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+
+
+def _mla_compress(p: MLA, x, cfg, positions):
+    """x -> (c_kv normed, k_rope roped): c_kv (B,S,lr), k_rope (B,S,rope_d)."""
+    ckr = p.w_dkv(x)
+    lr = cfg.kv_lora_rank
+    c_kv = rms_norm_head(ckr[..., :lr], p.kv_norm.scale)
+    k_rope = apply_rope(ckr[..., None, lr:], positions, cfg.rope_theta)[..., 0, :]
+    return c_kv, k_rope
+
+
+def _mla_queries(p: MLA, x, cfg, positions):
+    B, S, _ = x.shape
+    H, nope, rope_d = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = p.wq(x).view(B, S, H, nope + rope_d)
+    return q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
+
+
+def mla_forward(p: MLA, x, cfg, impl=None):
+    """Prefill: the latents expanded to per-head K/V (the naive form), then
+    causal attention with Dk = nope + rope, Dv = vd through the flash
+    kernel. Returns (out, (c_kv, k_rope)), the latent cache's two parts."""
+    B, S, _ = x.shape
+    H, nope, vd = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    c_kv, k_rope = _mla_compress(p, x, cfg, positions)
+    q_nope, q_rope = _mla_queries(p, x, cfg, positions)
+    kv = torch.einsum("bsr,rhd->bshd", c_kv, p.w_ukv)
+    k = torch.cat([kv[..., :nope], k_rope[:, :, None, :].expand(B, S, H, cfg.qk_rope_dim)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    o = attend(q, k, kv[..., nope:].contiguous(), causal=True, scale=_mla_scale(cfg), impl=impl)
+    return p.wo(o.reshape(B, S, H * vd)), (c_kv, k_rope)
+
+
+def mla_decode(p: MLA, x, cfg, cache, pos, impl=None):
+    """Absorbed decode against the latent cache (B, Smax, lr + rope),
+    updated in place: scores and values live in the kv_lora latent space,
+    one KV head of width lr + rope for all H query heads, values its first
+    lr columns. ``pos`` as in ``gqa_decode``: an int, a (B,) tensor of
+    per-slot positions (a row past the cache writes nothing), or with
+    T > 1 a (B,) tensor for the speculative verify (latents scattered at
+    the (B,T) grid, the new queries causal, stale latents of a rejected
+    suffix causal-masked until overwritten). Returns (out, cache)."""
+    B, T = x.shape[0], x.shape[1]
+    H, nope, vd, lr = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    pos = torch.as_tensor(pos, device=x.device)
+    Smax = cache.shape[1]
+    if T > 1:
+        if not pos.dim():
+            raise ValueError("multi-position decode takes (B,) per-row positions")
+        positions = pos[:, None] + torch.arange(T, device=x.device)
+        c_kv, k_rope = _mla_compress(p, x, cfg, positions)
+        write_grid(cache, torch.cat([c_kv.to(cache.dtype), k_rope.to(cache.dtype)], -1), pos)
+        causal, q_off, kv_len = True, pos, None
+    else:
+        positions = pos.reshape(-1, 1).expand(B, 1)
+        c_kv, k_rope = _mla_compress(p, x, cfg, positions)
+        row = torch.cat([c_kv.to(cache.dtype), k_rope.to(cache.dtype)], -1)[:, 0]
+        if pos.dim():  # ragged: per-slot positions
+            write_rows(cache, row, pos)
+            q_off = pos
+        else:
+            q_off = _scalar_pos(pos, Smax)
+            cache[:, q_off] = row
+        causal, kv_len = False, q_off + 1
+    q_nope, q_rope = _mla_queries(p, x, cfg, positions)
+    w_uk = p.w_ukv[..., :nope]  # (lr, H, nope)
+    # absorb: q' = q_nope W_uk^T, latent-space queries (B,T,H,lr)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk.float()).to(x.dtype)
+    q_eff = torch.cat([q_lat, q_rope], dim=-1)
+    o_lat = attend(q_eff, cache[:, :, None, :], cache[:, :, None, :lr], causal=causal,
+                   q_offset=q_off, kv_len=kv_len, scale=_mla_scale(cfg), impl=impl)
+    w_uv = p.w_ukv[..., nope:]  # (lr, H, vd)
+    o = torch.einsum("bqhr,rhd->bqhd", o_lat.float(), w_uv.float()).to(x.dtype)
+    return p.wo(o.reshape(B, T, H * vd)), cache

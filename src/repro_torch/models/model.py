@@ -64,9 +64,12 @@ def empty_params(cfg, device) -> CausalLM:
 @torch.no_grad()
 def init_params(cfg, seed: int = 0, device="cuda") -> CausalLM:
     """Seeded random weights with the JAX init's distributions: dense
-    weights N(0,1)/sqrt(d_in), embedding and LM head N(0,1)*0.02, norm
-    scales 1, Mamba2 conv weights N(0,1)*0.1 and its constant leaves as
-    ``Mamba2.init_constants`` sets them. Drawn in fp32 from a
+    weights N(0,1)/sqrt(d_in), the MoE router (fp32) and each expert's
+    matrices too, MLA's up-projection ``w_ukv`` N(0,1)/sqrt(kv_lora_rank),
+    embedding and LM head N(0,1)*0.02, norm scales (the qk-norm and MLA's
+    ``kv_norm`` included) 1, qkv biases 0, Mamba2 conv weights N(0,1)*0.1
+    and its constant leaves as ``Mamba2.init_constants`` sets them. Drawn
+    in fp32 from a
     ``torch.Generator`` on ``device``, then cast to the param dtype (the
     bits differ from JAX's)."""
     model = empty_params(cfg, device)
@@ -88,6 +91,12 @@ def init_params(cfg, seed: int = 0, device="cuda") -> CausalLM:
         elif leaf == "conv_w":
             normal(p, 0.1)
         elif leaf == "weight":  # nn.Linear weight (d_out, d_in)
+            normal(p, p.shape[1] ** -0.5)
+        elif leaf in ("bq", "bk", "bv"):
+            p.zero_()
+        elif leaf in ("router", "w_ukv"):  # (D, E) and (lr, H, nope + vd)
+            normal(p, p.shape[0] ** -0.5)
+        elif leaf in ("w_gate", "w_up", "w_down"):  # MoE experts (E, d_in, d_out)
             normal(p, p.shape[1] ** -0.5)
     return model
 

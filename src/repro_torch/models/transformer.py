@@ -13,14 +13,17 @@ the cache, or T > 1 tokens per row at pos..pos+T-1 for the speculative
 verify, attention stacks only: an SSM's state cannot roll back a rejected
 draft). The cache is a dict of stacked tensors, layer axis first and
 batch second, updated in place: ``k``/``v`` (layers, batch, max_len, kv
-heads, head dim) for attention stacks; ``conv`` (layers, batch, W-1,
-d_inner + 2N) in the activation dtype and ``ssm`` (layers, batch, heads,
-head dim, N) in fp32 for Mamba2 stacks.
+heads, head dim) for GQA stacks; ``latent`` (layers, batch, max_len,
+kv_lora_rank + qk_rope_dim) for MLA stacks, each row ``[c_kv | k_rope]``;
+``conv`` (layers, batch, W-1, d_inner + 2N) in the activation dtype and
+``ssm`` (layers, batch, heads, head dim, N) in fp32 for Mamba2 stacks.
 
-This slice serves dense attention stacks (``attn``/``local``/``global``
-mixers, dense MLPs, gemma2's post-block norms) and pure Mamba2 (``ssd``)
-stacks; Mamba1, hybrid, MoE and cross-attention layers raise (see
-ROADMAP.md).
+This slice serves attention stacks (``attn``/``local``/``global`` mixers,
+GQA with qkv bias and qk-norm or MLA, dense or MoE MLPs with a dense
+prefix of ``first_dense_layers``, gemma2's post-block norms) and pure
+Mamba2 (``ssd``) stacks; Mamba1, hybrid and cross-attention layers raise
+(see ROADMAP.md). The MoE layers' load-balance loss is dropped: the port
+serves and does not train.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as att
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.models.layers import MLP, apply_mlp, apply_norm, init_norm
 
 ATTN_KINDS = ("attn", "local", "global")
@@ -67,21 +70,22 @@ class Block(nn.Module):
 
     def __init__(self, cfg, kind: str, mlp_kind: str, device=None, dtype=None):
         super().__init__()
-        ported = ((kind in ATTN_KINDS and mlp_kind == "dense" and not cfg.use_mla)
+        ported = ((kind in ATTN_KINDS and mlp_kind in ("dense", "moe"))
                   or (kind == "ssd" and mlp_kind == "none"))
         if not ported:
             raise NotImplementedError(
-                f"layer ({kind!r}, {mlp_kind!r}, mla={cfg.use_mla}) is not ported "
-                "yet: this slice serves dense GQA and Mamba2 stacks (see ROADMAP.md)")
+                f"layer ({kind!r}, {mlp_kind!r}) is not ported yet: this slice serves "
+                "GQA/MLA stacks with dense or MoE MLPs and Mamba2 stacks (see ROADMAP.md)")
         self.kind = kind
+        self.mlp_kind = mlp_kind
         self.window = cfg.sliding_window if kind == "local" else None
         self.pre_norm = init_norm(cfg, device)
         if kind == "ssd":
             self.mixer = ssm.Mamba2(cfg, device, dtype)
             return
-        self.attn = att.GQA(cfg, device, dtype)
+        self.attn = att.MLA(cfg, device, dtype) if cfg.use_mla else att.GQA(cfg, device, dtype)
         self.mlp_norm = init_norm(cfg, device)
-        self.mlp = MLP(cfg, device, dtype)
+        self.mlp = moe.MoE(cfg, device, dtype) if mlp_kind == "moe" else MLP(cfg, device, dtype)
         if cfg.post_block_norm:
             self.post_norm = init_norm(cfg, device)
             self.mlp_post_norm = init_norm(cfg, device)
@@ -99,6 +103,9 @@ def init_stack_cache(cfg, batch, max_len, dtype, device=None):
     if not kinds <= set(ATTN_KINDS):
         raise NotImplementedError(f"a cache for layer kinds {sorted(kinds)} is not ported "
                                   "yet (see ROADMAP.md)")
+    if cfg.use_mla:
+        return {"latent": torch.zeros((L, batch, max_len, att.latent_width(cfg)), dtype=dtype,
+                                      device=device)}
     shape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -122,6 +129,14 @@ def _apply_mixer(lp: Block, h, cfg, ctx, mode, cache, pos, ssm_mask):
     if ssm_mask is not None:
         raise ValueError("pad_mask/ssm_mask is only supported for pure-SSM stacks; "
                          f"layer kind {lp.kind!r} attends over absolute positions")
+    if cfg.use_mla:
+        if mode == "decode":
+            return att.mla_decode(lp.attn, h, cfg, cache["latent"], pos, impl=ctx.attn_impl)[0]
+        mix, (c_kv, k_rope) = att.mla_forward(lp.attn, h, cfg, impl=ctx.attn_impl)
+        S, lr = c_kv.shape[1], cfg.kv_lora_rank
+        cache["latent"][:, :S, :lr] = c_kv.to(cache["latent"].dtype)
+        cache["latent"][:, :S, lr:] = k_rope.to(cache["latent"].dtype)
+        return mix
     if mode == "decode":
         mix, _ = att.gqa_decode(lp.attn, h, cfg, cache["k"], cache["v"], pos,
                                 window=lp.window, impl=ctx.attn_impl)
@@ -142,7 +157,8 @@ def apply_layer(lp: Block, x, cfg, ctx, mode, cache, pos, ssm_mask=None):
     if cfg.post_block_norm:
         mix = apply_norm(lp.post_norm, mix)
     x = x + mix
-    y = apply_mlp(lp.mlp, apply_norm(lp.mlp_norm, x), cfg)
+    h = apply_norm(lp.mlp_norm, x)
+    y = moe.moe_apply(lp.mlp, h, cfg)[0] if lp.mlp_kind == "moe" else apply_mlp(lp.mlp, h, cfg)
     if cfg.post_block_norm:
         y = apply_norm(lp.mlp_post_norm, y)
     return x + y

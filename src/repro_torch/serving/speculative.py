@@ -115,7 +115,8 @@ def truncated_draft(cfg, params: CausalLM):
     """Exact-acceptance draft construction for benches and tests: the draft
     is the target's FIRST layer (shared embedding, head and final norm) and
     the returned target is a copy of ``params`` whose later layers have
-    their output projections (``wo``, ``w_down``) zeroed, so residual
+    their output projections (``wo``, ``w_down``, an MoE layer's experts
+    and shared experts included) zeroed, so residual
     passthrough makes the target's logits the draft's (acceptance 1.0 up to
     the rounding of the two attention kernels) while the scheduler still
     prices the full-depth target. Every other tensor is shared with
@@ -125,9 +126,11 @@ def truncated_draft(cfg, params: CausalLM):
     src = dict(params.named_parameters())
 
     def zeroed(name: str) -> bool:
+        # an nn.Linear's "....wo.weight", or an MoE layer's stacked experts
+        # "....mlp.w_down" (its shared experts' "....shared.w_down.weight")
         parts = name.split(".")
         return (parts[0] == "layers" and int(parts[1]) >= 1
-                and parts[-2] in ("wo", "w_down"))
+                and bool({"wo", "w_down"} & set(parts[-2:])))
 
     target = _model_from(cfg, {n: torch.zeros_like(t) if zeroed(n) else t
                                for n, t in src.items()})

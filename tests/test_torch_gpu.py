@@ -312,3 +312,73 @@ def test_joint_planned_serve_on_card():
     assert ssd == mamba.cfg.num_layers * mamba.prefill_calls > 0
     joint = [k for k in sched._plan_cache if "coex" in k]
     assert joint and all(len(k[-3]) >= 2 for k in joint)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_decode_kernel_at_group_7(dtype, D):
+    """G = 7 (qwen2-7b's 28 q heads on 4 kv heads): a lane group of 16, not
+    14, so no group straddles two warps; the split edges, windows and a
+    retired slot parked at Smax (kv_len clamped to the cache)."""
+    dev = _card()
+    B, Smax, Hkv = 8, 1000, 4
+    L = dmod.plan_splits(Smax, B, Hkv)[1]
+    pos = torch.tensor([0, L - 1, L, 2 * L - 1, 2 * L + 1, Smax - 2, Smax - 1, Smax],
+                       dtype=torch.int32, device=dev)
+    q = _randn(40, (B, 1, 7 * Hkv, D), dtype, dev)
+    k, v = (_randn(s, (B, Smax, Hkv, D), dtype, dev) for s in (41, 42))
+    for window, softcap in ((None, None), (L // 2 + 3, None), (2 * L + 5, 50.0)):
+        kw = dict(q_offset=pos, kv_len=pos + 1, window=window, softcap=softcap)
+        before = dmod.decode_attention.launches
+        out = dmod.decode_attention(q, k, v, **kw)
+        assert dmod.decode_attention.launches == before + 1
+        _close(out, dmod.decode_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Smax", [1024, 1000])
+@pytest.mark.parametrize("shared", [True, False])
+def test_mla_decode_kernel_matches_plain_on_card(dtype, Smax, shared):
+    """The absorbed-MLA shape (16 heads on one latent head, Dk 576, Dv 512)
+    through ``decode_attention``, which routes it to the MLA kernel by
+    shape: values as the latent rows' first 512 columns (shared) or a tensor
+    of their own; split edges and a retired slot parked at Smax."""
+    dev = _card()
+    B = 8
+    L = dmod.plan_splits(Smax, B, 1)[1]
+    pos = torch.tensor([0, 1, L - 1, L, 2 * L + 3, 500, Smax - 1, Smax], dtype=torch.int32,
+                       device=dev)
+    q = _randn(43, (B, 1, 16, 576), dtype, dev)
+    k = _randn(44, (B, Smax, 1, 576), dtype, dev)
+    v = k[..., :512] if shared else _randn(45, (B, Smax, 1, 512), dtype, dev)
+    kw = dict(q_offset=pos, kv_len=pos + 1, scale=192 ** -0.5)
+    before = (dmod.decode_attention.launches, dmod.decode_attention_mla.launches)
+    out = dmod.decode_attention(q, k, v, **kw)
+    assert (dmod.decode_attention.launches, dmod.decode_attention_mla.launches) == (
+        before[0], before[1] + 1)
+    _close(out, dmod.decode_attention_plain(q, k, v, **kw), dtype)
+    # a window and a softcap, which the kernel takes though DeepSeek uses neither
+    kw = dict(q_offset=pos, kv_len=pos + 1, window=L + 7, softcap=30.0)
+    _close(dmod.decode_attention_mla(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw),
+           dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hkv,Dk,Dv", [(16, 16, 192, 128), (28, 4, 128, 128)])
+def test_flash_kernel_at_mla_prefill_and_group_7(dtype, H, Hkv, Dk, Dv):
+    """DeepSeek's naive-form MLA prefill (Dk 192 != Dv 128, 16 heads) and
+    qwen2-7b's G = 7, causal, at tile edges and per-row positions."""
+    dev = _card()
+    for S in (1, 65, 129, 512):
+        q = _randn(46, (2, S, H, Dk), dtype, dev)
+        k = _randn(47, (2, S, Hkv, Dk), dtype, dev)
+        v = _randn(48, (2, S, Hkv, Dv), dtype, dev)
+        kw = dict(causal=True, scale=Dk ** -0.5)
+        _close(fmod.flash_attention(q, k, v, **kw), fmod.flash_attention_plain(q, k, v, **kw),
+               dtype)
+    kw = dict(causal=True, q_offset=torch.tensor([0, 40], device=dev),
+              kv_len=torch.tensor([512, 300], device=dev))
+    _close(fmod.flash_attention(q, k, v, **kw), fmod.flash_attention_plain(q, k, v, **kw), dtype)

@@ -49,10 +49,12 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                                     "repro_torch.serving.speculative",
                                     "repro_torch.core", "repro_torch.core.controller",
                                     "repro_torch.core.coexec", "repro_torch.core.baselines",
-                                    "repro_torch.configs.yolo_v2_tiny"])
+                                    "repro_torch.configs.yolo_v2_tiny",
+                                    "repro_torch.models.moe",
+                                    "repro_torch.configs.deepseek_v2_lite_16b"])
 def test_scheduled_path_modules_load_no_jax_and_no_repro(module):
-    """Each module of the scheduled, speculative and joint-planning paths and
-    of the closed loop, imported alone in a fresh process."""
+    """Each module of the scheduled, speculative and joint-planning paths, of
+    the closed loop and of the MoE layer, imported alone in a fresh process."""
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module({module!r})\n"
