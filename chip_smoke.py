@@ -15,8 +15,10 @@ Phases:
                 and the kernels' build from ``src/repro_torch/kernels/csrc``
   2. kernels    every kernel against its plain PyTorch version on the card
                 at the serving paths' shapes, bf16 and fp32: flash, decode
-                (GQA groups 1-8, qwen2's 7), the absorbed-MLA decode
-                (deepseek-v2-lite's 16 heads, Dk 576, Dv 512) and the SSD scan
+                (GQA groups 1-8, qwen2's 7), the absorbed-MLA attention
+                (deepseek-v2-lite's 16 heads, Dk 576, Dv 512) at T = 1, 2, 5
+                and 8 query rows per slot, its verify rows bit for bit equal
+                to decode steps at the same positions, and the SSD scan
   3. parity     each model at full width, cut to 2 layers, fp32 and bf16:
                 prefill (mamba2: a masked pow2 bucket) and 8 ragged decode
                 steps through the kernels and through the plain versions
@@ -51,20 +53,29 @@ Phases:
                 with a differently seeded 1-layer draft under FIFO (most
                 drafts rolled back), each beside the same engine without a
                 draft; tokens identical to it, or apart only from a near-tie
-                of its logits (printed)
+                of its logits (printed). Then deepseek-v2-lite-16b, whose
+                verify runs through the MLA kernel and never flash: 2 layers
+                fp32 drop-free with a random 1-layer draft (token-identical),
+                the full config bf16 at capacity 1.25 with its truncated
+                draft, scheduled, ``run_trace`` (acceptance and committed
+                tokens per target step reported; spec and plain tokens may
+                differ at that capacity), and the same drop-free (tokens
+                identical but for printed near-ties)
   8. archs      the archs of the seventh slice through
                 ``repro_torch.launch.serve``: deepseek-v2-lite-16b (MLA,
                 MoE) and qwen2-7b (qkv bias, G = 7) at their full configs
                 under the AdaOper scheduler, then granite-3-8b at its full
                 config and chameleon-34b at full width cut to 8 of its 48
-                layers (qk-norm) under FIFO; flash, decode and the MLA decode
-                kernel must have launched as the workers' passes imply
+                layers (qk-norm) under FIFO; flash, decode and the MLA
+                attention kernel must have launched as the workers' passes
+                imply
   9. times      CUDA-event device times of each kernel, its plain version
                 and one PyTorch library call (a yardstick only), beside the
                 bound; for the attention kernels and the library call also
                 the wall time per call back to back (host enqueue included);
                 flash also at the verify's shapes (T query rows per slot
-                against the cache); the SSD scan also at the scheduled
+                against the cache), the MLA kernel at T = 1 and T = 5; the
+                SSD scan also at the scheduled
                 serve's (B, S) (``SSD_SERVE``, and any other this run's
                 scheduled phase gave it)
   profile       (only when asked for) the serve phase's run again, warm:
@@ -75,6 +86,14 @@ Phases:
                 scheduled tinyllama-1.1b engine with its draft (``run_all``)
   profile_archs (only when asked for) the same for the archs phase's
                 scheduled serve of deepseek-v2-lite-16b and qwen2-7b
+  profile_spec_deepseek (only when asked for) the same for the spec
+                phase's full deepseek-v2-lite-16b engine with its truncated
+                draft, capacity 1.25 (``run_all``)
+  mla_parts     (only when asked for) the MLA kernel's device time taken
+                apart: the timing floor, slots that keep one latent row or
+                one tile, rows over 2, 4 and 16 splits (the merge), the
+                serve's T = 1 and the verify's T = 2 and 5, at the planned
+                split and at 128 and 256 keys
 
 Each serving phase sets every kernel's launch count to 0 just before it
 drives its path and reads the counts just after.
@@ -99,7 +118,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "kernels", "parity", "serve", "scheduled", "joint", "spec", "archs",
           "times")
-EXTRA = ("profile", "profile_scheduled", "profile_spec", "profile_archs")  # only when asked for
+EXTRA = ("profile", "profile_scheduled", "profile_spec", "profile_archs",
+         "profile_spec_deepseek", "mla_parts")  # only when asked for
 SERVE = dict(names=("tinyllama-1.1b", "gemma2-2b"), requests=8, prompt_lens=(64, 128, 256, 512),
              max_new=16, max_slots=8, max_len=1024, seed=0, device="cuda", full=True,
              scheduler=False)
@@ -131,11 +151,13 @@ SSD_SERVE = ((1, 64, 0), (2, 256, 56), (2, 512, 0), (4, 128, 32))
 DECODE_POS = (0, 1, 63, 64, 500, 1023, 2046, 2047)
 QWEN2 = dict(H=28, Hkv=4, D=128, softcap=None)  # qwen2-7b attention, G = 7
 # deepseek-v2-lite-16b: the naive-form MLA prefill (16 heads, Dk = nope +
-# rope = 192, Dv 128) and the absorbed decode (16 heads on one latent head
-# of 512 + 64, values its first 512 columns), scale 192^-0.5 in both
+# rope = 192, Dv 128) and the absorbed attention of the decode and the
+# verify (16 heads on one latent head of 512 + 64, values its first 512
+# columns), scale 192^-0.5 in both; the MLA kernel's T per slot
 MLA_PREFILL = dict(H=16, Hkv=16, Dk=192, Dv=128)
 MLA_DECODE = dict(H=16, Hkv=1, Dk=576, Dv=512)
 MLA_SCALE = 192 ** -0.5
+MLA_T = (1, 2, 5, 8)
 # the archs phase: (a) the two archs that need the new kernels, under the
 # scheduler at the scheduled phase's parameters; (b) the other two FIFO,
 # chameleon-34b cut to 8 of its 48 layers (63.9 GiB in bf16 at full depth)
@@ -157,7 +179,9 @@ VERIFY_T = (2, 3, 5, 16)
 VERIFY_POS = (72, 136, 264, 520, 136, 264, 520, 72)
 # the kernels line's source is the bf16 route's, whose times it carries;
 # the fp32 routes (exact fp32 for the parity checks) are
-# csrc/flash_attention.cu and csrc/ssd_scan.cu
+# csrc/flash_attention.cu, csrc/ssd_scan.cu and csrc/decode_attention_mla.cu.
+# The MLA kernel also takes flash's place (flash_attention.py:106) at the
+# MLA verify's shape
 SOURCES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
                         "src/repro/kernels/flash_attention.py:106"),
@@ -165,8 +189,8 @@ SOURCES = {
                          "src/repro/kernels/decode_attention.py:87"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan_bf16.cu",
                  "src/repro/kernels/ssd_scan.py:92"),
-    "decode_attention_mla": ("src/repro_torch/kernels/csrc/decode_attention_mla.cu",
-                             "src/repro/kernels/decode_attention.py:87"),
+    "mla_attention": ("src/repro_torch/kernels/csrc/mla_attention_bf16.cu",
+                      "src/repro/kernels/decode_attention.py:87"),
 }
 
 
@@ -175,7 +199,8 @@ SOURCES = {
 KERNEL_GROUPS = {"flash_fwd_bf16_kernel": "flash_attention",
                  "flash_fwd_fp32_kernel": "flash_attention",
                  "decode_split_kernel": "decode_attention",
-                 "mla_decode_kernel": "decode_attention_mla",
+                 "mla_attention_bf16_kernel": "mla_attention",
+                 "mla_attention_fp32_kernel": "mla_attention",
                  "ssd_state_bf16_kernel": "ssd_scan",
                  "ssd_out_bf16_kernel": "ssd_scan",
                  "ssd_scan_fp32_kernel": "ssd_scan"}
@@ -227,14 +252,17 @@ def decode_bound(pos, Smax, H, Hkv, D, window, dtype_name, elem):
     return bound(4 * H * D * kept, nbytes, dtype_name)
 
 
-def mla_decode_bound(pos, Smax, dtype_name, elem):
-    """The absorbed-MLA decode: each kept latent row read once (its first
-    512 columns are the values), q and o once; 2·H·(Dk + Dv) FLOPs per
-    kept key."""
+def mla_bound(offs, T, Smax, dtype_name, elem):
+    """The absorbed-MLA attention of T causal rows per slot at ``offs``
+    (T = 1: the decode step, kv_len = offs + 1): each latent row that some
+    row keeps (those of the last row) read once, its first 512 columns
+    being the values, q and o once; 2·H·(Dk + Dv) FLOPs per kept (row,
+    key) pair."""
     H, Hkv, Dk, Dv = (MLA_DECODE[x] for x in ("H", "Hkv", "Dk", "Dv"))
-    kept = sum(kept_keys(p, p + 1, Smax, False, None) for p in pos)
-    nbytes = elem * (kept * Hkv * Dk + len(pos) * H * (Dk + Dv))
-    return bound(2 * H * (Dk + Dv) * kept, nbytes, dtype_name)
+    pairs = sum(kept_keys(o + t, Smax, Smax, True, None) for o in offs for t in range(T))
+    rows = sum(kept_keys(o + T - 1, Smax, Smax, True, None) for o in offs)
+    nbytes = elem * (rows * Hkv * Dk + len(offs) * T * H * (Dk + Dv))
+    return bound(2 * H * (Dk + Dv) * pairs, nbytes, dtype_name)
 
 
 def verify_offsets(Smax, T):
@@ -350,10 +378,10 @@ def phase_device(torch, report):
 def phase_kernels(torch, report):
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import mla_attention as mmod
     from repro_torch.kernels import ssd_scan as smod
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {},
-            "decode_attention_mla": {}}
+    errs = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}, "mla_attention": {}}
     verify_errs = {}
     misses = []
 
@@ -398,8 +426,13 @@ def phase_kernels(torch, report):
                                    float((out.float() - ref.float()).abs().max()))
         for case, out, ref in decode_edge_cases(torch, gen, dmod, dtype):
             compare("decode_attention", f"edge {case} {dtype}", dtype, out, ref)
-        for kernel, case, out, ref in arch_decode_cases(torch, gen, dmod, dtype):
-            compare(kernel, f"{case} {dtype}", dtype, out, ref)
+        for case, out, ref in arch_decode_cases(torch, gen, dmod, dtype):
+            compare("decode_attention", f"{case} {dtype}", dtype, out, ref)
+        for case, out, ref in mla_cases(torch, gen, mmod, dtype):
+            compare("mla_attention", f"{case} {dtype}", dtype, out, ref)
+        if not mla_rows_match_decode_steps(torch, gen, mmod, dtype):
+            misses.append(f"mla_attention {dtype}: a verify row differs from the decode step "
+                          f"at its position")
         for case, out, ref in arch_flash_cases(torch, gen, fmod, dtype):
             compare("flash_attention", f"{case} {dtype}", dtype, out, ref)
         for case, (y, h), (ry, rh) in ssd_edge_cases(torch, gen, smod, dtype):
@@ -409,6 +442,8 @@ def phase_kernels(torch, report):
     report["errors"] = errs
     log("kernel vs plain, max abs err:", json.dumps(errs))
     log("flash at verify shapes, max abs err:", json.dumps(verify_errs))
+    log("MLA verify rows bit for bit equal to decode steps at the same positions: "
+        f"{not any('verify row' in m for m in misses)}")
     if misses:
         raise SmokeFailure("kernel disagrees with its plain version:\n  " + "\n  ".join(misses))
 
@@ -473,24 +508,22 @@ def decode_edge_cases(torch, gen, dmod, dtype):
                        dmod.decode_attention(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw))
 
 
-def mla_inputs(torch, gen, B, Smax, dtype):
-    """q (B,1,16,576) and a latent cache (B,Smax,1,576) whose first 512
-    columns are the values, as ``models.attention.mla_decode`` passes them."""
+def mla_inputs(torch, gen, B, T, Smax, dtype, shared=True):
+    """q (B,T,16,576) and a latent cache (B,Smax,1,576) whose first 512
+    columns are the values, as ``models.attention.mla_decode`` passes them,
+    or values of their own (``shared=False``)."""
     def r(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
     H, Hkv, Dk, Dv = (MLA_DECODE[x] for x in ("H", "Hkv", "Dk", "Dv"))
-    q, k = r(B, 1, H, Dk), r(B, Smax, Hkv, Dk)
-    return q, k, k[..., :Dv]
+    q, k = r(B, T, H, Dk), r(B, Smax, Hkv, Dk)
+    return q, k, (k[..., :Dv] if shared else r(B, Smax, Hkv, Dv))
 
 
 def arch_decode_cases(torch, gen, dmod, dtype):
-    """(kernel wrapper, case, kernel output, plain output): decode at
-    qwen2-7b's heads (28 on 4, D 128, G = 7) and at the absorbed-MLA shape
-    (the MLA kernel, values the latent rows' first 512 columns), 8 slots at
-    DECODE_POS (clipped to the cache) with Smax 2048 and 1024 (the serve's
-    max_len), and with the last slot parked at Smax (a retired slot); then
-    the MLA kernel at its split edges (Smax 1000), with a window and a
-    softcap, which DeepSeek does not use."""
+    """(case, kernel output, plain output): decode at qwen2-7b's heads (28
+    on 4, D 128, G = 7), 8 slots at DECODE_POS (clipped to the cache) with
+    Smax 2048 and 1024 (the serve's max_len), and with the last slot parked
+    at Smax (a retired slot)."""
     B = len(DECODE_POS)
     for Smax in (2048, 1024):
         for parked in (False, True):
@@ -501,21 +534,66 @@ def arch_decode_cases(torch, gen, dmod, dtype):
             kw = dict(q_offset=pos, kv_len=pos + 1)
             q, _, _ = qkv(torch, gen, B, 1, 1, QWEN2["H"], QWEN2["Hkv"], QWEN2["D"], dtype)
             _, k, v = qkv(torch, gen, B, 1, Smax, QWEN2["H"], QWEN2["Hkv"], QWEN2["D"], dtype)
-            yield ("decode_attention", f"qwen2 G=7 Smax={Smax} parked={parked}",
+            yield (f"qwen2 G=7 Smax={Smax} parked={parked}",
                    dmod.decode_attention(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw))
-            q, k, v = mla_inputs(torch, gen, B, Smax, dtype)
-            kw = dict(kw, scale=MLA_SCALE)
-            yield ("decode_attention_mla", f"MLA Smax={Smax} parked={parked}",
-                   dmod.decode_attention(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw))
+
+
+def mla_cases(torch, gen, mmod, dtype):
+    """(case, kernel output, plain output) of the MLA attention kernel at
+    T = 1, 2, 5 and 8 query rows per slot, values the latent rows' first
+    512 columns or a tensor of their own: 8 slots against Smax 1024 (the
+    serve's max_len) and 2048, the decode step at DECODE_POS (clipped to the
+    cache) with the last slot parked at Smax, the verify causal at
+    ``verify_offsets`` (rows past the cache included); then the split edges
+    at Smax 1000, with a window and a softcap (which DeepSeek does not use)
+    and with kv_len at the offsets (the first slot keeps no key)."""
+    from repro_torch.kernels.decode_attention import plan_splits
+    B = len(DECODE_POS)
+
+    def run(case, q, k, v, **kw):
+        kw["scale"] = MLA_SCALE
+        return case, mmod.mla_attention(q, k, v, **kw), mmod.mla_attention_plain(q, k, v, **kw)
+
+    for Smax in (1024, 2048):
+        for shared in (True, False):
+            for T in MLA_T:
+                q, k, v = mla_inputs(torch, gen, B, T, Smax, dtype, shared)
+                if T == 1:
+                    pos_list = [min(p, Smax - 1) for p in DECODE_POS]
+                    pos_list[-1] = Smax
+                    pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+                    kw = dict(causal=False, q_offset=pos, kv_len=pos + 1)
+                else:
+                    kw = dict(causal=True, q_offset=torch.tensor(
+                        verify_offsets(Smax, T), dtype=torch.int32, device="cuda"))
+                yield run(f"MLA T={T} Smax={Smax} shared={shared}", q, k, v, **kw)
     Smax = 1000
-    L = dmod.plan_splits(Smax, B, 1)[1]
-    pos = torch.tensor([0, L - 2, L - 1, L, 2 * L - 1, 2 * L, Smax - 2, Smax - 1],
-                       dtype=torch.int32, device="cuda")
-    q, k, v = mla_inputs(torch, gen, B, Smax, dtype)
-    for window, softcap in ((None, None), (L // 2 + 3, None), (2 * L + 5, 50.0)):
-        kw = dict(q_offset=pos, kv_len=pos + 1, window=window, softcap=softcap, scale=MLA_SCALE)
-        yield ("decode_attention_mla", f"MLA edge Smax={Smax} split={L} w={window} cap={softcap}",
-               dmod.decode_attention_mla(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw))
+    L = plan_splits(Smax, B, 1)[1]
+    edge = torch.tensor([0, L - 2, L - 1, L, 2 * L - 1, 2 * L, Smax - 2, Smax - 1],
+                        dtype=torch.int32, device="cuda")
+    for T in MLA_T:
+        q, k, v = mla_inputs(torch, gen, B, T, Smax, dtype)
+        for window, softcap in ((None, None), (L // 2 + 3, None), (2 * L + 5, 50.0)):
+            yield run(f"MLA edge T={T} Smax={Smax} split={L} w={window} cap={softcap}", q, k, v,
+                      causal=True, q_offset=edge, window=window, softcap=softcap)
+        yield run(f"MLA edge T={T} Smax={Smax} kv_len=q_offset", q, k, v, causal=True,
+                  q_offset=edge, kv_len=edge)
+
+
+def mla_rows_match_decode_steps(torch, gen, mmod, dtype):
+    """Whether T = 5 verify rows at VERIFY_POS equal, bit for bit, five
+    decode steps at those positions on the same q rows (the kernel's rows
+    reduce alike whatever T is)."""
+    q, k, v = mla_inputs(torch, gen, len(VERIFY_POS), 5, 1024, dtype)
+    offs = torch.tensor(VERIFY_POS, dtype=torch.int32, device="cuda")
+    ver = mmod.mla_attention(q, k, v, causal=True, q_offset=offs, scale=MLA_SCALE)
+    for t in range(q.shape[1]):
+        p = offs + t
+        dec = mmod.mla_attention(q[:, t:t + 1].contiguous(), k, v, causal=False, q_offset=p,
+                                 kv_len=p + 1, scale=MLA_SCALE)
+        if not torch.equal(dec[:, 0], ver[:, t]):
+            return False
+    return True
 
 
 def arch_flash_cases(torch, gen, fmod, dtype):
@@ -664,19 +742,60 @@ def phase_times(torch, report):
     log("timings:", json.dumps({"smi": report.get("smi"), "timings": rows}))
 
 
+def phase_mla_parts(torch, report):
+    """The MLA kernel's device time taken apart, bf16, 8 slots against a
+    1024-entry cache (``time_ms``, L2 flushed): the floor of the timing
+    itself (an empty event pair, a one-element add), every slot keeping one
+    latent row or one 64-key tile (no merge), every slot's row spanning 2,
+    4 or 16 planned splits (the partials and their merge), the serve's
+    DECODE_POS at T = 1 and VERIFY_POS at T = 2 and 5; each kernel case at
+    the planned split length and, with the wrapper's ``plan_splits``
+    swapped for a fixed length, at 128 and 256 keys."""
+    from repro_torch.kernels import mla_attention as mmod
+    plan_splits = mmod.plan_splits
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    one = torch.zeros(1, device="cuda")
+    out = {"floor_events_ms": time_ms(torch, lambda: None, flush),
+           "floor_add_ms": time_ms(torch, lambda: one.add_(1), flush)}
+    Smax, B = 1024, 8
+    planned = plan_splits(Smax, B, 1)[1]
+    cases = {"one_row": (1, [0] * B), "one_tile": (1, [63] * B), "rows_2_splits": (1, [127] * B),
+             "rows_4_splits": (1, [255] * B), "rows_16_splits": (1, [Smax - 1] * B),
+             "serve_T1": (1, [min(p, Smax - 1) for p in DECODE_POS]),
+             "verify_T2": (2, list(VERIFY_POS)), "verify_T5": (5, list(VERIFY_POS))}
+    for name, (T, offs) in cases.items():
+        q, k, v = mla_inputs(torch, gen, B, T, Smax, torch.bfloat16)
+        qo = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        kw = (dict(causal=False, q_offset=qo, kv_len=qo + 1) if T == 1 else
+              dict(causal=True, q_offset=qo))
+        out[name] = {}
+        for L in (planned, 128, 256):
+            mmod.plan_splits = lambda S, B_, Hkv, L=L: (-(-S // L), L)
+            try:
+                out[name][f"split {L}"] = time_ms(torch, lambda: mmod.mla_attention(
+                    q, k, v, scale=MLA_SCALE, **kw), flush)
+            finally:
+                mmod.plan_splits = plan_splits
+    report["mla_parts"] = out
+    log("mla_parts (ms):", json.dumps({"smi": report.get("smi"), **out}))
+
+
 PARITY_ARCHS = ("tinyllama-1.1b", "gemma2-2b", "qwen2-7b", "chameleon-34b",
                 "deepseek-v2-lite-16b")
 
 
 def arch_times(torch, gen, flush, sdpa):
-    """The seventh slice's kernel shapes, bf16: decode at qwen2-7b's G = 7
-    (8 slots x 2048 at DECODE_POS), the MLA decode kernel (8 slots x 1024,
-    DECODE_POS clipped to the cache, values the latent rows' first 512
-    columns) and flash at the MLA prefill (B 8, S 512; Dk 192, Dv 128);
-    each beside its plain version, its bound and SDPA (+ mask) on the same
-    tensors."""
+    """The seventh and eighth slices' kernel shapes, bf16: decode at
+    qwen2-7b's G = 7 (8 slots x 2048 at DECODE_POS), the MLA attention
+    kernel at T = 1 (8 slots x 1024, DECODE_POS clipped to the cache) and
+    at the verify's T = 5 (8 slots at VERIFY_POS against a 1024-entry
+    cache), values the latent rows' first 512 columns, and flash at the MLA
+    prefill (B 8, S 512; Dk 192, Dv 128); each beside its plain version, its
+    bound and SDPA (+ bool mask) on the same tensors."""
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import mla_attention as mmod
     bf16, rows = torch.bfloat16, []
 
     def row(kernel, model, B, S, fn, plain, lib, b, **extra):
@@ -687,27 +806,33 @@ def arch_times(torch, gen, flush, sdpa):
                          call_ms=call_ms(torch, fn), library_call_ms=call_ms(torch, lib),
                          **extra))
 
-    for model, Smax, kernel in (("qwen2", 2048, "decode_attention"),
-                                ("mla", 1024, "decode_attention_mla")):
-        pos_list = [min(p, Smax - 1) for p in DECODE_POS]
-        B = len(pos_list)
-        pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
-        mask = (torch.arange(Smax, device="cuda")[None, :] <= pos[:, None])[:, None, None]
-        if model == "qwen2":
-            q, _, _ = qkv(torch, gen, B, 1, 1, QWEN2["H"], QWEN2["Hkv"], QWEN2["D"], bf16)
-            _, k, v = qkv(torch, gen, B, 1, Smax, QWEN2["H"], QWEN2["Hkv"], QWEN2["D"], bf16)
-            kw = dict(q_offset=pos, kv_len=pos + 1)
-            b = decode_bound(pos_list, Smax, QWEN2["H"], QWEN2["Hkv"], QWEN2["D"], None,
-                             "bfloat16", 2)
-            lib_kw = dict(attn_mask=mask)
-        else:
-            q, k, v = mla_inputs(torch, gen, B, Smax, bf16)
-            kw = dict(q_offset=pos, kv_len=pos + 1, scale=MLA_SCALE)
-            b = mla_decode_bound(pos_list, Smax, "bfloat16", 2)
-            lib_kw = dict(attn_mask=mask, scale=MLA_SCALE)
-        row(kernel, model, B, Smax, lambda: dmod.decode_attention(q, k, v, **kw),
-            lambda: dmod.decode_attention_plain(q, k, v, **kw),
-            lambda: sdpa(q, k, v, **lib_kw), b)
+    Smax = 2048
+    pos_list = [min(p, Smax - 1) for p in DECODE_POS]
+    B = len(pos_list)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(Smax, device="cuda")[None, :] <= pos[:, None])[:, None, None]
+    q, _, _ = qkv(torch, gen, B, 1, 1, QWEN2["H"], QWEN2["Hkv"], QWEN2["D"], bf16)
+    _, k, v = qkv(torch, gen, B, 1, Smax, QWEN2["H"], QWEN2["Hkv"], QWEN2["D"], bf16)
+    kw = dict(q_offset=pos, kv_len=pos + 1)
+    row("decode_attention", "qwen2", B, Smax, lambda: dmod.decode_attention(q, k, v, **kw),
+        lambda: dmod.decode_attention_plain(q, k, v, **kw),
+        lambda: sdpa(q, k, v, attn_mask=mask),
+        decode_bound(pos_list, Smax, QWEN2["H"], QWEN2["Hkv"], QWEN2["D"], None, "bfloat16", 2))
+    Smax = 1024
+    for T, offs in ((1, [min(p, Smax - 1) for p in DECODE_POS]), (5, list(VERIFY_POS))):
+        B = len(offs)
+        qo = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        q, k, v = mla_inputs(torch, gen, B, T, Smax, bf16)
+        qpos = qo[:, None] + torch.arange(T, device="cuda")  # (B, T)
+        mask = (torch.arange(Smax, device="cuda") <= qpos[..., None])[:, None]  # (B,1,T,Smax)
+        kw = (dict(causal=False, q_offset=qo, kv_len=qo + 1) if T == 1 else
+              dict(causal=True, q_offset=qo))
+        kw["scale"] = MLA_SCALE
+        extra = {} if T == 1 else dict(T=T, shape="verify")
+        row("mla_attention", "mla", B, Smax, lambda: mmod.mla_attention(q, k, v, **kw),
+            lambda: mmod.mla_attention_plain(q, k, v, **kw),
+            lambda: sdpa(q, k, v, attn_mask=mask, scale=MLA_SCALE),
+            mla_bound(offs, T, Smax, "bfloat16", 2), **extra)
     B, S, hd = 8, 512, MLA_PREFILL
     q, k, _ = qkv(torch, gen, B, S, S, hd["H"], hd["Hkv"], hd["Dk"], bf16)
     v = qkv(torch, gen, B, 1, S, 1, hd["Hkv"], hd["Dv"], bf16)[2]
@@ -909,9 +1034,10 @@ def phase_parity_mamba2(torch, report):
 def kernel_wrappers():
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import mla_attention as mmod
     from repro_torch.kernels import ssd_scan as smod
     return {"flash_attention": fmod.flash_attention, "decode_attention": dmod.decode_attention,
-            "ssd_scan": smod.ssd_scan, "decode_attention_mla": dmod.decode_attention_mla}
+            "ssd_scan": smod.ssd_scan, "mla_attention": mmod.mla_attention}
 
 
 def drive(fn, **kw):
@@ -925,18 +1051,20 @@ def drive(fn, **kw):
 
 
 def attention_launches_expected(eng):
-    """Per attention layer: flash once for each prefill and each
-    multi-position pass (the verify, a draft's catch-up of Tc > 1 tokens),
-    decode once for each single-token pass (the MLA decode kernel for an
-    MLA stack); draft workers included."""
+    """Per attention layer: flash once for each prefill; for a GQA stack
+    flash once for each multi-position pass (the verify, a draft's catch-up
+    of Tc > 1 tokens) and decode once for each single-token pass; for an MLA
+    stack the MLA kernel once for each decode and multi-position pass (an
+    MLA verify launches no flash); draft workers included."""
     workers = list(eng.workers.values()) + [s.worker for s in eng.spec.values()]
     attn = [w for w in workers if "ssd" not in w.cfg.layer_kinds()]
-    return {"flash_attention": sum(w.cfg.num_layers * (w.prefill_calls + w.verify_calls)
-                                   for w in attn),
-            "decode_attention": sum(w.cfg.num_layers * w.decode_calls for w in attn
-                                    if not w.cfg.use_mla),
-            "decode_attention_mla": sum(w.cfg.num_layers * w.decode_calls for w in attn
-                                        if w.cfg.use_mla)}
+    gqa = [w for w in attn if not w.cfg.use_mla]
+    mla = [w for w in attn if w.cfg.use_mla]
+    return {"flash_attention": sum(w.cfg.num_layers * w.prefill_calls for w in attn)
+            + sum(w.cfg.num_layers * w.verify_calls for w in gqa),
+            "decode_attention": sum(w.cfg.num_layers * w.decode_calls for w in gqa),
+            "mla_attention": sum(w.cfg.num_layers * (w.decode_calls + w.verify_calls)
+                                 for w in mla)}
 
 
 def check_responses(phase, eng, responses, n_expected, max_new):
@@ -1260,12 +1388,14 @@ def record_gaps(torch, eng, reqs, temperature, name=None):
     return gaps
 
 
-def token_check(label, spec_out, plain_out, gaps, exact):
+def token_check(label, spec_out, plain_out, gaps, exact, report_only=False):
     """Spec tokens against the plain run's per uid: identical, or (unless
     ``exact``) apart only from the first divergence on, where the plain
     run's decision had a top-2 gap within MODEL_TOL_BF16 of its largest
     |logit| (a near-tie that the verify's and the step's rounding may
-    split). Returns the number of uids that diverged."""
+    split); ``report_only`` prints each divergence and its gap without
+    failing (where spec and plain tokens may rightly differ). Returns the
+    number of uids that diverged."""
     spec = {r.uid: [int(t) for t in r.tokens] for r in spec_out}
     plain = {r.uid: [int(t) for t in r.tokens] for r in plain_out}
     if sorted(spec) != sorted(plain):
@@ -1280,7 +1410,7 @@ def token_check(label, spec_out, plain_out, gaps, exact):
         gap, scale = gaps[(uid, i)]
         log(f"{label}: uid {uid} diverges at token {i} ({b[i]} plain, {a[i]} spec); "
             f"plain top-2 gap {gap} at largest |logit| {scale}")
-        if exact or gap is None or gap > MODEL_TOL_BF16 * scale:
+        if not report_only and (exact or gap is None or gap > MODEL_TOL_BF16 * scale):
             raise SmokeFailure(f"{label}: uid {uid} diverges at token {i} "
                                f"(plain top-2 gap {gap}, largest |logit| {scale})")
     log(f"{label}: tokens identical for {len(plain) - diverged} of {len(plain)} uids")
@@ -1318,18 +1448,19 @@ def spec_checks(label, eng, out, launches, n, max_new):
     w = eng.workers[next(iter(eng.workers))]
     if launches != want:
         raise SmokeFailure(f"{label}: kernel launches {launches}, expected {want}")
-    if eng.spec and not (w.verify_calls > 0 and launches["flash_attention"]
-                         > w.cfg.num_layers * w.prefill_calls):
-        raise SmokeFailure(f"{label}: the target never verified through the flash kernel")
+    verify = "mla_attention" if w.cfg.use_mla else "flash_attention"
+    base = w.cfg.num_layers * (w.decode_calls if w.cfg.use_mla else w.prefill_calls)
+    if eng.spec and not (w.verify_calls > 0 and launches[verify] > base):
+        raise SmokeFailure(f"{label}: the target never verified through {verify}")
     if eng.spec and not eng.ledger.counters.get("spec_rounds"):
         raise SmokeFailure(f"{label}: no speculative round ran")
 
 
 def spec_pair(torch, report, label, cfg, params, draft, calib, reqs, trace, temperature,
-              max_slots, max_len, exact=False):
+              max_slots, max_len, exact=False, report_only=False):
     """The same requests through the engine without a draft (its decisions'
-    gaps recorded) and with it; checks each run and the tokens. Returns
-    (spec engine, summaries)."""
+    gaps recorded) and with it; checks each run and the tokens
+    (``token_check``). Returns (spec engine, summaries)."""
     plain = spec_engine(cfg, params, None, calib, max_slots, max_len)
     gaps = record_gaps(torch, plain, reqs, temperature)
     p_out, p_launch, p_wall, p_peak = spec_run(torch, plain, reqs, trace, temperature)
@@ -1337,7 +1468,7 @@ def spec_pair(torch, report, label, cfg, params, draft, calib, reqs, trace, temp
     eng = spec_engine(cfg, params, draft, calib, max_slots, max_len)
     out, launches, wall, peak = spec_run(torch, eng, reqs, trace, temperature)
     spec_checks(f"{label} spec", eng, out, launches, len(reqs), reqs[0][2])
-    diverged = token_check(label, out, p_out, gaps, exact)
+    diverged = token_check(label, out, p_out, gaps, exact, report_only)
     res = {"spec": spec_summary(eng, out, launches, wall, peak, trace),
            "plain": spec_summary(plain, p_out, p_launch, p_wall, p_peak, trace),
            "uids_diverged": diverged}
@@ -1348,7 +1479,16 @@ def spec_pair(torch, report, label, cfg, params, draft, calib, reqs, trace, temp
 
 def phase_spec(torch, report):
     """Speculative decoding through the port's engine API, as
-    benchmarks/bench_spec.py builds its engines."""
+    benchmarks/bench_spec.py builds its engines: the dense GQA arms, their
+    weights freed, then the MLA arms."""
+    import gc
+    spec_dense_arms(torch, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_mla_arms(torch, report)
+
+
+def spec_dense_arms(torch, report):
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import init_params
     from repro_torch.serving.speculative import truncated_draft
@@ -1417,6 +1557,62 @@ def phase_spec(torch, report):
         raise SmokeFailure(f"{label}: most drafts were accepted ({c})")
 
 
+def spec_mla_arms(torch, report):
+    """deepseek-v2-lite-16b, whose verify and draft passes run through the
+    MLA attention kernel (never flash): (a) 2 layers at full width, fp32,
+    drop-free capacity (``num_experts / top_k``), a random 1-layer draft,
+    FIFO, token-identical to the draft-less engine; (b) the full config in
+    bf16 at its published capacity 1.25 with ``truncated_draft`` (layer 0:
+    dense, MLA), scheduled, ``run_trace``: every request completes, its
+    acceptance and committed tokens per target step reported (a verify of
+    B·T tokens and a step of B get other capacities, so tokens may differ
+    from the draft-less engine's, in both packages alike); (c) as (b)
+    drop-free, prompts {64, 128}, 4 requests: tokens identical but for
+    printed near-ties."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.speculative import truncated_draft
+    full = get_config("deepseek-v2-lite-16b")
+    drop_free = full.num_experts / full.top_k
+    cfg = dataclasses.replace(full, num_layers=2, dtype="float32", param_dtype="float32",
+                              moe_capacity_factor=drop_free)
+    params = init_params(cfg, seed=0, device="cuda")
+    dcfg = dataclasses.replace(cfg, name=f"{cfg.name}-draft1", num_layers=1)
+    dparams = init_params(dcfg, seed=7, device="cuda")
+    reqs = spec_requests(cfg, 4, (37, 64, 100), 12, SPEC["seed"])
+    label = "parity deepseek fp32 2 layers drop-free"
+    _, res = spec_pair(torch, report, label, cfg, params, (dcfg, dparams), None, reqs, False,
+                       0.0, 4, 256, exact=True)
+    del params, dparams, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    n, lens, max_new, slots, max_len = (SPEC[k] for k in ("requests", "prompt_lens", "max_new",
+                                                          "max_slots", "max_len"))
+    base = init_params(full, seed=SPEC["seed"], device="cuda")
+    for label, cfg, reqs in (
+            ("deepseek scheduled trace capacity 1.25", full,
+             spec_requests(full, n, lens, max_new, SPEC["seed"])),
+            ("deepseek scheduled trace drop-free",
+             dataclasses.replace(full, moe_capacity_factor=drop_free),
+             spec_requests(full, 4, (64, 128), max_new, SPEC["seed"]))):
+        dcfg, dparams, tparams = truncated_draft(cfg, base)
+        eng, res = spec_pair(torch, report, label, cfg, tparams, (dcfg, dparams), [cfg, dcfg],
+                             reqs, True, 0.0, slots, max_len,
+                             report_only=cfg.moe_capacity_factor < drop_free)
+        c = res["spec"]["counters"]
+        log(f"{label}: drafted {c['spec_drafted']}, accepted {c['spec_accepted']} (acceptance "
+            f"{c['spec_accepted'] / max(c['spec_drafted'], 1):.4f}), committed tokens per "
+            f"target step {res['spec']['tokens_per_target_step']}, peak memory "
+            f"{res['spec']['peak_mem_bytes'] / 2**30:.2f} GiB")
+        if cfg is full:
+            report["launches_spec_deepseek"] = res["spec"]["launches"]
+        del eng, res, dparams, tparams
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_archs(torch, report):
     """The seventh slice's archs through ``repro_torch.launch.serve``: (a)
     deepseek-v2-lite-16b and qwen2-7b at their full configs under the
@@ -1477,7 +1673,7 @@ def phase_archs(torch, report):
         want = dict(attention_launches_expected(eng), ssd_scan=0)
         need = ["flash_attention", "decode_attention"]
         if any(w.cfg.use_mla for w in eng.workers.values()):
-            need.append("decode_attention_mla")
+            need.append("mla_attention")
         if launches != want or min(launches[k] for k in need) == 0:
             raise SmokeFailure(f"{key}: kernel launches {launches}, expected {want}")
         if any(w.cfg.num_layers != kw.get("layers", {}).get(n, get_config(n).num_layers)
@@ -1509,6 +1705,26 @@ def phase_profile_scheduled(torch, report):
 
 def phase_profile_archs(torch, report):
     profile_workload(torch, report, "profile_archs", lambda: engine_for(ARCHS_SCHEDULED))
+
+
+def phase_profile_spec_deepseek(torch, report):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.slots import Request
+    from repro_torch.serving.speculative import truncated_draft
+    cfg = get_config("deepseek-v2-lite-16b")
+    dcfg, dparams, tparams = truncated_draft(cfg, init_params(cfg, seed=SPEC["seed"],
+                                                              device="cuda"))
+    reqs = spec_requests(cfg, SPEC["requests"], SPEC["prompt_lens"], SPEC["max_new"],
+                         SPEC["seed"])
+
+    def build():
+        eng = spec_engine(cfg, tparams, (dcfg, dparams), [cfg, dcfg], SPEC["max_slots"],
+                          SPEC["max_len"])
+        for uid, p, n in reqs:
+            eng.submit(cfg.name, Request(uid, p, n))
+        return eng
+    profile_workload(torch, report, "profile_spec_deepseek", build)
 
 
 def phase_profile_spec(torch, report):
@@ -1591,19 +1807,19 @@ def profile_workload(torch, report, key, build):
 
 # each kernel's row of the times phase in the kernels line: (model, B, S)
 LINE_ROWS = {"flash_attention": ("tinyllama", 8, 512), "decode_attention": ("tinyllama", 8, 2048),
-             "ssd_scan": ("mamba2", 8, 512), "decode_attention_mla": ("mla", 8, 1024)}
+             "ssd_scan": ("mamba2", 8, 512), "mla_attention": ("mla", 8, 1024)}
 # each kernel's count on the path of its own slice: attention on the FIFO
-# serve path, the SSD scan on the scheduled path, the MLA decode on the
-# scheduled serve of the archs phase
+# serve path, the SSD scan on the scheduled path, the MLA attention on the
+# scheduled deepseek-v2-lite-16b serve with its draft (the spec phase)
 MAIN_PATH = {"flash_attention": "serve", "decode_attention": "serve", "ssd_scan": "scheduled",
-             "decode_attention_mla": "archs"}
+             "mla_attention": "spec_deepseek"}
 
 
 def kernels_line(report):
     rows = {r["kernel"]: r for r in report.get("timings", [])
             if (r["model"], r["B"], r["S"]) == LINE_ROWS[r["kernel"]] and "shape" not in r}
     paths = {p: report.get(f"launches_{p}", {})
-             for p in ("scheduled", "joint", "spec", "archs", "archs_fifo")}
+             for p in ("scheduled", "joint", "spec", "spec_deepseek", "archs", "archs_fifo")}
     paths = {"serve": report.get("launches", {}), **paths}
     out = []
     for name, (src, replaces) in SOURCES.items():
@@ -1640,7 +1856,9 @@ def main(argv=None):
            "joint": phase_joint, "spec": phase_spec, "archs": phase_archs,
            "profile": phase_profile,
            "profile_scheduled": phase_profile_scheduled, "profile_spec": phase_profile_spec,
-           "profile_archs": phase_profile_archs}
+           "profile_archs": phase_profile_archs,
+           "profile_spec_deepseek": phase_profile_spec_deepseek,
+           "mla_parts": phase_mla_parts}
     t_start = time.perf_counter()
     try:
         for ph in ("device",) + tuple(p for p in PHASES + EXTRA

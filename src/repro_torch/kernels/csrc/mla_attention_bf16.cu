@@ -1,0 +1,415 @@
+// Absorbed-MLA attention on the tensor cores for Hopper (sm_90a), bf16:
+// 16 query heads per latent KV head of width Dk = 576 (kv_lora_rank 512 +
+// qk_rope_dim 64), values of width Dv = 512 (the latent rows' first 512
+// columns, or a tensor of their own), T >= 1 query positions per batch
+// row, per-row q_offset / kv_len, causal mask, sliding window and logit
+// softcap. DeepSeek-V2-Lite's absorbed decode (T = 1) and its speculative
+// verify and draft catch-up (T > 1) reach this shape
+// (src/repro/models/attention.py, mla_decode). The fp32 route is
+// decode_attention_mla.cu (CUDA cores, exact fp32 for the parity checks).
+//
+// Replaces the Pallas TPU kernels src/repro/kernels/decode_attention.py
+// (decode_attention, body _decode_kernel) at this shape, and
+// src/repro/kernels/flash_attention.py (flash_attention, body
+// _flash_kernel) at this shape with Sq = T > 1.
+//
+// Bound on an H100: bytes, at every T. Each kept latent row is 576 * 2 B
+// and carries 2 * 16 * T * (576 + 512) FLOPs of tensor-core work, ~30 * T
+// FLOPs per byte, far under the ~295 FLOP/byte bf16 ridge: the bound is
+// sum_b kept_b * 576 * 2 B (+ q and o) over 3.35 TB/s, ~1.4 us at 8 slots
+// x 1024. The CUDA-core kernel before this one was bound by its FMAs
+// (30 FLOP/byte is above the fp32 CUDA cores' ridge); here the products run
+// on the tensor cores and shared memory feeds them.
+//
+// Design:
+// - One block of 8 warps per (latent head, query position t, split of the
+//   cache, batch row): its 16 rows are the 16 heads at one position, which
+//   is one m16 row tile of mma.sync.m16n8k16. All 16 rows share one mask,
+//   [k_lo, k_hi) with k_hi = min(kv_len, Smax, q_offset + t + 1 if
+//   causal), so the block reads only kept latent rows. A row's key tiles,
+//   their order, its split and its merge depend on its position alone:
+//   a verify row and a decode step at the same position run the same
+//   arithmetic, whatever T is. The T blocks of one split run side by side
+//   (t is the grid's fastest index), so the second to T-th read of each
+//   latent row hits L2. O (16 x 512 fp32) fits in registers for any T:
+//   each warp owns 64 value columns, 32 accumulators per lane.
+// - The split plan and the merge are decode_attention.cu's
+//   (decode_attention.plan_splits, from the shapes alone): a row whose kept
+//   keys lie in one split writes its output directly, otherwise each live
+//   split writes its fp32 (m, l, acc) to scratch and the last block of the
+//   (row group, latent head) to finish, found with an atomic counter,
+//   merges them and resets its counter to 0. A row that keeps no key
+//   writes 0; masked keys are never read. A split's partial is 33 KB here
+//   (16 rows x 512 columns), nearly half its 64 latent rows' bytes, so the
+//   merging block reads in two passes: the splits' (m, l) into shared
+//   memory and their weights 2^(m_s - M), then sum_s w_s acc_s with each
+//   thread's 8 float4 of every split loaded together (on an H100, 22.5 us
+//   against 28.4 for a running merge at 8 slots x 1024; PERF.md,
+//   chip_smoke.py --phases mla_parts).
+// - Tiles of 64 latent rows go through a shared-memory ring filled by
+//   16-byte cp.async copies (two stages when a split holds more than one
+//   tile and the values are the latent rows, else one: at one stage two
+//   blocks fit an SM). Rows are padded by 16 bytes, so the 8 rows of each
+//   ldmatrix fall on distinct bank groups; rows past the split's end are
+//   filled with zeros.
+// - S = Q K^T: the 36 k-steps of Dk split in four quarters, the 64 keys in
+//   two halves; each warp takes one quarter of one half (4 x 9 mma), so Q
+//   is read from shared memory twice per tile, not eight times. The four
+//   fp32 partial sums meet in shared memory, summed in a fixed order.
+// - The online softmax runs two rows per warp, two keys per lane, in fp32
+//   and in powers of two (scale * log2(e) folded in, softcap c * tanh(s / c)
+//   before the mask); P goes to shared memory as bf16, the A operand of
+//   O += P V, whose B operand is read by ldmatrix.trans straight from the
+//   latent tile (its first 512 columns).
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace repro_torch {
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kG = 16;      // query heads per latent head: one m16 tile
+constexpr int kDk = 576;    // kv_lora_rank + qk_rope_dim
+constexpr int kDv = 512;    // kv_lora_rank
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kKeys = 64;              // latent rows per tile
+constexpr int kLdk = kDk + 8;          // q and latent rows in shared memory, padded
+constexpr int kLdv = kDv + 8;          // separate value rows, padded
+constexpr int kLds = kKeys + 8;        // fp32 score partial rows
+constexpr int kLdp = kKeys + 8;        // bf16 probability rows
+constexpr int kKSplit = 4;             // quarters of Dk's k-steps
+constexpr int kKSteps = kDk / 16 / kKSplit;              // 9 k-steps per quarter
+constexpr int kKeysPerWarp = kKeys * kKSplit / kWarps;   // 32 keys per warp
+constexpr int kColsPerWarp = kDv / kWarps;               // 64 value columns per warp
+constexpr int kPart = kDv + 4;  // one split's partial: m, l, 2 floats of padding, acc[kDv]
+
+__host__ __device__ inline size_t stage_elems(bool v_shared) {  // bf16 per ring stage
+  return static_cast<size_t>(kKeys) * (kLdk + (v_shared ? 0 : kLdv));
+}
+
+size_t smem_bytes(int stages, bool v_shared) {
+  return sizeof(bf16) * (kG * kLdk + stages * stage_elems(v_shared)) +
+         sizeof(float) * kKSplit * kG * kLds + sizeof(bf16) * kG * kLdp + sizeof(float) * 3 * kG;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          const int32_t* __restrict__ q_offset,
+                          const int32_t* __restrict__ kv_len, float* __restrict__ part,
+                          int* __restrict__ counters, int T, int Smax, int Hkv, int k_row,
+                          int v_row, int v_head, int v_shared, int causal, int window,
+                          float softcap, float scale, int split_len, int stages) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int is_last;
+  const int stage = static_cast<int>(stage_elems(v_shared != 0));
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);                   // kG x kLdk
+  bf16* ring = qs + kG * kLdk;                                     // stages x stage
+  float* spart = reinterpret_cast<float*>(ring + stages * stage);  // kKSplit x kG x kLds
+  bf16* ps = reinterpret_cast<bf16*>(spart + kKSplit * kG * kLds);  // kG x kLdp
+  float* c_s = reinterpret_cast<float*>(ps + kG * kLdp);  // per row: rescale of the tile
+  float* l_s = c_s + kG;
+  float* m_s = l_s + kG;
+
+  const int rg = blockIdx.x;  // hk * T + t
+  const int hk = rg / T, t = rg - hk * T;
+  const int split = blockIdx.y, b = blockIdx.z;
+  const int n_splits = gridDim.y;
+  const int H = Hkv * kG;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;   // mma fragment: rows g, g + 8; columns 2tq, 2tq + 1
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: the matrix and row this lane addresses
+  const int qpos = q_offset[b] + t;
+  int k_hi = min(kv_len[b], Smax);
+  if (causal) k_hi = min(k_hi, qpos + 1);
+  const int k_lo = window > 0 ? max(0, qpos - window + 1) : 0;
+  const size_t row0 = (static_cast<size_t>(b) * T + t) * H + static_cast<size_t>(hk) * kG;
+  bf16* ob = o + row0 * kDv;  // the block's 16 output rows
+
+  if (k_hi <= k_lo) {  // the rows keep no key: they write 0
+    if (split == 0)
+      for (int i = tid; i < kG * kDv / 2; i += kThreads) reinterpret_cast<uint32_t*>(ob)[i] = 0u;
+    return;
+  }
+  const int s_first = k_lo / split_len, s_last = (k_hi - 1) / split_len;
+  if (split < s_first || split > s_last) return;
+  const int n_live = s_last - s_first + 1;
+  const int s0 = max(split * split_len, k_lo), s1 = min((split + 1) * split_len, k_hi);
+  const int n_tiles = (s1 - s0 + kKeys - 1) / kKeys;
+
+  const bf16* kb = k + static_cast<size_t>(b) * Smax * k_row + static_cast<size_t>(hk) * kDk;
+  const bf16* vb = v + static_cast<size_t>(b) * Smax * v_row + static_cast<size_t>(hk) * v_head;
+  auto load = [&](int st, int t0) {  // latent rows [t0, t0 + 64) into stage st; zeros past s1
+    bf16* ks = ring + st * stage;
+    const int nk = min(kKeys, s1 - t0);
+    constexpr int kch = kDk / 8, vch = kDv / 8;  // 16-byte chunks per row
+    for (int i = tid; i < kKeys * kch; i += kThreads) {
+      const int r = i / kch, c = i - r * kch;
+      const bool ok = r < nk;
+      cp_async16(ks + r * kLdk + c * 8, ok ? kb + static_cast<size_t>(t0 + r) * k_row + c * 8 : kb,
+                 ok ? 16 : 0);
+    }
+    if (!v_shared) {
+      bf16* vs = ks + kKeys * kLdk;
+      for (int i = tid; i < kKeys * vch; i += kThreads) {
+        const int r = i / vch, c = i - r * vch;
+        const bool ok = r < nk;
+        cp_async16(vs + r * kLdv + c * 8,
+                   ok ? vb + static_cast<size_t>(t0 + r) * v_row + c * 8 : vb, ok ? 16 : 0);
+      }
+    }
+  };
+
+  {  // q's 16 rows with the first tile
+    const bf16* qb = q + row0 * kDk;
+    constexpr int qch = kDk / 8;
+    for (int i = tid; i < kG * qch; i += kThreads) {
+      const int r = i / qch, c = i - r * qch;
+      cp_async16(qs + r * kLdk + c * 8, qb + r * kDk + c * 8, 16);
+    }
+  }
+  load(0, s0);
+  cp_async_commit();
+
+  const int kq = warp % kKSplit, kh = warp / kKSplit;  // this warp's k quarter and key half
+  const float scale_log2 = scale * kLog2e;
+  float m_row[2] = {kNegInf, kNegInf}, l_row[2] = {0.f, 0.f};  // rows 2 warp, 2 warp + 1
+  float acc[kColsPerWarp / 8][4];
+#pragma unroll
+  for (int j = 0; j < kColsPerWarp / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = s0 + it * kKeys;
+    const int nk = min(kKeys, s1 - t0);
+    cp_async_wait<0>();  // tile it (and q) landed
+    __syncthreads();     // ... for every thread, and tile it - 1 is consumed
+    if (stages == 2 && it + 1 < n_tiles) {
+      load((it + 1) & 1, t0 + kKeys);
+      cp_async_commit();
+    }
+    const bf16* ks = ring + (stages == 2 ? (it & 1) : 0) * stage;
+    const bf16* vs = v_shared ? ks : ks + kKeys * kLdk;
+    const int ldv = v_shared ? kLdk : kLdv;
+
+    // (1) partial scores: k-steps [9 kq, 9 kq + 9) of keys [32 kh, 32 kh + 32)
+    float s[kKeysPerWarp / 8][4];
+#pragma unroll
+    for (int j = 0; j < kKeysPerWarp / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kKSteps; ++i) {
+      const int kk = kq * kKSteps + i;
+      uint32_t a[4];
+      ldmatrix_x4(a, qs + (lane & 15) * kLdk + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int nb = 0; nb < kKeysPerWarp / 16; ++nb) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, ks + (kh * kKeysPerWarp + nb * 16 + mr + (mi >> 1) * 8) * kLdk + kk * 16 +
+                            (mi & 1) * 8);
+        mma_bf16_16816(s[2 * nb], a, bk[0], bk[1]);
+        mma_bf16_16816(s[2 * nb + 1], a, bk[2], bk[3]);
+      }
+    }
+    float* sp = spart + kq * kG * kLds;
+#pragma unroll
+    for (int j = 0; j < kKeysPerWarp / 8; ++j) {
+      const int col = kh * kKeysPerWarp + j * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(sp + g * kLds + col) = make_float2(s[j][0], s[j][1]);
+      *reinterpret_cast<float2*>(sp + (g + 8) * kLds + col) = make_float2(s[j][2], s[j][3]);
+    }
+    __syncthreads();
+
+    // (2) online softmax of rows 2 warp + rr, keys lane and lane + 32
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = 2 * warp + rr;
+      float x[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = lane + 32 * h;
+        float sum = spart[row * kLds + j];
+#pragma unroll
+        for (int qq = 1; qq < kKSplit; ++qq) sum += spart[(qq * kG + row) * kLds + j];
+        const float xs = softcap > 0.f ? softcap * kLog2e * tanhf(sum * scale / softcap)
+                                       : sum * scale_log2;
+        x[h] = j < nk ? xs : kNegInf;
+      }
+      const float mn = fmaxf(m_row[rr], warp_max(fmaxf(x[0], x[1])));  // finite: key 0 is kept
+      const float p0 = fast_exp2(x[0] - mn), p1 = fast_exp2(x[1] - mn);
+      const float corr = fast_exp2(m_row[rr] - mn);
+      l_row[rr] = l_row[rr] * corr + warp_sum(p0 + p1);
+      m_row[rr] = mn;
+      ps[row * kLdp + lane] = __float2bfloat16(p0);
+      ps[row * kLdp + lane + 32] = __float2bfloat16(p1);
+      if (lane == 0) {
+        c_s[row] = corr;
+        l_s[row] = l_row[rr];
+        m_s[row] = mn;
+      }
+    }
+    __syncthreads();
+
+    // (3) acc = acc * corr + P V over this warp's 64 value columns
+    const float c0 = c_s[g], c1 = c_s[g + 8];
+#pragma unroll
+    for (int j = 0; j < kColsPerWarp / 8; ++j) {
+      acc[j][0] *= c0;
+      acc[j][1] *= c0;
+      acc[j][2] *= c1;
+      acc[j][3] *= c1;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, ps + (lane & 15) * kLdp + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int nd = 0; nd < kColsPerWarp / 16; ++nd) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, vs + (kk * 16 + mr + (mi & 1) * 8) * ldv + warp * kColsPerWarp +
+                                  nd * 16 + (mi >> 1) * 8);
+        mma_bf16_16816(acc[2 * nd], a, bv[0], bv[1]);
+        mma_bf16_16816(acc[2 * nd + 1], a, bv[2], bv[3]);
+      }
+    }
+    if (stages == 1 && it + 1 < n_tiles) {  // the one stage is consumed: refill it
+      __syncthreads();
+      load(0, t0 + kKeys);
+      cp_async_commit();
+    }
+  }
+
+  // l_s and m_s were last written before the last tile's second barrier
+  const int col = warp * kColsPerWarp + 2 * tq;
+  if (n_live == 1) {
+    const float inv0 = 1.f / fmaxf(l_s[g], 1e-30f), inv1 = 1.f / fmaxf(l_s[g + 8], 1e-30f);
+    bf16* o0 = ob + g * kDv + col;
+    bf16* o1 = o0 + 8 * kDv;
+#pragma unroll
+    for (int j = 0; j < kColsPerWarp / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(o0 + j * 8) = pack_bf16(acc[j][0] * inv0, acc[j][1] * inv0);
+      *reinterpret_cast<uint32_t*>(o1 + j * 8) = pack_bf16(acc[j][2] * inv1, acc[j][3] * inv1);
+    }
+    return;
+  }
+  const size_t rgi = static_cast<size_t>(b) * gridDim.x + rg;  // (b, hk, t): counter and scratch
+  float* pb = part + rgi * n_splits * kG * kPart;
+  float* pp = pb + static_cast<size_t>(split) * kG * kPart;
+  if (tid < kG) {
+    pp[tid * kPart] = m_s[tid];
+    pp[tid * kPart + 1] = l_s[tid];
+  }
+#pragma unroll
+  for (int j = 0; j < kColsPerWarp / 8; ++j) {
+    *reinterpret_cast<float2*>(pp + g * kPart + 4 + col + j * 8) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(pp + (g + 8) * kPart + 4 + col + j * 8) =
+        make_float2(acc[j][2], acc[j][3]);
+  }
+
+  // the last live split of this row group to finish merges them all
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(counters + rgi, 1) == n_live - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // weights w_s = 2^(m_s - M) of each (row, split), M the row's largest
+  // m_s, then o = sum_s w_s acc_s / sum_s w_s l_s; the ring is consumed and
+  // holds the m_s and l_s of the 16 rows
+  float* mw = reinterpret_cast<float*>(ring);  // kG x n_live: m_s, then w_s
+  float* lw = mw + kG * n_live;                // kG x n_live: l_s
+  for (int i = tid; i < kG * n_live; i += kThreads) {
+    const int r = i / n_live, sj = i - r * n_live;
+    const float* src = pb + (static_cast<size_t>(s_first + sj) * kG + r) * kPart;
+    mw[i] = __ldcg(src);
+    lw[i] = __ldcg(src + 1);
+  }
+  __syncthreads();
+  if (tid < kG) {
+    float M = kNegInf;
+    for (int sj = 0; sj < n_live; ++sj) M = fmaxf(M, mw[tid * n_live + sj]);
+    float L = 0.f;
+    for (int sj = 0; sj < n_live; ++sj) {
+      const float w = fast_exp2(mw[tid * n_live + sj] - M);
+      L += w * lw[tid * n_live + sj];
+      mw[tid * n_live + sj] = w;
+    }
+    c_s[tid] = 1.f / fmaxf(L, 1e-30f);
+  }
+  __syncthreads();
+  constexpr int NV = kDv / 4;                  // float4 per row
+  constexpr int kItems = kG * NV / kThreads;   // 8 float4 per thread, all loaded per split
+  float4 os[kItems];
+#pragma unroll
+  for (int e = 0; e < kItems; ++e) os[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+  for (int sj = 0; sj < n_live; ++sj) {
+    const float* src = pb + static_cast<size_t>(s_first + sj) * kG * kPart + 4;
+    float4 a[kItems];
+#pragma unroll
+    for (int e = 0; e < kItems; ++e) {
+      const int i = tid + e * kThreads, r = i / NV, c = i - r * NV;
+      a[e] = __ldcg(reinterpret_cast<const float4*>(src + r * kPart) + c);
+    }
+#pragma unroll
+    for (int e = 0; e < kItems; ++e) {
+      const float w = mw[((tid + e * kThreads) / NV) * n_live + sj];
+      os[e].x += w * a[e].x;
+      os[e].y += w * a[e].y;
+      os[e].z += w * a[e].z;
+      os[e].w += w * a[e].w;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kItems; ++e) {
+    const int i = tid + e * kThreads, r = i / NV, c = i - r * NV;
+    const float inv = c_s[r];
+    *reinterpret_cast<uint2*>(ob + r * kDv + 4 * c) =
+        make_uint2(pack_bf16(os[e].x * inv, os[e].y * inv), pack_bf16(os[e].z * inv, os[e].w * inv));
+  }
+  if (tid == 0) counters[rgi] = 0;
+}
+
+}  // namespace
+}  // namespace repro_torch
+
+// q (B,T,H,576) contiguous, H = 16 * Hkv; k: rows of (Hkv, 576), row b, s
+// at k + (b * Smax + s) * k_row; v: rows of (Hkv, 512) at v + (b * Smax +
+// s) * v_row + h * v_head. v_shared != 0 says that v is the first 512
+// columns of k's rows (the latent cache), which the kernel then reads
+// once per tile. o (B,T,H,512) contiguous; all bf16, 16-byte aligned, the
+// strides multiples of 16 bytes; q_offset and kv_len (B,) int32 on the
+// device: query t of row b sits at position q_offset[b] + t and keeps key
+// j < min(kv_len[b], Smax), j <= its position if causal, and position - j
+// < window if window > 0. part: fp32 scratch of B * Hkv * T * n_splits *
+// 16 * 516; counters: B * Hkv * T int32, all 0 (the kernel leaves them 0).
+// Split s covers keys [s * split_len, (s + 1) * split_len). softcap <= 0
+// means no softcap. Returns the CUDA error of the launch, or -1 for a
+// shape the kernel does not take.
+extern "C" int mla_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                                      const void* q_offset, const void* kv_len, void* part,
+                                      void* counters, int B, int T, int Smax, int H, int Hkv,
+                                      int Dk, int Dv, int k_row, int v_row, int v_head,
+                                      int v_shared, int causal, int window, int n_splits,
+                                      int split_len, float softcap, float scale, void* stream) {
+  using namespace repro_torch;
+  if (B < 1 || T < 1 || Smax < 1 || Hkv < 1 || H != kG * Hkv || Dk != kDk || Dv != kDv ||
+      n_splits < 1 || split_len < 1)
+    return -1;
+  // the merge keeps every split's (m, l) of its 16 rows in one ring stage
+  const size_t merge_bytes = static_cast<size_t>(n_splits) * 2 * kG * sizeof(float);
+  if (merge_bytes > stage_elems(v_shared != 0) * sizeof(bf16)) return -1;
+  const int stages = v_shared && split_len > kKeys ? 2 : 1;
+  const size_t smem = smem_bytes(stages, v_shared != 0);
+  const cudaError_t attr = allow_smem(mla_attention_bf16_kernel, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(Hkv * T, n_splits, B);
+  mla_attention_bf16_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), static_cast<const int32_t*>(q_offset),
+      static_cast<const int32_t*>(kv_len), static_cast<float*>(part), static_cast<int*>(counters),
+      T, Smax, Hkv, k_row, v_row, v_head, v_shared, causal, window, softcap, scale, split_len,
+      stages);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -12,12 +12,10 @@ design does about it. The kernel splits the KV axis across blocks
 states in the same launch; ``decode_attention_split_plain`` is that
 split-and-merge arithmetic in plain PyTorch, for the tests.
 
-The absorbed-MLA decode (16 query heads on one latent head, Dk 576, Dv
-512) has a kernel of its own (``csrc/decode_attention_mla.cu``, wrapper
-``decode_attention_mla``, its own launch count): ``decode_route`` picks the
-kernel by shape alone, as ``flash_route`` picks by dtype. Its values may
-be the first 512 columns of the key rows (the latent cache), which it then
-reads once.
+The absorbed-MLA shape (16 query heads on one latent head, Dk 576, Dv
+512) has kernels of their own (``kernels.mla_attention``), to which
+``ops.flash_attention`` sends it at any query length; ``decode_route``
+names no entry point for it.
 
 ``decode_attention`` launches a kernel for CUDA tensors and runs
 ``decode_attention_plain`` for CPU tensors; on the card a shape that no
@@ -34,7 +32,6 @@ from repro_torch.kernels.flash_attention import (NEG_INF, DTYPES, attention_plai
 
 DECODE_DV = (64, 128, 256)
 DECODE_GROUPS = (1, 2, 4, 7, 8)
-DECODE_MLA = (16, 576, 512)  # (G, Dk, Dv) of the absorbed-MLA decode kernel
 # the split planner's targets: blocks for several waves of an H100's 132
 # SMs, and no split shorter than 64 keys (its merge would cost more than
 # its keys)
@@ -114,15 +111,12 @@ def decode_attention_plain(q, k, v, *, q_offset=0, kv_len=None, window=None,
 
 
 def decode_route(G: int, Dk: int, Dv: int) -> str:
-    """The C entry point for a decode shape, by shape alone: the absorbed-MLA
-    kernel at ``DECODE_MLA``, the general kernel at a group of
-    ``DECODE_GROUPS`` and a value width of ``DECODE_DV``; any other shape
-    has no kernel."""
-    if (G, Dk, Dv) == DECODE_MLA:
-        return "decode_attention_mla_fwd"
+    """The C entry point for a decode shape, by shape alone: the split-KV
+    kernel at a group of ``DECODE_GROUPS`` and a value width of
+    ``DECODE_DV``; any other shape has no decode kernel (the absorbed-MLA
+    shape goes to ``mla_attention``)."""
     if G not in DECODE_GROUPS:
-        raise ValueError(f"GQA group {G} not in {DECODE_GROUPS} (nor the MLA shape "
-                         f"{DECODE_MLA})")
+        raise ValueError(f"GQA group {G} not in {DECODE_GROUPS}")
     if Dv not in DECODE_DV:
         raise ValueError(f"value head dim {Dv} not in {DECODE_DV}")
     return "decode_attention_fwd"
@@ -144,8 +138,7 @@ def decode_attention(q, k, v, *, q_offset=0, kv_len=None, window=None,
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, **kw)
     _on_card("decode_attention", q)
-    if decode_route(q.shape[2] // k.shape[2], q.shape[-1], v.shape[-1]) != "decode_attention_fwd":
-        return decode_attention_mla(q, k, v, **kw)
+    decode_route(q.shape[2] // k.shape[2], q.shape[-1], v.shape[-1])
     check_cuda_inputs(q, k, v, DECODE_DV)
     B, _, H, Dk = q.shape
     Smax, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
@@ -172,52 +165,3 @@ def decode_attention(q, k, v, *, q_offset=0, kv_len=None, window=None,
 
 
 decode_attention.launches = 0
-
-
-def decode_attention_mla(q, k, v, *, q_offset=0, kv_len=None, window=None, softcap=None,
-                         scale=None):
-    """The absorbed-MLA decode: q (B,1,16·Hkv,576); k (B,Smax,Hkv,576)
-    contiguous; v (B,Smax,Hkv,512) contiguous, or the first 512 columns of
-    k (``k[..., :512]``, the latent cache's c_kv), which the kernel then
-    reads from the key rows once -> (B,1,H,512) in q's dtype. Positions as
-    in ``decode_attention``."""
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, q_offset=q_offset, kv_len=kv_len,
-                                      window=window, softcap=softcap, scale=scale)
-    _on_card("decode_attention_mla", q)
-    B, _, H, Dk = q.shape
-    Smax, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
-    if k.dim() != 4 or v.dim() != 4 or k.shape[0] != B or v.shape[:3] != k.shape[:3]:
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    if H % Hkv or (H // Hkv, Dk, Dv) != DECODE_MLA:
-        raise ValueError(f"the MLA decode kernel takes (G, Dk, Dv) = {DECODE_MLA}, not "
-                         f"({H // Hkv if H % Hkv == 0 else H / Hkv}, {Dk}, {Dv})")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
-        raise ValueError(f"q, k, v must share one dtype of {list(DTYPES)}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v must lie on one device")
-    v_shared = v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
-    if not (q.is_contiguous() and k.is_contiguous() and (v_shared or v.is_contiguous())):
-        raise ValueError("q and k must be contiguous, v contiguous or the leading columns of k")
-    check_aligned(q, k, v)
-    scale = scale if scale is not None else Dk ** -0.5
-    n_splits, split_len = plan_splits(Smax, B, Hkv)
-    G = H // Hkv
-    out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
-    part = torch.empty(B * Hkv * n_splits * G * (Dv + 4), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    counters = merge_counters(q.device, stream, B * Hkv)
-    ptrs, _keep = launch_args(q, k, v, out, q_offset, kv_len)
-    lib = build.load_library()
-    with torch.cuda.device(q.device):
-        rc = lib.decode_attention_mla_fwd(
-            *ptrs, part.data_ptr(), counters.data_ptr(), B, Smax, H, Hkv, Dk, Dv, k.stride(1),
-            v.stride(1), v.stride(2), int(v_shared), int(window or 0), n_splits, split_len,
-            float(softcap or 0.0), float(scale), build.DTYPE_CODES[DTYPES[q.dtype]], stream)
-    build.check(rc, "decode_attention_mla_fwd")
-    decode_attention_mla.launches += 1
-    return out
-
-
-decode_attention_mla.launches = 0

@@ -1,16 +1,23 @@
-"""Attention dispatch, the counterpart of ``repro.kernels.ops``: a single
-query token goes to the decode kernel, everything else to the prefill
-(flash) kernel. ``plain=True`` takes the kernels' plain versions on any
-device (the kernel-versus-plain parity runs on the card)."""
+"""Attention dispatch, the counterpart of ``repro.kernels.ops``: the
+absorbed-MLA shape (16 query heads on one latent head, Dk 576, Dv 512) goes
+to the MLA kernels at any query length (the decode step and the speculative
+verify), any other single query token to the decode kernel, everything else
+to the prefill (flash) kernel. ``plain=True`` takes the kernels' plain
+versions on any device (the kernel-versus-plain parity runs on the card)."""
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.mla_attention import is_mla_shape, mla_attention, mla_attention_plain
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                     q_offset=0, kv_len=None, scale=None, plain=False):
+    if is_mla_shape(q, k, v):
+        fn = mla_attention_plain if plain else mla_attention
+        return fn(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len, window=window,
+                  softcap=softcap, scale=scale)
     if q.shape[1] == 1:
         fn = decode_attention_plain if plain else decode_attention
         return fn(q, k, v, q_offset=q_offset, kv_len=kv_len, window=window,

@@ -29,6 +29,7 @@ from repro.sharding.context import ExecContext as JaxCtx  # noqa: E402
 from repro_torch.configs import base as configs  # noqa: E402
 from repro_torch.convert import _load, params_from_numpy  # noqa: E402
 from repro_torch.kernels import decode_attention as dmod  # noqa: E402
+from repro_torch.kernels import mla_attention as mmod  # noqa: E402
 from repro_torch.models import attention as tatt  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.serving.workers import ModelWorker  # noqa: E402
@@ -205,20 +206,25 @@ def test_decode_plain_and_split_at_new_shapes_match_pallas(G, Hkv, Dk, Dv, Smax,
     tq, tk = torch.from_numpy(q), torch.from_numpy(k)
     tv = tk[..., :Dv] if Dk > Dv else torch.from_numpy(v)
     kw = dict(q_offset=torch.from_numpy(pos), kv_len=torch.from_numpy(pos + 1), scale=scale)
-    assert dmod.decode_route(G, Dk, Dv) == ("decode_attention_mla_fwd" if Dk == 576
-                                            else "decode_attention_fwd")
+    if Dk == 576:  # the MLA kernels' shape, which no decode kernel takes
+        assert mmod.is_mla_shape(tq, tk, tv)
+        with pytest.raises(ValueError):
+            dmod.decode_route(G, Dk, Dv)
+    else:
+        assert dmod.decode_route(G, Dk, Dv) == "decode_attention_fwd"
     _close(dmod.decode_attention_plain(tq, tk, tv, **kw), ref, KERNEL_TOL)
     _close(dmod.decode_attention_split_plain(tq, tk, tv, **kw), ref, KERNEL_TOL)
     _close(dmod.decode_attention_split_plain(tq, tk, tv, split_len=32, **kw), ref, KERNEL_TOL)
-    # on the CPU both wrappers run the plain version and count no launch
-    before = (dmod.decode_attention.launches, dmod.decode_attention_mla.launches)
+    # on the CPU the wrappers run the plain versions and count no launch
+    before = (dmod.decode_attention.launches, mmod.mla_attention.launches)
     _close(dmod.decode_attention(tq, tk, tv, **kw), ref, KERNEL_TOL)
-    _close(dmod.decode_attention_mla(tq, tk, tv, **kw), ref, KERNEL_TOL)
-    assert (dmod.decode_attention.launches, dmod.decode_attention_mla.launches) == before
+    _close(mmod.mla_attention(tq, tk, tv, causal=False, **kw), ref, KERNEL_TOL)
+    assert (dmod.decode_attention.launches, mmod.mla_attention.launches) == before
 
 
 def test_decode_route_refuses_shapes_no_kernel_takes():
-    for G, Dk, Dv in ((16, 128, 128), (7, 112, 112), (3, 64, 64), (16, 576, 256)):
+    for G, Dk, Dv in ((16, 128, 128), (7, 112, 112), (3, 64, 64), (16, 576, 256),
+                      (16, 576, 512)):
         with pytest.raises(ValueError):
             dmod.decode_route(G, Dk, Dv)
 

@@ -340,29 +340,94 @@ def test_decode_kernel_at_group_7(dtype, D):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Smax", [1024, 1000])
 @pytest.mark.parametrize("shared", [True, False])
-def test_mla_decode_kernel_matches_plain_on_card(dtype, Smax, shared):
+@pytest.mark.parametrize("T", [1, 2, 5, 8])
+def test_mla_decode_kernel_matches_plain_on_card(dtype, Smax, shared, T):
     """The absorbed-MLA shape (16 heads on one latent head, Dk 576, Dv 512)
-    through ``decode_attention``, which routes it to the MLA kernel by
-    shape: values as the latent rows' first 512 columns (shared) or a tensor
-    of their own; split edges and a retired slot parked at Smax."""
+    through ``ops.flash_attention``, which sends it to ``mla_attention`` at
+    every T (bf16 on the tensor cores, fp32 on the CUDA cores): the decode
+    step (T = 1, a retired slot parked at Smax) and the verify (T > 1,
+    causal, per-row offsets at the split edges); values as the latent rows'
+    first 512 columns (shared) or a tensor of their own; then a window and
+    a softcap, which the kernels take though DeepSeek uses neither."""
+    from repro_torch.kernels import mla_attention as mmod
+    from repro_torch.kernels import ops
     dev = _card()
     B = 8
     L = dmod.plan_splits(Smax, B, 1)[1]
     pos = torch.tensor([0, 1, L - 1, L, 2 * L + 3, 500, Smax - 1, Smax], dtype=torch.int32,
                        device=dev)
-    q = _randn(43, (B, 1, 16, 576), dtype, dev)
+    q = _randn(43, (B, T, 16, 576), dtype, dev)
     k = _randn(44, (B, Smax, 1, 576), dtype, dev)
     v = k[..., :512] if shared else _randn(45, (B, Smax, 1, 512), dtype, dev)
-    kw = dict(q_offset=pos, kv_len=pos + 1, scale=192 ** -0.5)
-    before = (dmod.decode_attention.launches, dmod.decode_attention_mla.launches)
-    out = dmod.decode_attention(q, k, v, **kw)
-    assert (dmod.decode_attention.launches, dmod.decode_attention_mla.launches) == (
-        before[0], before[1] + 1)
-    _close(out, dmod.decode_attention_plain(q, k, v, **kw), dtype)
-    # a window and a softcap, which the kernel takes though DeepSeek uses neither
-    kw = dict(q_offset=pos, kv_len=pos + 1, window=L + 7, softcap=30.0)
-    _close(dmod.decode_attention_mla(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw),
-           dtype)
+    kw = (dict(causal=False, q_offset=pos, kv_len=pos + 1) if T == 1 else
+          dict(causal=True, q_offset=torch.clamp(pos, max=Smax - 2)))
+    kw["scale"] = 192 ** -0.5
+    wrappers = (fmod.flash_attention, dmod.decode_attention, mmod.mla_attention)
+    before = [w.launches for w in wrappers]
+    out = ops.flash_attention(q, k, v, **kw)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [0, 0, 1]
+    _close(out, mmod.mla_attention_plain(q, k, v, **kw), dtype)
+    kw.update(window=L + 7, softcap=30.0)
+    _close(mmod.mla_attention(q, k, v, **kw), mmod.mla_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_rows_do_not_depend_on_T_on_card(dtype):
+    """A verify row and a decode step at the same position run the same
+    arithmetic: T = 5 causal rows at per-row offsets give, bit for bit, the
+    outputs of five T = 1 steps at those positions on the same q rows."""
+    from repro_torch.kernels import mla_attention as mmod
+    dev = _card()
+    q = _randn(46, (8, 5, 16, 576), dtype, dev)
+    k = _randn(47, (8, 1024, 1, 576), dtype, dev)
+    offs = torch.tensor([72, 136, 264, 520, 0, 63, 1019, 1022], dtype=torch.int32, device=dev)
+    ver = mmod.mla_attention(q, k, k[..., :512], causal=True, q_offset=offs)
+    for t in range(5):
+        p = offs + t
+        dec = mmod.mla_attention(q[:, t:t + 1].contiguous(), k, k[..., :512], causal=False,
+                                 q_offset=p, kv_len=p + 1)
+        assert torch.equal(dec[:, 0], ver[:, t])
+
+
+@pytest.mark.gpu
+def test_mla_speculative_serve_on_card():
+    """deepseek-v2-lite-16b at its attention widths (16 heads, the 512 + 64
+    latent) cut to 2 layers and narrow experts, bf16, drop-free capacity,
+    with its truncated self-draft (layer 0: dense, MLA), FIFO on the card:
+    every request completes, the verify and every decode pass launch
+    ``mla_attention`` once per layer (draft included), and flash runs only
+    for the prefills."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import mla_attention as mmod
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.slots import Request
+    from repro_torch.serving.speculative import truncated_draft
+    dev = _card()
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"), num_layers=2, vocab_size=1024,
+                              num_experts=8, top_k=2, moe_d_ff=256, d_ff=1024,
+                              moe_capacity_factor=4.0)
+    dcfg, dparams, tparams = truncated_draft(cfg, init_params(cfg, 0, dev))
+    r = np.random.default_rng(0)
+    reqs = [(i, r.integers(1, cfg.vocab_size, int(r.integers(4, 40)), dtype=np.int32),
+             int(r.integers(3, 14))) for i in range(6)]
+    eng = ServingEngine(max_slots=4)
+    eng.add_model("m", cfg, tparams, max_len=64, draft=(dcfg, dparams))
+    for uid, prompt, n in reqs:
+        eng.submit("m", Request(uid, prompt, n))
+    wrappers = (fmod.flash_attention, dmod.decode_attention, mmod.mla_attention)
+    before = [w.launches for w in wrappers]
+    out = eng.run_all()
+    flash, decode, mla = (w.launches - b for w, b in zip(wrappers, before))
+    assert sorted(x.uid for x in out) == list(range(6))
+    assert all(x.error is None and len(x.tokens) == n for x, (_, _, n) in
+               zip(sorted(out, key=lambda x: x.uid), reqs))
+    workers = [eng.workers["m"], eng.spec["m"].worker]
+    assert eng.workers["m"].verify_calls > 0 and eng.ledger.counters["spec_rounds"] > 0
+    assert flash == sum(w.cfg.num_layers * w.prefill_calls for w in workers) > 0
+    assert mla == sum(w.cfg.num_layers * (w.decode_calls + w.verify_calls) for w in workers)
+    assert decode == 0
 
 
 @pytest.mark.gpu
