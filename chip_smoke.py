@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases kernels,spec  # the kernels and the speculative serves
     python3 chip_smoke.py --phases kernels,joint  # the kernels and the joint-planned serve
     python3 chip_smoke.py --phases kernels,archs  # the kernels and the serves of the new archs
+    python3 chip_smoke.py --phases kernels,encdec_hybrid  # + seamless-m4t and jamba in one engine
 
 Phases:
   1. device     the card's name and count, its power limit from nvidia-smi,
@@ -18,13 +19,20 @@ Phases:
                 (GQA groups 1-8, qwen2's 7), the absorbed-MLA attention
                 (deepseek-v2-lite's 16 heads, Dk 576, Dv 512) at T = 1, 2, 5
                 and 8 query rows per slot, its verify rows bit for bit equal
-                to decode steps at the same positions, and the SSD scan
+                to decode steps at the same positions, the SSD scan, and the
+                encoder-decoder shapes: flash without a causal mask at Sq = Sk
+                (the encoder) and Sq != Sk (the cross-attention's prefill),
+                decode against a 512-frame region with per-row kv_len down
+                to 0 (its decode), and jamba's 32/8 heads at D 128
   3. parity     each model at full width, cut to 2 layers, fp32 and bf16:
                 prefill (mamba2: a masked pow2 bucket) and 8 ragged decode
                 steps through the kernels and through the plain versions
                 agree; for deepseek-v2-lite (layer 0 dense, layer 1 MoE) the
                 kernel run replays the plain run's expert choices and each
-                router disagreement must sit at a printed near-tie
+                router disagreement must sit at a printed near-tie; also
+                seamless-m4t-medium (2 encoder + 2 decoder layers, per-row
+                encoder lengths) and jamba-v0.1-52b cut to (mamba, mamba,
+                attn), its second Mamba1 layer carrying the MoE
   4. serve      the FIFO path: tinyllama-1.1b and gemma2-2b at their full
                 configs served concurrently by one continuous engine; every
                 attention kernel must have launched there
@@ -69,7 +77,17 @@ Phases:
                 layers (qk-norm) under FIFO; flash, decode and the MLA
                 attention kernel must have launched as the workers' passes
                 imply
-  9. times      CUDA-event device times of each kernel, its plain version
+  9. encdec_hybrid  seamless-m4t-medium at its full config (12 + 12 layers)
+                beside jamba-v0.1-52b at full width cut to 8 of its 32 layers
+                (one whole period: 4 Mamba1, attention, 3 Mamba1; MoE on 1,
+                3, 5, 7) in one engine under ``AdaOperScheduler``: a speech
+                translator next to a chat LLM. Every request completes and
+                flash and decode launched as the workers' passes imply
+                (per seamless prefill 12 encoder + 12 self + 12 cross flash
+                launches, per decode step 12 + 12 decode launches; jamba's
+                one attention layer per pass); it prints the peak memory,
+                the wall time and the admission reasons
+ 10. times      CUDA-event device times of each kernel, its plain version
                 and one PyTorch library call (a yardstick only), beside the
                 bound; for the attention kernels and the library call also
                 the wall time per call back to back (host enqueue included);
@@ -77,7 +95,8 @@ Phases:
                 against the cache), the MLA kernel at T = 1 and T = 5; the
                 SSD scan also at the scheduled
                 serve's (B, S) (``SSD_SERVE``, and any other this run's
-                scheduled phase gave it)
+                scheduled phase gave it); flash and decode at the
+                encdec_hybrid serve's seamless and jamba shapes
   profile       (only when asked for) the serve phase's run again, warm:
                 its untraced wall time, then under torch.profiler the device
                 time by kernel and the device's idle share of the wall time
@@ -86,6 +105,9 @@ Phases:
                 scheduled tinyllama-1.1b engine with its draft (``run_all``)
   profile_archs (only when asked for) the same for the archs phase's
                 scheduled serve of deepseek-v2-lite-16b and qwen2-7b
+  profile_encdec_hybrid (only when asked for) the same for the
+                encdec_hybrid serve, with the device time under each model's
+                passes and under jamba's Mamba1 mixers
   profile_spec_deepseek (only when asked for) the same for the spec
                 phase's full deepseek-v2-lite-16b engine with its truncated
                 draft, capacity 1.25 (``run_all``)
@@ -106,6 +128,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -117,9 +140,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "kernels", "parity", "serve", "scheduled", "joint", "spec", "archs",
-          "times")
+          "encdec_hybrid", "times")
 EXTRA = ("profile", "profile_scheduled", "profile_spec", "profile_archs",
-         "profile_spec_deepseek", "mla_parts")  # only when asked for
+         "profile_spec_deepseek", "mla_parts", "profile_encdec_hybrid")  # only when asked for
 SERVE = dict(names=("tinyllama-1.1b", "gemma2-2b"), requests=8, prompt_lens=(64, 128, 256, 512),
              max_new=16, max_slots=8, max_len=1024, seed=0, device="cuda", full=True,
              scheduler=False)
@@ -158,6 +181,18 @@ MLA_PREFILL = dict(H=16, Hkv=16, Dk=192, Dv=128)
 MLA_DECODE = dict(H=16, Hkv=1, Dk=576, Dv=512)
 MLA_SCALE = 192 ** -0.5
 MLA_T = (1, 2, 5, 8)
+# seamless-m4t-medium's attention (MHA, G = 1) and jamba-v0.1-52b's (G = 4)
+SEAMLESS = dict(H=16, Hkv=16, D=64)
+JAMBA = dict(H=32, Hkv=8, D=128)
+# the encdec_hybrid serve: seamless's requests (decoder prompts, encoder
+# frames in a 512-frame cross region) and jamba's, cut to one period
+ENCDEC = dict(name="seamless-m4t-medium", requests=8, prompt_lens=(4, 8, 16, 32),
+              enc_lens=(100, 200, 300, 500), max_enc_len=512, max_new=32)
+HYBRID = dict(name="jamba-v0.1-52b", requests=8, prompt_lens=(64, 128, 256, 512), max_new=16,
+              layers=8)
+ENCDEC_HYBRID = dict(max_slots=8, max_len=1024, seed=0, workload="moderate")
+# jamba in the parity phase: the 3-layer stack whose Mamba1 layer 1 has MoE
+JAMBA_PARITY = ("mamba", "mamba", "attn")
 # the archs phase: (a) the two archs that need the new kernels, under the
 # scheduler at the scheduled phase's parameters; (b) the other two FIFO,
 # chameleon-34b cut to 8 of its 48 layers (63.9 GiB in bf16 at full depth)
@@ -246,10 +281,23 @@ def flash_bound(B, S, H, Hkv, D, window, dtype_name, elem, Dv=None):
     return bound(2 * H * (D + Dv) * pairs, nbytes, dtype_name)
 
 
+def flash_bound_full(B, Sq, Sk, H, Hkv, D, dtype_name, elem):
+    """Flash without a mask (the encoder, the cross-attention's prefill):
+    every (query, key) pair kept; q, k, v, o once."""
+    nbytes = elem * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D)
+    return bound(4 * H * D * B * Sq * Sk, nbytes, dtype_name)
+
+
+def decode_bound_kept(kept, B, H, Hkv, D, dtype_name, elem):
+    """Decode over ``kept`` K/V entries in all: each read once, q and o
+    once, 4·H·D FLOPs per entry."""
+    nbytes = elem * (kept * Hkv * 2 * D + 2 * B * H * D)
+    return bound(4 * H * D * kept, nbytes, dtype_name)
+
+
 def decode_bound(pos, Smax, H, Hkv, D, window, dtype_name, elem):
     kept = sum(kept_keys(p, p + 1, Smax, False, window) for p in pos)
-    nbytes = elem * (kept * Hkv * 2 * D + 2 * len(pos) * H * D)
-    return bound(4 * H * D * kept, nbytes, dtype_name)
+    return decode_bound_kept(kept, len(pos), H, Hkv, D, dtype_name, elem)
 
 
 def mla_bound(offs, T, Smax, dtype_name, elem):
@@ -435,6 +483,8 @@ def phase_kernels(torch, report):
                           f"at its position")
         for case, out, ref in arch_flash_cases(torch, gen, fmod, dtype):
             compare("flash_attention", f"{case} {dtype}", dtype, out, ref)
+        for kernel, case, out, ref in encdec_hybrid_cases(torch, gen, fmod, dmod, dtype):
+            compare(kernel, f"{case} {dtype}", dtype, out, ref)
         for case, (y, h), (ry, rh) in ssd_edge_cases(torch, gen, smod, dtype):
             compare("ssd_scan", f"{case} {dtype} y", dtype, y, ry, SSD_TOL)
             compare("ssd_scan", f"{case} {dtype} state", torch.float32, h, rh, SSD_TOL)
@@ -613,6 +663,54 @@ def arch_flash_cases(torch, gen, fmod, dtype):
                fmod.flash_attention_plain(q, k, v, causal=True))
 
 
+ENC_SQ_SK = (1, 17, 100, 255, 500, 512)  # the encoder's frames, around the tiles
+CROSS_SQ, CROSS_SK = (2, 4, 17, 32), (100, 257, 500)  # prompt rows against frames
+ENC_KV_LEN = (0, 1, 63, 64, 100, 257, 511, 512)  # per-slot encoder lengths, 0 a slot never admitted
+
+
+def encdec_hybrid_cases(torch, gen, fmod, dmod, dtype):
+    """(kernel, case, kernel output, plain output) at the encdec_hybrid
+    serve's shapes: flash without a causal mask at seamless's heads (16 on
+    16, D 64), the encoder's Sq = Sk (ENC_SQ_SK) and the cross-attention's
+    prefill, Sq prompt rows against Sk frames; decode at G 1, D 64, one
+    query per slot at q_offset 0 against a 512-frame region with per-slot
+    kv_len ENC_KV_LEN, no window; jamba's attention (32 on 8, D 128):
+    flash causal at its prompt lengths, decode at DECODE_POS in a
+    1024-entry cache with a parked slot."""
+    sm, jb = SEAMLESS, JAMBA
+    for S in ENC_SQ_SK:
+        q, k, v = qkv(torch, gen, 2, S, S, sm["H"], sm["Hkv"], sm["D"], dtype)
+        yield ("flash_attention", f"seamless encoder S={S}",
+               fmod.flash_attention(q, k, v, causal=False),
+               fmod.flash_attention_plain(q, k, v, causal=False))
+    for Sq in CROSS_SQ:
+        for Sk in CROSS_SK:
+            q, k, v = qkv(torch, gen, 4, Sq, Sk, sm["H"], sm["Hkv"], sm["D"], dtype)
+            yield ("flash_attention", f"seamless cross Sq={Sq} Sk={Sk}",
+                   fmod.flash_attention(q, k, v, causal=False),
+                   fmod.flash_attention_plain(q, k, v, causal=False))
+    kl = torch.tensor(ENC_KV_LEN, dtype=torch.int32, device="cuda")
+    q, _, _ = qkv(torch, gen, len(ENC_KV_LEN), 1, 1, sm["H"], sm["Hkv"], sm["D"], dtype)
+    _, k, v = qkv(torch, gen, len(ENC_KV_LEN), 1, 512, sm["H"], sm["Hkv"], sm["D"], dtype)
+    out = dmod.decode_attention(q, k, v, q_offset=0, kv_len=kl)
+    if out[0].any():
+        raise SmokeFailure(f"decode {dtype}: a slot with kv_len 0 wrote a nonzero row")
+    yield ("decode_attention", "seamless cross G=1 Smax=512 per-row kv_len", out,
+           dmod.decode_attention_plain(q, k, v, q_offset=0, kv_len=kl))
+    for B, S in ((1, 64), (2, 200), (8, 512), (1, 17)):
+        q, k, v = qkv(torch, gen, B, S, S, jb["H"], jb["Hkv"], jb["D"], dtype)
+        yield ("flash_attention", f"jamba B={B} S={S}", fmod.flash_attention(q, k, v, causal=True),
+               fmod.flash_attention_plain(q, k, v, causal=True))
+    pos_list = [min(p, 1023) for p in DECODE_POS]
+    pos_list[-1] = 1024
+    pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+    q, _, _ = qkv(torch, gen, len(pos_list), 1, 1, jb["H"], jb["Hkv"], jb["D"], dtype)
+    _, k, v = qkv(torch, gen, len(pos_list), 1, 1024, jb["H"], jb["Hkv"], jb["D"], dtype)
+    kw = dict(q_offset=pos, kv_len=pos + 1)
+    yield ("decode_attention", "jamba G=4 Smax=1024 parked", dmod.decode_attention(q, k, v, **kw),
+           dmod.decode_attention_plain(q, k, v, **kw))
+
+
 def left_padded(torch, B, S):
     """A (B, S) mask whose rows are left-padded by different widths, as a
     mamba2 pow2 prefill bucket is (row 0 by S // 3, the last by S // 2)."""
@@ -728,6 +826,7 @@ def phase_times(torch, report):
                              library_call_ms=None if lib is None else call_ms(
                                  torch, lambda: sdpa(q, k, v, attn_mask=mask))))
     rows += arch_times(torch, gen, flush, sdpa)
+    rows += encdec_hybrid_times(torch, gen, flush, sdpa)
     from repro_torch.kernels import ssd_scan as smod
     serve_shapes = [(B, S) for B, S, _ in SSD_SERVE] + sorted(report.get("ssd_calls", {}))
     for B, S in dict.fromkeys([(8, 512), (1, 512)] + serve_shapes):
@@ -782,7 +881,77 @@ def phase_mla_parts(torch, report):
 
 
 PARITY_ARCHS = ("tinyllama-1.1b", "gemma2-2b", "qwen2-7b", "chameleon-34b",
-                "deepseek-v2-lite-16b")
+                "deepseek-v2-lite-16b", "seamless-m4t-medium", "jamba-v0.1-52b")
+# each arch's cut in the parity phase (2 layers unless named here)
+PARITY_CUTS = {"seamless-m4t-medium": dict(num_layers=2, num_encoder_layers=2),
+               "jamba-v0.1-52b": dict(num_layers=len(JAMBA_PARITY), layer_pattern=JAMBA_PARITY)}
+PARITY_FRAMES = (100, 257, 500)  # seamless's encoder lengths in the parity phase
+
+
+def time_row(torch, flush, kernel, model, B, S, fn, plain, lib, b, **extra):
+    """A times-phase row, bf16: the kernel's, its plain version's and the
+    library call's device times, the bound (ms, what bounds it) and the
+    wall per call back to back of the kernel and the library call."""
+    ms = time_ms(torch, fn, flush)
+    return dict(kernel=kernel, model=model, B=B, S=S, dtype="bfloat16", ms=ms,
+                plain_ms=time_ms(torch, plain, flush), library_ms=time_ms(torch, lib, flush),
+                bound_ms=b[0], bound_by=b[1], call_ms=call_ms(torch, fn),
+                library_call_ms=call_ms(torch, lib), **extra)
+
+
+def encdec_hybrid_times(torch, gen, flush, sdpa):
+    """The encdec_hybrid serve's kernel shapes, bf16, each beside its plain
+    version, its bound and SDPA on the same tensors (no mask where the
+    kernel keeps every key, a bool mask for per-row lengths): seamless's
+    encoder self-attention (B 1 and 8 at 500 frames) and cross-attention
+    prefill (32 prompt rows against 500 frames, 16 against 300 for 8
+    slots), its cross-attention decode (8 slots in a 512-frame region at
+    the serve's encoder lengths) and self-attention decode (8 slots of a
+    1024-entry cache at decoder positions 4-63); jamba's flash (causal, B 1
+    and 8 at 512) and decode (8 slots x 1024 at DECODE_POS)."""
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    bf16, rows, sm, jb = torch.bfloat16, [], SEAMLESS, JAMBA
+    for shape, B, Sq, Sk in (("encoder", 1, 500, 500), ("encoder", 8, 500, 500),
+                             ("cross prefill", 1, 32, 500), ("cross prefill", 8, 16, 300)):
+        q, k, v = qkv(torch, gen, B, Sq, Sk, sm["H"], sm["Hkv"], sm["D"], bf16)
+        rows.append(time_row(
+            torch, flush, "flash_attention", "seamless", B, Sk,
+            lambda: fmod.flash_attention(q, k, v, causal=False),
+            lambda: fmod.flash_attention_plain(q, k, v, causal=False), lambda: sdpa(q, k, v),
+            flash_bound_full(B, Sq, Sk, sm["H"], sm["Hkv"], sm["D"], "bfloat16", 2),
+            shape=shape, Sq=Sq))
+    enc = [x for x in ENCDEC["enc_lens"] for _ in range(2)]
+    dec_pos = [4, 8, 16, 32, 20, 40, 60, 63]
+    for shape, Smax, kv_len, q_off, hd, model in (
+            ("cross decode", 512, enc, 0, sm, "seamless"),
+            ("self decode", 1024, [p + 1 for p in dec_pos], dec_pos, sm, "seamless"),
+            ("decode", 1024, [min(p, 1023) + 1 for p in DECODE_POS],
+             [min(p, 1023) for p in DECODE_POS], jb, "jamba")):
+        B = len(kv_len)
+        kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        qo = torch.tensor(q_off, dtype=torch.int32, device="cuda") if q_off else 0
+        q, _, _ = qkv(torch, gen, B, 1, 1, hd["H"], hd["Hkv"], hd["D"], bf16)
+        _, k, v = qkv(torch, gen, B, 1, Smax, hd["H"], hd["Hkv"], hd["D"], bf16)
+        mask = (torch.arange(Smax, device="cuda")[None, :] < kl[:, None])[:, None, None]
+        kw = dict(q_offset=qo, kv_len=kl)
+        rows.append(time_row(
+            torch, flush, "decode_attention", model, B, Smax,
+            lambda: dmod.decode_attention(q, k, v, **kw),
+            lambda: dmod.decode_attention_plain(q, k, v, **kw),
+            lambda: sdpa(q, k, v, attn_mask=mask),
+            decode_bound_kept(sum(kv_len), B, hd["H"], hd["Hkv"], hd["D"], "bfloat16", 2),
+            shape=shape))
+    for B in (1, 8):
+        q, k, v = qkv(torch, gen, B, 512, 512, jb["H"], jb["Hkv"], jb["D"], bf16)
+        rows.append(time_row(
+            torch, flush, "flash_attention", "jamba", B, 512,
+            lambda: fmod.flash_attention(q, k, v, causal=True),
+            lambda: fmod.flash_attention_plain(q, k, v, causal=True),
+            lambda: sdpa(q, k, v, is_causal=True),
+            flash_bound(B, 512, jb["H"], jb["Hkv"], jb["D"], None, "bfloat16", 2),
+            shape="prefill"))
+    return rows
 
 
 def arch_times(torch, gen, flush, sdpa):
@@ -798,13 +967,8 @@ def arch_times(torch, gen, flush, sdpa):
     from repro_torch.kernels import mla_attention as mmod
     bf16, rows = torch.bfloat16, []
 
-    def row(kernel, model, B, S, fn, plain, lib, b, **extra):
-        ms = time_ms(torch, fn, flush)
-        rows.append(dict(kernel=kernel, model=model, B=B, S=S, dtype="bfloat16", ms=ms,
-                         plain_ms=time_ms(torch, plain, flush),
-                         library_ms=time_ms(torch, lib, flush), bound_ms=b[0], bound_by=b[1],
-                         call_ms=call_ms(torch, fn), library_call_ms=call_ms(torch, lib),
-                         **extra))
+    def row(*args, **extra):
+        rows.append(time_row(torch, flush, *args, **extra))
 
     Smax = 2048
     pos_list = [min(p, Smax - 1) for p in DECODE_POS]
@@ -847,12 +1011,14 @@ def arch_times(torch, gen, flush, sdpa):
 
 def phase_parity(torch, report):
     """The attention and MLA archs at full width, cut to 2 layers
-    (deepseek-v2-lite: layer 0 dense, layer 1 MoE): prefill and 8 ragged
-    decode steps through the kernels against the same run through the
-    plain versions, in fp32 (the fp32 kernel routes) and in bf16 (the
-    tensor-core flash kernel and the bf16 decode kernels). Both runs are
-    fed the plain run's greedy tokens, so a near-tie that rounds the other
-    way in bf16 cannot send the two runs down different sequences."""
+    (deepseek-v2-lite: layer 0 dense, layer 1 MoE; seamless-m4t: 2 encoder
+    and 2 decoder layers; jamba: JAMBA_PARITY, layer 1 a Mamba1 layer with
+    MoE): prefill and 8 ragged decode steps through the kernels against the
+    same run through the plain versions, in fp32 (the fp32 kernel routes)
+    and in bf16 (the tensor-core flash kernel and the bf16 decode kernels).
+    Both runs are fed the plain run's greedy tokens, so a near-tie that
+    rounds the other way in bf16 cannot send the two runs down different
+    sequences."""
     for dtype in ("float32", "bfloat16"):
         for arch in PARITY_ARCHS:
             model_parity(torch, report, arch, dtype)
@@ -909,21 +1075,29 @@ def model_parity(torch, report, arch, dtype):
     from repro_torch.serving.workers import ModelWorker
     from repro_torch.sharding.context import ExecContext
     prompt_lens = (37, 64, 100)
-    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype=dtype, param_dtype=dtype)
+    cut = PARITY_CUTS.get(arch, dict(num_layers=2))
+    cfg = dataclasses.replace(get_config(arch), **cut, dtype=dtype, param_dtype=dtype)
     params = init_params(cfg, seed=0, device="cuda")
     rng = torch.Generator().manual_seed(7)
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=rng).numpy()
                for n in prompt_lens]
+    frames = [None] * len(prompts)
+    enc_len = None
+    if cfg.is_encoder_decoder:  # per-slot encoder lengths in a 512-frame region
+        frames = [(torch.randn(n, cfg.d_model, generator=rng) * 0.1).numpy()
+                  for n in PARITY_FRAMES]
+        enc_len = torch.tensor(PARITY_FRAMES, dtype=torch.int32).numpy()
     runs, toks = {}, None
     with RouterReplay(moe) as replay:
         for impl in ("plain", None):
             replay.mode = impl or "kernel"
-            w = ModelWorker(arch, cfg, params, max_len=256, ctx=ExecContext(attn_impl=impl))
+            w = ModelWorker(arch, cfg, params, max_len=256, ctx=ExecContext(attn_impl=impl),
+                            max_enc_len=ENCDEC["max_enc_len"] if cfg.is_encoder_decoder else None)
             pool = w.init_pool(len(prompts))
             first = []
-            for slot, p in enumerate(prompts):
+            for slot, (p, e) in enumerate(zip(prompts, frames)):
                 replay.step = "prefill"
-                lg, c = w.prefill_one(p)
+                lg, c = w.prefill_one(p, e)
                 pool = w.write_slots(pool, c, [slot])
                 first.append(lg[0])
             lg = torch.stack(first)
@@ -934,7 +1108,7 @@ def model_parity(torch, report, arch, dtype):
                 greedy.append(lg.argmax(dim=-1).to(torch.int32).cpu().numpy())
                 tok = greedy[-1] if toks is None else toks[i]
                 replay.step = f"decode {i}"
-                _, lg, pool = w.decode_pool(pool, tok[:, None], pos)
+                _, lg, pool = w.decode_pool(pool, tok[:, None], pos, enc_len=enc_len)
                 pos = pos + 1
             runs[impl] = (torch.stack(logits), greedy)
             toks = greedy if toks is None else toks
@@ -958,7 +1132,7 @@ def model_parity(torch, report, arch, dtype):
         scale = b.abs().amax(dim=-1, keepdim=True)
         ok = bool(((a - b).abs() <= MODEL_TOL_BF16 * scale).all())
     ok = ok and bool(torch.isfinite(a).all())
-    log(f"parity {arch} (2 layers, full width, {dtype}): logits max abs err {err:.3g} "
+    log(f"parity {arch} ({json.dumps(cut)}, full width, {dtype}): logits max abs err {err:.3g} "
         f"(largest logit {float(b.abs().max()):.3g}), greedy tokens agreeing {same}/{n}")
     if not ok:
         raise SmokeFailure(f"{arch} {dtype}: kernel path disagrees with the plain path "
@@ -1050,20 +1224,33 @@ def drive(fn, **kw):
     return out, {name: w.launches for name, w in wrappers.items()}
 
 
+def attention_layers(cfg):
+    return sum(k in ("attn", "local", "global") for k in cfg.layer_kinds())
+
+
 def attention_launches_expected(eng):
-    """Per attention layer: flash once for each prefill; for a GQA stack
-    flash once for each multi-position pass (the verify, a draft's catch-up
-    of Tc > 1 tokens) and decode once for each single-token pass; for an MLA
-    stack the MLA kernel once for each decode and multi-position pass (an
-    MLA verify launches no flash); draft workers included."""
+    """Per attention layer (a hybrid's attention layers only): flash once
+    for each prefill; for a GQA stack flash once for each multi-position
+    pass (the verify, a draft's catch-up of Tc > 1 tokens) and decode once
+    for each single-token pass; for an MLA stack the MLA kernel once for
+    each decode and multi-position pass (an MLA verify launches no flash);
+    an encoder-decoder model adds flash once per encoder layer and once per
+    cross-attention per prefill, and decode once per cross-attention per
+    step. Draft workers included. Prompts and encoder inputs are longer
+    than one position here (a single query row goes to the decode kernel)."""
     workers = list(eng.workers.values()) + [s.worker for s in eng.spec.values()]
-    attn = [w for w in workers if "ssd" not in w.cfg.layer_kinds()]
-    gqa = [w for w in attn if not w.cfg.use_mla]
-    mla = [w for w in attn if w.cfg.use_mla]
-    return {"flash_attention": sum(w.cfg.num_layers * w.prefill_calls for w in attn)
-            + sum(w.cfg.num_layers * w.verify_calls for w in gqa),
-            "decode_attention": sum(w.cfg.num_layers * w.decode_calls for w in gqa),
-            "mla_attention": sum(w.cfg.num_layers * (w.decode_calls + w.verify_calls)
+    gqa = [w for w in workers if not w.cfg.use_mla]
+    mla = [w for w in workers if w.cfg.use_mla]
+
+    def per_pass(w):  # attention launches of one decoder pass, cross-attention included
+        return attention_layers(w.cfg) * (2 if w.cfg.is_encoder_decoder else 1)
+
+    def per_prefill(w):  # flash launches of one prefill, the encoder's included
+        return per_pass(w) + (w.cfg.num_encoder_layers if w.cfg.is_encoder_decoder else 0)
+    return {"flash_attention": sum(per_prefill(w) * w.prefill_calls for w in workers)
+            + sum(attention_layers(w.cfg) * w.verify_calls for w in gqa),
+            "decode_attention": sum(per_pass(w) * w.decode_calls for w in gqa),
+            "mla_attention": sum(attention_layers(w.cfg) * (w.decode_calls + w.verify_calls)
                                  for w in mla)}
 
 
@@ -1375,8 +1562,8 @@ def record_gaps(torch, eng, reqs, temperature, name=None):
 
     gaps = Gaps()
 
-    def recorded(cache, tokens, pos):
-        nt, logits, cache = plain_pool(cache, tokens, pos)
+    def recorded(cache, tokens, pos, enc_len=None):
+        nt, logits, cache = plain_pool(cache, tokens, pos, enc_len=enc_len)
         active = list(eng.pools[name].active.values())
         for s, g in zip(active, decision_gaps(torch, logits[[s.slot for s in active]],
                                               [s.rng for s in active],
@@ -1683,6 +1870,130 @@ def phase_archs(torch, report):
         torch.cuda.empty_cache()
 
 
+def encdec_hybrid_engine():
+    """The encdec_hybrid engine, not yet run: ``launch.serve.build_engine``
+    queues seamless-m4t-medium's requests (frames drawn from
+    ``ENCDEC["enc_lens"]``) under one ``AdaOperScheduler`` calibrated on
+    both configs, then jamba-v0.1-52b, cut to ``HYBRID["layers"]``, joins
+    the same engine through ``add_model`` with its own requests (uids after
+    seamless's)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import build_engine, make_scheduler, model_configs
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.slots import Request
+    e, h, kw = ENCDEC, HYBRID, ENCDEC_HYBRID
+    cfgs = model_configs([e["name"], h["name"]], True, {h["name"]: h["layers"]})
+    sched = make_scheduler(cfgs.values(), max(h["prompt_lens"]), max(e["max_new"], h["max_new"]),
+                           kw["workload"], kw["seed"])
+    eng = build_engine([e["name"]], e["requests"], e["prompt_lens"], e["max_new"],
+                       kw["max_slots"], kw["max_len"], kw["seed"], "cuda", True, sched,
+                       enc_lens=e["enc_lens"], max_enc_len=e["max_enc_len"])
+    cfg = cfgs[h["name"]]
+    eng.add_model(h["name"], cfg, init_params(cfg, kw["seed"], "cuda"), max_len=kw["max_len"])
+    rng = np.random.default_rng(kw["seed"] + 1)
+    for i in range(h["requests"]):
+        n = int(rng.choice(h["prompt_lens"]))
+        eng.submit(h["name"], Request(uid=e["requests"] + i, max_new_tokens=h["max_new"],
+                                      prompt=rng.integers(1, cfg.vocab_size, n, dtype=np.int32)))
+    return eng
+
+
+def phase_encdec_hybrid(torch, report):
+    """seamless-m4t-medium (full config) and jamba-v0.1-52b (full width, 8
+    of 32 layers) served concurrently by one engine under
+    ``AdaOperScheduler``: every request completes with its model's token
+    count, flash and decode launched as the workers' passes imply (no SSD
+    or MLA launch: Mamba1 has no kernel), the ledger holds both models'
+    events; it prints the parameter counts, the peak memory, the wall time
+    and the admission reasons."""
+    t0 = time.perf_counter()
+    eng = encdec_hybrid_engine()
+    init_s = time.perf_counter() - t0
+    sizes = {n: {"layers": w.cfg.num_layers, "encoder_layers": w.cfg.num_encoder_layers,
+                 "params": w.cfg.param_count(), "bf16_gib": 2 * w.cfg.param_count() / 2**30}
+             for n, w in eng.workers.items()}
+    log(f"encdec_hybrid models (param_count): {json.dumps(sizes)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    responses, launches = drive(eng.run_all)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    reasons = dict(collections.Counter(r["reason"] for r in eng.admission.log))
+    models = {n: {"prefill_calls": w.prefill_calls, "decode_calls": w.decode_calls,
+                  "attention_layers": attention_layers(w.cfg)} for n, w in eng.workers.items()}
+    rep = {"requests": len(responses), "tokens": int(sum(len(r.tokens) for r in responses)),
+           "init_s": init_s, "wall_s": wall, "peak_mem_bytes": peak, "models": models,
+           "sizes": sizes, "prefill_batches": eng.prefill_batches,
+           "admission_reasons": reasons,
+           "plan_cache": {"hits": eng.scheduler.plan_cache_hits,
+                          "misses": eng.scheduler.plan_cache_misses}}
+    report["encdec_hybrid"] = rep
+    report["launches_encdec_hybrid"] = launches
+    log(f"encdec_hybrid: {rep['requests']} requests, {rep['tokens']} tokens, weights and "
+        f"calibration {init_s:.3f} s, {wall:.3f} s wall, peak memory {peak / 2**30:.2f} GiB, "
+        f"{eng.prefill_batches} prefill batches; {json.dumps(models)}")
+    log(f"encdec_hybrid admission reasons {json.dumps(reasons)}, plan cache "
+        f"{json.dumps(rep['plan_cache'])}")
+    log(f"encdec_hybrid launches: {json.dumps(launches)}")
+    want_new = {ENCDEC["name"]: ENCDEC["max_new"], HYBRID["name"]: HYBRID["max_new"]}
+    n_enc = ENCDEC["requests"]
+    bad = [r.uid for r in responses if r.error is not None or len(r.tokens) != want_new[
+        ENCDEC["name"] if r.uid < n_enc else HYBRID["name"]]]
+    vocab = max(w.cfg.padded_vocab for w in eng.workers.values())
+    if (len(responses) != n_enc + HYBRID["requests"] or bad
+            or any(((r.tokens < 0) | (r.tokens >= vocab)).any() for r in responses)):
+        raise SmokeFailure(f"encdec_hybrid: {len(responses)} responses, bad uids {bad}")
+    want = dict(attention_launches_expected(eng), ssd_scan=0)
+    if launches != want or min(launches["flash_attention"], launches["decode_attention"]) == 0:
+        raise SmokeFailure(f"encdec_hybrid: kernel launches {launches}, expected {want}")
+    seen = {(ev.kind, ev.model) for ev in eng.ledger.events}
+    missing = [(k, m) for k in ("prefill", "decode", "request") for m in eng.workers
+               if (k, m) not in seen]
+    if missing:
+        raise SmokeFailure(f"encdec_hybrid: the ledger lacks events {missing}")
+
+
+@contextlib.contextmanager
+def model_spans(torch):
+    """Profiler ranges over each worker's prefill and decode passes (``pass
+    <model>``) and over every Mamba1 mixer call (``mamba1``), for the
+    device time under each."""
+    from repro_torch.models import ssm
+    from repro_torch.serving.workers import ModelWorker
+    saved = {(ModelWorker, "_prefill"): ModelWorker._prefill,
+             (ModelWorker, "_decode"): ModelWorker._decode,
+             (ssm, "mamba1_forward"): ssm.mamba1_forward,
+             (ssm, "mamba1_decode"): ssm.mamba1_decode}
+
+    def spanned(fn, name):
+        def wrapper(*a, **k):
+            with torch.profiler.record_function(name(a)):
+                return fn(*a, **k)
+        return wrapper
+    for (owner, attr), fn in saved.items():
+        name = ((lambda a: f"pass {a[0].name}") if owner is ModelWorker
+                else (lambda a: "mamba1"))
+        setattr(owner, attr, spanned(fn, name))
+    try:
+        yield
+    finally:
+        for (owner, attr), fn in saved.items():
+            setattr(owner, attr, fn)
+
+
+def is_span(name):
+    """Whether ``name`` is one of ``model_spans``' ranges."""
+    return name.startswith("pass ") or name == "mamba1"
+
+
+def phase_profile_encdec_hybrid(torch, report):
+    profile_workload(torch, report, "profile_encdec_hybrid", encdec_hybrid_engine,
+                     spans=model_spans)
+
+
 def engine_for(kw, coexec=False):
     """The engine ``serve(**kw)`` would build, not yet run; ``coexec``: its
     scheduler plans the busy models jointly."""
@@ -1747,8 +2058,10 @@ def phase_profile_spec(torch, report):
     profile_workload(torch, report, "profile_spec", build)
 
 
-def profile_workload(torch, report, key, build):
-    """``build()`` gives an engine with its requests queued, not yet run."""
+def profile_workload(torch, report, key, build, spans=None):
+    """``build()`` gives an engine with its requests queued, not yet run;
+    ``spans(torch)``, a context manager, opens profiler ranges in the traced
+    run whose device time (kernels launched inside them) is reported."""
     from torch.profiler import ProfilerActivity, profile
     build().run_all()  # warm-up: cuBLAS handles, the allocator's pools
     eng = build()  # the same run, warm and untraced
@@ -1760,14 +2073,17 @@ def profile_workload(torch, report, key, build):
     del eng  # one engine's weights at a time
     eng = build()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    ranges = spans(torch) if spans is not None else contextlib.nullcontext()
+    with ranges, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run_all()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = []
+    kernels, span_ms = [], {}
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # a range's device-side span (first to last kernel, gaps included)
+        # is no kernel; its kernels' own time is summed below
+        if evt.device_type != torch.autograd.DeviceType.CUDA or is_span(evt.key):
             continue
         us = getattr(evt, "self_device_time_total", None)
         us = evt.self_cuda_time_total if us is None else us
@@ -1801,6 +2117,14 @@ def profile_workload(torch, report, key, build):
            "groups_ms": {g: {"launches": n, "ms": t} for g, (n, t) in groups.items()},
            "top": [{"kernel": k[:90], "launches": c, "ms": us * 1e-3}
                    for k, c, us in kernels[:15]]}
+    if spans is not None:  # device time of the kernels launched inside each range
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CPU and is_span(evt.name):
+                us = getattr(evt, "device_time_total", None)
+                row = span_ms.setdefault(evt.name, {"calls": 0, "device_ms": 0.0})
+                row["calls"] += 1
+                row["device_ms"] += (evt.cuda_time_total if us is None else us) * 1e-3
+        out["spans"] = span_ms
     report[key] = out
     log(f"{key}:", json.dumps(out))
 
@@ -1819,7 +2143,8 @@ def kernels_line(report):
     rows = {r["kernel"]: r for r in report.get("timings", [])
             if (r["model"], r["B"], r["S"]) == LINE_ROWS[r["kernel"]] and "shape" not in r}
     paths = {p: report.get(f"launches_{p}", {})
-             for p in ("scheduled", "joint", "spec", "spec_deepseek", "archs", "archs_fifo")}
+             for p in ("scheduled", "joint", "spec", "spec_deepseek", "archs", "archs_fifo",
+                       "encdec_hybrid")}
     paths = {"serve": report.get("launches", {}), **paths}
     out = []
     for name, (src, replaces) in SOURCES.items():
@@ -1854,6 +2179,8 @@ def main(argv=None):
     fns = {"device": phase_device, "kernels": phase_kernels, "times": phase_times,
            "parity": phase_parity, "serve": phase_serve, "scheduled": phase_scheduled,
            "joint": phase_joint, "spec": phase_spec, "archs": phase_archs,
+           "encdec_hybrid": phase_encdec_hybrid,
+           "profile_encdec_hybrid": phase_profile_encdec_hybrid,
            "profile": phase_profile,
            "profile_scheduled": phase_profile_scheduled, "profile_spec": phase_profile_spec,
            "profile_archs": phase_profile_archs,

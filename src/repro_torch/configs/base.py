@@ -183,7 +183,7 @@ class ModelConfig:
 
 # the archs this slice of the port serves; the JAX registry lists the rest
 ARCHS = ["tinyllama-1.1b", "gemma2-2b", "mamba2-2.7b", "granite-3-8b", "qwen2-7b",
-         "chameleon-34b", "deepseek-v2-lite-16b"]
+         "chameleon-34b", "deepseek-v2-lite-16b", "seamless-m4t-medium", "jamba-v0.1-52b"]
 
 EXTRA_ARCHS = ["yolo-v2-tiny"]  # the paper's own evaluation model
 

@@ -9,11 +9,15 @@ repeat ``r`` of a stage is absolute layer ``offset + r * period + j``
 stage). Each leaf of a layer's dict lands on the port's attribute of the
 same name: JAX stores dense weights ``(d_in, d_out)`` and applies
 ``x @ W``, the port's ``nn.Linear`` stores ``(d_out, d_in)``, so those are
-transposed (``wq``, ``w_dkv``, ``wo``, the shared experts...); a leaf
-that is a plain parameter in the port (MLA's ``w_ukv`` (lr, H, nope+vd),
-the experts (E, D, F) / (E, F, D), the router (D, E), the qkv biases,
-Mamba2's constants) keeps its layout; a norm's scale (``q_norm``,
-``kv_norm``, a ``{"scale": ...}`` dict) goes to its ``RMSNorm``.
+transposed (``wq``, ``w_dkv``, ``wo``, the FFN's ``wi``/``wo``, Mamba1's
+``x_proj``/``dt_proj``, the shared experts...); a leaf that is a plain
+parameter in the port (MLA's ``w_ukv`` (lr, H, nope+vd), the experts
+(E, D, F) / (E, F, D), the router (D, E), the qkv biases, the Mamba2 and
+Mamba1 constants) keeps its layout; a norm's scale (``q_norm``,
+``kv_norm``, a ``{"scale": ...}`` dict, with its ``bias`` for layernorm)
+goes to its norm module. An encoder-decoder model's decoder layers carry
+``cross_norm`` and ``cross``, and ``tree["encoder"]`` holds the encoder's
+``stages`` (``compute_stages(cfg, cross=True)``) and ``final_norm``.
 
 ``gru_params_from_numpy`` carries the JAX ``GRUCorrector``'s parameter dict
 (numpy leaves) into the port's corrector.
@@ -43,12 +47,27 @@ def _load(module: nn.Module, src: dict, r: int) -> None:
             _load(dst, leaf, r)
         elif isinstance(dst, nn.Linear):
             _put(dst.weight, leaf[r], transpose=True)
-        elif isinstance(dst, RMSNorm):
+        elif isinstance(dst, RMSNorm):  # a bare scale leaf (qk-norm, kv_norm)
             _put(dst.scale, leaf[r])
         elif isinstance(dst, nn.Parameter):
             _put(dst, leaf[r])
         else:
             raise TypeError(f"no rule to load {name!r} into {type(dst).__name__}")
+
+
+def _load_stages(layers: nn.ModuleList, stages, cfg, cross: bool) -> None:
+    offset = 0
+    for si, st in enumerate(compute_stages(cfg, cross=cross)):
+        period = len(st.pattern)
+        for r in range(st.repeats):
+            for j in range(period):
+                _load(layers[offset + r * period + j], stages[si][f"l{j}"], r)
+        offset += st.repeats * period
+
+
+def _load_norm(norm: nn.Module, src: dict) -> None:
+    for name, leaf in src.items():
+        _put(getattr(norm, name), leaf)
 
 
 @torch.no_grad()
@@ -57,14 +76,11 @@ def params_from_numpy(tree, cfg, device="cuda") -> CausalLM:
     _put(model.embedding, tree["embed"]["embedding"])
     if model.lm_head is not None:
         _put(model.lm_head.weight, tree["embed"]["lm_head"], transpose=True)
-    _put(model.final_norm.scale, tree["final_norm"]["scale"])
-    offset = 0
-    for si, st in enumerate(compute_stages(cfg)):
-        period = len(st.pattern)
-        for r in range(st.repeats):
-            for j in range(period):
-                _load(model.layers[offset + r * period + j], tree["stages"][si][f"l{j}"], r)
-        offset += st.repeats * period
+    _load_norm(model.final_norm, tree["final_norm"])
+    _load_stages(model.layers, tree["stages"], cfg, cross=False)
+    if cfg.is_encoder_decoder:
+        _load_stages(model.encoder.layers, tree["encoder"]["stages"], cfg, cross=True)
+        _load_norm(model.encoder.final_norm, tree["encoder"]["final_norm"])
     return model
 
 

@@ -7,11 +7,14 @@ continuous engine under AdaOper energy-aware scheduling (the default, as in
 
 runs the full published configs on the card (bf16, seeded random
 weights); ``--layers chameleon-34b=8`` cuts a model to its first layers
-where the full depth does not fit the card; the default ``--reduced``
-runs the CPU-sized variants, and ``--device cpu`` runs on the CPU with the
-kernels' plain versions. The
-scheduler prices every step against ``DeviceSim(--workload)`` with a
-runtime energy profiler calibrated offline on the models' op graphs; the
+where the full depth does not fit the card; an encoder-decoder model
+(seamless-m4t-medium) gets seeded frame embeddings of ``--enc-lens``
+frames per request, as ``repro.launch.serve`` gives it its stub
+frontend's frames, in a cross-attention region of ``--max-enc-len``; the
+default ``--reduced`` runs the CPU-sized variants, and ``--device cpu``
+runs on the CPU with the kernels' plain versions. The scheduler prices
+every step against ``DeviceSim(--workload)`` with a runtime energy
+profiler calibrated offline on the models' op graphs; the
 joules in the report are that simulator's predictions for a mobile SoC's
 CPU, GPU and bus rails, not energy drawn by the device that serves.
 """
@@ -68,21 +71,31 @@ def build_engine(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[
                  max_new: int = 8, max_slots: int = 8, max_len: int = 64, seed: int = 0,
                  device="cuda", full: bool = False,
                  scheduler: Optional[AdaOperScheduler] = None,
-                 layers: Optional[Dict[str, int]] = None) -> ServingEngine:
+                 layers: Optional[Dict[str, int]] = None, enc_lens: Sequence[int] = (16,),
+                 max_enc_len: Optional[int] = None) -> ServingEngine:
     """One engine serving ``names`` (seed-initialised weights on ``device``)
     with ``requests`` per model queued, prompt lengths drawn from
     ``prompt_lens``, uids ``k * requests + i`` for the k-th model (so that a
     response's uid names its model); FIFO admission unless a ``scheduler``
-    is given; ``layers`` cuts models as ``model_configs`` does."""
+    is given; ``layers`` cuts models as ``model_configs`` does. An
+    encoder-decoder model's requests carry N(0, 0.1) frame embeddings
+    (frames, d_model), ``frames`` drawn from ``enc_lens``, in a slot pool
+    whose cross-attention region is ``max_enc_len`` (``max_len`` if None)."""
     dev = resolve_device(device)
     eng = ServingEngine(scheduler=scheduler, max_slots=max_slots)
     rng = np.random.default_rng(seed)
     for k, (n, cfg) in enumerate(model_configs(names, full, layers).items()):
-        eng.add_model(n, cfg, init_params(cfg, seed, dev), max_len=max_len)
+        eng.add_model(n, cfg, init_params(cfg, seed, dev), max_len=max_len,
+                      max_enc_len=max_enc_len)
         for i in range(requests):
             plen = int(rng.choice(prompt_lens))
+            enc = None
+            if cfg.is_encoder_decoder:
+                frames = int(rng.choice(enc_lens))
+                enc = (rng.standard_normal((frames, cfg.d_model)) * 0.1).astype(np.float32)
             eng.submit(n, Request(uid=k * requests + i, max_new_tokens=max_new,
-                                  prompt=rng.integers(1, cfg.vocab_size, plen, dtype=np.int32)))
+                                  prompt=rng.integers(1, cfg.vocab_size, plen, dtype=np.int32),
+                                  enc_inputs=enc))
     return eng
 
 
@@ -107,7 +120,8 @@ def scheduler_report(eng: ServingEngine, workload: str) -> dict:
 def serve(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[int] = (32,),
           max_new: int = 8, max_slots: int = 8, max_len: int = 64, seed: int = 0,
           device="cuda", full: bool = False, scheduler: bool = True,
-          workload: str = "moderate", layers: Optional[Dict[str, int]] = None):
+          workload: str = "moderate", layers: Optional[Dict[str, int]] = None,
+          enc_lens: Sequence[int] = (16,), max_enc_len: Optional[int] = None):
     """Build the engine and serve every queued request. Returns (engine,
     responses, report dict)."""
     dev = resolve_device(device)
@@ -116,7 +130,7 @@ def serve(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[int] = 
                             max_new, workload, seed) if scheduler else None)
     calibration_s = time.perf_counter() - t0
     eng = build_engine(names, requests, prompt_lens, max_new, max_slots, max_len, seed, dev,
-                       full, sched, layers)
+                       full, sched, layers, enc_lens, max_enc_len)
     init_s = time.perf_counter() - t0 - calibration_s
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -164,6 +178,11 @@ def main(argv=None):
                     help="FIFO admission, no energy accounting")
     ap.add_argument("--layers", default="",
                     help="comma-separated NAME=N: serve model NAME cut to its first N layers")
+    ap.add_argument("--enc-lens", default="16",
+                    help="comma-separated encoder frame counts, drawn per encoder-decoder "
+                         "request")
+    ap.add_argument("--max-enc-len", type=int, default=None,
+                    help="encoder-decoder cross-attention region per slot (default max-len)")
     size = ap.add_mutually_exclusive_group()
     size.add_argument("--full", dest="full", action="store_true",
                       help="full published configs (bf16)")
@@ -174,7 +193,8 @@ def main(argv=None):
     _, _, report = serve(args.models.split(","), args.requests,
                          [int(x) for x in args.prompt_lens.split(",")], args.max_new,
                          args.max_slots, args.max_len, args.seed, args.device, args.full,
-                         not args.no_scheduler, args.workload, layers)
+                         not args.no_scheduler, args.workload, layers,
+                         [int(x) for x in args.enc_lens.split(",")], args.max_enc_len)
     print(json.dumps(report))
     return report
 

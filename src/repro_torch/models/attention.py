@@ -1,5 +1,6 @@
-"""Attention: GQA (qkv bias, qk-norm, softcap, sliding window) and MLA,
-the counterpart of ``repro.models.attention``.
+"""Attention: GQA (qkv bias, qk-norm, softcap, sliding window), the
+encoder-decoder family's encoder self-attention and cross-attention, and
+MLA, the counterpart of ``repro.models.attention``.
 
 ``attend`` routes to the hand-written kernels through ``kernels.ops``: on
 CUDA tensors the flash (prefill) and decode kernels, on CPU tensors their
@@ -13,8 +14,11 @@ same values at the same positions. Its absorbed decode attends with that
 row as the single KV head and its first ``kv_lora_rank`` columns as the
 values, views of one tensor, so no step concatenates the cache.
 
-Cross-attention and the chunked path wait for later slices (see
-ROADMAP.md).
+Cross-attention (``gqa_cross``) has no rope and no causal mask; at decode
+it reads a cross cache preallocated at the slot pool's ``max_enc_len`` and
+masks each row to its own encoder length (``kv_len = enc_len``; 0 on a
+slot never admitted, whose row the kernels write as 0). The chunked path
+has no counterpart: the kernels take any length.
 """
 from __future__ import annotations
 
@@ -127,6 +131,33 @@ def gqa_forward(p: GQA, x, cfg, *, window=None, impl=None):
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = attend(q, k, v, causal=True, window=window, softcap=cfg.attn_softcap, impl=impl)
     return p.wo(o.reshape(B, S, cfg.q_dim)), (k, v)
+
+
+def gqa_encode(p: GQA, x, cfg, *, impl=None):
+    """The encoder's self-attention: roped at positions 0..S-1, non-causal
+    over the whole input (the JAX stack's ``causal=False`` branch)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    o = attend(q, k, v, causal=False, impl=impl)
+    return p.wo(o.reshape(B, S, cfg.q_dim))
+
+
+def gqa_cross(p: GQA, x, cfg, enc_k, enc_v, enc_len=None, impl=None):
+    """Cross-attention of x (B,S,D) over the encoder's K/V (B,T,Hkv,Dh): no
+    rope, no causal mask, no qkv bias; ``enc_len`` (an int or (B,)) masks
+    each row to its own encoder length, None attends to all T."""
+    B, S, _ = x.shape
+    q = p.wq(x).view(B, S, cfg.num_heads, cfg.head_dim)
+    o = attend(q, enc_k, enc_v, causal=False, kv_len=enc_len, impl=impl)
+    return p.wo(o.reshape(B, S, cfg.q_dim))
+
+
+def cross_kv(p: GQA, enc_out, cfg):
+    """The cross-attention's K/V of the encoder output (B,T,D)."""
+    B, T, _ = enc_out.shape
+    return (p.wk(enc_out).view(B, T, cfg.num_kv_heads, cfg.head_dim),
+            p.wv(enc_out).view(B, T, cfg.num_kv_heads, cfg.head_dim))
 
 
 def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None):

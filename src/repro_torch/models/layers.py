@@ -6,8 +6,11 @@ package's names and numerics:
 
 * RMSNorm multiplies by the plain ``scale`` (not ``1 + scale``), eps 1e-6,
   computed in fp32 and cast back;
+* LayerNorm (the encoder-decoder family) takes the population variance
+  (``jnp.var``, ``correction=0``), eps 1e-6 (not torch's 1e-5), in fp32;
 * RoPE rotates split halves, not interleaved pairs;
-* gemma2's MLP uses the tanh-approximated GELU (``jax.nn.gelu``'s default);
+* gemma2's MLP and the layernorm models' classic FFN (``wi``/``wo``) use
+  the tanh-approximated GELU (``jax.nn.gelu``'s default);
 * gemma2 scales embeddings by ``sqrt(d_model)`` cast to the activation
   dtype;
 * logits are cast to fp32 before the final softcap.
@@ -27,14 +30,30 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(d, dtype=torch.float32, device=device))
 
 
-def init_norm(cfg, device=None) -> RMSNorm:
+class LayerNorm(nn.Module):
+    """Counterpart of ``init_norm`` for layernorm models: fp32 scale and
+    bias."""
+
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(d, dtype=torch.float32, device=device))
+
+
+def init_norm(cfg, device=None):
+    if cfg.norm == "layernorm":
+        return LayerNorm(cfg.d_model, device)
     if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {cfg.norm!r} is not ported yet (see ROADMAP.md)")
+        raise ValueError(f"unknown norm {cfg.norm!r}")
     return RMSNorm(cfg.d_model, device)
 
 
-def apply_norm(p: RMSNorm, x, eps=1e-6):
+def apply_norm(p, x, eps=1e-6):
+    if isinstance(p, LayerNorm):
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        return ((xf - mu) * torch.rsqrt(var + eps) * p.scale + p.bias).to(x.dtype)
     return rms_norm_head(x, p.scale, eps)
 
 
@@ -73,7 +92,24 @@ class MLP(nn.Module):
         self.w_down = nn.Linear(cfg.d_ff, cfg.d_model, **kw)
 
 
-def apply_mlp(p: MLP, x, cfg):
+class FFN(nn.Module):
+    """The classic transformer FFN of layernorm models (counterpart of
+    ``init_mlp``'s ``wi``/``wo``): GELU between two projections."""
+
+    def __init__(self, cfg, device=None, dtype=None):
+        super().__init__()
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.wi = nn.Linear(cfg.d_model, cfg.d_ff, **kw)
+        self.wo = nn.Linear(cfg.d_ff, cfg.d_model, **kw)
+
+
+def init_mlp(cfg, device=None, dtype=None):
+    return FFN(cfg, device, dtype) if cfg.norm == "layernorm" else MLP(cfg, device, dtype)
+
+
+def apply_mlp(p, x, cfg):
+    if isinstance(p, FFN):
+        return p.wo(F.gelu(p.wi(x), approximate="tanh"))
     gate = p.w_gate(x)
     if cfg.name.startswith("gemma2"):
         act = F.gelu(gate, approximate="tanh")

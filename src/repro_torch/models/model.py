@@ -1,14 +1,17 @@
 """Top-level model API: the counterpart of ``repro.models.model``.
 
   params         = init_params(cfg, seed, device)
-  cache          = init_cache(cfg, B, max_len, device)
-  logits, cache  = prefill(params, cfg, tokens, cache, ctx)
-  logits, cache  = decode_step(params, cfg, token, cache, pos, ctx)
+  cache          = init_cache(cfg, B, max_len, device, enc_len=...)
+  logits, cache  = prefill(params, cfg, tokens, cache, ctx, enc_inputs=...)
+  logits, cache  = decode_step(params, cfg, token, cache, pos, ctx, enc_len=...)
 
-``params`` is a :class:`CausalLM` module. Caches are updated in place,
-which replaces the JAX package's buffer donation: ``prefill``,
-``decode_step`` and ``write_cache_slot(s)`` return the same tensors they
-were given. This slice is inference-only, so parameters carry no gradient.
+``params`` is a :class:`CausalLM` module: a decoder-only LM, or with an
+``encoder`` the decoder of an encoder-decoder model (seamless-m4t), whose
+encoder takes precomputed frame embeddings ``enc_inputs`` (B, T_frames,
+d_model), the speech frontend being a stub in both packages. Caches are
+updated in place, which replaces the JAX package's buffer donation:
+``prefill``, ``decode_step`` and ``write_cache_slot(s)`` return the same
+tensors they were given. This slice is inference-only, so parameters carry no gradient.
 """
 from __future__ import annotations
 
@@ -34,15 +37,30 @@ def dtype_of(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+class Encoder(nn.Module):
+    """An encoder-decoder model's encoder (counterpart of
+    ``params["encoder"]``): ``num_encoder_layers`` non-causal attention
+    layers with dense MLPs and a final norm."""
+
+    def __init__(self, cfg, device=None, dtype=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            tfm.Block(cfg, kind, mlp, device, dtype)
+            for st in tfm.compute_stages(cfg, cross=True) for _ in range(st.repeats)
+            for kind, mlp in st.pattern)
+        self.final_norm = init_norm(cfg, device)
+
+
 class CausalLM(nn.Module):
-    """Decoder-only LM: embedding, layers in absolute order, final norm and
-    an untied LM head where the config has one."""
+    """The LM: embedding, decoder layers in absolute order (with
+    cross-attention in an encoder-decoder model), final norm, an untied LM
+    head where the config has one, and the encoder where it has one."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        if cfg.is_encoder_decoder or cfg.input_mode != "tokens":
-            raise NotImplementedError("encoder-decoder and embedding-input models are "
-                                      "not ported yet (see ROADMAP.md)")
+        if cfg.input_mode not in ("tokens", "embeddings"):
+            raise NotImplementedError(f"input mode {cfg.input_mode!r} is not ported yet "
+                                      "(see ROADMAP.md)")
         dt = dtype_of(cfg.param_dtype)
         self.embedding = nn.Parameter(torch.empty(cfg.padded_vocab, cfg.d_model, dtype=dt,
                                                   device=device))
@@ -50,9 +68,10 @@ class CausalLM(nn.Module):
                         nn.Linear(cfg.d_model, cfg.padded_vocab, bias=False, device=device,
                                   dtype=dt))
         self.layers = nn.ModuleList(
-            tfm.Block(cfg, kind, mlp, device, dt)
+            tfm.Block(cfg, kind, mlp, device, dt, decoder_cross=cfg.is_encoder_decoder)
             for kind, mlp in zip(cfg.layer_kinds(), cfg.mlp_kinds()))
         self.final_norm = init_norm(cfg, device)
+        self.encoder = Encoder(cfg, device, dt) if cfg.is_encoder_decoder else None
         self.requires_grad_(False)
 
 
@@ -67,9 +86,9 @@ def init_params(cfg, seed: int = 0, device="cuda") -> CausalLM:
     weights N(0,1)/sqrt(d_in), the MoE router (fp32) and each expert's
     matrices too, MLA's up-projection ``w_ukv`` N(0,1)/sqrt(kv_lora_rank),
     embedding and LM head N(0,1)*0.02, norm scales (the qk-norm and MLA's
-    ``kv_norm`` included) 1, qkv biases 0, Mamba2 conv weights N(0,1)*0.1
-    and its constant leaves as ``Mamba2.init_constants`` sets them. Drawn
-    in fp32 from a
+    ``kv_norm`` included) 1, layernorm biases and qkv biases 0, Mamba2 and
+    Mamba1 conv weights N(0,1)*0.1 and their constant leaves as their
+    ``init_constants`` set them. Drawn in fp32 from a
     ``torch.Generator`` on ``device``, then cast to the param dtype (the
     bits differ from JAX's)."""
     model = empty_params(cfg, device)
@@ -82,6 +101,8 @@ def init_params(cfg, seed: int = 0, device="cuda") -> CausalLM:
     for layer in model.layers:
         if layer.kind == "ssd":
             layer.mixer.init_constants(cfg.ssm_num_heads)
+        elif layer.kind == "mamba":
+            layer.mixer.init_constants()
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if name.endswith("scale"):
@@ -92,7 +113,7 @@ def init_params(cfg, seed: int = 0, device="cuda") -> CausalLM:
             normal(p, 0.1)
         elif leaf == "weight":  # nn.Linear weight (d_out, d_in)
             normal(p, p.shape[1] ** -0.5)
-        elif leaf in ("bq", "bk", "bv"):
+        elif leaf in ("bq", "bk", "bv", "bias"):
             p.zero_()
         elif leaf in ("router", "w_ukv"):  # (D, E) and (lr, H, nope + vd)
             normal(p, p.shape[0] ** -0.5)
@@ -101,13 +122,16 @@ def init_params(cfg, seed: int = 0, device="cuda") -> CausalLM:
     return model
 
 
-def init_cache(cfg, batch, max_len, device="cuda"):
+def init_cache(cfg, batch, max_len, device="cuda", enc_len=0):
+    """The decoder's cache; an encoder-decoder model's cross-attention
+    region holds ``enc_len`` frames per row."""
     return tfm.init_stack_cache(cfg, batch, max_len, dtype_of(cfg.dtype),
-                                resolve_device(device))
+                                resolve_device(device), enc_len=enc_len)
 
 
 def write_cache_slot(pool_cache, one_cache, slot: int):
-    """Copy a batch-1 cache into row ``slot`` of a slot-pool cache."""
+    """Copy a batch-1 cache into row ``slot`` of a slot-pool cache (every
+    leaf: K/V, SSM state, the cross cache)."""
     for name, big in pool_cache.items():
         big[:, slot] = one_cache[name][:, 0].to(big.dtype)
     return pool_cache
@@ -130,8 +154,24 @@ def write_cache_slots(pool_cache, group_cache, slots):
     return pool_cache
 
 
+def encode(params: CausalLM, cfg, enc_inputs, ctx=ExecContext()):
+    """The encoder over frame embeddings ``enc_inputs`` (B, T_frames,
+    d_model): (B, T_frames, d_model) after its final norm."""
+    x = enc_inputs.to(dtype_of(cfg.dtype))
+    x = tfm.apply_stack(params.encoder.layers, cfg, x, ctx, "encode")
+    return apply_norm(params.encoder.final_norm, x)
+
+
+def _embed_inputs(params: CausalLM, cfg, inputs):
+    """Token ids are embedded; an embedding-input model takes a float
+    (B, S, d_model) tensor as it is."""
+    if cfg.input_mode == "embeddings" and inputs.is_floating_point() and inputs.dim() == 3:
+        return inputs.to(dtype_of(cfg.dtype))
+    return embed_tokens(params.embedding, inputs, cfg).to(dtype_of(cfg.dtype))
+
+
 def prefill(params: CausalLM, cfg, inputs, cache, ctx=ExecContext(), last_only=False,
-            pad_mask=None):
+            pad_mask=None, enc_inputs=None):
     """Run the prompt (B, S) through the model, writing mixer state into
     ``cache``. Returns (logits, cache): logits at every position, or at the
     last one only with ``last_only`` (the serving path; it spares a
@@ -139,22 +179,29 @@ def prefill(params: CausalLM, cfg, inputs, cache, ctx=ExecContext(), last_only=F
 
     ``pad_mask`` (B, S) bool, True at valid positions, makes LEFT-padded
     (bucketed) prompts safe for pure-SSM stacks: masked positions neither
-    update nor decay the scan state (attention layers raise)."""
-    x = embed_tokens(params.embedding, inputs, cfg).to(dtype_of(cfg.dtype))
-    x = tfm.apply_stack(params.layers, cfg, x, ctx, "prefill", cache, ssm_mask=pad_mask)
+    update nor decay the scan state (attention layers raise).
+    ``enc_inputs`` (B, T_frames, d_model): an encoder-decoder model's
+    encoder input; its cross K/V go to the cache at [0, T_frames)."""
+    enc_out = encode(params, cfg, enc_inputs, ctx) if cfg.is_encoder_decoder else None
+    x = _embed_inputs(params, cfg, inputs)
+    x = tfm.apply_stack(params.layers, cfg, x, ctx, "prefill", cache, ssm_mask=pad_mask,
+                        enc_out=enc_out)
     if last_only:
         x = x[:, -1:]
     x = apply_norm(params.final_norm, x)
     return lm_logits(params.embedding, params.lm_head, x, cfg), cache
 
 
-def decode_step(params: CausalLM, cfg, token, cache, pos, ctx=ExecContext()):
+def decode_step(params: CausalLM, cfg, token, cache, pos, ctx=ExecContext(), enc_len=None):
     """token (B,1) ids; pos an int (position-synchronous batch) or a (B,)
     tensor of per-row write positions (ragged continuous batching). With
     (B,) positions, token may be (B,T): row b feeds positions
     pos[b]..pos[b]+T-1 (the speculative verify; attention stacks only) and
-    the logits are (B,T,V)."""
+    the logits are (B,T,V). ``enc_len`` (encoder-decoder models): an int or
+    (B,) valid lengths of the cross cache's rows, which a slot pool
+    preallocates at ``max_enc_len``; None attends to the whole region (an
+    exact-length cache)."""
     x = embed_tokens(params.embedding, token, cfg).to(dtype_of(cfg.dtype))
-    x = tfm.apply_stack(params.layers, cfg, x, ctx, "decode", cache, pos=pos)
+    x = tfm.apply_stack(params.layers, cfg, x, ctx, "decode", cache, pos=pos, enc_len=enc_len)
     x = apply_norm(params.final_norm, x)
     return lm_logits(params.embedding, params.lm_head, x, cfg), cache

@@ -1,11 +1,24 @@
-"""State-space mixer, Mamba2 half: the counterpart of ``repro.models.ssm``.
+"""State-space mixers, Mamba2 (SSD) and Mamba1 (Jamba's diagonal
+selective scan): the counterpart of ``repro.models.ssm``.
 
-Prefill (``mamba2_forward``) runs the SSD chunked scan through
+Mamba2's prefill (``mamba2_forward``) runs the SSD chunked scan through
 ``kernels.ssd_scan``: the hand-written CUDA kernel on CUDA tensors, its
 plain version on CPU tensors or with ``impl="plain"``. It computes the
 function ``repro.models.ssm.ssd_chunked`` computes in the JAX model.
-Decode (``mamba2_decode``) is the single-step recurrence against the
-carried (conv_state, ssm_state). Mamba1 waits (see ROADMAP.md).
+
+Mamba1 has no Pallas kernel in the JAX package, so it stays PyTorch here.
+Its prefill (``mamba1_forward``) runs ``selective_scan`` chunk by chunk
+(``cfg.ssm_chunk`` positions), carrying the (B, d_inner, N) state across
+chunks. Inside a chunk the recurrence h_t = a_t h_{t-1} + b_t, with
+a_t = exp(dt_t A) and b_t = dt_t u_t B_t, is a log-depth Hillis-Steele
+scan over the (a, b) pairs under (a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2),
+the pairing ``jax.lax.associative_scan`` combines in the JAX package: each
+level combines every position with the one 2^k before it. It never divides
+by a running product of decays, which underflows to 0 at Jamba's dt * A
+over 256 steps; a product that underflows here is a true decay to 0.
+
+Decode (``mamba2_decode``, ``mamba1_decode``) is the single-step
+recurrence against the carried (conv_state, ssm_state).
 """
 from __future__ import annotations
 
@@ -123,4 +136,131 @@ def mamba2_decode(p: Mamba2, xin, cfg, conv_state, ssm_state):
     y = torch.einsum("bn,bhpn->bhp", Cm, ssm_state) + p.D[None, :, None] * xh
     y = y.reshape(B, di).to(xin.dtype)
     y = _gated_rmsnorm(y, z.to(xin.dtype), p.norm)
+    return p.out_proj(y)[:, None, :], (conv_state.to(xin.dtype), ssm_state)
+
+
+# ===========================================================================
+# Mamba1 (Jamba's mixer)
+# ===========================================================================
+
+
+def dt_rank(cfg) -> int:
+    return max(1, -(-cfg.d_model // 16))
+
+
+class Mamba1(nn.Module):
+    """Mamba1 mixer parameters (counterpart of ``init_mamba1``'s dict), in
+    its order: projections and ``conv_w`` (d_inner, W) in the param dtype;
+    ``conv_b``, ``dt_proj_b``, ``A_log`` (d_inner, N), ``D`` and Jamba's
+    inner RMSNorm scales on dt, B and C in fp32."""
+
+    def __init__(self, cfg, device=None, dtype=None):
+        super().__init__()
+        di, N, rank = cfg.d_inner, cfg.ssm_d_state, dt_rank(cfg)
+        kw = dict(bias=False, device=device, dtype=dtype)
+        f32 = dict(device=device, dtype=torch.float32)
+        self.in_proj = nn.Linear(cfg.d_model, 2 * di, **kw)
+        self.conv_w = nn.Parameter(torch.empty(di, cfg.ssm_d_conv, device=device, dtype=dtype))
+        self.conv_b = nn.Parameter(torch.empty(di, **f32))
+        self.x_proj = nn.Linear(di, rank + 2 * N, **kw)
+        self.dt_proj = nn.Linear(rank, di, **kw)
+        self.dt_proj_b = nn.Parameter(torch.empty(di, **f32))
+        self.A_log = nn.Parameter(torch.empty(di, N, **f32))
+        self.D = nn.Parameter(torch.empty(di, **f32))
+        self.dt_norm = nn.Parameter(torch.empty(rank, **f32))
+        self.b_norm = nn.Parameter(torch.empty(N, **f32))
+        self.c_norm = nn.Parameter(torch.empty(N, **f32))
+        self.out_proj = nn.Linear(di, cfg.d_model, **kw)
+
+    @torch.no_grad()
+    def init_constants(self) -> None:
+        """The JAX init's deterministic leaves: zero conv bias, dt_proj_b =
+        softplus^-1(0.01), A = -(1..N) on every channel, D = 1, unit norm
+        scales."""
+        N = self.A_log.shape[1]
+        self.conv_b.zero_()
+        self.dt_proj_b.fill_(float(torch.log(torch.expm1(torch.tensor(0.01)))))
+        self.A_log.copy_(torch.log(torch.arange(1, N + 1, dtype=torch.float32)).expand_as(
+            self.A_log))
+        self.D.fill_(1.0)
+        for scale in (self.dt_norm, self.b_norm, self.c_norm):
+            scale.fill_(1.0)
+
+
+def _scan_pairs(a, b):
+    """Inclusive scan along axis 1 of the pairs (a, b) under
+    (a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2), Hillis-Steele: log2(Q)
+    levels, each combining position t with t - 2^k. ``a`` and ``b`` are the
+    caller's own tensors and are updated in place; returns them."""
+    d, n = 1, a.shape[1]
+    while d < n:
+        b_tail = torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])
+        a_tail = a[:, d:] * a[:, :-d]
+        b[:, d:] = b_tail
+        a[:, d:] = a_tail
+        d *= 2
+    return a, b
+
+
+def selective_scan(u, dt, Bm, Cm, A, chunk):
+    """Diagonal selective scan, chunked: u (B,S,di), dt (B,S,di), Bm/Cm
+    (B,S,N), A (di,N) fp32. h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t,
+    y_t = sum_N C_t h_t, in fp32 from h_0 = 0. Returns (y (B,S,di) fp32,
+    h_S (B,di,N) fp32), the function ``_selective_scan_chunked`` computes."""
+    B, S, di = u.shape
+    h = torch.zeros(B, di, A.shape[1], dtype=torch.float32, device=u.device)
+    ys = []
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        dtq = dt[:, sl].float()
+        a = torch.exp(dtq[..., None] * A)  # (B,Q,di,N)
+        b = (dtq * u[:, sl].float())[..., None] * Bm[:, sl, None, :].float()
+        a, b = _scan_pairs(a, b)
+        hs = torch.addcmul(b, h[:, None], a)  # h_t for every t of the chunk
+        ys.append(torch.einsum("bqdn,bqn->bqd", hs, Cm[:, sl].float()))
+        h = hs[:, -1]
+    return torch.cat(ys, dim=1), h
+
+
+def mamba1_forward(p: Mamba1, xin, cfg, mask=None):
+    """xin (B,S,D) -> (y (B,S,D), (conv_state, ssm_state)). ``mask`` (B,S)
+    bool, True at valid positions: the pad-safe scan of LEFT-padded prompts,
+    as in ``mamba2_forward`` (zeroed conv input and ``dt``)."""
+    B, S, _ = xin.shape
+    N, rank = cfg.ssm_d_state, dt_rank(cfg)
+    x, z = p.in_proj(xin).chunk(2, dim=-1)
+    if mask is not None:
+        x = x * mask.to(x.dtype)[..., None]
+    x_conv = F.silu(_causal_conv(x, p.conv_w.float(), p.conv_b).to(xin.dtype))
+    dt_r, Bm, Cm = torch.split(p.x_proj(x_conv), [rank, N, N], dim=-1)
+    dt_r = rms_norm_head(dt_r, p.dt_norm)
+    Bm = rms_norm_head(Bm, p.b_norm)
+    Cm = rms_norm_head(Cm, p.c_norm)
+    dt = F.softplus(p.dt_proj(dt_r).float() + p.dt_proj_b)  # (B,S,di)
+    if mask is not None:
+        dt = dt * mask.to(dt.dtype)[..., None]
+    y, h_last = selective_scan(x_conv, dt, Bm, Cm, -torch.exp(p.A_log), cfg.ssm_chunk)
+    y = y + p.D * x_conv.float()
+    y = y.to(xin.dtype) * F.silu(z)
+    W1 = cfg.ssm_d_conv - 1
+    conv_state = x[:, -W1:, :] if S >= W1 else F.pad(x, (0, 0, W1 - S, 0))
+    return p.out_proj(y), (conv_state.to(xin.dtype), h_last)
+
+
+def mamba1_decode(p: Mamba1, xin, cfg, conv_state, ssm_state):
+    """xin (B,1,D); conv_state (B,W-1,d_inner); ssm_state (B,d_inner,N).
+    Returns (y (B,1,D), (new conv_state, new ssm_state))."""
+    N, rank = cfg.ssm_d_state, dt_rank(cfg)
+    x, z = p.in_proj(xin)[:, 0].chunk(2, dim=-1)
+    y_conv, conv_state = _conv_step(conv_state.float(), x.float(), p.conv_w.float(), p.conv_b)
+    x_conv = F.silu(y_conv).to(xin.dtype)
+    dt_r, Bm, Cm = torch.split(p.x_proj(x_conv), [rank, N, N], dim=-1)
+    dt_r = rms_norm_head(dt_r, p.dt_norm)
+    Bm = rms_norm_head(Bm, p.b_norm).float()
+    Cm = rms_norm_head(Cm, p.c_norm).float()
+    dt = F.softplus(p.dt_proj(dt_r).float() + p.dt_proj_b)  # (B,di)
+    dA = torch.exp(dt[..., None] * -torch.exp(p.A_log))  # (B,di,N)
+    ssm_state = ssm_state * dA + (dt * x_conv.float())[..., None] * Bm[:, None, :]
+    y = torch.einsum("bdn,bn->bd", ssm_state, Cm) + p.D * x_conv.float()
+    y = y.to(xin.dtype) * F.silu(z)
     return p.out_proj(y)[:, None, :], (conv_state.to(xin.dtype), ssm_state)

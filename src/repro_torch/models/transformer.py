@@ -1,4 +1,4 @@
-"""Decoder stack: the counterpart of ``repro.models.transformer``.
+"""Decoder and encoder stacks: the counterpart of ``repro.models.transformer``.
 
 The JAX package scans each *stage* (a repeating pattern of layers, e.g.
 gemma2's (local, global) pair) over stacked params to keep its compiled
@@ -8,22 +8,33 @@ graph small. PyTorch runs eagerly, so the port keeps the layers as one
 (``repro_torch.convert``).
 
 Modes: ``prefill`` (full causal forward writing mixer state into the cache
-at positions [0, S)) and ``decode`` (one token per row at ``pos`` against
+at positions [0, S)), ``decode`` (one token per row at ``pos`` against
 the cache, or T > 1 tokens per row at pos..pos+T-1 for the speculative
 verify, attention stacks only: an SSM's state cannot roll back a rejected
-draft). The cache is a dict of stacked tensors, layer axis first and
-batch second, updated in place: ``k``/``v`` (layers, batch, max_len, kv
-heads, head dim) for GQA stacks; ``latent`` (layers, batch, max_len,
-kv_lora_rank + qk_rope_dim) for MLA stacks, each row ``[c_kv | k_rope]``;
-``conv`` (layers, batch, W-1, d_inner + 2N) in the activation dtype and
-``ssm`` (layers, batch, heads, head dim, N) in fp32 for Mamba2 stacks.
+draft) and ``encode`` (the encoder stack of an encoder-decoder model:
+non-causal self-attention, no cache).
 
-This slice serves attention stacks (``attn``/``local``/``global`` mixers,
-GQA with qkv bias and qk-norm or MLA, dense or MoE MLPs with a dense
-prefix of ``first_dense_layers``, gemma2's post-block norms) and pure
-Mamba2 (``ssd``) stacks; Mamba1, hybrid and cross-attention layers raise
-(see ROADMAP.md). The MoE layers' load-balance loss is dropped: the port
-serves and does not train.
+The cache is a dict of stacked tensors, batch on axis 1, updated in place.
+Each leaf is stacked over the layers of its own kind only, so a hybrid
+stack keeps no K/V for its SSM layers and no state for its attention
+layers; layer i reads entry j of a leaf when it is the j-th layer of that
+leaf's kind (``layer_caches``):
+
+* ``k``/``v`` (attention layers, batch, max_len, kv heads, head dim) for
+  GQA layers, or ``latent`` (attention layers, batch, max_len,
+  kv_lora_rank + qk_rope_dim) for MLA stacks, each row ``[c_kv | k_rope]``;
+* ``xk``/``xv`` (attention layers, batch, enc_len, kv heads, head dim),
+  the cross-attention's K/V of an encoder-decoder decoder, written at
+  [0, T_frames) by prefill and masked per row to ``enc_len`` at decode;
+* ``conv`` (SSM layers, batch, W-1, conv width) in the activation dtype
+  and ``ssm`` in fp32: (…, heads, head dim, N) for Mamba2, (…, d_inner, N)
+  for Mamba1.
+
+Layers: GQA (qkv bias, qk-norm) or MLA attention, Mamba2 (``ssd``) and
+Mamba1 (``mamba``) mixers, dense (SwiGLU/GeGLU, or the layernorm models'
+GELU FFN) or MoE MLPs with a dense prefix of ``first_dense_layers``,
+gemma2's post-block norms, and the decoder's cross-attention. The MoE
+layers' load-balance loss is dropped: the port serves and does not train.
 """
 from __future__ import annotations
 
@@ -35,10 +46,14 @@ from torch import nn
 
 from repro_torch.models import attention as att
 from repro_torch.models import moe, ssm
-from repro_torch.models.layers import MLP, apply_mlp, apply_norm, init_norm
+from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 ATTN_KINDS = ("attn", "local", "global")
-MODES = ("prefill", "decode")
+SSM_KINDS = ("ssd", "mamba")
+MODES = ("prefill", "decode", "encode")
+# the kind of layer each cache leaf is stacked over
+LEAF_KINDS = {"k": "attn", "v": "attn", "latent": "attn", "xk": "attn", "xv": "attn",
+              "conv": "ssm", "ssm": "ssm"}
 
 
 @dataclass(frozen=True)
@@ -47,8 +62,12 @@ class Stage:
     pattern: Tuple[Tuple[str, str], ...]  # ((mixer_kind, mlp_kind), ...)
 
 
-def compute_stages(cfg) -> List[Stage]:
+def compute_stages(cfg, cross=False) -> List[Stage]:
+    """The JAX package's stage decomposition; ``cross=True`` gives the
+    encoder stack's (non-causal attention and a dense MLP per layer)."""
     seq = list(zip(cfg.layer_kinds(), cfg.mlp_kinds()))
+    if cross:
+        seq = [("attn", "dense")] * cfg.num_encoder_layers
     for prefix in range(0, len(seq)):
         rest = seq[prefix:]
         if not rest:
@@ -66,69 +85,120 @@ def compute_stages(cfg) -> List[Stage]:
 
 
 class Block(nn.Module):
-    """One decoder layer (counterpart of ``init_layer``)."""
+    """One layer (counterpart of ``init_layer``); ``decoder_cross`` gives an
+    attention layer of an encoder-decoder decoder its cross-attention."""
 
-    def __init__(self, cfg, kind: str, mlp_kind: str, device=None, dtype=None):
+    def __init__(self, cfg, kind: str, mlp_kind: str, device=None, dtype=None,
+                 decoder_cross: bool = False):
         super().__init__()
-        ported = ((kind in ATTN_KINDS and mlp_kind in ("dense", "moe"))
-                  or (kind == "ssd" and mlp_kind == "none"))
-        if not ported:
-            raise NotImplementedError(
-                f"layer ({kind!r}, {mlp_kind!r}) is not ported yet: this slice serves "
-                "GQA/MLA stacks with dense or MoE MLPs and Mamba2 stacks (see ROADMAP.md)")
+        if kind not in ATTN_KINDS + SSM_KINDS or mlp_kind not in ("dense", "moe", "none"):
+            raise ValueError(f"unknown layer ({kind!r}, {mlp_kind!r})")
         self.kind = kind
         self.mlp_kind = mlp_kind
         self.window = cfg.sliding_window if kind == "local" else None
         self.pre_norm = init_norm(cfg, device)
         if kind == "ssd":
             self.mixer = ssm.Mamba2(cfg, device, dtype)
-            return
-        self.attn = att.MLA(cfg, device, dtype) if cfg.use_mla else att.GQA(cfg, device, dtype)
-        self.mlp_norm = init_norm(cfg, device)
-        self.mlp = moe.MoE(cfg, device, dtype) if mlp_kind == "moe" else MLP(cfg, device, dtype)
+        elif kind == "mamba":
+            self.mixer = ssm.Mamba1(cfg, device, dtype)
+        else:
+            self.attn = att.MLA(cfg, device, dtype) if cfg.use_mla else att.GQA(cfg, device,
+                                                                                   dtype)
+        self.cross = None
+        if decoder_cross and kind in ATTN_KINDS:
+            self.cross_norm = init_norm(cfg, device)
+            self.cross = att.GQA(cfg, device, dtype)
+        if mlp_kind != "none":
+            self.mlp_norm = init_norm(cfg, device)
+            self.mlp = moe.MoE(cfg, device, dtype) if mlp_kind == "moe" else init_mlp(
+                cfg, device, dtype)
         if cfg.post_block_norm:
             self.post_norm = init_norm(cfg, device)
-            self.mlp_post_norm = init_norm(cfg, device)
+            if mlp_kind != "none":
+                self.mlp_post_norm = init_norm(cfg, device)
 
 
-def init_stack_cache(cfg, batch, max_len, dtype, device=None):
-    kinds = set(cfg.layer_kinds())
-    L = cfg.num_layers
-    if kinds == {"ssd"}:
+def init_stack_cache(cfg, batch, max_len, dtype, device=None, enc_len=0):
+    """The stacked cache of ``cfg``'s decoder (see the module docstring);
+    an encoder-decoder model's carries ``xk``/``xv`` at ``enc_len``."""
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k in ATTN_KINDS for k in kinds)
+    ssm_kinds = {k for k in kinds if k in SSM_KINDS}
+    if len(ssm_kinds) > 1:
+        raise NotImplementedError("a stack of both Mamba1 and Mamba2 layers has no config "
+                                  "and no cache layout")
+    n_ssm = len(kinds) - n_attn
+    cache = {}
+    if n_attn:
+        if cfg.use_mla:
+            cache["latent"] = torch.zeros((n_attn, batch, max_len, att.latent_width(cfg)),
+                                          dtype=dtype, device=device)
+        else:
+            shape = (n_attn, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+            cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+            cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+        if cfg.is_encoder_decoder:
+            shape = (n_attn, batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+            cache["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+            cache["xv"] = torch.zeros(shape, dtype=dtype, device=device)
+    if "ssd" in ssm_kinds:
         conv_dim = cfg.d_inner + 2 * cfg.ssm_d_state
-        return {"conv": torch.zeros((L, batch, cfg.ssm_d_conv - 1, conv_dim), dtype=dtype,
-                                    device=device),
-                "ssm": torch.zeros((L, batch, cfg.ssm_num_heads, cfg.ssm_head_dim,
-                                    cfg.ssm_d_state), dtype=torch.float32, device=device)}
-    if not kinds <= set(ATTN_KINDS):
-        raise NotImplementedError(f"a cache for layer kinds {sorted(kinds)} is not ported "
-                                  "yet (see ROADMAP.md)")
-    if cfg.use_mla:
-        return {"latent": torch.zeros((L, batch, max_len, att.latent_width(cfg)), dtype=dtype,
-                                      device=device)}
-    shape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+        cache["conv"] = torch.zeros((n_ssm, batch, cfg.ssm_d_conv - 1, conv_dim), dtype=dtype,
+                                    device=device)
+        cache["ssm"] = torch.zeros((n_ssm, batch, cfg.ssm_num_heads, cfg.ssm_head_dim,
+                                    cfg.ssm_d_state), dtype=torch.float32, device=device)
+    elif "mamba" in ssm_kinds:
+        cache["conv"] = torch.zeros((n_ssm, batch, cfg.ssm_d_conv - 1, cfg.d_inner),
+                                    dtype=dtype, device=device)
+        cache["ssm"] = torch.zeros((n_ssm, batch, cfg.d_inner, cfg.ssm_d_state),
+                                   dtype=torch.float32, device=device)
+    return cache
+
+
+def layer_caches(layers, cache):
+    """Each layer's (batch, ...) views of the stacked cache: its own
+    kind's entry of every leaf stacked over that kind (None without a
+    cache)."""
+    if cache is None:
+        return [None] * len(layers)
+    seen = {"attn": 0, "ssm": 0}
+    out = []
+    for lp in layers:
+        kind = "attn" if lp.kind in ATTN_KINDS else "ssm"
+        i = seen[kind]
+        seen[kind] += 1
+        out.append({n: c[i] for n, c in cache.items() if LEAF_KINDS[n] == kind})
+    return out
+
+
+def _apply_ssm(lp: Block, h, cfg, ctx, mode, cache, ssm_mask):
+    if mode == "decode":
+        if h.shape[1] != 1:
+            raise ValueError(f"SSM decode is single-token; got {h.shape[1]} positions "
+                             f"for layer kind {lp.kind!r}")
+        step = ssm.mamba2_decode if lp.kind == "ssd" else ssm.mamba1_decode
+        mix, (conv_s, ssm_s) = step(lp.mixer, h, cfg, cache["conv"], cache["ssm"])
+    elif lp.kind == "ssd":
+        mix, (conv_s, ssm_s) = ssm.mamba2_forward(lp.mixer, h, cfg, mask=ssm_mask,
+                                                  impl=ctx.attn_impl)
+    else:
+        mix, (conv_s, ssm_s) = ssm.mamba1_forward(lp.mixer, h, cfg, mask=ssm_mask)
+    if cache is not None:
+        cache["conv"].copy_(conv_s)
+        cache["ssm"].copy_(ssm_s)
+    return mix
 
 
 def _apply_mixer(lp: Block, h, cfg, ctx, mode, cache, pos, ssm_mask):
     """The layer's mixer; ``cache`` holds this layer's (batch, ...) views,
     written in place."""
-    if lp.kind == "ssd":
-        if mode == "decode":
-            if h.shape[1] != 1:
-                raise ValueError(f"SSM decode is single-token; got {h.shape[1]} positions")
-            mix, (conv_s, ssm_s) = ssm.mamba2_decode(lp.mixer, h, cfg, cache["conv"],
-                                                     cache["ssm"])
-        else:
-            mix, (conv_s, ssm_s) = ssm.mamba2_forward(lp.mixer, h, cfg, mask=ssm_mask,
-                                                      impl=ctx.attn_impl)
-        cache["conv"].copy_(conv_s)
-        cache["ssm"].copy_(ssm_s)
-        return mix
+    if lp.kind in SSM_KINDS:
+        return _apply_ssm(lp, h, cfg, ctx, mode, cache, ssm_mask)
     if ssm_mask is not None:
         raise ValueError("pad_mask/ssm_mask is only supported for pure-SSM stacks; "
                          f"layer kind {lp.kind!r} attends over absolute positions")
+    if mode == "encode":
+        return att.gqa_encode(lp.attn, h, cfg, impl=ctx.attn_impl)
     if cfg.use_mla:
         if mode == "decode":
             return att.mla_decode(lp.attn, h, cfg, cache["latent"], pos, impl=ctx.attn_impl)[0]
@@ -148,15 +218,34 @@ def _apply_mixer(lp: Block, h, cfg, ctx, mode, cache, pos, ssm_mask):
     return mix
 
 
-def apply_layer(lp: Block, x, cfg, ctx, mode, cache, pos, ssm_mask=None):
-    """``cache``: this layer's views of the stacked cache. Returns the
-    layer's output."""
+def _apply_cross(lp: Block, x, cfg, ctx, mode, cache, enc_out, enc_len):
+    """The decoder's cross-attention. Prefill computes the encoder's K/V and
+    writes them into the cross cache at [0, T_frames) (the region may be
+    preallocated wider, at a slot pool's ``max_enc_len``); decode reads the
+    cache, each row masked to its ``enc_len`` (None: all of it)."""
+    hc = apply_norm(lp.cross_norm, x)
+    if mode == "decode":
+        return att.gqa_cross(lp.cross, hc, cfg, cache["xk"], cache["xv"], enc_len=enc_len,
+                             impl=ctx.attn_impl)
+    ek, ev = att.cross_kv(lp.cross, enc_out, cfg)
+    T = ek.shape[1]
+    cache["xk"][:, :T] = ek.to(cache["xk"].dtype)
+    cache["xv"][:, :T] = ev.to(cache["xv"].dtype)
+    return att.gqa_cross(lp.cross, hc, cfg, ek, ev, impl=ctx.attn_impl)
+
+
+def apply_layer(lp: Block, x, cfg, ctx, mode, cache, pos, ssm_mask=None, enc_out=None,
+                enc_len=None):
+    """``cache``: this layer's views of the stacked cache (None in encode
+    mode). Returns the layer's output."""
     mix = _apply_mixer(lp, apply_norm(lp.pre_norm, x), cfg, ctx, mode, cache, pos, ssm_mask)
-    if lp.kind == "ssd":  # a pure-SSM layer has no MLP
-        return x + mix
     if cfg.post_block_norm:
         mix = apply_norm(lp.post_norm, mix)
     x = x + mix
+    if lp.cross is not None:
+        x = x + _apply_cross(lp, x, cfg, ctx, mode, cache, enc_out, enc_len)
+    if lp.mlp_kind == "none":
+        return x
     h = apply_norm(lp.mlp_norm, x)
     y = moe.moe_apply(lp.mlp, h, cfg)[0] if lp.mlp_kind == "moe" else apply_mlp(lp.mlp, h, cfg)
     if cfg.post_block_norm:
@@ -164,10 +253,13 @@ def apply_layer(lp: Block, x, cfg, ctx, mode, cache, pos, ssm_mask=None):
     return x + y
 
 
-def apply_stack(layers: nn.ModuleList, cfg, x, ctx, mode, cache, pos=0, ssm_mask=None):
+def apply_stack(layers: nn.ModuleList, cfg, x, ctx, mode, cache=None, pos=0, ssm_mask=None,
+                enc_out=None, enc_len=None):
+    """``enc_out`` (B, T, D): the encoder's output, which an encoder-decoder
+    decoder's prefill attends to; ``enc_len`` (an int or (B,)): its decode
+    rows' encoder lengths."""
     if mode not in MODES:
         raise NotImplementedError(f"mode {mode!r}: this slice runs {MODES}")
-    for i, lp in enumerate(layers):
-        x = apply_layer(lp, x, cfg, ctx, mode, {n: c[i] for n, c in cache.items()}, pos,
-                        ssm_mask)
+    for lp, c in zip(layers, layer_caches(layers, cache)):
+        x = apply_layer(lp, x, cfg, ctx, mode, c, pos, ssm_mask, enc_out, enc_len)
     return x

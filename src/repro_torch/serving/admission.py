@@ -107,11 +107,12 @@ class AdmissionPolicy:
 def ssm_prompt_bucketed(eng, w: ModelWorker) -> bool:
     """True when ``w``'s admission groups key on the pow2 prompt-length
     bucket instead of the exact length: pure-SSM stacks with batched
-    prefill — the pad-safe scan makes a LEFT-padded, masked bucket prefill
-    match an exact-length prefill, so mixed-length admissions share one
-    prefill. Attention stacks keep exact-length grouping (padding would
+    prefill (no encoder) — the pad-safe scan makes a LEFT-padded, masked
+    bucket prefill match an exact-length prefill, so mixed-length
+    admissions share one prefill. Attention stacks keep exact-length
+    grouping (padding would
     corrupt their KV caches)."""
-    if not eng.batch_prefill:
+    if not eng.batch_prefill or w.cfg.is_encoder_decoder:
         return False
     kinds = w.cfg.layer_kinds()
     return bool(kinds) and all(k in ("mamba", "ssd") for k in kinds)
@@ -122,16 +123,23 @@ def validate_request(w: ModelWorker, req: Request) -> Optional[str]:
     if len(req.prompt) + req.max_new_tokens > w.max_len:
         return (f"prompt {len(req.prompt)} + max_new "
                 f"{req.max_new_tokens} exceeds max_len {w.max_len}")
+    if w.cfg.is_encoder_decoder:
+        if req.enc_inputs is None:
+            return "encoder-decoder request without enc_inputs"
+        if req.enc_inputs.shape[0] > w.max_enc_len:
+            return (f"enc_inputs length {req.enc_inputs.shape[0]} "
+                    f"exceeds max_enc_len {w.max_enc_len}")
     return None
 
 
 def admit_requests(eng, model: str, pool: _SlotPool, out: List[Response],
                    temperature: float = 0.0) -> int:
     """Pull waiting requests into free slots while the policy approves,
-    then prefill the admitted set in same-shape batches
-    (``batch_prefill=False`` keeps the serial batch-1 reference). A request
-    that can never be served is rejected with an error ``Response`` and the
-    loop keeps draining. Returns #admitted."""
+    then prefill the admitted set in same-shape batches, keyed on the
+    prompt length and the encoder input's shape (``batch_prefill=False``
+    keeps the serial batch-1 reference). A request that can never be
+    served (oversized, missing encoder inputs) is rejected with an error
+    ``Response`` and the loop keeps draining. Returns #admitted."""
     w, q = eng.workers[model], eng.queues[model]
     admitted: List[_ActiveSeq] = []
     while q and pool.alloc.n_free:
@@ -159,10 +167,11 @@ def admit_requests(eng, model: str, pool: _SlotPool, out: List[Response],
         admitted.append(seq)
     if eng.batch_prefill:
         bucketed = ssm_prompt_bucketed(eng, w)
-        groups: Dict[int, List[_ActiveSeq]] = {}
+        groups: Dict[tuple, List[_ActiveSeq]] = {}
         for seq in admitted:
-            plen = len(seq.req.prompt)
-            groups.setdefault(_len_bucket(plen) if bucketed else plen, []).append(seq)
+            plen, enc = len(seq.req.prompt), seq.req.enc_inputs
+            key = (_len_bucket(plen) if bucketed else plen, None if enc is None else enc.shape)
+            groups.setdefault(key, []).append(seq)
         group_list = list(groups.values())
     else:
         group_list = [[seq] for seq in admitted]
@@ -210,9 +219,13 @@ def prefill_group(eng, model: str, pool: _SlotPool,
         plan_len = _len_bucket(max(lens))
         if any(n != plan_len for n in lens):
             prompts, pad_mask = _left_padded(group, plan_len, b - G)
+    enc = None
     if pad_mask is None:
         prompts = np.stack([s.req.prompt for s in group] + [group[0].req.prompt] * (b - G))
-    logits, g_cache = w.prefill_batch(prompts, pad_mask=pad_mask)
+        if group[0].req.enc_inputs is not None:
+            enc = np.stack([s.req.enc_inputs for s in group]
+                           + [group[0].req.enc_inputs] * (b - G))
+    logits, g_cache = w.prefill_batch(prompts, enc, pad_mask=pad_mask)
     slots = np.full(b, pool.alloc.n_slots, np.int32)
     slots[:G] = [s.slot for s in group]
     pool.cache = w.write_slots(pool.cache, g_cache, slots)
@@ -241,6 +254,8 @@ def prefill_group(eng, model: str, pool: _SlotPool,
             seq.rails += EnergyBreakdown.from_total(pp["energy"] / pp["batch"], pp["rails"])
         pool.tokens[seq.slot, 0] = tok
         pool.pos[seq.slot] = seq.pos
+        pool.enc_len[seq.slot] = (0 if seq.req.enc_inputs is None
+                                  else seq.req.enc_inputs.shape[0])
         if len(seq.tokens) >= seq.req.max_new_tokens:
             eng._retire(pool, seq, out)
     eng.prefill_batches += 1

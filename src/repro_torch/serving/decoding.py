@@ -32,7 +32,9 @@ def plain_step(eng, model: str, pool: _SlotPool, out: List[Response],
     (step_energy/batch each), one ``decode`` event goes to the ledger and a
     trace replay's virtual clock advances by the plan's latency."""
     w = eng.workers[model]
-    next_tok, logits, pool.cache = w.decode_pool(pool.cache, pool.tokens, pool.pos)
+    enc_len = pool.enc_len if w.cfg.is_encoder_decoder else None
+    next_tok, logits, pool.cache = w.decode_pool(pool.cache, pool.tokens, pool.pos,
+                                                 enc_len=enc_len)
     n_active = len(pool.active)
     step_energy = 0.0
     if eng.scheduler is not None:

@@ -110,12 +110,15 @@ class ServingEngine:
         return sampling.sample_batch(seqs, logits, temperature)
 
     def add_model(self, name, cfg, params, max_len=512, ctx=ExecContext(),
-                  priority: int = 0, draft=None, spec=None):
-        """``draft=(draft_cfg, draft_params)`` attaches a speculative-decoding
-        draft worker to this model (``spec`` is an optional
-        ``speculative.SpecConfig``); the default ``draft=None`` leaves every
-        decode the plain step."""
-        self.workers[name] = ModelWorker(name, cfg, params, max_len, ctx)
+                  priority: int = 0, max_enc_len: Optional[int] = None, draft=None,
+                  spec=None):
+        """``max_enc_len``: the encoder-decoder slot pool's cross-attention
+        region per slot (``max_len`` by default). ``draft=(draft_cfg,
+        draft_params)`` attaches a speculative-decoding draft worker to this
+        model (``spec`` is an optional ``speculative.SpecConfig``); the
+        default ``draft=None`` leaves every decode the plain step."""
+        self.workers[name] = ModelWorker(name, cfg, params, max_len, ctx,
+                                         max_enc_len=max_enc_len)
         self.queues[name] = []
         self.stats[name] = []
         self.priorities[name] = priority

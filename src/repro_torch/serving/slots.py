@@ -16,6 +16,8 @@ class Request:
     uid: int
     prompt: np.ndarray  # (S,) int32
     max_new_tokens: int = 16
+    # encoder-decoder models: the encoder's frame embeddings (T_frames, d_model)
+    enc_inputs: Optional[np.ndarray] = None
     t_submit: float = 0.0  # stamped by ServingEngine.submit
     # graceful degradation (repro_torch.serving.robustness): a deadline
     # turns into timeout -> bounded requeue-with-backoff -> explicit error
@@ -106,3 +108,6 @@ class _SlotPool:
         self.active: Dict[int, _ActiveSeq] = {}
         self.tokens = np.zeros((max_slots, 1), np.int32)
         self.pos = np.zeros(max_slots, np.int32)
+        # per-slot valid encoder length (encoder-decoder models): decode
+        # masks each row's cross-attention to its own encoder region
+        self.enc_len = np.zeros(max_slots, np.int32)

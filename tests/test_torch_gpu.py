@@ -447,3 +447,78 @@ def test_flash_kernel_at_mla_prefill_and_group_7(dtype, H, Hkv, Dk, Dv):
     kw = dict(causal=True, q_offset=torch.tensor([0, 40], device=dev),
               kv_len=torch.tensor([512, 300], device=dev))
     _close(fmod.flash_attention(q, k, v, **kw), fmod.flash_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Sk", [(1, 1), (17, 17), (255, 255), (512, 512), (2, 100),
+                                   (4, 257), (17, 500), (32, 100), (130, 63)])
+def test_flash_kernel_non_causal_at_encoder_and_cross_shapes(dtype, Sq, Sk):
+    """seamless-m4t's attention (16 heads, G = 1, D 64) without a causal
+    mask: the encoder's self-attention (Sq = Sk, frames not a multiple of
+    the 64-key tile) and the cross-attention at prefill (a few prompt rows
+    against hundreds of frames); then per-row kv_len, 0 for one row."""
+    dev = _card()
+    q = _randn(60, (2, Sq, 16, 64), dtype, dev)
+    k, v = (_randn(s, (2, Sk, 16, 64), dtype, dev) for s in (61, 62))
+    before = fmod.flash_attention.launches
+    out = fmod.flash_attention(q, k, v, causal=False)
+    assert fmod.flash_attention.launches == before + 1
+    _close(out, fmod.flash_attention_plain(q, k, v, causal=False), dtype)
+    kw = dict(causal=False, kv_len=torch.tensor([0, Sk // 2 + 1], device=dev))
+    out = fmod.flash_attention(q, k, v, **kw)
+    assert not out[0].any()
+    _close(out, fmod.flash_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,Hkv", [(1, 16), (4, 8)])  # seamless's MHA; jamba's 32/8 (D 128)
+def test_decode_kernel_with_per_row_enc_len(dtype, G, Hkv):
+    """The cross-attention's decode: one query per slot at q_offset 0
+    against a 512-frame region, per-row kv_len 0 (a slot never admitted), 1, 63, 64,
+    100, 257, 511 and 512, no window; a row that keeps no key writes 0."""
+    dev = _card()
+    D = 64 if G == 1 else 128
+    kl = torch.tensor([0, 1, 63, 64, 100, 257, 511, 512], dtype=torch.int32, device=dev)
+    q = _randn(63, (8, 1, G * Hkv, D), dtype, dev)
+    k, v = (_randn(s, (8, 512, Hkv, D), dtype, dev) for s in (64, 65))
+    kw = dict(q_offset=0, kv_len=kl)
+    before = dmod.decode_attention.launches
+    out = dmod.decode_attention(q, k, v, **kw)
+    assert dmod.decode_attention.launches == before + 1
+    assert not out[0].any()
+    _close(out, dmod.decode_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.gpu
+def test_mamba1_prefill_and_decode_on_card_match_the_cpu():
+    """A reduced Jamba Mamba1 mixer in fp32 with seeded weights: prefill of
+    a left-padded pair across a chunk edge, then one decode step, on the
+    card and on the CPU (full fp32 products on both)."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.kernels.flash_attention import exact_fp32
+    from repro_torch.models import ssm
+    dev = _card()
+    cfg = dataclasses.replace(reduced(get_config("jamba-v0.1-52b")), ssm_chunk=32)
+    cpu = ssm.Mamba1(cfg).requires_grad_(False)
+    gen = np.random.default_rng(66)
+    with torch.no_grad():
+        cpu.init_constants()
+        for name, p in cpu.named_parameters():
+            if p.dim() == 2 and name != "A_log":
+                p.copy_(torch.from_numpy(gen.standard_normal(p.shape).astype(np.float32))
+                        * p.shape[-1] ** -0.5)
+    card = ssm.Mamba1(cfg, device=dev).requires_grad_(False)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(gen.standard_normal((2, 41, cfg.d_model)).astype(np.float32))
+    mask = torch.ones(2, 40, dtype=torch.bool)
+    mask[1, :13] = False
+    outs = []
+    with exact_fp32():
+        for mod, d in ((cpu, "cpu"), (card, dev)):
+            y, (conv, h) = ssm.mamba1_forward(mod, x[:, :40].to(d), cfg, mask.to(d))
+            step, (conv, h) = ssm.mamba1_decode(mod, x[:, 40:].to(d), cfg, conv, h)
+            outs.append([t.cpu() for t in (y, step, conv, h)])
+    for a, b in zip(*outs):
+        _close(b, a, "float32")

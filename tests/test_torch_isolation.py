@@ -40,7 +40,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert "repro_torch.serving.engine" in got["modules"]
     assert "repro_torch.serving.speculative" in got["modules"]
     assert "repro_torch.launch.serve" in got["modules"]
-    for name in ("core.controller", "core.coexec", "core.baselines", "configs.yolo_v2_tiny"):
+    for name in ("core.controller", "core.coexec", "core.baselines", "configs.yolo_v2_tiny",
+                 "configs.seamless_m4t_medium", "configs.jamba_v0_1_52b"):
         assert f"repro_torch.{name}" in got["modules"]
 
 
@@ -51,10 +52,15 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                                     "repro_torch.core.coexec", "repro_torch.core.baselines",
                                     "repro_torch.configs.yolo_v2_tiny",
                                     "repro_torch.models.moe",
-                                    "repro_torch.configs.deepseek_v2_lite_16b"])
+                                    "repro_torch.configs.deepseek_v2_lite_16b",
+                                    "repro_torch.models.ssm", "repro_torch.models.model",
+                                    "repro_torch.configs.seamless_m4t_medium",
+                                    "repro_torch.configs.jamba_v0_1_52b"])
 def test_scheduled_path_modules_load_no_jax_and_no_repro(module):
     """Each module of the scheduled, speculative and joint-planning paths, of
-    the closed loop and of the MoE layer, imported alone in a fresh process."""
+    the closed loop, of the MoE layer and of the encoder-decoder and hybrid
+    path (Mamba1, the encoder, the two configs), imported alone in a fresh
+    process."""
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module({module!r})\n"
