@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases kernels,joint  # the kernels and the joint-planned serve
     python3 chip_smoke.py --phases kernels,archs  # the kernels and the serves of the new archs
     python3 chip_smoke.py --phases kernels,encdec_hybrid  # + seamless-m4t and jamba in one engine
+    python3 chip_smoke.py --phases kernels,bucketed,fleet  # + the bucketed mode and the fleet replay
 
 Phases:
   1. device     the card's name and count, its power limit from nvidia-smi,
@@ -23,7 +24,12 @@ Phases:
                 encoder-decoder shapes: flash without a causal mask at Sq = Sk
                 (the encoder) and Sq != Sk (the cross-attention's prefill),
                 decode against a 512-frame region with per-row kv_len down
-                to 0 (its decode), and jamba's 32/8 heads at D 128
+                to 0 (its decode), and jamba's 32/8 heads at D 128; then the
+                bucketed and fleet phases' shapes: the fleet's decode at 4
+                slots x 64 positions (one split) with free slots, the
+                bucketed decode at one shared position per batch and the
+                continuous pool's, flash at the fleet's short prompts and at
+                the buckets, the SSD scan at the buckets' exact lengths
   3. parity     each model at full width, cut to 2 layers, fp32 and bf16:
                 prefill (mamba2: a masked pow2 bucket) and 8 ragged decode
                 steps through the kernels and through the plain versions
@@ -87,7 +93,37 @@ Phases:
                 launches, per decode step 12 + 12 decode launches; jamba's
                 one attention layer per pass); it prints the peak memory,
                 the wall time and the admission reasons
- 10. times      CUDA-event device times of each kernel, its plain version
+ 10. bucketed   the position-synchronous path (``ServingEngine(mode=
+                "bucketed")``, ``ModelWorker.generate``): tinyllama-1.1b,
+                gemma2-2b and mamba2-2.7b at their full configs in bf16 under
+                ``AdaOperScheduler``, 8 requests each in two prompt-length
+                buckets, 8 new tokens, greedy; then the same requests in
+                continuous mode on the same weights: tokens per uid identical,
+                or apart only from a near-tie of the continuous run's logits
+                (printed; an untimed rerun of the continuous engine records
+                them, so that no mode's wall time includes the recorder); flash, decode and the SSD scan launched as the
+                ``generate`` calls imply; then tinyllama-1.1b FIFO at
+                temperature 0.8 in both modes, one bucket of 4 at a time:
+                tokens identical (the same per-request streams). It prints
+                each run's wall time, the batches the scheduler chose and the
+                peak memory
+ 11. fleet      the fleet replay (``repro_torch.fleet.FleetReplay``, backend
+                ``serving``): 3 simulated phones (``sample_population(3)``),
+                10 s of chaos_mixed traffic each (voice assistant, video and
+                AR frames under an injected fault schedule), the uncertainty
+                layer on every device's profiler and risk-aware admission at
+                0.9; the assistant is full tinyllama-1.1b in bf16 on the card,
+                the frames run through the operator-graph path on the same
+                virtual timeline. Run twice: the reports must be equal; every
+                arrival is a record or a rejection; faults, recoveries and
+                interval coverage are reported; flash and decode launched as
+                the devices' engines' passes imply. Then the same population
+                under mixed traffic with point estimates. It prints per arm
+                the simulated energy per request (DeviceSim's phone rails, not
+                the card's), SLO attainment, virtual latency percentiles,
+                interval coverage and width, the fault, shed and deadline
+                counters, the wall time and the launches
+ 12. times      CUDA-event device times of each kernel, its plain version
                 and one PyTorch library call (a yardstick only), beside the
                 bound; for the attention kernels and the library call also
                 the wall time per call back to back (host enqueue included);
@@ -111,6 +147,11 @@ Phases:
   profile_spec_deepseek (only when asked for) the same for the spec
                 phase's full deepseek-v2-lite-16b engine with its truncated
                 draft, capacity 1.25 (``run_all``)
+  profile_bucketed (only when asked for) the same for the bucketed
+                phase's bucketed-mode serve of the three models
+  profile_fleet (only when asked for) the same for the fleet phase's
+                chaos replay, with the device and host time under the
+                assistant's model passes
   mla_parts     (only when asked for) the MLA kernel's device time taken
                 apart: the timing floor, slots that keep one latent row or
                 one tile, rows over 2, 4 and 16 splits (the merge), the
@@ -140,9 +181,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "kernels", "parity", "serve", "scheduled", "joint", "spec", "archs",
-          "encdec_hybrid", "times")
+          "encdec_hybrid", "bucketed", "fleet", "times")
 EXTRA = ("profile", "profile_scheduled", "profile_spec", "profile_archs",
-         "profile_spec_deepseek", "mla_parts", "profile_encdec_hybrid")  # only when asked for
+         "profile_spec_deepseek", "mla_parts", "profile_encdec_hybrid", "profile_bucketed",
+         "profile_fleet")  # only when asked for
 SERVE = dict(names=("tinyllama-1.1b", "gemma2-2b"), requests=8, prompt_lens=(64, 128, 256, 512),
              max_new=16, max_slots=8, max_len=1024, seed=0, device="cuda", full=True,
              scheduler=False)
@@ -191,6 +233,19 @@ ENCDEC = dict(name="seamless-m4t-medium", requests=8, prompt_lens=(4, 8, 16, 32)
 HYBRID = dict(name="jamba-v0.1-52b", requests=8, prompt_lens=(64, 128, 256, 512), max_new=16,
               layers=8)
 ENCDEC_HYBRID = dict(max_slots=8, max_len=1024, seed=0, workload="moderate")
+# the bucketed phase: three models, two prompt-length buckets of 4 requests
+# each; 200 is off the pow2 grid, so the continuous mamba2 admits a masked
+# 256-long bucket where the bucketed step prefills the exact length; the
+# sampled pair runs one model FIFO at this temperature
+BUCKETED = dict(names=("tinyllama-1.1b", "gemma2-2b", "mamba2-2.7b"), requests=8,
+                prompt_lens=(64, 200), max_new=8, max_slots=8, max_len=1024, seed=0,
+                workload="moderate", sampled="tinyllama-1.1b", temperature=0.8)
+# the fleet phase: a population of simulated phones replaying chaos_mixed
+# traffic for duration_s of virtual time, the assistant full tinyllama-1.1b
+# (FleetReplay's max_slots and its engines' max_len: the decode's shape)
+FLEET = dict(devices=3, population_seed=0, scenario="chaos_mixed", baseline="mixed",
+             duration_s=10.0, seed=5, calib_samples=120, risk_level=0.9,
+             assistant="tinyllama-1.1b", max_slots=4, max_len=64)
 # jamba in the parity phase: the 3-layer stack whose Mamba1 layer 1 has MoE
 JAMBA_PARITY = ("mamba", "mamba", "attn")
 # the archs phase: (a) the two archs that need the new kernels, under the
@@ -485,6 +540,12 @@ def phase_kernels(torch, report):
             compare("flash_attention", f"{case} {dtype}", dtype, out, ref)
         for kernel, case, out, ref in encdec_hybrid_cases(torch, gen, fmod, dmod, dtype):
             compare(kernel, f"{case} {dtype}", dtype, out, ref)
+        for kernel, case, out, ref in bucketed_fleet_cases(torch, gen, fmod, dmod, smod, dtype):
+            if kernel == "ssd_scan":  # (y, final state), the state fp32 in both dtypes
+                compare(kernel, f"{case} {dtype} y", dtype, out[0], ref[0], SSD_TOL)
+                compare(kernel, f"{case} {dtype} state", torch.float32, out[1], ref[1], SSD_TOL)
+            else:
+                compare(kernel, f"{case} {dtype}", dtype, out, ref)
         for case, (y, h), (ry, rh) in ssd_edge_cases(torch, gen, smod, dtype):
             compare("ssd_scan", f"{case} {dtype} y", dtype, y, ry, SSD_TOL)
             compare("ssd_scan", f"{case} {dtype} state", torch.float32, h, rh, SSD_TOL)
@@ -709,6 +770,64 @@ def encdec_hybrid_cases(torch, gen, fmod, dmod, dtype):
     kw = dict(q_offset=pos, kv_len=pos + 1)
     yield ("decode_attention", "jamba G=4 Smax=1024 parked", dmod.decode_attention(q, k, v, **kw),
            dmod.decode_attention_plain(q, k, v, **kw))
+
+
+# the fleet's device engines: 4 slots of 64 positions (one split of the
+# decode kernel); per-slot positions, a slot at 64 parked (free)
+FLEET_DECODE_POS = ((0, 8, 23, 63), (5, 17, 40, 64), (64, 64, 12, 64), (30, 31, 62, 63))
+
+
+def bucketed_fleet_cases(torch, gen, fmod, dmod, smod, dtype):
+    """(kernel, case, kernel output, plain output; for the SSD scan (y,
+    state) pairs) at the bucketed and fleet phases' shapes: the fleet's
+    decode at tinyllama's heads, 4 slots x Smax 64 (``plan_splits`` gives
+    one split) at FLEET_DECODE_POS; the bucketed decode, B rows at one
+    shared position (a bucket's prompt length, then 7 steps on) and the
+    continuous pool's 8 slots at per-slot positions with one parked, in a
+    1024-entry cache at tinyllama's and gemma2's heads; flash causal at
+    the fleet's prompts (B 1-4, S 8-48) and at the buckets (64 and 200
+    tokens, B 2 and 4); the SSD scan at the bucketed prefills' exact
+    lengths (B 2 and 4, S 64 and 200, unmasked)."""
+    if dmod.plan_splits(FLEET["max_len"], FLEET["max_slots"], TINY["Hkv"])[0] != 1:
+        raise SmokeFailure("the fleet's decode shape no longer plans one split")
+
+    def decode(case, hd, pos_list, Smax, window=None):
+        pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+        kw = dict(q_offset=pos, kv_len=pos + 1, window=window, softcap=hd["softcap"])
+        q, _, _ = qkv(torch, gen, len(pos_list), 1, 1, hd["H"], hd["Hkv"], hd["D"], dtype)
+        _, k, v = qkv(torch, gen, len(pos_list), 1, Smax, hd["H"], hd["Hkv"], hd["D"], dtype)
+        return ("decode_attention", f"{case} Smax={Smax} pos={pos_list} w={window}",
+                dmod.decode_attention(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw))
+
+    def flash(case, hd, B, S, window=None):
+        q, k, v = qkv(torch, gen, B, S, S, hd["H"], hd["Hkv"], hd["D"], dtype)
+        kw = dict(causal=True, window=window, softcap=hd["softcap"])
+        return ("flash_attention", f"{case} B={B} S={S} w={window}",
+                fmod.flash_attention(q, k, v, **kw), fmod.flash_attention_plain(q, k, v, **kw))
+
+    for pos_list in FLEET_DECODE_POS:
+        yield decode("fleet tinyllama", TINY, pos_list, FLEET["max_len"])
+    Smax = BUCKETED["max_len"]
+    for name, hd, windows in (("tinyllama", TINY, (None,)), ("gemma2", GEMMA, (None, 4096))):
+        for window in windows:
+            for B in (2, 4):
+                for p in BUCKETED["prompt_lens"]:
+                    for step in (0, BUCKETED["max_new"] - 2):  # the first and last decode step
+                        yield decode(f"bucketed {name}", hd, [p + step] * B, Smax, window)
+            pool = [0, 63, 64, 70, 199, 206, 511, Smax]
+            yield decode(f"continuous {name}", hd, pool, Smax, window)
+            for B in (2, 4):
+                for S in BUCKETED["prompt_lens"]:
+                    yield flash(f"bucketed {name}", hd, B, S, window)
+    for B in (1, 2, 3, 4):
+        for S in (8, 23, 48):
+            yield flash("fleet tinyllama", TINY, B, S)
+    for B in (2, 4):
+        for S in BUCKETED["prompt_lens"]:
+            args = ssd_inputs(torch, gen, B, S, dtype)
+            kw = dict(mask=None, chunk=MAMBA["chunk"])
+            yield ("ssd_scan", f"bucketed mamba2 B={B} S={S}", smod.ssd_scan(*args, **kw),
+                   smod.ssd_scan_plain(*args, **kw))
 
 
 def left_padded(torch, B, S):
@@ -1343,10 +1462,6 @@ def joint_run(torch, coexec, gaps=None):
     from repro_torch.models import ssm
     from repro_torch.serving import scheduler as sched_mod
     eng = engine_for(SCHEDULED, coexec)
-    if gaps is not None:
-        for name in eng.workers:
-            reqs = [(r.uid, r.prompt, r.max_new_tokens) for r in eng.queues[name]]
-            gaps[name] = record_gaps(torch, eng, reqs, 0.0, name)
     solves, shapes = {"solves": 0, "solve_s": 0.0}, []
     dp, scan = sched_mod.dp_partition, ssm.ssd_scan
 
@@ -1370,7 +1485,12 @@ def joint_run(torch, coexec, gaps=None):
 
     sched_mod.dp_partition, ssm.ssd_scan = timed_dp, recorded_scan
     try:
-        (out, wall), launches = drive(go)
+        with contextlib.ExitStack() as recording:
+            if gaps is not None:
+                for name in eng.workers:
+                    reqs = [(r.uid, r.prompt, r.max_new_tokens) for r in eng.queues[name]]
+                    gaps[name] = recording.enter_context(record_gaps(torch, eng, reqs, 0.0, name))
+            (out, wall), launches = drive(go)
     finally:
         sched_mod.dp_partition, ssm.ssd_scan = dp, scan
     return eng, out, launches, wall, solves, shapes
@@ -1542,25 +1662,35 @@ def decision_gaps(torch, rows, keys, idx, temperature):
     return list(zip((top[:, 0] - top[:, 1]).tolist(), rows.abs().amax(dim=-1).tolist()))
 
 
+class Gaps(dict):
+    """(uid, token index) -> ``decision_gaps`` of a continuous engine's plain
+    decode steps, filled by ``record_gaps``; a first token (decided on the
+    prefill's logits) is recomputed from a prefill of its prompt when asked
+    for, a later one that was not recorded is (None, None)."""
+
+    def __init__(self, torch, eng, name, prompts, temperature):
+        super().__init__()
+        self.torch, self.eng, self.name = torch, eng, name
+        self.prompts, self.temperature = prompts, temperature
+
+    def __missing__(self, key):
+        uid, i = key
+        if i != 0:
+            return None, None
+        lg, _ = self.eng.workers[self.name].prefill_one(self.prompts[uid])
+        return decision_gaps(self.torch, lg, [self.eng._stream_key(self.name, uid)], [0],
+                             self.temperature)[0]
+
+
+@contextlib.contextmanager
 def record_gaps(torch, eng, reqs, temperature, name=None):
-    """(uid, token index) -> ``decision_gaps`` of the plain decode steps of
-    the engine's worker ``name`` (its first by default), recorded as they
-    run; a first token (decided on the prefill's logits) is recomputed from
-    a prefill of its prompt when asked for."""
+    """Yields the ``Gaps`` of the engine's worker ``name`` (its first by
+    default), recorded from its decode steps while the block runs; the
+    worker's own ``decode_pool`` is back in place after it."""
     name = next(iter(eng.workers)) if name is None else name
     w = eng.workers[name]
     plain_pool = w.decode_pool
-    prompts = {uid: p for uid, p, _ in reqs}
-
-    class Gaps(dict):
-        def __missing__(self, key):
-            uid, i = key
-            if i != 0:
-                return None, None
-            lg, _ = w.prefill_one(prompts[uid])
-            return decision_gaps(torch, lg, [eng._stream_key(name, uid)], [0], temperature)[0]
-
-    gaps = Gaps()
+    gaps = Gaps(torch, eng, name, {uid: p for uid, p, _ in reqs}, temperature)
 
     def recorded(cache, tokens, pos, enc_len=None):
         nt, logits, cache = plain_pool(cache, tokens, pos, enc_len=enc_len)
@@ -1572,17 +1702,22 @@ def record_gaps(torch, eng, reqs, temperature, name=None):
         return nt, logits, cache
 
     w.decode_pool = recorded
-    return gaps
+    try:
+        yield gaps
+    finally:
+        del w.decode_pool  # the method of the worker's class again
 
 
-def token_check(label, spec_out, plain_out, gaps, exact, report_only=False):
+def token_check(label, spec_out, plain_out, gaps, exact, report_only=False,
+                names=("spec", "plain")):
     """Spec tokens against the plain run's per uid: identical, or (unless
     ``exact``) apart only from the first divergence on, where the plain
     run's decision had a top-2 gap within MODEL_TOL_BF16 of its largest
     |logit| (a near-tie that the verify's and the step's rounding may
     split); ``report_only`` prints each divergence and its gap without
-    failing (where spec and plain tokens may rightly differ). Returns the
-    number of uids that diverged."""
+    failing (where spec and plain tokens may rightly differ); ``names``
+    are the two runs' names in the printout. Returns the number of uids
+    that diverged."""
     spec = {r.uid: [int(t) for t in r.tokens] for r in spec_out}
     plain = {r.uid: [int(t) for t in r.tokens] for r in plain_out}
     if sorted(spec) != sorted(plain):
@@ -1595,11 +1730,11 @@ def token_check(label, spec_out, plain_out, gaps, exact, report_only=False):
             continue
         diverged += 1
         gap, scale = gaps[(uid, i)]
-        log(f"{label}: uid {uid} diverges at token {i} ({b[i]} plain, {a[i]} spec); "
-            f"plain top-2 gap {gap} at largest |logit| {scale}")
+        log(f"{label}: uid {uid} diverges at token {i} ({b[i]} {names[1]}, {a[i]} "
+            f"{names[0]}); {names[1]} top-2 gap {gap} at largest |logit| {scale}")
         if not report_only and (exact or gap is None or gap > MODEL_TOL_BF16 * scale):
             raise SmokeFailure(f"{label}: uid {uid} diverges at token {i} "
-                               f"(plain top-2 gap {gap}, largest |logit| {scale})")
+                               f"({names[1]} top-2 gap {gap}, largest |logit| {scale})")
     log(f"{label}: tokens identical for {len(plain) - diverged} of {len(plain)} uids")
     return diverged
 
@@ -1649,8 +1784,8 @@ def spec_pair(torch, report, label, cfg, params, draft, calib, reqs, trace, temp
     gaps recorded) and with it; checks each run and the tokens
     (``token_check``). Returns (spec engine, summaries)."""
     plain = spec_engine(cfg, params, None, calib, max_slots, max_len)
-    gaps = record_gaps(torch, plain, reqs, temperature)
-    p_out, p_launch, p_wall, p_peak = spec_run(torch, plain, reqs, trace, temperature)
+    with record_gaps(torch, plain, reqs, temperature) as gaps:
+        p_out, p_launch, p_wall, p_peak = spec_run(torch, plain, reqs, trace, temperature)
     spec_checks(f"{label} plain", plain, p_out, p_launch, len(reqs), reqs[0][2])
     eng = spec_engine(cfg, params, draft, calib, max_slots, max_len)
     out, launches, wall, peak = spec_run(torch, eng, reqs, trace, temperature)
@@ -1956,6 +2091,252 @@ def phase_encdec_hybrid(torch, report):
         raise SmokeFailure(f"encdec_hybrid: the ledger lacks events {missing}")
 
 
+def timed_on_card(torch, call):
+    """(call(), wall s, peak device bytes), the card synchronised around the
+    call and its peak reset just before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def bucketed_engine(mode, params, scheduled=True, names=None, max_slots=None):
+    """A ``ServingEngine(mode=...)`` over BUCKETED's models (``params``:
+    name -> (cfg, weights), shared between engines), under a fresh
+    ``AdaOperScheduler`` calibrated as the scheduled phase's or FIFO, with
+    BUCKETED's requests queued bucket by bucket: per model, half of them
+    at each prompt length, uids k·requests + i for the k-th model."""
+    import numpy as np
+
+    from repro_torch.launch.serve import make_scheduler
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.slots import Request
+    b = BUCKETED
+    names = names or b["names"]
+    sched = (make_scheduler([params[n][0] for n in names], max(b["prompt_lens"]), b["max_new"],
+                            b["workload"], b["seed"]) if scheduled else None)
+    eng = ServingEngine(scheduler=sched, mode=mode, max_slots=max_slots or b["max_slots"])
+    for k, name in enumerate(b["names"]):
+        if name not in names:
+            continue
+        cfg, weights = params[name]
+        eng.add_model(name, cfg, weights, max_len=b["max_len"])
+        rng = np.random.default_rng(b["seed"] + k)
+        per = b["requests"] // len(b["prompt_lens"])
+        for i in range(b["requests"]):
+            plen = b["prompt_lens"][i // per]
+            eng.submit(name, Request(uid=k * b["requests"] + i, max_new_tokens=b["max_new"],
+                                     prompt=rng.integers(1, cfg.vocab_size, plen,
+                                                         dtype=np.int32)))
+    return eng
+
+
+def bucketed_run(torch, eng, temperature=0.0):
+    """Serve every queued request (``run_all``) with the launch counts set to
+    0 just before. Returns (responses, launches, summary)."""
+    (out, wall, peak), launches = drive(timed_on_card, torch=torch,
+                                        call=lambda: eng.run_all(temperature=temperature))
+    summary = {"mode": eng.mode, "temperature": temperature, "requests": len(out),
+               "tokens": int(sum(len(r.tokens) for r in out)), "wall_s": wall,
+               "peak_mem_bytes": peak, "launches": launches,
+               "calls": {n: {"prefill": w.prefill_calls, "decode": w.decode_calls}
+                         for n, w in eng.workers.items()}}
+    if eng.mode == "bucketed":  # the batch of each step, chosen by the scheduler (or FIFO)
+        summary["batches"] = {n: [s["batch"] for s in eng.stats[n]] for n in eng.workers}
+    else:
+        summary["prefill_batches"] = eng.prefill_batches
+        summary["admission_reasons"] = dict(collections.Counter(
+            r["reason"] for r in eng.admission.log))
+    return out, launches, summary
+
+
+def recorded_run(torch, eng, temperature=0.0):
+    """Serve every queued request of a continuous engine, untimed, with each
+    model's decision gaps recorded. Returns (responses, name -> Gaps)."""
+    with contextlib.ExitStack() as recording:
+        gaps = {name: recording.enter_context(record_gaps(
+                    torch, eng, [(r.uid, r.prompt, r.max_new_tokens) for r in eng.queues[name]],
+                    temperature, name))
+                for name in eng.workers}
+        out = eng.run_all(temperature=temperature)
+    return out, gaps
+
+
+def bucketed_checks(label, eng, out, launches):
+    """Every request answered with its token count; flash, decode and the SSD
+    scan launched as the workers' passes imply, each at least once."""
+    check_responses(label, eng, out, BUCKETED["requests"] * len(eng.workers), BUCKETED["max_new"])
+    ssm = [w for w in eng.workers.values() if "ssd" in w.cfg.layer_kinds()]
+    want = dict(attention_launches_expected(eng),
+                ssd_scan=sum(w.cfg.num_layers * w.prefill_calls for w in ssm))
+    need = ("flash_attention", "decode_attention") + (("ssd_scan",) if ssm else ())
+    if launches != want or min(launches[k] for k in need) == 0:
+        raise SmokeFailure(f"{label}: kernel launches {launches}, expected {want}")
+
+
+def phase_bucketed(torch, report):
+    """The position-synchronous path (``ServingEngine(mode="bucketed")``):
+    BUCKETED's three models at their full configs in bf16 under the AdaOper
+    scheduler, then the same requests in continuous mode on the same
+    weights (tokens identical per uid, or apart only from a printed
+    near-tie of the continuous run's logits, whose gaps an untimed rerun of
+    the continuous engine records); then one model FIFO at temperature 0.8
+    in both modes, whose tokens must be identical (the same per-request
+    streams, the same batches: one bucket of 4 at a time)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import init_params
+    b = BUCKETED
+    params = {n: (get_config(n), init_params(get_config(n), b["seed"], "cuda"))
+              for n in b["names"]}
+    res, outs = {}, {}
+    for mode in ("bucketed", "continuous"):
+        eng = bucketed_engine(mode, params)
+        out, launches, summary = bucketed_run(torch, eng, 0.0)
+        bucketed_checks(f"bucketed {mode}", eng, out, launches)
+        log(f"bucketed {mode}: {json.dumps(summary)}")
+        res[mode], outs[mode] = summary, out
+        if mode == "bucketed":
+            report["launches_bucketed"] = launches
+        del eng
+    recorded, gaps = recorded_run(torch, bucketed_engine("continuous", params))
+
+    def of(run, k):  # the k-th model's responses
+        return [r for r in run if r.uid // b["requests"] == k]
+    diverged = {}
+    for k, name in enumerate(b["names"]):
+        token_check(f"bucketed {name} continuous rerun", of(outs["continuous"], k),
+                    of(recorded, k), gaps[name], exact=False, names=("continuous", "rerun"))
+        diverged[name] = token_check(f"bucketed {name} greedy", of(outs["bucketed"], k),
+                                     of(recorded, k), gaps[name], exact=False,
+                                     names=("bucketed", "continuous"))
+    del recorded, gaps
+    # sampled: one model FIFO, a continuous pool of 4 slots so that each
+    # admission takes one whole bucket, as the bucketed step does; no gaps
+    # are recorded, since any divergence fails
+    name = b["sampled"]
+    sampled = {}
+    for mode in ("bucketed", "continuous"):
+        eng = bucketed_engine(mode, params, scheduled=False, names=(name,), max_slots=4)
+        out, launches, summary = bucketed_run(torch, eng, b["temperature"])
+        bucketed_checks(f"bucketed {name} sampled {mode}", eng, out, launches)
+        log(f"bucketed {name} sampled {mode}: {json.dumps(summary)}")
+        sampled[mode] = (out, summary)
+        del eng
+    diverged[f"{name} sampled"] = token_check(
+        f"bucketed {name} sampled", sampled["bucketed"][0], sampled["continuous"][0],
+        collections.defaultdict(lambda: (None, None)), exact=True,
+        names=("bucketed", "continuous"))
+    report["bucketed"] = {"greedy": res, "sampled": {m: v[1] for m, v in sampled.items()},
+                          "uids_diverged": diverged}
+
+
+def fleet_arm(torch, population, params, scenario, uncertainty):
+    """One fleet replay of FLEET's population under ``scenario``, the
+    assistant served by the full model in ``params`` on the card, through
+    ``FleetReplay(backend="serving")``; with the launch counts set to 0
+    just before. Returns (replay, report, launches, wall s, peak bytes);
+    the replay's ``device_replays`` hold each device's engine."""
+    from repro_torch.fleet import FleetReplay
+    from repro_torch.fleet.workloads import ASSISTANT
+    f = FLEET
+    rep = FleetReplay(population, scenario=scenario, duration_s=f["duration_s"], seed=f["seed"],
+                      calib_samples=f["calib_samples"], backend="serving",
+                      uncertainty=uncertainty,
+                      risk_level=f["risk_level"] if uncertainty else None,
+                      serving_models={ASSISTANT: params}, max_slots=f["max_slots"])
+    (out, wall, peak), launches = drive(timed_on_card, torch=torch, call=rep.run)
+    return rep, out, launches, wall, peak
+
+
+FLEET_COUNTERS = ("faults", "recoveries", "fault_replans", "op_retries", "aborted", "rejected",
+                  "shed", "deadline_requeues", "deadline_misses", "deadline_evictions",
+                  "admission_denials", "interval_repartitions", "battery_dead")
+
+
+def fleet_summary(rep, out, launches, wall, peak):
+    """Per arm: simulated energy per request, SLO attainment and virtual
+    latency percentiles, interval coverage and width, the fault, shed and
+    deadline counters, each device's arrivals, and the card's wall,
+    memory and launches."""
+    fl = out.fleet
+    return {
+        "scenario": out.scenario, "devices": fl["n_devices"], "requests": fl["n_requests"],
+        "arrivals": [len(rep.device_trace(i)) for i in range(len(out.devices))],
+        "simulated_energy_per_request_j (DeviceSim phone rails, not the card's)":
+            fl["energy_per_request_j"],
+        "slo_attainment": fl["slo_attainment"], "virtual_latency_s": fl["latency_s"],
+        "interval_coverage": fl.get("interval_coverage"),
+        "interval_width_j_mean": fl.get("interval_width_j_mean"),
+        "counters": {k: fl["counters"].get(k, 0) for k in FLEET_COUNTERS},
+        "wall_s": wall, "peak_mem_bytes": peak, "launches": launches}
+
+
+def fleet_launch_check(label, launches, devices):
+    """Flash and decode launched, as often as the devices' engines' passes
+    imply (no SSD or MLA launch: the assistant is a dense GQA model); each
+    engine's pool has the decode shape that the kernels phase checks."""
+    want = collections.Counter()
+    for dr in devices:
+        want.update(attention_launches_expected(dr.engine))
+        shapes = {(dr.engine.max_slots, w.max_len) for w in dr.engine.workers.values()}
+        if shapes != {(FLEET["max_slots"], FLEET["max_len"])}:
+            raise SmokeFailure(f"{label}: device engine pools (slots, max_len) {shapes}")
+    want = {k: want.get(k, 0) for k in launches}
+    if launches != want or min(launches["flash_attention"], launches["decode_attention"]) == 0:
+        raise SmokeFailure(f"{label}: kernel launches {launches}, expected {want}")
+
+
+def phase_fleet(torch, report):
+    """The fleet replay (``repro_torch.fleet``): FLEET's population of
+    simulated phones, each running the AdaOper closed loop, under the
+    chaos_mixed schedule with the uncertainty layer and risk-aware
+    admission, the assistant served token by token by full tinyllama-1.1b
+    in bf16 on the card beside vision and AR frames on one virtual
+    timeline; twice, and the two reports must be equal (virtual time).
+    Every arrival is a record or a rejection, faults and recoveries were
+    injected, interval coverage is reported, flash and decode launched.
+    Then one arm under mixed traffic with point estimates. The joules are
+    DeviceSim's simulated phone rails, not the card's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.fleet import sample_population
+    from repro_torch.models.model import init_params
+    f = FLEET
+    cfg = get_config(f["assistant"])
+    params = (cfg, init_params(cfg, f["seed"], "cuda"))
+    population = sample_population(f["devices"], seed=f["population_seed"])
+    runs = []
+    for i in range(2):
+        rep, out, launches, wall, peak = fleet_arm(torch, population, params, f["scenario"], True)
+        summary = fleet_summary(rep, out, launches, wall, peak)
+        log(f"fleet {f['scenario']} run {i + 1}: {json.dumps(summary)}")
+        fleet_launch_check(f"fleet {f['scenario']} run {i + 1}", launches, rep.device_replays)
+        runs.append((rep, out, summary))
+    rep, out, summary = runs[0]
+    if out.to_dict() != runs[1][1].to_dict():
+        raise SmokeFailure("fleet: the two runs of one replay gave different reports")
+    for i, d in enumerate(out.devices):
+        got = d.n_requests + d.counters.get("rejected", 0) + d.counters.get("aborted", 0)
+        if got != summary["arrivals"][i]:
+            raise SmokeFailure(f"fleet: device {d.device} accounts for {got} of "
+                               f"{summary['arrivals'][i]} arrivals")
+    c = out.fleet["counters"]
+    if not (c.get("faults") and c.get("recoveries")) or "interval_coverage" not in out.fleet:
+        raise SmokeFailure(f"fleet: faults {c.get('faults')}, recoveries "
+                           f"{c.get('recoveries')}, interval coverage "
+                           f"{out.fleet.get('interval_coverage')}")
+    report["launches_fleet"] = summary["launches"]
+    rep2, out2, launches2, wall2, peak2 = fleet_arm(torch, population, params, f["baseline"],
+                                                    False)
+    base = fleet_summary(rep2, out2, launches2, wall2, peak2)
+    log(f"fleet {f['baseline']} (point estimates): {json.dumps(base)}")
+    fleet_launch_check(f"fleet {f['baseline']}", launches2, rep2.device_replays)
+    if "interval_coverage" in out2.fleet:
+        raise SmokeFailure("fleet: a point-estimate replay reported interval coverage")
+    report["fleet"] = {f["scenario"]: [r[2] for r in runs], f["baseline"]: base}
+
+
 @contextlib.contextmanager
 def model_spans(torch):
     """Profiler ranges over each worker's prefill and decode passes (``pass
@@ -1987,6 +2368,43 @@ def model_spans(torch):
 def is_span(name):
     """Whether ``name`` is one of ``model_spans``' ranges."""
     return name.startswith("pass ") or name == "mamba1"
+
+
+def phase_profile_bucketed(torch, report):
+    """The bucketed phase's bucketed-mode serve, profiled warm."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import init_params
+    params = {n: (get_config(n), init_params(get_config(n), BUCKETED["seed"], "cuda"))
+              for n in BUCKETED["names"]}
+    profile_workload(torch, report, "profile_bucketed",
+                     lambda: bucketed_engine("bucketed", params), spans=model_spans)
+
+
+def phase_profile_fleet(torch, report):
+    """The fleet phase's chaos replay, profiled warm, with the device and
+    host time under the assistant's model passes (``pass assistant-llm``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.fleet import sample_population
+    from repro_torch.models.model import init_params
+    f = FLEET
+    cfg = get_config(f["assistant"])
+    params = (cfg, init_params(cfg, f["seed"], "cuda"))
+    population = sample_population(f["devices"], seed=f["population_seed"])
+
+    class FleetRun:
+        """``profile_workload``'s engine: ``run_all`` replays the chaos arm;
+        ``workers`` are then every device engine's workers."""
+        spec = {}
+
+        def __init__(self):
+            self.workers = {}
+
+        def run_all(self):
+            devices = fleet_arm(torch, population, params, f["scenario"], True)[0].device_replays
+            self.workers = {(i, n): w for i, dr in enumerate(devices)
+                            for n, w in dr.engine.workers.items()}
+
+    profile_workload(torch, report, "profile_fleet", FleetRun, spans=model_spans)
 
 
 def phase_profile_encdec_hybrid(torch, report):
@@ -2121,9 +2539,11 @@ def profile_workload(torch, report, key, build, spans=None):
         for evt in prof.events():
             if evt.device_type == torch.autograd.DeviceType.CPU and is_span(evt.name):
                 us = getattr(evt, "device_time_total", None)
-                row = span_ms.setdefault(evt.name, {"calls": 0, "device_ms": 0.0})
+                row = span_ms.setdefault(evt.name, {"calls": 0, "device_ms": 0.0,
+                                                    "host_ms": 0.0})
                 row["calls"] += 1
                 row["device_ms"] += (evt.cuda_time_total if us is None else us) * 1e-3
+                row["host_ms"] += evt.cpu_time_total * 1e-3
         out["spans"] = span_ms
     report[key] = out
     log(f"{key}:", json.dumps(out))
@@ -2144,7 +2564,7 @@ def kernels_line(report):
             if (r["model"], r["B"], r["S"]) == LINE_ROWS[r["kernel"]] and "shape" not in r}
     paths = {p: report.get(f"launches_{p}", {})
              for p in ("scheduled", "joint", "spec", "spec_deepseek", "archs", "archs_fifo",
-                       "encdec_hybrid")}
+                       "encdec_hybrid", "bucketed", "fleet")}
     paths = {"serve": report.get("launches", {}), **paths}
     out = []
     for name, (src, replaces) in SOURCES.items():
@@ -2179,8 +2599,10 @@ def main(argv=None):
     fns = {"device": phase_device, "kernels": phase_kernels, "times": phase_times,
            "parity": phase_parity, "serve": phase_serve, "scheduled": phase_scheduled,
            "joint": phase_joint, "spec": phase_spec, "archs": phase_archs,
-           "encdec_hybrid": phase_encdec_hybrid,
+           "encdec_hybrid": phase_encdec_hybrid, "bucketed": phase_bucketed,
+           "fleet": phase_fleet,
            "profile_encdec_hybrid": phase_profile_encdec_hybrid,
+           "profile_bucketed": phase_profile_bucketed, "profile_fleet": phase_profile_fleet,
            "profile": phase_profile,
            "profile_scheduled": phase_profile_scheduled, "profile_spec": phase_profile_spec,
            "profile_archs": phase_profile_archs,

@@ -10,8 +10,10 @@ Drives concurrent DNN tasks on the device simulator:
   4. periodically (or on large drift) re-plan fully.
 
 A copy of ``repro.core.controller``, the paper's own system: all numpy, no
-device. Without an uncertainty model on the profiler (the layer is not
-ported; see ROADMAP.md) drift is the fixed ``drift_threshold`` hysteresis.
+device. Without an uncertainty model on the profiler drift is the fixed
+``drift_threshold`` hysteresis; with one (``repro_torch.uncertainty``) an
+op whose observation leaves its calibrated interval triggers the
+repartition.
 """
 from __future__ import annotations
 

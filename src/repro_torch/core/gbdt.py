@@ -1,6 +1,6 @@
 """Gradient-Boosted Decision Trees (regression), from scratch in numpy — a
-copy of ``repro.core.gbdt`` (the spread ensemble waits with the uncertainty
-layer, see ROADMAP.md).
+copy of ``repro.core.gbdt``, the seeded spread ensemble (``fit_ensemble``)
+of the uncertainty layer included.
 
 AdaOper's offline energy model: squared-loss boosting over histogram-binned
 features (quantile bins, exact greedy split on bins). Small and fast enough
@@ -177,3 +177,27 @@ class GBDTRegressor:
     def score_rmse(self, X, y) -> float:
         p = self.predict(X)
         return float(np.sqrt(np.mean((p - np.asarray(y)) ** 2)))
+
+
+# seed stride between ensemble members: prime, so member subsample streams
+# never alias each other (or a neighbouring profiler's base models)
+_MEMBER_SEED_STRIDE = 7919
+
+
+def fit_ensemble(X: np.ndarray, y: np.ndarray, n_members: int = 4,
+                 seed: int = 0, n_estimators: int = 60,
+                 subsample: float = 0.7, **kwargs) -> List[GBDTRegressor]:
+    """Seeded diversity ensemble for spread-based uncertainty.
+
+    Members share the training data but draw independent boosting-subsample
+    streams (distinct seeds, aggressive ``subsample``), so their predictive
+    *spread* tracks where the data pins the cost surface down and where it
+    does not — the heteroscedastic scale ``sigma(x)`` the conformal layer
+    (``repro_torch.uncertainty``) calibrates into honest intervals. Fewer, shorter
+    boosters than the point model: the spread, not each member's accuracy,
+    is the product.
+    """
+    return [GBDTRegressor(n_estimators=n_estimators, subsample=subsample,
+                          seed=seed + _MEMBER_SEED_STRIDE * (i + 1),
+                          **kwargs).fit(X, y)
+            for i in range(n_members)]

@@ -7,8 +7,9 @@ recent feedback window and predicts a log-space correction to the GBDT
 energy estimate, tracking dynamics the offline model cannot (governor
 moves, thermal, contention bursts).
 
-A copy of ``repro.core.profiler``. The uncertainty layer (quantile/conformal
-intervals) waits (see ROADMAP.md): ``attach_uncertainty`` raises.
+A copy of ``repro.core.profiler``, the uncertainty hooks included
+(``attach_uncertainty``, ``predict_plan_interval``, the intervals fed from
+``feedback_batch``).
 """
 from __future__ import annotations
 
@@ -141,16 +142,27 @@ class RuntimeEnergyProfiler:
         # of the feedback history). Caches key on it for invalidation.
         self._version = 0
         self.table_cache = CostTableCache(max_entries=table_cache_entries)
-        # the quantile/conformal layer's slot: always None until the
-        # uncertainty layer is ported, which keeps every prediction, cache
-        # key and feedback path the reference's inert default
+        # optional quantile/conformal layer (repro_torch.uncertainty), duck-typed
+        # like the fault injector: None (the default) keeps every prediction,
+        # cache key and feedback path bit-identical with zero extra model
+        # evaluations
         self.uncertainty = None
 
     def attach_uncertainty(self, model) -> "RuntimeEnergyProfiler":
-        raise NotImplementedError(
-            "the uncertainty layer is not ported to repro_torch yet (see ROADMAP.md)")
+        """Attach an :class:`repro_torch.uncertainty.UncertaintyModel` (or any
+        duck-type with ``fit`` / ``observe_batch`` / ``interval_*`` /
+        ``calibration_version``). Attach *before* ``offline_calibrate`` so
+        the spread ensembles fit on the same calibration trace."""
+        self.uncertainty = model
+        return self
 
     def correction_version(self) -> int:
+        # calibration_version is monotone, so the sum stays a valid
+        # monotone cache stamp; a conformal recalibration that moves the
+        # interval widths invalidates cost tables and plans exactly like a
+        # GRU correction or a refit does
+        if self.uncertainty is not None:
+            return self._version + self.uncertainty.calibration_version()
         return self._version
 
     # ------------------------------------------------------------------
@@ -187,6 +199,9 @@ class RuntimeEnergyProfiler:
         X = np.stack(X)
         self.energy_model.fit(X, np.array(ye))
         self.latency_model.fit(X, np.array(yt))
+        if self.uncertainty is not None:
+            # spread ensembles fit on the very trace the point models saw
+            self.uncertainty.fit(X, np.array(ye), np.array(yt))
         self._calibrated = True
         self._version += 1  # refit invalidates any cached cost tables
         return self
@@ -254,6 +269,11 @@ class RuntimeEnergyProfiler:
             def batch_cols(self, ops, counts, alphas, prevs):
                 return prof.predict_batch_cols(ops, counts, alphas, prevs, obs_state)
 
+            def plan_interval(self, graph, alphas):
+                """Calibrated (latency, energy) plan interval, or None
+                without an attached uncertainty model (the inert default)."""
+                return prof.predict_plan_interval(graph, alphas, obs_state)
+
         return _Fn()
 
     def predict_graph(self, graph: OpGraph, plan, obs_state) -> Tuple[float, float]:
@@ -267,6 +287,33 @@ class RuntimeEnergyProfiler:
             graph.nodes[:len(alphas)], alphas, prevs, obs_state,
             static_block=graph.static_feature_matrix()[:len(alphas)]))
         return float(lat.sum()), float(en.sum())
+
+    def predict_plan_interval(self, graph: OpGraph, alphas, obs_state):
+        """Calibrated prediction interval for executing ``alphas`` on
+        ``graph`` under the observed state: per-op intervals centered on the
+        corrected point prediction, summed (a conservative union bound —
+        the plan is outside its interval only if the op-level calibration
+        genuinely broke). Returns ``{"latency": (lo, hi), "energy":
+        (lo, hi)}`` or None when no uncertainty model is attached."""
+        unc = self.uncertainty
+        if unc is None or not unc.fitted():
+            return None
+        alphas = np.asarray(alphas, np.float64)
+        if len(alphas) == 0:
+            return None
+        prevs = np.empty_like(alphas)
+        prevs[0] = alphas[0]
+        prevs[1:] = alphas[:-1]
+        X = op_features_batch(
+            graph.nodes[:len(alphas)], alphas, prevs, obs_state,
+            static_block=graph.static_feature_matrix()[:len(alphas)])
+        lat, en = self._predict_xy(X)
+        bucket = state_bucket(obs_state)
+        classes = [op.op_type for op in graph.nodes[:len(alphas)]]
+        lo_e, hi_e, _ = unc.interval_energy(X, en, bucket, classes)
+        lo_t, hi_t, _ = unc.interval_latency(X, lat, bucket, classes)
+        return {"latency": (float(lo_t.sum()), float(hi_t.sum())),
+                "energy": (float(lo_e.sum()), float(hi_e.sum()))}
 
     def take_interval_outside(self):
         """Per-op outside-interval mask of the last ``feedback_batch`` (the
@@ -311,6 +358,15 @@ class RuntimeEnergyProfiler:
         gb_t = self.latency_model.predict(X)
         ce, ct = self._corrections()
         drift = np.abs(np.asarray(observed_ens) - gb_e * ce) / np.maximum(gb_e * ce, 1e-12)
+        if self.uncertainty is not None:
+            # prequential interval accounting + online conformal update,
+            # centered on the same corrected predictions decisions use;
+            # keyed per (state bucket, op class) so each operator class
+            # calibrates its own quantile
+            self.uncertainty.observe_batch(
+                X, gb_t * ct, gb_e * ce, observed_lats, observed_ens,
+                bucket=state_bucket(obs_state),
+                op_classes=[op.op_type for op in ops])
         for j in range(len(items)):
             self._record(X[j], float(gb_e[j]), float(gb_t[j]),
                          float(observed_lats[j]), float(observed_ens[j]))

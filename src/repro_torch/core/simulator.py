@@ -1,6 +1,6 @@
 """Device-dynamics + energy ground-truth simulator (a copy of
-``repro.core.simulator``; the fault injector that drives its fault hooks
-waits, see ROADMAP.md).
+``repro.core.simulator``; ``repro_torch.faults.injector`` drives its fault
+hooks).
 
 Stands in for the phone's power rails (the paper instruments a Xiaomi 9 /
 Snapdragon 855): two heterogeneous processor classes (CPU big-cluster, GPU)

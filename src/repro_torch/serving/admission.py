@@ -8,8 +8,9 @@ approves, then prefill the approved set in bucketed same-shape batches.
 They operate *on* a ``ServingEngine`` so the engine module stays pure
 orchestration. ``AdmissionPolicy.spec_decision`` prices a speculative round
 against the plain step it replaces, and ``prefill_group`` warms an
-attached draft's cache beside the target's. Risk-aware pricing (the
-uncertainty layer) waits (see ROADMAP.md).
+attached draft's cache beside the target's. With a ``risk_level`` both
+price plans at a quantile of their calibrated intervals (the uncertainty
+layer, ``repro_torch.uncertainty``).
 """
 from __future__ import annotations
 
@@ -39,16 +40,33 @@ class AdmissionPolicy:
     is admitted (FIFO)."""
 
     def __init__(self, scheduler: Optional[AdaOperScheduler] = None,
-                 slo_s: Optional[float] = None, edp_slack: float = 1.05):
+                 slo_s: Optional[float] = None, edp_slack: float = 1.05,
+                 risk_level: Optional[float] = None):
         self.scheduler = scheduler
         self.slo_s = slo_s
         self.edp_slack = edp_slack
+        # risk-aware admission: 0..1 position between the point prediction
+        # and the calibrated upper interval bound at which latency/energy
+        # are priced. None (default) keeps the point-estimate arithmetic;
+        # plans without a stamped interval fall back to the point value too
+        self.risk_level = risk_level
         self.log: List[dict] = []
         # speculation pricing decisions, kept apart from the admission log
         # so denial counts stay request-scoped
         self.spec_log: List[dict] = []
         # engine-attached ledger: denials are counted at the source
         self.ledger = None
+
+    def _risk(self, plan: dict, which: str) -> float:
+        """Latency ("latency") or energy ("energy") of one decode step at
+        the configured risk level."""
+        point = plan["step_latency" if which == "latency" else "step_energy"]
+        if self.risk_level is None:
+            return point
+        iv = plan.get("interval")
+        if iv is None:
+            return point
+        return point + self.risk_level * (iv[which][1] - point)
 
     def decide(self, cfg, n_active: int, seq_len: int, max_new: int,
                wait_s: float, plan_fn=None) -> Tuple[bool, str]:
@@ -65,11 +83,15 @@ class AdmissionPolicy:
         cur = plan_fn(n_active)
         new = plan_fn(n_active + 1)
         # per-request EDP of one decode step: latency is shared by the actual
-        # batch, energy scales ~linearly with the plan's (bucketed) batch
-        edp_cur = (cur["step_latency"] / n_active) * (cur["step_energy"] / cur["batch"])
-        edp_new = ((new["step_latency"] / (n_active + 1))
-                   * (new["step_energy"] / new["batch"]))
-        if self.slo_s is not None and new["step_latency"] * max_new > self.slo_s:
+        # batch, energy scales ~linearly with the plan's (bucketed) batch.
+        # With a risk level set, both sides are priced at the same upper
+        # quantile; the SLO check prices the risk-adjusted latency, so a
+        # wide (uncertain) interval admits more conservatively
+        edp_cur = ((self._risk(cur, "latency") / n_active)
+                   * (self._risk(cur, "energy") / cur["batch"]))
+        edp_new = ((self._risk(new, "latency") / (n_active + 1))
+                   * (self._risk(new, "energy") / new["batch"]))
+        if self.slo_s is not None and self._risk(new, "latency") * max_new > self.slo_s:
             return False, "slo-violation"
         if edp_new <= edp_cur * self.edp_slack:
             return True, "edp-improves"
@@ -90,12 +112,13 @@ class AdmissionPolicy:
         positions but verify energy does not
         (``planning.SPEC_VERIFY_MARGINAL_*``), so a latency win can still
         lose on EDP; those rounds fall back to the plain step. Both sides
-        are priced at the plans' point estimates."""
+        are priced at the configured ``risk_level`` quantile, as admission
+        prices them."""
         if self.scheduler is None:
             return True, "no-scheduler"
-        lat_b, en_b = base["step_latency"], base["step_energy"]
-        lat_s, en_s = planning.spec_round_cost(lat_b, en_b, draft["step_latency"],
-                                               draft["step_energy"], k)
+        lat_b, en_b = self._risk(base, "latency"), self._risk(base, "energy")
+        lat_s, en_s = planning.spec_round_cost(lat_b, en_b, self._risk(draft, "latency"),
+                                               self._risk(draft, "energy"), k)
         tau = planning.expected_tokens(alpha, k)
         edp_spec = (lat_s / tau) * (en_s / (tau * base["batch"]))
         edp_base = lat_b * (en_b / base["batch"])
@@ -107,12 +130,12 @@ class AdmissionPolicy:
 def ssm_prompt_bucketed(eng, w: ModelWorker) -> bool:
     """True when ``w``'s admission groups key on the pow2 prompt-length
     bucket instead of the exact length: pure-SSM stacks with batched
-    prefill (no encoder) — the pad-safe scan makes a LEFT-padded, masked
-    bucket prefill match an exact-length prefill, so mixed-length
-    admissions share one prefill. Attention stacks keep exact-length
-    grouping (padding would
-    corrupt their KV caches)."""
-    if not eng.batch_prefill or w.cfg.is_encoder_decoder:
+    prefill (no encoder) under ``eng.ssm_prompt_buckets`` — the pad-safe
+    scan makes a LEFT-padded, masked bucket prefill match an exact-length
+    prefill, so mixed-length admissions share one prefill. Attention stacks
+    keep exact-length grouping (padding would corrupt their KV caches)."""
+    if (not eng.ssm_prompt_buckets or not eng.batch_prefill
+            or w.cfg.is_encoder_decoder):
         return False
     kinds = w.cfg.layer_kinds()
     return bool(kinds) and all(k in ("mamba", "ssd") for k in kinds)

@@ -1,5 +1,11 @@
-"""Concurrent serving engine with AdaOper energy-aware scheduling, continuous
-mode — the counterpart of ``repro.serving.engine.ServingEngine``.
+"""Concurrent serving engine with AdaOper energy-aware scheduling — the
+counterpart of ``repro.serving.engine.ServingEngine``.
+
+Two serving modes: ``continuous`` (default, iteration-level scheduling,
+below) and ``bucketed`` (the position-synchronous reference path,
+``serving.bucketed``: ``step`` serves one equal-prompt-length batch of a
+queue through ``ModelWorker.generate``; ``run_all`` repeats it until the
+queues drain; it never speculates).
 
 Several models share the engine. Each round (``_serve_round``) declares the
 co-execution level to the device simulator, runs the drift check once,
@@ -23,7 +29,12 @@ simulator's predictions for a mobile SoC (``core.simulator``), not the
 energy the serving device draws. ``scheduler=None`` is FIFO admission with
 an engine-private ledger of ``request`` events.
 
-Not ported yet (it raises; see ROADMAP.md): ``mode="bucketed"``.
+The uncertainty knobs keep the reference's inert defaults: ``risk_level``
+prices admission and speculation at a quantile of the plans' calibrated
+intervals (``AdmissionPolicy``), ``legacy_drift`` pins the fixed drift
+hysteresis when the profiler carries an uncertainty model
+(``planning.drift_event``), ``ssm_prompt_buckets`` lets pure-SSM stacks
+admit pow2 prompt-length buckets (``admission.ssm_prompt_bucketed``).
 """
 from __future__ import annotations
 
@@ -36,24 +47,28 @@ from repro_torch.core.telemetry import EnergyLedger
 from repro_torch.serving import admission as adm
 from repro_torch.serving import decoding, planning, robustness, sampling, speculative
 from repro_torch.serving.admission import AdmissionPolicy
+from repro_torch.serving.bucketed import step_bucketed
 from repro_torch.serving.scheduler import AdaOperScheduler
 from repro_torch.serving.slots import Request, Response, _ActiveSeq, _SlotPool
 from repro_torch.serving.workers import ModelWorker
 from repro_torch.sharding.context import ExecContext
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet (see ROADMAP.md)")
-
-
 class ServingEngine:
+    """``mode="continuous"`` (default) serves at token granularity;
+    ``mode="bucketed"`` keeps the position-synchronous reference path."""
+
     def __init__(self, scheduler: Optional[AdaOperScheduler] = None,
                  mode: str = "continuous", max_slots: int = 8,
                  slo_s: Optional[float] = None, sampling_seed: int = 0,
                  batch_prefill: bool = True, max_retries: int = 1,
-                 deadline_backoff: float = 1.5, shed_below_priority: int = 1):
-        if mode != "continuous":
-            raise _not_ported(f"serving mode {mode!r}")
+                 deadline_backoff: float = 1.5, shed_below_priority: int = 1,
+                 risk_level: Optional[float] = None,
+                 legacy_drift: bool = False, ssm_prompt_buckets: bool = True):
+        if mode not in ("continuous", "bucketed"):
+            raise ValueError(f"unknown serving mode {mode!r}; choose from "
+                             "('continuous', 'bucketed')")
+        self.mode = mode
         self.workers: Dict[str, ModelWorker] = {}
         self.queues: Dict[str, List[Request]] = {}
         self.scheduler = scheduler
@@ -67,8 +82,10 @@ class ServingEngine:
         # telemetry spine: the simulator's ledger when a scheduler is attached
         self.ledger: EnergyLedger = (scheduler.sim.ledger if scheduler is not None
                                      else EnergyLedger())
-        self.admission = AdmissionPolicy(scheduler, slo_s=slo_s)
+        self.admission = AdmissionPolicy(scheduler, slo_s=slo_s, risk_level=risk_level)
         self.admission.ledger = self.ledger
+        self.legacy_drift = legacy_drift
+        self.ssm_prompt_buckets = ssm_prompt_buckets
         self.pools: Dict[str, _SlotPool] = {}
         # speculative decoding state per target model; empty unless
         # add_model was given a draft
@@ -109,6 +126,10 @@ class ServingEngine:
                 seq.rng = self._stream_key(model, seq.req.uid)
         return sampling.sample_batch(seqs, logits, temperature)
 
+    def _row_keys(self, model: str, reqs: List[Request]) -> List[int]:
+        """The per-request streams of a bucketed batch, row by row."""
+        return [self._stream_key(model, r.uid) for r in reqs]
+
     def add_model(self, name, cfg, params, max_len=512, ctx=ExecContext(),
                   priority: int = 0, max_enc_len: Optional[int] = None, draft=None,
                   spec=None):
@@ -130,6 +151,11 @@ class ServingEngine:
         if req.t_submit == 0.0:
             req.t_submit = self._now()
         self.queues[model].append(req)
+
+    def step(self, model: str, temperature: float = 0.0) -> List[Response]:
+        """Serve one batch from ``model``'s queue (same-length bucket), the
+        position-synchronous reference path (``serving.bucketed``)."""
+        return step_bucketed(self, model, temperature)
 
     # drift-scoped plan memoisation lives in repro_torch.serving.planning
 
@@ -229,7 +255,14 @@ class ServingEngine:
     def run_all(self, temperature: float = 0.0) -> List[Response]:
         """Rounds over the busy models until every queue drains (the paper's
         concurrent-DNN workload), interleaved at token granularity under the
-        declared co-execution level."""
+        declared co-execution level; in bucketed mode, one ``step`` per
+        model in turn."""
+        if self.mode == "bucketed":
+            out = []
+            while any(self.queues.values()):
+                for m in list(self.workers):
+                    out.extend(self.step(m, temperature))
+            return out
         out: List[Response] = []
         while True:
             busy = [m for m in self.workers if self._busy(m)]
@@ -248,10 +281,10 @@ class ServingEngine:
         *predicted* prefill/decode latencies; idle gaps jump to the next
         arrival while the simulator relaxes and drains at the leakage floor.
         Latencies are deterministic simulated seconds measured from arrival
-        (queueing included). Requires a scheduler."""
-        if self.scheduler is None:
-            raise ValueError("run_trace requires a scheduler (the virtual clock "
-                             "advances by predicted step latencies)")
+        (queueing included). Requires continuous mode and a scheduler."""
+        if self.mode != "continuous" or self.scheduler is None:
+            raise ValueError("run_trace requires mode='continuous' and a scheduler (the "
+                             "virtual clock advances by predicted step latencies)")
         items = sorted(((float(t), m, r) for t, m, r in arrivals), key=lambda it: it[0])
         unknown = {m for _, m, _ in items} - set(self.workers)
         if unknown:

@@ -16,8 +16,9 @@ admission log and ledger match the JAX engine's. The speculative round is
 priced here too (``spec_round_cost``, ``expected_tokens``) from the
 target's step plan and the draft's own plans (``spec_plan_for``,
 ``draft_prefill_plan_for``), memoised beside the step plans so a drift
-event invalidates them with everything else. The uncertainty layer's
-interval-exit drift check waits (see ROADMAP.md).
+event invalidates them with everything else. With an uncertainty model on
+the profiler the fixed hysteresis gives way to the interval-exit check
+(``_interval_exit``).
 """
 from __future__ import annotations
 
@@ -125,11 +126,37 @@ def prefill_plan_for(eng, model: str, batch: int, prompt_len: int):
     return plan
 
 
+def _interval_exit(eng, obs) -> bool:
+    """Re-price each memoised decode plan's alphas under the current
+    observed state: the plan drifted when the fresh point prediction
+    escapes the calibrated interval the plan was stamped with — a
+    per-device, per-plan replacement for the fixed state hysteresis (wide
+    intervals tolerate more state movement than confident ones)."""
+    prof = eng.scheduler.profiler
+    for plan in eng._plan_memo.values():
+        iv, rc = plan.get("interval"), plan.get("recheck")
+        if iv is None or rc is None:
+            continue
+        graph, alphas = rc
+        _, en = prof.predict_graph(graph, alphas, obs)
+        lo, hi = iv["energy"]
+        if en < lo or en > hi:
+            return True
+    return False
+
+
 def drift_event(eng) -> bool:
     """Compare the observed device state / profiler version / fault epoch
     against the last planning reference; on a drift event the step-plan
     memo is invalidated and the ledger's ``engine_drift_events`` counter
-    bumps."""
+    bumps.
+
+    With an uncertainty model attached to the profiler (and the engine not
+    pinned to ``legacy_drift``), the fixed state hysteresis is replaced by
+    the calibrated-interval check: a drift event fires when re-pricing a
+    memoised plan under the current state escapes the interval it was
+    stamped with (counted as ``interval_repartitions``), or on the usual
+    correction-version / fault-epoch moves."""
     sch = eng.scheduler
     obs = sch.sim.observe()
     ver = sch.profiler.correction_version()
@@ -139,15 +166,22 @@ def drift_event(eng) -> bool:
     if ref is None:
         return False
     robs, rver, repoch = ref
-    event = (ver != rver
-             or epoch != repoch
-             or abs(obs.cpu_f - robs.cpu_f) > DRIFT_CPU_F
-             or abs(obs.gpu_f - robs.gpu_f) > DRIFT_GPU_F
-             or abs(obs.cpu_bg - robs.cpu_bg) > DRIFT_BG
-             or abs(obs.gpu_bg - robs.gpu_bg) > DRIFT_BG)
+    interval_exit = False
+    if sch.profiler.uncertainty is not None and not eng.legacy_drift:
+        interval_exit = ver == rver and epoch == repoch and _interval_exit(eng, obs)
+        event = ver != rver or epoch != repoch or interval_exit
+    else:
+        event = (ver != rver
+                 or epoch != repoch
+                 or abs(obs.cpu_f - robs.cpu_f) > DRIFT_CPU_F
+                 or abs(obs.gpu_f - robs.gpu_f) > DRIFT_GPU_F
+                 or abs(obs.cpu_bg - robs.cpu_bg) > DRIFT_BG
+                 or abs(obs.gpu_bg - robs.gpu_bg) > DRIFT_BG)
     if event:
         eng.drift_events += 1
         eng.ledger.count("engine_drift_events")
+        if interval_exit:
+            eng.ledger.count("interval_repartitions")
         eng._plan_memo.clear()
     else:
         eng._drift_ref = ref  # keep the reference until a real move

@@ -11,8 +11,9 @@ physics, so the engine can attribute predicted joules per rail in the
 telemetry ledger (``repro_torch.core.telemetry``). The joules are the
 simulator's mobile-SoC model, not the energy of the device the models run
 on. With a ``CoexecPlanner`` (``coexec=``) and two or more busy models, every
-DP solve prices contention with the co-runners (``core.coexec``); the
-uncertainty layer's plan intervals wait (see ROADMAP.md).
+DP solve prices contention with the co-runners (``core.coexec``). With an
+uncertainty model on the profiler (``repro_torch.uncertainty``) every fresh
+plan is stamped with its calibrated (latency, energy) interval.
 """
 from __future__ import annotations
 
@@ -144,7 +145,8 @@ class AdaOperScheduler:
     def _plan_one(self, cfg, b: int, seq: int, kind: str, cost_fn, cache_key):
         """One cached DP solve for a (batch, seq, kind) graph, stamped on a
         fresh solve with ``rail_fractions`` — the simulator's per-rail
-        energy shares of the planned split — for ledger attribution.
+        energy shares of the planned split — for ledger attribution — and,
+        with an uncertainty model attached, with its calibrated interval.
 
         With joint planning active (>= 2 resident workers and a coexec
         planner) the DP is solved against the contention-priced cost model
@@ -175,6 +177,14 @@ class AdaOperScheduler:
             ent = pinned_partition(g, cost_fn, pinned)
         ent.rail_fractions = (self.sim.rail_fractions(g, ent.alphas)
                               if hasattr(self.sim, "rail_fractions") else None)
+        # risk-aware serving: the plan's calibrated (latency, energy)
+        # interval, which admission prices at an upper quantile and the
+        # engine re-checks for an interval exit. None (no uncertainty model
+        # attached, or a bare cost callable) is the inert default
+        ent.interval = (cost_fn.plan_interval(g, ent.alphas)
+                        if getattr(self.profiler, "uncertainty", None) is not None
+                        and hasattr(cost_fn, "plan_interval") else None)
+        ent.graph = g
         self._plan_cache[key] = ent
         while len(self._plan_cache) > self.plan_cache_size:
             self._plan_cache.popitem(last=False)
@@ -195,10 +205,16 @@ class AdaOperScheduler:
         b = self._new_bucket(batch)
         seq = self._len_bucket(seq_len) + self._new_bucket(max_new)
         plan_dec = self._plan_one(cfg, b, seq, "decode", cost_fn, cache_key)
-        return {"batch": b,
-                "step_latency": plan_dec.pred_latency,
-                "step_energy": plan_dec.pred_energy,
-                "rails": plan_dec.rail_fractions}
+        out = {"batch": b,
+               "step_latency": plan_dec.pred_latency,
+               "step_energy": plan_dec.pred_energy,
+               "rails": plan_dec.rail_fractions}
+        if getattr(plan_dec, "interval", None) is not None:
+            # the interval and the (graph, alphas) the engine re-prices to
+            # detect an interval exit; absent on the point-estimate path
+            out["interval"] = plan_dec.interval
+            out["recheck"] = (plan_dec.graph, plan_dec.alphas)
+        return out
 
     def prefill_plan(self, cfg, batch: int, seq_len: int):
         """Cached prefill plan for an admission (batch is pow2-bucketed)."""
@@ -208,8 +224,11 @@ class AdaOperScheduler:
         b = self._new_bucket(batch)
         plan = self._plan_one(cfg, b, self._len_bucket(seq_len), "prefill",
                               cost_fn, cache_key)
-        return {"batch": b, "latency": plan.pred_latency,
-                "energy": plan.pred_energy, "rails": plan.rail_fractions}
+        out = {"batch": b, "latency": plan.pred_latency,
+               "energy": plan.pred_energy, "rails": plan.rail_fractions}
+        if getattr(plan, "interval", None) is not None:
+            out["interval"] = plan.interval
+        return out
 
     def choose(self, cfg, n_waiting: int, prompt_len: int, max_new: int):
         """The EDP-minimising (batch, prefill plan, decode plan) for

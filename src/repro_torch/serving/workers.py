@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import model as model_lib
+from repro_torch.serving.sampling import _sample_rows
 from repro_torch.sharding.context import ExecContext
 
 
@@ -61,32 +62,51 @@ class ModelWorker:
         return logits[:, -1], cache
 
     @torch.no_grad()
-    def generate(self, prompts: np.ndarray, max_new: int, temperature: float = 0.0,
-                 seed: int = 0, enc_inputs=None) -> np.ndarray:
-        """prompts (B, S) equal-length. Greedy (T=0) or sampled decode (one
-        generator seeded by ``seed``, shared across rows). ``enc_inputs``
-        (B, T_frames, d_model) for encoder-decoder models: the reference
-        path's cross cache holds exactly T_frames, unmasked."""
+    def generate(self, prompts: np.ndarray, max_new: int, enc_inputs=None,
+                 temperature: float = 0.0, seed: int = 0, row_keys=None,
+                 pad_mask=None) -> np.ndarray:
+        """prompts (B, S) equal-length: one prefill, then ``max_new - 1``
+        position-synchronous decode steps. Greedy (T=0) or sampled decode.
+
+        ``row_keys`` (B,) per-request streams (``sampling.stream_key``):
+        token i of row b is token i of stream ``row_keys[b]``, the draw the
+        continuous engine makes for that request, so both serving modes
+        emit identical sampled tokens. ``None`` keeps one generator seeded
+        by ``seed``, shared across rows.
+
+        ``enc_inputs`` (B, T_frames, d_model) for encoder-decoder models:
+        the cross cache holds exactly T_frames, unmasked. ``pad_mask`` (B,
+        S) bool marks the valid tokens of LEFT-padded prompts bucketed to a
+        shared length — pure-SSM stacks only (the scan passes masked
+        positions through untouched)."""
         B, S = prompts.shape
+        if pad_mask is not None and self.cfg.is_encoder_decoder:
+            raise ValueError("pad_mask is only supported for pure-SSM stacks, not "
+                             "encoder-decoder models")
         frames = self._frames(enc_inputs)
         cache = model_lib.init_cache(self.cfg, B, self.max_len, self.device,
                                      enc_len=0 if frames is None else frames.shape[1])
-        logits, cache = self._prefill(cache, self._ids(prompts), enc_inputs=frames)
+        mask = None if pad_mask is None else torch.as_tensor(np.asarray(pad_mask),
+                                                             device=self.device)
+        logits, cache = self._prefill(cache, self._ids(prompts), mask, frames)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         out = np.zeros((B, max_new), np.int32)
-        tok = self._pick(logits, temperature, gen)
+        tok = self._pick(logits, temperature, gen, row_keys, 0)
         for i in range(max_new):
             out[:, i] = tok[:, 0].cpu().numpy()
             if i == max_new - 1:
                 break
             logits, cache = self._decode(cache, tok, S + i)
-            tok = self._pick(logits, temperature, gen)
+            tok = self._pick(logits, temperature, gen, row_keys, i + 1)
         return out
 
     @staticmethod
-    def _pick(logits, temperature, gen):
+    def _pick(logits, temperature, gen, row_keys=None, token_idx=0):
         if temperature <= 0.0:
             return logits.argmax(dim=-1, keepdim=True)
+        if row_keys is not None:
+            toks = _sample_rows(row_keys, [token_idx] * len(row_keys), logits, temperature)
+            return torch.as_tensor(toks, device=logits.device).long()[:, None]
         probs = torch.softmax(logits / temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=gen)
 

@@ -184,8 +184,9 @@ def test_gru_corrector_matches_jax_on_carried_weights():
 
 def test_profiler_feedback_moves_the_version_and_the_correction(profilers):
     """Feedback through the GRU bumps the correction version (the plan
-    caches' key) and, after training, moves predictions; the uncertainty
-    layer is not ported and says so."""
+    caches' key) and, after training, moves predictions; an attached
+    uncertainty model's calibration version folds into the correction
+    version."""
     tp, _ = profilers
     prof = profiler.RuntimeEnergyProfiler(seed=0)
     prof.energy_model, prof.latency_model = tp.energy_model, tp.latency_model
@@ -198,5 +199,8 @@ def test_profiler_feedback_moves_the_version_and_the_correction(profilers):
     assert prof.correction_version() == v0 + len(items)
     assert prof.predict(g.nodes[1], 0.5, 0.5, s) != before
     assert isinstance(prof.gru_e.cell, torch.nn.Module)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        prof.attach_uncertainty(object())
+    class Calibrated:  # the duck type attach_uncertainty takes
+        def calibration_version(self):
+            return 5
+    assert prof.attach_uncertainty(Calibrated()) is prof
+    assert prof.correction_version() == v0 + len(items) + 5

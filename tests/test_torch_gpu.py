@@ -522,3 +522,82 @@ def test_mamba1_prefill_and_decode_on_card_match_the_cpu():
             outs.append([t.cpu() for t in (y, step, conv, h)])
     for a, b in zip(*outs):
         _close(b, a, "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-2b", "mamba2-2.7b"])
+def test_generate_on_card_equals_plain_kernels(arch):
+    """``ModelWorker.generate`` (the bucketed path) at full width cut to 2
+    layers, fp32: through the kernels and through their plain versions on
+    the card, greedy and sampled with per-request streams, the same tokens;
+    the kernels launched once per attention (or SSD) layer per pass."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import exact_fp32
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import sampling
+    from repro_torch.serving.workers import ModelWorker
+    from repro_torch.sharding.context import ExecContext
+    dev = _card()
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32",
+                              param_dtype="float32")
+    params = init_params(cfg, 0, dev)
+    prompts = np.random.default_rng(1).integers(1, cfg.vocab_size, (4, 37), dtype=np.int32)
+    keys = [sampling.stream_key(0, arch, uid) for uid in range(4)]
+    wrappers = (fmod.flash_attention, dmod.decode_attention, smod.ssd_scan)
+    for temperature, row_keys in ((0.0, None), (0.8, keys)):
+        out = {}
+        with exact_fp32():
+            for impl in ("plain", None):
+                w = ModelWorker(arch, cfg, params, max_len=64, ctx=ExecContext(attn_impl=impl))
+                before = [x.launches for x in wrappers]
+                out[impl] = w.generate(prompts, 6, temperature=temperature, row_keys=row_keys)
+                launched = [x.launches - b for x, b in zip(wrappers, before)]
+        np.testing.assert_array_equal(out[None], out["plain"])
+        if "ssd" in cfg.layer_kinds():
+            assert launched == [0, 0, 2 * w.prefill_calls]
+        else:
+            assert launched == [2 * w.prefill_calls, 2 * w.decode_calls, 0]
+            assert w.decode_calls == 5
+
+
+@pytest.mark.gpu
+def test_fleet_serving_replay_on_card_equals_plain_kernels_and_cpu():
+    """A one-device ``FleetReplay(backend="serving")`` with tinyllama-1.1b at
+    full width cut to 2 layers, fp32, as the assistant: on the card through
+    the kernels, on the card through their plain versions
+    (``ExecContext(attn_impl="plain")``) and on the CPU. Exact fp32: the
+    assistant's tokens per uid are equal between the two card runs, and all
+    three reports are equal (virtual time); the kernels launched only in
+    the kernel run."""
+    import copy
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.fleet import FleetReplay, sample_population
+    from repro_torch.fleet.workloads import ASSISTANT
+    from repro_torch.kernels.flash_attention import exact_fp32
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding.context import ExecContext
+    dev = _card()
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=2, dtype="float32",
+                              param_dtype="float32")
+    cpu = init_params(cfg, 0, "cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    reports, tokens = {}, {}
+    with exact_fp32():
+        for run, params, ctx in (("kernels", card, None), ("plain", card, ExecContext(attn_impl="plain")),
+                                 ("cpu", cpu, None)):
+            before = (fmod.flash_attention.launches, dmod.decode_attention.launches)
+            rep = FleetReplay(
+                sample_population(1, seed=0), scenario="chaos_mixed", duration_s=3.0, seed=5,
+                calib_samples=60, backend="serving", uncertainty=True, risk_level=0.9,
+                serving_models={ASSISTANT: (cfg, params)}, serving_ctx=ctx)
+            reports[run] = rep.run().to_dict()
+            launched = (fmod.flash_attention.launches - before[0],
+                        dmod.decode_attention.launches - before[1])
+            assert (min(launched) > 0) == (run == "kernels")
+            tokens[run] = {r.uid: r.tokens.tolist() for r in rep.device_replays[0].responses
+                           if r.error is None}
+    assert tokens["kernels"] and sum(map(len, tokens["kernels"].values())) > len(tokens["kernels"])
+    assert tokens["kernels"] == tokens["plain"]
+    assert reports["kernels"] == reports["plain"] == reports["cpu"]
+    assert reports["kernels"]["fleet"]["counters"]["faults"] > 0

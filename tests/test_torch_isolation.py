@@ -41,7 +41,10 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert "repro_torch.serving.speculative" in got["modules"]
     assert "repro_torch.launch.serve" in got["modules"]
     for name in ("core.controller", "core.coexec", "core.baselines", "configs.yolo_v2_tiny",
-                 "configs.seamless_m4t_medium", "configs.jamba_v0_1_52b"):
+                 "configs.seamless_m4t_medium", "configs.jamba_v0_1_52b",
+                 "uncertainty", "uncertainty.conformal", "uncertainty.model", "faults.plan",
+                 "faults.injector", "serving.bucketed", "fleet", "fleet.replay",
+                 "fleet.workloads", "fleet.population", "fleet.report"):
         assert f"repro_torch.{name}" in got["modules"]
 
 
@@ -55,12 +58,17 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                                     "repro_torch.configs.deepseek_v2_lite_16b",
                                     "repro_torch.models.ssm", "repro_torch.models.model",
                                     "repro_torch.configs.seamless_m4t_medium",
-                                    "repro_torch.configs.jamba_v0_1_52b"])
+                                    "repro_torch.configs.jamba_v0_1_52b",
+                                    "repro_torch.uncertainty", "repro_torch.faults",
+                                    "repro_torch.faults.plan", "repro_torch.faults.injector",
+                                    "repro_torch.serving.bucketed", "repro_torch.fleet",
+                                    "repro_torch.fleet.replay"])
 def test_scheduled_path_modules_load_no_jax_and_no_repro(module):
     """Each module of the scheduled, speculative and joint-planning paths, of
-    the closed loop, of the MoE layer and of the encoder-decoder and hybrid
-    path (Mamba1, the encoder, the two configs), imported alone in a fresh
-    process."""
+    the closed loop, of the MoE layer, of the encoder-decoder and hybrid
+    path (Mamba1, the encoder, the two configs), of the uncertainty layer,
+    the fault plans and injector, the bucketed mode and the fleet replay,
+    imported alone in a fresh process."""
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module({module!r})\n"

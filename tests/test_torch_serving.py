@@ -144,8 +144,18 @@ def test_deadline_miss_ends_in_an_error_response(models):
 
 
 def test_unported_paths_raise_naming_the_roadmap():
+    # the bucketed mode is ported (tests/test_torch_bucketed.py); an unknown
+    # mode is refused as the reference refuses it
+    assert ServingEngine(mode="bucketed").mode == "bucketed"
+    with pytest.raises(ValueError, match="unknown serving mode"):
+        ServingEngine(mode="pipelined")
+    # sharded serving is not: a fleet replay given a mesh context says so
+    from repro_torch.fleet import DeviceReplay, sample_population
+
+    class MeshCtx:
+        mesh = object()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServingEngine(mode="bucketed")
+        DeviceReplay(sample_population(1)[0], {}, backend="serving", serving_ctx=MeshCtx())
     # joint planning is ported (tests/test_torch_coexec.py): coexec= is accepted
     planner = CoexecPlanner()
     assert AdaOperScheduler(RuntimeEnergyProfiler(), DeviceSim(), coexec=planner).coexec is planner
