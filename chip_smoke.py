@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases kernels,archs  # the kernels and the serves of the new archs
     python3 chip_smoke.py --phases kernels,encdec_hybrid  # + seamless-m4t and jamba in one engine
     python3 chip_smoke.py --phases kernels,bucketed,fleet  # + the bucketed mode and the fleet replay
+    python3 chip_smoke.py --phases kimi,mesh1,shard2  # kimi-k2, a mesh of one, two ranks
 
 Phases:
   1. device     the card's name and count, its power limit from nvidia-smi,
@@ -29,7 +30,13 @@ Phases:
                 slots x 64 positions (one split) with free slots, the
                 bucketed decode at one shared position per batch and the
                 continuous pool's, flash at the fleet's short prompts and at
-                the buckets, the SSD scan at the buckets' exact lengths
+                the buckets, the SSD scan at the buckets' exact lengths;
+                then kimi-k2's head dim 112 (64 on 8 heads, and one rank's
+                32 on 4): flash bf16 and fp32 at the prefill (B 8, S 512),
+                the tile edges (S 1, 17, 100) and the verify (8 slots x T
+                5), decode (G = 8) at 8 slots x 2048, 4 x 64 (one split),
+                a parked slot and a slot of kv_len 0, with the error of
+                output columns 0-63 and 64-111 printed apart
   3. parity     each model at full width, cut to 2 layers, fp32 and bf16:
                 prefill (mamba2: a masked pow2 bucket) and 8 ragged decode
                 steps through the kernels and through the plain versions
@@ -38,7 +45,9 @@ Phases:
                 router disagreement must sit at a printed near-tie; also
                 seamless-m4t-medium (2 encoder + 2 decoder layers, per-row
                 encoder lengths) and jamba-v0.1-52b cut to (mamba, mamba,
-                attn), its second Mamba1 layer carrying the MoE
+                attn), its second Mamba1 layer carrying the MoE; and
+                kimi-k2-1t-a32b at full width, 1 layer, bf16 only (its
+                router's top-8 flips among 384 experts held to ROUTER_TIE)
   4. serve      the FIFO path: tinyllama-1.1b and gemma2-2b at their full
                 configs served concurrently by one continuous engine; every
                 attention kernel must have launched there
@@ -123,7 +132,35 @@ Phases:
                 the card's), SLO attainment, virtual latency percentiles,
                 interval coverage and width, the fault, shed and deadline
                 counters, the wall time and the launches
- 12. times      CUDA-event device times of each kernel, its plain version
+ 12. kimi       kimi-k2-1t-a32b at full width cut to 1 of its 61 layers
+                (36.1 GiB in bf16) through ``launch.serve``, FIFO: 8
+                requests of 64-512 tokens, 16 new tokens, 8 slots of 1024;
+                every request completes, flash launched once per prefill
+                pass and decode once per pass; then warm on the same
+                weights (tokens identical), and once more with the MoE's
+                drops counted and each decision's top-2 logit gap and
+                deciding row recorded; the prefill logits of a (4, 128)
+                batch; and the same recorded run at a drop-free capacity
+                (the shard2 phase's witness). It prints the peak memory,
+                the warm wall and the MoE drop share
+ 13. mesh1      a (1, 1) mesh (``launch.mesh.make_debug_mesh``) against no
+                mesh: full tinyllama-1.1b scheduled through
+                ``launch.serve``, continuous and bucketed, and kimi-k2 (1
+                layer, full width) FIFO: tokens, ledger joules and launches
+                identical, sharded dims in the shard report
+ 14. shard2     two ranks on the one card (``launch.sharded.run_ranks``,
+                spawned, gloo over CUDA tensors): a probe of the
+                collectives, then full tinyllama-1.1b in fp32 (greedy tokens
+                equal to the unsharded run's, logits' largest difference
+                printed) and kimi-k2 at full width, 1 layer, bf16, each rank
+                192 experts and 32 on 4 heads: prefill logits within bf16
+                rounding of the kimi phase's (its experts replayed), and
+                tokens against its recorded runs, each difference
+                explained at its own row (a near-tie gap or router flip)
+                or, at the serve's capacity, in its own pass; the
+                drop-free witness allows only the former; each rank's peak
+                memory and launches
+ 15. times      CUDA-event device times of each kernel, its plain version
                 and one PyTorch library call (a yardstick only), beside the
                 bound; for the attention kernels and the library call also
                 the wall time per call back to back (host enqueue included);
@@ -132,7 +169,9 @@ Phases:
                 SSD scan also at the scheduled
                 serve's (B, S) (``SSD_SERVE``, and any other this run's
                 scheduled phase gave it); flash and decode at the
-                encdec_hybrid serve's seamless and jamba shapes
+                encdec_hybrid serve's seamless and jamba shapes, and at
+                kimi-k2's (64 on 8 and 32 on 4 heads, D 112), with the
+                launches of the kimi phase's serve
   profile       (only when asked for) the serve phase's run again, warm:
                 its untraced wall time, then under torch.profiler the device
                 time by kernel and the device's idle share of the wall time
@@ -181,7 +220,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "kernels", "parity", "serve", "scheduled", "joint", "spec", "archs",
-          "encdec_hybrid", "bucketed", "fleet", "times")
+          "encdec_hybrid", "bucketed", "fleet", "kimi", "mesh1", "shard2", "times")
 EXTRA = ("profile", "profile_scheduled", "profile_spec", "profile_archs",
          "profile_spec_deepseek", "mla_parts", "profile_encdec_hybrid", "profile_bucketed",
          "profile_fleet")  # only when asked for
@@ -254,6 +293,23 @@ JAMBA_PARITY = ("mamba", "mamba", "attn")
 ARCHS_SCHEDULED = dict(SCHEDULED, names=("deepseek-v2-lite-16b", "qwen2-7b"))
 ARCHS_FIFO = dict(SCHEDULED, names=("granite-3-8b", "chameleon-34b"), scheduler=False,
                   layers={"chameleon-34b": 8})
+# kimi-k2-1t-a32b: 64 q heads on 8 kv heads of 112 (G = 8), and one rank's
+# 32 on 4 at a model axis of 2; the kimi phase serves it at full width cut
+# to 1 of its 61 layers (36.1 GiB in bf16), FIFO, at the serve's shapes
+KIMI_ARCH = "kimi-k2-1t-a32b"
+KIMI = dict(H=64, Hkv=8, D=112, softcap=None)
+KIMI_RANK = dict(H=32, Hkv=4, D=112, softcap=None)
+KIMI_SERVE = dict(SERVE, names=(KIMI_ARCH,), layers={KIMI_ARCH: 1})
+# the mesh1 phase: full tinyllama-1.1b scheduled, on a (1, 1) mesh and on none
+MESH1 = dict(SCHEDULED, names=("tinyllama-1.1b",))
+# the shard2 phase: two ranks on the one card (gloo over CUDA tensors),
+# full tinyllama-1.1b in fp32 at the serve's shapes, then kimi as the
+# kimi phase serves it; LOGIT_PROMPTS: the batch whose prefill logits the
+# fp32 arm compares; the ranks' time limit
+SHARD2 = dict(world=2, tiny="tinyllama-1.1b", logit_prompts=(4, 128), timeout=420.0)
+# the batch whose prefill logits the shard2 phase holds against the
+# unsharded kimi's, with the unsharded run's experts replayed
+KIMI_LOGIT_PROMPTS = (4, 128)
 # a router top-k flip between the kernel and plain runs of the bf16 parity
 # (the MoE layer's input differs by the attention kernels' rounding) is
 # allowed only where the plain run's k-th and (k+1)-th router logits lie
@@ -485,7 +541,7 @@ def phase_kernels(torch, report):
     from repro_torch.kernels import ssd_scan as smod
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}, "mla_attention": {}}
-    verify_errs = {}
+    verify_errs, kimi_errs = {}, {}
     misses = []
 
     def compare(kernel, case, dtype, out, ref, tols=TOL):
@@ -549,9 +605,16 @@ def phase_kernels(torch, report):
         for case, (y, h), (ry, rh) in ssd_edge_cases(torch, gen, smod, dtype):
             compare("ssd_scan", f"{case} {dtype} y", dtype, y, ry, SSD_TOL)
             compare("ssd_scan", f"{case} {dtype} state", torch.float32, h, rh, SSD_TOL)
+        for kernel, case, out, ref in kimi_cases(torch, gen, fmod, dmod, dtype):
+            compare(kernel, f"{case} {dtype}", dtype, out, ref)
+            key = f"{kernel} {str(dtype).split('.')[-1]}"
+            for cols, part in (("0-63", slice(0, 64)), ("64-111", slice(64, 112))):
+                e = float((out[..., part].float() - ref[..., part].float()).abs().max())
+                kimi_errs[f"{key} cols {cols}"] = max(kimi_errs.get(f"{key} cols {cols}", 0.0), e)
     torch.cuda.synchronize()
     report["errors"] = errs
     log("kernel vs plain, max abs err:", json.dumps(errs))
+    log("kimi-k2 head dim 112, max abs err by output columns:", json.dumps(kimi_errs))
     log("flash at verify shapes, max abs err:", json.dumps(verify_errs))
     log("MLA verify rows bit for bit equal to decode steps at the same positions: "
         f"{not any('verify row' in m for m in misses)}")
@@ -617,6 +680,44 @@ def decode_edge_cases(torch, gen, dmod, dtype):
                 kw = dict(q_offset=pos, kv_len=pos + 1, window=window, softcap=softcap)
                 yield (f"G={G} D={D} Smax={Smax} split={L} w={window} cap={softcap}",
                        dmod.decode_attention(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw))
+
+
+def kimi_cases(torch, gen, fmod, dmod, dtype):
+    """(kernel, case, kernel output, plain output) at kimi-k2's head dim 112,
+    for its 64 on 8 heads and for one rank's 32 on 4 at a model axis of 2:
+    flash causal at the serve's prefill (B 8, S 512) and at the tile edges
+    (S 1, 17, 100), flash at the verify's 8 slots x T 5 against a 1024-entry
+    cache (``verify_offsets``); decode (G = 8) at 8 slots x 2048 with
+    per-row kv_len (DECODE_POS), at 4 slots x 64 (one split), with a free
+    slot parked at Smax, and with a slot that keeps no key (kv_len 0)."""
+    for name, hd in (("kimi", KIMI), ("kimi rank", KIMI_RANK)):
+        H, Hkv, D = hd["H"], hd["Hkv"], hd["D"]
+
+        def flash(case, B, Sq, Sk, **kw):
+            q, k, v = qkv(torch, gen, B, Sq, Sk, H, Hkv, D, dtype)
+            return ("flash_attention", f"{name} {case}", fmod.flash_attention(q, k, v, **kw),
+                    fmod.flash_attention_plain(q, k, v, **kw))
+
+        def decode(case, pos_list, Smax, kv_len=None):
+            B = len(pos_list)
+            pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+            kl = pos + 1 if kv_len is None else torch.tensor(kv_len, dtype=torch.int32,
+                                                             device="cuda")
+            q, _, _ = qkv(torch, gen, B, 1, 1, H, Hkv, D, dtype)
+            _, k, v = qkv(torch, gen, B, 1, Smax, H, Hkv, D, dtype)
+            kw = dict(q_offset=pos, kv_len=kl)
+            return ("decode_attention", f"{name} {case} Smax={Smax} pos={pos_list}",
+                    dmod.decode_attention(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw))
+
+        yield flash("prefill B=8 S=512", 8, 512, 512, causal=True)
+        for S in (1, 17, 100):
+            yield flash(f"prefill B=2 S={S}", 2, S, S, causal=True)
+        offs = torch.tensor(verify_offsets(1024, 5), dtype=torch.int32, device="cuda")
+        yield flash("verify 8 slots T=5", 8, 5, 1024, causal=True, q_offset=offs)
+        yield decode("8 slots", list(DECODE_POS), 2048)
+        yield decode("4 slots, one split", [0, 17, 40, 63], 64)
+        yield decode("4 slots, a free slot parked", [0, 17, 63, 64], 64)
+        yield decode("4 slots, kv_len 0", [0, 17, 40, 63], 64, kv_len=[0, 18, 41, 64])
 
 
 def mla_inputs(torch, gen, B, T, Smax, dtype, shared=True):
@@ -946,6 +1047,7 @@ def phase_times(torch, report):
                                  torch, lambda: sdpa(q, k, v, attn_mask=mask))))
     rows += arch_times(torch, gen, flush, sdpa)
     rows += encdec_hybrid_times(torch, gen, flush, sdpa)
+    rows += kimi_times(torch, gen, flush, sdpa, report.get("launches_kimi", {}))
     from repro_torch.kernels import ssd_scan as smod
     serve_shapes = [(B, S) for B, S, _ in SSD_SERVE] + sorted(report.get("ssd_calls", {}))
     for B, S in dict.fromkeys([(8, 512), (1, 512)] + serve_shapes):
@@ -1002,7 +1104,8 @@ def phase_mla_parts(torch, report):
 PARITY_ARCHS = ("tinyllama-1.1b", "gemma2-2b", "qwen2-7b", "chameleon-34b",
                 "deepseek-v2-lite-16b", "seamless-m4t-medium", "jamba-v0.1-52b")
 # each arch's cut in the parity phase (2 layers unless named here)
-PARITY_CUTS = {"seamless-m4t-medium": dict(num_layers=2, num_encoder_layers=2),
+PARITY_CUTS = {KIMI_ARCH: dict(num_layers=1),
+               "seamless-m4t-medium": dict(num_layers=2, num_encoder_layers=2),
                "jamba-v0.1-52b": dict(num_layers=len(JAMBA_PARITY), layer_pattern=JAMBA_PARITY)}
 PARITY_FRAMES = (100, 257, 500)  # seamless's encoder lengths in the parity phase
 
@@ -1070,6 +1173,61 @@ def encdec_hybrid_times(torch, gen, flush, sdpa):
             lambda: sdpa(q, k, v, is_causal=True),
             flash_bound(B, 512, jb["H"], jb["Hkv"], jb["D"], None, "bfloat16", 2),
             shape="prefill"))
+    return rows
+
+
+def kimi_times(torch, gen, flush, sdpa, launches):
+    """kimi-k2's kernel shapes at head dim 112, bf16, for its 64 on 8 heads
+    and one rank's 32 on 4: flash at the serve's prefill (B 8, S 512) and
+    at the verify's 8 slots x T 5 (VERIFY_POS, a 1024-entry cache), decode
+    at 8 slots x 2048 (DECODE_POS); each beside its plain version, its
+    bound and SDPA (a bool mask for the verify and the decode), with the
+    kernel's launches in the kimi phase's serve (``launches``)."""
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    bf16, rows = torch.bfloat16, []
+    for name, hd in (("kimi", KIMI), ("kimi rank", KIMI_RANK)):
+        H, Hkv, D = hd["H"], hd["Hkv"], hd["D"]
+        per_serve = {k: launches.get(k) for k in ("flash_attention", "decode_attention")}
+        if name != "kimi":  # a rank's launches are counted in the shard2 phase
+            per_serve = {}
+        B, S = 8, 512
+        q, k, v = qkv(torch, gen, B, S, S, H, Hkv, D, bf16)
+        rows.append(time_row(
+            torch, flush, "flash_attention", name, B, S,
+            lambda: fmod.flash_attention(q, k, v, causal=True),
+            lambda: fmod.flash_attention_plain(q, k, v, causal=True),
+            lambda: sdpa(q, k, v, is_causal=True),
+            flash_bound(B, S, H, Hkv, D, None, "bfloat16", 2), shape="prefill",
+            launches_per_serve=per_serve.get("flash_attention")))
+        T, Smax = 5, 1024
+        pos = torch.tensor(VERIFY_POS, dtype=torch.int32, device="cuda")
+        q, _, _ = qkv(torch, gen, len(VERIFY_POS), T, 1, H, Hkv, D, bf16)
+        _, k, v = qkv(torch, gen, len(VERIFY_POS), 1, Smax, H, Hkv, D, bf16)
+        qpos = pos[:, None] + torch.arange(T, device="cuda")
+        mask = (torch.arange(Smax, device="cuda") <= qpos[..., None])[:, None]
+        kw = dict(causal=True, q_offset=pos)
+        rows.append(time_row(
+            torch, flush, "flash_attention", name, len(VERIFY_POS), Smax,
+            lambda: fmod.flash_attention(q, k, v, **kw),
+            lambda: fmod.flash_attention_plain(q, k, v, **kw),
+            lambda: sdpa(q, k, v, attn_mask=mask),
+            verify_bound(VERIFY_POS, T, Smax, H, Hkv, D, None, "bfloat16", 2), T=T,
+            shape="verify"))
+        Smax = 2048
+        pos_list = list(DECODE_POS)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+        q, _, _ = qkv(torch, gen, len(pos_list), 1, 1, H, Hkv, D, bf16)
+        _, k, v = qkv(torch, gen, len(pos_list), 1, Smax, H, Hkv, D, bf16)
+        mask = (torch.arange(Smax, device="cuda")[None, :] <= pos[:, None])[:, None, None]
+        kw = dict(q_offset=pos, kv_len=pos + 1)
+        rows.append(time_row(
+            torch, flush, "decode_attention", name, len(pos_list), Smax,
+            lambda: dmod.decode_attention(q, k, v, **kw),
+            lambda: dmod.decode_attention_plain(q, k, v, **kw),
+            lambda: sdpa(q, k, v, attn_mask=mask),
+            decode_bound(pos_list, Smax, H, Hkv, D, None, "bfloat16", 2), shape="decode",
+            launches_per_serve=per_serve.get("decode_attention")))
     return rows
 
 
@@ -1141,6 +1299,7 @@ def phase_parity(torch, report):
     for dtype in ("float32", "bfloat16"):
         for arch in PARITY_ARCHS:
             model_parity(torch, report, arch, dtype)
+    model_parity(torch, report, KIMI_ARCH, "bfloat16")  # 72 GiB in fp32 at full width
     phase_parity_mamba2(torch, report)
 
 
@@ -1606,18 +1765,19 @@ def spec_requests(cfg, n, prompt_lens, max_new, seed):
              max_new) for i in range(n)]
 
 
-def spec_engine(cfg, params, draft, calib_cfgs, max_slots, max_len):
+def spec_engine(cfg, params, draft, calib_cfgs, max_slots, max_len, ctx=None):
     """One engine serving ``cfg`` (with ``draft`` or without), under the
     AdaOper scheduler calibrated on ``calib_cfgs`` (the target's and the
     draft's graphs for both arms, so both price the target alike) or FIFO
-    when ``calib_cfgs`` is None."""
+    when ``calib_cfgs`` is None; on ``ctx`` (no mesh by default)."""
     from repro_torch.launch.serve import make_scheduler
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.sharding.context import ExecContext
     sched = (None if calib_cfgs is None else
              make_scheduler(calib_cfgs, max(SPEC["prompt_lens"]), SPEC["max_new"], "moderate",
                             SPEC["seed"]))
     eng = ServingEngine(scheduler=sched, max_slots=max_slots)
-    eng.add_model(cfg.name, cfg, params, max_len=max_len, draft=draft)
+    eng.add_model(cfg.name, cfg, params, max_len=max_len, draft=draft, ctx=ctx or ExecContext())
     return eng
 
 
@@ -2337,6 +2497,590 @@ def phase_fleet(torch, report):
     report["fleet"] = {f["scenario"]: [r[2] for r in runs], f["baseline"]: base}
 
 
+# ---------------------------------------------------------------------------
+# kimi-k2, a mesh of one, two ranks
+# ---------------------------------------------------------------------------
+
+
+class DropCounter:
+    """Wraps ``models.moe.dispatch``: the assignments offered and those
+    kept within capacity, summed on the device (read once, at the end); a
+    rank of a model axis keeps only those of its own experts."""
+
+    def __init__(self, moe):
+        self.moe, self.dispatch = moe, moe.dispatch
+        self.kept, self.offered = 0, 0
+
+    def __enter__(self):
+        self.moe.dispatch = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.dispatch = self.dispatch
+
+    def __call__(self, ids, E, C):
+        order, slot, valid = self.dispatch(ids, E, C)
+        self.kept = self.kept + valid.sum()
+        self.offered += ids.numel()
+        return order, slot, valid
+
+    def share(self) -> float:
+        return 1.0 - float(self.kept) / self.offered if self.offered else 0.0
+
+
+class RouteLog:
+    """Wraps ``models.moe.route``: each call's top-k expert sets (rows
+    sorted) and, with ``logp``, the router's log-probabilities, in call
+    order (one call per MoE layer per pass)."""
+
+    def __init__(self, moe, logp=False):
+        self.moe, self.route, self.logp = moe, moe.route, logp
+        self.calls = []
+
+    def __enter__(self):
+        self.moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def __call__(self, xt, router, k):
+        probs, gates, ids = self.route(xt, router, k)
+        self.calls.append((ids.sort(dim=-1).values.cpu().numpy(),
+                           probs.double().log().float().cpu().numpy() if self.logp else None))
+        return probs, gates, ids
+
+
+def router_flips(plain_calls, other_calls):
+    """(call, row, plain log-prob margin) of every row whose top-k expert
+    set differs between two runs of the same passes, call by call: the
+    margin is the plain run's largest log-probability among the experts it
+    kept and the other run left, less the smallest among those the other
+    run took instead (a near-tie when small)."""
+    flips = []
+    for c, ((ids, logp), (mine, _)) in enumerate(zip(plain_calls, other_calls)):
+        if ids.shape != mine.shape:
+            break
+        for r in (ids != mine).any(axis=1).nonzero()[0]:
+            left = sorted(set(ids[r]) - set(mine[r]))
+            took = sorted(set(mine[r]) - set(ids[r]))
+            flips.append((c, int(r), float(logp[r, left].max() - logp[r, took].min())))
+    return flips
+
+
+@contextlib.contextmanager
+def deciding_rows(torch, eng, reqs, routes, gaps=None):
+    """Yields ({(uid, token index): (route call, row)}, {route calls of the
+    prefill passes}), filled while the block runs: the call of
+    ``routes`` (a RouteLog) made by the pass that decided each token and
+    the row that token's position takes in it (a decode pass's row is the
+    request's slot, a prefill's the last prompt token of the request's row
+    in its group). With ``gaps`` (``record_gaps``'s) the first tokens'
+    top-2 gaps are recorded from the prefills that decided them. The
+    worker's own methods are back in place after it."""
+    name = next(iter(eng.workers))
+    w = eng.workers[name]
+    uid_of = {p.tobytes(): uid for uid, p, _ in reqs}
+    decided, prefills = {}, set()
+    saved = {n: w.__dict__.get(n) for n in ("decode_pool", "prefill_batch")}
+    decode, prefill = w.decode_pool, w.prefill_batch
+
+    def decode_pool(cache, tokens, pos, enc_len=None):
+        at = len(routes.calls)
+        res = decode(cache, tokens, pos, enc_len=enc_len)
+        for s in eng.pools[name].active.values():  # the pool is made at the first admission
+            decided[(s.req.uid, len(s.tokens))] = (at, s.slot)
+        return res
+
+    def prefill_batch(prompts, *a, **kw):
+        at = len(routes.calls)
+        prefills.add(at)
+        logits, cache = prefill(prompts, *a, **kw)
+        S = prompts.shape[1]
+        rows = []
+        for g, p in enumerate(prompts):  # a padding row repeats the group's first prompt
+            uid = uid_of[p.tobytes()]
+            if (uid, 0) not in decided:
+                decided[(uid, 0)] = (at, g * S + S - 1)
+                rows.append((uid, g))
+        if gaps is not None and rows:
+            got = decision_gaps(torch, logits[[g for _, g in rows]], [None] * len(rows),
+                                [0] * len(rows), 0.0)
+            for (uid, _), gap in zip(rows, got):
+                gaps[(uid, 0)] = gap
+        return logits, cache
+    w.decode_pool, w.prefill_batch = decode_pool, prefill_batch
+    try:
+        yield decided, prefills
+    finally:
+        for n, f in saved.items():
+            if f is None:
+                w.__dict__.pop(n, None)
+            else:
+                setattr(w, n, f)
+
+
+def kimi_recorded_run(torch, cfg, params, reqs, ctx=None, gaps=False):
+    """The kimi serve's requests on a FIFO engine of ``cfg`` over
+    ``params`` (on ``ctx``), with the router's calls logged (with the
+    log-probabilities and each decision's top-2 logit gap when ``gaps``),
+    each token's deciding (route call, row) and the MoE's drops counted.
+    Returns tokens by uid, ``decided``, ``prefills``, ``routes`` (the
+    calls), ``drop_share`` (unsharded) or the assignments ``kept`` of the
+    ``offered`` (a rank keeps only those of its own experts), ``gaps`` (or
+    None) and the peak device memory."""
+    from repro_torch.models import moe
+    from repro_torch.serving.slots import Request
+    eng = fifo_engine(cfg, params, KIMI_SERVE, ctx)
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        gp = stack.enter_context(record_gaps(torch, eng, reqs, 0.0)) if gaps else None
+        drops = stack.enter_context(DropCounter(moe))
+        routes = stack.enter_context(RouteLog(moe, logp=gaps))
+        decided, prefills = stack.enter_context(deciding_rows(torch, eng, reqs, routes, gp))
+        for uid, p, n in reqs:
+            eng.submit(cfg.name, Request(uid, p, n))
+        out = eng.run_all()
+        got = None if gp is None else {(uid, i): gp[(uid, i)] for uid, _, n in reqs
+                                       for i in range(n)}
+    return dict(tokens=tokens_by_uid(out), decided=decided, prefills=sorted(prefills),
+                routes=routes.calls, drop_share=drops.share(), kept=int(drops.kept),
+                offered=drops.offered, gaps=got,
+                peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+
+def explain_one_layer(label, plain, other, gaps, decided, prefills, flips, own_row_only):
+    """Per uid, the first token where ``other`` leaves ``plain``, in a model
+    of ONE layer: its K/V cache holds projections of the tokens alone, so a
+    pass's logits depend on the tokens and on that pass's routing, nothing
+    else. ``decided`` and ``prefills`` are ``deciding_rows``' of the plain
+    run, ``flips`` ``router_flips`` of the two runs' route calls.
+
+    Every router flip at a row whose inputs the runs share (any row of a
+    prefill; a decode row whose request has not diverged before the token
+    it decides) must be a near-tie (ROUTER_TIE). Each divergence must be
+    explained by the plain run's top-2 logit gap within bf16 rounding
+    (MODEL_TOL_BF16 of its largest |logit|) or by a flip at its own row;
+    unless ``own_row_only`` (a drop-free capacity, where a row's output is
+    its own experts' alone), also by a flip in the same pass or a row in
+    that pass whose request diverged before (a changed expert set moves,
+    through the experts' capacity, which of the pass's other assignments
+    are dropped). Returns the number of divergences by explanation."""
+    first = {}
+    for uid in sorted(plain):
+        i = next((j for j, (x, y) in enumerate(zip(other[uid], plain[uid])) if x != y), None)
+        if i is not None:
+            first[uid] = i
+    inf = float("inf")
+    row_of = {at: key for key, at in decided.items()}
+
+    def shared(c, r):
+        if c in prefills:
+            return True
+        key = row_of.get((c, r))
+        return key is not None and first.get(key[0], inf) >= key[1]
+    judged = [f for f in flips if shared(f[0], f[1])]
+    for c, r, margin in judged:
+        if (c, r) in row_of:  # the rows that decide a token; the others are counted
+            log(f"{label}: router flip in pass {c} at row {r} (uid {row_of[(c, r)][0]}, token "
+                f"{row_of[(c, r)][1]}), plain log-prob margin {margin:.4g} (near-tie bound "
+                f"{ROUTER_TIE})")
+    log(f"{label}: {len(judged)} router flips at rows of shared inputs, in passes "
+        f"{sorted({c for c, _, _ in judged})}, largest plain log-prob margin "
+        f"{max((m for _, _, m in judged), default=0.0):.4g} (near-tie bound {ROUTER_TIE}); "
+        f"{len(flips) - len(judged)} at rows whose inputs differ")
+    far = [f for f in judged if f[2] > ROUTER_TIE]
+    if far:
+        raise SmokeFailure(f"{label}: router flips away from a near-tie: {far}")
+    flipped = {(c, r) for c, r, _ in judged}
+    flip_passes = {c for c, _ in flipped}
+    moved = {c for (c, _), (uid, j) in row_of.items() if first.get(uid, inf) < j}
+    counts = dict(diverged=len(first), by_gap=0, by_own_flip=0, by_pass=0)
+    for uid, i in sorted(first.items()):
+        c, r = decided[(uid, i)]
+        gap, scale = gaps[(uid, i)]
+        if gap is not None and gap <= MODEL_TOL_BF16 * scale:
+            why = "by_gap"
+        elif (c, r) in flipped:
+            why = "by_own_flip"
+        elif not own_row_only and (c in flip_passes or c in moved):
+            why = "by_pass"
+        else:
+            raise SmokeFailure(f"{label}: uid {uid} diverges at token {i} (pass {c}, row {r}) "
+                               f"unexplained: top-2 gap {gap} at largest |logit| {scale}, no "
+                               f"flip at its row" + ("" if own_row_only else
+                                                     ", no flip or diverged row in its pass"))
+        counts[why] += 1
+        log(f"{label}: uid {uid} diverges at token {i} (pass {c}, row {r}; {plain[uid][i]} "
+            f"unsharded, {other[uid][i]} sharded); unsharded top-2 gap {gap} at largest "
+            f"|logit| {scale}; explained {why.replace('_', ' ')}")
+    log(f"{label}: tokens identical for {len(plain) - len(first)} of {len(plain)} uids")
+    return counts
+
+
+def serve_requests(cfg, k):
+    """The (uid, prompt, max_new) of ``launch.serve.build_engine``'s queue
+    for one model served alone with the serve parameters ``k`` (the same
+    draws in the same order)."""
+    return spec_requests(cfg, k["requests"], k["prompt_lens"], k["max_new"], k["seed"])
+
+
+def fifo_engine(cfg, params, k, ctx=None):
+    """A FIFO engine serving ``cfg`` with ``params`` at ``k``'s pool shape."""
+    return spec_engine(cfg, params, None, None, k["max_slots"], k["max_len"], ctx)
+
+
+def tokens_by_uid(out):
+    return {r.uid: [int(t) for t in r.tokens] for r in out}
+
+
+def phase_kimi(torch, report):
+    """kimi-k2-1t-a32b at full width cut to 1 of its 61 layers, bf16, FIFO,
+    through ``launch.serve``: every request completes and flash and decode
+    launched as the worker's passes imply (one flash per prefill pass, one
+    decode per pass). Then, on the same weights, the same requests again,
+    warm (timed; tokens identical), and for the shard2 phase's comparison:
+    once more untimed, recorded (``kimi_recorded_run``: the MoE's drops,
+    the router's calls, each decision's top-2 logit gap and deciding row);
+    the prefill logits of KIMI_LOGIT_PROMPTS with the router's calls kept;
+    and the drop-free witness, the recorded run at a capacity factor of
+    E / k (no assignment dropped)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import moe
+    k = KIMI_SERVE
+    (eng, out, rep), launches = drive(serve, **k)
+    check_responses("kimi", eng, out, k["requests"], k["max_new"])
+    want = dict(attention_launches_expected(eng), ssd_scan=0)
+    if launches != want or min(launches["flash_attention"], launches["decode_attention"]) == 0:
+        raise SmokeFailure(f"kimi: kernel launches {launches}, expected {want}")
+    w = eng.workers[KIMI_ARCH]
+    cfg, params = w.cfg, w.params
+    first = tokens_by_uid(out)
+    del eng, w
+    reqs = serve_requests(cfg, k)
+    warm = fifo_engine(cfg, params, k)
+    out2, launches2, wall2, peak2 = spec_run(torch, warm, reqs, False, 0.0)
+    if tokens_by_uid(out2) != first:
+        raise SmokeFailure("kimi: the warm run's tokens differ from the first run's")
+    del warm
+    rec = kimi_recorded_run(torch, cfg, params, reqs, gaps=True)
+    if rec["tokens"] != first:
+        raise SmokeFailure("kimi: the recorded run's tokens differ from the first run's")
+    prompts = np.random.default_rng(3).integers(1, cfg.vocab_size, KIMI_LOGIT_PROMPTS,
+                                                dtype=np.int32)
+    with RouterReplay(moe) as replay:  # plain mode: keeps (probs, ids) of each call
+        logits = fifo_engine(cfg, params, k).workers[cfg.name].prefill_batch(prompts)[0]
+    logit_routes = [(p.cpu().numpy(), i.cpu().numpy()) for p, i in replay.plain]
+    del replay
+    free = dataclasses.replace(cfg, moe_capacity_factor=cfg.num_experts / cfg.top_k)
+    wit = kimi_recorded_run(torch, free, params, reqs, gaps=True)
+    if wit["drop_share"] != 0.0:
+        raise SmokeFailure(f"kimi drop-free witness: drop share {wit['drop_share']}")
+    summary = {"layers": cfg.num_layers, "of_layers": 61, "requests": rep["requests"],
+               "tokens": rep["tokens"], "cold_wall_s": rep["wall_s"],
+               "warm_wall_s": wall2, "peak_mem_bytes": rep["peak_mem_bytes"],
+               "route_calls": len(rec["routes"]),
+               "warm_peak_mem_bytes": peak2, "prefill_batches": rep["prefill_batches"],
+               "calls": rep["models"][KIMI_ARCH], "launches": launches,
+               "moe_drop_share": rec["drop_share"],
+               "drop_free_witness_uids_differing": sum(
+                   wit["tokens"][u] != first[u] for u in first),
+               "drop_free_witness_peak_mem_bytes": wit["peak_mem_bytes"]}
+    report["launches_kimi"] = launches
+    report["kimi"] = summary
+    report["kimi_unsharded"] = dict(capacity=rec, witness=wit, prompts=prompts,
+                                    logits=logits.float().cpu().numpy(),
+                                    logit_routes=logit_routes)
+    log(f"kimi ({cfg.num_layers} of 61 layers, full width, bf16, FIFO): {json.dumps(summary)}")
+    log(f"kimi: peak memory {rep['peak_mem_bytes'] / 2**30:.2f} GiB, warm wall {wall2:.3f} s, "
+        f"MoE drop share {rec['drop_share']:.4f}")
+
+
+def mesh1_pair(torch, label, run):
+    """``run(ctx)`` -> (engine, responses, launches) on no mesh and on a
+    (1, 1) mesh; tokens per uid, the ledger's joules and the launches must
+    be identical, and the meshed worker must have sharded dims."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding.context import ExecContext
+    mesh = ExecContext(mesh=make_debug_mesh(1, 1), batch_axes=("data",), model_axis="model")
+    res = {}
+    for key, ctx in (("none", ExecContext()), ("mesh1", mesh)):
+        eng, out, launches = run(ctx)
+        res[key] = dict(tokens=tokens_by_uid(out), joules=eng.ledger.total_energy().total_j,
+                        launches=launches, report=[w.shard_report for w in eng.workers.values()])
+        del eng
+    a, b = res["none"], res["mesh1"]
+    rep = b["report"][0]
+    same = a["tokens"] == b["tokens"] and a["joules"] == b["joules"]
+    summary = {"uids": len(a["tokens"]), "tokens_identical": a["tokens"] == b["tokens"],
+               "joules": [a["joules"], b["joules"]], "launches": [a["launches"], b["launches"]],
+               "shard_report": {"sharded": rep.sharded, "replicated": rep.replicated}}
+    log(f"mesh1 {label}: {json.dumps(summary)}")
+    if not same or a["launches"] != b["launches"] or rep.sharded == 0:
+        raise SmokeFailure(f"mesh1 {label}: a mesh of one differs from no mesh: {summary}")
+    return summary
+
+
+def phase_mesh1(torch, report):
+    """A (1, 1) mesh on the card against no mesh: full tinyllama-1.1b through
+    ``launch.serve`` under the AdaOper scheduler, continuous and bucketed,
+    then kimi-k2 at full width cut to 1 layer (FIFO, one set of weights for
+    both): tokens, ledger joules and launches identical, and a shard report
+    with sharded dims."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import init_params
+    out = {}
+    for mode in ("continuous", "bucketed"):
+        def run(ctx, mode=mode):
+            (eng, resp, _), launches = drive(serve, **MESH1, ctx=ctx, mode=mode)
+            check_responses(f"mesh1 {mode}", eng, resp, MESH1["requests"], MESH1["max_new"])
+            return eng, resp, launches
+        out[f"tinyllama {mode}"] = mesh1_pair(torch, f"tinyllama-1.1b {mode}", run)
+    cfg = dataclasses.replace(get_config(KIMI_ARCH), num_layers=1)
+    params = init_params(cfg, KIMI_SERVE["seed"], "cuda")
+    reqs = serve_requests(cfg, KIMI_SERVE)
+
+    def run_kimi(ctx):
+        eng = fifo_engine(cfg, params, KIMI_SERVE, ctx)
+        resp, launches, _, _ = spec_run(torch, eng, reqs, False, 0.0)
+        check_responses("mesh1 kimi", eng, resp, KIMI_SERVE["requests"], KIMI_SERVE["max_new"])
+        return eng, resp, launches
+    out["kimi"] = mesh1_pair(torch, "kimi-k2 (1 layer)", run_kimi)
+    report["mesh1"] = out
+    import torch.distributed as dist
+    dist.destroy_process_group()  # the world of one the mesh started
+
+
+def shard2_rank(rank, tiny_cfg, tiny_serve, logit_prompts, kimi_serve, logit_prompts_kimi,
+                logit_routes, device="cuda"):
+    """One of the shard2 phase's two ranks (its own process, gloo over CUDA
+    tensors on the one card): the collectives probe, then (a) full
+    tinyllama-1.1b in fp32 (exact fp32), FIFO at ``tiny_serve``'s shapes,
+    and the prefill logits of ``logit_prompts``, then (b) kimi-k2 through
+    ``launch.serve`` at ``kimi_serve``, and on its weights the prefill
+    logits of ``logit_prompts_kimi`` with the unsharded run's experts
+    (``logit_routes``) replayed, the recorded run at the serve's capacity
+    and the drop-free witness (``kimi_recorded_run``); each on a (1, 2)
+    mesh, the weights drawn as this rank's shard."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import exact_fp32
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.context import ExecContext
+    ctx = ExecContext(mesh=make_debug_mesh(1, 2), batch_axes=("data",), model_axis="model")
+    x = torch.full((4, 7168), float(rank + 1), dtype=torch.bfloat16, device=device)
+    dist.all_reduce(x, group=ctx.model_group)
+    parts = [torch.empty(3, 5, device=device) for _ in range(2)]
+    dist.all_gather(parts, torch.full((3, 5), float(rank), device=device), group=ctx.model_group)
+    probe = {"backend": dist.get_backend(), "all_reduce": bool((x == 3).all()),
+             "all_gather": all(bool((p == i).all()) for i, p in enumerate(parts)),
+             "devices": sorted({str(x.device), str(parts[0].device)})}
+    out = {"probe": probe}
+    if not (probe["all_reduce"] and probe["all_gather"]):
+        return out
+    with exact_fp32():
+        params = init_params(tiny_cfg, tiny_serve["seed"], device, ctx=ctx)
+        eng = fifo_engine(tiny_cfg, params, tiny_serve, ctx)
+        reqs = serve_requests(tiny_cfg, tiny_serve)
+        resp, launches, wall, peak = spec_run(torch, eng, reqs, False, 0.0)
+        expected = dict(attention_launches_expected(eng), ssd_scan=0)
+        w = eng.workers[tiny_cfg.name]
+        prompts = np.random.default_rng(3).integers(1, tiny_cfg.vocab_size, logit_prompts,
+                                                    dtype=np.int32)
+        logits = w.prefill_batch(prompts)[0].float().cpu().numpy()
+        out["tiny"] = {"tokens": tokens_by_uid(resp), "logits": logits, "launches": launches,
+                       "expected": expected,
+                       "wall_s": wall, "peak_mem_bytes": peak, "shard": w.params.shard,
+                       "sharded": w.shard_report.sharded}
+    del eng, w, params
+    torch.cuda.empty_cache()
+    calls = collectives.all_reduce.calls, collectives.all_gather_last.calls
+    from repro_torch.models import moe
+    (eng, resp, rep), launches = drive(serve, **kimi_serve, ctx=ctx)
+    w = eng.workers[KIMI_ARCH]
+    cfg, params = w.cfg, w.params
+    out["kimi"] = {"tokens": tokens_by_uid(resp), "launches": launches,
+                   "expected": dict(attention_launches_expected(eng), ssd_scan=0),
+                   "wall_s": rep["wall_s"], "init_s": rep["init_s"],
+                   "peak_mem_bytes": rep["peak_mem_bytes"], "shard": w.params.shard,
+                   "sharded": w.shard_report.sharded, "replicated": w.shard_report.replicated,
+                   "experts": [int(w.params.layers[0].mlp.w_gate.shape[0]), w.cfg.num_experts],
+                   "q_heads": [int(w.params.layers[0].attn.wq.weight.shape[0] // w.cfg.head_dim),
+                               w.cfg.num_heads],
+                   "kv_heads": [int(w.params.layers[0].attn.wk.weight.shape[0]
+                                    // w.cfg.head_dim), w.cfg.num_kv_heads],
+                   "all_reduces": collectives.all_reduce.calls - calls[0],
+                   "all_gathers": collectives.all_gather_last.calls - calls[1],
+                   "errors": rep["errors"]}
+    del eng, w
+    reqs = serve_requests(cfg, kimi_serve)
+    # the prefill logits with the unsharded run's experts replayed
+    replay = RouterReplay(moe)
+    replay.plain = [(torch.as_tensor(p, device=device), torch.as_tensor(i, device=device))
+                    for p, i in logit_routes]
+    replay.mode, replay.step = "sharded", "prefill"
+    with replay:
+        logits = fifo_engine(cfg, params, kimi_serve, ctx).workers[cfg.name].prefill_batch(
+            logit_prompts_kimi)[0]
+    out["kimi"]["logits"] = logits.float().cpu().numpy()
+    out["kimi"]["logit_flips"] = replay.flips
+    # recorded: at the serve's capacity, then the drop-free witness
+    out["kimi"]["capacity"] = kimi_recorded_run(torch, cfg, params, reqs, ctx)
+    free = dataclasses.replace(cfg, moe_capacity_factor=cfg.num_experts / cfg.top_k)
+    out["kimi"]["witness"] = kimi_recorded_run(torch, free, params, reqs, ctx)
+    out["kimi"]["witness_peak_mem_bytes"] = out["kimi"]["witness"]["peak_mem_bytes"]
+    return out
+
+
+def phase_shard2(torch, report):
+    """Two ranks on the one card, spawned (``launch.sharded.run_ranks``:
+    gloo over CUDA tensors, as NCCL refuses two ranks on one device; a time
+    limit, every rank's exit code read), after the parent has built the
+    kernels and freed the earlier phases' memory. First a probe that gloo
+    takes CUDA tensors for all_reduce and all_gather (the phase fails if
+    not). (a) Full tinyllama-1.1b in fp32, exact fp32: greedy tokens equal
+    to the unsharded run's on every request (the parent's run, first), the
+    largest difference of the prefill logits printed. (b) kimi-k2 at full
+    width, 1 layer, bf16, each rank holding 192 of the 384 experts and 32 of
+    the 64 q heads (4 of 8 kv heads): every request completes and the
+    ranks' tokens and logits are identical; the prefill logits of
+    KIMI_LOGIT_PROMPTS, the unsharded run's experts replayed, lie within
+    bf16 rounding of the unsharded logits (MODEL_TOL_BF16 of each row's
+    largest |logit|; the ranks' own router flips there near-ties); the
+    tokens of the recorded runs against the kimi phase's, by
+    ``explain_one_layer``: at the serve's capacity a divergence may also
+    follow from a flip or a diverged row in its own pass, in the drop-free
+    witness only from its own gap or its own row's flip. Each rank's peak
+    memory and launches."""
+    import gc
+
+    import numpy as np
+    if "kimi_unsharded" not in report:
+        raise SmokeFailure("shard2 compares kimi with the kimi phase's run: add the kimi phase")
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import exact_fp32
+    from repro_torch.launch.sharded import run_ranks
+    from repro_torch.models.model import init_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    build.load_library()  # built once here, before the ranks load it
+    tiny = dataclasses.replace(get_config(SHARD2["tiny"]), dtype="float32",
+                               param_dtype="float32")
+    with exact_fp32():
+        params = init_params(tiny, SERVE["seed"], "cuda")
+        eng = fifo_engine(tiny, params, SERVE)
+        ref_out, _, ref_wall, _ = spec_run(torch, eng, serve_requests(tiny, SERVE), False, 0.0)
+        prompts = np.random.default_rng(3).integers(1, tiny.vocab_size, SHARD2["logit_prompts"],
+                                                    dtype=np.int32)
+        ref_logits = eng.workers[tiny.name].prefill_batch(prompts)[0].float().cpu().numpy()
+    ref_tokens = tokens_by_uid(ref_out)
+    del eng, params, ref_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = report["kimi_unsharded"]
+    ranks = run_ranks(shard2_rank, SHARD2["world"],
+                      (tiny, SERVE, SHARD2["logit_prompts"], KIMI_SERVE, ref["prompts"],
+                       ref["logit_routes"], "cuda"),
+                      timeout=SHARD2["timeout"], device_type="cuda")
+    wall = time.perf_counter() - t0
+    probes = [r["probe"] for r in ranks]
+    log(f"shard2 probe (gloo, CUDA tensors): {json.dumps(probes)}")
+    if not all(p["all_reduce"] and p["all_gather"] for p in probes):
+        raise SmokeFailure(f"shard2: gloo does not take CUDA tensors here: {probes}")
+    out = {"spawn_wall_s": wall, "probe": probes, "unsharded_fp32_wall_s": ref_wall}
+    for arm in ("tiny", "kimi"):
+        for rank, r in enumerate(ranks):
+            a = r[arm]
+            if a["launches"] != a["expected"] or a["shard"] != (2, rank) or a["sharded"] == 0:
+                raise SmokeFailure(f"shard2 {arm} rank {rank}: launches {a['launches']} "
+                                   f"(expected {a['expected']}), shard {a['shard']}")
+        if ranks[0][arm]["tokens"] != ranks[1][arm]["tokens"]:
+            raise SmokeFailure(f"shard2 {arm}: the two ranks' tokens differ")
+    err = max(float(np.abs(r["tiny"]["logits"] - ref_logits).max()) for r in ranks)
+    scale = float(np.abs(ref_logits).max())
+    if ranks[0]["tiny"]["tokens"] != ref_tokens or err > MODEL_TOL * (1 + scale):
+        raise SmokeFailure(f"shard2 tinyllama fp32: tokens equal "
+                           f"{ranks[0]['tiny']['tokens'] == ref_tokens}, logits max abs err {err}")
+    kimi = ranks[0]["kimi"]
+    halves = [mine * 2 == of for mine, of in (kimi["experts"], kimi["q_heads"], kimi["kv_heads"])]
+    if kimi["errors"] or not all(halves):
+        raise SmokeFailure(f"shard2 kimi: {kimi['errors']} errors; rank 0 holds experts, q heads, "
+                           f"kv heads {kimi['experts']}, {kimi['q_heads']}, {kimi['kv_heads']}")
+
+    if KIMI_SERVE["layers"][KIMI_ARCH] != 1:
+        raise SmokeFailure("shard2 kimi: explain_one_layer holds for a model of one layer")
+    if not np.array_equal(ranks[0]["kimi"]["logits"], ranks[1]["kimi"]["logits"]):
+        raise SmokeFailure("shard2 kimi: the two ranks' prefill logits differ")
+    lscale = np.abs(ref["logits"]).max(axis=-1, keepdims=True)
+    lerr = np.abs(kimi["logits"] - ref["logits"])
+    for st, r, left, took, margin in kimi["logit_flips"]:
+        log(f"shard2 kimi logits: router flip at {st}, row {r}: unsharded {left} -> sharded "
+            f"{took} (replayed), margin {margin:.4g} (near-tie bound {ROUTER_TIE})")
+    far = [f for f in kimi["logit_flips"] if f[-1] > ROUTER_TIE]
+    logit_summary = {"rows": int(lerr.shape[0]), "max_abs_err": float(lerr.max()),
+                     "max_rel_err": float((lerr / lscale).max()), "tol_rel": MODEL_TOL_BF16,
+                     "largest_logit": float(lscale.max()),
+                     "router_flips": len(kimi["logit_flips"])}
+    log(f"shard2 kimi prefill logits (2 ranks vs unsharded, experts replayed): "
+        f"{json.dumps(logit_summary)}")
+    if far or not bool((lerr <= MODEL_TOL_BF16 * lscale).all()):
+        raise SmokeFailure(f"shard2 kimi: prefill logits {logit_summary}, flips away from a "
+                           f"near-tie {far}")
+    arms = {}
+    for arm, own_row in (("capacity", False), ("witness", True)):
+        mine, theirs = ranks[0]["kimi"][arm], ranks[1]["kimi"][arm]
+        want = ref[arm]
+        if any(not (x[0] == y[0]).all() for x, y in zip(mine["routes"], theirs["routes"])):
+            raise SmokeFailure(f"shard2 kimi {arm}: the two ranks' routers chose other experts")
+        if mine["tokens"] != theirs["tokens"]:
+            raise SmokeFailure(f"shard2 kimi {arm}: the two ranks' tokens differ")
+        if (mine["decided"], mine["prefills"]) != (want["decided"], want["prefills"]):
+            raise SmokeFailure(f"shard2 kimi {arm}: the ranks' passes are not the unsharded "
+                               "run's")
+        kept = mine["kept"] + theirs["kept"]  # each rank keeps its own experts' assignments
+        if arm == "witness" and (kept != mine["offered"] or want["drop_share"] != 0.0):
+            raise SmokeFailure(f"shard2 kimi witness: the ranks kept {kept} of "
+                               f"{mine['offered']} assignments")
+        flips = router_flips(want["routes"], mine["routes"])
+        label = f"shard2 kimi {arm} (2 ranks vs unsharded)"
+        counts = explain_one_layer(label, want["tokens"], mine["tokens"], want["gaps"],
+                                   want["decided"], set(want["prefills"]), flips, own_row)
+        arms[arm] = dict(counts, router_flips=len(flips), drop_share=want["drop_share"],
+                         sharded_drop_share=1.0 - kept / mine["offered"],
+                         serve_tokens_equal=(mine["tokens"] == kimi["tokens"]
+                                             if arm == "capacity" else None))
+    if not arms["capacity"]["serve_tokens_equal"]:
+        raise SmokeFailure("shard2 kimi: the recorded run's tokens differ from the serve's")
+    out["tiny"] = {"uids": len(ref_tokens), "tokens_equal": True, "logits_max_abs_err": err,
+                   "largest_logit": scale,
+                   "ranks": [{x: r["tiny"][x] for x in ("wall_s", "peak_mem_bytes", "launches")}
+                             for r in ranks]}
+    out["kimi"] = {"prefill_logits": logit_summary, **arms,
+                   "ranks": [{x: r["kimi"][x] for x in ("wall_s", "init_s", "peak_mem_bytes",
+                                                        "witness_peak_mem_bytes",
+                                                        "launches", "experts", "q_heads",
+                                                        "kv_heads", "sharded", "replicated",
+                                                        "all_reduces", "all_gathers")}
+                             for r in ranks]}
+    report["shard2"] = out
+    log(f"shard2: {json.dumps(out)}")
+    for rank, r in enumerate(ranks):
+        log(f"shard2 rank {rank}: peak memory tinyllama fp32 "
+            f"{r['tiny']['peak_mem_bytes'] / 2**30:.2f} GiB, kimi "
+            f"{r['kimi']['peak_mem_bytes'] / 2**30:.2f} GiB")
+
+
 @contextlib.contextmanager
 def model_spans(torch):
     """Profiler ranges over each worker's prefill and decode passes (``pass
@@ -2564,7 +3308,7 @@ def kernels_line(report):
             if (r["model"], r["B"], r["S"]) == LINE_ROWS[r["kernel"]] and "shape" not in r}
     paths = {p: report.get(f"launches_{p}", {})
              for p in ("scheduled", "joint", "spec", "spec_deepseek", "archs", "archs_fifo",
-                       "encdec_hybrid", "bucketed", "fleet")}
+                       "encdec_hybrid", "bucketed", "fleet", "kimi")}
     paths = {"serve": report.get("launches", {}), **paths}
     out = []
     for name, (src, replaces) in SOURCES.items():
@@ -2600,7 +3344,8 @@ def main(argv=None):
            "parity": phase_parity, "serve": phase_serve, "scheduled": phase_scheduled,
            "joint": phase_joint, "spec": phase_spec, "archs": phase_archs,
            "encdec_hybrid": phase_encdec_hybrid, "bucketed": phase_bucketed,
-           "fleet": phase_fleet,
+           "fleet": phase_fleet, "kimi": phase_kimi, "mesh1": phase_mesh1,
+           "shard2": phase_shard2,
            "profile_encdec_hybrid": phase_profile_encdec_hybrid,
            "profile_bucketed": phase_profile_bucketed, "profile_fleet": phase_profile_fleet,
            "profile": phase_profile,

@@ -3,8 +3,8 @@
 A copy of ``repro.configs.base`` (``ModelConfig`` with its parameter
 counts, ``get_config``, ``reduced``) kept here so the port imports nothing
 of the JAX package.
-``get_config`` knows only the archs the port can serve; the rest of the
-JAX zoo arrives slice by slice (see ROADMAP.md).
+``get_config`` knows the archs of the JAX registry, every one of which the
+port serves, and the paper's own evaluation model.
 """
 from __future__ import annotations
 
@@ -181,9 +181,10 @@ class ModelConfig:
         return full - all_e + act_e
 
 
-# the archs this slice of the port serves; the JAX registry lists the rest
+# the archs the port serves: every arch of the JAX registry
 ARCHS = ["tinyllama-1.1b", "gemma2-2b", "mamba2-2.7b", "granite-3-8b", "qwen2-7b",
-         "chameleon-34b", "deepseek-v2-lite-16b", "seamless-m4t-medium", "jamba-v0.1-52b"]
+         "chameleon-34b", "deepseek-v2-lite-16b", "seamless-m4t-medium", "jamba-v0.1-52b",
+         "kimi-k2-1t-a32b"]
 
 EXTRA_ARCHS = ["yolo-v2-tiny"]  # the paper's own evaluation model
 
@@ -195,8 +196,8 @@ def _module_name(arch_id: str) -> str:
 def get_config(arch_id: str) -> ModelConfig:
     if _module_name(arch_id) not in {_module_name(a) for a in ARCHS + EXTRA_ARCHS}:
         raise ValueError(
-            f"arch {arch_id!r} is not ported to repro_torch yet (ported: "
-            f"{ARCHS}); the remaining archs are queued in ROADMAP.md")
+            f"unknown arch {arch_id!r}: repro_torch has the configs {ARCHS + EXTRA_ARCHS}, "
+            "those of the JAX registry (ROADMAP.md lists what the port still lacks)")
     mod = importlib.import_module(f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.CONFIG
 

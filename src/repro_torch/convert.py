@@ -21,6 +21,9 @@ goes to its norm module. An encoder-decoder model's decoder layers carry
 
 ``gru_params_from_numpy`` carries the JAX ``GRUCorrector``'s parameter dict
 (numpy leaves) into the port's corrector.
+
+``shard_params`` cuts a whole model down to one rank's shard on a model
+axis, the counterpart of ``jax.device_put(params, shardings)``.
 """
 from __future__ import annotations
 
@@ -29,8 +32,9 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import RMSNorm
-from repro_torch.models.model import CausalLM, empty_params
+from repro_torch.models.model import CausalLM, empty_params, set_param, shard_slice
 from repro_torch.models.transformer import compute_stages
+from repro_torch.sharding.placement import ParamPlan, plan_params
 
 
 def _put(param: torch.Tensor, arr, transpose: bool = False) -> None:
@@ -82,6 +86,34 @@ def params_from_numpy(tree, cfg, device="cuda") -> CausalLM:
         _load_stages(model.encoder.layers, tree["encoder"]["stages"], cfg, cross=True)
         _load_norm(model.encoder.final_norm, tree["encoder"]["final_norm"])
     return model
+
+
+@torch.no_grad()
+def shard_params(params: CausalLM, ctx, rank=None, plan: ParamPlan = None) -> CausalLM:
+    """Rank ``rank``'s shard (``ctx.model_rank`` by default) of the whole
+    model ``params`` on ``ctx``'s model axis, placed by ``plan``
+    (``plan_params``'s by default): a new model that holds a copy of the
+    rank's 1/M slice of each cut leaf and shares every whole leaf with
+    ``params``. Leaf by leaf, so the rank's peak is its shard plus one cut
+    leaf's slice on top of ``params``; a rank that must never hold the
+    whole model draws its shard with ``init_params(ctx=...)`` instead. At
+    one shard it returns ``params`` itself; a model that already holds this
+    rank's shard is returned as it is."""
+    M = ctx.model_parallel
+    rank = ctx.model_rank if rank is None else rank
+    if params.shard is not None:
+        if params.shard != (M, rank):
+            raise ValueError(f"params hold the shard {params.shard}, not (M, rank) = {(M, rank)}")
+        return params
+    if M == 1:
+        return params
+    dims = (plan or plan_params(params.cfg, ctx)).dims
+    out = CausalLM(params.cfg, device="meta")
+    for name, p in params.named_parameters():
+        d = dims[name]
+        set_param(out, name, p if d is None else shard_slice(p, d, M, rank).clone())
+    out.shard = (M, rank)
+    return out
 
 
 @torch.no_grad()

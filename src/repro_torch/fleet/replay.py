@@ -21,8 +21,9 @@ Backends:
     end-to-end. Requires per-LLM-model (cfg, params); each model runs on
     the device its params lie on (the CUDA kernels on the card, their plain
     versions on the CPU); models without a serving worker resolve against
-    the graph registry. The serving workers are single-device: a mesh in
-    ``serving_ctx`` is refused until sharded serving is ported.
+    the graph registry. A mesh in ``serving_ctx`` shards every worker over
+    its model axis (a mesh of one gives the same report and tokens as
+    none).
 
 The simulated device's joules, latencies and battery are DeviceSim's (a
 mobile SoC's rails on a virtual clock), never the serving card's.
@@ -122,9 +123,6 @@ class DeviceReplay:
         if backend not in ("graph", "serving"):
             raise ValueError(f"unknown replay backend {backend!r}; choose "
                              "from ('graph', 'serving')")
-        if getattr(serving_ctx, "mesh", None) is not None:
-            raise NotImplementedError("sharded serving (a mesh in serving_ctx) is not "
-                                      "ported to repro_torch yet (see ROADMAP.md)")
         self.profile = profile
         self.graphs = graphs
         self.backend = backend
@@ -168,8 +166,8 @@ class DeviceReplay:
                                            coexec=self.coexec),
                 mode="continuous", max_slots=max_slots,
                 sampling_seed=profile.seed, risk_level=risk_level)
-            # serving_ctx: a shared single-device ExecContext applied to
-            # every worker (e.g. attn_impl="plain"); None keeps the default
+            # serving_ctx: a shared ExecContext applied to every worker
+            # (e.g. attn_impl="plain", or a mesh); None keeps the default
             # serving_drafts: model name -> (draft_cfg, draft_params) turns
             # on energy-aware speculative decoding for that worker
             # (repro_torch.serving.speculative); absent names keep plain decode

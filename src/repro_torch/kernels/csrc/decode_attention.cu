@@ -74,17 +74,29 @@ constexpr int pow2_ceil(int x) { return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2);
 // A lane group of kLanes lanes takes one key at a time. Fewer lanes per
 // key mean shorter shuffle reductions and more keys in flight, more lanes
 // fewer accumulators per lane (G * DV / kLanes): the fewest lanes, a power
-// of two from 8 to 32, that keep 64 or fewer accumulators. A power of two
-// divides the warp, so a group never straddles two warps and its xor
-// shuffles stay inside it (G = 7 at DV = 128 wants 14 lanes and takes 16).
+// of two from 8 to 32, that keep 64 or fewer accumulators, and no more
+// than a V row has 16-byte vectors, rounded up to a power of two. A power
+// of two divides the warp, so a group never straddles two warps and its
+// xor shuffles stay inside it (G = 7 at DV = 128 wants 14 lanes and takes
+// 16). Lane `sub` holds V vectors sub, sub + kLanes, ...: kVecs of them,
+// rounded up, so that they cover the row; a vector past the row's end is
+// dead (neither read nor written). At DV = 112 (kimi-k2), 14 vectors in
+// bf16 go to 16 lanes with one vector each, 2 lanes dead; 28 vectors in
+// fp32 go to 16 lanes with two each, the second dead on 4 lanes.
 template <typename T, int G, int DV>
 struct Shape {
   static constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
+  static constexpr int kRow = DV / kVec;       // 16-byte vectors per V row
+  static_assert(kRow * kVec == DV, "a V row is whole 16-byte vectors");
   static constexpr int kWant = pow2_ceil(G * DV / 64 < 8 ? 8 : G * DV / 64 > 32 ? 32 : G * DV / 64);
-  static constexpr int kLanes = kWant < DV / kVec ? kWant : DV / kVec;  // lanes per key
+  static constexpr int kLanes = kWant < pow2_ceil(kRow) ? kWant : pow2_ceil(kRow);  // per key
   static_assert(32 % kLanes == 0, "a lane group must divide the warp");
-  static constexpr int kVecs = DV / (kVec * kLanes);  // V vectors per lane
-  static constexpr int kGroups = kThreads / kLanes;   // keys in flight per block
+  static constexpr int kVecs = (kRow + kLanes - 1) / kLanes;  // V vectors per lane
+  // the group's vectors cover the row, each column exactly once
+  static_assert(kLanes * kVecs * kVec >= DV && kLanes * (kVecs - 1) * kVec < DV,
+                "the lanes' V vectors must cover every column of the row once");
+  static constexpr bool kWhole = kLanes * kVecs == kRow;  // no dead vector
+  static constexpr int kGroups = kThreads / kLanes;      // keys in flight per block
 };
 
 template <typename T, int G, int DV>
@@ -149,6 +161,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   };
 
   const int grp = tid / LPK, sub = tid % LPK;
+  // V vector i of this lane lies inside the row (a dead one, past it, is
+  // never read or written)
+  auto live = [sub](int i) { return S::kWhole || sub + i * LPK < S::kRow; };
   const float scale_log2 = scale * kLog2e;
   float m[G], l[G], acc[G][NVV * VEC];
 #pragma unroll
@@ -211,8 +226,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       float wa[NVV][VEC], wb[NVV][VEC];
 #pragma unroll
       for (int i = 0; i < NVV; ++i) {
-        load_vec(wa[i], vs + ra * DV + (sub + i * LPK) * VEC);
-        load_vec(wb[i], vs + rb * DV + (sub + i * LPK) * VEC);
+        if (live(i)) {
+          load_vec(wa[i], vs + ra * DV + (sub + i * LPK) * VEC);
+          load_vec(wb[i], vs + rb * DV + (sub + i * LPK) * VEC);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) wa[i][e] = wb[i][e] = 0.f;
+        }
       }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
@@ -250,9 +270,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
 #pragma unroll
     for (int i = 0; i < NVV; ++i)
+      if (live(i))
 #pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        accs[(grp * G + g) * DV + (sub + i * LPK) * VEC + e] = acc[g][i * VEC + e];
+        for (int e = 0; e < VEC; ++e)
+          accs[(grp * G + g) * DV + (sub + i * LPK) * VEC + e] = acc[g][i * VEC + e];
   }
   __syncthreads();
   float* pb = part + (static_cast<size_t>(b) * Hkv + hk) * n_splits * G * kPart;
@@ -350,6 +371,8 @@ int dispatch_dv(int Dv, const void* q, const void* k, const void* v, void* o,
   switch (Dv) {
     case 64:
       return launch<T, G, 64>(REPRO_DECODE_ARGS);
+    case 112:  // kimi-k2
+      return launch<T, G, 112>(REPRO_DECODE_ARGS);
     case 128:
       return launch<T, G, 128>(REPRO_DECODE_ARGS);
     case 256:

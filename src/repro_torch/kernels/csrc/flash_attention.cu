@@ -19,6 +19,9 @@
 // the 8 warps owns 8 query rows: for QK^T a lane owns one key of the tile,
 // for PV a lane owns Dv/32 output columns, and the (acc, m, l) state lives
 // in registers. GQA reads kv head h / G directly, with no repeated-KV copy.
+// A value width that is not a multiple of 32 (kimi-k2's 112) takes
+// ceil(Dv / 32) column slots per lane; the last slot is live only on the
+// lanes whose column is below Dv, and only those read V or write O there.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -36,14 +39,16 @@ size_t flash_smem_bytes(int Dk, int Dv) {
                           kBlockK * Dv + kWarps * kRows * kBlockK);
 }
 
-template <int NC>  // NC = Dv / 32 output columns per lane
+template <int DV>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       const int32_t* __restrict__ q_offset,
                       const int32_t* __restrict__ kv_len, int Sq, int Sk, int H, int Hkv,
                       int Dk, int causal, int window, float softcap, float scale) {
-  constexpr int Dv = NC * 32;
+  constexpr int Dv = DV;
+  constexpr int NC = (DV + 31) / 32;  // output column slots per lane: column lane + 32 c
+  static_assert(32 * NC >= DV && 32 * (NC - 1) < DV, "the slots cover each column once");
   extern __shared__ float smem[];
   const int ldk = Dk + 1;  // pad: lane j reads row j, conflict-free
   float* qs = smem;                    // kBlockQ x Dk
@@ -59,6 +64,9 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int row0 = warp * kRows;
+  // slot c of this lane holds a column below Dv (always, but for the last
+  // slot of a width that is not a multiple of 32)
+  auto live = [lane](int c) { return DV % 32 == 0 || lane + 32 * c < DV; };
   const int qoff = q_offset[b];
   const int klen = min(kv_len[b], Sk);
 
@@ -135,7 +143,7 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < kBlockK; ++j) {
       float vv[NC];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = vs[j * Dv + lane + 32 * c];
+      for (int c = 0; c < NC; ++c) vv[c] = live(c) ? vs[j * Dv + lane + 32 * c] : 0.f;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const float p = pw[r * kBlockK + j];
@@ -154,19 +162,20 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l[r], 1e-30f);
     float* orow = o + ((static_cast<size_t>(b) * Sq + sq) * H + h) * Dv;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) orow[lane + 32 * c] = acc[r][c] / denom;
+    for (int c = 0; c < NC; ++c)
+      if (live(c)) orow[lane + 32 * c] = acc[r][c] / denom;
   }
 }
 
-template <int NC>
+template <int DV>
 int launch(const void* q, const void* k, const void* v, void* o, const void* q_offset,
            const void* kv_len, int B, int Sq, int Sk, int H, int Hkv, int Dk, int causal,
            int window, float softcap, float scale, cudaStream_t stream) {
-  const size_t smem = flash_smem_bytes(Dk, NC * 32);
-  const cudaError_t attr = allow_smem(flash_fwd_fp32_kernel<NC>, smem);
+  const size_t smem = flash_smem_bytes(Dk, DV);
+  const cudaError_t attr = allow_smem(flash_fwd_fp32_kernel<DV>, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd_fp32_kernel<NC><<<grid, kWarps * 32, smem, stream>>>(
+  flash_fwd_fp32_kernel<DV><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), static_cast<const int32_t*>(q_offset),
       static_cast<const int32_t*>(kv_len), Sq, Sk, H, Hkv, Dk, causal, window, softcap, scale);
@@ -178,17 +187,20 @@ int dispatch(int Dv, const void* q, const void* k, const void* v, void* o, const
              int window, float softcap, float scale, cudaStream_t stream) {
   switch (Dv) {
     case 32:
-      return launch<1>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
-                       softcap, scale, stream);
+      return launch<32>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
+                        softcap, scale, stream);
     case 64:
-      return launch<2>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
-                       softcap, scale, stream);
+      return launch<64>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
+                        softcap, scale, stream);
+    case 112:
+      return launch<112>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
+                         softcap, scale, stream);
     case 128:
-      return launch<4>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
-                       softcap, scale, stream);
+      return launch<128>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
+                         softcap, scale, stream);
     case 256:
-      return launch<8>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
-                       softcap, scale, stream);
+      return launch<256>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
+                         softcap, scale, stream);
     default:
       return -1;
   }

@@ -35,6 +35,9 @@
 //   computed, one barrier per tile. Rows are padded by 16 bytes, so the 8
 //   rows of each ldmatrix fall on distinct bank groups. Keys at or past
 //   kv_len and head-dim columns past Dk are filled with zeros by the copy.
+//   So Dk = 112 (kimi-k2's heads) runs in the 128-wide Q and K tiles, whose
+//   last 16 columns are zeros; Dv = 112 has tiles of its own, 7 products
+//   of 16 value columns, and stores exactly 112 columns.
 // - Tiles run only from the window edge of the q tile's first row to the
 //   causal and kv_len edge of its last row; a warp skips the products of a
 //   tile that all its rows mask (the causal diagonal, the window edge), and
@@ -64,7 +67,7 @@ constexpr int kPad = 8;               // bf16 of padding per shared-memory row
 
 using bf16 = __nv_bfloat16;
 
-// DK: head dim padded to a multiple of 32; DV: value head dim.
+// DK: head dim padded to 32, 64, 128 or 256; DV: value head dim.
 template <int DK, int DV>
 struct Tile {
   static constexpr bool kQRegs = DK <= 128;  // Q's fragments stay in registers
@@ -316,6 +319,9 @@ int dispatch_dv(int Dv, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<DK, 64>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal, window,
                             softcap, scale, st);
+    case 112:  // kimi-k2's heads: 7 products of 16 value columns, no padding
+      return launch<DK, 112>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal,
+                             window, softcap, scale, st);
     case 128:
       return launch<DK, 128>(q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, causal,
                              window, softcap, scale, st);
@@ -332,7 +338,7 @@ int dispatch_dv(int Dv, const void* q, const void* k, const void* v, void* o,
 
 // q (B,Sq,H,Dk), k (B,Sk,Hkv,Dk), v (B,Sk,Hkv,Dv), o (B,Sq,H,Dv), all
 // contiguous bf16; q_offset and kv_len (B,) int32 on the device. Dk a
-// multiple of 16 up to 256, Dv in {32, 64, 128, 256}. window <= 0 means no
+// multiple of 16 up to 256, Dv in {32, 64, 112, 128, 256}. window <= 0 means no
 // window, softcap <= 0 no softcap. Returns the CUDA error of the launch,
 // or -1 for a shape the kernel does not take.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,

@@ -30,7 +30,7 @@ from repro_torch.kernels.flash_attention import (NEG_INF, DTYPES, attention_plai
                                                  check_cuda_inputs, exact_fp32, launch_args,
                                                  per_row)
 
-DECODE_DV = (64, 128, 256)
+DECODE_DV = (64, 112, 128, 256)  # 112: kimi-k2's heads
 DECODE_GROUPS = (1, 2, 4, 7, 8)
 # the split planner's targets: blocks for several waves of an H100's 132
 # SMs, and no split shorter than 64 keys (its merge would cost more than

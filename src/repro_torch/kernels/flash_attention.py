@@ -28,7 +28,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
-FLASH_DV = (32, 64, 128, 256)
+FLASH_DV = (32, 64, 112, 128, 256)  # 112: kimi-k2's heads
 FLASH_BF16_DK_MAX = 256  # the tensor-core kernel takes Dk % 16 == 0 up to this
 _SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may opt into
 

@@ -1,0 +1,93 @@
+"""Mesh builders over ``torch.distributed``: the counterpart of
+``repro.launch.mesh``, with a torch ``DeviceMesh`` over the axes
+("data", "model"), or ("pod", "data", "model") for the multi-pod shape.
+
+Functions, not module constants: importing this module touches no device
+and starts no process group. Process-group start-up needs no network
+(``init_ranks``): a world of one meets in a ``HashStore``, more ranks in a
+``FileStore`` in a directory they share. The backend is NCCL when each rank
+has a card of its own, and gloo on the CPU and for ranks that share one
+card (NCCL refuses two ranks on one device).
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.sharding.context import axis_sizes
+
+PRODUCTION_DEVICES = {False: 256, True: 512}  # (16, 16) and (2, 16, 16)
+
+
+def pick_backend(device_type: str, world_size: int) -> str:
+    """NCCL when each of the ranks has a card of its own, else gloo."""
+    if device_type == "cuda" and torch.cuda.device_count() >= world_size:
+        return "nccl"
+    return "gloo"
+
+
+def init_ranks(world_size: int, rank: int, device_type: str = "cpu",
+               store_dir: Optional[str] = None) -> str:
+    """Join this process to a process group of ``world_size`` ranks as
+    ``rank`` and return the backend. A world of one needs no store
+    directory; more ranks meet in a ``FileStore`` under ``store_dir``, a
+    directory all of them see. A CUDA rank takes card ``rank`` modulo the
+    cards there are."""
+    if dist.is_initialized():
+        raise RuntimeError("this process already belongs to a process group")
+    if device_type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    if world_size == 1:
+        store = dist.HashStore()
+    else:
+        if store_dir is None:
+            raise ValueError("ranks of a world larger than one need a shared store_dir")
+        store = dist.FileStore(os.path.join(store_dir, "store"), world_size)
+    backend = pick_backend(device_type, world_size)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world_size)
+    return backend
+
+
+def _mesh(device_type: str, shape, names):
+    from torch.distributed.device_mesh import DeviceMesh
+    n = 1
+    for s in shape:
+        n *= s
+    if not dist.is_initialized() and n == 1:
+        init_ranks(1, 0, device_type)
+    if dist.get_world_size() != n:
+        raise RuntimeError(f"a mesh of {n} devices needs a process group of {n} ranks, "
+                           f"not {dist.get_world_size()} (launch.sharded.run_ranks starts one)")
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh: 16 x 16 = 256 cards over (data, model), or
+    2 x 16 x 16 = 512 over (pod, data, model) with ``multi_pod``; it needs a
+    process group of that many ranks, one per card, and raises without
+    one."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    need = PRODUCTION_DEVICES[multi_pod]
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have != need:
+        raise RuntimeError(f"the production mesh needs {need} devices, one rank each; this "
+                           f"process group has {have} ranks")
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh("cuda", shape, axes)
+
+
+def make_debug_mesh(data: int = 1, model: int = 1, device_type: Optional[str] = None):
+    """A small (data, model) mesh over ``device_type``: by default the card
+    where there is one, else the CPU. A mesh of one starts its own world of
+    one when the process has no group; a larger one needs the process group
+    of its ``data * model`` ranks (``init_ranks``)."""
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return _mesh(device_type, (data, model), ("data", "model"))
+
+
+def batch_axes_for(mesh):
+    return tuple(a for a in axis_sizes(mesh) if a in ("pod", "data"))

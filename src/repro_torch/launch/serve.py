@@ -40,6 +40,7 @@ from repro_torch.models.model import init_params, resolve_device
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.scheduler import AdaOperScheduler
 from repro_torch.serving.slots import Request
+from repro_torch.sharding.context import ExecContext
 
 
 CALIB_SAMPLES = 1200  # the offline calibration pass of repro.launch.serve
@@ -72,7 +73,8 @@ def build_engine(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[
                  device="cuda", full: bool = False,
                  scheduler: Optional[AdaOperScheduler] = None,
                  layers: Optional[Dict[str, int]] = None, enc_lens: Sequence[int] = (16,),
-                 max_enc_len: Optional[int] = None) -> ServingEngine:
+                 max_enc_len: Optional[int] = None, ctx: ExecContext = ExecContext(),
+                 mode: str = "continuous") -> ServingEngine:
     """One engine serving ``names`` (seed-initialised weights on ``device``)
     with ``requests`` per model queued, prompt lengths drawn from
     ``prompt_lens``, uids ``k * requests + i`` for the k-th model (so that a
@@ -80,13 +82,16 @@ def build_engine(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[
     is given; ``layers`` cuts models as ``model_configs`` does. An
     encoder-decoder model's requests carry N(0, 0.1) frame embeddings
     (frames, d_model), ``frames`` drawn from ``enc_lens``, in a slot pool
-    whose cross-attention region is ``max_enc_len`` (``max_len`` if None)."""
+    whose cross-attention region is ``max_enc_len`` (``max_len`` if None).
+    ``ctx`` is every worker's context: with a mesh, each model is drawn as
+    this process's shard on its model axis (``init_params(ctx=...)``) and
+    served sharded; ``mode`` is the engine's serving mode."""
     dev = resolve_device(device)
-    eng = ServingEngine(scheduler=scheduler, max_slots=max_slots)
+    eng = ServingEngine(scheduler=scheduler, max_slots=max_slots, mode=mode)
     rng = np.random.default_rng(seed)
     for k, (n, cfg) in enumerate(model_configs(names, full, layers).items()):
-        eng.add_model(n, cfg, init_params(cfg, seed, dev), max_len=max_len,
-                      max_enc_len=max_enc_len)
+        eng.add_model(n, cfg, init_params(cfg, seed, dev, ctx=ctx), max_len=max_len,
+                      max_enc_len=max_enc_len, ctx=ctx)
         for i in range(requests):
             plen = int(rng.choice(prompt_lens))
             enc = None
@@ -121,16 +126,19 @@ def serve(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[int] = 
           max_new: int = 8, max_slots: int = 8, max_len: int = 64, seed: int = 0,
           device="cuda", full: bool = False, scheduler: bool = True,
           workload: str = "moderate", layers: Optional[Dict[str, int]] = None,
-          enc_lens: Sequence[int] = (16,), max_enc_len: Optional[int] = None):
+          enc_lens: Sequence[int] = (16,), max_enc_len: Optional[int] = None,
+          ctx: ExecContext = ExecContext(), mode: str = "continuous"):
     """Build the engine and serve every queued request. Returns (engine,
-    responses, report dict)."""
+    responses, report dict). ``ctx`` and ``mode`` as ``build_engine``'s: a
+    mesh in ``ctx`` serves sharded, each rank of its model axis calling
+    ``serve`` in a process of its own (``launch.sharded.run_ranks``)."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     sched = (make_scheduler(model_configs(names, full, layers).values(), max(prompt_lens),
                             max_new, workload, seed) if scheduler else None)
     calibration_s = time.perf_counter() - t0
     eng = build_engine(names, requests, prompt_lens, max_new, max_slots, max_len, seed, dev,
-                       full, sched, layers, enc_lens, max_enc_len)
+                       full, sched, layers, enc_lens, max_enc_len, ctx, mode)
     init_s = time.perf_counter() - t0 - calibration_s
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

@@ -14,6 +14,11 @@ same values at the same positions. Its absorbed decode attends with that
 row as the single KV head and its first ``kv_lora_rank`` columns as the
 values, views of one tensor, so no step concatenates the cache.
 
+On a model axis of M > 1 the GQA projections hold the rank's heads
+(column-parallel q/k/v, row-parallel wo): the functions take the head
+count from the tensors, so they run unchanged on H/M query and Hkv/M kv
+heads, and the caller sums the ranks' wo outputs.
+
 Cross-attention (``gqa_cross``) has no rope and no causal mask; at decode
 it reads a cross cache preallocated at the slot pool's ``max_enc_len`` and
 masks each row to its own encoder length (``kv_len = enc_len``; 0 on a
@@ -112,9 +117,9 @@ def _project_qkv(p: GQA, x, cfg, positions):
     q, k, v = p.wq(x), p.wk(x), p.wv(x)
     if cfg.qkv_bias:
         q, k, v = q + p.bq.to(q.dtype), k + p.bk.to(k.dtype), v + p.bv.to(v.dtype)
-    q = q.view(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.view(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.view(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = q.view(B, S, -1, cfg.head_dim)  # the rank's heads on a model axis
+    k = k.view(B, S, -1, cfg.head_dim)
+    v = v.view(B, S, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm_head(q, p.q_norm.scale)
         k = rms_norm_head(k, p.k_norm.scale)
@@ -130,7 +135,7 @@ def gqa_forward(p: GQA, x, cfg, *, window=None, impl=None):
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = attend(q, k, v, causal=True, window=window, softcap=cfg.attn_softcap, impl=impl)
-    return p.wo(o.reshape(B, S, cfg.q_dim)), (k, v)
+    return p.wo(o.reshape(B, S, -1)), (k, v)
 
 
 def gqa_encode(p: GQA, x, cfg, *, impl=None):
@@ -140,7 +145,7 @@ def gqa_encode(p: GQA, x, cfg, *, impl=None):
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = attend(q, k, v, causal=False, impl=impl)
-    return p.wo(o.reshape(B, S, cfg.q_dim))
+    return p.wo(o.reshape(B, S, -1))
 
 
 def gqa_cross(p: GQA, x, cfg, enc_k, enc_v, enc_len=None, impl=None):
@@ -150,7 +155,7 @@ def gqa_cross(p: GQA, x, cfg, enc_k, enc_v, enc_len=None, impl=None):
     B, S, _ = x.shape
     q = p.wq(x).view(B, S, cfg.num_heads, cfg.head_dim)
     o = attend(q, enc_k, enc_v, causal=False, kv_len=enc_len, impl=impl)
-    return p.wo(o.reshape(B, S, cfg.q_dim))
+    return p.wo(o.reshape(B, S, -1))
 
 
 def cross_kv(p: GQA, enc_out, cfg):
@@ -191,13 +196,13 @@ def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None)
         write_rows(cache_v, v[:, 0], pos)
         o = attend(q, cache_k, cache_v, causal=False, window=window,
                    softcap=cfg.attn_softcap, q_offset=pos, kv_len=pos + 1, impl=impl)
-        return p.wo(o.reshape(B, 1, cfg.q_dim)), (cache_k, cache_v)
+        return p.wo(o.reshape(B, 1, -1)), (cache_k, cache_v)
     idx = _scalar_pos(pos, Smax)
     cache_k[:, idx] = k[:, 0].to(cache_k.dtype)
     cache_v[:, idx] = v[:, 0].to(cache_v.dtype)
     o = attend(q, cache_k, cache_v, causal=False, window=window,
                softcap=cfg.attn_softcap, q_offset=idx, kv_len=idx + 1, impl=impl)
-    return p.wo(o.reshape(B, 1, cfg.q_dim)), (cache_k, cache_v)
+    return p.wo(o.reshape(B, 1, -1)), (cache_k, cache_v)
 
 
 def _scalar_pos(pos, Smax: int) -> int:
@@ -246,7 +251,7 @@ def _verify(p: GQA, x, cfg, cache_k, cache_v, pos, window, impl):
     write_grid(cache_v, v, pos)
     o = attend(q, cache_k, cache_v, causal=True, window=window, softcap=cfg.attn_softcap,
                q_offset=pos, kv_len=None, impl=impl)
-    return p.wo(o.reshape(B, T, cfg.q_dim)), (cache_k, cache_v)
+    return p.wo(o.reshape(B, T, -1)), (cache_k, cache_v)
 
 
 # ---------------------------------------------------------------------------

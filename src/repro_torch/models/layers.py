@@ -14,12 +14,19 @@ package's names and numerics:
 * gemma2 scales embeddings by ``sqrt(d_model)`` cast to the activation
   dtype;
 * logits are cast to fp32 before the final softcap.
+
+On a model axis of M > 1 (``ctx.model_parallel``) the embedding and the
+LM head hold a 1/M slice of the vocab: ``embed_tokens`` looks up the ids
+its slice holds, 0 for the rest, and sums the ranks' rows; ``lm_logits``
+gathers the ranks' vocab columns, so every rank has the whole logits.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.sharding import collectives
 
 
 class RMSNorm(nn.Module):
@@ -118,16 +125,25 @@ def apply_mlp(p, x, cfg):
     return p.w_down(act * p.w_up(x))
 
 
-def embed_tokens(embedding, ids, cfg):
-    x = F.embedding(ids, embedding)
+def embed_tokens(embedding, ids, cfg, ctx=None):
+    if ctx is not None and ctx.model_parallel > 1:  # this rank's vocab rows [v0, v0 + n)
+        n = embedding.shape[0]
+        v0 = ctx.model_rank * n
+        mine = (ids >= v0) & (ids < v0 + n)
+        x = F.embedding((ids - v0).clamp(0, n - 1), embedding) * mine[..., None]
+        x = collectives.all_reduce(x, ctx)
+    else:
+        x = F.embedding(ids, embedding)
     if cfg.name.startswith("gemma2"):
         x = x * torch.tensor(float(cfg.d_model), dtype=torch.float32).sqrt().to(x.dtype)
     return x
 
 
-def lm_logits(embedding, lm_head, x, cfg):
+def lm_logits(embedding, lm_head, x, cfg, ctx=None):
     """``embedding`` (V, d) when tied, else ``lm_head`` (an ``nn.Linear``)."""
     logits = F.linear(x, embedding) if cfg.tie_embeddings else lm_head(x)
+    if ctx is not None:
+        logits = collectives.all_gather_last(logits, ctx)
     logits = logits.float()
     if cfg.final_softcap:
         c = cfg.final_softcap

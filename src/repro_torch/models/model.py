@@ -1,6 +1,6 @@
 """Top-level model API: the counterpart of ``repro.models.model``.
 
-  params         = init_params(cfg, seed, device)
+  params         = init_params(cfg, seed, device, ctx=..., rank=...)
   cache          = init_cache(cfg, B, max_len, device, enc_len=...)
   logits, cache  = prefill(params, cfg, tokens, cache, ctx, enc_inputs=...)
   logits, cache  = decode_step(params, cfg, token, cache, pos, ctx, enc_len=...)
@@ -12,6 +12,11 @@ d_model), the speech frontend being a stub in both packages. Caches are
 updated in place, which replaces the JAX package's buffer donation:
 ``prefill``, ``decode_step`` and ``write_cache_slot(s)`` return the same
 tensors they were given. This slice is inference-only, so parameters carry no gradient.
+
+On a model axis of M > 1 (``ctx.model_parallel``), ``params`` holds one
+rank's shard (``CausalLM.shard`` is (M, rank); ``convert.shard_params``
+cuts a whole model, ``init_params(ctx=...)`` draws a shard directly) and
+the cache holds the rank's kv heads.
 """
 from __future__ import annotations
 
@@ -22,6 +27,10 @@ from torch import nn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, embed_tokens, init_norm, lm_logits
 from repro_torch.sharding.context import ExecContext
+
+# a leaf of more elements than this is drawn in pieces of at most _PIECE
+# (no config before kimi-k2 has one, so their draws are unchanged)
+_WHOLE_DRAW, _PIECE = 1 << 30, 1 << 28
 
 
 def resolve_device(device) -> torch.device:
@@ -58,6 +67,8 @@ class CausalLM(nn.Module):
 
     def __init__(self, cfg, device=None):
         super().__init__()
+        self.cfg = cfg
+        self.shard = None  # (M, rank) once the parameters are one rank's shard
         if cfg.input_mode not in ("tokens", "embeddings"):
             raise NotImplementedError(f"input mode {cfg.input_mode!r} is not ported yet "
                                       "(see ROADMAP.md)")
@@ -80,8 +91,24 @@ def empty_params(cfg, device) -> CausalLM:
     return CausalLM(cfg, device="meta").to_empty(device=resolve_device(device))
 
 
+def set_param(model: nn.Module, name: str, tensor: torch.Tensor) -> None:
+    """Replace parameter ``name`` of ``model`` with ``tensor``."""
+    owner, _, leaf = name.rpartition(".")
+    setattr(model.get_submodule(owner) if owner else model, leaf,
+            nn.Parameter(tensor, requires_grad=False))
+
+
+def shard_slice(t: torch.Tensor, dim, M: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s 1/M slice of ``t`` along ``dim`` (``t`` itself when
+    ``dim`` is None)."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // M
+    return t.narrow(dim, rank * n, n)
+
+
 @torch.no_grad()
-def init_params(cfg, seed: int = 0, device="cuda") -> CausalLM:
+def init_params(cfg, seed: int = 0, device="cuda", ctx=None, rank=None) -> CausalLM:
     """Seeded random weights with the JAX init's distributions: dense
     weights N(0,1)/sqrt(d_in), the MoE router (fp32) and each expert's
     matrices too, MLA's up-projection ``w_ukv`` N(0,1)/sqrt(kv_lora_rank),
@@ -90,13 +117,55 @@ def init_params(cfg, seed: int = 0, device="cuda") -> CausalLM:
     Mamba1 conv weights N(0,1)*0.1 and their constant leaves as their
     ``init_constants`` set them. Drawn in fp32 from a
     ``torch.Generator`` on ``device``, then cast to the param dtype (the
-    bits differ from JAX's)."""
-    model = empty_params(cfg, device)
-    dev = next(model.parameters()).device
+    bits differ from JAX's). A leaf of more than 2^30 elements (kimi-k2's
+    experts and embeddings) is drawn in row blocks, so that no fp32 copy
+    of it is ever whole.
+
+    With ``ctx`` on a model axis of M > 1, the model holds only rank
+    ``rank``'s shard (``ctx.model_rank`` by default), placed by
+    ``sharding.placement.plan_params``: every leaf is drawn in the same
+    order and pieces as the whole model's and the rank keeps its slice of
+    each piece, so the shards are slices of the very weights that
+    ``init_params(cfg, seed)`` gives, and no rank ever holds the whole
+    model."""
+    dev = resolve_device(device)
+    M = 1 if ctx is None else ctx.model_parallel
+    shapes = {n: tuple(p.shape) for n, p in CausalLM(cfg, device="meta").named_parameters()}
+    dims: dict = {}
+    if M == 1:
+        model, rank = empty_params(cfg, dev), 0
+    else:
+        from repro_torch.sharding.placement import plan_params
+        dims = plan_params(cfg, ctx).dims
+        rank = ctx.model_rank if rank is None else rank
+        model = CausalLM(cfg, device="meta")
+        for name, p in list(model.named_parameters()):
+            local = shard_slice(p, dims[name], M, rank)
+            set_param(model, name, torch.empty(local.shape, dtype=p.dtype, device=dev))
+        model.shard = (M, rank)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def normal(t, scale):
-        t.copy_(torch.randn(t.shape, generator=gen, device=dev, dtype=torch.float32) * scale)
+    def normal(name, t, scale):
+        full = shapes[name]
+        per_row = 1
+        for n in full[1:]:
+            per_row *= n
+        rows = full[0] if per_row * full[0] <= _WHOLE_DRAW else max(1, _PIECE // per_row)
+        dim = dims.get(name)
+        for r0 in range(0, full[0], rows):
+            r1 = min(full[0], r0 + rows)
+            x = torch.randn((r1 - r0, *full[1:]), generator=gen, device=dev,
+                            dtype=torch.float32) * scale
+            if dim is None:
+                t[r0:r1].copy_(x)
+            elif dim == 0:  # keep the rows of this rank's slice [lo, lo + n)
+                n = t.shape[0]
+                lo = rank * n
+                a, b = max(r0, lo), min(r1, lo + n)
+                if a < b:
+                    t[a - lo:b - lo].copy_(x[a - r0:b - r0])
+            else:
+                t[r0:r1].copy_(shard_slice(x, dim, M, rank))
 
     for layer in model.layers:
         if layer.kind == "ssd":
@@ -105,26 +174,28 @@ def init_params(cfg, seed: int = 0, device="cuda") -> CausalLM:
             layer.mixer.init_constants()
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
+        full = shapes[name]
         if name.endswith("scale"):
             p.fill_(1.0)
         elif name in ("embedding", "lm_head.weight"):
-            normal(p, 0.02)
+            normal(name, p, 0.02)
         elif leaf == "conv_w":
-            normal(p, 0.1)
+            normal(name, p, 0.1)
         elif leaf == "weight":  # nn.Linear weight (d_out, d_in)
-            normal(p, p.shape[1] ** -0.5)
+            normal(name, p, full[1] ** -0.5)
         elif leaf in ("bq", "bk", "bv", "bias"):
             p.zero_()
         elif leaf in ("router", "w_ukv"):  # (D, E) and (lr, H, nope + vd)
-            normal(p, p.shape[0] ** -0.5)
+            normal(name, p, full[0] ** -0.5)
         elif leaf in ("w_gate", "w_up", "w_down"):  # MoE experts (E, d_in, d_out)
-            normal(p, p.shape[1] ** -0.5)
+            normal(name, p, full[1] ** -0.5)
     return model
 
 
 def init_cache(cfg, batch, max_len, device="cuda", enc_len=0):
     """The decoder's cache; an encoder-decoder model's cross-attention
-    region holds ``enc_len`` frames per row."""
+    region holds ``enc_len`` frames per row. (One rank's piece of it on a
+    model axis: ``sharding.placement.init_placed_cache``.)"""
     return tfm.init_stack_cache(cfg, batch, max_len, dtype_of(cfg.dtype),
                                 resolve_device(device), enc_len=enc_len)
 
@@ -162,12 +233,12 @@ def encode(params: CausalLM, cfg, enc_inputs, ctx=ExecContext()):
     return apply_norm(params.encoder.final_norm, x)
 
 
-def _embed_inputs(params: CausalLM, cfg, inputs):
+def _embed_inputs(params: CausalLM, cfg, inputs, ctx):
     """Token ids are embedded; an embedding-input model takes a float
     (B, S, d_model) tensor as it is."""
     if cfg.input_mode == "embeddings" and inputs.is_floating_point() and inputs.dim() == 3:
         return inputs.to(dtype_of(cfg.dtype))
-    return embed_tokens(params.embedding, inputs, cfg).to(dtype_of(cfg.dtype))
+    return embed_tokens(params.embedding, inputs, cfg, ctx).to(dtype_of(cfg.dtype))
 
 
 def prefill(params: CausalLM, cfg, inputs, cache, ctx=ExecContext(), last_only=False,
@@ -183,13 +254,13 @@ def prefill(params: CausalLM, cfg, inputs, cache, ctx=ExecContext(), last_only=F
     ``enc_inputs`` (B, T_frames, d_model): an encoder-decoder model's
     encoder input; its cross K/V go to the cache at [0, T_frames)."""
     enc_out = encode(params, cfg, enc_inputs, ctx) if cfg.is_encoder_decoder else None
-    x = _embed_inputs(params, cfg, inputs)
+    x = _embed_inputs(params, cfg, inputs, ctx)
     x = tfm.apply_stack(params.layers, cfg, x, ctx, "prefill", cache, ssm_mask=pad_mask,
                         enc_out=enc_out)
     if last_only:
         x = x[:, -1:]
     x = apply_norm(params.final_norm, x)
-    return lm_logits(params.embedding, params.lm_head, x, cfg), cache
+    return lm_logits(params.embedding, params.lm_head, x, cfg, ctx), cache
 
 
 def decode_step(params: CausalLM, cfg, token, cache, pos, ctx=ExecContext(), enc_len=None):
@@ -201,7 +272,7 @@ def decode_step(params: CausalLM, cfg, token, cache, pos, ctx=ExecContext(), enc
     (B,) valid lengths of the cross cache's rows, which a slot pool
     preallocates at ``max_enc_len``; None attends to the whole region (an
     exact-length cache)."""
-    x = embed_tokens(params.embedding, token, cfg).to(dtype_of(cfg.dtype))
+    x = embed_tokens(params.embedding, token, cfg, ctx).to(dtype_of(cfg.dtype))
     x = tfm.apply_stack(params.layers, cfg, x, ctx, "decode", cache, pos=pos, enc_len=enc_len)
     x = apply_norm(params.final_norm, x)
-    return lm_logits(params.embedding, params.lm_head, x, cfg), cache
+    return lm_logits(params.embedding, params.lm_head, x, cfg, ctx), cache

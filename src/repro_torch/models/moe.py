@@ -1,5 +1,6 @@
-"""Mixture-of-Experts, single device: the counterpart of the unsharded
-branch of ``repro.models.moe.moe_apply``.
+"""Mixture-of-Experts: the counterpart of ``repro.models.moe.moe_apply``,
+its unsharded branch and, on a model axis of M > 1, its expert-parallel
+branch.
 
 Top-k routing over fp32 router logits, then a capacity-bounded dispatch:
 the (token, choice) assignments are sorted by expert (stably, as JAX's
@@ -12,9 +13,19 @@ products are plain batched matmuls, as the JAX package leaves them to XLA
 outside any Pallas kernel.
 
 The combine is deterministic: each token's k contributions are summed in
-choice order (0, 1, ..., k-1), never by atomic scatter-adds. The sharded
-branches (expert parallelism, the 2-D variant) wait for the sharding
-slice (see ROADMAP.md).
+choice order (0, 1, ..., k-1), never by atomic scatter-adds.
+
+Expert parallelism (M > 1, E % M == 0): rank m holds experts
+[m E_l, (m+1) E_l), E_l = E / M. The router is replicated, so every rank
+routes every token alike; a rank computes only its experts' contributions,
+with the capacity C of the unsharded branch (a rank's stable sort keeps
+each expert's assignments in the global order, so the same assignments
+are kept and dropped), and the ranks' fp32 partial sums are added by one
+all-reduce. The aux loss is averaged over the ranks (``pmean``).
+The reference's weight-stationary 2-D variant (``_moe_2d``: each expert's
+F also cut on the data axes) is not ported: a serving mesh has one device
+on its data axes (``sharding.placement`` refuses more), where it would
+compute what this branch computes (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -25,6 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import MLP, apply_mlp
+from repro_torch.sharding import collectives
+from repro_torch.sharding.context import ExecContext
 
 
 class MoE(nn.Module):
@@ -66,23 +79,28 @@ def dispatch(ids, E: int, C: int):
     slot, valid): ``order`` sorts the flat (token, choice) assignments by
     expert, stably; sorted assignment i goes to row ``slot[i]`` of the
     flattened buffer when ``valid[i]`` (its rank within its expert is
-    below C), else it is dropped."""
+    below C), else it is dropped. An id of E (an expert of another rank)
+    sorts after all the others and is dropped."""
     flat_e = ids.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
     se = flat_e[order]
     starts = torch.searchsorted(se, torch.arange(E, device=ids.device))
-    rank = torch.arange(se.numel(), device=ids.device) - starts[se]
-    valid = rank < C
+    rank = torch.arange(se.numel(), device=ids.device) - starts[se.clamp(max=E - 1)]
+    valid = (se < E) & (rank < C)
     slot = torch.where(valid, se * C + rank, torch.zeros_like(se))
     return order, slot, valid
 
 
-def experts_apply(p: MoE, xt, gates, ids, C: int):
-    """Every expert's contribution to the T tokens xt (T,D), summed per
-    token in choice order in fp32: (T,D) fp32."""
+def experts_apply(p: MoE, xt, gates, ids, C: int, e0: int = 0):
+    """The contribution of the experts ``p`` holds, experts [e0, e0 + E_l),
+    to the T tokens xt (T,D), summed per token in choice order in fp32:
+    (T,D) fp32."""
     T, D = xt.shape
     k = ids.shape[1]
     E = p.w_gate.shape[0]
+    if E != p.router.shape[1]:  # a rank's experts, numbered from 0; the others' E
+        ids = ids - e0
+        ids = torch.where((ids >= 0) & (ids < E), ids, torch.full_like(ids, E))
     order, slot, valid = dispatch(ids, E, C)
     tok = order // k  # the token of each sorted assignment
     buf = xt.new_zeros(E * C, D)
@@ -108,14 +126,28 @@ def aux_loss(probs, ids, E: int):
     return E * torch.sum(f_e * probs.mean(dim=0))
 
 
-def moe_apply(p: MoE, x, cfg):
-    """x (B,S,D) -> (out (B,S,D) in x's dtype, aux loss, an fp32 scalar)."""
+def moe_apply(p: MoE, x, cfg, ctx=ExecContext()):
+    """x (B,S,D) -> (out (B,S,D) in x's dtype, aux loss, an fp32 scalar).
+    On a model axis of M > 1, ``p`` holds this rank's E / M experts (and
+    its slice of the shared experts' width)."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.top_k
+    M = ctx.model_parallel
     xt = x.reshape(B * S, D)
     probs, gates, ids = route(xt, p.router, k)
+    # the batch is never split on a serving mesh, so the expert-parallel
+    # and the unsharded branch both size their capacity from all B*S tokens
     C = _capacity(B * S, k, E, cfg.moe_capacity_factor)
-    out = experts_apply(p, xt, gates, ids, C).view(B, S, D).to(x.dtype)
+    if M > 1 and E % M == 0:
+        out = experts_apply(p, xt, gates, ids, C, e0=ctx.model_rank * (E // M))
+        out = collectives.all_reduce(out, ctx)  # psum over the model axis
+        aux = collectives.mean(aux_loss(probs, ids, E), ctx)
+    elif M > 1:
+        raise NotImplementedError(f"{E} experts on a model axis of {M} (see ROADMAP.md)")
+    else:
+        out = experts_apply(p, xt, gates, ids, C)
+        aux = aux_loss(probs, ids, E)
+    out = out.view(B, S, D).to(x.dtype)
     if p.shared is not None:
-        out = out + apply_mlp(p.shared, x, cfg)
-    return out, aux_loss(probs, ids, E)
+        out = out + collectives.all_reduce(apply_mlp(p.shared, x, cfg), ctx)
+    return out, aux

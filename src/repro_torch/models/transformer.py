@@ -35,6 +35,12 @@ Mamba1 (``mamba``) mixers, dense (SwiGLU/GeGLU, or the layernorm models'
 GELU FFN) or MoE MLPs with a dense prefix of ``first_dense_layers``,
 gemma2's post-block norms, and the decoder's cross-attention. The MoE
 layers' load-balance loss is dropped: the port serves and does not train.
+
+On a model axis of M > 1 (``ctx.model_parallel``; GQA stacks with dense or
+MoE MLPs, ``sharding.placement``) each rank holds its 1/M of the heads,
+``d_ff`` and experts, and its K/V cache holds its Hkv/M kv heads: the
+attention's and the dense MLP's row-parallel outputs are summed over the
+ranks here, before any post-block norm; the MoE layer sums its own.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from torch import nn
 from repro_torch.models import attention as att
 from repro_torch.models import moe, ssm
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
+from repro_torch.sharding import collectives
 
 ATTN_KINDS = ("attn", "local", "global")
 SSM_KINDS = ("ssd", "mamba")
@@ -239,6 +246,7 @@ def apply_layer(lp: Block, x, cfg, ctx, mode, cache, pos, ssm_mask=None, enc_out
     """``cache``: this layer's views of the stacked cache (None in encode
     mode). Returns the layer's output."""
     mix = _apply_mixer(lp, apply_norm(lp.pre_norm, x), cfg, ctx, mode, cache, pos, ssm_mask)
+    mix = collectives.all_reduce(mix, ctx)  # the ranks' wo outputs
     if cfg.post_block_norm:
         mix = apply_norm(lp.post_norm, mix)
     x = x + mix
@@ -247,7 +255,10 @@ def apply_layer(lp: Block, x, cfg, ctx, mode, cache, pos, ssm_mask=None, enc_out
     if lp.mlp_kind == "none":
         return x
     h = apply_norm(lp.mlp_norm, x)
-    y = moe.moe_apply(lp.mlp, h, cfg)[0] if lp.mlp_kind == "moe" else apply_mlp(lp.mlp, h, cfg)
+    if lp.mlp_kind == "moe":
+        y = moe.moe_apply(lp.mlp, h, cfg, ctx)[0]
+    else:
+        y = collectives.all_reduce(apply_mlp(lp.mlp, h, cfg), ctx)  # the ranks' w_down outputs
     if cfg.post_block_norm:
         y = apply_norm(lp.mlp_post_norm, y)
     return x + y

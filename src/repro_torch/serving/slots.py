@@ -104,6 +104,11 @@ class _SlotPool:
 
     def __init__(self, worker, max_slots: int):
         self.cache = worker.init_pool(max_slots)
+        # a meshed worker's placement of the pool cache (leaf name -> the
+        # activation rules' placement, sharding.partition_specs.cache_spec);
+        # None on the single-device path
+        self.cache_shardings = (worker._cache_shardings.get((max_slots, worker.max_enc_len))
+                                if worker.mesh is not None else None)
         self.alloc = SlotAllocator(max_slots)
         self.active: Dict[int, _ActiveSeq] = {}
         self.tokens = np.zeros((max_slots, 1), np.int32)

@@ -9,6 +9,30 @@ one prefill attention or SSD scan launch per layer per prefill, one decode
 attention launch per attention layer per single-token pass, one prefill
 (flash) attention launch per attention layer per multi-position pass (the
 speculative verify and the draft's catch-up, ``decode_verify``).
+
+Sharded serving: when the ``ExecContext`` carries a mesh, the worker takes
+the rule table's placement of its params at construction
+(``sharding.placement.plan_params``, its decisions tallied on
+``shard_report``, the table kept as ``param_shardings``), cuts its params
+to this rank's shard once (``convert.shard_params``, which cuts each leaf
+where that table puts the model axis; params drawn as the rank's shard
+already are kept), and allocates every cache as this rank's piece of the
+activation rules' placement, one placement per (batch, enc_len) shape in
+``_cache_shardings``. A mesh of one takes this path with every tensor
+whole and no collective: it computes exactly what ``mesh=None`` computes.
+
+On a model axis of M > 1 every rank runs this worker, and the engine
+around it, in a process of its own, and the ranks need no broadcast of
+tokens: each decision (scheduling, admission, sampling, retirement) is a
+function of the requests, the seeds and the simulated device's clock and
+predictions, which every rank holds alike, and of the logits, which every
+rank holds whole and bit-identical (the LM head's vocab slices are
+all-gathered, and every activation before it is a sum that the all-reduce
+hands every rank in the same bits). The wall clock enters a decision only
+through an admission SLO or a request deadline, both off by default (under
+``run_trace`` the clock is virtual, so even those agree). So the ranks
+take the same decisions in the same order and issue the same
+collectives.
 """
 from __future__ import annotations
 
@@ -17,8 +41,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch.models import model as model_lib
 from repro_torch.serving.sampling import _sample_rows
+from repro_torch.sharding import partition_specs as ps
+from repro_torch.sharding import placement
 from repro_torch.sharding.context import ExecContext
 
 
@@ -35,9 +62,34 @@ class ModelWorker:
         self.max_enc_len = (max_enc_len if max_enc_len is not None
                             else (max_len if cfg.is_encoder_decoder else 0))
         self.device = params.embedding.device
+        # mesh-aware placement: params once per worker, caches per (batch,
+        # enc_len) shape as they are allocated
+        self.mesh = ctx.mesh
+        self.shard_report = None
+        self.param_shardings = None
+        self._cache_shardings: dict = {}
+        if self.mesh is not None:
+            self.shard_report = ps.ShardingReport()
+            plan = placement.plan_params(cfg, ctx, report=self.shard_report)
+            self.param_shardings = plan.specs
+            self.params = convert.shard_params(params, ctx, plan=plan)
         self.prefill_calls = 0
         self.decode_calls = 0
         self.verify_calls = 0
+
+    def _new_cache(self, batch: int, enc_len: int):
+        """Allocate a cache; under a mesh, every leaf holds this rank's
+        piece of the activation rules' placement (``placement.plan_cache``:
+        the K/V leaves this rank's kv heads)."""
+        if self.mesh is None:
+            return model_lib.init_cache(self.cfg, batch, self.max_len, self.device,
+                                        enc_len=enc_len)
+        specs = self._cache_shardings.get((batch, enc_len))
+        if specs is None:
+            specs = self._cache_shardings[(batch, enc_len)] = placement.plan_cache(
+                self.cfg, self.ctx, batch, self.max_len, enc_len, report=self.shard_report)
+        return placement.init_placed_cache(self.cfg, self.ctx, specs, batch, self.max_len,
+                                           self.device, enc_len)
 
     def _ids(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).long()
@@ -84,8 +136,7 @@ class ModelWorker:
             raise ValueError("pad_mask is only supported for pure-SSM stacks, not "
                              "encoder-decoder models")
         frames = self._frames(enc_inputs)
-        cache = model_lib.init_cache(self.cfg, B, self.max_len, self.device,
-                                     enc_len=0 if frames is None else frames.shape[1])
+        cache = self._new_cache(B, 0 if frames is None else frames.shape[1])
         mask = None if pad_mask is None else torch.as_tensor(np.asarray(pad_mask),
                                                              device=self.device)
         logits, cache = self._prefill(cache, self._ids(prompts), mask, frames)
@@ -115,9 +166,9 @@ class ModelWorker:
     def init_pool(self, max_slots: int):
         """Preallocated cache with one row per request slot (plus a
         ``max_enc_len`` cross-attention region for encoder-decoder
-        models)."""
-        return model_lib.init_cache(self.cfg, max_slots, self.max_len, self.device,
-                                    enc_len=self.max_enc_len)
+        models), placed under the activation rules when the worker carries
+        a mesh."""
+        return self._new_cache(max_slots, self.max_enc_len)
 
     def prefill_one(self, prompt: np.ndarray, enc_inputs=None):
         """Prefill one request at its exact length. Returns (last-position
@@ -142,8 +193,7 @@ class ModelWorker:
             raise ValueError("pad_mask is only supported for pure-SSM stacks, not "
                              "encoder-decoder models")
         frames = self._frames(enc_inputs)
-        cache = model_lib.init_cache(self.cfg, prompts.shape[0], self.max_len, self.device,
-                                     enc_len=self.max_enc_len)
+        cache = self._new_cache(prompts.shape[0], self.max_enc_len)
         mask = None if pad_mask is None else torch.as_tensor(np.asarray(pad_mask),
                                                              device=self.device)
         return self._prefill(cache, self._ids(prompts), mask, frames)

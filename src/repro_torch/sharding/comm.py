@@ -1,6 +1,7 @@
-"""Per-axis collective cost model for sharded serving (a copy of
-``repro.sharding.comm``; until sharded serving is ported every context has
-``model_parallel == 1``, so ``shard_plan`` returns plans unchanged).
+"""Per-axis collective cost model for sharded serving: a copy of
+``repro.sharding.comm``, stamping the plans of a context whose model axis
+holds more than one rank as the reference stamps them (at one shard every
+plan is returned unchanged).
 
 AdaOper's thesis — spreading work across processors for speedup does not
 automatically buy an energy win — reappears at chip scale: an N-way
@@ -32,8 +33,14 @@ ICI_PJ_PER_BYTE = 45.0
 COLLECTIVE_SYNC_S = 5e-6
 
 
+# bytes per element by dtype name; numpy knows no "bfloat16" without the
+# ml_dtypes package, which the JAX package brings and the port does not
+_DTYPE_BYTES = {"bfloat16": 2}
+
+
 def dtype_bytes(cfg) -> int:
-    return np.dtype(getattr(cfg, "dtype", "float32")).itemsize
+    name = getattr(cfg, "dtype", "float32")
+    return _DTYPE_BYTES.get(name) or np.dtype(name).itemsize
 
 
 def allreduce_bytes_per_chip(payload_bytes: float, n: int) -> float:

@@ -1,0 +1,259 @@
+"""Where the port's parameters and cache leaves live on a model axis of M
+ranks: the rule table (``partition_specs``) applied to the port's modules,
+and the explicit-SPMD layout that follows from it.
+
+The rule table speaks the JAX package's tree (paths like
+``stages/0/l0/attn/wq``, (d_in, d_out) matrices, stage leaves stacked on a
+repeats dim). ``jax_layout`` maps each of the port's parameters onto its
+leaf of that tree (the inverse of ``convert.params_from_numpy``'s walk) and
+``jax_shapes`` gives the tree's shapes for a config from a model on the
+meta device, so nothing is allocated.
+
+``plan_params`` takes the table's decisions and turns each into the dim of
+the port's tensor that a rank holds a 1/M slice of. The layers then run as
+column-parallel (q/k/v, gate/up, the LM head's vocab) and row-parallel
+(wo, w_down, the embedding's vocab, the experts) shards with collectives
+(``sharding.collectives``). That needs whole heads per rank, so beyond the
+table's own divisibility it refuses, with a ``NotImplementedError`` that
+names the leaf, M and ROADMAP.md:
+
+* a serving mesh whose batch axes hold more than one device (the JAX
+  package's sharded serving runs a mesh of (1, M));
+* at M > 1, a leaf the table left whole on the model axis (heads, kv
+  heads, d_ff, vocab or experts not divisible by M), attention heads or
+  kv heads not divisible by M, and a KV cache that the table would shard
+  on its sequence instead of its heads (``plan_cache``);
+* at M > 1, MLA, SSM, encoder-decoder and hybrid stacks.
+
+A mesh of one takes every family. A 1-D qkv bias, which the table
+replicates, is cut to the rank's heads with its projection (the rank's
+projection yields only those heads).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as att
+from repro_torch.models.layers import LayerNorm, RMSNorm
+from repro_torch.models.model import dtype_of
+from repro_torch.models.transformer import ATTN_KINDS, compute_stages, init_stack_cache
+from repro_torch.sharding import partition_specs as ps
+from repro_torch.sharding.context import axis_sizes
+
+ROADMAP = "see ROADMAP.md"
+# the leaves the explicit-SPMD layers cut on the model axis
+_CUT_LEAVES = {"embedding", "lm_head", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
+_BIASES = {"bq": "num_heads", "bk": "num_kv_heads", "bv": "num_kv_heads"}
+_HEADS = {"wq": "num_heads", "wo": "num_heads", "wk": "num_kv_heads", "wv": "num_kv_heads"}
+
+
+@dataclass(frozen=True)
+class Leaf:
+    name: str  # the port's parameter name (``CausalLM.named_parameters``)
+    path: str  # the JAX tree path of its leaf
+    repeat: Optional[int]  # its index on the stacked repeats dim; None outside the stages
+    transpose: bool  # an nn.Linear weight: (d_out, d_in) here, (d_in, d_out) in JAX
+
+
+def _jax_order(path: str):
+    """JAX flattens dicts by sorted key and lists by index."""
+    return [(0, int(c)) if c.isdigit() else (1, c) for c in path.split("/")]
+
+
+def _stage_index(cfg, cross: bool, prefix: str) -> Dict[int, Tuple[str, int]]:
+    """Absolute layer index -> (its stage's path, its repeat)."""
+    out, offset = {}, 0
+    for si, st in enumerate(compute_stages(cfg, cross=cross)):
+        period = len(st.pattern)
+        for r in range(st.repeats):
+            for j in range(period):
+                out[offset + r * period + j] = (f"{prefix}stages/{si}/l{j}", r)
+        offset += st.repeats * period
+    return out
+
+
+def jax_layout(cfg, model=None) -> List[Leaf]:
+    """Each parameter of ``model`` (a ``CausalLM`` of ``cfg``; one on the
+    meta device by default) with its leaf of the JAX tree, in the JAX
+    tree's order."""
+    if model is None:
+        from repro_torch.models.model import CausalLM
+        model = CausalLM(cfg, device="meta")
+    index = {"layers": _stage_index(cfg, False, "")}
+    if cfg.is_encoder_decoder:
+        index["encoder"] = _stage_index(cfg, True, "encoder/")
+    leaves = []
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        mods = [model]
+        for part in parts[:-1]:
+            mods.append(getattr(mods[-1], part))
+        owner = mods[-1]
+        keys = parts
+        transpose = isinstance(owner, nn.Linear)
+        bare_norm = (isinstance(owner, (RMSNorm, LayerNorm)) and len(mods) > 2
+                     and isinstance(mods[-2], (att.GQA, att.MLA)))  # q_norm, k_norm, kv_norm
+        if transpose or bare_norm:
+            keys = parts[:-1]
+        repeat = None
+        if keys[0] in ("embedding", "lm_head"):
+            path = f"embed/{keys[0]}"
+        elif keys[0] == "layers":
+            stage, repeat = index["layers"][int(keys[1])]
+            path = "/".join([stage] + keys[2:])
+        elif keys[:2] == ["encoder", "layers"]:
+            stage, repeat = index["encoder"][int(keys[2])]
+            path = "/".join([stage] + keys[3:])
+        else:
+            path = "/".join(keys)
+        leaves.append(Leaf(name, path, repeat, transpose))
+    return sorted(leaves, key=lambda lf: (_jax_order(lf.path), lf.repeat or 0))
+
+
+def jax_shapes(cfg, layout: Optional[List[Leaf]] = None, model=None) -> Dict[str, Tuple[int, ...]]:
+    """The JAX tree's leaf shapes (path -> shape, stage leaves stacked on
+    their repeats), in the tree's order, from the port's modules."""
+    if model is None:
+        from repro_torch.models.model import CausalLM
+        model = CausalLM(cfg, device="meta")
+    layout = layout or jax_layout(cfg, model)
+    shapes = dict(model.named_parameters())
+    out: Dict[str, Tuple[int, ...]] = {}
+    repeats: Dict[str, int] = {}
+    for lf in layout:
+        shape = tuple(shapes[lf.name].shape)
+        core = shape[::-1] if lf.transpose else shape
+        if lf.repeat is None:
+            out[lf.path] = core
+        else:
+            repeats[lf.path] = max(repeats.get(lf.path, 0), lf.repeat + 1)
+            out[lf.path] = (repeats[lf.path],) + core
+    return out
+
+
+def _model_dim(spec, axis) -> Optional[int]:
+    for d, a in enumerate(spec):
+        if a == axis or (isinstance(a, tuple) and axis in a):
+            return d
+    return None
+
+
+def _refuse(path: str, what: str, M: int):
+    raise NotImplementedError(f"{path}: {what} at a model axis of {M} is not ported "
+                              f"to repro_torch's sharded serving ({ROADMAP})")
+
+
+def _axes(ctx):
+    return ctx.model_axis or "model", tuple(ctx.batch_axes) or ("data",)
+
+
+def check_serving_mesh(cfg, ctx, paths: List[str]) -> None:
+    """The refusals that hold whatever the leaf shapes (module docstring)."""
+    model_axis, batch_axes = _axes(ctx)
+    sizes = axis_sizes(ctx.mesh)
+    M = sizes[model_axis]
+    bp = 1
+    for a in batch_axes:
+        bp *= sizes[a]
+    if bp > 1:
+        _refuse(paths[0], f"a serving mesh whose batch axes {batch_axes} span {bp} devices "
+                          "(the batch rows and, with FSDP, the weights would split)", M)
+    if M == 1:
+        return
+    kinds = set(cfg.layer_kinds())
+
+    def first(part):
+        return next(p for p in paths if part in p)
+    if cfg.is_encoder_decoder:
+        _refuse(first("encoder/"), "an encoder-decoder stack", M)
+    if cfg.use_mla:
+        _refuse(first("attn/w_dkv"), "MLA attention", M)
+    if kinds - set(ATTN_KINDS) or cfg.family == "hybrid":
+        _refuse(first("mixer/"), f"a stack with SSM layers ({cfg.family})", M)
+
+
+@dataclass(frozen=True)
+class ParamPlan:
+    specs: Dict[str, ps.Spec]  # JAX path -> the rule table's placement
+    dims: Dict[str, Optional[int]]  # port name -> dim of its tensor cut 1/M per rank
+
+
+def plan_params(cfg, ctx, report: Optional[ps.ShardingReport] = None) -> ParamPlan:
+    """The rule table's placement of every leaf at ``ctx``'s mesh, its
+    decisions recorded on ``report``, and the dim of each port parameter
+    that a rank holds 1/M of (None: every rank holds it whole)."""
+    model_axis, batch_axes = _axes(ctx)
+    from repro_torch.models.model import CausalLM
+    model = CausalLM(cfg, device="meta")
+    layout = jax_layout(cfg, model)
+    shapes = jax_shapes(cfg, layout, model)
+    own = ps.ShardingReport()
+    specs = ps.params_shardings(shapes, cfg, ctx.mesh, model_axis, batch_axes, report=own)
+    if report is not None:
+        report.sharded += own.sharded
+        report.replicated += own.replicated
+        report.events.extend(own.events)
+    M = axis_sizes(ctx.mesh)[model_axis]
+    check_serving_mesh(cfg, ctx, list(shapes))
+    if M > 1:
+        for path, dim, size, axis in own.events:
+            if model_axis in axis.split("+"):
+                _refuse(path, f"dim {dim} of {size}, not divisible by the model axis,", M)
+    dims = {}
+    for lf in layout:
+        spec = specs[lf.path]
+        core = spec[1:] if lf.repeat is not None else spec
+        d = _model_dim(core, model_axis)
+        leaf = lf.path.split("/")[-1]
+        if d is not None and M > 1:
+            if leaf not in _CUT_LEAVES:
+                _refuse(lf.path, "a leaf the sharded layers do not cut", M)
+            heads = _HEADS.get(leaf) if "/attn/" in lf.path else None
+            if heads and getattr(cfg, heads) % M:
+                _refuse(lf.path, f"{getattr(cfg, heads)} {heads.split('_', 1)[1]} "
+                                 "(whole heads per rank)", M)
+        if d is not None and lf.transpose:
+            d = len(core) - 1 - d
+        if leaf in _BIASES and M > 1:
+            d = 0  # the rank's heads of a replicated bias (module docstring)
+        dims[lf.name] = d
+    return ParamPlan(specs, dims)
+
+
+def cache_shapes(cfg, batch: int, max_len: int, enc_len: int = 0) -> Dict[str, Tuple[int, ...]]:
+    """The cache's leaf shapes at one shard (``init_stack_cache`` on the
+    meta device)."""
+    cache = init_stack_cache(cfg, batch, max_len, None, "meta", enc_len=enc_len)
+    return {n: tuple(t.shape) for n, t in cache.items()}
+
+
+def init_placed_cache(cfg, ctx, specs: Dict[str, ps.Spec], batch: int, max_len: int, device,
+                      enc_len: int = 0) -> Dict[str, torch.Tensor]:
+    """A zeroed (batch, max_len) cache of which every leaf holds this
+    rank's piece under ``specs`` (``plan_cache``'s placement): the K/V
+    leaves this rank's kv heads at a model axis of M > 1."""
+    full = init_stack_cache(cfg, batch, max_len, dtype_of(cfg.dtype), "meta", enc_len=enc_len)
+    return {n: torch.zeros(ps.local_shape(tuple(t.shape), specs[n], ctx.mesh), dtype=t.dtype,
+                           device=device)
+            for n, t in full.items()}
+
+
+def plan_cache(cfg, ctx, batch: int, max_len: int, enc_len: int = 0,
+               report: Optional[ps.ShardingReport] = None) -> Dict[str, ps.Spec]:
+    """The activation rules' placement of a (batch, max_len) cache; at
+    M > 1 every KV leaf must shard on its heads (the table's KV-sequence
+    fallback is refused)."""
+    model_axis, batch_axes = _axes(ctx)
+    specs = ps.cache_shardings(cache_shapes(cfg, batch, max_len, enc_len), cfg, ctx.mesh, batch,
+                               model_axis, batch_axes, report=report)
+    M = axis_sizes(ctx.mesh)[model_axis]
+    if M > 1:
+        for name in ("k", "v"):
+            if name in specs and specs[name][3] != model_axis:
+                _refuse(name, f"a KV cache of {cfg.num_kv_heads} kv heads, which the rule table "
+                              "shards on its sequence (a flash-decode partial softmax),", M)
+    return specs

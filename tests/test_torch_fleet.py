@@ -19,6 +19,7 @@ from repro_torch import fleet  # noqa: E402
 from repro_torch.configs import base as configs  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.fleet.workloads import ASSISTANT  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.sharding.context import ExecContext  # noqa: E402
 
 GRAPH_SCENARIOS = ["voice", "mixed", "chaos_voice", "chaos_mixed"]
@@ -119,7 +120,9 @@ def test_serving_replay_accounts_for_every_arrival_and_repeats(tiny):
     """Each device's records plus its rejected requests are its trace's
     arrivals, and a second run of the same replay gives the same report
     (virtual time, seeded traces and weights); an explicit single-device
-    context is taken, a mesh is refused naming the roadmap."""
+    context is taken, a mesh of one gives the same report, and a serving
+    mesh the port refuses (two devices on its data axis) names the
+    roadmap."""
     _, _, tcfg, tp = tiny
     kw = dict(FLEET, scenario="chaos_voice", backend="serving", uncertainty=True,
               risk_level=0.9, serving_models={ASSISTANT: (tcfg, tp)},
@@ -134,10 +137,14 @@ def test_serving_replay_accounts_for_every_arrival_and_repeats(tiny):
     assert a.fleet["counters"]["faults"] > 0 and a.fleet["counters"]["recoveries"] > 0
     assert fleet.FleetReport.from_dict(a.to_dict()).to_dict() == a.to_dict()
 
-    class MeshCtx:
-        mesh = object()
+    mesh1 = ExecContext(mesh=make_debug_mesh(1, 1), batch_axes=("data",), model_axis="model")
+    assert fleet.FleetReplay(pop, **dict(kw, serving_ctx=mesh1)).run().to_dict() == a.to_dict()
+
+    class DataMesh:
+        shape = {"data": 2, "model": 1}
+    data2 = ExecContext(mesh=DataMesh(), batch_axes=("data",), model_axis="model")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fleet.FleetReplay(pop, **dict(kw, serving_ctx=MeshCtx())).run()
+        fleet.FleetReplay(pop, **dict(kw, serving_ctx=data2)).run()
 
 
 @pytest.mark.parametrize("scenario", ["mixed", "chaos_voice"])

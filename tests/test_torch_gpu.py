@@ -601,3 +601,92 @@ def test_fleet_serving_replay_on_card_equals_plain_kernels_and_cpu():
     assert tokens["kernels"] == tokens["plain"]
     assert reports["kernels"] == reports["plain"] == reports["cpu"]
     assert reports["kernels"]["fleet"]["counters"]["faults"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hkv", [(64, 8), (32, 4)])  # kimi-k2; one rank of 2
+def test_flash_kernel_at_head_dim_112(dtype, H, Hkv):
+    """kimi-k2's head dim 112 (the bf16 kernel's 128-wide Q/K tile with its
+    last 16 columns zero, a 112-wide V tile; the fp32 kernel's last column
+    slot live on half the lanes): causal prefill across the tile edges and
+    the verify's per-row offsets, every output column, 64-111 included."""
+    dev = _card()
+    for B, Sq, Sk, kw in ((2, 200, 200, dict(causal=True)), (1, 17, 17, dict(causal=True)),
+                          (4, 5, 300, dict(causal=True, q_offset=torch.tensor(
+                              [0, 63, 200, 295], device=dev)))):
+        q = _randn(3, (B, Sq, H, 112), dtype, dev)
+        k, v = (_randn(s, (B, Sk, Hkv, 112), dtype, dev) for s in (4, 5))
+        before = fmod.flash_attention.launches
+        out = fmod.flash_attention(q, k, v, **kw)
+        assert fmod.flash_attention.launches == before + 1
+        ref = fmod.flash_attention_plain(q, k, v, **kw)
+        _close(out[..., 64:], ref[..., 64:], dtype)
+        _close(out, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hkv", [(64, 8), (32, 4)])
+@pytest.mark.parametrize("Smax", [2048, 64])
+def test_decode_kernel_at_head_dim_112(dtype, H, Hkv, Smax):
+    """Decode at G = 8, D 112: per-row positions (many splits at 2048, one
+    at 64), a parked slot and a slot that keeps no key. Columns 64-111 are
+    the ones a 64-of-112 lane layout (16 lanes x one 4-float vector in
+    fp32) would leave unwritten: held to the plain version apart."""
+    dev = _card()
+    pos = [0, 1, 63, Smax - 1, Smax, 17, 40, Smax // 2]
+    kv_len = [p + 1 for p in pos]
+    kv_len[1] = 0
+    B = len(pos)
+    q = _randn(6, (B, 1, H, 112), dtype, dev)
+    k, v = (_randn(s, (B, Smax, Hkv, 112), dtype, dev) for s in (7, 8))
+    kw = dict(q_offset=torch.tensor(pos, device=dev), kv_len=torch.tensor(kv_len, device=dev))
+    before = dmod.decode_attention.launches
+    out = dmod.decode_attention(q, k, v, **kw)
+    assert dmod.decode_attention.launches == before + 1
+    ref = dmod.decode_attention_plain(q, k, v, **kw)
+    _close(out[..., 64:], ref[..., 64:], dtype)
+    _close(out, ref, dtype)
+    assert float(out[1].abs().max()) == 0.0  # the row that keeps no key
+
+
+@pytest.mark.gpu
+def test_mesh_of_one_serve_on_card_equals_no_mesh():
+    """tinyllama-1.1b at full width cut to 2 layers in fp32, and kimi-k2 at
+    full width cut to 1 layer in bf16 (36.1 GiB; 72 in fp32), on the card:
+    a continuous engine on a (1, 1) mesh serves the same tokens as one with
+    no mesh, launches as many kernels, and reports sharded dims."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import exact_fp32
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.slots import Request
+    from repro_torch.sharding.context import ExecContext
+    dev = _card()
+    mesh = ExecContext(mesh=make_debug_mesh(1, 1), batch_axes=("data",), model_axis="model")
+    for arch, layers, dtype in (("tinyllama-1.1b", 2, "float32"),
+                                ("kimi-k2-1t-a32b", 1, "bfloat16")):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype,
+                                  param_dtype=dtype)
+        params = init_params(cfg, 0, dev)
+        rng = np.random.default_rng(2)
+        reqs = [(i, rng.integers(1, cfg.vocab_size, n, dtype=np.int32)) for i, n in
+                enumerate((9, 40, 17, 64))]
+        out = {}
+        with exact_fp32():
+            for key, ctx in (("none", ExecContext()), ("mesh1", mesh)):
+                eng = ServingEngine(scheduler=None, max_slots=4)
+                eng.add_model(arch, cfg, params, max_len=96, ctx=ctx)
+                for uid, p in reqs:
+                    eng.submit(arch, Request(uid, p, 5))
+                before = (fmod.flash_attention.launches, dmod.decode_attention.launches)
+                tokens = {r.uid: r.tokens.tolist() for r in eng.run_all()}
+                launched = (fmod.flash_attention.launches - before[0],
+                            dmod.decode_attention.launches - before[1])
+                out[key] = (tokens, launched)
+                if ctx.mesh is not None:
+                    assert eng.workers[arch].shard_report.sharded > 0
+                    assert eng.workers[arch].params is params
+        assert out["none"] == out["mesh1"] and min(out["none"][1]) > 0

@@ -149,13 +149,18 @@ def test_unported_paths_raise_naming_the_roadmap():
     assert ServingEngine(mode="bucketed").mode == "bucketed"
     with pytest.raises(ValueError, match="unknown serving mode"):
         ServingEngine(mode="pipelined")
-    # sharded serving is not: a fleet replay given a mesh context says so
-    from repro_torch.fleet import DeviceReplay, sample_population
+    # sharded serving is ported (tests/test_torch_sharding.py); a model
+    # added on a serving mesh the port does not shard (two devices on its
+    # data axis) is refused naming the roadmap
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding.context import ExecContext
 
-    class MeshCtx:
-        mesh = object()
+    class DataMesh:
+        shape = {"data": 2, "model": 1}
+    cfg = configs.reduced(configs.get_config("tinyllama-1.1b"))
+    ctx = ExecContext(mesh=DataMesh(), batch_axes=("data",), model_axis="model")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DeviceReplay(sample_population(1)[0], {}, backend="serving", serving_ctx=MeshCtx())
+        ServingEngine().add_model("m", cfg, init_params(cfg, 0, "cpu"), ctx=ctx)
     # joint planning is ported (tests/test_torch_coexec.py): coexec= is accepted
     planner = CoexecPlanner()
     assert AdaOperScheduler(RuntimeEnergyProfiler(), DeviceSim(), coexec=planner).coexec is planner
