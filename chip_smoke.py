@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases kernels,encdec_hybrid  # + seamless-m4t and jamba in one engine
     python3 chip_smoke.py --phases kernels,bucketed,fleet  # + the bucketed mode and the fleet replay
     python3 chip_smoke.py --phases kimi,mesh1,shard2  # kimi-k2, a mesh of one, two ranks
+    python3 chip_smoke.py --phases train    # training: tinyllama-1.1b, remat, pipeline, MoE
 
 Phases:
   1. device     the card's name and count, its power limit from nvidia-smi,
@@ -160,7 +161,28 @@ Phases:
                 or, at the serve's capacity, in its own pass; the
                 drop-free witness allows only the former; each rank's peak
                 memory and launches
- 15. times      CUDA-event device times of each kernel, its plain version
+ 15. train      training on the card, which launches no kernel (no kernel
+                has a backward, in either package): full tinyllama-1.1b (bf16
+                params and AdamW moments, B 8, S 512, synthetic data of seed
+                0) takes 40 steps at lr 1e-3 (warmup 8, cosine to step 40),
+                remat "full"; every loss and grad norm finite, the mean loss
+                of the last 5 steps more than 1 nat below the first 5's; the
+                step-0 train logits within MODEL_TOL_BF16 of the prefill's
+                through the flash kernel; a checkpoint after step 20 restored
+                into a fresh model and optimizer state bit for bit, then the
+                last 20 steps again from it (the loss gap printed); two steps
+                at each remat policy ("full", "dots", "none": first losses and
+                grad norms within bf16 rounding, the warm step's time and the
+                peak memory of each); tinyllama
+                cut to 4 layers under the pipeline plan (2 stages, 2
+                microbatches): logits, loss and grad norm against the
+                unpipelined run's; deepseek-v2-lite-16b at full width cut to
+                4 of its 27 layers (MLA, MoE), B 4, S 512, 20 steps: the loss
+                falls, the aux loss positive at every step, the MoE drop
+                share; a flash launch on a q that requires grad refuses. It
+                prints the warm median step time, tokens/s and peak memory
+                beside the card's name and power limit
+ 16. times      CUDA-event device times of each kernel, its plain version
                 and one PyTorch library call (a yardstick only), beside the
                 bound; for the attention kernels and the library call also
                 the wall time per call back to back (host enqueue included);
@@ -191,6 +213,10 @@ Phases:
   profile_fleet (only when asked for) the same for the fleet phase's
                 chaos replay, with the device and host time under the
                 assistant's model passes
+  profile_train (only when asked for) three warm steps of the train
+                phase's full tinyllama-1.1b: device busy time, idle
+                share, device time by kernel group and under the forward
+                and the AdamW update (the backward is the rest)
   mla_parts     (only when asked for) the MLA kernel's device time taken
                 apart: the timing floor, slots that keep one latent row or
                 one tile, rows over 2, 4 and 16 splits (the merge), the
@@ -220,10 +246,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "kernels", "parity", "serve", "scheduled", "joint", "spec", "archs",
-          "encdec_hybrid", "bucketed", "fleet", "kimi", "mesh1", "shard2", "times")
+          "encdec_hybrid", "bucketed", "fleet", "kimi", "mesh1", "shard2", "train", "times")
 EXTRA = ("profile", "profile_scheduled", "profile_spec", "profile_archs",
          "profile_spec_deepseek", "mla_parts", "profile_encdec_hybrid", "profile_bucketed",
-         "profile_fleet")  # only when asked for
+         "profile_fleet", "profile_train")  # only when asked for
 SERVE = dict(names=("tinyllama-1.1b", "gemma2-2b"), requests=8, prompt_lens=(64, 128, 256, 512),
              max_new=16, max_slots=8, max_len=1024, seed=0, device="cuda", full=True,
              scheduler=False)
@@ -3110,8 +3136,9 @@ def model_spans(torch):
 
 
 def is_span(name):
-    """Whether ``name`` is one of ``model_spans``' ranges."""
-    return name.startswith("pass ") or name == "mamba1"
+    """Whether ``name`` is one of ``model_spans``' or ``train_spans``'
+    ranges."""
+    return name.startswith(("pass ", "train ")) or name == "mamba1"
 
 
 def phase_profile_bucketed(torch, report):
@@ -3241,6 +3268,21 @@ def profile_workload(torch, report, key, build, spans=None):
         eng.run_all()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    out, groups = device_summary(torch, prof, warm, wall, spans is not None)
+    # every launch of an attention kernel must land in its own group
+    for g, n in attention_launches_expected(eng).items():
+        if groups.get(g, (0, 0.0))[0] != n:
+            raise SmokeFailure(f"{key}: the profile counts {groups.get(g)} for {g}, "
+                               f"the engine launched it {n} times")
+    report[key] = out
+    log(f"{key}:", json.dumps(out))
+
+
+def device_summary(torch, prof, warm, wall, with_spans):
+    """A profile's device busy time, idle share of the warm untraced and
+    the traced wall, device time by kernel group and the top kernels, and
+    with ``with_spans`` the device and host time under each ``is_span``
+    range. Returns (summary, {group: (launches, ms)})."""
     kernels, span_ms = [], {}
     for evt in prof.key_averages():
         # a range's device-side span (first to last kernel, gaps included)
@@ -3269,17 +3311,12 @@ def profile_workload(torch, report, key, build, spans=None):
         g = group(name)
         n, t = groups.get(g, (0, 0.0))
         groups[g] = (n + count, t + us * 1e-3)
-    # every launch of an attention kernel must land in its own group
-    for g, n in attention_launches_expected(eng).items():
-        if groups.get(g, (0, 0.0))[0] != n:
-            raise SmokeFailure(f"{key}: the profile counts {groups.get(g)} for {g}, "
-                               f"the engine launched it {n} times")
     out = {"warm_untraced_wall_s": warm, "traced_wall_s": wall, "device_busy_s": busy_s,
            "idle_share_traced": 1.0 - busy_s / wall, "idle_share_untraced": 1.0 - busy_s / warm,
            "groups_ms": {g: {"launches": n, "ms": t} for g, (n, t) in groups.items()},
            "top": [{"kernel": k[:90], "launches": c, "ms": us * 1e-3}
                    for k, c, us in kernels[:15]]}
-    if spans is not None:  # device time of the kernels launched inside each range
+    if with_spans:  # device time of the kernels launched inside each range
         for evt in prof.events():
             if evt.device_type == torch.autograd.DeviceType.CPU and is_span(evt.name):
                 us = getattr(evt, "device_time_total", None)
@@ -3289,8 +3326,388 @@ def profile_workload(torch, report, key, build, spans=None):
                 row["device_ms"] += (evt.cuda_time_total if us is None else us) * 1e-3
                 row["host_ms"] += evt.cpu_time_total * 1e-3
         out["spans"] = span_ms
-    report[key] = out
-    log(f"{key}:", json.dumps(out))
+    return out, groups
+
+
+# ---------------------------------------------------------------------------
+# the train phase
+# ---------------------------------------------------------------------------
+
+# full tinyllama-1.1b: JAX's launch/train.py defaults (lr 1e-3, warmup
+# min(20, steps // 5)) at B 8, S 512, 40 steps, a checkpoint after 20
+TRAIN = dict(arch="tinyllama-1.1b", batch=8, seq=512, steps=40, lr=1e-3, ckpt_at=20, seed=0)
+TRAIN_LOSS_DROP = 1.0  # nats between the means of the first and last 5 steps
+TRAIN_PIPE = dict(layers=4, plan={"pipeline": {"stages": 2, "microbatches": 2}})
+# deepseek-v2-lite-16b at full width cut to 4 of its 27 layers (1 dense + 3 MoE)
+TRAIN_MOE = dict(arch="deepseek-v2-lite-16b", layers=4, batch=4, seq=512, steps=20, lr=1e-3,
+                 seed=0)
+BF16_ULP = 2.0 ** -8  # relative rounding of one bf16 value
+PROFILE_TRAIN_STEPS = 3
+
+
+def train_run(torch, cfg, params, data, steps, oc, ctx=None, state=None, first=0, save=None):
+    """``steps`` AdamW steps of ``params`` on ``data``'s batches from
+    ``first``, with every kernel's launch count set to 0 just before (the
+    train path launches none). ``save`` (step, fn): call fn(state) before
+    that step (untimed). Returns (history rows with each step's wall time,
+    state, launches, peak device bytes)."""
+    from repro_torch.models.model import train_params
+    from repro_torch.sharding.context import ExecContext
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import batch_to_device, make_train_step
+    named = train_params(params)
+    dev = next(iter(named.values())).device
+    state = init_opt_state(named) if state is None else state
+    step_fn = make_train_step(cfg, ctx or ExecContext(), oc)
+
+    def go():
+        hist = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(first, first + steps):
+            if save is not None and i == save[0]:
+                save[1](state)
+            b = batch_to_device(data.batch(i), dev)
+            t0 = time.perf_counter()
+            row = {k: float(v) for k, v in step_fn(params, state, b).items()}  # waits
+            hist.append(dict(row, step_s=time.perf_counter() - t0))
+        return hist, torch.cuda.max_memory_allocated()
+
+    (hist, peak), launches = drive(go)
+    return hist, state, launches, peak
+
+
+def train_summary(cfg, hist, B, S, peak):
+    warm = sorted(h["step_s"] for h in hist[1:])
+    step_s = warm[len(warm) // 2]
+    return {"arch": cfg.name, "layers": cfg.num_layers, "batch": B, "seq": S,
+            "steps": len(hist), "loss_first": hist[0]["loss"], "loss_last": hist[-1]["loss"],
+            "loss_first5": sum(h["loss"] for h in hist[:5]) / 5,
+            "loss_last5": sum(h["loss"] for h in hist[-5:]) / 5,
+            "warm_median_step_s": step_s, "tokens_per_s": B * S / step_s,
+            "first_step_s": hist[0]["step_s"], "peak_mem_bytes": peak}
+
+
+def train_checks(label, hist, launches):
+    import math
+    bad = [i for i, h in enumerate(hist)
+           if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]))]
+    if bad:
+        raise SmokeFailure(f"{label}: loss or grad norm not finite at steps {bad}")
+    if any(launches.values()):
+        raise SmokeFailure(f"{label}: the train path launched kernels {launches}")
+
+
+def snapshot(params, state):
+    """Host copies of every param and moment, for a bitwise comparison
+    (on the host, so that they add nothing to the device's peak)."""
+    return ({n: p.detach().cpu() for n, p in params.named_parameters()},
+            {k: {n: t.cpu() for n, t in state[k].items()} for k in ("m", "v")},
+            state["step"])
+
+
+def same_bits(torch, a, b):
+    """Equal dtypes and bit patterns."""
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return a.dtype == b.dtype and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+
+
+def train_tinyllama(torch, report, tmp):
+    """(a) of ``phase_train``: the step-0 logits against the flash prefill,
+    40 steps with a checkpoint after 20, the restore and the 20 steps after
+    it. Returns the summary."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import init_cache, init_params, prefill, train_logits
+    from repro_torch.training.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import batch_to_device
+    t = TRAIN
+    B, S, n = t["batch"], t["seq"], t["steps"]
+    cfg = get_config(t["arch"])
+    data = SyntheticLM(cfg, DataConfig(batch=B, seq_len=S, seed=t["seed"]))
+    params = init_params(cfg, t["seed"], "cuda")
+    dev = next(params.parameters()).device
+    b0 = batch_to_device(data.batch(0), dev)
+    with torch.no_grad():
+        tl = train_logits(params, cfg, b0)[0]
+        (pl, _), launches = drive(lambda: prefill(params, cfg, b0["tokens"],
+                                                  init_cache(cfg, B, S, dev)))
+        err, scale = float((tl - pl).abs().max()), float(pl.abs().max())
+    del tl, pl
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want["flash_attention"] = attention_layers(cfg)
+    if launches != want:
+        raise SmokeFailure(f"train: the prefill launched {launches}, expected {want}")
+    if not err <= MODEL_TOL_BF16 * scale:
+        raise SmokeFailure(f"train: step-0 train logits {err} from the flash prefill's "
+                           f"(largest |logit| {scale}, tolerance {MODEL_TOL_BF16} of it)")
+    oc = OptConfig(lr=t["lr"], warmup_steps=min(20, n // 5), total_steps=n)
+    saved = {}
+
+    def save(state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, params, state, step=state["step"])
+        saved["save_s"] = time.perf_counter() - t0
+        saved["snap"] = snapshot(params, state)
+
+    hist, state, launches_train, peak = train_run(torch, cfg, params, data, n, oc,
+                                                  save=(t["ckpt_at"], save))
+    train_checks("train", hist, launches_train)
+    del params, state
+    torch.cuda.empty_cache()
+    fresh = init_params(cfg, t["seed"] + 1, dev)
+    fresh_state = init_opt_state(dict(fresh.named_parameters()))
+    t0 = time.perf_counter()
+    step = restore_checkpoint(tmp, fresh, fresh_state)
+    restore_s = time.perf_counter() - t0
+    p_snap, m_snap, step_snap = saved.pop("snap")
+    diff = [n_ for n_, p in fresh.named_parameters()
+            if not same_bits(torch, p.detach().cpu(), p_snap[n_])]
+    diff += [f"{k}.{n_}" for k in ("m", "v") for n_, x in fresh_state[k].items()
+             if not same_bits(torch, x.cpu(), m_snap[k][n_])]
+    if diff or not step == step_snap == t["ckpt_at"]:
+        raise SmokeFailure(f"train: the restore differs from the saved state at step {step} "
+                           f"({step_snap}): {diff[:5]}")
+    del p_snap, m_snap
+    resumed, _, launches_resumed, _ = train_run(torch, cfg, fresh, data, n - t["ckpt_at"], oc,
+                                                state=fresh_state, first=t["ckpt_at"])
+    train_checks("train resumed", resumed, launches_resumed)
+    gap = max(abs(a["loss"] - b["loss"]) for a, b in zip(resumed, hist[t["ckpt_at"]:]))
+    summary = train_summary(cfg, hist, B, S, peak)
+    drop = summary["loss_first5"] - summary["loss_last5"]
+    if not drop > TRAIN_LOSS_DROP:
+        raise SmokeFailure(f"train: the loss fell {drop} nats over {n} steps, not more than "
+                           f"{TRAIN_LOSS_DROP}")
+    report["launches_train"] = launches_train
+    summary.update(step0_logit_err=err, step0_logit_scale=scale, prefill_launches=launches,
+                   ckpt_step=step, ckpt_save_s=saved["save_s"], ckpt_restore_s=restore_s,
+                   ckpt_bit_identical=True, resumed_loss_gap_max=gap,
+                   losses=[h["loss"] for h in hist], grad_norms=[h["grad_norm"] for h in hist],
+                   resumed_losses=[h["loss"] for h in resumed])
+    del fresh, fresh_state
+    torch.cuda.empty_cache()
+    return summary
+
+
+def train_remat(torch):
+    """(b) of ``phase_train``: two steps of full tinyllama-1.1b at each
+    remat policy from the same weights and batches: the first step's loss
+    and grad norm, the second's (warm) wall time, the peak memory."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding.context import ExecContext
+    from repro_torch.training.optimizer import OptConfig
+    t = TRAIN
+    cfg = get_config(t["arch"])
+    data = SyntheticLM(cfg, DataConfig(batch=t["batch"], seq_len=t["seq"], seed=t["seed"]))
+    oc = OptConfig(lr=t["lr"], warmup_steps=min(20, t["steps"] // 5), total_steps=t["steps"])
+    out = {}
+    for policy in ("full", "dots", "none"):
+        params = init_params(cfg, t["seed"], "cuda")
+        hist, _, launches, peak = train_run(torch, cfg, params, data, 2, oc,
+                                            ctx=ExecContext(plan={"remat_policy": policy}))
+        train_checks(f"train remat {policy}", hist, launches)
+        out[policy] = {"loss": hist[0]["loss"], "grad_norm": hist[0]["grad_norm"],
+                       "warm_step_s": hist[1]["step_s"], "peak_mem_bytes": peak}
+        del params
+        torch.cuda.empty_cache()
+    for policy in ("dots", "none"):
+        for k in ("loss", "grad_norm"):
+            a, b = out[policy][k], out["full"][k]
+            if not abs(a - b) <= BF16_ULP * abs(b):
+                raise SmokeFailure(f"train remat {policy}: {k} {a} against full's {b}")
+    return out
+
+
+def train_pipeline(torch):
+    """(c) of ``phase_train``: tinyllama-1.1b at full width cut to 4 layers,
+    B 8, S 512, bf16: the train logits and one loss and its gradient under
+    the pipeline plan (2 stages, 2 microbatches) against the unpipelined
+    run's, within bf16 rounding."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import init_params, loss_fn, train_logits, train_params
+    from repro_torch.sharding.context import ExecContext
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.training.train_loop import batch_to_device
+    t, tp = TRAIN, TRAIN_PIPE
+    cfg = dataclasses.replace(get_config(t["arch"]), num_layers=tp["layers"])
+    params = init_params(cfg, t["seed"], "cuda")
+    named = train_params(params)
+    b = batch_to_device(SyntheticLM(cfg, DataConfig(batch=t["batch"], seq_len=t["seq"],
+                                                    seed=t["seed"])).batch(0),
+                        next(params.parameters()).device)
+    out = {}
+    for key, ctx in (("plain", ExecContext()), ("pipelined", ExecContext(plan=tp["plan"]))):
+        with torch.no_grad():
+            logits = train_logits(params, cfg, b, ctx)[0]
+        for p in named.values():
+            p.grad = None
+        loss, _ = loss_fn(params, cfg, b, ctx)
+        loss.backward()
+        out[key] = (logits, float(loss.detach()),
+                    float(global_norm({n: p.grad for n, p in named.items()})))
+    (la, lossa, gna), (lb, lossb, gnb) = out["plain"], out["pipelined"]
+    err, scale = float((lb - la).abs().max()), float(la.abs().max())
+    res = {"layers": cfg.num_layers, "plan": tp["plan"], "logit_err": err,
+           "logit_scale": scale, "loss": [lossa, lossb], "grad_norm": [gna, gnb]}
+    if not (err <= MODEL_TOL_BF16 * scale and abs(lossb - lossa) <= BF16_ULP * abs(lossa)
+            and abs(gnb - gna) <= BF16_ULP * abs(gna) * 4):
+        raise SmokeFailure(f"train pipeline: {res}")
+    del params, named, out, la, lb
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_moe(torch, report):
+    """(d) of ``phase_train``: deepseek-v2-lite-16b at full width cut to 4
+    of its 27 layers (layer 0 dense, 1-3 MoE with MLA attention), bf16,
+    B 4, S 512, 20 steps: the loss falls, the aux loss is finite and
+    positive at every step; the MoE's drop share is counted."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import OptConfig
+    t = TRAIN_MOE
+    cfg = dataclasses.replace(get_config(t["arch"]), num_layers=t["layers"])
+    data = SyntheticLM(cfg, DataConfig(batch=t["batch"], seq_len=t["seq"], seed=t["seed"]))
+    params = init_params(cfg, t["seed"], "cuda")
+    oc = OptConfig(lr=t["lr"], warmup_steps=min(20, t["steps"] // 5), total_steps=t["steps"])
+    with DropCounter(moe) as drops:
+        hist, _, launches, peak = train_run(torch, cfg, params, data, t["steps"], oc)
+    train_checks("train moe", hist, launches)
+    summary = train_summary(cfg, hist, t["batch"], t["seq"], peak)
+    summary.update(of_layers=27, moe_drop_share=drops.share(),
+                   aux=[h["aux"] for h in hist], losses=[h["loss"] for h in hist])
+    if not all(h["aux"] > 0 for h in hist):
+        raise SmokeFailure(f"train moe: aux loss {summary['aux']}")
+    if not (summary["loss_last5"] < summary["loss_first5"] and hist[-1]["loss"] < hist[0]["loss"]):
+        raise SmokeFailure(f"train moe: the loss did not fall: {summary['losses']}")
+    report["launches_train_moe"] = launches
+    del params
+    torch.cuda.empty_cache()
+    return summary
+
+
+def train_refusal(torch):
+    """(e) of ``phase_train``: a flash launch on a bf16 q that requires grad
+    raises and launches nothing."""
+    from repro_torch.kernels import flash_attention as fmod
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = qkv(torch, gen, 1, 64, 64, TINY["H"], TINY["Hkv"], TINY["D"], torch.bfloat16)
+    q.requires_grad_(True)
+    before = fmod.flash_attention.launches
+    try:
+        fmod.flash_attention(q, k, v)
+    except RuntimeError as e:
+        if fmod.flash_attention.launches != before:
+            raise SmokeFailure("train refusal: flash launched before it refused") from e
+        return str(e)
+    raise SmokeFailure("train refusal: flash took a q that requires grad")
+
+
+def phase_train(torch, report):
+    """Training on the card: full tinyllama-1.1b takes 40 AdamW steps
+    (bf16 params and moments, remat "full") with a checkpoint after 20
+    restored bit for bit into a fresh model; the remat policies side by
+    side; the circular pipeline; deepseek-v2-lite-16b (MLA, MoE, aux loss)
+    cut to 4 layers; the kernels' refusal of inputs that require grad. The
+    train path launches no kernel (none has a backward, in either package):
+    the step-0 train logits are held against the prefill through the flash
+    kernel instead."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        tiny = train_tinyllama(torch, report, tmp)
+    summary = {"tinyllama": tiny, "remat": train_remat(torch),
+               "pipeline": train_pipeline(torch), "moe": train_moe(torch, report),
+               "refusal": train_refusal(torch), "card": report["smi"]}
+    report["train"] = summary
+    short = {k: v for k, v in tiny.items() if k not in ("losses", "grad_norms", "resumed_losses")}
+    log(f"train ({report['smi']}): {json.dumps(short)}")
+    log(f"train losses: {json.dumps(tiny['losses'])}")
+    log(f"train remat: {json.dumps(summary['remat'])}")
+    log(f"train pipeline: {json.dumps(summary['pipeline'])}")
+    log(f"train moe: {json.dumps(summary['moe'])}")
+    log(f"train refusal: {summary['refusal']}")
+    log(f"train: tinyllama-1.1b warm step {tiny['warm_median_step_s'] * 1e3:.1f} ms, "
+        f"{tiny['tokens_per_s']:.0f} tokens/s, peak {tiny['peak_mem_bytes'] / 2**30:.2f} GiB, "
+        f"loss {tiny['loss_first5']:.3f} -> {tiny['loss_last5']:.3f} (means of 5), "
+        f"on {report['smi']}")
+
+
+@contextlib.contextmanager
+def train_spans(torch):
+    """Profiler ranges over the train step's forward (``loss_fn``, "train
+    forward") and its AdamW update ("train adamw"); the backward, remat's
+    recompute included, is the rest of the step."""
+    from repro_torch.training import train_loop
+    saved = {"loss_fn": train_loop.loss_fn, "adamw_update": train_loop.adamw_update}
+
+    def spanned(fn, name):
+        def wrapper(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return wrapper
+    train_loop.loss_fn = spanned(saved["loss_fn"], "train forward")
+    train_loop.adamw_update = spanned(saved["adamw_update"], "train adamw")
+    try:
+        yield
+    finally:
+        for attr, fn in saved.items():
+            setattr(train_loop, attr, fn)
+
+
+def phase_profile_train(torch, report):
+    """(only when asked for) the train phase's full tinyllama-1.1b, warm:
+    PROFILE_TRAIN_STEPS steps untimed by the profiler, then as many under
+    torch.profiler: device busy time and idle share, device time by kernel
+    group and under the forward and the AdamW update."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import init_params, train_params
+    from repro_torch.sharding.context import ExecContext
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import batch_to_device, make_train_step
+    t, steps = TRAIN, PROFILE_TRAIN_STEPS
+    cfg = get_config(t["arch"])
+    data = SyntheticLM(cfg, DataConfig(batch=t["batch"], seq_len=t["seq"], seed=t["seed"]))
+    params = init_params(cfg, t["seed"], "cuda")
+    named = train_params(params)
+    state = init_opt_state(named)
+    step = make_train_step(cfg, ExecContext(),
+                           OptConfig(lr=t["lr"], warmup_steps=min(20, t["steps"] // 5),
+                                     total_steps=t["steps"]))
+    dev = next(iter(named.values())).device
+    batches = [batch_to_device(data.batch(i), dev) for i in range(3 * steps)]
+
+    def run(bs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in bs:
+            float(step(params, state, b)["loss"])  # waits, as the train loop does
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(batches[:steps])  # warm-up
+    warm = run(batches[steps:2 * steps])
+    with train_spans(torch), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
+        wall = run(batches[2 * steps:])
+    out, _ = device_summary(torch, prof, warm, wall, True)
+    out["steps"] = steps
+    spans = out["spans"]
+    out["backward_device_ms"] = out["device_busy_s"] * 1e3 - sum(r["device_ms"]
+                                                                for r in spans.values())
+    report["profile_train"] = out
+    log("profile_train:", json.dumps(out))
+    del params, named, state
+    torch.cuda.empty_cache()
 
 
 # each kernel's row of the times phase in the kernels line: (model, B, S)
@@ -3308,7 +3725,7 @@ def kernels_line(report):
             if (r["model"], r["B"], r["S"]) == LINE_ROWS[r["kernel"]] and "shape" not in r}
     paths = {p: report.get(f"launches_{p}", {})
              for p in ("scheduled", "joint", "spec", "spec_deepseek", "archs", "archs_fifo",
-                       "encdec_hybrid", "bucketed", "fleet", "kimi")}
+                       "encdec_hybrid", "bucketed", "fleet", "kimi", "train", "train_moe")}
     paths = {"serve": report.get("launches", {}), **paths}
     out = []
     for name, (src, replaces) in SOURCES.items():
@@ -3345,7 +3762,7 @@ def main(argv=None):
            "joint": phase_joint, "spec": phase_spec, "archs": phase_archs,
            "encdec_hybrid": phase_encdec_hybrid, "bucketed": phase_bucketed,
            "fleet": phase_fleet, "kimi": phase_kimi, "mesh1": phase_mesh1,
-           "shard2": phase_shard2,
+           "shard2": phase_shard2, "train": phase_train, "profile_train": phase_profile_train,
            "profile_encdec_hybrid": phase_profile_encdec_hybrid,
            "profile_bucketed": phase_profile_bucketed, "profile_fleet": phase_profile_fleet,
            "profile": phase_profile,

@@ -19,6 +19,11 @@ goes to its norm module. An encoder-decoder model's decoder layers carry
 ``cross_norm`` and ``cross``, and ``tree["encoder"]`` holds the encoder's
 ``stages`` (``compute_stages(cfg, cross=True)``) and ``final_norm``.
 
+``named_arrays`` does that mapping for any tree shaped like the params
+(gradients and AdamW's moments too): {port parameter name: numpy array in
+the port's layout}, so the tests compare them leaf by leaf;
+``params_from_numpy`` copies its arrays into a new model.
+
 ``gru_params_from_numpy`` carries the JAX ``GRUCorrector``'s parameter dict
 (numpy leaves) into the port's corrector.
 
@@ -37,54 +42,79 @@ from repro_torch.models.transformer import compute_stages
 from repro_torch.sharding.placement import ParamPlan, plan_params
 
 
-def _put(param: torch.Tensor, arr, transpose: bool = False) -> None:
-    a = torch.from_numpy(np.array(arr, dtype=np.float32))
-    param.copy_(a.T if transpose else a)
+def _put(param: torch.Tensor, arr) -> None:
+    param.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+
+
+def _layer_arrays(module: nn.Module, src: dict, r: int, prefix: str, out: dict) -> None:
+    """Add to ``out`` repeat ``r`` of every leaf of the JAX layer dict
+    ``src``, under the name of the parameter of ``module`` it sets, in that
+    parameter's layout."""
+    for name, leaf in src.items():
+        dst = getattr(module, name)
+        if isinstance(leaf, dict):
+            _layer_arrays(dst, leaf, r, f"{prefix}{name}.", out)
+        elif isinstance(dst, nn.Linear):
+            out[f"{prefix}{name}.weight"] = leaf[r].T
+        elif isinstance(dst, RMSNorm):  # a bare scale leaf (qk-norm, kv_norm)
+            out[f"{prefix}{name}.scale"] = leaf[r]
+        elif isinstance(dst, nn.Parameter):
+            out[f"{prefix}{name}"] = leaf[r]
+        else:
+            raise TypeError(f"no rule to load {name!r} into {type(dst).__name__}")
 
 
 def _load(module: nn.Module, src: dict, r: int) -> None:
     """Set ``module``'s parameters from the JAX layer dict ``src``, taking
     repeat ``r`` of every leaf."""
-    for name, leaf in src.items():
-        dst = getattr(module, name)
-        if isinstance(leaf, dict):
-            _load(dst, leaf, r)
-        elif isinstance(dst, nn.Linear):
-            _put(dst.weight, leaf[r], transpose=True)
-        elif isinstance(dst, RMSNorm):  # a bare scale leaf (qk-norm, kv_norm)
-            _put(dst.scale, leaf[r])
-        elif isinstance(dst, nn.Parameter):
-            _put(dst, leaf[r])
-        else:
-            raise TypeError(f"no rule to load {name!r} into {type(dst).__name__}")
+    arrays = {}
+    _layer_arrays(module, src, r, "", arrays)
+    for name, arr in arrays.items():
+        _put(module.get_parameter(name), arr)
 
 
-def _load_stages(layers: nn.ModuleList, stages, cfg, cross: bool) -> None:
+def _stage_arrays(layers: nn.ModuleList, stages, cfg, cross: bool, prefix: str,
+                  out: dict) -> None:
     offset = 0
     for si, st in enumerate(compute_stages(cfg, cross=cross)):
         period = len(st.pattern)
         for r in range(st.repeats):
             for j in range(period):
-                _load(layers[offset + r * period + j], stages[si][f"l{j}"], r)
+                i = offset + r * period + j
+                _layer_arrays(layers[i], stages[si][f"l{j}"], r, f"{prefix}{i}.", out)
         offset += st.repeats * period
 
 
-def _load_norm(norm: nn.Module, src: dict) -> None:
-    for name, leaf in src.items():
-        _put(getattr(norm, name), leaf)
+def named_arrays(tree, cfg) -> dict:
+    """Every leaf of a tree shaped like the JAX package's params (the params
+    themselves, their gradients, AdamW's ``m`` or ``v``; numpy leaves),
+    keyed by the port's parameter name and laid out as that parameter is
+    (dense weights transposed). Returns {name: numpy array}."""
+    model = CausalLM(cfg, device="meta")
+    out = {"embedding": tree["embed"]["embedding"]}
+    if model.lm_head is not None:
+        out["lm_head.weight"] = tree["embed"]["lm_head"].T
+    for name, leaf in tree["final_norm"].items():
+        out[f"final_norm.{name}"] = leaf
+    _stage_arrays(model.layers, tree["stages"], cfg, False, "layers.", out)
+    if cfg.is_encoder_decoder:
+        enc = tree["encoder"]
+        _stage_arrays(model.encoder.layers, enc["stages"], cfg, True, "encoder.layers.", out)
+        for name, leaf in enc["final_norm"].items():
+            out[f"encoder.final_norm.{name}"] = leaf
+    return out
 
 
 @torch.no_grad()
 def params_from_numpy(tree, cfg, device="cuda") -> CausalLM:
     model = empty_params(cfg, device)
-    _put(model.embedding, tree["embed"]["embedding"])
-    if model.lm_head is not None:
-        _put(model.lm_head.weight, tree["embed"]["lm_head"], transpose=True)
-    _load_norm(model.final_norm, tree["final_norm"])
-    _load_stages(model.layers, tree["stages"], cfg, cross=False)
-    if cfg.is_encoder_decoder:
-        _load_stages(model.encoder.layers, tree["encoder"]["stages"], cfg, cross=True)
-        _load_norm(model.encoder.final_norm, tree["encoder"]["final_norm"])
+    arrays = named_arrays(tree, cfg)
+    names = {n for n, _ in model.named_parameters()}
+    if names != set(arrays):
+        raise ValueError(f"the tree sets {sorted(set(arrays) - names)} and misses "
+                         f"{sorted(names - set(arrays))}")
+    for name, arr in arrays.items():
+        _put(model.get_parameter(name), arr)
     return model
 
 

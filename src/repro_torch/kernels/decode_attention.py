@@ -26,9 +26,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (NEG_INF, DTYPES, attention_plain, check_aligned,
-                                                 check_cuda_inputs, exact_fp32, launch_args,
-                                                 per_row)
+from repro_torch.kernels.flash_attention import (ATTN_TRAIN_ROUTE, NEG_INF, DTYPES, attention_plain,
+                                                 check_aligned, check_cuda_inputs, exact_fp32,
+                                                 launch_args, per_row, refuse_grad)
 
 DECODE_DV = (64, 112, 128, 256)  # 112: kimi-k2's heads
 DECODE_GROUPS = (1, 2, 4, 7, 8)
@@ -137,6 +137,7 @@ def decode_attention(q, k, v, *, q_offset=0, kv_len=None, window=None,
     kw = dict(q_offset=q_offset, kv_len=kv_len, window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, **kw)
+    refuse_grad("decode_attention", ATTN_TRAIN_ROUTE, q, k, v)
     _on_card("decode_attention", q)
     decode_route(q.shape[2] // k.shape[2], q.shape[-1], v.shape[-1])
     check_cuda_inputs(q, k, v, DECODE_DV)

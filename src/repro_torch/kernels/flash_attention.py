@@ -12,7 +12,8 @@ tensor cores (``csrc/flash_attention_bf16.cu``), fp32 exactly on the CUDA
 cores (``csrc/flash_attention.cu``, for the fp32 parity checks).
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
-``flash_attention_plain`` for CPU tensors. Both give 0 for a query row that
+``flash_attention_plain`` for CPU tensors; on CUDA tensors it refuses
+inputs that require grad (``refuse_grad``: the kernels have no backward). Both give 0 for a query row that
 keeps no key, as the TPU kernel does (``repro.models.attention
 .full_attention`` gives the mean of v there instead; the serving path never
 has such a row).
@@ -91,6 +92,20 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
                            q_offset=q_offset, kv_len=kv_len, scale=scale)
 
 
+def refuse_grad(name: str, train_route: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad: the kernels
+    write into preallocated outputs through ctypes, so a launch would give
+    autograd a result with no ``grad_fn`` and the gradient through it would
+    be silently absent. Train mode never launches a kernel (it takes
+    ``train_route``); this fires only on a wiring fault."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward; an input requires grad (train mode "
+                           f"takes {train_route})")
+
+
+ATTN_TRAIN_ROUTE = "models.attention.TRAIN_IMPL: full_attention / chunked_attention"
+
+
 def check_cuda_inputs(q, k, v, dvs) -> None:
     """Raise on what the CUDA kernels do not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -165,6 +180,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap,
                                      q_offset=q_offset, kv_len=kv_len, scale=scale)
+    refuse_grad("flash_attention", ATTN_TRAIN_ROUTE, q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     route = flash_checks(q, k, v)

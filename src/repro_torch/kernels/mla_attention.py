@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import merge_counters, plan_splits
-from repro_torch.kernels.flash_attention import attention_plain, check_aligned, launch_args
+from repro_torch.kernels.flash_attention import (ATTN_TRAIN_ROUTE, attention_plain, check_aligned,
+                                                 launch_args, refuse_grad)
 
 MLA_SHAPE = (16, 576, 512)  # (G, Dk, Dv): query heads per latent head, latent and value widths
 
@@ -89,6 +90,7 @@ def mla_attention(q, k, v, *, causal=True, q_offset=0, kv_len=None, window=None,
               scale=scale)
     if q.device.type == "cpu":
         return mla_attention_plain(q, k, v, **kw)
+    refuse_grad("mla_attention", ATTN_TRAIN_ROUTE, q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"mla_attention runs on cuda or cpu, not {q.device}")
     route, v_shared = mla_checks(q, k, v)

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import DTYPES, check_aligned, exact_fp32
+from repro_torch.kernels.flash_attention import DTYPES, check_aligned, exact_fp32, refuse_grad
 
 SSD_MAX_P = 64
 SSD_MAX_N = 128
@@ -43,13 +43,18 @@ def _apply_mask(x, dA, dt, Bm, mask):
             dt * m[:, :, None].to(dt.dtype), Bm * m[:, :, None].to(Bm.dtype))
 
 
-def ssd_scan_plain(x, dA, dt, Bm, Cm, *, mask=None, chunk=256):
-    """x (B,S,H,P); dA, dt (B,S,H); Bm, Cm (B,S,N) -> (y (B,S,H,P) in x's
-    dtype, final state (B,H,P,N) fp32). The SSD dual form in fp32, with cum
-    summed and differenced in fp64 (at large dt an fp32 cum costs y ~1e-3,
-    as in the fp32 kernel): the tail is padded with zeros to a multiple of
-    ``min(chunk, S)``."""
-    x, dA, dt, Bm = _apply_mask(x, dA, dt, Bm, mask)
+def ssd_chunked(x, dA, dt, Bm, Cm, *, chunk=256, cum_dtype=torch.float32):
+    """The SSD dual-form chunked scan in fp32, the JAX package's
+    ``repro.models.ssm.ssd_chunked``: Mamba2's train forward (as it is,
+    differentiated by autograd) and, with an fp64 cum, the body of
+    ``ssd_scan_plain``. x (B,S,H,P); dA (B,S,H) per-step log decay (dt * A,
+    negative); dt (B,S,H); Bm, Cm (B,S,N) -> (y (B,S,H,P) in x's dtype,
+    final state (B,H,P,N) fp32). The tail is padded with zeros to a
+    multiple of ``min(chunk, S)``; cum is summed and differenced in
+    ``cum_dtype``. The decay matrix exponentiates only its kept lower
+    triangle (the reference exponentiates every entry and zeroes the upper
+    one: the same values, but an entry that overflows there gives its
+    gradient 0 * inf)."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -60,28 +65,37 @@ def ssd_scan_plain(x, dA, dt, Bm, Cm, *, mask=None, chunk=256):
     dtc = F.pad(dt.float(), (0, 0, 0, pad)).reshape(B, nc, Q, H)
     Bc = F.pad(Bm.float(), (0, 0, 0, pad)).reshape(B, nc, Q, N)
     Cc = F.pad(Cm.float(), (0, 0, 0, pad)).reshape(B, nc, Q, N)
-    with exact_fp32():
-        cum = torch.cumsum(dAc.double(), dim=2)  # (B,nc,Q,H)
-        # intra-chunk "attention": M[i,j] = exp(cum_i - cum_j) (C_i . B_j) dt_j, i >= j
-        seg = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).float()  # (B,nc,Q,Q,H)
-        tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-        L = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
-        cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
-        M = cb[..., None] * L * dtc[:, :, None, :, :]
-        y_diag = torch.einsum("bcijh,bcjhp->bcihp", M, xc)
-        # per-chunk state: S_c = sum_j exp(cum_last - cum_j) dt_j x_j (x) B_j
-        w = torch.exp((cum[:, :, -1:, :] - cum).float()) * dtc  # (B,nc,Q,H)
-        Sc = torch.einsum("bcjhp,bcjn->bchpn", xc * w[..., None], Bc)
-        a_chunk = torch.exp(cum[:, :, -1, :].float())  # (B,nc,H)
-        h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
-        h_prev = []
-        for c in range(nc):  # inter-chunk recurrence
-            h_prev.append(h)
-            h = h * a_chunk[:, c, :, None, None] + Sc[:, c]
-        h_in = torch.stack(h_prev, dim=1)  # (B,nc,H,P,N): state entering each chunk
-        y_off = torch.einsum("bcin,bchpn->bcihp", Cc, h_in) * torch.exp(cum.float())[..., None]
-        y = (y_diag + y_off).reshape(B, nc * Q, H, P)[:, :S]
+    cum = torch.cumsum(dAc.to(cum_dtype), dim=2)  # (B,nc,Q,H)
+    # intra-chunk "attention": M[i,j] = exp(cum_i - cum_j) (C_i . B_j) dt_j, i >= j
+    seg = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).float()  # (B,nc,Q,Q,H)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+    L = torch.exp(torch.where(tri, seg, float("-inf")))
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    M = cb[..., None] * L * dtc[:, :, None, :, :]
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", M, xc)
+    # per-chunk state: S_c = sum_j exp(cum_last - cum_j) dt_j x_j (x) B_j
+    w = torch.exp((cum[:, :, -1:, :] - cum).float()) * dtc  # (B,nc,Q,H)
+    Sc = torch.einsum("bcjhp,bcjn->bchpn", xc * w[..., None], Bc)
+    a_chunk = torch.exp(cum[:, :, -1, :].float())  # (B,nc,H)
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    h_prev = []
+    for c in range(nc):  # inter-chunk recurrence
+        h_prev.append(h)
+        h = h * a_chunk[:, c, :, None, None] + Sc[:, c]
+    h_in = torch.stack(h_prev, dim=1)  # (B,nc,H,P,N): state entering each chunk
+    y_off = torch.einsum("bcin,bchpn->bcihp", Cc, h_in) * torch.exp(cum.float())[..., None]
+    y = (y_diag + y_off).reshape(B, nc * Q, H, P)[:, :S]
     return y.to(x.dtype), h
+
+
+def ssd_scan_plain(x, dA, dt, Bm, Cm, *, mask=None, chunk=256):
+    """x (B,S,H,P); dA, dt (B,S,H); Bm, Cm (B,S,N) -> (y (B,S,H,P) in x's
+    dtype, final state (B,H,P,N) fp32): ``ssd_chunked`` with cum summed and
+    differenced in fp64 (at large dt an fp32 cum costs y ~1e-3, as in the
+    fp32 kernel) and fp32 products in full fp32, after the pad mask."""
+    x, dA, dt, Bm = _apply_mask(x, dA, dt, Bm, mask)
+    with exact_fp32():
+        return ssd_chunked(x, dA, dt, Bm, Cm, chunk=chunk, cum_dtype=torch.float64)
 
 
 def _bf16(t):
@@ -201,6 +215,7 @@ def ssd_scan(x, dA, dt, Bm, Cm, *, mask=None, chunk=256):
     whatever the number of CUDA launches of its route."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dA, dt, Bm, Cm, mask=mask, chunk=chunk)
+    refuse_grad("ssd_scan", "kernels.ssd_scan.ssd_chunked", x, dA, dt, Bm, Cm)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
     x, dA, dt, Bm = _apply_mask(x, dA, dt, Bm, mask)

@@ -5,7 +5,11 @@ MLA, the counterpart of ``repro.models.attention``.
 ``attend`` routes to the hand-written kernels through ``kernels.ops``: on
 CUDA tensors the flash (prefill) and decode kernels, on CPU tensors their
 plain versions; ``impl="plain"`` takes the plain versions on any device.
-``full_attention`` is the JAX package's XLA path, kept as a reference.
+``impl=TRAIN_IMPL`` takes the JAX package's XLA route (its ``impl="xla"``):
+``full_attention`` up to ``_FULL_KV_LIMIT`` keys (and for one query row),
+``chunked_attention`` above. Train mode takes that route whatever
+``ctx.attn_impl`` says: no kernel of either package has a backward, and the
+reference trains by differentiating this route, as autograd does here.
 
 MLA (DeepSeek's multi-head latent attention) keeps one latent cache row
 per position, ``[c_kv | k_rope]`` of width ``kv_lora_rank + qk_rope_dim``:
@@ -22,18 +26,25 @@ heads, and the caller sums the ranks' wo outputs.
 Cross-attention (``gqa_cross``) has no rope and no causal mask; at decode
 it reads a cross cache preallocated at the slot pool's ``max_enc_len`` and
 masks each row to its own encoder length (``kv_len = enc_len``; 0 on a
-slot never admitted, whose row the kernels write as 0). The chunked path
-has no counterpart: the kernels take any length.
+slot never admitted, whose row the kernels write as 0).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import RMSNorm, apply_rope, rms_norm_head
+from repro_torch.sharding.context import ATTN_IMPLS
 
-IMPLS = (None, "plain")
+# the JAX package's differentiable XLA attention (its impl="xla"): train
+# mode's route, chosen by mode (``ExecContext.attn_impl`` does not take it)
+TRAIN_IMPL = "xla"
+IMPLS = ATTN_IMPLS + (TRAIN_IMPL,)
+_FULL_KV_LIMIT = 2048
+_KV_BLOCK = 1024
 
 
 def _mask(qpos, kpos, causal, window, kv_len):
@@ -78,10 +89,64 @@ def full_attention(q, k, v, *, causal=True, window=None, softcap=None,
     return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
+def chunked_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                      q_offset=0, kv_len=None, scale=None, block=_KV_BLOCK):
+    """Online softmax over key blocks of ``block``, in fp32, each block's
+    body under ``torch.utils.checkpoint`` (its scores are recomputed in the
+    backward, never kept): the JAX package's ``chunked_attention``. Heads
+    stay flat, each K/V block repeated per query-head group. A row that
+    keeps no key gets the mean of v, as in ``full_attention``."""
+    B, Sq, H, Dk = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // Hkv
+    scale = scale if scale is not None else Dk ** -0.5
+    nb = -(-Sk // block)
+    pad = nb * block - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qf = q.float()
+    qoff = torch.as_tensor(q_offset, device=q.device)
+    qpos = (qoff[..., None] if qoff.dim() else qoff) + torch.arange(Sq, device=q.device)
+    eff_len = Sk if kv_len is None else torch.clamp(torch.as_tensor(kv_len, device=q.device),
+                                                    max=Sk)
+
+    def body(acc, m_run, l_run, kblk, vblk, j0):
+        kx = kblk.repeat_interleave(G, dim=2).float()  # (B,block,H,Dk)
+        vx = vblk.repeat_interleave(G, dim=2).float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kx) * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        keep = _mask(qpos, j0 + torch.arange(block, device=q.device), causal, window, eff_len)
+        keep = keep[:, None] if keep.dim() == 3 else keep[None, None]
+        s = torch.where(keep, s, torch.tensor(-1e30, device=q.device))
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        corr = torch.exp(m_run - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_new = l_run * corr + p.sum(dim=-1)
+        acc_new = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vx)
+        return acc_new, m_new, l_new
+
+    acc = torch.zeros((B, H, Sq, Dv), dtype=torch.float32, device=q.device)
+    m_run = torch.full((B, H, Sq), -1e30, dtype=torch.float32, device=q.device)
+    l_run = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    for j in range(nb):
+        sl = slice(j * block, (j + 1) * block)
+        acc, m_run, l_run = checkpoint(body, acc, m_run, l_run, k[:, sl], v[:, sl], j * block,
+                                       use_reentrant=False)
+    o = acc / torch.clamp(l_run[..., None], min=1e-30)
+    return o.transpose(1, 2).to(q.dtype)
+
+
 def attend(q, k, v, *, causal=True, window=None, softcap=None, q_offset=0,
            kv_len=None, scale=None, impl=None):
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; choose from {IMPLS}")
+    if impl == TRAIN_IMPL:
+        fn = (full_attention if k.shape[1] <= _FULL_KV_LIMIT or q.shape[1] == 1
+              else chunked_attention)
+        return fn(q, k, v, causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+                  kv_len=kv_len, scale=scale)
     return ops.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
                                q_offset=q_offset, kv_len=kv_len, scale=scale,
                                plain=impl == "plain")

@@ -1,6 +1,9 @@
 """Top-level model API: the counterpart of ``repro.models.model``.
 
   params         = init_params(cfg, seed, device, ctx=..., rank=...)
+  named          = train_params(params)
+  logits, aux    = train_logits(params, cfg, batch, ctx)
+  loss, metrics  = loss_fn(params, cfg, batch, ctx)
   cache          = init_cache(cfg, B, max_len, device, enc_len=...)
   logits, cache  = prefill(params, cfg, tokens, cache, ctx, enc_inputs=...)
   logits, cache  = decode_step(params, cfg, token, cache, pos, ctx, enc_len=...)
@@ -11,7 +14,15 @@ encoder takes precomputed frame embeddings ``enc_inputs`` (B, T_frames,
 d_model), the speech frontend being a stub in both packages. Caches are
 updated in place, which replaces the JAX package's buffer donation:
 ``prefill``, ``decode_step`` and ``write_cache_slot(s)`` return the same
-tensors they were given. This slice is inference-only, so parameters carry no gradient.
+tensors they were given.
+
+Parameters carry no gradient by default (serving): ``train_params`` turns
+gradients on for a model that is to be trained and returns its named
+parameters, the dict the optimizer (``training.optimizer``) takes. A
+``batch`` is {"tokens" (B,S), "labels" (B,S)} integer tensors on the
+model's device, with "enc_inputs" (B, T_frames, d_model) for an
+encoder-decoder model (``training.train_loop.batch_to_device`` moves a
+``data.pipeline`` batch there).
 
 On a model axis of M > 1 (``ctx.model_parallel``), ``params`` holds one
 rank's shard (``CausalLM.shard`` is (M, rank); ``convert.shard_params``
@@ -225,11 +236,12 @@ def write_cache_slots(pool_cache, group_cache, slots):
     return pool_cache
 
 
-def encode(params: CausalLM, cfg, enc_inputs, ctx=ExecContext()):
+def encode(params: CausalLM, cfg, enc_inputs, ctx=ExecContext(), train_route=False):
     """The encoder over frame embeddings ``enc_inputs`` (B, T_frames,
-    d_model): (B, T_frames, d_model) after its final norm."""
+    d_model): (B, T_frames, d_model) after its final norm. ``train_route``
+    (the train forward) takes train mode's differentiable attention."""
     x = enc_inputs.to(dtype_of(cfg.dtype))
-    x = tfm.apply_stack(params.encoder.layers, cfg, x, ctx, "encode")
+    x = tfm.apply_stack(params.encoder.layers, cfg, x, ctx, "encode", train_route=train_route)
     return apply_norm(params.encoder.final_norm, x)
 
 
@@ -239,6 +251,40 @@ def _embed_inputs(params: CausalLM, cfg, inputs, ctx):
     if cfg.input_mode == "embeddings" and inputs.is_floating_point() and inputs.dim() == 3:
         return inputs.to(dtype_of(cfg.dtype))
     return embed_tokens(params.embedding, inputs, cfg, ctx).to(dtype_of(cfg.dtype))
+
+
+def train_params(params: CausalLM) -> dict:
+    """Turn gradients on for every parameter of ``params``; returns its
+    named parameters."""
+    params.requires_grad_(True)
+    return dict(params.named_parameters())
+
+
+def train_logits(params: CausalLM, cfg, batch, ctx=ExecContext()):
+    """The train forward: (fp32 logits (B, S, padded vocab), the MoE layers'
+    summed load-balance loss, an fp32 scalar). An encoder-decoder model
+    encodes ``batch["enc_inputs"]`` first; the encoder, like the decoder,
+    takes the differentiable train route of attention."""
+    tfm.refuse_sharded_train(ctx)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = encode(params, cfg, batch["enc_inputs"], ctx, train_route=True)
+    x = _embed_inputs(params, cfg, batch["tokens"], ctx)
+    x, aux = tfm.apply_stack(params.layers, cfg, x, ctx, "train", enc_out=enc_out)
+    x = apply_norm(params.final_norm, x)
+    return lm_logits(params.embedding, params.lm_head, x, cfg, ctx), aux
+
+
+def loss_fn(params: CausalLM, cfg, batch, ctx=ExecContext()):
+    """Next-token cross-entropy over the fp32 logits (logsumexp minus the
+    gold logit, averaged over every position) plus ``cfg.router_aux_loss``
+    times the MoE aux loss. Returns (loss, {"nll", "aux"})."""
+    logits, aux = train_logits(params, cfg, batch, ctx)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["labels"][..., None].long())[..., 0]
+    nll = (lse - gold).mean()
+    loss = nll + cfg.router_aux_loss * aux
+    return loss, {"nll": nll, "aux": aux}
 
 
 def prefill(params: CausalLM, cfg, inputs, cache, ctx=ExecContext(), last_only=False,

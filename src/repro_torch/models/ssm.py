@@ -4,13 +4,16 @@ selective scan): the counterpart of ``repro.models.ssm``.
 Mamba2's prefill (``mamba2_forward``) runs the SSD chunked scan through
 ``kernels.ssd_scan``: the hand-written CUDA kernel on CUDA tensors, its
 plain version on CPU tensors or with ``impl="plain"``. It computes the
-function ``repro.models.ssm.ssd_chunked`` computes in the JAX model.
+function ``repro.models.ssm.ssd_chunked`` computes in the JAX model. Its
+train forward (``impl=TRAIN_IMPL``) runs the port of that function,
+``kernels.ssd_scan.ssd_chunked``, which autograd differentiates, as the
+reference trains.
 
 Mamba1 has no Pallas kernel in the JAX package, so it stays PyTorch here.
-Its prefill (``mamba1_forward``) runs ``selective_scan`` chunk by chunk
-(``cfg.ssm_chunk`` positions), carrying the (B, d_inner, N) state across
-chunks. Inside a chunk the recurrence h_t = a_t h_{t-1} + b_t, with
-a_t = exp(dt_t A) and b_t = dt_t u_t B_t, is a log-depth Hillis-Steele
+Its prefill and train forward (``mamba1_forward``) run ``selective_scan``
+chunk by chunk (``cfg.ssm_chunk`` positions), carrying the (B, d_inner, N)
+state across chunks. Inside a chunk the recurrence h_t = a_t h_{t-1} +
+b_t, with a_t = exp(dt_t A) and b_t = dt_t u_t B_t, is a log-depth Hillis-Steele
 scan over the (a, b) pairs under (a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2),
 the pairing ``jax.lax.associative_scan`` combines in the JAX package: each
 level combines every position with the one 2^k before it. It never divides
@@ -26,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan, ssd_scan_plain
+from repro_torch.models.attention import TRAIN_IMPL
 from repro_torch.models.layers import rms_norm_head
 
 
@@ -109,7 +113,7 @@ def mamba2_forward(p: Mamba2, xin, cfg, mask=None, impl=None):
         dt = dt * mask.to(dt.dtype)[..., None]
     A = -torch.exp(p.A_log)  # (H,)
     xh = xs.reshape(B, S, H, P).contiguous()
-    scan = ssd_scan_plain if impl == "plain" else ssd_scan
+    scan = {"plain": ssd_scan_plain, TRAIN_IMPL: ssd_chunked}.get(impl, ssd_scan)
     y, h_last = scan(xh, (dt * A).contiguous(), dt.contiguous(), Bm.contiguous(),
                      Cm.contiguous(), chunk=cfg.ssm_chunk)
     y = y + p.D[None, None, :, None] * xh.float()
@@ -190,14 +194,13 @@ class Mamba1(nn.Module):
 def _scan_pairs(a, b):
     """Inclusive scan along axis 1 of the pairs (a, b) under
     (a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2), Hillis-Steele: log2(Q)
-    levels, each combining position t with t - 2^k. ``a`` and ``b`` are the
-    caller's own tensors and are updated in place; returns them."""
+    levels, each combining position t with t - 2^k. Each level makes new
+    tensors (autograd keeps every level's inputs for the backward, so none
+    is written in place); returns the scanned (a, b)."""
     d, n = 1, a.shape[1]
     while d < n:
-        b_tail = torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])
-        a_tail = a[:, d:] * a[:, :-d]
-        b[:, d:] = b_tail
-        a[:, d:] = a_tail
+        b = torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
         d *= 2
     return a, b
 

@@ -5,14 +5,32 @@ gemma2's (local, global) pair) over stacked params to keep its compiled
 graph small. PyTorch runs eagerly, so the port keeps the layers as one
 ``nn.ModuleList`` in absolute layer order and loops over it;
 ``compute_stages`` stays to map the JAX params onto that order
-(``repro_torch.convert``).
+(``repro_torch.convert``) and to find, in train mode, the stage steps that
+the reference remats and pipelines.
 
-Modes: ``prefill`` (full causal forward writing mixer state into the cache
-at positions [0, S)), ``decode`` (one token per row at ``pos`` against
-the cache, or T > 1 tokens per row at pos..pos+T-1 for the speculative
-verify, attention stacks only: an SSM's state cannot roll back a rejected
-draft) and ``encode`` (the encoder stack of an encoder-decoder model:
-non-causal self-attention, no cache).
+Modes: ``train`` (full causal forward, no cache; returns the MoE layers'
+summed load-balance loss beside the output), ``prefill`` (full causal
+forward writing mixer state into the cache at positions [0, S)),
+``decode`` (one token per row at ``pos`` against the cache, or T > 1
+tokens per row at pos..pos+T-1 for the speculative verify, attention
+stacks only: an SSM's state cannot roll back a rejected draft) and
+``encode`` (the encoder stack of an encoder-decoder model: non-causal
+self-attention, no cache).
+
+Train mode differentiates what the reference's train mode computes: the
+attention of ``attention.TRAIN_IMPL`` (``full_attention``, or
+``chunked_attention`` past 2048 keys), Mamba2's ``ssd_chunked`` and
+Mamba1's ``selective_scan``, whatever ``ctx.attn_impl`` says, since no
+kernel has a backward. Each step of a stage (one repeat of its pattern) is
+rematerialised per ``ctx.plan["remat_policy"]``: ``"full"`` (the default)
+checkpoints it whole, ``"dots"`` saves the outputs of its matmuls without
+batch dims (the projections, which fold their batch into ``aten.mm`` or
+``addmm``) and recomputes the rest, the batched attention scores and MoE
+expert products included (the reference's
+``dots_with_no_batch_dims_saveable``), ``"none"`` keeps every activation. ``ctx.plan["pipeline"]``
+runs a stage whose repeats divide into its stages through
+``sharding.pipeline.circular_pipeline``, under the reference's condition.
+Train mode on a model axis of M > 1 is refused.
 
 The cache is a dict of stacked tensors, batch on axis 1, updated in place.
 Each leaf is stacked over the layers of its own kind only, so a hybrid
@@ -33,8 +51,7 @@ leaf's kind (``layer_caches``):
 Layers: GQA (qkv bias, qk-norm) or MLA attention, Mamba2 (``ssd``) and
 Mamba1 (``mamba``) mixers, dense (SwiGLU/GeGLU, or the layernorm models'
 GELU FFN) or MoE MLPs with a dense prefix of ``first_dense_layers``,
-gemma2's post-block norms, and the decoder's cross-attention. The MoE
-layers' load-balance loss is dropped: the port serves and does not train.
+gemma2's post-block norms, and the decoder's cross-attention.
 
 On a model axis of M > 1 (``ctx.model_parallel``; GQA stacks with dense or
 MoE MLPs, ``sharding.placement``) each rank holds its 1/M of the heads,
@@ -49,15 +66,21 @@ from typing import List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as att
 from repro_torch.models import moe, ssm
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
 from repro_torch.sharding import collectives
+from repro_torch.sharding.pipeline import circular_pipeline
 
 ATTN_KINDS = ("attn", "local", "global")
 SSM_KINDS = ("ssd", "mamba")
-MODES = ("prefill", "decode", "encode")
+MODES = ("train", "prefill", "decode", "encode")
+REMAT_POLICIES = ("full", "dots", "none")
+# the matmuls whose outputs remat policy "dots" saves: those without batch dims
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 # the kind of layer each cache leaf is stacked over
 LEAF_KINDS = {"k": "attn", "v": "attn", "latent": "attn", "xk": "attn", "xv": "attn",
               "conv": "ssm", "ssm": "ssm"}
@@ -178,7 +201,7 @@ def layer_caches(layers, cache):
     return out
 
 
-def _apply_ssm(lp: Block, h, cfg, ctx, mode, cache, ssm_mask):
+def _apply_ssm(lp: Block, h, cfg, impl, mode, cache, ssm_mask):
     if mode == "decode":
         if h.shape[1] != 1:
             raise ValueError(f"SSM decode is single-token; got {h.shape[1]} positions "
@@ -186,8 +209,7 @@ def _apply_ssm(lp: Block, h, cfg, ctx, mode, cache, ssm_mask):
         step = ssm.mamba2_decode if lp.kind == "ssd" else ssm.mamba1_decode
         mix, (conv_s, ssm_s) = step(lp.mixer, h, cfg, cache["conv"], cache["ssm"])
     elif lp.kind == "ssd":
-        mix, (conv_s, ssm_s) = ssm.mamba2_forward(lp.mixer, h, cfg, mask=ssm_mask,
-                                                  impl=ctx.attn_impl)
+        mix, (conv_s, ssm_s) = ssm.mamba2_forward(lp.mixer, h, cfg, mask=ssm_mask, impl=impl)
     else:
         mix, (conv_s, ssm_s) = ssm.mamba1_forward(lp.mixer, h, cfg, mask=ssm_mask)
     if cache is not None:
@@ -196,81 +218,165 @@ def _apply_ssm(lp: Block, h, cfg, ctx, mode, cache, ssm_mask):
     return mix
 
 
-def _apply_mixer(lp: Block, h, cfg, ctx, mode, cache, pos, ssm_mask):
+def _apply_mixer(lp: Block, h, cfg, impl, mode, cache, pos, ssm_mask):
     """The layer's mixer; ``cache`` holds this layer's (batch, ...) views,
-    written in place."""
+    written in place (None in train and encode mode)."""
     if lp.kind in SSM_KINDS:
-        return _apply_ssm(lp, h, cfg, ctx, mode, cache, ssm_mask)
+        return _apply_ssm(lp, h, cfg, impl, mode, cache, ssm_mask)
     if ssm_mask is not None:
         raise ValueError("pad_mask/ssm_mask is only supported for pure-SSM stacks; "
                          f"layer kind {lp.kind!r} attends over absolute positions")
     if mode == "encode":
-        return att.gqa_encode(lp.attn, h, cfg, impl=ctx.attn_impl)
+        return att.gqa_encode(lp.attn, h, cfg, impl=impl)
     if cfg.use_mla:
         if mode == "decode":
-            return att.mla_decode(lp.attn, h, cfg, cache["latent"], pos, impl=ctx.attn_impl)[0]
-        mix, (c_kv, k_rope) = att.mla_forward(lp.attn, h, cfg, impl=ctx.attn_impl)
-        S, lr = c_kv.shape[1], cfg.kv_lora_rank
-        cache["latent"][:, :S, :lr] = c_kv.to(cache["latent"].dtype)
-        cache["latent"][:, :S, lr:] = k_rope.to(cache["latent"].dtype)
+            return att.mla_decode(lp.attn, h, cfg, cache["latent"], pos, impl=impl)[0]
+        mix, (c_kv, k_rope) = att.mla_forward(lp.attn, h, cfg, impl=impl)
+        if cache is not None:
+            S, lr = c_kv.shape[1], cfg.kv_lora_rank
+            cache["latent"][:, :S, :lr] = c_kv.to(cache["latent"].dtype)
+            cache["latent"][:, :S, lr:] = k_rope.to(cache["latent"].dtype)
         return mix
     if mode == "decode":
         mix, _ = att.gqa_decode(lp.attn, h, cfg, cache["k"], cache["v"], pos,
-                                window=lp.window, impl=ctx.attn_impl)
+                                window=lp.window, impl=impl)
         return mix
-    mix, (k, v) = att.gqa_forward(lp.attn, h, cfg, window=lp.window, impl=ctx.attn_impl)
-    S = k.shape[1]
-    cache["k"][:, :S] = k.to(cache["k"].dtype)
-    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    mix, (k, v) = att.gqa_forward(lp.attn, h, cfg, window=lp.window, impl=impl)
+    if cache is not None:
+        S = k.shape[1]
+        cache["k"][:, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, :S] = v.to(cache["v"].dtype)
     return mix
 
 
-def _apply_cross(lp: Block, x, cfg, ctx, mode, cache, enc_out, enc_len):
+def _apply_cross(lp: Block, x, cfg, impl, mode, cache, enc_out, enc_len):
     """The decoder's cross-attention. Prefill computes the encoder's K/V and
     writes them into the cross cache at [0, T_frames) (the region may be
     preallocated wider, at a slot pool's ``max_enc_len``); decode reads the
-    cache, each row masked to its ``enc_len`` (None: all of it)."""
+    cache, each row masked to its ``enc_len`` (None: all of it); train mode
+    attends to the encoder's K/V and keeps no cache."""
     hc = apply_norm(lp.cross_norm, x)
     if mode == "decode":
         return att.gqa_cross(lp.cross, hc, cfg, cache["xk"], cache["xv"], enc_len=enc_len,
-                             impl=ctx.attn_impl)
+                             impl=impl)
     ek, ev = att.cross_kv(lp.cross, enc_out, cfg)
-    T = ek.shape[1]
-    cache["xk"][:, :T] = ek.to(cache["xk"].dtype)
-    cache["xv"][:, :T] = ev.to(cache["xv"].dtype)
-    return att.gqa_cross(lp.cross, hc, cfg, ek, ev, impl=ctx.attn_impl)
+    if cache is not None:
+        T = ek.shape[1]
+        cache["xk"][:, :T] = ek.to(cache["xk"].dtype)
+        cache["xv"][:, :T] = ev.to(cache["xv"].dtype)
+    return att.gqa_cross(lp.cross, hc, cfg, ek, ev, impl=impl)
 
 
 def apply_layer(lp: Block, x, cfg, ctx, mode, cache, pos, ssm_mask=None, enc_out=None,
-                enc_len=None):
-    """``cache``: this layer's views of the stacked cache (None in encode
-    mode). Returns the layer's output."""
-    mix = _apply_mixer(lp, apply_norm(lp.pre_norm, x), cfg, ctx, mode, cache, pos, ssm_mask)
+                enc_len=None, train_route=False):
+    """``cache``: this layer's views of the stacked cache (None in train and
+    encode mode). Train mode, or ``train_route`` (the encoder of a train
+    forward), takes the differentiable route, else ``ctx.attn_impl``.
+    Returns (the layer's output, its MoE load-balance loss: an fp32 scalar
+    tensor, or 0.0 without an MoE)."""
+    impl = att.TRAIN_IMPL if mode == "train" or train_route else ctx.attn_impl
+    mix = _apply_mixer(lp, apply_norm(lp.pre_norm, x), cfg, impl, mode, cache, pos, ssm_mask)
     mix = collectives.all_reduce(mix, ctx)  # the ranks' wo outputs
     if cfg.post_block_norm:
         mix = apply_norm(lp.post_norm, mix)
     x = x + mix
     if lp.cross is not None:
-        x = x + _apply_cross(lp, x, cfg, ctx, mode, cache, enc_out, enc_len)
+        x = x + _apply_cross(lp, x, cfg, impl, mode, cache, enc_out, enc_len)
+    aux = 0.0
     if lp.mlp_kind == "none":
-        return x
+        return x, aux
     h = apply_norm(lp.mlp_norm, x)
     if lp.mlp_kind == "moe":
-        y = moe.moe_apply(lp.mlp, h, cfg, ctx)[0]
+        y, aux = moe.moe_apply(lp.mlp, h, cfg, ctx)
     else:
         y = collectives.all_reduce(apply_mlp(lp.mlp, h, cfg), ctx)  # the ranks' w_down outputs
     if cfg.post_block_norm:
         y = apply_norm(lp.mlp_post_norm, y)
-    return x + y
+    return x + y, aux
+
+
+def stage_steps(layers, cfg) -> list:
+    """The decoder's stages (``compute_stages``) over ``layers``: a list of
+    (stage, steps), each step the layers of one repeat of its pattern."""
+    out, off = [], 0
+    for st in compute_stages(cfg):
+        p = len(st.pattern)
+        out.append((st, [layers[off + r * p:off + (r + 1) * p] for r in range(st.repeats)]))
+        off += st.repeats * p
+    return out
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body, policy: str):
+    """``body(step, x) -> (x, aux)`` rematerialised per the plan's policy."""
+    if policy == "none":
+        return body
+    if policy == "full":
+        return lambda step, x: checkpoint(body, step, x, use_reentrant=False)
+    if policy == "dots":
+        return lambda step, x: checkpoint(
+            body, step, x, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(_save_dots))
+    raise ValueError(f"unknown remat policy {policy!r}; choose from {REMAT_POLICIES}")
+
+
+def refuse_sharded_train(ctx) -> None:
+    """Train mode runs on one device: refuse a model axis of M > 1."""
+    if ctx.model_parallel > 1:
+        raise NotImplementedError("train mode on a model axis of M > 1 is not ported "
+                                  "(see ROADMAP.md)")
+
+
+def _train_stack(layers, cfg, x, ctx, enc_out):
+    """Train mode: (x, summed MoE aux loss), each stage step rematerialised
+    and, under the pipeline plan, a stage pipelined (see the module
+    docstring)."""
+    refuse_sharded_train(ctx)
+
+    def body(step, xc):
+        aux = torch.zeros((), dtype=torch.float32, device=xc.device)
+        for lp in step:
+            xc, a = apply_layer(lp, xc, cfg, ctx, "train", None, 0, enc_out=enc_out)
+            aux = aux + a
+        return xc, aux
+
+    fn = _remat(body, ctx.plan.get("remat_policy", "full"))
+
+    def stage_fn(group, xmb):
+        aux = torch.zeros((), dtype=torch.float32, device=xmb.device)
+        for step in group:
+            xmb, a = fn(step, xmb)
+            aux = aux + a
+        return xmb, aux
+
+    pipe = ctx.plan.get("pipeline")
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for st, steps in stage_steps(layers, cfg):
+        if (pipe and int(pipe.get("stages", 0)) > 1 and st.repeats % int(pipe["stages"]) == 0
+                and x.shape[0] % int(pipe.get("microbatches", 1)) == 0):
+            x, aux = circular_pipeline(stage_fn, steps, x, int(pipe["stages"]),
+                                       int(pipe.get("microbatches", 1)))
+        else:
+            x, aux = stage_fn(steps, x)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def apply_stack(layers: nn.ModuleList, cfg, x, ctx, mode, cache=None, pos=0, ssm_mask=None,
-                enc_out=None, enc_len=None):
+                enc_out=None, enc_len=None, train_route=False):
     """``enc_out`` (B, T, D): the encoder's output, which an encoder-decoder
-    decoder's prefill attends to; ``enc_len`` (an int or (B,)): its decode
-    rows' encoder lengths."""
+    decoder's prefill and train forward attend to; ``enc_len`` (an int or
+    (B,)): its decode rows' encoder lengths; ``train_route``: the encoder
+    of a train forward takes train mode's attention. Returns the stack's
+    output, or in train mode (output, summed MoE aux loss)."""
     if mode not in MODES:
-        raise NotImplementedError(f"mode {mode!r}: this slice runs {MODES}")
+        raise NotImplementedError(f"mode {mode!r}: the port runs {MODES}")
+    if mode == "train":
+        return _train_stack(layers, cfg, x, ctx, enc_out)
     for lp, c in zip(layers, layer_caches(layers, cache)):
-        x = apply_layer(lp, x, cfg, ctx, mode, c, pos, ssm_mask, enc_out, enc_len)
+        x = apply_layer(lp, x, cfg, ctx, mode, c, pos, ssm_mask, enc_out, enc_len,
+                        train_route)[0]
     return x

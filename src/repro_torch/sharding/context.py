@@ -8,15 +8,23 @@ shard count, their rank on that axis and its process group, plus the
 attention route. ``ExecContext()`` (no mesh) is the single-device path; a
 mesh of one takes the same code path and runs no collective.
 
-The reference's ``plan`` (per-layer-class overrides such as ``moe_2d``)
-and ``batch_parallel`` are not carried: the port's serving mesh has one
-device on its batch axes (``sharding.placement`` refuses more), where the
-2-D MoE computes what the expert-parallel branch computes (ROADMAP.md).
+``plan`` carries the reference's per-model overrides; the port reads two
+of its keys, both in train mode only (``models.transformer.apply_stack``):
+``"remat_policy"`` (``"full"``, the default, ``"dots"`` or ``"none"``) and
+``"pipeline"`` (``{"stages": S, "microbatches": M}``, the circular
+pipeline of ``sharding.pipeline``). The reference's other keys (such as
+``moe_2d``) and ``batch_parallel`` are not read: the port's serving mesh
+has one device on its batch axes (``sharding.placement`` refuses more),
+where the 2-D MoE computes what the expert-parallel branch computes
+(ROADMAP.md).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
+
+# the attention routes a caller may choose; train mode takes its own
+ATTN_IMPLS = (None, "plain")
 
 
 def axis_sizes(mesh) -> Dict[str, int]:
@@ -36,8 +44,16 @@ class ExecContext:
     model_axis: Optional[str] = None  # mesh axis sharding heads/ffn/experts/vocab
     # None: the tensors' device decides (the CUDA kernels on the card, their
     # plain versions on the CPU); "plain": the plain versions on any device.
-    # It selects both the attention kernels and the SSD scan.
+    # It selects both the attention kernels and the SSD scan of the serving
+    # modes; train mode takes its differentiable route whatever it says.
     attn_impl: Optional[str] = None
+    # per-model overrides: "remat_policy" and "pipeline" (train mode)
+    plan: dict = field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {self.attn_impl!r}: choose from {ATTN_IMPLS} (train "
+                             "mode takes its differentiable route whatever this says)")
 
     @property
     def model_parallel(self) -> int:

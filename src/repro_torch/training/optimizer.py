@@ -1,0 +1,95 @@
+"""AdamW, global-norm clipping and the warmup-cosine schedule: the
+counterpart of ``repro.training.optimizer``, as plain functions over
+named parameters.
+
+``params``, ``grads`` and the moments are dicts name -> tensor (a model's
+``dict(model.named_parameters())``, or any such dict). The moments are
+kept in the parameter dtype (bf16 for the full configs), as the reference
+keeps them: each update reads them and the parameter into fp32, computes
+in fp32 and casts back. Bf16 moments lose updates below their rounding;
+that is the reference's choice, kept. ``torch.optim.AdamW`` is not used:
+its decay, bias correction and moment dtype differ from the reference's.
+
+Each fp32 operation is its own rounding step, in the reference's order
+(no fused multiply-add, no ``alpha=`` forms), and the scalars (learning
+rate, bias corrections) are computed in fp32 as the reference computes
+them, so that a step rounds where the reference's does.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+
+
+def init_opt_state(params: dict) -> dict:
+    """Zero moments in each parameter's dtype and device, step 0."""
+    return {"m": {n: torch.zeros_like(p) for n, p in params.items()},
+            "v": {n: torch.zeros_like(p) for n, p in params.items()},
+            "step": 0}
+
+
+def schedule(oc: OptConfig, step: int) -> float:
+    """Linear warmup to ``oc.lr`` over ``warmup_steps``, then a cosine decay
+    to 0 at ``total_steps``, in fp32 (an fp32 value returned as a float)."""
+    f32 = np.float32
+    warm = min(f32(1.0), f32(step + 1) / f32(max(oc.warmup_steps, 1)))
+    prog = f32(step - oc.warmup_steps) / f32(max(oc.total_steps - oc.warmup_steps, 1))
+    prog = min(max(prog, f32(0.0)), f32(1.0))
+    cos = np.cos(f32(np.pi) * prog, dtype=np.float32)
+    return float(f32(oc.lr) * warm * (f32(0.5) * (f32(1.0) + cos)))
+
+
+def global_norm(tensors: dict) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32: a 0-d tensor
+    on the tensors' device."""
+    total = None
+    for t in tensors.values():
+        s = torch.sum(torch.square(t.float()))
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def adamw_update(params: dict, grads: dict, state: dict, oc: OptConfig) -> dict:
+    """One AdamW step in place: every parameter of ``params`` from its
+    gradient in ``grads`` (same names), the gradients clipped together to
+    global norm ``oc.clip_norm``; ``state``'s moments and step advance.
+    Returns {"grad_norm": the raw gradients' global norm (a 0-d fp32
+    tensor), "lr": the step's learning rate}."""
+    step = state["step"] + 1
+    gn = global_norm(grads)
+    # true divisions by 0-d tensors (a python divisor turns into a multiply
+    # by its reciprocal, another rounding)
+    scale = torch.clamp(gn.new_tensor(oc.clip_norm) / torch.clamp(gn, min=1e-9), max=1.0)
+    lr = schedule(oc, step)
+    f32 = np.float32
+    bc1 = gn.new_tensor(float(f32(1.0) - f32(oc.b1) ** f32(step)))
+    bc2 = gn.new_tensor(float(f32(1.0) - f32(oc.b2) ** f32(step)))
+    for name, p in params.items():
+        m, v = state["m"][name], state["v"][name]
+        g = grads[name].float() * scale
+        m_new = oc.b1 * m.float() + (1 - oc.b1) * g
+        v_new = oc.b2 * v.float() + (1 - oc.b2) * g * g
+        mh = m_new / bc1
+        vh = v_new / bc2
+        p32 = p.float()
+        delta = lr * (mh / (torch.sqrt(vh) + oc.eps) + oc.weight_decay * p32)
+        p.copy_(p32 - delta)
+        m.copy_(m_new)
+        v.copy_(v_new)
+    state["step"] = step
+    return {"grad_norm": gn, "lr": lr}

@@ -690,3 +690,100 @@ def test_mesh_of_one_serve_on_card_equals_no_mesh():
                     assert eng.workers[arch].shard_report.sharded > 0
                     assert eng.workers[arch].params is params
         assert out["none"] == out["mesh1"] and min(out["none"][1]) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper", ["flash", "decode", "mla", "ssd"])
+def test_kernel_wrappers_refuse_inputs_that_require_grad_on_card(wrapper):
+    """A launch would hand autograd an output with no ``grad_fn``: each
+    wrapper raises instead, and launches nothing."""
+    from repro_torch.kernels import mla_attention as mmod
+    dev = _card()
+
+    def t(seed, *shape):
+        return _randn(seed, shape, "bfloat16", dev).requires_grad_(True)
+
+    calls = {"flash": (fmod.flash_attention, lambda: fmod.flash_attention(
+                 t(0, 1, 64, 32, 64), t(1, 1, 64, 4, 64), t(2, 1, 64, 4, 64))),
+             "decode": (dmod.decode_attention, lambda: dmod.decode_attention(
+                 t(0, 1, 1, 32, 64), t(1, 1, 64, 4, 64), t(2, 1, 64, 4, 64))),
+             "mla": (mmod.mla_attention, lambda: mmod.mla_attention(
+                 t(0, 1, 1, 16, 576), t(1, 1, 64, 1, 576), t(2, 1, 64, 1, 512))),
+             "ssd": (smod.ssd_scan, lambda: smod.ssd_scan(
+                 t(0, 1, 64, 2, 64), t(1, 1, 64, 2).float(), t(2, 1, 64, 2).float(),
+                 t(3, 1, 64, 128), t(4, 1, 64, 128)))}
+    fn, call = calls[wrapper]
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    assert fn.launches == before
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu():
+    """One train step of reduced tinyllama (fp32, TF32 off) on the card and
+    on the CPU from the same weights and batch, in its two halves: the
+    loss and every gradient leaf (to fp32 summation order), then the AdamW
+    update from the CPU's gradients (to an fp32 rounding)."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import exact_fp32
+    from repro_torch.models.model import init_params, loss_fn, train_params
+    from repro_torch.training.optimizer import OptConfig, adamw_update, init_opt_state
+    from repro_torch.training.train_loop import batch_to_device
+    dev = _card()
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    batch = SyntheticLM(cfg, DataConfig(batch=4, seq_len=64, seed=0)).batch(0)
+    oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    out = {}
+    with exact_fp32():
+        for d in ("cpu", dev):
+            params = init_params(cfg, 0, "cpu").to(d)
+            named = train_params(params)
+            loss, _ = loss_fn(params, cfg, batch_to_device(batch, d))
+            loss.backward()
+            out[str(d)] = (params, named, float(loss.detach()),
+                           {n: p.grad.detach().cpu() for n, p in named.items()})
+        (pc, nc, lc, gc), (pg, ng, lg, gg) = out["cpu"], out[str(dev)]
+        assert lg == pytest.approx(lc, rel=1e-5)
+        for name, g in gc.items():
+            torch.testing.assert_close(gg[name], g, rtol=0, atol=1e-4 * float(g.abs().max()))
+        metrics = []
+        for named, d in ((nc, "cpu"), (ng, dev)):
+            with torch.no_grad():
+                metrics.append(adamw_update(named, {n: g.to(d) for n, g in gc.items()},
+                                            init_opt_state(named), oc))
+    assert float(metrics[1]["grad_norm"]) == pytest.approx(float(metrics[0]["grad_norm"]),
+                                                           rel=1e-6)
+    for name, p in nc.items():
+        torch.testing.assert_close(ng[name].detach().cpu(), p.detach(), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.gpu
+def test_bf16_checkpoint_round_trip_on_card(tmp_path):
+    """Params and AdamW moments of a bf16 model on the card, saved after a
+    step and restored into a fresh model: bit for bit, and the step."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import init_params, train_params
+    from repro_torch.training.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import batch_to_device, make_train_step
+    dev = _card()
+    cfg = dataclasses.replace(reduced(get_config("gemma2-2b")), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    params = init_params(cfg, 1, dev)
+    named = train_params(params)
+    state = init_opt_state(named)
+    make_train_step(cfg, oc=OptConfig(warmup_steps=1, total_steps=4))(
+        params, state, batch_to_device(SyntheticLM(cfg, DataConfig(batch=2)).batch(0), dev))
+    save_checkpoint(str(tmp_path), params, state, step=state["step"])
+    fresh = init_params(cfg, 2, dev)
+    fresh_state = init_opt_state(dict(fresh.named_parameters()))
+    assert restore_checkpoint(str(tmp_path), fresh, fresh_state) == 1
+    got = dict(fresh.named_parameters())
+    for name, p in named.items():
+        assert torch.equal(got[name].view(torch.int16), p.detach().view(torch.int16)), name
+        for k in ("m", "v"):
+            assert torch.equal(fresh_state[k][name].view(torch.int16),
+                               state[k][name].view(torch.int16)), (k, name)

@@ -44,7 +44,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                  "configs.seamless_m4t_medium", "configs.jamba_v0_1_52b",
                  "uncertainty", "uncertainty.conformal", "uncertainty.model", "faults.plan",
                  "faults.injector", "serving.bucketed", "fleet", "fleet.replay",
-                 "fleet.workloads", "fleet.population", "fleet.report"):
+                 "fleet.workloads", "fleet.population", "fleet.report", "data.pipeline",
+                 "training.optimizer", "training.checkpoint", "training.train_loop",
+                 "sharding.pipeline", "launch.train"):
         assert f"repro_torch.{name}" in got["modules"]
 
 
