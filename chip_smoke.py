@@ -246,7 +246,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "kernels", "parity", "serve", "scheduled", "joint", "spec", "archs",
-          "encdec_hybrid", "bucketed", "fleet", "kimi", "mesh1", "shard2", "train", "times")
+          "encdec_hybrid", "bucketed", "fleet", "kimi", "mesh1", "shard2", "train", "yolo",
+          "train_mesh", "serve_mesh", "times")
 EXTRA = ("profile", "profile_scheduled", "profile_spec", "profile_archs",
          "profile_spec_deepseek", "mla_parts", "profile_encdec_hybrid", "profile_bucketed",
          "profile_fleet", "profile_train")  # only when asked for
@@ -3710,6 +3711,295 @@ def phase_profile_train(torch, report):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the yolo, train_mesh and serve_mesh phases
+# ---------------------------------------------------------------------------
+
+# yolo-v2-tiny, the paper's evaluation model: 416x416, B 1 and 8, fp32
+YOLO = dict(res=416, batches=(1, 8), seed=0, iters=20, tol=1e-4)
+# full tinyllama-1.1b, B 8, S 512, bf16, remat "full", 3 steps on each mesh
+# ((data, model), fsdp), against the unsharded run's losses and grad norms
+TRAIN_MESH = dict(arch="tinyllama-1.1b", batch=8, seq=512, steps=3, lr=1e-3, seed=0,
+                  meshes=(((2, 1), True), ((1, 2), None), ((2, 2), True)), timeout=600.0)
+# relative tolerances of each step's loss and grad norm against the unsharded
+# run in bf16 (PERF.md states them beside its predictions)
+TRAIN_MESH_TOL = dict(loss=1e-2, grad_norm=5e-2)
+# deepseek-v2-lite-16b at full width cut to 4 of its 27 layers, GQA attention in
+# place of MLA (MLA stays refused at M > 1): expert-parallel on (1, 2), the
+# 2-D MoE on (2, 2)
+TRAIN_MESH_MOE = dict(arch="deepseek-v2-lite-16b", layers=4, batch=4, seq=512, steps=3,
+                      lr=1e-3, seed=0)
+# full tinyllama-1.1b, continuous FIFO, 8 requests, fp32 and bf16, on (2, 1)
+# and (2, 2) against the unsharded run
+SERVE_MESH = dict(SERVE, names=("tinyllama-1.1b",), meshes=((2, 1), (2, 2)),
+                  dtypes=("float32", "bfloat16"), timeout=600.0)
+
+
+def phase_yolo(torch, report):
+    """yolo-v2-tiny (``models.convnet``) at 416x416, B 1 and 8, fp32 with
+    TF32 off: the card's output against the port's CPU run on the same
+    weights within 1e-4 of max |y|, finite, (B, 13, 13, 125); the device
+    ms per batch (CUDA events, L2 flushed, median of 20) and the share of
+    the card's fp32 peak that ``build_yolo_graph``'s FLOPs give."""
+    import numpy as np
+
+    from repro_torch.core.opgraph import build_yolo_graph
+    from repro_torch.models import convnet
+    cpu = convnet.init_yolo(YOLO["seed"], "cpu")
+    card = convnet.init_yolo(YOLO["seed"], "cpu").to("cuda")
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    rows = []
+    for B in YOLO["batches"]:
+        x = np.random.default_rng(B).standard_normal((B, YOLO["res"], YOLO["res"], 3)).astype(
+            np.float32)
+        want = convnet.apply_yolo(cpu, torch.from_numpy(x))
+        xd = torch.from_numpy(x).cuda()
+        got = convnet.apply_yolo(card, xd)
+        torch.cuda.synchronize()
+        err, scale = float((got.cpu() - want).abs().max()), float(want.abs().max())
+        shape = tuple(got.shape)
+        if shape != (B, 13, 13, 125) or not bool(torch.isfinite(got).all()) \
+                or err > YOLO["tol"] * scale:
+            raise SmokeFailure(f"yolo B={B}: shape {shape}, max abs err {err} of max |y| {scale}")
+        ms = time_ms(torch, lambda: convnet.apply_yolo(card, xd), flush, iters=YOLO["iters"])
+        flops = sum(n.flops for n in build_yolo_graph(B, YOLO["res"]).nodes)
+        rows.append({"B": B, "shape": shape, "max_abs_err": err, "max_abs_y": scale,
+                     "device_ms": ms, "gflop": flops / 1e9,
+                     "fp32_peak_share": flops / (ms * 1e-3) / PEAK_FLOPS["float32"],
+                     "card": report["smi"]})
+        log(f"yolo B={B}: {shape}, {ms:.4f} ms per batch, {flops / 1e9:.2f} GFLOP "
+            f"({flops / B / 1e9:.2f} an image), {rows[-1]['fp32_peak_share']:.3f} of the fp32 "
+            f"peak, max abs err {err:.3g} of max |y| {scale:.4g}, on {report['smi']}")
+    report["yolo"] = rows
+
+
+def train_mesh_rank(rank, jobs, mesh):
+    """One rank of a train_mesh spawn: each job through
+    ``launch.sharded.train_rank`` on the card, with the MoE's assignments
+    counted (``DropCounter``: this rank's experts' kept, every offered)."""
+    from repro_torch.launch.sharded import train_rank
+    from repro_torch.models import moe
+    out = []
+    for job in jobs:
+        with DropCounter(moe) as drops:
+            res = train_rank(rank, [job], mesh, "cuda")[0]
+        res["moe_kept"], res["moe_offered"] = int(drops.kept), drops.offered
+        out.append(res)
+    return out
+
+
+def mesh_drop_share(ranks, job, M):
+    """The drop share of one job's MoE: the assignments the model ranks of
+    data rank 0 kept together, of those each of them was offered."""
+    kept = sum(ranks[m][job]["moe_kept"] for m in range(M))
+    offered = ranks[0][job]["moe_offered"]
+    return 1.0 - kept / offered if offered else 0.0
+
+
+def phase_train_mesh(torch, report):
+    """Sharded training on the (data, model) mesh, ranks on the one card
+    over gloo (spawned by ``run_ranks``, one spawn per mesh): full
+    tinyllama-1.1b (B 8, S 512, bf16, remat "full") takes 3 steps on (2, 1)
+    with FSDP, (1, 2) and (2, 2) with FSDP, each step's loss and grad norm
+    against the unsharded run's on the card (TRAIN_MESH_TOL), each rank's
+    peak memory and collectives per step printed; deepseek-v2-lite (GQA
+    attention, 4 of 27 layers) trains expert-parallel on (1, 2) and with
+    the 2-D MoE on (2, 2), its drop share printed; the checkpoint (2, 2)
+    saves is restored on no mesh into the very pieces each rank held, bit
+    for bit (SHA-1 of each rank's pieces of every param and moment). The
+    train path launches no hand-written kernel."""
+    import gc
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.sharded import piece_digests, run_ranks
+    from repro_torch.models.model import cut, cuts, init_params, train_params
+    from repro_torch.sharding.context import ExecContext
+    from repro_torch.sharding.placement import AxisSizes, plan_params
+    from repro_torch.training.checkpoint import leaves, restore_checkpoint
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    t = TRAIN_MESH
+    cfg = get_config(t["arch"])
+    oc = OptConfig(lr=t["lr"], warmup_steps=min(20, t["steps"] // 5), total_steps=t["steps"])
+    data = SyntheticLM(cfg, DataConfig(batch=t["batch"], seq_len=t["seq"], seed=t["seed"]))
+    params = init_params(cfg, t["seed"], "cuda")
+    ref, _, launches, peak = train_run(torch, cfg, params, data, t["steps"], oc)
+    train_checks("train_mesh unsharded", ref, launches)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    m = TRAIN_MESH_MOE
+    moe_cfg = dataclasses.replace(get_config(m["arch"]), num_layers=m["layers"], use_mla=False)
+    moe_oc = OptConfig(lr=m["lr"], warmup_steps=min(20, m["steps"] // 5), total_steps=m["steps"])
+
+    def job(c, o, B, S, seed, fsdp, **kw):
+        return dict(cfg=c, seed=seed, data_seed=seed, batch=B, seq=S, steps=t["steps"], oc=o,
+                    fsdp=fsdp, **kw)
+    out = {"unsharded": {"losses": [h["loss"] for h in ref],
+                         "grad_norms": [h["grad_norm"] for h in ref],
+                         "warm_step_s": [h["step_s"] for h in ref[1:]],
+                         "peak_mem_bytes": peak}, "card": report["smi"]}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_ckpt_") as tmp:
+        for mesh, fsdp in t["meshes"]:
+            D, M = mesh
+            jobs = [job(cfg, oc, t["batch"], t["seq"], t["seed"], fsdp,
+                        save=tmp if mesh == (2, 2) else None, digest=mesh == (2, 2))]
+            if M > 1:
+                jobs.append(job(moe_cfg, moe_oc, m["batch"], m["seq"], m["seed"],
+                                True if D > 1 else None,
+                                plan={"moe_2d": True} if D > 1 else None))
+            t0 = time.perf_counter()
+            ranks = run_ranks(train_mesh_rank, D * M, (jobs, mesh), timeout=t["timeout"],
+                              device_type="cuda")
+            wall = time.perf_counter() - t0
+            label = f"train_mesh {D}x{M}"
+            rows = {}
+            for j, jb in enumerate(jobs):
+                name = "tinyllama" if j == 0 else "deepseek"
+                for rank, r in enumerate(ranks):
+                    train_checks(f"{label} {name} rank {rank}", r[j]["history"],
+                                 r[j]["launches"])
+                hist = ranks[0][j]["history"]
+                rows[name] = {
+                    "losses": [h["loss"] for h in hist],
+                    "grad_norms": [h["grad_norm"] for h in hist],
+                    "step_s": [h["step_s"] for h in hist],
+                    "peak_mem_bytes": [r[j]["peak_mem_bytes"] for r in ranks],
+                    "collectives_per_step": ranks[0][j]["collectives"][-1],
+                    "shards": [(r[j]["shard"], r[j]["data_shard"]) for r in ranks],
+                    "launches": ranks[0][j]["launches"], "fsdp": jb["fsdp"],
+                    "plan": jb.get("plan")}
+                if len({tuple(h["loss"] for h in r[j]["history"]) for r in ranks}) != 1:
+                    raise SmokeFailure(f"{label} {name}: the ranks report other losses")
+            tiny = rows["tinyllama"]
+            for i, h in enumerate(ref):
+                dl = abs(tiny["losses"][i] - h["loss"]) / abs(h["loss"])
+                dg = abs(tiny["grad_norms"][i] - h["grad_norm"]) / abs(h["grad_norm"])
+                if dl > TRAIN_MESH_TOL["loss"] or dg > TRAIN_MESH_TOL["grad_norm"]:
+                    raise SmokeFailure(f"{label} tinyllama step {i}: loss {tiny['losses'][i]} "
+                                       f"vs {h['loss']}, grad norm {tiny['grad_norms'][i]} vs "
+                                       f"{h['grad_norm']}")
+            tiny["max_rel_loss_diff"] = max(abs(a - h["loss"]) / abs(h["loss"])
+                                            for a, h in zip(tiny["losses"], ref))
+            tiny["max_rel_grad_norm_diff"] = max(abs(a - h["grad_norm"]) / abs(h["grad_norm"])
+                                                 for a, h in zip(tiny["grad_norms"], ref))
+            if "deepseek" in rows:
+                rows["deepseek"]["drop_share"] = mesh_drop_share(ranks, 1, M)
+                if not all(a > 0 for a in (h["aux"] for h in ranks[0][1]["history"])):
+                    raise SmokeFailure(f"{label} deepseek: aux loss not positive")
+            if mesh == (2, 2):
+                # the checkpoint on no mesh, cut into each rank's pieces
+                params = init_params(cfg, t["seed"] + 1, "cuda")
+                state = init_opt_state(train_params(params))
+                if restore_checkpoint(tmp, params, state) != t["steps"]:
+                    raise SmokeFailure(f"{label}: the checkpoint's step is not {t['steps']}")
+                whole = leaves(params, state)
+                plan = plan_params(cfg, ExecContext(mesh=AxisSizes(data=D, model=M),
+                                                    batch_axes=("data",), model_axis="model",
+                                                    fsdp=True))
+                for rank, r in enumerate(ranks):
+                    pieces = {n: cut(v, cuts(plan, n.split(".", 2)[-1] if n.startswith("opt.")
+                                                  else n.split(".", 1)[1], rank))
+                              for n, v in whole.items()}
+                    if piece_digests(pieces) != r[0]["digest"]:
+                        raise SmokeFailure(f"{label}: rank {rank}'s pieces differ from the "
+                                           "checkpoint restored on no mesh")
+                tiny["checkpoint_restored_bit_for_bit"] = True
+                del params, state, whole
+                gc.collect()
+                torch.cuda.empty_cache()
+            out[f"{D}x{M}"] = dict(rows, spawn_wall_s=wall)
+            log(f"{label}: {json.dumps(rows)} (spawn wall {wall:.1f} s, on {report['smi']})")
+            for rank, r in enumerate(ranks):
+                log(f"{label} rank {rank}: peak memory "
+                    + ", ".join(f"{n} {x['peak_mem_bytes'] / 2**30:.2f} GiB"
+                                for n, x in zip(("tinyllama", "deepseek"), r))
+                    + f", on {report['smi']}")
+    report["train_mesh"] = out
+    log(f"train_mesh unsharded tinyllama: losses {out['unsharded']['losses']}, grad norms "
+        f"{out['unsharded']['grad_norms']}, on {report['smi']}")
+
+
+def phase_serve_mesh(torch, report):
+    """Data-parallel serving on the card: full tinyllama-1.1b, continuous
+    FIFO, 8 requests, on (2, 1) and (2, 2) meshes of ranks on the one card
+    (gloo; one spawn per mesh, fp32 then bf16), each rank holding 4 of the
+    8 slots. Every rank's tokens equal the unsharded run's, or each
+    divergence sits at a near-tie of the unsharded run's own decision
+    (``token_check``: its top-2 gap within MODEL_TOL_BF16 of its largest
+    |logit|); each rank launches flash once per attention layer per
+    prefill and decode once per attention layer per decode pass (printed)."""
+    import gc
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import exact_fp32
+    from repro_torch.launch.sharded import engine_rank, run_ranks
+    from repro_torch.models.model import init_params
+    k = SERVE_MESH
+    build.load_library()
+    base = get_config(k["names"][0])
+    cfgs = {dt: dataclasses.replace(base, dtype=dt, param_dtype=dt) for dt in k["dtypes"]}
+    reqs = serve_requests(base, k)
+    plain = {}
+    for dt, cfg in cfgs.items():
+        with exact_fp32():
+            params = init_params(cfg, k["seed"], "cuda")
+            eng = fifo_engine(cfg, params, k)
+            with record_gaps(torch, eng, reqs, 0.0) as recorded:
+                resp, launches, wall, peak = spec_run(torch, eng, reqs, False, 0.0)
+            # the first tokens' gaps (from a prefill) while the engine lives
+            gaps = dict(recorded)
+            gaps.update({(r.uid, 0): recorded[(r.uid, 0)] for r in resp})
+        plain[dt] = dict(out=resp, gaps=gaps, launches=launches, wall_s=wall, peak=peak)
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"card": report["smi"], "unsharded": {dt: {"wall_s": p["wall_s"],
+                                                     "launches": p["launches"]}
+                                                for dt, p in plain.items()}}
+    n_attn = attention_layers(base)
+    for mesh in k["meshes"]:
+        D, M = mesh
+        jobs = [dict(cfg=cfgs[dt], seed=k["seed"], requests=reqs, max_slots=k["max_slots"],
+                     max_len=k["max_len"]) for dt in k["dtypes"]]
+        t0 = time.perf_counter()
+        ranks = run_ranks(engine_rank, D * M, (jobs, mesh, "cuda"), timeout=k["timeout"],
+                          device_type="cuda")
+        wall = time.perf_counter() - t0
+        label = f"serve_mesh {D}x{M}"
+        rows = {}
+        for j, dt in enumerate(k["dtypes"]):
+            per_rank = []
+            for rank, r in enumerate(ranks):
+                got = r[j]
+                want = {"flash_attention": n_attn * got["prefill_calls"],
+                        "decode_attention": n_attn * got["decode_calls"]}
+                if got["errors"] or got["launches"] != want:
+                    raise SmokeFailure(f"{label} {dt} rank {rank}: errors {got['errors']}, "
+                                       f"launches {got['launches']} (expected {want})")
+                if got["pool_rows"] != k["max_slots"] // D:
+                    raise SmokeFailure(f"{label} {dt} rank {rank}: {got['pool_rows']} pool rows")
+                mine = [SimpleNamespace(uid=u, tokens=np.asarray(tk))
+                        for u, tk in got["tokens"].items()]
+                diverged = token_check(f"{label} {dt} rank {rank}", mine, plain[dt]["out"],
+                                       plain[dt]["gaps"], exact=False,
+                                       names=("meshed", "unsharded"))
+                per_rank.append({"launches": got["launches"], "diverged_uids": diverged,
+                                 "prefill_calls": got["prefill_calls"],
+                                 "decode_calls": got["decode_calls"], "wall_s": got["wall_s"],
+                                 "peak_mem_bytes": got["peak_mem_bytes"],
+                                 "shard": got["shard"]})
+            rows[dt] = {"uids": len(ranks[0][j]["tokens"]), "ranks": per_rank}
+        out[f"{D}x{M}"] = dict(rows, spawn_wall_s=wall)
+        log(f"{label}: {json.dumps(rows)} (spawn wall {wall:.1f} s, on {report['smi']})")
+    report["serve_mesh"] = out
+
+
 # each kernel's row of the times phase in the kernels line: (model, B, S)
 LINE_ROWS = {"flash_attention": ("tinyllama", 8, 512), "decode_attention": ("tinyllama", 8, 2048),
              "ssd_scan": ("mamba2", 8, 512), "mla_attention": ("mla", 8, 1024)}
@@ -3763,6 +4053,7 @@ def main(argv=None):
            "encdec_hybrid": phase_encdec_hybrid, "bucketed": phase_bucketed,
            "fleet": phase_fleet, "kimi": phase_kimi, "mesh1": phase_mesh1,
            "shard2": phase_shard2, "train": phase_train, "profile_train": phase_profile_train,
+           "yolo": phase_yolo, "train_mesh": phase_train_mesh, "serve_mesh": phase_serve_mesh,
            "profile_encdec_hybrid": phase_profile_encdec_hybrid,
            "profile_bucketed": phase_profile_bucketed, "profile_fleet": phase_profile_fleet,
            "profile": phase_profile,

@@ -4,9 +4,10 @@ of ``repro.configs.yolo_v2_tiny``).
 AdaOper's Fig. 2 benchmarks YOLOv2 on a Snapdragon 855. The port carries its
 operator graph (``core.opgraph.build_yolo_graph``: 9 conv stages, 416x416
 input, 125 output channels = 5 anchors x (20 classes + 5)), which drives the
-closed-loop controller's simulator experiments; the conv network itself
-(``models/convnet.py``) is not ported. Not part of the assigned 10-arch
-pool; ``get_config("yolo-v2-tiny")`` resolves it.
+closed-loop controller's simulator experiments, and the conv network
+itself (``models.convnet``: ``init_yolo`` / ``apply_yolo``, fp32). Not
+part of the assigned 10-arch pool; ``get_config("yolo-v2-tiny")``
+resolves it.
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -27,8 +27,13 @@ the port's layout}, so the tests compare them leaf by leaf;
 ``gru_params_from_numpy`` carries the JAX ``GRUCorrector``'s parameter dict
 (numpy leaves) into the port's corrector.
 
-``shard_params`` cuts a whole model down to one rank's shard on a model
-axis, the counterpart of ``jax.device_put(params, shardings)``.
+``shard_params`` cuts a whole model down to one rank's shard on a (data,
+model) mesh, the counterpart of ``jax.device_put(params, shardings)``.
+
+``yolo_params_from_numpy`` carries the JAX ``init_yolo`` list of stage
+dicts into the port's ``models.convnet.YOLO``: each conv kernel from JAX's
+HWIO (kh, kw, in, out) to torch's OIHW (out, in, kh, kw), the biases as
+they are.
 """
 from __future__ import annotations
 
@@ -37,7 +42,8 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import RMSNorm
-from repro_torch.models.model import CausalLM, empty_params, set_param, shard_slice
+from repro_torch.models.model import (CausalLM, cut, cuts, empty_params, is_cut, mesh_rank,
+                                      place, set_param)
 from repro_torch.models.transformer import compute_stages
 from repro_torch.sharding.placement import ParamPlan, plan_params
 
@@ -120,30 +126,45 @@ def params_from_numpy(tree, cfg, device="cuda") -> CausalLM:
 
 @torch.no_grad()
 def shard_params(params: CausalLM, ctx, rank=None, plan: ParamPlan = None) -> CausalLM:
-    """Rank ``rank``'s shard (``ctx.model_rank`` by default) of the whole
-    model ``params`` on ``ctx``'s model axis, placed by ``plan``
-    (``plan_params``'s by default): a new model that holds a copy of the
-    rank's 1/M slice of each cut leaf and shares every whole leaf with
-    ``params``. Leaf by leaf, so the rank's peak is its shard plus one cut
-    leaf's slice on top of ``params``; a rank that must never hold the
-    whole model draws its shard with ``init_params(ctx=...)`` instead. At
-    one shard it returns ``params`` itself; a model that already holds this
-    rank's shard is returned as it is."""
-    M = ctx.model_parallel
-    rank = ctx.model_rank if rank is None else rank
-    if params.shard is not None:
-        if params.shard != (M, rank):
-            raise ValueError(f"params hold the shard {params.shard}, not (M, rank) = {(M, rank)}")
+    """Mesh rank ``rank``'s shard (``model.mesh_rank(ctx)`` by default:
+    data rank * M + model rank) of the whole model ``params`` on ``ctx``'s
+    mesh, placed by ``plan`` (``plan_params``'s by default): a new model
+    that holds a copy of the rank's piece of each cut leaf (1/M on the
+    model axis, 1/D on the data axes with FSDP) and shares every whole leaf
+    with ``params``. Leaf by leaf, so the rank's peak is its shard plus one
+    cut leaf's piece on top of ``params``; a rank that must never hold the
+    whole model draws its shard with ``init_params(ctx=...)`` instead.
+    Where nothing is cut it returns ``params`` itself; a model that already
+    holds this rank's shard is returned as it is."""
+    M, D = ctx.model_parallel, ctx.batch_parallel
+    rank = mesh_rank(ctx) if rank is None else rank
+    d, m = divmod(rank, M)
+    if params.shard is not None or params.data_shard is not None:
+        want = (M, m) if M > 1 else None
+        if params.shard != want or params.data_shard not in (None, (D, d)):
+            raise ValueError(f"params hold the shard {params.shard} {params.data_shard}, not "
+                             f"mesh rank {rank}'s (M, rank) = {(M, m)}, (D, rank) = {(D, d)}")
         return params
-    if M == 1:
+    plan = plan or plan_params(params.cfg, ctx)
+    if not is_cut(plan):
         return params
-    dims = (plan or plan_params(params.cfg, ctx)).dims
     out = CausalLM(params.cfg, device="meta")
     for name, p in params.named_parameters():
-        d = dims[name]
-        set_param(out, name, p if d is None else shard_slice(p, d, M, rank).clone())
-    out.shard = (M, rank)
-    return out
+        lc = cuts(plan, name, rank)
+        set_param(out, name, cut(p, lc).clone() if lc else p)
+    return place(out, plan, rank)
+
+
+@torch.no_grad()
+def yolo_params_from_numpy(stages, model):
+    """Set ``model`` (a ``models.convnet.YOLO``) to the JAX ``init_yolo``
+    stages: ``stages[i]`` maps "w" (kh, kw, in, out) HWIO and "b" (out,)
+    to numpy arrays. Returns ``model``."""
+    for conv, st in zip(model.convs, stages):
+        w = np.asarray(st["w"], dtype=np.float32).transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        conv.weight.copy_(torch.from_numpy(np.ascontiguousarray(w)))
+        conv.bias.copy_(torch.from_numpy(np.array(st["b"], dtype=np.float32)))
+    return model
 
 
 @torch.no_grad()

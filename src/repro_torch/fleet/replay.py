@@ -171,6 +171,10 @@ class DeviceReplay:
             # serving_drafts: model name -> (draft_cfg, draft_params) turns
             # on energy-aware speculative decoding for that worker
             # (repro_torch.serving.speculative); absent names keep plain decode
+            D = serving_ctx.batch_parallel if serving_ctx is not None else 1
+            if D > 1 and serving_models:
+                raise NotImplementedError(f"the fleet replay's serving backend on a data axis "
+                                          f"of {D} is not ported (see ROADMAP.md)")
             for name, (cfg, params) in (serving_models or {}).items():
                 kw = {}
                 if serving_ctx is not None:

@@ -1,6 +1,10 @@
 """Mesh builders over ``torch.distributed``: the counterpart of
 ``repro.launch.mesh``, with a torch ``DeviceMesh`` over the axes
 ("data", "model"), or ("pod", "data", "model") for the multi-pod shape.
+On a (D, M) mesh rank r sits at (r // M, r % M): its model group is the M
+ranks of its row (one data shard, the model cut M ways), its data group
+the D ranks of its column (one model shard, the batch cut D ways), both
+from ``DeviceMesh.get_group`` (``sharding.context.ExecContext``).
 
 Functions, not module constants: importing this module touches no device
 and starts no process group. Process-group start-up needs no network
@@ -29,10 +33,11 @@ def pick_backend(device_type: str, world_size: int) -> str:
     return "gloo"
 
 
-def init_ranks(world_size: int, rank: int, device_type: str = "cpu",
+def init_ranks(world_size: int, rank: int, device_type: str,
                store_dir: Optional[str] = None) -> str:
     """Join this process to a process group of ``world_size`` ranks as
-    ``rank`` and return the backend. A world of one needs no store
+    ``rank`` on ``device_type`` ("cuda" or "cpu") and return the backend.
+    A world of one needs no store
     directory; more ranks meet in a ``FileStore`` under ``store_dir``, a
     directory all of them see. A CUDA rank takes card ``rank`` modulo the
     cards there are."""

@@ -84,8 +84,10 @@ def build_engine(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[
     (frames, d_model), ``frames`` drawn from ``enc_lens``, in a slot pool
     whose cross-attention region is ``max_enc_len`` (``max_len`` if None).
     ``ctx`` is every worker's context: with a mesh, each model is drawn as
-    this process's shard on its model axis (``init_params(ctx=...)``) and
-    served sharded; ``mode`` is the engine's serving mode."""
+    this process's shard (``init_params(ctx=...)``: its model axis, and
+    its data axis with FSDP) and served sharded, data-parallel on a data
+    axis above one (continuous mode); ``mode`` is the engine's serving
+    mode."""
     dev = resolve_device(device)
     eng = ServingEngine(scheduler=scheduler, max_slots=max_slots, mode=mode)
     rng = np.random.default_rng(seed)
@@ -130,7 +132,7 @@ def serve(names: Sequence[str], requests: int = 8, prompt_lens: Sequence[int] = 
           ctx: ExecContext = ExecContext(), mode: str = "continuous"):
     """Build the engine and serve every queued request. Returns (engine,
     responses, report dict). ``ctx`` and ``mode`` as ``build_engine``'s: a
-    mesh in ``ctx`` serves sharded, each rank of its model axis calling
+    mesh in ``ctx`` serves sharded, each rank of the mesh calling
     ``serve`` in a process of its own (``launch.sharded.run_ranks``)."""
     dev = resolve_device(device)
     t0 = time.perf_counter()

@@ -1,5 +1,5 @@
-"""Sharded serving over a model axis of N ranks, started from one parent
-process: ``run_ranks`` spawns the ranks (the ``spawn`` start method), joins
+"""Sharded serving and training over a (data, model) mesh of N ranks,
+started from one parent process: ``run_ranks`` spawns the ranks (the ``spawn`` start method), joins
 them to one process group (``launch.mesh.init_ranks``, a ``FileStore`` in
 a temporary directory, no network), runs ``fn(rank, *args)`` in each and
 returns the ranks' results. A rank that raises, exits nonzero or outlives
@@ -9,8 +9,11 @@ a rank still running at the limit is killed.
 ``generate_rank`` is one such ``fn``: for each job, a ``ModelWorker`` on a
 (1, N) debug mesh that runs ``generate`` on the rank's shard of a model
 whose weights come from a tree of numpy arrays in the JAX package's layout
-(``convert.params_from_numpy``). Both run on the card unless the caller
-asks for the CPU (``device_type="cpu"``, gloo).
+(``convert.params_from_numpy``). ``train_rank`` is another: for each job,
+a few AdamW steps of the rank's shard on a (D, M) mesh (``train_loop``),
+with the step-0 gradients and the final weights gathered whole on request
+and a checkpoint saved or restored. Both run on the card unless the
+caller asks for the CPU (``device_type="cpu"``, gloo).
 """
 from __future__ import annotations
 
@@ -108,4 +111,191 @@ def generate_rank(rank: int, jobs: Sequence[dict], world: int,
                     "sharded": worker.shard_report.sharded,
                     "replicated": worker.shard_report.replicated,
                     "shard": worker.params.shard})
+    return out
+
+
+def train_rank(rank: int, jobs: Sequence[dict], mesh: tuple, device: str = "cuda") -> List[dict]:
+    """One rank of sharded training on a (D, M) = ``mesh`` debug mesh, one
+    run per job, each from a fresh optimizer state. A job holds ``cfg``,
+    ``seed`` (weights drawn as this rank's shard by ``init_params(ctx=)``,
+    or ``tree``, a numpy tree in the JAX package's layout, cut by
+    ``convert.shard_params``), ``batch`` and ``seq`` (the global batch of
+    ``SyntheticLM`` with ``data_seed``, 0 by default), ``steps``, ``oc`` (an
+    ``OptConfig``), and optionally ``fsdp``, ``plan`` (``ExecContext.plan``),
+    ``grads`` (return the step-0 gradients gathered whole, numpy fp32),
+    ``weights`` (return the final weights gathered whole), ``save`` /
+    ``restore`` (a checkpoint directory, written after / read before the
+    steps) and ``digest`` (return ``piece_digests`` of this rank's piece
+    of every param and moment after the steps). Returns per job the history rows, the
+    collectives per step (``collectives.counts``), the hand-written
+    kernels' launches, the shard and the peak device bytes (0 on the
+    CPU)."""
+    import torch
+
+    from repro_torch.convert import params_from_numpy, shard_params
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import init_params, train_params
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.context import ExecContext
+    from repro_torch.sharding.placement import plan_params
+    from repro_torch.training.checkpoint import (leaves, restore_checkpoint, save_checkpoint,
+                                                 whole)
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import (batch_to_device, loss_and_grads,
+                                                 make_train_step, shard_batch)
+    dm = make_debug_mesh(mesh[0], mesh[1], device)
+    out = []
+    for job in jobs:
+        cfg = job["cfg"]
+        ctx = ExecContext(mesh=dm, batch_axes=("data",), model_axis="model",
+                          fsdp=job.get("fsdp"), plan=dict(job.get("plan") or {}))
+        if "tree" in job:
+            params = shard_params(params_from_numpy(job["tree"], cfg, device), ctx)
+        else:
+            params = init_params(cfg, job["seed"], device, ctx=ctx)
+        named = train_params(params)
+        state = init_opt_state(named)
+        plan = plan_params(cfg, ctx)
+        res = {"shard": params.shard, "data_shard": params.data_shard}
+        if job.get("restore"):
+            res["restored_step"] = restore_checkpoint(job["restore"], params, state, ctx)
+        data = SyntheticLM(cfg, DataConfig(batch=job["batch"], seq_len=job["seq"],
+                                           seed=job.get("data_seed", 0)))
+        dev = next(iter(named.values())).device
+        if job.get("grads"):
+            b = batch_to_device(shard_batch(data.batch(0), cfg, ctx), dev)
+            loss, _, grads = loss_and_grads(params, cfg, b, ctx, plan)
+            res["grads"] = {n: whole(g, n, plan, ctx).float().cpu().numpy()
+                            for n, g in grads.items()}
+            res["local_loss"] = float(loss)
+            for p in named.values():
+                p.grad = None
+        step_fn = make_train_step(cfg, ctx, job["oc"])
+        wrappers = _kernel_wrappers()
+        before_launches = {n: w.launches for n, w in wrappers.items()}
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        hist, per_step = [], []
+        for i in range(job["steps"]):
+            before = dict(collectives.counts)
+            b = batch_to_device(shard_batch(data.batch(i), cfg, ctx), dev)
+            t0 = time.perf_counter()
+            row = {k: float(v) for k, v in step_fn(params, state, b).items()}  # waits
+            hist.append(dict(row, step_s=time.perf_counter() - t0))
+            per_step.append({k: v - before.get(k, 0) for k, v in collectives.counts.items()
+                             if v != before.get(k, 0)})
+        res.update(history=hist, collectives=per_step,
+                   launches={n: w.launches - before_launches[n] for n, w in wrappers.items()},
+                   peak_mem_bytes=(torch.cuda.max_memory_allocated(dev)
+                                   if dev.type == "cuda" else 0))
+        if job.get("digest"):
+            res["digest"] = piece_digests(leaves(params, state))
+        if job.get("weights"):
+            res["weights"] = {n: whole(p.detach(), n, plan, ctx).float().cpu().numpy()
+                              for n, p in named.items()}
+        if job.get("save"):
+            save_checkpoint(job["save"], params, state, step=job["steps"], ctx=ctx)
+        out.append(res)
+        del params, named, state
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _kernel_wrappers() -> dict:
+    from repro_torch.kernels import decode_attention, flash_attention, mla_attention, ssd_scan
+    return {"flash_attention": flash_attention.flash_attention,
+            "decode_attention": decode_attention.decode_attention,
+            "mla_attention": mla_attention.mla_attention, "ssd_scan": ssd_scan.ssd_scan}
+
+
+def piece_digests(leaves: dict) -> dict:
+    """A SHA-1 of the bytes of each tensor of ``leaves`` (name -> tensor,
+    as ``training.checkpoint.leaves`` names a model's params and moments),
+    to hold a rank's pieces against those cut from a whole model."""
+    import hashlib
+
+    import torch
+    out = {}
+    for name, t in leaves.items():
+        t = t.detach().contiguous().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        out[name] = hashlib.sha1(t.numpy().tobytes()).hexdigest()
+    return out
+
+
+def engine_rank(rank: int, jobs: Sequence[dict], mesh: tuple, device: str = "cuda") -> List[dict]:
+    """One rank of the continuous serving engine on a (D, M) = ``mesh``
+    debug mesh, one engine per job (``serve_job``)."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding.context import ExecContext
+    dm = make_debug_mesh(mesh[0], mesh[1], device)
+    return [serve_job(job, ExecContext(mesh=dm, batch_axes=("data",), model_axis="model",
+                                       fsdp=job.get("fsdp"), plan=dict(job.get("plan") or {})),
+                      device) for job in jobs]
+
+
+def serve_job(job: dict, ctx, device: str = "cuda") -> dict:
+    """One continuous engine on ``ctx`` (no mesh: the unsharded run). A job
+    holds ``cfg``, ``seed`` (weights drawn as this rank's shard) or
+    ``tree`` (a numpy tree in the JAX package's layout), ``requests``
+    ((uid, prompt, max_new) triples), ``max_slots``, ``max_len``, and
+    optionally ``temperature``, ``fsdp`` and ``plan`` (read by
+    ``engine_rank``), ``scheduled`` (the AdaOper scheduler of
+    ``launch.serve.make_scheduler`` under ``run_trace``'s virtual clock,
+    arrivals 10 ms apart; FIFO ``run_all`` without). Returns the tokens by
+    uid, the worker's pass counts, the kernels' launches, the wall seconds
+    and the peak device bytes (0 on the CPU)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.launch.serve import make_scheduler
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.slots import Request
+    kernels = (flash_attention.flash_attention, decode_attention.decode_attention)
+    cfg = job["cfg"]
+    params = (params_from_numpy(job["tree"], cfg, device) if "tree" in job
+              else init_params(cfg, job["seed"], device, ctx=ctx))
+    reqs = [Request(uid, np.asarray(p, np.int32), n) for uid, p, n in job["requests"]]
+    sched = None
+    if job.get("scheduled"):
+        sched = make_scheduler([cfg], max(len(r.prompt) for r in reqs),
+                               max(r.max_new_tokens for r in reqs))
+    eng = ServingEngine(scheduler=sched, max_slots=job["max_slots"])
+    eng.add_model(cfg.name, cfg, params, max_len=job["max_len"], ctx=ctx)
+    w = eng.workers[cfg.name]
+    dev = w.device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = [k.launches for k in kernels]
+    t0 = time.perf_counter()
+    temp = job.get("temperature", 0.0)
+    if sched is not None:
+        resp = eng.run_trace([(0.01 * i, cfg.name, r) for i, r in enumerate(reqs)],
+                             temperature=temp)
+    else:
+        for r in reqs:
+            eng.submit(cfg.name, r)
+        resp = eng.run_all(temperature=temp)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out = {"tokens": {r.uid: [int(t) for t in r.tokens] for r in resp},
+           "errors": [r.error for r in resp if r.error],
+           "prefill_calls": w.prefill_calls, "decode_calls": w.decode_calls,
+           "launches": {k.__name__: k.launches - b for k, b in zip(kernels, before)},
+           "wall_s": time.perf_counter() - t0, "shard": w.params.shard,
+           "data_shard": w.params.data_shard,
+           "pool_rows": int(next(iter(eng.pools[cfg.name].cache.values())).shape[1]),
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else 0)}
+    del eng, w, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return out

@@ -18,7 +18,9 @@ package's names and numerics:
 On a model axis of M > 1 (``ctx.model_parallel``) the embedding and the
 LM head hold a 1/M slice of the vocab: ``embed_tokens`` looks up the ids
 its slice holds, 0 for the rest, and sums the ranks' rows; ``lm_logits``
-gathers the ranks' vocab columns, so every rank has the whole logits.
+gathers the ranks' vocab columns, so every rank has the whole logits (in
+train mode through the differentiable collectives: the head's input goes
+through ``copy_to_model``, so its gradient sums the ranks' columns).
 """
 from __future__ import annotations
 
@@ -131,7 +133,7 @@ def embed_tokens(embedding, ids, cfg, ctx=None):
         v0 = ctx.model_rank * n
         mine = (ids >= v0) & (ids < v0 + n)
         x = F.embedding((ids - v0).clamp(0, n - 1), embedding) * mine[..., None]
-        x = collectives.all_reduce(x, ctx)
+        x = collectives.reduce_from_model(x, ctx)
     else:
         x = F.embedding(ids, embedding)
     if cfg.name.startswith("gemma2"):
@@ -141,6 +143,8 @@ def embed_tokens(embedding, ids, cfg, ctx=None):
 
 def lm_logits(embedding, lm_head, x, cfg, ctx=None):
     """``embedding`` (V, d) when tied, else ``lm_head`` (an ``nn.Linear``)."""
+    if ctx is not None:
+        x = collectives.copy_to_model(x, ctx)
     logits = F.linear(x, embedding) if cfg.tie_embeddings else lm_head(x)
     if ctx is not None:
         logits = collectives.all_gather_last(logits, ctx)

@@ -24,10 +24,15 @@ model's device, with "enc_inputs" (B, T_frames, d_model) for an
 encoder-decoder model (``training.train_loop.batch_to_device`` moves a
 ``data.pipeline`` batch there).
 
-On a model axis of M > 1 (``ctx.model_parallel``), ``params`` holds one
-rank's shard (``CausalLM.shard`` is (M, rank); ``convert.shard_params``
-cuts a whole model, ``init_params(ctx=...)`` draws a shard directly) and
-the cache holds the rank's kv heads.
+On a (D, M) mesh, ``params`` holds one rank's shard: on a model axis of
+M > 1 (``ctx.model_parallel``) ``CausalLM.shard`` is (M, model rank) and
+the cache holds the rank's kv heads; with FSDP on a data axis of D > 1
+``CausalLM.data_shard`` is (D, data rank) and each parameter the rule
+table cuts on the data axes carries ``fsdp_dim``, the dim it holds 1/D of
+(``sharding.collectives.gathered`` reads it whole for one layer's span).
+``convert.shard_params`` cuts a whole model, ``init_params(ctx=...)``
+draws a shard directly. In train mode every rank of a mesh runs
+``loss_fn`` on its rows of the batch (``training.train_loop``).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from torch import nn
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, embed_tokens, init_norm, lm_logits
+from repro_torch.sharding import collectives
 from repro_torch.sharding.context import ExecContext
 
 # a leaf of more elements than this is drawn in pieces of at most _PIECE
@@ -79,9 +85,11 @@ class CausalLM(nn.Module):
     def __init__(self, cfg, device=None):
         super().__init__()
         self.cfg = cfg
-        self.shard = None  # (M, rank) once the parameters are one rank's shard
+        self.shard = None  # (M, model rank) once the parameters are one rank's shard
+        self.data_shard = None  # (D, data rank) once FSDP cut them on the data axes
         if cfg.input_mode not in ("tokens", "embeddings"):
-            raise NotImplementedError(f"input mode {cfg.input_mode!r} is not ported yet "
+            raise NotImplementedError(f"input mode {cfg.input_mode!r} is not a language model: "
+                                      "the image model is repro_torch.models.convnet "
                                       "(see ROADMAP.md)")
         dt = dtype_of(cfg.param_dtype)
         self.embedding = nn.Parameter(torch.empty(cfg.padded_vocab, cfg.d_model, dtype=dt,
@@ -118,6 +126,53 @@ def shard_slice(t: torch.Tensor, dim, M: int, rank: int) -> torch.Tensor:
     return t.narrow(dim, rank * n, n)
 
 
+def mesh_rank(ctx) -> int:
+    """This process's rank on ``ctx``'s (D, M) mesh: data rank * M + model
+    rank (0 without a mesh)."""
+    return ctx.data_rank * ctx.model_parallel + ctx.model_rank
+
+
+def cuts(plan, name: str, rank: int):
+    """The (dim, ways, index) cuts of parameter ``name`` held by mesh rank
+    ``rank`` under ``plan`` (a ``placement.ParamPlan``): its model dim and
+    its FSDP dim."""
+    D, M = plan.shape
+    d, m = divmod(rank, M)
+    out = []
+    if plan.dims[name] is not None and M > 1:
+        out.append((plan.dims[name], M, m))
+    if plan.data_dims[name] is not None:
+        out.append((plan.data_dims[name], D, d))
+    return out
+
+
+def cut(t: torch.Tensor, leaf_cuts) -> torch.Tensor:
+    """``t`` cut to one rank's piece by ``leaf_cuts`` (see ``cuts``)."""
+    for dim, n, i in leaf_cuts:
+        t = shard_slice(t, dim, n, i)
+    return t
+
+
+def place(model: "CausalLM", plan, rank: int) -> "CausalLM":
+    """Stamp ``model`` (which holds mesh rank ``rank``'s pieces under
+    ``plan``) with its shard and each FSDP leaf's ``fsdp_dim``."""
+    D, M = plan.shape
+    d, m = divmod(rank, M)
+    model.shard = (M, m) if M > 1 else None
+    fsdp = False
+    for name, p in model.named_parameters():
+        if plan.data_dims[name] is not None:
+            p.fsdp_dim = plan.data_dims[name]
+            fsdp = True
+    model.data_shard = (D, d) if fsdp else None
+    return model
+
+
+def is_cut(plan) -> bool:
+    """Whether ``plan`` cuts any leaf on either axis."""
+    return plan.shape[1] > 1 or any(d is not None for d in plan.data_dims.values())
+
+
 @torch.no_grad()
 def init_params(cfg, seed: int = 0, device="cuda", ctx=None, rank=None) -> CausalLM:
     """Seeded random weights with the JAX init's distributions: dense
@@ -132,28 +187,31 @@ def init_params(cfg, seed: int = 0, device="cuda", ctx=None, rank=None) -> Causa
     experts and embeddings) is drawn in row blocks, so that no fp32 copy
     of it is ever whole.
 
-    With ``ctx`` on a model axis of M > 1, the model holds only rank
-    ``rank``'s shard (``ctx.model_rank`` by default), placed by
-    ``sharding.placement.plan_params``: every leaf is drawn in the same
-    order and pieces as the whole model's and the rank keeps its slice of
-    each piece, so the shards are slices of the very weights that
-    ``init_params(cfg, seed)`` gives, and no rank ever holds the whole
-    model."""
+    With ``ctx`` on a mesh that cuts any leaf (a model axis of M > 1, or
+    FSDP on a data axis of D > 1), the model holds only mesh rank
+    ``rank``'s pieces (``mesh_rank(ctx)`` by default: data rank * M +
+    model rank), placed by ``sharding.placement.plan_params``: every leaf
+    is drawn in the same order and pieces as the whole model's and the
+    rank keeps its piece of each, so the shards are slices of the very
+    weights that ``init_params(cfg, seed)`` gives, and no rank ever holds
+    the whole model."""
     dev = resolve_device(device)
-    M = 1 if ctx is None else ctx.model_parallel
     shapes = {n: tuple(p.shape) for n, p in CausalLM(cfg, device="meta").named_parameters()}
-    dims: dict = {}
-    if M == 1:
-        model, rank = empty_params(cfg, dev), 0
-    else:
+    plan = None
+    if ctx is not None and ctx.mesh is not None:
         from repro_torch.sharding.placement import plan_params
-        dims = plan_params(cfg, ctx).dims
-        rank = ctx.model_rank if rank is None else rank
+        plan = plan_params(cfg, ctx)
+        if not is_cut(plan):
+            plan = None
+    if plan is None:
+        model, leaf_cuts = empty_params(cfg, dev), {}
+    else:
+        rank = mesh_rank(ctx) if rank is None else rank
+        leaf_cuts = {n: cuts(plan, n, rank) for n in shapes}
         model = CausalLM(cfg, device="meta")
         for name, p in list(model.named_parameters()):
-            local = shard_slice(p, dims[name], M, rank)
+            local = cut(p, leaf_cuts[name])
             set_param(model, name, torch.empty(local.shape, dtype=p.dtype, device=dev))
-        model.shard = (M, rank)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def normal(name, t, scale):
@@ -162,21 +220,21 @@ def init_params(cfg, seed: int = 0, device="cuda", ctx=None, rank=None) -> Causa
         for n in full[1:]:
             per_row *= n
         rows = full[0] if per_row * full[0] <= _WHOLE_DRAW else max(1, _PIECE // per_row)
-        dim = dims.get(name)
+        lc = leaf_cuts.get(name, [])
+        inner = [c for c in lc if c[0] != 0]
+        row_cut = [c for c in lc if c[0] == 0]
         for r0 in range(0, full[0], rows):
             r1 = min(full[0], r0 + rows)
-            x = torch.randn((r1 - r0, *full[1:]), generator=gen, device=dev,
-                            dtype=torch.float32) * scale
-            if dim is None:
+            x = cut(torch.randn((r1 - r0, *full[1:]), generator=gen, device=dev,
+                                dtype=torch.float32) * scale, inner)
+            if not row_cut:
                 t[r0:r1].copy_(x)
-            elif dim == 0:  # keep the rows of this rank's slice [lo, lo + n)
+            else:  # keep the rows of this rank's slice [lo, lo + n)
                 n = t.shape[0]
-                lo = rank * n
+                lo = row_cut[0][2] * n
                 a, b = max(r0, lo), min(r1, lo + n)
                 if a < b:
                     t[a - lo:b - lo].copy_(x[a - r0:b - r0])
-            else:
-                t[r0:r1].copy_(shard_slice(x, dim, M, rank))
 
     for layer in model.layers:
         if layer.kind == "ssd":
@@ -200,7 +258,7 @@ def init_params(cfg, seed: int = 0, device="cuda", ctx=None, rank=None) -> Causa
             normal(name, p, full[0] ** -0.5)
         elif leaf in ("w_gate", "w_up", "w_down"):  # MoE experts (E, d_in, d_out)
             normal(name, p, full[1] ** -0.5)
-    return model
+    return model if plan is None else place(model, plan, rank)
 
 
 def init_cache(cfg, batch, max_len, device="cuda", enc_len=0):
@@ -250,7 +308,15 @@ def _embed_inputs(params: CausalLM, cfg, inputs, ctx):
     (B, S, d_model) tensor as it is."""
     if cfg.input_mode == "embeddings" and inputs.is_floating_point() and inputs.dim() == 3:
         return inputs.to(dtype_of(cfg.dtype))
-    return embed_tokens(params.embedding, inputs, cfg, ctx).to(dtype_of(cfg.dtype))
+    with collectives.gathered(ctx, params, recurse=False):
+        return embed_tokens(params.embedding, inputs, cfg, ctx).to(dtype_of(cfg.dtype))
+
+
+def _logits(params: CausalLM, cfg, x, ctx):
+    """The final norm and the LM head (FSDP leaves gathered for the call)."""
+    x = apply_norm(params.final_norm, x)
+    with collectives.gathered(ctx, params, params.lm_head, recurse=False):
+        return lm_logits(params.embedding, params.lm_head, x, cfg, ctx)
 
 
 def train_params(params: CausalLM) -> dict:
@@ -260,19 +326,32 @@ def train_params(params: CausalLM) -> dict:
     return dict(params.named_parameters())
 
 
+def check_train_mesh(params: CausalLM, cfg, ctx) -> None:
+    """Train mode on a mesh: the families ``placement`` refuses at M > 1
+    stay refused, and ``params`` must hold this rank's shard."""
+    if ctx.mesh is None:
+        return
+    from repro_torch.sharding.placement import check_mesh
+    check_mesh(cfg, ctx)
+    M = ctx.model_parallel
+    if M > 1 and params.shard != (M, ctx.model_rank):
+        raise ValueError(f"params hold the shard {params.shard}, not this rank's (M, rank) = "
+                         f"{(M, ctx.model_rank)}: cut them with convert.shard_params or draw "
+                         "them with init_params(ctx=...)")
+
+
 def train_logits(params: CausalLM, cfg, batch, ctx=ExecContext()):
     """The train forward: (fp32 logits (B, S, padded vocab), the MoE layers'
     summed load-balance loss, an fp32 scalar). An encoder-decoder model
     encodes ``batch["enc_inputs"]`` first; the encoder, like the decoder,
     takes the differentiable train route of attention."""
-    tfm.refuse_sharded_train(ctx)
+    check_train_mesh(params, cfg, ctx)
     enc_out = None
     if cfg.is_encoder_decoder:
         enc_out = encode(params, cfg, batch["enc_inputs"], ctx, train_route=True)
     x = _embed_inputs(params, cfg, batch["tokens"], ctx)
     x, aux = tfm.apply_stack(params.layers, cfg, x, ctx, "train", enc_out=enc_out)
-    x = apply_norm(params.final_norm, x)
-    return lm_logits(params.embedding, params.lm_head, x, cfg, ctx), aux
+    return _logits(params, cfg, x, ctx), aux
 
 
 def loss_fn(params: CausalLM, cfg, batch, ctx=ExecContext()):
@@ -305,8 +384,7 @@ def prefill(params: CausalLM, cfg, inputs, cache, ctx=ExecContext(), last_only=F
                         enc_out=enc_out)
     if last_only:
         x = x[:, -1:]
-    x = apply_norm(params.final_norm, x)
-    return lm_logits(params.embedding, params.lm_head, x, cfg, ctx), cache
+    return _logits(params, cfg, x, ctx), cache
 
 
 def decode_step(params: CausalLM, cfg, token, cache, pos, ctx=ExecContext(), enc_len=None):
@@ -318,7 +396,7 @@ def decode_step(params: CausalLM, cfg, token, cache, pos, ctx=ExecContext(), enc
     (B,) valid lengths of the cross cache's rows, which a slot pool
     preallocates at ``max_enc_len``; None attends to the whole region (an
     exact-length cache)."""
-    x = embed_tokens(params.embedding, token, cfg, ctx).to(dtype_of(cfg.dtype))
+    with collectives.gathered(ctx, params, recurse=False):
+        x = embed_tokens(params.embedding, token, cfg, ctx).to(dtype_of(cfg.dtype))
     x = tfm.apply_stack(params.layers, cfg, x, ctx, "decode", cache, pos=pos, enc_len=enc_len)
-    x = apply_norm(params.final_norm, x)
-    return lm_logits(params.embedding, params.lm_head, x, cfg, ctx), cache
+    return _logits(params, cfg, x, ctx), cache

@@ -17,15 +17,35 @@ choice order (0, 1, ..., k-1), never by atomic scatter-adds.
 
 Expert parallelism (M > 1, E % M == 0): rank m holds experts
 [m E_l, (m+1) E_l), E_l = E / M. The router is replicated, so every rank
-routes every token alike; a rank computes only its experts' contributions,
-with the capacity C of the unsharded branch (a rank's stable sort keeps
-each expert's assignments in the global order, so the same assignments
-are kept and dropped), and the ranks' fp32 partial sums are added by one
-all-reduce. The aux loss is averaged over the ranks (``pmean``).
-The reference's weight-stationary 2-D variant (``_moe_2d``: each expert's
-F also cut on the data axes) is not ported: a serving mesh has one device
-on its data axes (``sharding.placement`` refuses more), where it would
-compute what this branch computes (ROADMAP.md).
+of the model axis routes its tokens alike; a rank computes only its
+experts' contributions, with the capacity C of the unsharded branch over
+the same tokens (a rank's stable sort keeps each expert's assignments in
+the global order, so the same assignments are kept and dropped), and the
+ranks' fp32 partial sums are added by one all-reduce. Every rank of the
+model axis computes the same aux loss (the reference's ``pmean`` of equal
+values). In train mode the gates and the experts' input enter through
+``collectives.copy_to_model``, so the router's and the input's gradients
+sum the ranks' experts.
+
+With the batch split over the data axes (D > 1), x holds this data rank's
+rows, so each branch sizes its capacity from the local tokens, as the
+reference's expert-parallel branch does (``T_local``), and each data rank
+takes its own aux loss into its loss (the averaged gradient is that of the
+mean aux). At M = 1 the reference's GSPMD view sizes the capacity and the
+aux from the global batch instead; the two agree wherever nothing is
+dropped (ROADMAP.md, Queue 3).
+
+The 2-D MoE (``ctx.plan["moe_2d"]``, under the reference's condition: M >
+1, E % M == 0, D divides ``moe_d_ff``) is weight-stationary: experts are
+cut on the model axis and each expert's F on the data axes (rank (d, m)
+uses F columns [d F/D, (d+1) F/D) of its experts: its FSDP piece, which
+``sharding.collectives.gathered`` leaves ungathered here, or that slice of
+a whole weight); the tokens are replicated (every data rank's rows are
+gathered when they differ, ``ctx.batch_split``), routed alike everywhere
+with the capacity of all of them, and one sum over both axes (an
+all-reduce over the model axis, then a reduce-scatter back to each data
+rank's rows, or an all-reduce over the data axis for replicated rows)
+combines the partials. Its aux loss is that of all the tokens.
 """
 from __future__ import annotations
 
@@ -126,28 +146,80 @@ def aux_loss(probs, ids, E: int):
     return E * torch.sum(f_e * probs.mean(dim=0))
 
 
+def uses_2d(cfg, ctx) -> bool:
+    """The reference's condition for the 2-D MoE (``moe_apply``)."""
+    M = ctx.model_parallel
+    return bool(M > 1 and cfg.num_experts % M == 0 and ctx.plan.get("moe_2d")
+                and cfg.moe_d_ff % max(1, ctx.batch_parallel) == 0)
+
+
+def _f_slice(w, dim: int, F_: int, ctx):
+    """Data rank d's F columns of an expert weight: the weight itself when
+    it is already this rank's FSDP piece, else its slice of the whole."""
+    D = ctx.batch_parallel
+    if w.shape[dim] == F_ // D:
+        return w
+    return w.narrow(dim, ctx.data_rank * (F_ // D), F_ // D)
+
+
+def _moe_2d(p: MoE, x, cfg, ctx):
+    """The weight-stationary 2-D MoE (module docstring): (out (B,S,D) in
+    x's dtype, aux)."""
+    B, S, D = x.shape
+    E, k, F_ = cfg.num_experts, cfg.top_k, cfg.moe_d_ff
+    E_l = E // ctx.model_parallel
+    split = ctx.batch_parallel > 1 and ctx.batch_split
+    xa = collectives.gather_batch(x, ctx) if split else x
+    xt = xa.reshape(-1, D)
+    probs, gates, ids = route(xt, p.router, k)
+    C = _capacity(xt.shape[0], k, E, cfg.moe_capacity_factor)
+    local = _Experts(_f_slice(p.w_gate, 2, F_, ctx), _f_slice(p.w_up, 2, F_, ctx),
+                     _f_slice(p.w_down, 1, F_, ctx), p.router)
+    out = experts_apply(local, collectives.copy_to_model(xt, ctx),
+                        collectives.copy_to_model(gates, ctx), ids, C,
+                        e0=ctx.model_rank * E_l)
+    out = collectives.reduce_from_model(out, ctx).view(xa.shape)
+    if split:
+        out = collectives.scatter_batch(out, ctx)
+    elif ctx.batch_parallel > 1:
+        out = collectives.all_reduce_data(out, ctx)
+    return out.to(x.dtype), aux_loss(probs, ids, E)
+
+
+class _Experts:
+    """The expert weights ``experts_apply`` reads, as plain tensors."""
+
+    def __init__(self, w_gate, w_up, w_down, router):
+        self.w_gate, self.w_up, self.w_down, self.router = w_gate, w_up, w_down, router
+
+
 def moe_apply(p: MoE, x, cfg, ctx=ExecContext()):
     """x (B,S,D) -> (out (B,S,D) in x's dtype, aux loss, an fp32 scalar).
     On a model axis of M > 1, ``p`` holds this rank's E / M experts (and
-    its slice of the shared experts' width)."""
+    its slice of the shared experts' width); on a data axis of D > 1, x
+    holds this data rank's rows (module docstring)."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.top_k
     M = ctx.model_parallel
-    xt = x.reshape(B * S, D)
-    probs, gates, ids = route(xt, p.router, k)
-    # the batch is never split on a serving mesh, so the expert-parallel
-    # and the unsharded branch both size their capacity from all B*S tokens
-    C = _capacity(B * S, k, E, cfg.moe_capacity_factor)
-    if M > 1 and E % M == 0:
-        out = experts_apply(p, xt, gates, ids, C, e0=ctx.model_rank * (E // M))
-        out = collectives.all_reduce(out, ctx)  # psum over the model axis
-        aux = collectives.mean(aux_loss(probs, ids, E), ctx)
-    elif M > 1:
-        raise NotImplementedError(f"{E} experts on a model axis of {M} (see ROADMAP.md)")
+    if uses_2d(cfg, ctx):
+        out, aux = _moe_2d(p, x, cfg, ctx)
     else:
-        out = experts_apply(p, xt, gates, ids, C)
+        xt = x.reshape(B * S, D)
+        probs, gates, ids = route(xt, p.router, k)
+        # the local tokens: this data rank's rows when the batch is split
+        C = _capacity(B * S, k, E, cfg.moe_capacity_factor)
+        if M > 1 and E % M == 0:
+            out = experts_apply(p, collectives.copy_to_model(xt, ctx),
+                                collectives.copy_to_model(gates, ctx), ids, C,
+                                e0=ctx.model_rank * (E // M))
+            out = collectives.reduce_from_model(out, ctx)  # psum over the model axis
+        elif M > 1:
+            raise NotImplementedError(f"{E} experts on a model axis of {M} (see ROADMAP.md)")
+        else:
+            out = experts_apply(p, xt, gates, ids, C)
         aux = aux_loss(probs, ids, E)
-    out = out.view(B, S, D).to(x.dtype)
+        out = out.view(B, S, D).to(x.dtype)
     if p.shared is not None:
-        out = out + collectives.all_reduce(apply_mlp(p.shared, x, cfg), ctx)
+        y = apply_mlp(p.shared, collectives.copy_to_model(x, ctx), cfg)
+        out = out + collectives.reduce_from_model(y, ctx)
     return out, aux

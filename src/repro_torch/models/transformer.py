@@ -30,7 +30,6 @@ expert products included (the reference's
 ``dots_with_no_batch_dims_saveable``), ``"none"`` keeps every activation. ``ctx.plan["pipeline"]``
 runs a stage whose repeats divide into its stages through
 ``sharding.pipeline.circular_pipeline``, under the reference's condition.
-Train mode on a model axis of M > 1 is refused.
 
 The cache is a dict of stacked tensors, batch on axis 1, updated in place.
 Each leaf is stacked over the layers of its own kind only, so a hybrid
@@ -56,8 +55,14 @@ gemma2's post-block norms, and the decoder's cross-attention.
 On a model axis of M > 1 (``ctx.model_parallel``; GQA stacks with dense or
 MoE MLPs, ``sharding.placement``) each rank holds its 1/M of the heads,
 ``d_ff`` and experts, and its K/V cache holds its Hkv/M kv heads: the
-attention's and the dense MLP's row-parallel outputs are summed over the
-ranks here, before any post-block norm; the MoE layer sums its own.
+normed input of the attention and of the dense MLP enters through
+``collectives.copy_to_model`` and their row-parallel outputs are summed
+over the ranks (``reduce_from_model``) here, before any post-block norm;
+the MoE layer does its own. In train mode these are Megatron's pair, so
+the gradients are those of the unsharded layer. With FSDP on a data axis
+of D > 1 every layer gathers its cut weights for its own span
+(``collectives.gathered``), inside the remat step, so that the backward's
+recompute gathers them again instead of keeping them.
 """
 from __future__ import annotations
 
@@ -275,8 +280,9 @@ def apply_layer(lp: Block, x, cfg, ctx, mode, cache, pos, ssm_mask=None, enc_out
     Returns (the layer's output, its MoE load-balance loss: an fp32 scalar
     tensor, or 0.0 without an MoE)."""
     impl = att.TRAIN_IMPL if mode == "train" or train_route else ctx.attn_impl
-    mix = _apply_mixer(lp, apply_norm(lp.pre_norm, x), cfg, impl, mode, cache, pos, ssm_mask)
-    mix = collectives.all_reduce(mix, ctx)  # the ranks' wo outputs
+    h = collectives.copy_to_model(apply_norm(lp.pre_norm, x), ctx)
+    mix = _apply_mixer(lp, h, cfg, impl, mode, cache, pos, ssm_mask)
+    mix = collectives.reduce_from_model(mix, ctx)  # the ranks' wo outputs
     if cfg.post_block_norm:
         mix = apply_norm(lp.post_norm, mix)
     x = x + mix
@@ -289,10 +295,18 @@ def apply_layer(lp: Block, x, cfg, ctx, mode, cache, pos, ssm_mask=None, enc_out
     if lp.mlp_kind == "moe":
         y, aux = moe.moe_apply(lp.mlp, h, cfg, ctx)
     else:
-        y = collectives.all_reduce(apply_mlp(lp.mlp, h, cfg), ctx)  # the ranks' w_down outputs
+        y = apply_mlp(lp.mlp, collectives.copy_to_model(h, ctx), cfg)
+        y = collectives.reduce_from_model(y, ctx)  # the ranks' w_down outputs
     if cfg.post_block_norm:
         y = apply_norm(lp.mlp_post_norm, y)
     return x + y, aux
+
+
+def layer_weights(lp: Block, cfg, ctx):
+    """The span over which layer ``lp``'s FSDP weights read whole: the
+    2-D MoE keeps its experts' F pieces (``moe.uses_2d``)."""
+    keep = (lp.mlp,) if lp.mlp_kind == "moe" and moe.uses_2d(cfg, ctx) else ()
+    return collectives.gathered(ctx, lp, exclude=keep)
 
 
 def stage_steps(layers, cfg) -> list:
@@ -323,23 +337,16 @@ def _remat(body, policy: str):
     raise ValueError(f"unknown remat policy {policy!r}; choose from {REMAT_POLICIES}")
 
 
-def refuse_sharded_train(ctx) -> None:
-    """Train mode runs on one device: refuse a model axis of M > 1."""
-    if ctx.model_parallel > 1:
-        raise NotImplementedError("train mode on a model axis of M > 1 is not ported "
-                                  "(see ROADMAP.md)")
-
-
 def _train_stack(layers, cfg, x, ctx, enc_out):
     """Train mode: (x, summed MoE aux loss), each stage step rematerialised
     and, under the pipeline plan, a stage pipelined (see the module
     docstring)."""
-    refuse_sharded_train(ctx)
 
     def body(step, xc):
         aux = torch.zeros((), dtype=torch.float32, device=xc.device)
         for lp in step:
-            xc, a = apply_layer(lp, xc, cfg, ctx, "train", None, 0, enc_out=enc_out)
+            with layer_weights(lp, cfg, ctx):
+                xc, a = apply_layer(lp, xc, cfg, ctx, "train", None, 0, enc_out=enc_out)
             aux = aux + a
         return xc, aux
 
@@ -377,6 +384,7 @@ def apply_stack(layers: nn.ModuleList, cfg, x, ctx, mode, cache=None, pos=0, ssm
     if mode == "train":
         return _train_stack(layers, cfg, x, ctx, enc_out)
     for lp, c in zip(layers, layer_caches(layers, cache)):
-        x = apply_layer(lp, x, cfg, ctx, mode, c, pos, ssm_mask, enc_out, enc_len,
-                        train_route)[0]
+        with layer_weights(lp, cfg, ctx):
+            x = apply_layer(lp, x, cfg, ctx, mode, c, pos, ssm_mask, enc_out, enc_len,
+                            train_route)[0]
     return x

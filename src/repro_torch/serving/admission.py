@@ -248,14 +248,18 @@ def prefill_group(eng, model: str, pool: _SlotPool,
         if group[0].req.enc_inputs is not None:
             enc = np.stack([s.req.enc_inputs for s in group]
                            + [group[0].req.enc_inputs] * (b - G))
-    logits, g_cache = w.prefill_batch(prompts, enc, pad_mask=pad_mask)
     slots = np.full(b, pool.alloc.n_slots, np.int32)
     slots[:G] = [s.slot for s in group]
+    logits, g_cache = w.prefill_batch(prompts, enc, pad_mask=pad_mask, slots=slots,
+                                      n_slots=pool.alloc.n_slots)
     pool.cache = w.write_slots(pool.cache, g_cache, slots)
     if temperature > 0.0:
-        toks = eng._sample_batch(model, group, logits[:G], temperature)
+        def pick(rows, idx):
+            return eng._sample_batch(model, [group[i] for i in idx], rows, temperature)
     else:
-        toks = [int(t) for t in logits[:G].argmax(dim=-1).cpu().numpy()]
+        def pick(rows, idx):
+            return [int(t) for t in rows.argmax(dim=-1).cpu().numpy()]
+    toks = w.group_tokens(logits, slots[:G], pool.alloc.n_slots, pick)
     pp = None
     if eng.scheduler is not None:
         # bucketed SSM groups charge the bucket-length plan (the same pow2

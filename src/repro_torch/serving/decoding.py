@@ -50,8 +50,9 @@ def plain_step(eng, model: str, pool: _SlotPool, out: List[Response],
         eng._advance_vtime(sp["step_latency"])
     seqs = list(pool.active.values())
     if temperature > 0.0:
-        rows = logits[[seq.slot for seq in seqs]]
-        toks = eng._sample_batch(model, seqs, rows, temperature)
+        toks = w.slot_tokens(logits, [seq.slot for seq in seqs], pool.alloc.n_slots,
+                             lambda rows, idx: eng._sample_batch(
+                                 model, [seqs[i] for i in idx], rows, temperature))
     else:
         toks = [int(next_tok[seq.slot]) for seq in seqs]
     for seq, tok in zip(seqs, toks):

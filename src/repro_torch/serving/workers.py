@@ -33,10 +33,27 @@ through an admission SLO or a request deadline, both off by default (under
 ``run_trace`` the clock is virtual, so even those agree). So the ranks
 take the same decisions in the same order and issue the same
 collectives.
+
+Data-parallel serving (a data axis of D > 1, continuous mode): each data
+rank holds ``max_slots / D`` rows of the slot pool, slots [d n, (d+1) n)
+(the cache rule's ``batch_ok``; ``placement.plan_cache`` refuses a pool
+that D does not divide), and ``decode_pool`` decodes only those rows. A
+prefill group (``prefill_batch`` with the group's ``slots``) is split
+where each data rank owns the same number of its slots, each rank running
+the rows whose slots it owns, and otherwise replicated, every rank running
+the whole group (``ExecContext.batch_split`` False); either way every data
+rank runs every pass at the same shapes, so FSDP weights and the 2-D MoE
+can gather over the data axis, and each rank writes only the slots it owns
+(``write_slots``). Each rank draws the tokens of its own rows (greedy or
+per-request streams, ``group_tokens`` / ``slot_tokens``) and the tokens
+are all-gathered over the data group, so every rank holds every token and
+takes the same admission and retirement decisions. ``generate`` (the
+bucketed mode) is not data-parallel and refuses D > 1.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,6 +61,7 @@ import torch
 from repro_torch import convert
 from repro_torch.models import model as model_lib
 from repro_torch.serving.sampling import _sample_rows
+from repro_torch.sharding import collectives
 from repro_torch.sharding import partition_specs as ps
 from repro_torch.sharding import placement
 from repro_torch.sharding.context import ExecContext
@@ -76,20 +94,75 @@ class ModelWorker:
         self.prefill_calls = 0
         self.decode_calls = 0
         self.verify_calls = 0
+        # data-parallel serving: D data ranks, this one's index, and the rows
+        # of the last prefill group it ran (module docstring)
+        self.data_parallel = ctx.batch_parallel
+        self.data_rank = ctx.data_rank if self.data_parallel > 1 else 0
+        self._held: Optional[List[int]] = None
 
-    def _new_cache(self, batch: int, enc_len: int):
+    def _new_cache(self, batch: int, enc_len: int, rows_split: bool = True):
         """Allocate a cache; under a mesh, every leaf holds this rank's
         piece of the activation rules' placement (``placement.plan_cache``:
-        the K/V leaves this rank's kv heads)."""
+        the K/V leaves this rank's kv heads, the rows this data rank's
+        slots). ``rows_split=False``: all ``batch`` rows on this rank (a
+        prefill group's rows)."""
         if self.mesh is None:
             return model_lib.init_cache(self.cfg, batch, self.max_len, self.device,
                                         enc_len=enc_len)
-        specs = self._cache_shardings.get((batch, enc_len))
-        if specs is None:
-            specs = self._cache_shardings[(batch, enc_len)] = placement.plan_cache(
-                self.cfg, self.ctx, batch, self.max_len, enc_len, report=self.shard_report)
+        if self.data_parallel > 1 and not rows_split:
+            specs = placement.plan_cache(self.cfg, self.ctx, batch, self.max_len, enc_len,
+                                         rows_split=False)
+        else:
+            specs = self._cache_shardings.get((batch, enc_len))
+            if specs is None:
+                specs = self._cache_shardings[(batch, enc_len)] = placement.plan_cache(
+                    self.cfg, self.ctx, batch, self.max_len, enc_len, report=self.shard_report)
         return placement.init_placed_cache(self.cfg, self.ctx, specs, batch, self.max_len,
                                            self.device, enc_len)
+
+    # ---- data-parallel rows ----
+
+    def _slot_owner(self, slot: int, n_slots: int) -> int:
+        """The data rank that holds pool slot ``slot`` (D for none)."""
+        if not 0 <= slot < n_slots:
+            return self.data_parallel
+        return slot // (n_slots // self.data_parallel)
+
+    def _gather_tokens(self, idx: Sequence[int], toks: Sequence[int], n: int) -> List[int]:
+        """Every rank's tokens of its rows ``idx`` (of ``n``), all-gathered
+        over the data group: the n tokens in row order."""
+        mine = torch.full((n,), -1, dtype=torch.int64, device=self.device)
+        if len(idx):
+            mine[torch.as_tensor(list(idx), device=self.device)] = torch.as_tensor(
+                [int(t) for t in toks], dtype=torch.int64, device=self.device)
+        every = collectives.all_gather(mine[None], 0, self.data_parallel, self.ctx.data_group)
+        return [int(t) for t in every.max(dim=0).values.cpu().numpy()]
+
+    def group_tokens(self, logits, slots: Sequence[int], n_slots: int,
+                     pick: Callable) -> List[int]:
+        """The tokens of a prefill group's G = len(slots) requests from the
+        last ``prefill_batch``'s logits: ``pick(rows, idx)`` draws the
+        tokens of group rows ``idx`` from their logits ``rows``. At D > 1
+        each rank draws those of the slots it owns and all-gathers them."""
+        G = len(slots)
+        if self.data_parallel == 1:
+            return list(pick(logits[:G], list(range(G))))
+        pos = {i: j for j, i in enumerate(self._held)}  # the rank's rows hold its slots
+        idx = [i for i in range(G) if self._slot_owner(int(slots[i]), n_slots) == self.data_rank]
+        toks = pick(logits[[pos[i] for i in idx]], idx) if idx else []
+        return self._gather_tokens(idx, toks, G)
+
+    def slot_tokens(self, logits, slots: Sequence[int], n_slots: int,
+                    pick: Callable) -> List[int]:
+        """The tokens of the pool slots ``slots`` from ``decode_pool``'s
+        logits, ``pick`` as in ``group_tokens``."""
+        if self.data_parallel == 1:
+            return list(pick(logits[list(slots)], list(range(len(slots)))))
+        n = n_slots // self.data_parallel
+        lo = self.data_rank * n
+        idx = [i for i, s in enumerate(slots) if lo <= s < lo + n]
+        toks = pick(logits[[slots[i] - lo for i in idx]], idx) if idx else []
+        return self._gather_tokens(idx, toks, len(slots))
 
     def _ids(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).long()
@@ -100,9 +173,9 @@ class ModelWorker:
         return None if enc_inputs is None else torch.as_tensor(np.asarray(enc_inputs),
                                                                device=self.device)
 
-    def _prefill(self, cache, tokens, pad_mask=None, enc_inputs=None):
+    def _prefill(self, cache, tokens, pad_mask=None, enc_inputs=None, ctx=None):
         self.prefill_calls += 1
-        logits, cache = model_lib.prefill(self.params, self.cfg, tokens, cache, self.ctx,
+        logits, cache = model_lib.prefill(self.params, self.cfg, tokens, cache, ctx or self.ctx,
                                           last_only=True, pad_mask=pad_mask,
                                           enc_inputs=enc_inputs)
         return logits[:, -1], cache
@@ -131,6 +204,10 @@ class ModelWorker:
         S) bool marks the valid tokens of LEFT-padded prompts bucketed to a
         shared length — pure-SSM stacks only (the scan passes masked
         positions through untouched)."""
+        if self.data_parallel > 1:
+            raise NotImplementedError(f"{self.name}: generate (the bucketed serving mode) on a "
+                                      f"data axis of {self.data_parallel} is not ported "
+                                      "(see ROADMAP.md)")
         B, S = prompts.shape
         if pad_mask is not None and self.cfg.is_encoder_decoder:
             raise ValueError("pad_mask is only supported for pure-SSM stacks, not "
@@ -177,7 +254,8 @@ class ModelWorker:
                                   None if enc_inputs is None else np.asarray(enc_inputs)[None])
 
     @torch.no_grad()
-    def prefill_batch(self, prompts: np.ndarray, enc_inputs=None, pad_mask=None):
+    def prefill_batch(self, prompts: np.ndarray, enc_inputs=None, pad_mask=None,
+                      slots=None, n_slots: Optional[int] = None):
         """Batched admission prefill: ``prompts`` (G, S) equal-length (the
         caller pads G to a pow2 bucket), ``enc_inputs`` (G, T_frames,
         d_model) for encoder-decoder models. Returns (last-position logits
@@ -186,24 +264,56 @@ class ModelWorker:
         ``pad_mask`` (G, S) bool marks the valid tokens of LEFT-padded
         prompts bucketed to a shared length — pure-SSM stacks only (masked
         positions neither write into nor decay the scan state, so the caches
-        match exact-length prefill)."""
+        match exact-length prefill).
+
+        At a data axis of D > 1, ``slots`` (G,) names each row's pool slot
+        of a pool of ``n_slots`` (out of range: a padding row): the rank
+        runs the rows of the slots it owns when every rank owns as many,
+        else every row (module docstring), and the logits and cache hold
+        those rows."""
         if pad_mask is not None and self.cfg.is_encoder_decoder:
             # the decoder's attention layers would mis-serve left-padded
             # prompts: refuse as the stack does
             raise ValueError("pad_mask is only supported for pure-SSM stacks, not "
                              "encoder-decoder models")
+        ctx = None
+        if self.data_parallel > 1:
+            if slots is None or n_slots is None:
+                raise ValueError(f"{self.name}: a prefill at a data axis of "
+                                 f"{self.data_parallel} needs the group's slots")
+            owners = [self._slot_owner(int(s), n_slots) for s in slots]
+            counts = np.bincount(owners, minlength=self.data_parallel + 1)
+            if counts[self.data_parallel] == 0 and len(set(counts[:-1])) == 1:
+                rows = [i for i, o in enumerate(owners) if o == self.data_rank]
+            else:
+                rows = list(range(len(slots)))
+                ctx = dataclasses.replace(self.ctx, batch_split=False)
+            self._held = rows
+            prompts = np.asarray(prompts)[rows]
+            enc_inputs = None if enc_inputs is None else np.asarray(enc_inputs)[rows]
+            pad_mask = None if pad_mask is None else np.asarray(pad_mask)[rows]
         frames = self._frames(enc_inputs)
-        cache = self._new_cache(prompts.shape[0], self.max_enc_len)
+        cache = self._new_cache(prompts.shape[0], self.max_enc_len, rows_split=False)
         mask = None if pad_mask is None else torch.as_tensor(np.asarray(pad_mask),
                                                              device=self.device)
-        return self._prefill(cache, self._ids(prompts), mask, frames)
+        return self._prefill(cache, self._ids(prompts), mask, frames, ctx)
 
     def write_slot(self, pool_cache, one_cache, slot: int):
         return model_lib.write_cache_slot(pool_cache, one_cache, slot)
 
     def write_slots(self, pool_cache, group_cache, slots: np.ndarray):
         """Scatter a batched prefill cache into the rows named by ``slots``;
-        out-of-range entries (pow2 batch padding) are dropped."""
+        out-of-range entries (pow2 batch padding) are dropped. At D > 1 the
+        cache holds the rows the last ``prefill_batch`` ran, and only the
+        slots this rank owns are written, at their local rows."""
+        if self.data_parallel > 1:
+            n = next(iter(pool_cache.values())).shape[1]  # this rank's rows
+            lo = self.data_rank * n
+            local = np.full(len(self._held), n, np.int64)
+            for j, i in enumerate(self._held):
+                if lo <= int(slots[i]) < lo + n:
+                    local[j] = int(slots[i]) - lo
+            slots = local
         return model_lib.write_cache_slots(pool_cache, group_cache, slots)
 
     @torch.no_grad()
@@ -214,14 +324,23 @@ class ModelWorker:
         encoder-decoder models (each row's cross-attention masked to its
         own region; 0 on a slot never admitted). Returns (greedy next tokens
         (max_slots,) np.int32, logits (max_slots, V) for per-slot sampling,
-        cache)."""
+        cache). At D > 1 the rank decodes its own slots: the logits are
+        those rows', the greedy tokens all-gathered for every slot."""
+        D = self.data_parallel
+        if D > 1:
+            n = next(iter(pool_cache.values())).shape[1]
+            rows = slice(self.data_rank * n, (self.data_rank + 1) * n)
+            tokens, pos = np.asarray(tokens)[rows], np.asarray(pos)[rows]
+            enc_len = None if enc_len is None else np.asarray(enc_len)[rows]
         el = None if enc_len is None else torch.as_tensor(np.asarray(enc_len, np.int32),
                                                           device=self.device)
         logits, pool_cache = self._decode(pool_cache, self._ids(tokens),
                                           torch.as_tensor(np.asarray(pos, np.int32),
                                                           device=self.device), el)
-        next_tok = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
-        return next_tok, logits, pool_cache
+        next_tok = logits.argmax(dim=-1).to(torch.int32)
+        if D > 1:
+            next_tok = collectives.all_gather(next_tok, 0, D, self.ctx.data_group)
+        return next_tok.cpu().numpy(), logits, pool_cache
 
     @torch.no_grad()
     def decode_verify(self, pool_cache, tokens: np.ndarray, pos: np.ndarray):

@@ -1,26 +1,132 @@
-"""The collectives of explicit SPMD over the model axis.
+"""The collectives of explicit SPMD over the (data, model) mesh.
 
-Column-parallel layers (q/k/v, gate/up, the LM head's vocab columns) leave
-each rank a slice of the output; row-parallel layers (the attention output
-and MLP down projections, the vocab-sharded embedding, the expert-parallel
-MoE) leave each rank a partial sum of the whole output. ``all_reduce`` sums
-the partials and ``all_gather_last`` concatenates the slices over the model
-axis's process group, in place of the ``psum`` / ``all_gather`` that GSPMD
-inserts for the JAX package. Both return their input untouched at a model
-axis of one (a mesh of one runs no collective, so it computes exactly what
-the single-device path computes).
+Model axis. Column-parallel layers (q/k/v, gate/up, the LM head's vocab
+columns) leave each rank a slice of the output; row-parallel layers (the
+attention output and MLP down projections, the vocab-sharded embedding,
+the expert-parallel MoE) leave each rank a partial sum of the whole output.
+``reduce_from_model`` sums the partials and ``all_gather_last``
+concatenates the slices over the model axis's process group, in place of
+the ``psum`` / ``all_gather`` that GSPMD inserts for the JAX package.
+
+Without gradients (serving) each is one in-place call on the activations,
+counted on ``all_reduce.calls`` / ``all_gather_last.calls``. On a tensor
+that requires grad (train mode) each is a ``torch.autograd.Function`` of
+Megatron's pair: ``copy_to_model`` (identity forward, all-reduce backward)
+goes before a column-parallel input and ``reduce_from_model`` (all-reduce
+forward, identity backward) after a row-parallel output, so a loss that
+every model rank computes alike gets each weight's gradient once, not M
+times; ``all_gather_last``'s backward takes the rank's own slice.
+``torch.distributed.nn.functional.all_reduce`` is not used: its backward
+all-reduces the gradient too, which gives M times the gradient here.
+
+Data axes. ``fsdp_gather`` all-gathers a weight that this rank holds 1/D
+of (FSDP; ``gathered`` swaps the whole weights into a module for the span
+of one layer, ZeRO-3 style, so remat recomputes the gather), and its
+backward reduce-scatters the gradient: each data rank gets the sum over
+the data group of its slice. ``gather_batch`` / ``scatter_batch`` move
+activation rows over the data group the same two ways (the 2-D MoE).
+Gloo has no reduce-scatter: there it is an all-reduce followed by the
+rank's slice (NCCL's ``reduce_scatter_tensor`` elsewhere).
+
+Every differentiable call is counted on ``counts`` by kind, forward and
+backward alike. All return their input untouched on an axis of one (a
+mesh of one runs no collective, so it computes exactly what the
+single-device path computes).
 
 The tensors stay where the model runs: CUDA tensors on the card, also over
-``gloo`` when two ranks share one card (NCCL refuses two ranks on one
-device), whose CUDA all-reduce and all-gather copy through host memory
-inside the backend. Every rank gets the same bits from a collective, so
-ranks that start from the same inputs take the same decisions
-(``serving.workers``).
+``gloo`` when several ranks share one card (NCCL refuses two ranks on one
+device), whose CUDA collectives copy through host memory inside the
+backend. Every rank gets the same bits from a collective, so ranks that
+start from the same inputs take the same decisions (``serving.workers``).
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+
 import torch
 import torch.distributed as dist
+
+counts: collections.Counter = collections.Counter()
+
+
+def _grad_path(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _all_reduce(x: torch.Tensor, group, kind: str) -> torch.Tensor:
+    x = x.contiguous().clone()
+    dist.all_reduce(x, group=group)
+    counts[kind] += 1
+    return x
+
+
+def all_gather(x: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
+    """The ``n`` ranks' ``x`` of ``group`` concatenated along ``dim``, in
+    rank order, without grad."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    counts["all_gather"] += 1
+    return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, n: int, rank: int, group) -> torch.Tensor:
+    """The sum over ``group`` of ``x``, cut in ``n`` along ``dim``: piece
+    ``rank``."""
+    if dist.get_backend(group) == "nccl":
+        src = x.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=group)
+        counts["reduce_scatter"] += 1
+        return out.movedim(0, dim).contiguous()
+    full = _all_reduce(x, group, "reduce_scatter")  # gloo: all-reduce, then the slice
+    size = x.shape[dim] // n
+    return full.narrow(dim, rank * size, size).contiguous()
+
+
+# ---- the model axis ---------------------------------------------------------
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_reduce(g, fctx.ctx.model_group, "all_reduce"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        return _all_reduce(x, ctx.model_group, "all_reduce")
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx, fctx.n = ctx, x.shape[-1]
+        return all_gather(x, -1, ctx.model_parallel, ctx.model_group)
+
+    @staticmethod
+    def backward(fctx, g):
+        n = fctx.n
+        return g.narrow(-1, fctx.ctx.model_rank * n, n).contiguous(), None
+
+
+def copy_to_model(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The input of a column-parallel region: ``x`` itself, whose gradient
+    is summed over the model axis (with grad only; serving passes ``x``)."""
+    if ctx.model_parallel == 1 or not _grad_path(x):
+        return x
+    return _CopyToModel.apply(x, ctx)
 
 
 def all_reduce(x: torch.Tensor, ctx) -> torch.Tensor:
@@ -32,11 +138,24 @@ def all_reduce(x: torch.Tensor, ctx) -> torch.Tensor:
     return x
 
 
+def reduce_from_model(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The sum over the model axis of a row-parallel output: in place
+    without grad (``all_reduce``), else with the identity backward."""
+    if ctx.model_parallel == 1:
+        return x
+    if _grad_path(x):
+        return _ReduceFromModel.apply(x, ctx)
+    return all_reduce(x, ctx)
+
+
 def all_gather_last(x: torch.Tensor, ctx) -> torch.Tensor:
-    """Concatenate the ranks' slices along the last dim, rank order."""
+    """Concatenate the ranks' slices along the last dim, rank order; with
+    grad, the backward takes the rank's own slice."""
     n = ctx.model_parallel
     if n == 1:
         return x
+    if _grad_path(x):
+        return _GatherLast.apply(x, ctx)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=ctx.model_group)
@@ -44,11 +163,113 @@ def all_gather_last(x: torch.Tensor, ctx) -> torch.Tensor:
     return torch.cat(parts, dim=-1)
 
 
-def mean(x: torch.Tensor, ctx) -> torch.Tensor:
-    """The mean over the model axis (``pmean``)."""
-    n = ctx.model_parallel
-    return x if n == 1 else all_reduce(x.clone(), ctx) / n
-
-
 all_reduce.calls = 0
 all_gather_last.calls = 0
+
+
+# ---- the data axes ----------------------------------------------------------
+
+
+class _DataGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, dim, ctx):
+        fctx.dim, fctx.ctx = dim, ctx
+        return all_gather(x, dim, ctx.batch_parallel, ctx.data_group)
+
+    @staticmethod
+    def backward(fctx, g):
+        c = fctx.ctx
+        return _reduce_scatter(g, fctx.dim, c.batch_parallel, c.data_rank, c.data_group), None, None
+
+
+class _DataScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, dim, ctx):
+        fctx.dim, fctx.ctx = dim, ctx
+        return _reduce_scatter(x, dim, ctx.batch_parallel, ctx.data_rank, ctx.data_group)
+
+    @staticmethod
+    def backward(fctx, g):
+        c = fctx.ctx
+        return all_gather(g, fctx.dim, c.batch_parallel, c.data_group), None, None
+
+
+def fsdp_gather(x: torch.Tensor, dim: int, ctx) -> torch.Tensor:
+    """The whole of a tensor this rank holds 1/D of along ``dim``: an
+    all-gather over the data group; with grad, the backward reduce-scatters
+    (each rank gets the data group's sum of its slice's gradient)."""
+    if ctx.batch_parallel == 1:
+        return x
+    if _grad_path(x):
+        return _DataGather.apply(x, dim, ctx)
+    return all_gather(x, dim, ctx.batch_parallel, ctx.data_group)
+
+
+def gather_batch(x: torch.Tensor, ctx) -> torch.Tensor:
+    """Every data rank's rows (dim 0) in rank order; the backward sums the
+    gradient over the data group and keeps the rank's rows."""
+    return fsdp_gather(x, 0, ctx)
+
+
+def scatter_batch(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The sum over the data group of ``x`` (every data rank's rows),
+    keeping this rank's rows; the backward all-gathers."""
+    if ctx.batch_parallel == 1:
+        return x
+    if _grad_path(x):
+        return _DataScatter.apply(x, 0, ctx)
+    return _reduce_scatter(x, 0, ctx.batch_parallel, ctx.data_rank, ctx.data_group)
+
+
+def all_reduce_data(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The sum over the data group, without grad (the gradients of the
+    leaves that every data rank holds whole)."""
+    if ctx.batch_parallel == 1:
+        return x
+    return _all_reduce(x, ctx.data_group, "all_reduce")
+
+
+def all_reduce_model(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The sum over the model axis, without grad and off the serving
+    counter (the qk-norm scales' partial gradients)."""
+    if ctx.model_parallel == 1:
+        return x
+    return _all_reduce(x, ctx.model_group, "all_reduce")
+
+
+def all_reduce_world(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The sum over every rank of the mesh, without grad."""
+    if ctx.batch_parallel * ctx.model_parallel == 1:
+        return x
+    return _all_reduce(x, None, "all_reduce")
+
+
+@contextlib.contextmanager
+def gathered(ctx, *modules, recurse: bool = True, exclude=()):
+    """Within the block, every parameter of ``modules`` (their
+    submodules too with ``recurse``) that this rank holds 1/D of (a
+    ``fsdp_dim`` attribute, set by ``models.model``) reads as the whole
+    weight, through ``fsdp_gather``; the rank's slices are put back after.
+    The modules in ``exclude`` (not their submodules) keep their pieces.
+    A no-op at one data shard."""
+    if ctx.batch_parallel == 1:
+        yield
+        return
+    swaps = []
+    skip = {id(m) for m in exclude}
+    for top in modules:
+        if top is None:
+            continue
+        for mod in (top.modules() if recurse else (top,)):
+            if id(mod) in skip:
+                continue
+            for name, p in mod._parameters.items():
+                if p is not None and getattr(p, "fsdp_dim", None) is not None:
+                    swaps.append((mod, name, p))
+    try:
+        for mod, name, p in swaps:
+            mod._parameters[name] = fsdp_gather(p, p.fsdp_dim, ctx)
+        yield
+    finally:
+        for mod, name, p in swaps:
+            mod._parameters[name] = p

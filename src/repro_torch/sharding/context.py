@@ -2,21 +2,26 @@
 counterpart of ``repro.sharding.context.ExecContext``.
 
 Carries the mesh and its axis names, so that the layers that run explicit
-SPMD over the model axis (column- and row-parallel projections with
-``torch.distributed`` collectives, ``sharding.collectives``) know their
-shard count, their rank on that axis and its process group, plus the
-attention route. ``ExecContext()`` (no mesh) is the single-device path; a
-mesh of one takes the same code path and runs no collective.
+SPMD know their shard counts, their ranks and process groups on both axes:
 
-``plan`` carries the reference's per-model overrides; the port reads two
-of its keys, both in train mode only (``models.transformer.apply_stack``):
+* the model axis (``model_parallel``, ``model_rank``, ``model_group``):
+  column- and row-parallel projections with ``torch.distributed``
+  collectives (``sharding.collectives``);
+* the batch axes (``batch_parallel``, ``data_rank``, ``data_group``): each
+  data rank takes its rows of the batch; with FSDP (``fsdp``, or
+  ``partition_specs.fsdp_default`` when it is None) it also holds 1/D of
+  the weights the rule table cuts on the data axes, gathered per layer.
+
+``ExecContext()`` (no mesh) is the single-device path; a mesh of one takes
+the same code path and runs no collective. The port's process groups cover
+one batch axis: a real mesh whose ("pod", "data") axes both span more than
+one device is refused (a stand-in mesh is read for its sizes only).
+
+``plan`` carries the reference's per-model overrides. The port reads
 ``"remat_policy"`` (``"full"``, the default, ``"dots"`` or ``"none"``) and
 ``"pipeline"`` (``{"stages": S, "microbatches": M}``, the circular
-pipeline of ``sharding.pipeline``). The reference's other keys (such as
-``moe_2d``) and ``batch_parallel`` are not read: the port's serving mesh
-has one device on its batch axes (``sharding.placement`` refuses more),
-where the 2-D MoE computes what the expert-parallel branch computes
-(ROADMAP.md).
+pipeline of ``sharding.pipeline``) in train mode, and ``"moe_2d"`` (the
+reference's weight-stationary 2-D MoE, ``models.moe``) in every mode.
 """
 from __future__ import annotations
 
@@ -47,8 +52,13 @@ class ExecContext:
     # It selects both the attention kernels and the SSD scan of the serving
     # modes; train mode takes its differentiable route whatever it says.
     attn_impl: Optional[str] = None
-    # per-model overrides: "remat_policy" and "pipeline" (train mode)
+    # per-model overrides: "remat_policy" and "pipeline" (train mode), "moe_2d"
     plan: dict = field(default_factory=dict)
+    # FSDP over the batch axes: None follows partition_specs.fsdp_default
+    fsdp: Optional[bool] = None
+    # whether the data ranks hold other rows (False: a batch every data rank
+    # runs whole, as a serving worker's replicated prefill group)
+    batch_split: bool = True
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -75,3 +85,38 @@ class ExecContext:
     def model_group(self):
         """The model axis's process group (the collectives' ``group``)."""
         return self.mesh.get_group(self.model_axis)
+
+    @property
+    def batch_parallel(self) -> int:
+        """How many ways the batch is split: the product of the batch axes'
+        sizes (1 without a mesh)."""
+        if self.mesh is None:
+            return 1
+        sizes = axis_sizes(self.mesh)
+        n = 1
+        for a in self.batch_axes:
+            n *= sizes[a]
+        return n
+
+    def _data_axis(self) -> str:
+        sizes = axis_sizes(self.mesh)
+        split = [a for a in self.batch_axes if sizes[a] > 1]
+        if len(split) > 1:
+            raise NotImplementedError(f"batch axes {split} that each span more than one "
+                                      "device: the port's data group is one mesh axis "
+                                      "(see ROADMAP.md)")
+        return split[0]
+
+    @property
+    def data_rank(self) -> int:
+        """This process's index on the batch axes (0 without a mesh, at one
+        data shard, or on a stand-in mesh that has no process group)."""
+        if self.batch_parallel == 1 or not hasattr(self.mesh, "get_local_rank"):
+            return 0
+        return int(self.mesh.get_local_rank(self._data_axis()))
+
+    @property
+    def data_group(self):
+        """The batch axis's process group: the ranks that hold the same
+        model shard and other rows of the batch."""
+        return self.mesh.get_group(self._data_axis())

@@ -1,6 +1,6 @@
-"""Where the port's parameters and cache leaves live on a model axis of M
-ranks: the rule table (``partition_specs``) applied to the port's modules,
-and the explicit-SPMD layout that follows from it.
+"""Where the port's parameters and cache leaves live on a (data, model)
+mesh of D x M ranks: the rule table (``partition_specs``) applied to the
+port's modules, and the explicit-SPMD layout that follows from it.
 
 The rule table speaks the JAX package's tree (paths like
 ``stages/0/l0/attn/wq``, (d_in, d_out) matrices, stage leaves stacked on a
@@ -10,30 +10,39 @@ leaf of that tree (the inverse of ``convert.params_from_numpy``'s walk) and
 meta device, so nothing is allocated.
 
 ``plan_params`` takes the table's decisions and turns each into the dim of
-the port's tensor that a rank holds a 1/M slice of. The layers then run as
-column-parallel (q/k/v, gate/up, the LM head's vocab) and row-parallel
-(wo, w_down, the embedding's vocab, the experts) shards with collectives
-(``sharding.collectives``). That needs whole heads per rank, so beyond the
-table's own divisibility it refuses, with a ``NotImplementedError`` that
-names the leaf, M and ROADMAP.md:
+the port's tensor that a rank holds a 1/M slice of (``dims``) and, with
+FSDP (``ctx.fsdp``, or ``fsdp_default(cfg)`` when that is None, as the
+reference's ``params_shardings`` decides), the dim it holds a 1/D slice of
+(``data_dims``). The layers then run as column-parallel (q/k/v, gate/up,
+the LM head's vocab) and row-parallel (wo, w_down, the embedding's vocab,
+the experts) shards with collectives (``sharding.collectives``), and each
+layer gathers its FSDP weights over the data group for its span
+(``collectives.gathered``). The batch rows split over the data axes
+(``batch_shardings``: ``P(batch_axes, None)``). That needs whole heads per
+rank, so beyond the table's own divisibility it refuses, with a
+``NotImplementedError`` that names the leaf, M or D, and ROADMAP.md:
 
-* a serving mesh whose batch axes hold more than one device (the JAX
-  package's sharded serving runs a mesh of (1, M));
 * at M > 1, a leaf the table left whole on the model axis (heads, kv
   heads, d_ff, vocab or experts not divisible by M), attention heads or
   kv heads not divisible by M, and a KV cache that the table would shard
   on its sequence instead of its heads (``plan_cache``);
-* at M > 1, MLA, SSM, encoder-decoder and hybrid stacks.
+* at M > 1, MLA, SSM, encoder-decoder and hybrid stacks, in every mode;
+* at D > 1, a cache whose batch (the slot pool) does not divide D, which
+  the table would shard on its sequence over the data axis (``plan_cache``).
 
-A mesh of one takes every family. A 1-D qkv bias, which the table
-replicates, is cut to the rank's heads with its projection (the rank's
-projection yields only those heads).
+A mesh of one takes every family, and so does a data axis at M = 1. A 1-D
+qkv bias, which the table replicates, is cut to the rank's heads with its
+projection (the rank's projection yields only those heads). The qk-norm
+scales stay whole on every rank but act on the rank's heads only, so their
+gradient is a partial sum over the model axis (``partial``).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -49,6 +58,8 @@ ROADMAP = "see ROADMAP.md"
 _CUT_LEAVES = {"embedding", "lm_head", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
 _BIASES = {"bq": "num_heads", "bk": "num_kv_heads", "bv": "num_kv_heads"}
 _HEADS = {"wq": "num_heads", "wo": "num_heads", "wk": "num_kv_heads", "wv": "num_kv_heads"}
+# whole leaves applied to the rank's heads only (their gradient sums over the model axis)
+_HEAD_SHARED = ("q_norm", "k_norm")
 
 
 @dataclass(frozen=True)
@@ -142,9 +153,17 @@ def _model_dim(spec, axis) -> Optional[int]:
     return None
 
 
+def _data_dim(spec, batch_axes) -> Optional[int]:
+    for d, a in enumerate(spec):
+        names = a if isinstance(a, tuple) else (a,)
+        if a is not None and set(names) & set(batch_axes):
+            return d
+    return None
+
+
 def _refuse(path: str, what: str, M: int):
     raise NotImplementedError(f"{path}: {what} at a model axis of {M} is not ported "
-                              f"to repro_torch's sharded serving ({ROADMAP})")
+                              f"to repro_torch's sharded serving or training ({ROADMAP})")
 
 
 def _axes(ctx):
@@ -152,16 +171,10 @@ def _axes(ctx):
 
 
 def check_serving_mesh(cfg, ctx, paths: List[str]) -> None:
-    """The refusals that hold whatever the leaf shapes (module docstring)."""
-    model_axis, batch_axes = _axes(ctx)
-    sizes = axis_sizes(ctx.mesh)
-    M = sizes[model_axis]
-    bp = 1
-    for a in batch_axes:
-        bp *= sizes[a]
-    if bp > 1:
-        _refuse(paths[0], f"a serving mesh whose batch axes {batch_axes} span {bp} devices "
-                          "(the batch rows and, with FSDP, the weights would split)", M)
+    """The refusals that hold whatever the leaf shapes (module docstring),
+    in every mode."""
+    model_axis, _ = _axes(ctx)
+    M = axis_sizes(ctx.mesh)[model_axis]
     if M == 1:
         return
     kinds = set(cfg.layer_kinds())
@@ -176,23 +189,48 @@ def check_serving_mesh(cfg, ctx, paths: List[str]) -> None:
         _refuse(first("mixer/"), f"a stack with SSM layers ({cfg.family})", M)
 
 
+@functools.lru_cache(maxsize=None)
+def _paths(cfg) -> List[str]:
+    return list(jax_shapes(cfg))
+
+
+def check_mesh(cfg, ctx) -> None:
+    """``check_serving_mesh`` on ``cfg``'s leaves (train mode's check)."""
+    if ctx.model_parallel > 1:
+        check_serving_mesh(cfg, ctx, _paths(cfg))
+
+
 @dataclass(frozen=True)
 class ParamPlan:
     specs: Dict[str, ps.Spec]  # JAX path -> the rule table's placement
     dims: Dict[str, Optional[int]]  # port name -> dim of its tensor cut 1/M per rank
+    # port name -> dim of its tensor cut 1/D per rank (FSDP; all None without)
+    data_dims: Dict[str, Optional[int]]
+    # port names of whole leaves whose gradient is a partial sum over the model axis
+    partial: frozenset
+    shape: Tuple[int, int]  # (D, M)
+
+    def replicas(self, name: str) -> int:
+        """How many ranks of the mesh hold the same piece of ``name``."""
+        D, M = self.shape
+        return ((M if self.dims[name] is None else 1)
+                * (D if self.data_dims[name] is None else 1))
 
 
 def plan_params(cfg, ctx, report: Optional[ps.ShardingReport] = None) -> ParamPlan:
-    """The rule table's placement of every leaf at ``ctx``'s mesh, its
-    decisions recorded on ``report``, and the dim of each port parameter
-    that a rank holds 1/M of (None: every rank holds it whole)."""
+    """The rule table's placement of every leaf at ``ctx``'s mesh (FSDP as
+    ``ctx.fsdp`` says, ``fsdp_default(cfg)`` when it is None), its
+    decisions recorded on ``report``, and the dims of each port parameter
+    that a rank holds 1/M and 1/D of (None: every rank holds it whole on
+    that axis)."""
     model_axis, batch_axes = _axes(ctx)
     from repro_torch.models.model import CausalLM
     model = CausalLM(cfg, device="meta")
     layout = jax_layout(cfg, model)
     shapes = jax_shapes(cfg, layout, model)
     own = ps.ShardingReport()
-    specs = ps.params_shardings(shapes, cfg, ctx.mesh, model_axis, batch_axes, report=own)
+    specs = ps.params_shardings(shapes, cfg, ctx.mesh, model_axis, batch_axes, fsdp=ctx.fsdp,
+                                report=own)
     if report is not None:
         report.sharded += own.sharded
         report.replicated += own.replicated
@@ -203,10 +241,18 @@ def plan_params(cfg, ctx, report: Optional[ps.ShardingReport] = None) -> ParamPl
         for path, dim, size, axis in own.events:
             if model_axis in axis.split("+"):
                 _refuse(path, f"dim {dim} of {size}, not divisible by the model axis,", M)
-    dims = {}
+    sizes = axis_sizes(ctx.mesh)
+    D = int(np.prod([sizes[a] for a in batch_axes]))
+    dims, data_dims, partial = {}, {}, set()
     for lf in layout:
         spec = specs[lf.path]
         core = spec[1:] if lf.repeat is not None else spec
+        f = _data_dim(core, batch_axes) if D > 1 else None
+        if f is not None and lf.transpose:
+            f = len(core) - 1 - f
+        data_dims[lf.name] = f
+        if M > 1 and lf.path.split("/")[-1] in _HEAD_SHARED:
+            partial.add(lf.name)
         d = _model_dim(core, model_axis)
         leaf = lf.path.split("/")[-1]
         if d is not None and M > 1:
@@ -221,7 +267,7 @@ def plan_params(cfg, ctx, report: Optional[ps.ShardingReport] = None) -> ParamPl
         if leaf in _BIASES and M > 1:
             d = 0  # the rank's heads of a replicated bias (module docstring)
         dims[lf.name] = d
-    return ParamPlan(specs, dims)
+    return ParamPlan(specs, dims, data_dims, frozenset(partial), (D, M))
 
 
 def cache_shapes(cfg, batch: int, max_len: int, enc_len: int = 0) -> Dict[str, Tuple[int, ...]]:
@@ -242,15 +288,38 @@ def init_placed_cache(cfg, ctx, specs: Dict[str, ps.Spec], batch: int, max_len: 
             for n, t in full.items()}
 
 
+class AxisSizes:
+    """A stand-in mesh: axis name -> size only (what the rule table reads)."""
+
+    def __init__(self, **shape):
+        self.shape = shape
+
+
 def plan_cache(cfg, ctx, batch: int, max_len: int, enc_len: int = 0,
-               report: Optional[ps.ShardingReport] = None) -> Dict[str, ps.Spec]:
+               report: Optional[ps.ShardingReport] = None,
+               rows_split: bool = True) -> Dict[str, ps.Spec]:
     """The activation rules' placement of a (batch, max_len) cache; at
-    M > 1 every KV leaf must shard on its heads (the table's KV-sequence
-    fallback is refused)."""
+    M > 1 every KV leaf must shard on its heads, at D > 1 on its batch (the
+    table's KV-sequence fallbacks are refused). ``rows_split=False``: a
+    cache whose rows every data rank holds whole (a prefill group's), placed
+    on the model axis only."""
     model_axis, batch_axes = _axes(ctx)
-    specs = ps.cache_shardings(cache_shapes(cfg, batch, max_len, enc_len), cfg, ctx.mesh, batch,
+    sizes = axis_sizes(ctx.mesh)
+    mesh = ctx.mesh
+    if not rows_split:
+        mesh = AxisSizes(**dict(sizes, **{a: 1 for a in batch_axes}))
+    specs = ps.cache_shardings(cache_shapes(cfg, batch, max_len, enc_len), cfg, mesh, batch,
                                model_axis, batch_axes, report=report)
-    M = axis_sizes(ctx.mesh)[model_axis]
+    if not rows_split:
+        specs = {n: (sp[0], None) + tuple(sp[2:]) for n, sp in specs.items()}
+    D = int(np.prod([sizes[a] for a in batch_axes]))
+    if D > 1 and rows_split and batch % D:
+        name = next(iter(specs))
+        raise NotImplementedError(
+            f"{name}: a cache of {batch} rows at a data axis of {D} (the rule table shards the "
+            f"KV sequence on the data axis when the batch does not divide it) is not ported to "
+            f"repro_torch's sharded serving ({ROADMAP})")
+    M = sizes[model_axis]
     if M > 1:
         for name in ("k", "v"):
             if name in specs and specs[name][3] != model_axis:

@@ -10,6 +10,12 @@ in fp32 and casts back. Bf16 moments lose updates below their rounding;
 that is the reference's choice, kept. ``torch.optim.AdamW`` is not used:
 its decay, bias correction and moment dtype differ from the reference's.
 
+On a (data, model) mesh each rank updates its own pieces: ``plan`` (a
+``sharding.placement.ParamPlan``) and ``ctx`` make ``global_norm`` the
+norm of the whole gradient (each leaf's local sum of squares divided by
+the number of ranks that hold the same piece, summed over every rank), so
+clipping and the elementwise AdamW arithmetic reproduce the unsharded step.
+
 Each fp32 operation is its own rounding step, in the reference's order
 (no fused multiply-add, no ``alpha=`` forms), and the scalars (learning
 rate, bias corrections) are computed in fp32 as the reference computes
@@ -21,6 +27,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import collectives
 
 
 @dataclass(frozen=True)
@@ -53,25 +61,34 @@ def schedule(oc: OptConfig, step: int) -> float:
     return float(f32(oc.lr) * warm * (f32(0.5) * (f32(1.0) + cos)))
 
 
-def global_norm(tensors: dict) -> torch.Tensor:
+def global_norm(tensors: dict, plan=None, ctx=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32: a 0-d tensor
-    on the tensors' device."""
+    on the tensors' device. With ``plan`` and ``ctx`` (a mesh), ``tensors``
+    are this rank's pieces and the norm is the whole tree's (module
+    docstring)."""
     total = None
-    for t in tensors.values():
+    for name, t in tensors.items():
         s = torch.sum(torch.square(t.float()))
+        if plan is not None:
+            s = s / plan.replicas(name)
         total = s if total is None else total + s
+    if plan is not None:
+        total = collectives.all_reduce_world(total, ctx)
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def adamw_update(params: dict, grads: dict, state: dict, oc: OptConfig) -> dict:
+def adamw_update(params: dict, grads: dict, state: dict, oc: OptConfig, plan=None,
+                 ctx=None) -> dict:
     """One AdamW step in place: every parameter of ``params`` from its
     gradient in ``grads`` (same names), the gradients clipped together to
     global norm ``oc.clip_norm``; ``state``'s moments and step advance.
-    Returns {"grad_norm": the raw gradients' global norm (a 0-d fp32
-    tensor), "lr": the step's learning rate}."""
+    On a mesh (``plan``, ``ctx``) the tensors are this rank's pieces and
+    the norm is the whole gradient's. Returns {"grad_norm": the raw
+    gradients' global norm (a 0-d fp32 tensor), "lr": the step's learning
+    rate}."""
     step = state["step"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads, plan, ctx)
     # true divisions by 0-d tensors (a python divisor turns into a multiply
     # by its reciprocal, another rounding)
     scale = torch.clamp(gn.new_tensor(oc.clip_norm) / torch.clamp(gn, min=1e-9), max=1.0)

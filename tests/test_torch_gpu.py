@@ -787,3 +787,89 @@ def test_bf16_checkpoint_round_trip_on_card(tmp_path):
         for k in ("m", "v"):
             assert torch.equal(fresh_state[k][name].view(torch.int16),
                                state[k][name].view(torch.int16)), (k, name)
+
+
+@pytest.mark.gpu
+def test_yolo_on_card_matches_cpu():
+    """yolo-v2-tiny at 416x416, B 2, fp32 (TF32 off): the card's output
+    against the CPU's on the same weights, within 1e-4 of max |y|."""
+    from repro_torch.models import convnet
+    dev = _card()
+    model = convnet.init_yolo(0, "cpu")
+    x = np.random.default_rng(0).standard_normal((2, 416, 416, 3)).astype(np.float32)
+    want = convnet.apply_yolo(model, torch.from_numpy(x))
+    got = convnet.apply_yolo(model.to(dev), torch.from_numpy(x).to(dev)).cpu()
+    assert got.shape == (2, 13, 13, 125)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+def _dp_reference(cfg, batch, dev, D):
+    """The unsharded step on ``dev``: the loss and gradients averaged over
+    D data shards of ``batch``."""
+    from repro_torch.models.model import init_params, train_params
+    from repro_torch.training.train_loop import batch_to_device, loss_and_grads
+    params = init_params(cfg, 0, dev)
+    train_params(params)
+    n = batch["tokens"].shape[0] // D
+    losses, acc = [], None
+    for d in range(D):
+        sh = {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
+        loss, _, g = loss_and_grads(params, cfg, batch_to_device(sh, dev))
+        losses.append(float(loss.detach()))
+        g = {k: v.detach().cpu().clone() for k, v in g.items()}
+        acc = g if acc is None else {k: acc[k] + g[k] for k in g}
+    return sum(losses) / D, {k: v / D for k, v in acc.items()}
+
+
+@pytest.mark.gpu
+def test_data_parallel_train_step_on_card_matches_no_mesh():
+    """Two ranks on the one card (gloo over CUDA tensors) on a (2, 1) mesh
+    with FSDP: reduced tinyllama's fp32 loss and every gradient leaf,
+    gathered whole, against the unsharded step on the card averaged over
+    the two data shards (to fp32 summation order)."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import exact_fp32
+    from repro_torch.launch.sharded import run_ranks, train_rank
+    from repro_torch.training.optimizer import OptConfig
+    dev = _card()
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    batch = SyntheticLM(cfg, DataConfig(batch=4, seq_len=64, seed=0)).batch(0)
+    job = dict(cfg=cfg, seed=0, batch=4, seq=64, steps=1, fsdp=True, grads=True,
+               oc=OptConfig(lr=1e-3, warmup_steps=1, total_steps=4))
+    ranks = run_ranks(train_rank, 2, ([job], (2, 1), "cuda"), timeout=300, device_type="cuda")
+    with exact_fp32():
+        loss, grads = _dp_reference(cfg, batch, dev, 2)
+    for r in ranks:
+        res = r[0]
+        assert res["data_shard"] is not None
+        assert res["history"][0]["loss"] == pytest.approx(loss, rel=1e-5)
+        for name, g in grads.items():
+            torch.testing.assert_close(torch.from_numpy(res["grads"][name]), g, rtol=0,
+                                       atol=1e-4 * float(g.abs().max()))
+
+
+@pytest.mark.gpu
+def test_data_parallel_serve_on_card_matches_no_mesh():
+    """Continuous FIFO serving of tinyllama-1.1b at full width cut to 2
+    layers, fp32, on a (2, 1) mesh of two ranks on the one card: each rank's
+    tokens equal the unsharded engine's on the card, each rank holds half
+    the pool and launches the flash and decode kernels."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import exact_fp32
+    from repro_torch.launch.sharded import engine_rank, run_ranks, serve_job
+    from repro_torch.sharding.context import ExecContext
+    _card()
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=2, dtype="float32",
+                              param_dtype="float32")
+    rng = np.random.default_rng(2)
+    reqs = [(i, rng.integers(1, cfg.vocab_size, n, dtype=np.int32), 5)
+            for i, n in enumerate((9, 40, 17, 64, 33, 12))]
+    job = dict(cfg=cfg, seed=0, requests=reqs, max_slots=4, max_len=96)
+    with exact_fp32():
+        want = serve_job(job, ExecContext(), "cuda")
+    ranks = run_ranks(engine_rank, 2, ([job], (2, 1), "cuda"), timeout=300, device_type="cuda")
+    for r in ranks:
+        got = r[0]
+        assert got["tokens"] == want["tokens"] and got["pool_rows"] == 2
+        assert min(got["launches"].values()) > 0

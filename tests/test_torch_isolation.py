@@ -46,7 +46,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                  "faults.injector", "serving.bucketed", "fleet", "fleet.replay",
                  "fleet.workloads", "fleet.population", "fleet.report", "data.pipeline",
                  "training.optimizer", "training.checkpoint", "training.train_loop",
-                 "sharding.pipeline", "launch.train"):
+                 "sharding.pipeline", "launch.train", "models.convnet", "launch.sharded",
+                 "sharding.collectives", "sharding.placement", "launch.mesh"):
         assert f"repro_torch.{name}" in got["modules"]
 
 
@@ -64,12 +65,16 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                                     "repro_torch.uncertainty", "repro_torch.faults",
                                     "repro_torch.faults.plan", "repro_torch.faults.injector",
                                     "repro_torch.serving.bucketed", "repro_torch.fleet",
-                                    "repro_torch.fleet.replay"])
+                                    "repro_torch.fleet.replay", "repro_torch.models.convnet",
+                                    "repro_torch.launch.sharded", "repro_torch.launch.train",
+                                    "repro_torch.training.train_loop",
+                                    "repro_torch.training.checkpoint"])
 def test_scheduled_path_modules_load_no_jax_and_no_repro(module):
     """Each module of the scheduled, speculative and joint-planning paths, of
     the closed loop, of the MoE layer, of the encoder-decoder and hybrid
     path (Mamba1, the encoder, the two configs), of the uncertainty layer,
     the fault plans and injector, the bucketed mode and the fleet replay,
+    the yolo convnet and the sharded training and serving entry points,
     imported alone in a fresh process."""
     code = (
         "import importlib, json, sys\n"
@@ -87,9 +92,13 @@ def test_scheduled_path_modules_load_no_jax_and_no_repro(module):
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_sources_import_no_jax_and_no_library_attention(path):
     tree = ast.parse(open(path, encoding="utf-8").read())
-    # chip_smoke.py times SDPA as a yardstick and switches cuDNN's TF32 off
+    # chip_smoke.py times SDPA as a yardstick and switches cuDNN's TF32 off;
+    # the yolo convnet's conv is cuDNN's (the reference's is XLA's
+    # conv_general_dilated, outside any Pallas kernel) with its TF32 off
     banned = {"compile"} if path == SMOKE else {
         "compile", "cudnn", "scaled_dot_product_attention"}
+    if path.endswith(os.path.join("models", "convnet.py")):
+        banned.discard("cudnn")
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             roots = [a.name.split(".")[0] for a in node.names]

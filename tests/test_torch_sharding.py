@@ -356,16 +356,17 @@ def test_two_ranks_match_the_jax_unsharded_tokens():
 
 def test_refusals_name_the_leaf_and_the_roadmap():
     """No process group needed: reduced tinyllama (2 kv heads) on a model
-    axis of 4, reduced deepseek-v2-lite (MLA) and reduced mamba2 on 2, and a
-    data axis of 2 are refused, each naming a leaf, M and ROADMAP.md; an
-    expert count that does not divide M too."""
+    axis of 4, reduced deepseek-v2-lite (MLA) and reduced mamba2 on 2 are
+    refused, each naming a leaf, M and ROADMAP.md; an expert count that
+    does not divide M too. A data axis of 2 is taken (data-parallel
+    serving and training), but a slot pool that it does not divide is
+    refused naming the leaf, D and ROADMAP.md."""
     def ctx(**shape):
         return ExecContext(mesh=_FakeMesh(**shape), batch_axes=("data",), model_axis="model")
     cases = [("tinyllama-1.1b", dict(data=1, model=4), "stages/0/l0/attn/wk", "4"),
              ("deepseek-v2-lite-16b", dict(data=1, model=2), "attn/w_dkv", "2"),
              ("mamba2-2.7b", dict(data=1, model=2), "mixer/", "2"),
-             ("seamless-m4t-medium", dict(data=1, model=2), "encoder/", "2"),
-             ("tinyllama-1.1b", dict(data=2, model=1), "embed/embedding", "1")]
+             ("seamless-m4t-medium", dict(data=1, model=2), "encoder/", "2")]
     for arch, shape, leaf, m in cases:
         cfg = configs.reduced(configs.get_config(arch))
         with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
@@ -378,6 +379,167 @@ def test_refusals_name_the_leaf_and_the_roadmap():
     tiny = configs.reduced(configs.get_config("tinyllama-1.1b"))
     with pytest.raises(NotImplementedError, match="kv heads"):
         placement.plan_cache(tiny, ctx(data=1, model=4), 8, 32)
+    assert placement.plan_params(tiny, ctx(data=2, model=1)).shape == (2, 1)
+    with pytest.raises(NotImplementedError, match=r"k: a cache of 3 rows at a data axis of 2"
+                                                  r".*ROADMAP.md"):
+        placement.plan_cache(tiny, ctx(data=2, model=1), 3, 32)
     plan = placement.plan_params(tiny, ctx(data=1, model=2))
     assert plan.dims["layers.0.attn.wq.weight"] == 0 and plan.dims["layers.0.attn.wo.weight"] == 1
     assert plan.dims["embedding"] == 0 and plan.dims["final_norm.scale"] is None
+
+
+# ---------------------------------------------------------------------------
+# the data axis: FSDP placement, the batch split, data-parallel serving
+# ---------------------------------------------------------------------------
+
+
+def _reference_fsdp_specs(arch, mesh):
+    """The reference's ``params_shardings(..., fsdp=True)`` decisions, leaf
+    by leaf (its loop run on ``param_spec`` with the FSDP axes)."""
+    rep, specs = jax_ps.ShardingReport(), {}
+    for path, shape in _jax_params(arch).items():
+        lead = 1 if "stages" in path.split("/") else 0
+        spec = jax_ps.param_spec(path, shape[lead:], mesh, "model", tuple(batch_axes_for(mesh)),
+                                 report=rep)
+        specs[path] = _norm((None,) * lead + tuple(spec))
+    return specs, rep
+
+
+FSDP_MESHES = [dict(data=2, model=2), dict(data=16, model=16), dict(pod=2, data=16, model=16)]
+
+
+@pytest.mark.parametrize("shape", FSDP_MESHES, ids=["2x2", "16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", configs.ARCHS)
+def test_rule_table_with_fsdp_matches_the_reference(arch, shape):
+    """``fsdp=True`` (as the reference's ``build_lowered(fsdp=)`` passes
+    it): every leaf's placement, counts and replication events equal the
+    reference's on the stand-in meshes."""
+    mesh = _FakeMesh(**shape)
+    ref, ref_rep = _reference_fsdp_specs(arch, mesh)
+    rep = ps.ShardingReport()
+    got = ps.params_shardings(_port_params(arch), configs.get_config(arch), mesh, "model",
+                              batch_axes_for(mesh), fsdp=True, report=rep)
+    assert {p: _norm(s) for p, s in got.items()} == ref
+    assert (rep.sharded, rep.replicated) == (ref_rep.sharded, ref_rep.replicated)
+    assert sorted(rep.events) == sorted(ref_rep.events)
+
+
+def test_plan_params_turns_fsdp_into_the_dims_a_rank_holds():
+    """On a (2, 2) stand-in with FSDP, each port tensor's model dim and
+    data dim follow the table's placement through the transposes of
+    ``nn.Linear`` (JAX (d_in, d_out), the port (d_out, d_in)); without
+    FSDP the data axis cuts nothing; the replica counts the global norm
+    divides by."""
+    tiny = configs.reduced(configs.get_config("tinyllama-1.1b"))
+    ctx = ExecContext(mesh=_FakeMesh(data=2, model=2), batch_axes=("data",), model_axis="model",
+                      fsdp=True)
+    plan = placement.plan_params(tiny, ctx)
+    assert plan.shape == (2, 2)
+    assert (plan.dims["layers.0.attn.wq.weight"], plan.data_dims["layers.0.attn.wq.weight"]) == (
+        0, 1)
+    assert (plan.dims["layers.0.attn.wo.weight"], plan.data_dims["layers.0.attn.wo.weight"]) == (
+        1, 0)
+    assert (plan.dims["embedding"], plan.data_dims["embedding"]) == (0, 1)
+    assert plan.data_dims["final_norm.scale"] is None and plan.replicas("final_norm.scale") == 4
+    assert plan.replicas("layers.0.attn.wq.weight") == 1
+    off = placement.plan_params(tiny, dataclasses.replace(ctx, fsdp=False))
+    assert not any(d is not None for d in off.data_dims.values())
+    assert off.replicas("layers.0.attn.wq.weight") == 2
+    chameleon = configs.reduced(configs.get_config("chameleon-34b"))
+    assert placement.plan_params(chameleon, ctx).partial == frozenset(
+        n for n, _ in tmodel.CausalLM(chameleon, device="meta").named_parameters()
+        if ".q_norm." in n or ".k_norm." in n)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "seamless-m4t-medium"])
+def test_batch_shardings_match_the_reference(arch):
+    """``batch_shardings`` against the reference's on a mesh of the host's
+    one device (its NamedShardings need a real mesh): the batch dim on the
+    batch axes, every other dim whole; and the rows a data rank takes."""
+    from jax.sharding import Mesh
+
+    from repro_torch.training.train_loop import shard_batch
+    jmesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    cfg, jcfg = configs.get_config(arch), jax_configs.get_config(arch)
+    want = {k: _norm(tuple(v.spec)) for k, v in jax_ps.batch_shardings(jcfg, jmesh, "train")
+            .items()}
+    got = {k: _norm(v) for k, v in ps.batch_shardings(cfg, _FakeMesh(data=1, model=1),
+                                                      "train").items()}
+    assert got == want
+    ctx = ExecContext(mesh=_FakeMesh(data=2, model=1), batch_axes=("data",), model_axis="model")
+    batch = {"tokens": np.arange(12).reshape(4, 3), "labels": np.arange(12).reshape(4, 3)}
+    assert np.array_equal(shard_batch(batch, cfg, ctx)["tokens"], batch["tokens"][:2])
+
+
+def _dp_requests(cfg):
+    r = np.random.default_rng(5)
+    return [(i, r.integers(1, cfg.vocab_size, plen, dtype=np.int32), mn)
+            for i, (plen, mn) in enumerate([(8, 4), (12, 3), (8, 2), (10, 4), (8, 5), (12, 2)])]
+
+
+# mesh -> (arch, fsdp, scheduled, temperature, plan)
+DP_JOBS = {(2, 1): [("tinyllama-1.1b", None, False, 0.0, None),
+                    ("tinyllama-1.1b", True, False, 0.8, None),
+                    ("tinyllama-1.1b", None, True, 0.0, None),
+                    ("mamba2-2.7b", None, False, 0.0, None)],
+           (2, 2): [("tinyllama-1.1b", None, False, 0.0, None),
+                    ("tinyllama-1.1b", True, True, 0.8, None),
+                    ("kimi-k2-1t-a32b", None, False, 0.0, None),
+                    ("kimi-k2-1t-a32b", True, False, 0.0, {"moe_2d": True})]}
+DP_CASES = [(m, i) for m in DP_JOBS for i in range(len(DP_JOBS[m]))]
+
+
+def _dp_job(arch, fsdp, scheduled, temperature, plan):
+    cfg = configs.reduced(configs.get_config(arch))
+    return dict(cfg=cfg, seed=0, requests=_dp_requests(cfg), max_slots=4, max_len=32,
+                fsdp=fsdp, scheduled=scheduled, temperature=temperature, plan=plan)
+
+
+@pytest.fixture(scope="module")
+def dp_runs():
+    """Each data-parallel mesh's ranks, once (spawned, gloo, a time limit)."""
+    from repro_torch.launch.sharded import engine_rank
+    return {mesh: run_ranks(engine_rank, mesh[0] * mesh[1],
+                            ([_dp_job(*spec) for spec in jobs], mesh, "cpu"),
+                            timeout=4 * TWO_RANK_LIMIT_S, device_type="cpu")
+            for mesh, jobs in DP_JOBS.items()}
+
+
+@pytest.mark.parametrize("mesh,i", DP_CASES,
+                         ids=[f"{m[0]}x{m[1]}-{DP_JOBS[m][i][0]}-{i}" for m, i in DP_CASES])
+def test_data_parallel_serving_matches_the_unsharded_port(dp_runs, mesh, i):
+    """Continuous serving on a data axis of 2 (FIFO and scheduled, greedy
+    and sampled, with and without FSDP; reduced tinyllama, mamba2, and
+    kimi-k2's MoE at (2, 2), expert-parallel and 2-D): every rank's tokens
+    per uid equal the unsharded port's in fp32, every rank holds half the
+    slot pool and runs as many passes as the unsharded worker."""
+    from repro_torch.launch.sharded import serve_job
+    job = _dp_job(*DP_JOBS[mesh][i])
+    want = serve_job(job, ExecContext(), "cpu")
+    for rank, got in enumerate(r[i] for r in dp_runs[mesh]):
+        assert got["errors"] == [] and got["tokens"] == want["tokens"], rank
+        assert got["pool_rows"] == job["max_slots"] // mesh[0]
+        assert (got["prefill_calls"], got["decode_calls"]) == (want["prefill_calls"],
+                                                               want["decode_calls"])
+        fsdp = bool(job["fsdp"])
+        assert (got["data_shard"] is not None) == fsdp
+        assert got["shard"] == ((mesh[1], rank % mesh[1]) if mesh[1] > 1 else None)
+
+
+def test_data_axis_refusals_name_the_mode_and_the_roadmap():
+    """On a data axis of 2: the bucketed mode's ``generate`` and a
+    speculative draft are refused naming the mode, D and ROADMAP.md (the
+    engine's bucketed mode and the fleet replay too:
+    ``tests/test_torch_serving.py``, ``tests/test_torch_fleet.py``), and a
+    prefill without the group's slots is refused."""
+    cfg, params = _tiny()
+    ctx = ExecContext(mesh=_FakeMesh(data=2, model=1), batch_axes=("data",), model_axis="model")
+    w = ModelWorker("a", cfg, params, max_len=32, ctx=ctx)
+    with pytest.raises(NotImplementedError, match=r"bucketed serving mode\) on a data axis "
+                                                  r"of 2 is not ported \(see ROADMAP.md\)"):
+        w.generate(np.ones((2, 4), np.int32), 2)
+    with pytest.raises(ValueError, match="needs the group's slots"):
+        w.prefill_batch(np.ones((2, 4), np.int32))
+    with pytest.raises(NotImplementedError, match=r"speculative decoding on a data axis of 2 "
+                                                  r"is not ported \(see ROADMAP.md\)"):
+        ServingEngine().add_model("m", cfg, params, ctx=ctx, draft=(cfg, params))

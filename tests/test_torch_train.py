@@ -607,11 +607,19 @@ class _FakeMesh:
 
 
 def test_train_mode_refused_on_a_model_axis():
-    cfg = _jax_pair("tinyllama-1.1b")[2]
+    """Train mode on a model axis of 2 is ported for the GQA stacks
+    (tests/test_torch_sharded_train.py); an SSM stack stays refused there,
+    naming a leaf, M and the roadmap, and a GQA model whose params are not
+    this rank's shard is refused."""
+    cfg = configs.reduced(configs.get_config("mamba2-2.7b"))
     ctx = ExecContext(mesh=_FakeMesh(data=1, model=2), model_axis="model")
     b = batch_to_device(SyntheticLM(cfg, DataConfig(batch=2, seq_len=8)).batch(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match=r"mixer/.*model axis of 2.*ROADMAP.md"):
         tmodel.loss_fn(tmodel.init_params(cfg, 0, "cpu"), cfg, b, ctx)
+    tiny = _jax_pair("tinyllama-1.1b")[2]
+    b = batch_to_device(SyntheticLM(tiny, DataConfig(batch=2, seq_len=8)).batch(0), "cpu")
+    with pytest.raises(ValueError, match="shard_params"):
+        tmodel.loss_fn(tmodel.init_params(tiny, 0, "cpu"), tiny, b, ctx)
 
 
 @pytest.mark.parametrize("wrapper", ["flash", "decode", "mla", "ssd"])
