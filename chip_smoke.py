@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases kernels,bucketed,fleet  # + the bucketed mode and the fleet replay
     python3 chip_smoke.py --phases kimi,mesh1,shard2  # kimi-k2, a mesh of one, two ranks
     python3 chip_smoke.py --phases train    # training: tinyllama-1.1b, remat, pipeline, MoE
+    python3 chip_smoke.py --phases kernels,mesh_families  # four families at a model axis of 2
 
 Phases:
   1. device     the card's name and count, its power limit from nvidia-smi,
@@ -37,7 +38,12 @@ Phases:
                 the tile edges (S 1, 17, 100) and the verify (8 slots x T
                 5), decode (G = 8) at 8 slots x 2048, 4 x 64 (one split),
                 a parked slot and a slot of kv_len 0, with the error of
-                output columns 0-63 and 64-111 printed apart
+                output columns 0-63 and 64-111 printed apart; then one
+                model rank's shapes of the mesh_families phase: the MLA
+                kernels at G = 8 and 4 (T = 1 and 5; their verify rows
+                bit for bit equal to decode steps), flash at deepseek's
+                8-head prefill, seamless's 8 heads and jamba's 16 on 4,
+                decode at those heads, the SSD scan on 40 heads
   3. parity     each model at full width, cut to 2 layers, fp32 and bf16:
                 prefill (mamba2: a masked pow2 bucket) and 8 ragged decode
                 steps through the kernels and through the plain versions
@@ -119,7 +125,7 @@ Phases:
                 peak memory
  11. fleet      the fleet replay (``repro_torch.fleet.FleetReplay``, backend
                 ``serving``): 3 simulated phones (``sample_population(3)``),
-                10 s of chaos_mixed traffic each (voice assistant, video and
+                6 s of chaos_mixed traffic each (voice assistant, video and
                 AR frames under an injected fault schedule), the uncertainty
                 layer on every device's profiler and risk-aware admission at
                 0.9; the assistant is full tinyllama-1.1b in bf16 on the card,
@@ -182,13 +188,29 @@ Phases:
                 share; a flash launch on a q that requires grad refuses. It
                 prints the warm median step time, tokens/s and peak memory
                 beside the card's name and power limit
- 16. times      CUDA-event device times of each kernel, its plain version
+ 16. mesh_families  MLA (deepseek-v2-lite-16b), Mamba2 (mamba2-2.7b), the
+                encoder-decoder (seamless-m4t-medium) and the Mamba1 +
+                attention + MoE hybrid (jamba-v0.1-52b) on two ranks of the
+                one card (a model axis of 2, gloo): fp32 at full width cut
+                to 2 layers (jamba to its attention layer and a Mamba1 MoE
+                layer), ``generate`` and the continuous FIFO engine with
+                tokens equal to the unsharded run's; bf16 at full width
+                (jamba 8 of 32 layers), the FIFO engine on the serve's 8
+                requests, the ranks' tokens identical, agreement with the
+                unsharded run reported with top-2 gaps, prefill logits
+                within MODEL_TOL_BF16 (the unsharded experts replayed), or
+                twice the unsharded run's own kernel-vs-plain distance where
+                that is larger (mamba2's 64 layers); launches, collectives,
+                wall and peak memory per rank
+ 17. times      CUDA-event device times of each kernel, its plain version
                 and one PyTorch library call (a yardstick only), beside the
                 bound; for the attention kernels and the library call also
                 the wall time per call back to back (host enqueue included);
                 flash also at the verify's shapes (T query rows per slot
-                against the cache), the MLA kernel at T = 1 and T = 5; the
-                SSD scan also at the scheduled
+                against the cache), the MLA kernel at T = 1 and T = 5 at
+                16 heads and at a model rank's 8 and 4 (with the
+                mesh_families phase's launches); the SSD scan on 40 heads
+                (a rank's) at B 8 S 512, and at the scheduled
                 serve's (B, S) (``SSD_SERVE``, and any other this run's
                 scheduled phase gave it); flash and decode at the
                 encdec_hybrid serve's seamless and jamba shapes, and at
@@ -247,7 +269,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "kernels", "parity", "serve", "scheduled", "joint", "spec", "archs",
           "encdec_hybrid", "bucketed", "fleet", "kimi", "mesh1", "shard2", "train", "yolo",
-          "train_mesh", "serve_mesh", "times")
+          "train_mesh", "serve_mesh", "mesh_families", "times")
 EXTRA = ("profile", "profile_scheduled", "profile_spec", "profile_archs",
          "profile_spec_deepseek", "mla_parts", "profile_encdec_hybrid", "profile_bucketed",
          "profile_fleet", "profile_train")  # only when asked for
@@ -307,10 +329,12 @@ BUCKETED = dict(names=("tinyllama-1.1b", "gemma2-2b", "mamba2-2.7b"), requests=8
                 prompt_lens=(64, 200), max_new=8, max_slots=8, max_len=1024, seed=0,
                 workload="moderate", sampled="tinyllama-1.1b", temperature=0.8)
 # the fleet phase: a population of simulated phones replaying chaos_mixed
-# traffic for duration_s of virtual time, the assistant full tinyllama-1.1b
-# (FleetReplay's max_slots and its engines' max_len: the decode's shape)
+# traffic for duration_s of virtual time (cut from 10 s to keep the whole
+# run inside its time limit; 6 s still injects 15 faults and 12 recoveries), the
+# assistant full tinyllama-1.1b (FleetReplay's max_slots and its engines'
+# max_len: the decode's shape)
 FLEET = dict(devices=3, population_seed=0, scenario="chaos_mixed", baseline="mixed",
-             duration_s=10.0, seed=5, calib_samples=120, risk_level=0.9,
+             duration_s=6.0, seed=5, calib_samples=120, risk_level=0.9,
              assistant="tinyllama-1.1b", max_slots=4, max_len=64)
 # jamba in the parity phase: the 3-layer stack whose Mamba1 layer 1 has MoE
 JAMBA_PARITY = ("mamba", "mamba", "attn")
@@ -438,13 +462,13 @@ def decode_bound(pos, Smax, H, Hkv, D, window, dtype_name, elem):
     return decode_bound_kept(kept, len(pos), H, Hkv, D, dtype_name, elem)
 
 
-def mla_bound(offs, T, Smax, dtype_name, elem):
+def mla_bound(offs, T, Smax, dtype_name, elem, H=MLA_DECODE["H"]):
     """The absorbed-MLA attention of T causal rows per slot at ``offs``
-    (T = 1: the decode step, kv_len = offs + 1): each latent row that some
-    row keeps (those of the last row) read once, its first 512 columns
-    being the values, q and o once; 2·H·(Dk + Dv) FLOPs per kept (row,
-    key) pair."""
-    H, Hkv, Dk, Dv = (MLA_DECODE[x] for x in ("H", "Hkv", "Dk", "Dv"))
+    (T = 1: the decode step, kv_len = offs + 1) for H heads on the latent
+    head: each latent row that some row keeps (those of the last row) read
+    once, its first 512 columns being the values, q and o once; 2·H·(Dk +
+    Dv) FLOPs per kept (row, key) pair."""
+    Hkv, Dk, Dv = (MLA_DECODE[x] for x in ("Hkv", "Dk", "Dv"))
     pairs = sum(kept_keys(o + t, Smax, Smax, True, None) for o in offs for t in range(T))
     rows = sum(kept_keys(o + T - 1, Smax, Smax, True, None) for o in offs)
     nbytes = elem * (rows * Hkv * Dk + len(offs) * T * H * (Dk + Dv))
@@ -481,12 +505,13 @@ def ssd_inputs(torch, gen, B, S, dtype, H=MAMBA["H"], P=MAMBA["P"], N=MAMBA["N"]
     return r(B, S, H, P).to(dtype), dt * A, dt, r(B, S, N).to(dtype), r(B, S, N).to(dtype)
 
 
-def ssd_bound(B, S, dtype_name, elem):
+def ssd_bound(B, S, dtype_name, elem, H=MAMBA["H"]):
     """Operations: per (row, chunk) C.B^T over the causal lower triangle
     once (B and C are shared by all heads), per head the masked decay
     matrix times x, C.h and the state update. Bytes: x, dA, dt, B, C read
-    once, y and the fp32 final state written once."""
-    H, P, N, Qmax = MAMBA["H"], MAMBA["P"], MAMBA["N"], MAMBA["chunk"]
+    once, y and the fp32 final state written once. H heads (mamba2's 80, or
+    a model rank's 40)."""
+    P, N, Qmax = MAMBA["P"], MAMBA["N"], MAMBA["chunk"]
     Q = min(Qmax, S)
     flops = 0
     for c0 in range(0, S, Q):
@@ -568,7 +593,7 @@ def phase_kernels(torch, report):
     from repro_torch.kernels import ssd_scan as smod
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}, "mla_attention": {}}
-    verify_errs, kimi_errs = {}, {}
+    verify_errs, kimi_errs, rank_errs = {}, {}, {}
     misses = []
 
     def compare(kernel, case, dtype, out, ref, tols=TOL):
@@ -616,9 +641,20 @@ def phase_kernels(torch, report):
             compare("decode_attention", f"{case} {dtype}", dtype, out, ref)
         for case, out, ref in mla_cases(torch, gen, mmod, dtype):
             compare("mla_attention", f"{case} {dtype}", dtype, out, ref)
-        if not mla_rows_match_decode_steps(torch, gen, mmod, dtype):
-            misses.append(f"mla_attention {dtype}: a verify row differs from the decode step "
-                          f"at its position")
+        for H in (MLA_DECODE["H"],) + MLA_RANK_G:
+            if not mla_rows_match_decode_steps(torch, gen, mmod, dtype, H=H):
+                misses.append(f"mla_attention {dtype} G={H}: a verify row differs from the "
+                              "decode step at its position")
+        for kernel, case, out, ref in mesh_rank_cases(torch, gen, fmod, dmod, mmod, smod, dtype):
+            if kernel == "ssd_scan":  # (y, final state), the state fp32 in both dtypes
+                compare(kernel, f"{case} {dtype} y", dtype, out[0], ref[0], SSD_TOL)
+                compare(kernel, f"{case} {dtype} state", torch.float32, out[1], ref[1], SSD_TOL)
+                continue
+            compare(kernel, f"{case} {dtype}", dtype, out, ref)
+            if kernel == "mla_attention":
+                key = f"{case.split(' T=')[0]} {str(dtype).split('.')[-1]}"
+                rank_errs[key] = max(rank_errs.get(key, 0.0),
+                                     float((out.float() - ref.float()).abs().max()))
         for case, out, ref in arch_flash_cases(torch, gen, fmod, dtype):
             compare("flash_attention", f"{case} {dtype}", dtype, out, ref)
         for kernel, case, out, ref in encdec_hybrid_cases(torch, gen, fmod, dmod, dtype):
@@ -643,6 +679,7 @@ def phase_kernels(torch, report):
     log("kernel vs plain, max abs err:", json.dumps(errs))
     log("kimi-k2 head dim 112, max abs err by output columns:", json.dumps(kimi_errs))
     log("flash at verify shapes, max abs err:", json.dumps(verify_errs))
+    log("MLA at a model rank's heads (G = 8, 4), max abs err:", json.dumps(rank_errs))
     log("MLA verify rows bit for bit equal to decode steps at the same positions: "
         f"{not any('verify row' in m for m in misses)}")
     if misses:
@@ -747,13 +784,14 @@ def kimi_cases(torch, gen, fmod, dmod, dtype):
         yield decode("4 slots, kv_len 0", [0, 17, 40, 63], 64, kv_len=[0, 18, 41, 64])
 
 
-def mla_inputs(torch, gen, B, T, Smax, dtype, shared=True):
-    """q (B,T,16,576) and a latent cache (B,Smax,1,576) whose first 512
-    columns are the values, as ``models.attention.mla_decode`` passes them,
-    or values of their own (``shared=False``)."""
+def mla_inputs(torch, gen, B, T, Smax, dtype, shared=True, H=MLA_DECODE["H"]):
+    """q (B,T,H,576) (16 heads, or a model rank's 8 or 4) and a latent
+    cache (B,Smax,1,576) whose first 512 columns are the values, as
+    ``models.attention.mla_decode`` passes them, or values of their own
+    (``shared=False``)."""
     def r(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    H, Hkv, Dk, Dv = (MLA_DECODE[x] for x in ("H", "Hkv", "Dk", "Dv"))
+    Hkv, Dk, Dv = (MLA_DECODE[x] for x in ("Hkv", "Dk", "Dv"))
     q, k = r(B, T, H, Dk), r(B, Smax, Hkv, Dk)
     return q, k, (k[..., :Dv] if shared else r(B, Smax, Hkv, Dv))
 
@@ -819,11 +857,11 @@ def mla_cases(torch, gen, mmod, dtype):
                   q_offset=edge, kv_len=edge)
 
 
-def mla_rows_match_decode_steps(torch, gen, mmod, dtype):
+def mla_rows_match_decode_steps(torch, gen, mmod, dtype, H=MLA_DECODE["H"]):
     """Whether T = 5 verify rows at VERIFY_POS equal, bit for bit, five
     decode steps at those positions on the same q rows (the kernel's rows
-    reduce alike whatever T is)."""
-    q, k, v = mla_inputs(torch, gen, len(VERIFY_POS), 5, 1024, dtype)
+    reduce alike whatever T is), at H heads on the latent head."""
+    q, k, v = mla_inputs(torch, gen, len(VERIFY_POS), 5, 1024, dtype, H=H)
     offs = torch.tensor(VERIFY_POS, dtype=torch.int32, device="cuda")
     ver = mmod.mla_attention(q, k, v, causal=True, q_offset=offs, scale=MLA_SCALE)
     for t in range(q.shape[1]):
@@ -833,6 +871,76 @@ def mla_rows_match_decode_steps(torch, gen, mmod, dtype):
         if not torch.equal(dec[:, 0], ver[:, t]):
             return False
     return True
+
+
+# a model rank's heads at a model axis of 2 (the mesh_families phase): the
+# MLA kernels at G = 8 (and 4, a model axis of 4), deepseek's naive-form
+# prefill on 8 of 16 heads, seamless's 8 on 8 and jamba's 16 on 4 heads,
+# and 40 of mamba2's 80 SSD heads
+MLA_RANK_G = (8, 4)
+MLA_PREFILL_RANK = dict(H=8, Hkv=8, Dk=192, Dv=128)
+SEAMLESS_RANK = dict(H=8, Hkv=8, D=64)
+JAMBA_RANK = dict(H=16, Hkv=4, D=128)
+MAMBA_RANK_H = 40
+
+
+def mesh_rank_cases(torch, gen, fmod, dmod, mmod, smod, dtype):
+    """(kernel, case, kernel output, plain output) at one rank's shapes of
+    the mesh_families phase: the MLA attention at G = 8 and 4, 8 slots x
+    1024, the decode step (T = 1 at DECODE_POS clipped, a slot parked at
+    Smax) and the verify (T = 5, causal at VERIFY_POS); flash at deepseek's
+    naive-form prefill on 8 heads, seamless's encoder and cross prefill on
+    8 heads (no causal mask) and jamba's 16 on 4 heads; decode at
+    seamless's 8 heads with per-slot kv_len down to 0 and at jamba's 16 on
+    4; the SSD scan on 40 heads at dt ~0.02 and ~0.7."""
+    Smax, B = 1024, len(DECODE_POS)
+    for G in MLA_RANK_G:
+        for T in (1, 5):
+            q, k, v = mla_inputs(torch, gen, B, T, Smax, dtype, H=G)
+            if T == 1:
+                pos_list = [min(p, Smax - 1) for p in DECODE_POS]
+                pos_list[-1] = Smax
+                pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+                kw = dict(causal=False, q_offset=pos, kv_len=pos + 1)
+            else:
+                kw = dict(causal=True, q_offset=torch.tensor(VERIFY_POS, dtype=torch.int32,
+                                                             device="cuda"))
+            kw["scale"] = MLA_SCALE
+            yield ("mla_attention", f"MLA G={G} T={T} Smax={Smax}", mmod.mla_attention(q, k, v, **kw),
+                   mmod.mla_attention_plain(q, k, v, **kw))
+    hd = MLA_PREFILL_RANK
+    q, k, _ = qkv(torch, gen, 2, 256, 256, hd["H"], hd["Hkv"], hd["Dk"], dtype)
+    v = qkv(torch, gen, 2, 1, 256, 1, hd["Hkv"], hd["Dv"], dtype)[2]
+    kw = dict(causal=True, scale=MLA_SCALE)
+    yield ("flash_attention", "MLA prefill rank 8 heads B=2 S=256",
+           fmod.flash_attention(q, k, v, **kw), fmod.flash_attention_plain(q, k, v, **kw))
+    sm = SEAMLESS_RANK
+    for Sq, Sk in ((100, 100), (16, 300)):
+        q, k, v = qkv(torch, gen, 2, Sq, Sk, sm["H"], sm["Hkv"], sm["D"], dtype)
+        yield ("flash_attention", f"seamless rank Sq={Sq} Sk={Sk}",
+               fmod.flash_attention(q, k, v, causal=False),
+               fmod.flash_attention_plain(q, k, v, causal=False))
+    kl = torch.tensor(ENC_KV_LEN, dtype=torch.int32, device="cuda")
+    q, _, _ = qkv(torch, gen, len(ENC_KV_LEN), 1, 1, sm["H"], sm["Hkv"], sm["D"], dtype)
+    _, k, v = qkv(torch, gen, len(ENC_KV_LEN), 1, 512, sm["H"], sm["Hkv"], sm["D"], dtype)
+    yield ("decode_attention", "seamless rank cross per-row kv_len",
+           dmod.decode_attention(q, k, v, q_offset=0, kv_len=kl),
+           dmod.decode_attention_plain(q, k, v, q_offset=0, kv_len=kl))
+    jb = JAMBA_RANK
+    q, k, v = qkv(torch, gen, 2, 200, 200, jb["H"], jb["Hkv"], jb["D"], dtype)
+    yield ("flash_attention", "jamba rank 16 on 4 B=2 S=200",
+           fmod.flash_attention(q, k, v, causal=True), fmod.flash_attention_plain(q, k, v))
+    pos = torch.tensor([min(p, Smax - 1) for p in DECODE_POS], dtype=torch.int32, device="cuda")
+    q, _, _ = qkv(torch, gen, B, 1, 1, jb["H"], jb["Hkv"], jb["D"], dtype)
+    _, k, v = qkv(torch, gen, B, 1, Smax, jb["H"], jb["Hkv"], jb["D"], dtype)
+    kw = dict(q_offset=pos, kv_len=pos + 1)
+    yield ("decode_attention", "jamba rank 16 on 4", dmod.decode_attention(q, k, v, **kw),
+           dmod.decode_attention_plain(q, k, v, **kw))
+    for shift in (-4.0, 0.0):
+        args = ssd_inputs(torch, gen, 2, 256, dtype, H=MAMBA_RANK_H, dt_shift=shift)
+        yield ("ssd_scan", f"SSD rank 40 heads B=2 S=256 dt_shift={shift}",
+               smod.ssd_scan(*args, chunk=MAMBA["chunk"]),
+               smod.ssd_scan_plain(*args, chunk=MAMBA["chunk"]))
 
 
 def arch_flash_cases(torch, gen, fmod, dtype):
@@ -1075,6 +1183,7 @@ def phase_times(torch, report):
     rows += arch_times(torch, gen, flush, sdpa)
     rows += encdec_hybrid_times(torch, gen, flush, sdpa)
     rows += kimi_times(torch, gen, flush, sdpa, report.get("launches_kimi", {}))
+    rows += mesh_rank_times(torch, gen, flush, sdpa, report.get("mesh_families", {}))
     from repro_torch.kernels import ssd_scan as smod
     serve_shapes = [(B, S) for B, S, _ in SSD_SERVE] + sorted(report.get("ssd_calls", {}))
     for B, S in dict.fromkeys([(8, 512), (1, 512)] + serve_shapes):
@@ -1255,6 +1364,53 @@ def kimi_times(torch, gen, flush, sdpa, launches):
             lambda: sdpa(q, k, v, attn_mask=mask),
             decode_bound(pos_list, Smax, H, Hkv, D, None, "bfloat16", 2), shape="decode",
             launches_per_serve=per_serve.get("decode_attention")))
+    return rows
+
+
+def mesh_rank_times(torch, gen, flush, sdpa, families):
+    """A model rank's kernel shapes at a model axis of 2 (4 for MLA's G =
+    4), bf16: the MLA attention at G = 8 and 4 heads on the latent head, 8
+    slots x 1024 at T = 1 (DECODE_POS clipped) and T = 5 (VERIFY_POS,
+    causal), beside SDPA with a bool mask; the SSD scan on 40 heads at B 8
+    S 512 (no single PyTorch call computes it); each with its bound and,
+    from the mesh_families phase of the same run (``families``), its
+    launches per serve on rank 0 (deepseek's for MLA at G = 8, mamba2's for
+    the SSD scan; G = 4 is not on that path)."""
+    from repro_torch.kernels import mla_attention as mmod
+    from repro_torch.kernels import ssd_scan as smod
+    bf16, rows, Smax = torch.bfloat16, [], 1024
+
+    def serve_launches(arch, kernel):
+        row = families.get(f"{arch} bfloat16")
+        return None if row is None else row["ranks"][0]["launches"][kernel]
+    for G in MLA_RANK_G:
+        for T, offs in ((1, [min(p, Smax - 1) for p in DECODE_POS]), (5, list(VERIFY_POS))):
+            B = len(offs)
+            qo = torch.tensor(offs, dtype=torch.int32, device="cuda")
+            q, k, v = mla_inputs(torch, gen, B, T, Smax, bf16, H=G)
+            qpos = qo[:, None] + torch.arange(T, device="cuda")
+            mask = (torch.arange(Smax, device="cuda") <= qpos[..., None])[:, None]
+            kw = (dict(causal=False, q_offset=qo, kv_len=qo + 1) if T == 1 else
+                  dict(causal=True, q_offset=qo))
+            kw["scale"] = MLA_SCALE
+            rows.append(time_row(
+                torch, flush, "mla_attention", f"mla rank G={G}", B, Smax,
+                lambda: mmod.mla_attention(q, k, v, **kw),
+                lambda: mmod.mla_attention_plain(q, k, v, **kw),
+                lambda: sdpa(q, k, v, attn_mask=mask, scale=MLA_SCALE),
+                mla_bound(offs, T, Smax, "bfloat16", 2, H=G), T=T, G=G,
+                shape="decode" if T == 1 else "verify",
+                launches_per_serve=(serve_launches("deepseek-v2-lite-16b", "mla_attention")
+                                    if G == 8 and T == 1 else None)))
+    B, S = 8, 512
+    args = ssd_inputs(torch, gen, B, S, bf16, H=MAMBA_RANK_H)
+    b_ms, b_by = ssd_bound(B, S, "bfloat16", 2, H=MAMBA_RANK_H)
+    rows.append(dict(kernel="ssd_scan", model="mamba2 rank 40 heads", B=B, S=S, dtype="bfloat16",
+                     ms=time_ms(torch, lambda: smod.ssd_scan(*args, chunk=MAMBA["chunk"]), flush),
+                     plain_ms=time_ms(torch, lambda: smod.ssd_scan_plain(
+                         *args, chunk=MAMBA["chunk"]), flush),
+                     library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                     launches_per_serve=serve_launches("mamba2-2.7b", "ssd_scan")))
     return rows
 
 
@@ -1814,7 +1970,7 @@ def spec_run(torch, eng, reqs, trace, temperature):
     Returns (responses, launches, wall s, peak device bytes)."""
     from repro_torch.serving.slots import Request
     name = next(iter(eng.workers))
-    items = [Request(uid, p, n) for uid, p, n in reqs]
+    items = [Request(r[0], r[1], r[2], enc_inputs=r[3] if len(r) > 3 else None) for r in reqs]
 
     def go():
         torch.cuda.synchronize()
@@ -1855,16 +2011,16 @@ class Gaps(dict):
     prefill's logits) is recomputed from a prefill of its prompt when asked
     for, a later one that was not recorded is (None, None)."""
 
-    def __init__(self, torch, eng, name, prompts, temperature):
+    def __init__(self, torch, eng, name, prompts, temperature, frames=None):
         super().__init__()
         self.torch, self.eng, self.name = torch, eng, name
-        self.prompts, self.temperature = prompts, temperature
+        self.prompts, self.temperature, self.frames = prompts, temperature, frames or {}
 
     def __missing__(self, key):
         uid, i = key
         if i != 0:
             return None, None
-        lg, _ = self.eng.workers[self.name].prefill_one(self.prompts[uid])
+        lg, _ = self.eng.workers[self.name].prefill_one(self.prompts[uid], self.frames.get(uid))
         return decision_gaps(self.torch, lg, [self.eng._stream_key(self.name, uid)], [0],
                              self.temperature)[0]
 
@@ -1877,7 +2033,8 @@ def record_gaps(torch, eng, reqs, temperature, name=None):
     name = next(iter(eng.workers)) if name is None else name
     w = eng.workers[name]
     plain_pool = w.decode_pool
-    gaps = Gaps(torch, eng, name, {uid: p for uid, p, _ in reqs}, temperature)
+    gaps = Gaps(torch, eng, name, {r[0]: r[1] for r in reqs}, temperature,
+                {r[0]: r[3] for r in reqs if len(r) > 3})
 
     def recorded(cache, tokens, pos, enc_len=None):
         nt, logits, cache = plain_pool(cache, tokens, pos, enc_len=enc_len)
@@ -3717,20 +3874,42 @@ def phase_profile_train(torch, report):
 
 # yolo-v2-tiny, the paper's evaluation model: 416x416, B 1 and 8, fp32
 YOLO = dict(res=416, batches=(1, 8), seed=0, iters=20, tol=1e-4)
-# full tinyllama-1.1b, B 8, S 512, bf16, remat "full", 3 steps on each mesh
-# ((data, model), fsdp), against the unsharded run's losses and grad norms
-TRAIN_MESH = dict(arch="tinyllama-1.1b", batch=8, seq=512, steps=3, lr=1e-3, seed=0,
+# tinyllama-1.1b at full width cut to 4 of its 22 layers (to keep the whole
+# run inside its time limit beside the mesh_families phase), B 8, S 512, bf16, remat
+# "full", 3 steps on each mesh ((data, model), fsdp), against the unsharded
+# run's losses and grad norms
+TRAIN_MESH = dict(arch="tinyllama-1.1b", layers=4, batch=8, seq=512, steps=3, lr=1e-3, seed=0,
                   meshes=(((2, 1), True), ((1, 2), None), ((2, 2), True)), timeout=600.0)
 # relative tolerances of each step's loss and grad norm against the unsharded
 # run in bf16 (PERF.md states them beside its predictions)
 TRAIN_MESH_TOL = dict(loss=1e-2, grad_norm=5e-2)
-# deepseek-v2-lite-16b at full width cut to 4 of its 27 layers, GQA attention in
-# place of MLA (MLA stays refused at M > 1): expert-parallel on (1, 2), the
-# 2-D MoE on (2, 2)
-TRAIN_MESH_MOE = dict(arch="deepseek-v2-lite-16b", layers=4, batch=4, seq=512, steps=3,
+# deepseek-v2-lite-16b at full width cut to 2 of its 27 layers (a dense layer,
+# then an MoE layer; cut from 4 to keep the whole run inside its time limit), GQA
+# attention in place of MLA (MLA training stays refused at M > 1):
+# expert-parallel on (1, 2), the 2-D MoE on (2, 2)
+TRAIN_MESH_MOE = dict(arch="deepseek-v2-lite-16b", layers=2, batch=4, seq=512, steps=3,
                       lr=1e-3, seed=0)
 # full tinyllama-1.1b, continuous FIFO, 8 requests, fp32 and bf16, on (2, 1)
 # and (2, 2) against the unsharded run
+# the mesh_families phase: the four families on two ranks of the one card
+# (a model axis of 2); fp32 cut as ``families_cfg`` says, bf16 at full width
+# but for jamba; generate's batch (B, S) in fp32, mamba2's odd rows
+# LEFT-padded by gen_pad; the (B, S) prefill whose logits are compared;
+# seamless's frames for both; the serve's max_new; the ranks' time limit
+# bf16 at full depth: the unsharded run's logits through the kernels and
+# through their plain versions, which round elsewhere, part by 4.7% of a
+# row's largest |logit| at mamba2's 64 layers (every bf16 rounding
+# difference grows with depth; 1.1-2.4% for the other three); where that
+# noise exceeds MODEL_TOL_BF16, a sharded run, which sums its partials in
+# another order, is held to this many times the noise instead
+FAMILIES_NOISE_MARGIN = 2.0
+MESH_FAMILIES = dict(archs=("deepseek-v2-lite-16b", "mamba2-2.7b", "seamless-m4t-medium",
+                            "jamba-v0.1-52b"),
+                     fp32_cuts={"seamless-m4t-medium": dict(num_layers=2, num_encoder_layers=2),
+                                "jamba-v0.1-52b": dict(num_layers=len(JAMBA_PARITY),
+                                                       layer_pattern=JAMBA_PARITY)},
+                     bf16_layers={"jamba-v0.1-52b": 8}, gen=(4, 64), gen_pad=24, gen_new=8,
+                     logit_prompts=(4, 64), frames=100, max_new=16, world=2, timeout=600.0)
 SERVE_MESH = dict(SERVE, names=("tinyllama-1.1b",), meshes=((2, 1), (2, 2)),
                   dtypes=("float32", "bfloat16"), timeout=600.0)
 
@@ -3798,12 +3977,13 @@ def mesh_drop_share(ranks, job, M):
 
 def phase_train_mesh(torch, report):
     """Sharded training on the (data, model) mesh, ranks on the one card
-    over gloo (spawned by ``run_ranks``, one spawn per mesh): full
-    tinyllama-1.1b (B 8, S 512, bf16, remat "full") takes 3 steps on (2, 1)
+    over gloo (spawned by ``run_ranks``, one spawn per mesh): tinyllama-1.1b
+    at full width, 4 of 22 layers (B 8, S 512, bf16, remat "full") takes 3
+    steps on (2, 1)
     with FSDP, (1, 2) and (2, 2) with FSDP, each step's loss and grad norm
     against the unsharded run's on the card (TRAIN_MESH_TOL), each rank's
     peak memory and collectives per step printed; deepseek-v2-lite (GQA
-    attention, 4 of 27 layers) trains expert-parallel on (1, 2) and with
+    attention, 2 of 27 layers) trains expert-parallel on (1, 2) and with
     the 2-D MoE on (2, 2), its drop share printed; the checkpoint (2, 2)
     saves is restored on no mesh into the very pieces each rank held, bit
     for bit (SHA-1 of each rank's pieces of every param and moment). The
@@ -3820,7 +4000,7 @@ def phase_train_mesh(torch, report):
     from repro_torch.training.checkpoint import leaves, restore_checkpoint
     from repro_torch.training.optimizer import OptConfig, init_opt_state
     t = TRAIN_MESH
-    cfg = get_config(t["arch"])
+    cfg = dataclasses.replace(get_config(t["arch"]), num_layers=t["layers"])
     oc = OptConfig(lr=t["lr"], warmup_steps=min(20, t["steps"] // 5), total_steps=t["steps"])
     data = SyntheticLM(cfg, DataConfig(batch=t["batch"], seq_len=t["seq"], seed=t["seed"]))
     params = init_params(cfg, t["seed"], "cuda")
@@ -4000,6 +4180,302 @@ def phase_serve_mesh(torch, report):
     report["serve_mesh"] = out
 
 
+# ---------------------------------------------------------------------------
+# the mesh_families phase: MLA, Mamba2, the encoder-decoder and the hybrid
+# on a model axis of 2
+# ---------------------------------------------------------------------------
+
+
+def families_cfg(arch, dtype):
+    """``arch`` in ``dtype``: fp32 at full width cut to 2 layers (seamless 2
+    + 2, jamba to JAMBA_PARITY: its attention layer and a Mamba1 layer with
+    MoE), bf16 at full width (jamba cut to ``bf16_layers``)."""
+    from repro_torch.configs.base import get_config
+    k = MESH_FAMILIES
+    cut = (k["fp32_cuts"].get(arch, dict(num_layers=2)) if dtype == "float32" else
+           {"num_layers": k["bf16_layers"][arch]} if arch in k["bf16_layers"] else {})
+    return dataclasses.replace(get_config(arch), **cut, dtype=dtype, param_dtype=dtype)
+
+
+def families_job(cfg):
+    """One arm's inputs, the same for the unsharded run and the ranks: the
+    serve's requests (seamless's with frames from ``ENCDEC``), the prefill
+    whose logits are compared, and in fp32 ``generate``'s batch (mamba2's
+    rows 1 and 3 LEFT-padded under a pad mask, seamless with frames)."""
+    import numpy as np
+    k = MESH_FAMILIES
+    rng = np.random.default_rng(3)
+    enc = cfg.is_encoder_decoder
+
+    def frames(n, t):
+        return (rng.standard_normal((n, t, cfg.d_model)) * 0.1).astype(np.float32)
+
+    if enc:
+        reqs = spec_requests(cfg, ENCDEC["requests"], ENCDEC["prompt_lens"], k["max_new"],
+                             SERVE["seed"])
+        reqs = [r + (frames(1, int(rng.choice(ENCDEC["enc_lens"])))[0],) for r in reqs]
+    else:
+        reqs = serve_requests(cfg, dict(SERVE, max_new=k["max_new"]))
+    B, S = k["logit_prompts"]
+    job = dict(cfg=cfg, seed=SERVE["seed"], requests=reqs,
+               max_enc_len=ENCDEC["max_enc_len"] if enc else None,
+               logits=(rng.integers(1, cfg.vocab_size, (B, S), dtype=np.int32),
+                       frames(B, k["frames"]) if enc else None))
+    if cfg.dtype == "float32":
+        B, S = k["gen"]
+        prompts = rng.integers(1, cfg.vocab_size, (B, S), dtype=np.int32)
+        mask = None
+        if cfg.family == "ssm":
+            mask = np.ones((B, S), bool)
+            mask[1::2, :k["gen_pad"]] = False
+            prompts[~mask] = 0
+        job["gen"] = (prompts, mask, frames(B, k["frames"]) if enc else None)
+    return job
+
+
+def families_launches_expected(cfg, prefills, decodes):
+    """Each kernel's launches for ``prefills`` prefill and ``decodes``
+    single-token passes of ``cfg`` (every prompt and encoder input longer
+    than one position): flash per attention layer per prefill, the
+    encoder-decoder's encoder and cross-attention included; decode per
+    attention (and cross-attention) layer per step, or the MLA kernel for
+    an MLA stack; the SSD scan per Mamba2 layer per prefill (Mamba1 runs
+    no kernel)."""
+    n_attn = attention_layers(cfg)
+    per_pass = n_attn * (2 if cfg.is_encoder_decoder else 1)
+    enc = cfg.num_encoder_layers if cfg.is_encoder_decoder else 0
+    return {"flash_attention": (per_pass + enc) * prefills,
+            "decode_attention": 0 if cfg.use_mla else per_pass * decodes,
+            "ssd_scan": sum(k == "ssd" for k in cfg.layer_kinds()) * prefills,
+            "mla_attention": n_attn * decodes if cfg.use_mla else 0}
+
+
+def families_arm(torch, job, ctx, device="cuda"):
+    """One arm on ``ctx`` (no mesh: the unsharded run, which records its
+    router's choices, its decisions' top-2 gaps and, in bf16, the same
+    prefill's logits through the kernels' plain versions, its own noise):
+    the weights drawn as this rank's shard; in fp32 ``generate``; the
+    prefill logits of
+    ``job["logits"]`` (an MoE replaying ``job["routes"]`` where given, as
+    ``RouterReplay`` does); then the continuous FIFO engine on the
+    requests. Returns tokens, logits, launches against their expected
+    counts, the model axis's collectives per serve, the wall and the peak
+    memory."""
+    from contextlib import nullcontext
+
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.workers import ModelWorker
+    from repro_torch.sharding import collectives
+    cfg, k = job["cfg"], MESH_FAMILIES
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, job["seed"], device, ctx=ctx)
+    res = {"init_s": time.perf_counter() - t0, "shard": params.shard}
+    max_enc = job["max_enc_len"]
+    if job.get("gen") is not None:
+        prompts, mask, frames = job["gen"]
+        w = ModelWorker(cfg.name, cfg, params, SERVE["max_len"], ctx)
+        toks, launches = drive(w.generate, prompts=prompts, max_new=k["gen_new"],
+                               enc_inputs=frames, pad_mask=mask)
+        res["gen"] = {"tokens": toks.tolist(), "launches": launches,
+                      "expected": families_launches_expected(cfg, w.prefill_calls,
+                                                             w.decode_calls)}
+        del w
+    replay = RouterReplay(moe)
+    if job.get("routes") is not None:
+        replay.plain = [(torch.as_tensor(p, device=device), torch.as_tensor(i, device=device))
+                        for p, i in job["routes"]]
+        replay.mode, replay.step = "sharded", "prefill"
+    w = ModelWorker(cfg.name, cfg, params, SERVE["max_len"], ctx, max_enc_len=max_enc)
+    with replay:
+        logits = w.prefill_batch(*job["logits"])[0]
+    res["logits"] = logits.float().cpu().numpy()
+    res["logit_flips"] = list(replay.flips)
+    if job.get("routes") is None:  # the unsharded run
+        if replay.plain:
+            res["routes"] = [(p.cpu().numpy(), i.cpu().numpy()) for p, i in replay.plain]
+        if cfg.dtype == "bfloat16":  # its own bf16 noise: the same prefill through
+            # the kernels' plain versions, which round elsewhere (experts replayed)
+            replay.mode, replay.step, replay.i = "sharded", "noise", 0
+            plain = ModelWorker(cfg.name, cfg, params, SERVE["max_len"],
+                                dataclasses.replace(ctx, attn_impl="plain"), max_enc_len=max_enc)
+            with replay:
+                res["logits_noise"] = plain.prefill_batch(*job["logits"])[0].float().cpu().numpy()
+            del plain
+    del w, logits, replay
+    eng = ServingEngine(max_slots=SERVE["max_slots"])
+    eng.add_model(cfg.name, cfg, params, max_len=SERVE["max_len"], ctx=ctx, max_enc_len=max_enc)
+    w = eng.workers[cfg.name]
+    calls = collectives.all_reduce.calls, collectives.all_gather_last.calls
+    record = ctx.mesh is None
+    with (record_gaps(torch, eng, job["requests"], 0.0) if record else nullcontext()) as gaps:
+        resp, launches, wall, peak = spec_run(torch, eng, job["requests"], False, 0.0)
+        passes = w.prefill_calls, w.decode_calls
+        if record:  # the first tokens' gaps (from a prefill) while the engine lives
+            res["gaps"] = dict(gaps)
+            res["gaps"].update({(r.uid, 0): gaps[(r.uid, 0)] for r in resp})
+    res["serve"] = {"tokens": tokens_by_uid(resp),
+                    "errors": [r.error for r in resp if r.error]
+                    + [r.uid for r in resp if len(r.tokens) != k["max_new"]],
+                    "launches": launches,
+                    "expected": families_launches_expected(cfg, *passes),
+                    "prefill_calls": passes[0], "decode_calls": passes[1],
+                    "all_reduces": collectives.all_reduce.calls - calls[0],
+                    "all_gathers": collectives.all_gather_last.calls - calls[1],
+                    "wall_s": wall, "peak_mem_bytes": peak,
+                    "sharded": None if w.shard_report is None else w.shard_report.sharded,
+                    "pool": {n: list(t.shape) for n, t in eng.pools[cfg.name].cache.items()}}
+    res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del eng, w, params
+    return res
+
+
+def mesh_families_rank(rank, jobs, device="cuda"):
+    """One of the mesh_families phase's two ranks (its own process, gloo
+    over CUDA tensors on the one card): ``families_arm`` on a (1, 2) mesh
+    for every job, in turn, freeing the card between."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import exact_fp32
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding.context import ExecContext
+    ctx = ExecContext(mesh=make_debug_mesh(1, MESH_FAMILIES["world"]), batch_axes=("data",),
+                      model_axis="model")
+    out = []
+    for job in jobs:
+        with exact_fp32():
+            out.append(families_arm(torch, job, ctx, device))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_families(torch, report):
+    """MLA (deepseek-v2-lite-16b), Mamba2 (mamba2-2.7b), the encoder-decoder
+    (seamless-m4t-medium) and the Mamba1 + attention + MoE hybrid
+    (jamba-v0.1-52b) served on a model axis of 2: two ranks on the one card
+    (``launch.sharded.run_ranks``, gloo over CUDA tensors, one spawn for
+    every arm), each holding half the heads, inner channels and experts,
+    after the parent has built the kernels and run every arm unsharded
+    (``families_arm``), freeing the card between. fp32 (exact fp32, 2
+    layers; ``families_cfg``): ``generate`` and the continuous FIFO
+    engine's greedy tokens equal the unsharded run's on every request on
+    both ranks, prefill logits within MODEL_TOL of each row's largest
+    |logit|. bf16 at full width (jamba cut to 8 layers): every request of
+    the serve completes, the ranks' tokens, logits and router choices are
+    identical, token agreement with the unsharded run is reported with the
+    unsharded top-2 gap at each first divergence, and the prefill logits,
+    the unsharded run's experts replayed, lie within MODEL_TOL_BF16 of each
+    row's largest |logit|, or, where the unsharded run's own bf16 noise is
+    larger (its logits through the kernels' plain versions, which round
+    elsewhere: mamba2's 64 layers), within FAMILIES_NOISE_MARGIN times that
+    noise (the router's flips are counted, with the largest margin among
+    them and how many lie past ROUTER_TIE). Every
+    rank launches each kernel as its passes imply (the MLA kernel at G = 8,
+    the SSD scan on 40 heads); printed: launches, collectives per serve,
+    wall and peak memory per rank."""
+    import gc
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import exact_fp32
+    from repro_torch.launch.sharded import run_ranks
+    from repro_torch.sharding.context import ExecContext
+    k = MESH_FAMILIES
+    gc.collect()
+    torch.cuda.empty_cache()
+    build.load_library()  # built once here, before the ranks load it
+    jobs, refs = [], []
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        for arch in k["archs"]:
+            job = families_job(families_cfg(arch, dtype))
+            with exact_fp32():
+                ref = families_arm(torch, job, ExecContext())
+            refs.append(ref)
+            jobs.append(dict(job, routes=ref.get("routes")))
+            gc.collect()
+            torch.cuda.empty_cache()
+    unsharded_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_families_rank, k["world"], (jobs, "cuda"), timeout=k["timeout"],
+                      device_type="cuda")
+    spawn_wall = time.perf_counter() - t0
+    out = {"card": report["smi"], "unsharded_wall_s": unsharded_wall, "spawn_wall_s": spawn_wall}
+    for j, (job, ref) in enumerate(zip(jobs, refs)):
+        cfg = job["cfg"]
+        label = f"mesh_families {cfg.name} {cfg.dtype}"
+        fp32 = cfg.dtype == "float32"
+        mine = [r[j] for r in ranks]
+        for rank, a in enumerate(mine):
+            runs = [a["serve"]] + ([a["gen"]] if fp32 else [])
+            if a["serve"]["errors"] or any(x["launches"] != x["expected"] for x in runs):
+                raise SmokeFailure(f"{label} rank {rank}: errors {a['serve']['errors']}, "
+                                   f"launches {[x['launches'] for x in runs]} (expected "
+                                   f"{[x['expected'] for x in runs]})")
+            if a["shard"] != (2, rank):
+                raise SmokeFailure(f"{label} rank {rank}: holds the shard {a['shard']}")
+        if ref["serve"]["errors"] or ref["serve"]["launches"] != ref["serve"]["expected"]:
+            raise SmokeFailure(f"{label} unsharded: errors {ref['serve']['errors']}, launches "
+                               f"{ref['serve']['launches']}")
+        if (mine[0]["serve"]["tokens"] != mine[1]["serve"]["tokens"]
+                or not np.array_equal(mine[0]["logits"], mine[1]["logits"])):
+            raise SmokeFailure(f"{label}: the two ranks' tokens or logits differ")
+        if fp32 and not (mine[0]["gen"]["tokens"] == mine[1]["gen"]["tokens"]
+                         == ref["gen"]["tokens"]):
+            raise SmokeFailure(f"{label}: generate's tokens differ from the unsharded run's")
+        resp = [SimpleNamespace(uid=u, tokens=np.asarray(t))
+                for u, t in mine[0]["serve"]["tokens"].items()]
+        plain = [SimpleNamespace(uid=u, tokens=np.asarray(t))
+                 for u, t in ref["serve"]["tokens"].items()]
+        diverged = token_check(label, resp, plain, ref["gaps"], exact=fp32,
+                               report_only=not fp32, names=("sharded", "unsharded"))
+        lscale = np.abs(ref["logits"]).max(axis=-1, keepdims=True)
+        lerr = np.abs(mine[0]["logits"] - ref["logits"])
+        noise = None if fp32 else float((np.abs(ref["logits_noise"] - ref["logits"])
+                                         / lscale).max())
+        tol = (MODEL_TOL if fp32 else MODEL_TOL_BF16 if noise <= MODEL_TOL_BF16
+               else FAMILIES_NOISE_MARGIN * noise)
+        # router flips of the sharded prefill against the unsharded run's
+        # choices (replayed): over 26 bf16 MoE layers the hidden states part
+        # by bf16 rounding, so flips are counted and their margins reported
+        margins = [f[-1] for f in mine[0]["logit_flips"]]
+        row = {"uids": len(plain), "diverged_uids": diverged,
+               "logits_max_rel_err": float((lerr / lscale).max()), "logits_tol_rel": tol,
+               "unsharded_noise_rel": noise,
+               "router_flips": len(margins),
+               "router_flips_past_tie": sum(m > ROUTER_TIE for m in margins),
+               "router_flip_max_margin": max(margins, default=None),
+               "unsharded": {x: ref["serve"][x] for x in ("wall_s", "peak_mem_bytes", "launches",
+                                                          "prefill_calls", "decode_calls")},
+               "ranks": [dict({x: a["serve"][x] for x in ("wall_s", "peak_mem_bytes", "launches",
+                                                           "all_reduces", "all_gathers",
+                                                           "sharded", "pool")},
+                              init_s=a["init_s"], arm_peak_mem_bytes=a["peak_mem_bytes"],
+                              gen_launches=a.get("gen", {}).get("launches"))
+                         for a in mine]}
+        out[f"{cfg.name} {cfg.dtype}"] = row
+        log(f"{label}: {json.dumps(row)}")
+        if not bool((lerr <= tol * lscale).all()):
+            raise SmokeFailure(f"{label}: prefill logits max rel err "
+                               f"{row['logits_max_rel_err']} (tolerance {tol})")
+    launches = collections.Counter()
+    for j, job in enumerate(jobs):
+        if job["cfg"].dtype == "bfloat16":
+            launches.update(ranks[0][j]["serve"]["launches"])
+    report["launches_mesh_families"] = dict(launches)
+    report["mesh_families"] = out
+    log(f"mesh_families: unsharded arms {unsharded_wall:.1f} s, two ranks {spawn_wall:.1f} s "
+        f"(spawn included), on {report['smi']}")
+
+
 # each kernel's row of the times phase in the kernels line: (model, B, S)
 LINE_ROWS = {"flash_attention": ("tinyllama", 8, 512), "decode_attention": ("tinyllama", 8, 2048),
              "ssd_scan": ("mamba2", 8, 512), "mla_attention": ("mla", 8, 1024)}
@@ -4015,7 +4491,8 @@ def kernels_line(report):
             if (r["model"], r["B"], r["S"]) == LINE_ROWS[r["kernel"]] and "shape" not in r}
     paths = {p: report.get(f"launches_{p}", {})
              for p in ("scheduled", "joint", "spec", "spec_deepseek", "archs", "archs_fifo",
-                       "encdec_hybrid", "bucketed", "fleet", "kimi", "train", "train_moe")}
+                       "encdec_hybrid", "bucketed", "fleet", "kimi", "train", "train_moe",
+                       "mesh_families")}
     paths = {"serve": report.get("launches", {}), **paths}
     out = []
     for name, (src, replaces) in SOURCES.items():
@@ -4054,6 +4531,7 @@ def main(argv=None):
            "fleet": phase_fleet, "kimi": phase_kimi, "mesh1": phase_mesh1,
            "shard2": phase_shard2, "train": phase_train, "profile_train": phase_profile_train,
            "yolo": phase_yolo, "train_mesh": phase_train_mesh, "serve_mesh": phase_serve_mesh,
+           "mesh_families": phase_mesh_families,
            "profile_encdec_hybrid": phase_profile_encdec_hybrid,
            "profile_bucketed": phase_profile_bucketed, "profile_fleet": phase_profile_fleet,
            "profile": phase_profile,

@@ -1,6 +1,7 @@
-// Absorbed-MLA attention on the CUDA cores for Hopper (sm_90a), fp32: 16
-// query heads per latent KV head of width Dk = 576 (kv_lora_rank 512 +
-// qk_rope_dim 64), values of width Dv = 512, T >= 1 query positions per
+// Absorbed-MLA attention on the CUDA cores for Hopper (sm_90a), fp32: G =
+// 16, 8 or 4 query heads per latent KV head of width Dk = 576 (kv_lora_rank
+// 512 + qk_rope_dim 64; 8 and 4 are a rank's heads of DeepSeek-V2-Lite's 16
+// on a model axis of 2 and 4), values of width Dv = 512, T >= 1 query positions per
 // batch row, split across blocks along the KV axis like
 // decode_attention.cu. It is the exact fp32 route (the parity checks run
 // through it); bf16 runs on the tensor cores in mla_attention_bf16.cu.
@@ -23,7 +24,8 @@
 // Design (simple first):
 // - Grid (Hkv * T, n_splits, B) with the splits of
 //   decode_attention.plan_splits; 8 warps per block. A block takes one
-//   split for the 16 heads at one query position t: its rows share the
+//   split for the G heads at one query position t (G a template
+//   parameter): its rows share the
 //   mask [k_lo, k_hi), k_hi = min(kv_len, Smax, q_offset + t + 1 if
 //   causal), so a row's arithmetic does not depend on T.
 // - Latent tiles of 16 keys go through a two-stage shared-memory ring
@@ -31,9 +33,10 @@
 //   tile's first 512 columns, else a V tile is copied beside it.
 // - Per tile: (1) scores, one key per warp at a time, each lane 18 of the
 //   576 products per head against q in fp32 shared memory, reduced by
-//   shuffles; (2) the fp32 online softmax in powers of two, two heads per
-//   warp, one key per lane; (3) P V, each warp owning 64 value columns,
-//   each lane 2 columns of all 16 heads: 32 fp32 accumulators.
+//   shuffles; (2) the fp32 online softmax in powers of two, head g on warp
+//   g mod 8 (two heads per warp at G = 16, one at 8, warps 4-7 idle at 4),
+//   one key per lane; (3) P V, each warp owning 64 value columns, each lane
+//   2 columns of all G heads: 2 G fp32 accumulators.
 // - The splits merge as in decode_attention.cu: a row whose kept keys lie
 //   in one split writes its output directly, otherwise the last block of
 //   the (row group, kv head) to finish (an atomic counter) merges the
@@ -46,22 +49,21 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kG = 16;      // query heads per latent head
 constexpr int kDk = 576;    // kv_lora_rank + qk_rope_dim
 constexpr int kDv = 512;    // kv_lora_rank
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kColsPerWarp = kDv / kWarps;  // 64: two value columns per lane
-constexpr int kHeadsPerWarp = kG / kWarps;  // the softmax step's heads
 constexpr int kPairs = kDk / 64;            // 9 column pairs per lane per key
 constexpr int kPart = kDv + 4;              // one split's partial: m, l, pad, acc[kDv]
 constexpr int kTile = 16;                   // keys per ring stage (at most 32: one per lane)
 
-size_t smem_bytes(bool v_shared) {
+size_t smem_bytes(int G, bool v_shared) {
   const size_t ring = 2 * static_cast<size_t>(kTile) * (kDk + (v_shared ? 0 : kDv));
-  return sizeof(float) * (kG * kDk + ring + kG * kTile + 3 * kG);
+  return sizeof(float) * (G * kDk + ring + G * kTile + 3 * G);
 }
 
+template <int G>  // query heads per latent head: 16, 8 or 4
 __global__ void __launch_bounds__(kThreads)
 mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
@@ -74,29 +76,30 @@ mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int is_last;
   const int vw = v_shared ? 0 : kDv;  // V columns copied per key
-  float* qs = reinterpret_cast<float*>(smem_raw);  // kG x kDk
-  float* ring = qs + kG * kDk;                      // 2 x kTile x (kDk + vw)
-  float* ps = ring + 2 * kTile * (kDk + vw);        // kG x kTile
-  float* m_s = ps + kG * kTile;
-  float* l_s = m_s + kG;
-  float* c_s = l_s + kG;
+  static_assert(G >= 1 && G <= 32, "one head per lane in the score step");
+  float* qs = reinterpret_cast<float*>(smem_raw);  // G x kDk
+  float* ring = qs + G * kDk;                       // 2 x kTile x (kDk + vw)
+  float* ps = ring + 2 * kTile * (kDk + vw);        // G x kTile
+  float* m_s = ps + G * kTile;
+  float* l_s = m_s + G;
+  float* c_s = l_s + G;
 
   const int rg = blockIdx.x;  // hk * T + t
   const int hk = rg / T, t = rg - hk * T;
   const int split = blockIdx.y, b = blockIdx.z;
   const int n_splits = gridDim.y;
-  const int H = Hkv * kG;
+  const int H = Hkv * G;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int qpos = q_offset[b] + t;
   int k_hi = min(kv_len[b], Smax);
   if (causal) k_hi = min(k_hi, qpos + 1);
   const int k_lo = window > 0 ? max(0, qpos - window + 1) : 0;
-  const size_t row0 = (static_cast<size_t>(b) * T + t) * H + static_cast<size_t>(hk) * kG;
-  float* ob = o + row0 * kDv;  // the block's 16 output rows
+  const size_t row0 = (static_cast<size_t>(b) * T + t) * H + static_cast<size_t>(hk) * G;
+  float* ob = o + row0 * kDv;  // the block's G output rows
 
   if (k_hi <= k_lo) {  // the rows keep no key: they write 0
     if (split == 0)
-      for (int i = tid; i < kG * kDv; i += kThreads) ob[i] = 0.f;
+      for (int i = tid; i < G * kDv; i += kThreads) ob[i] = 0.f;
     return;
   }
   const int s_first = k_lo / split_len, s_last = (k_hi - 1) / split_len;
@@ -125,16 +128,16 @@ mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__
 
   load(0, s0);  // the first tile's copy is in flight while q loads
   cp_async_commit();
-  for (int i = tid; i < kG * kDk; i += kThreads) qs[i] = q[row0 * kDk + i];
-  if (tid < kG) {
+  for (int i = tid; i < G * kDk; i += kThreads) qs[i] = q[row0 * kDk + i];
+  if (tid < G) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
   }
   const float scale_log2 = scale * kLog2e;
   const int col = warp * kColsPerWarp + 2 * lane;  // this lane's two value columns
-  float acc[kG][2];
+  float acc[G][2];
 #pragma unroll
-  for (int g = 0; g < kG; ++g) acc[g][0] = acc[g][1] = 0.f;
+  for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = 0.f;
 
   const int n_tiles = (s1 - s0 + kTile - 1) / kTile;
   for (int it = 0; it < n_tiles; ++it) {
@@ -160,7 +163,7 @@ mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__
         kv[i] = *reinterpret_cast<const float2*>(ks + j * kDk + 2 * (lane + 32 * i));
       float mine = 0.f;
 #pragma unroll
-      for (int g = 0; g < kG; ++g) {
+      for (int g = 0; g < G; ++g) {
         float s = 0.f;
 #pragma unroll
         for (int i = 0; i < kPairs; ++i) {
@@ -170,16 +173,14 @@ mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__
         s = warp_sum(s);
         if (lane == g) mine = s;
       }
-      if (lane < kG)
+      if (lane < G)
         ps[lane * kTile + j] = softcap > 0.f ? softcap * kLog2e * tanhf(mine * scale / softcap)
                                              : mine * scale_log2;
     }
     __syncthreads();
 
-    // (2) online softmax: each warp two heads, each lane one key
-#pragma unroll
-    for (int hh = 0; hh < kHeadsPerWarp; ++hh) {
-      const int g = warp * kHeadsPerWarp + hh;
+    // (2) online softmax: head g on warp g mod 8, each lane one key
+    for (int g = warp; g < G; g += kWarps) {
       const float x = lane < nk ? ps[g * kTile + lane] : kNegInf;
       const float m_old = m_s[g], l_old = l_s[g];
       const float mn = fmaxf(m_old, warp_max(x));  // finite: the tile keeps a key
@@ -197,7 +198,7 @@ mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__
 
     // (3) acc = acc * corr + P V over this warp's 64 columns
 #pragma unroll
-    for (int g = 0; g < kG; ++g) {
+    for (int g = 0; g < G; ++g) {
       const float corr = c_s[g];
       acc[g][0] *= corr;
       acc[g][1] *= corr;
@@ -205,7 +206,7 @@ mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__
     for (int j = 0; j < nk; ++j) {
       const float2 vv = *reinterpret_cast<const float2*>(vs + j * vstride + col);
 #pragma unroll
-      for (int g = 0; g < kG; ++g) {
+      for (int g = 0; g < G; ++g) {
         const float p = ps[g * kTile + j];
         acc[g][0] = fmaf(p, vv.x, acc[g][0]);
         acc[g][1] = fmaf(p, vv.y, acc[g][1]);
@@ -216,7 +217,7 @@ mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__
 
   if (n_live == 1) {
 #pragma unroll
-    for (int g = 0; g < kG; ++g) {
+    for (int g = 0; g < G; ++g) {
       const float inv = 1.f / fmaxf(l_s[g], 1e-30f);
       *reinterpret_cast<float2*>(ob + g * kDv + col) = make_float2(acc[g][0] * inv,
                                                                     acc[g][1] * inv);
@@ -224,10 +225,10 @@ mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__
     return;
   }
   const size_t rgi = static_cast<size_t>(b) * gridDim.x + rg;  // (b, hk, t): counter and scratch
-  float* pb = part + rgi * n_splits * kG * kPart;
+  float* pb = part + rgi * n_splits * G * kPart;  // one partial per (row group, split)
 #pragma unroll
-  for (int g = 0; g < kG; ++g) {
-    float* pp = pb + (static_cast<size_t>(split) * kG + g) * kPart;
+  for (int g = 0; g < G; ++g) {
+    float* pp = pb + (static_cast<size_t>(split) * G + g) * kPart;
     if (tid == 0) {
       pp[0] = m_s[g];
       pp[1] = l_s[g];
@@ -246,13 +247,13 @@ mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__
   // one pass over the live splits with a running (max, sum, acc), 16 bytes
   // of acc per thread per split; __ldcg reads L2, where the others wrote
   constexpr int NV = kDv / 4;
-  for (int i = tid; i < kG * NV; i += kThreads) {
+  for (int i = tid; i < G * NV; i += kThreads) {
     const int g = i / NV, c = i - g * NV;
     float mx = kNegInf, lsum = 0.f;
     float4 os = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
     for (int s = s_first; s <= s_last; ++s) {
-      const float* pp = pb + (static_cast<size_t>(s) * kG + g) * kPart;
+      const float* pp = pb + (static_cast<size_t>(s) * G + g) * kPart;
       const float ms_ = __ldcg(pp), ls_ = __ldcg(pp + 1);
       const float4 a = __ldcg(reinterpret_cast<const float4*>(pp + 4) + c);
       const float mn = fmaxf(mx, ms_);
@@ -271,6 +272,23 @@ mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__
   if (tid == 0) counters[rgi] = 0;
 }
 
+template <int G>
+int launch_fp32(const void* q, const void* k, const void* v, void* o, const void* q_offset,
+                const void* kv_len, void* part, void* counters, int B, int T, int Smax, int Hkv,
+                int k_row, int v_row, int v_head, int v_shared, int causal, int window,
+                int n_splits, int split_len, float softcap, float scale, void* stream) {
+  const size_t smem = smem_bytes(G, v_shared != 0);
+  const cudaError_t attr = allow_smem(mla_attention_fp32_kernel<G>, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(Hkv * T, n_splits, B);
+  mla_attention_fp32_kernel<G><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<const int32_t*>(q_offset),
+      static_cast<const int32_t*>(kv_len), static_cast<float*>(part), static_cast<int*>(counters),
+      T, Smax, Hkv, k_row, v_row, v_head, v_shared, causal, window, softcap, scale, split_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -285,17 +303,13 @@ extern "C" int mla_attention_fwd_fp32(const void* q, const void* k, const void* 
                                       int v_shared, int causal, int window, int n_splits,
                                       int split_len, float softcap, float scale, void* stream) {
   using namespace repro_torch;
-  if (B < 1 || T < 1 || Smax < 1 || Hkv < 1 || H != kG * Hkv || Dk != kDk || Dv != kDv ||
+  if (B < 1 || T < 1 || Smax < 1 || Hkv < 1 || H % Hkv != 0 || Dk != kDk || Dv != kDv ||
       n_splits < 1 || split_len < 1)
     return -1;
-  const size_t smem = smem_bytes(v_shared != 0);
-  const cudaError_t attr = allow_smem(mla_attention_fp32_kernel, smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(Hkv * T, n_splits, B);
-  mla_attention_fp32_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<const int32_t*>(q_offset),
-      static_cast<const int32_t*>(kv_len), static_cast<float*>(part), static_cast<int*>(counters),
-      T, Smax, Hkv, k_row, v_row, v_head, v_shared, causal, window, softcap, scale, split_len);
-  return static_cast<int>(cudaGetLastError());
+  const int G = H / Hkv;  // one instance per head group the port serves
+  const decltype(&launch_fp32<16>) launch =
+      G == 16 ? launch_fp32<16> : G == 8 ? launch_fp32<8> : G == 4 ? launch_fp32<4> : nullptr;
+  if (launch == nullptr) return -1;
+  return launch(q, k, v, o, q_offset, kv_len, part, counters, B, T, Smax, Hkv, k_row, v_row,
+                v_head, v_shared, causal, window, n_splits, split_len, softcap, scale, stream);
 }

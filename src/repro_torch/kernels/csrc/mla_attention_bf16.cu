@@ -1,12 +1,13 @@
 // Absorbed-MLA attention on the tensor cores for Hopper (sm_90a), bf16:
-// 16 query heads per latent KV head of width Dk = 576 (kv_lora_rank 512 +
-// qk_rope_dim 64), values of width Dv = 512 (the latent rows' first 512
-// columns, or a tensor of their own), T >= 1 query positions per batch
-// row, per-row q_offset / kv_len, causal mask, sliding window and logit
-// softcap. DeepSeek-V2-Lite's absorbed decode (T = 1) and its speculative
-// verify and draft catch-up (T > 1) reach this shape
-// (src/repro/models/attention.py, mla_decode). The fp32 route is
-// decode_attention_mla.cu (CUDA cores, exact fp32 for the parity checks).
+// G = 16, 8 or 4 query heads per latent KV head of width Dk = 576
+// (kv_lora_rank 512 + qk_rope_dim 64), values of width Dv = 512 (the
+// latent rows' first 512 columns, or a tensor of their own), T >= 1 query
+// positions per batch row, per-row q_offset / kv_len, causal mask, sliding
+// window and logit softcap. DeepSeek-V2-Lite's absorbed decode (T = 1) and
+// its speculative verify and draft catch-up (T > 1) reach this shape
+// (src/repro/models/attention.py, mla_decode): G = 16 unsharded, and a
+// rank's 8 or 4 of the 16 heads on a model axis of 2 or 4. The fp32 route
+// is decode_attention_mla.cu (CUDA cores, exact fp32 for the parity checks).
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/decode_attention.py
 // (decode_attention, body _decode_kernel) at this shape, and
@@ -23,8 +24,12 @@
 //
 // Design:
 // - One block of 8 warps per (latent head, query position t, split of the
-//   cache, batch row): its 16 rows are the 16 heads at one position, which
-//   is one m16 row tile of mma.sync.m16n8k16. All 16 rows share one mask,
+//   cache, batch row): its G rows are the G heads at one position, held in
+//   one m16 row tile of mma.sync.m16n8k16 (a template parameter; at G = 8
+//   or 4 rows G..15 of the tile are zero-filled q rows whose scores,
+//   probabilities and sums are computed and never stored, merged or
+//   written: the kernel is bound by the latent rows it reads, which all G
+//   share, so the idle rows cost tensor-core work only). All rows share one mask,
 //   [k_lo, k_hi) with k_hi = min(kv_len, Smax, q_offset + t + 1 if
 //   causal), so the block reads only kept latent rows. A row's key tiles,
 //   their order, its split and its merge depend on its position alone:
@@ -70,7 +75,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kG = 16;      // query heads per latent head: one m16 tile
+constexpr int kG = 16;      // rows of the m16 tile: the G <= 16 query heads of a latent head
 constexpr int kDk = 576;    // kv_lora_rank + qk_rope_dim
 constexpr int kDv = 512;    // kv_lora_rank
 constexpr int kWarps = 8;
@@ -95,6 +100,7 @@ size_t smem_bytes(int stages, bool v_shared) {
          sizeof(float) * kKSplit * kG * kLds + sizeof(bf16) * kG * kLdp + sizeof(float) * 3 * kG;
 }
 
+template <int G>  // query heads per latent head: 16, 8 or 4
 __global__ void __launch_bounds__(kThreads, 2)
 mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -118,7 +124,8 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int hk = rg / T, t = rg - hk * T;
   const int split = blockIdx.y, b = blockIdx.z;
   const int n_splits = gridDim.y;
-  const int H = Hkv * kG;
+  static_assert(G >= 1 && G <= kG && G * (kDv / 4) % kThreads == 0, "G heads in one m16 tile");
+  const int H = Hkv * G;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;   // mma fragment: rows g, g + 8; columns 2tq, 2tq + 1
   const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: the matrix and row this lane addresses
@@ -126,12 +133,12 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   int k_hi = min(kv_len[b], Smax);
   if (causal) k_hi = min(k_hi, qpos + 1);
   const int k_lo = window > 0 ? max(0, qpos - window + 1) : 0;
-  const size_t row0 = (static_cast<size_t>(b) * T + t) * H + static_cast<size_t>(hk) * kG;
-  bf16* ob = o + row0 * kDv;  // the block's 16 output rows
+  const size_t row0 = (static_cast<size_t>(b) * T + t) * H + static_cast<size_t>(hk) * G;
+  bf16* ob = o + row0 * kDv;  // the block's G output rows
 
   if (k_hi <= k_lo) {  // the rows keep no key: they write 0
     if (split == 0)
-      for (int i = tid; i < kG * kDv / 2; i += kThreads) reinterpret_cast<uint32_t*>(ob)[i] = 0u;
+      for (int i = tid; i < G * kDv / 2; i += kThreads) reinterpret_cast<uint32_t*>(ob)[i] = 0u;
     return;
   }
   const int s_first = k_lo / split_len, s_last = (k_hi - 1) / split_len;
@@ -163,12 +170,13 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     }
   };
 
-  {  // q's 16 rows with the first tile
+  {  // q's G rows with the first tile; rows G..15 of the tile zero-filled
     const bf16* qb = q + row0 * kDk;
     constexpr int qch = kDk / 8;
     for (int i = tid; i < kG * qch; i += kThreads) {
       const int r = i / qch, c = i - r * qch;
-      cp_async16(qs + r * kLdk + c * 8, qb + r * kDk + c * 8, 16);
+      const bool ok = r < G;
+      cp_async16(qs + r * kLdk + c * 8, ok ? qb + r * kDk + c * 8 : qb, ok ? 16 : 0);
     }
   }
   load(0, s0);
@@ -288,23 +296,29 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     bf16* o1 = o0 + 8 * kDv;
 #pragma unroll
     for (int j = 0; j < kColsPerWarp / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(o0 + j * 8) = pack_bf16(acc[j][0] * inv0, acc[j][1] * inv0);
-      *reinterpret_cast<uint32_t*>(o1 + j * 8) = pack_bf16(acc[j][2] * inv1, acc[j][3] * inv1);
+      if (g < G)
+        *reinterpret_cast<uint32_t*>(o0 + j * 8) = pack_bf16(acc[j][0] * inv0, acc[j][1] * inv0);
+      if (g + 8 < G)
+        *reinterpret_cast<uint32_t*>(o1 + j * 8) = pack_bf16(acc[j][2] * inv1, acc[j][3] * inv1);
     }
     return;
   }
+  // one partial per (row group, split): G rows of kPart floats
   const size_t rgi = static_cast<size_t>(b) * gridDim.x + rg;  // (b, hk, t): counter and scratch
-  float* pb = part + rgi * n_splits * kG * kPart;
-  float* pp = pb + static_cast<size_t>(split) * kG * kPart;
-  if (tid < kG) {
+  float* pb = part + rgi * n_splits * G * kPart;
+  float* pp = pb + static_cast<size_t>(split) * G * kPart;
+  if (tid < G) {
     pp[tid * kPart] = m_s[tid];
     pp[tid * kPart + 1] = l_s[tid];
   }
 #pragma unroll
   for (int j = 0; j < kColsPerWarp / 8; ++j) {
-    *reinterpret_cast<float2*>(pp + g * kPart + 4 + col + j * 8) = make_float2(acc[j][0], acc[j][1]);
-    *reinterpret_cast<float2*>(pp + (g + 8) * kPart + 4 + col + j * 8) =
-        make_float2(acc[j][2], acc[j][3]);
+    if (g < G)
+      *reinterpret_cast<float2*>(pp + g * kPart + 4 + col + j * 8) =
+          make_float2(acc[j][0], acc[j][1]);
+    if (g + 8 < G)
+      *reinterpret_cast<float2*>(pp + (g + 8) * kPart + 4 + col + j * 8) =
+          make_float2(acc[j][2], acc[j][3]);
   }
 
   // the last live split of this row group to finish merges them all
@@ -316,17 +330,17 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   __threadfence();
   // weights w_s = 2^(m_s - M) of each (row, split), M the row's largest
   // m_s, then o = sum_s w_s acc_s / sum_s w_s l_s; the ring is consumed and
-  // holds the m_s and l_s of the 16 rows
-  float* mw = reinterpret_cast<float*>(ring);  // kG x n_live: m_s, then w_s
-  float* lw = mw + kG * n_live;                // kG x n_live: l_s
-  for (int i = tid; i < kG * n_live; i += kThreads) {
+  // holds the m_s and l_s of the G rows
+  float* mw = reinterpret_cast<float*>(ring);  // G x n_live: m_s, then w_s
+  float* lw = mw + G * n_live;                 // G x n_live: l_s
+  for (int i = tid; i < G * n_live; i += kThreads) {
     const int r = i / n_live, sj = i - r * n_live;
-    const float* src = pb + (static_cast<size_t>(s_first + sj) * kG + r) * kPart;
+    const float* src = pb + (static_cast<size_t>(s_first + sj) * G + r) * kPart;
     mw[i] = __ldcg(src);
     lw[i] = __ldcg(src + 1);
   }
   __syncthreads();
-  if (tid < kG) {
+  if (tid < G) {
     float M = kNegInf;
     for (int sj = 0; sj < n_live; ++sj) M = fmaxf(M, mw[tid * n_live + sj]);
     float L = 0.f;
@@ -339,13 +353,13 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
   __syncthreads();
   constexpr int NV = kDv / 4;                  // float4 per row
-  constexpr int kItems = kG * NV / kThreads;   // 8 float4 per thread, all loaded per split
+  constexpr int kItems = G * NV / kThreads;    // 8, 4 or 2 float4 per thread, loaded per split
   float4 os[kItems];
 #pragma unroll
   for (int e = 0; e < kItems; ++e) os[e] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 2
   for (int sj = 0; sj < n_live; ++sj) {
-    const float* src = pb + static_cast<size_t>(s_first + sj) * kG * kPart + 4;
+    const float* src = pb + static_cast<size_t>(s_first + sj) * G * kPart + 4;
     float4 a[kItems];
 #pragma unroll
     for (int e = 0; e < kItems; ++e) {
@@ -371,10 +385,32 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   if (tid == 0) counters[rgi] = 0;
 }
 
+template <int G>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, const void* q_offset,
+                const void* kv_len, void* part, void* counters, int B, int T, int Smax, int Hkv,
+                int k_row, int v_row, int v_head, int v_shared, int causal, int window,
+                int n_splits, int split_len, float softcap, float scale, void* stream) {
+  // the merge keeps every split's (m, l) of its G rows in one ring stage
+  const size_t merge_bytes = static_cast<size_t>(n_splits) * 2 * G * sizeof(float);
+  if (merge_bytes > stage_elems(v_shared != 0) * sizeof(bf16)) return -1;
+  const int stages = v_shared && split_len > kKeys ? 2 : 1;
+  const size_t smem = smem_bytes(stages, v_shared != 0);
+  const cudaError_t attr = allow_smem(mla_attention_bf16_kernel<G>, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(Hkv * T, n_splits, B);
+  mla_attention_bf16_kernel<G><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), static_cast<const int32_t*>(q_offset),
+      static_cast<const int32_t*>(kv_len), static_cast<float*>(part), static_cast<int*>(counters),
+      T, Smax, Hkv, k_row, v_row, v_head, v_shared, causal, window, softcap, scale, split_len,
+      stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace repro_torch
 
-// q (B,T,H,576) contiguous, H = 16 * Hkv; k: rows of (Hkv, 576), row b, s
+// q (B,T,H,576) contiguous, H = G * Hkv with G in {16, 8, 4}; k: rows of (Hkv, 576), row b, s
 // at k + (b * Smax + s) * k_row; v: rows of (Hkv, 512) at v + (b * Smax +
 // s) * v_row + h * v_head. v_shared != 0 says that v is the first 512
 // columns of k's rows (the latent cache), which the kernel then reads
@@ -383,7 +419,7 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 // device: query t of row b sits at position q_offset[b] + t and keeps key
 // j < min(kv_len[b], Smax), j <= its position if causal, and position - j
 // < window if window > 0. part: fp32 scratch of B * Hkv * T * n_splits *
-// 16 * 516; counters: B * Hkv * T int32, all 0 (the kernel leaves them 0).
+// G * 516; counters: B * Hkv * T int32, all 0 (the kernel leaves them 0).
 // Split s covers keys [s * split_len, (s + 1) * split_len). softcap <= 0
 // means no softcap. Returns the CUDA error of the launch, or -1 for a
 // shape the kernel does not take.
@@ -394,22 +430,13 @@ extern "C" int mla_attention_fwd_bf16(const void* q, const void* k, const void* 
                                       int v_shared, int causal, int window, int n_splits,
                                       int split_len, float softcap, float scale, void* stream) {
   using namespace repro_torch;
-  if (B < 1 || T < 1 || Smax < 1 || Hkv < 1 || H != kG * Hkv || Dk != kDk || Dv != kDv ||
+  if (B < 1 || T < 1 || Smax < 1 || Hkv < 1 || H % Hkv != 0 || Dk != kDk || Dv != kDv ||
       n_splits < 1 || split_len < 1)
     return -1;
-  // the merge keeps every split's (m, l) of its 16 rows in one ring stage
-  const size_t merge_bytes = static_cast<size_t>(n_splits) * 2 * kG * sizeof(float);
-  if (merge_bytes > stage_elems(v_shared != 0) * sizeof(bf16)) return -1;
-  const int stages = v_shared && split_len > kKeys ? 2 : 1;
-  const size_t smem = smem_bytes(stages, v_shared != 0);
-  const cudaError_t attr = allow_smem(mla_attention_bf16_kernel, smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(Hkv * T, n_splits, B);
-  mla_attention_bf16_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<const int32_t*>(q_offset),
-      static_cast<const int32_t*>(kv_len), static_cast<float*>(part), static_cast<int*>(counters),
-      T, Smax, Hkv, k_row, v_row, v_head, v_shared, causal, window, softcap, scale, split_len,
-      stages);
-  return static_cast<int>(cudaGetLastError());
+  const int G = H / Hkv;  // one instance per head group the port serves
+  const decltype(&launch_bf16<16>) launch =
+      G == 16 ? launch_bf16<16> : G == 8 ? launch_bf16<8> : G == 4 ? launch_bf16<4> : nullptr;
+  if (launch == nullptr) return -1;
+  return launch(q, k, v, o, q_offset, kv_len, part, counters, B, T, Smax, Hkv, k_row, v_row,
+                v_head, v_shared, causal, window, n_splits, split_len, softcap, scale, stream);
 }

@@ -1,8 +1,9 @@
 """Absorbed-MLA attention: the hand-written CUDA kernels and their plain version.
 
-At DeepSeek's absorbed shape, 16 query heads on one latent KV head of
+At DeepSeek's absorbed shape, G query heads on one latent KV head of
 width 576 (kv_lora_rank 512 + qk_rope_dim 64) whose first 512 columns are
-the values, the kernels replace two Pallas TPU kernels:
+the values, with G = 16 (deepseek-v2-lite's heads) or a model rank's 8 or
+4 of them (``MLA_GROUPS``), the kernels replace two Pallas TPU kernels:
 ``repro.kernels.decode_attention.decode_attention`` (one query position,
 the decode step) and ``repro.kernels.flash_attention.flash_attention``
 (T > 1 query positions per row: the speculative verify and the draft's
@@ -16,7 +17,7 @@ the sources say what their designs do about it.
 
 ``mla_attention`` launches a kernel for CUDA tensors and runs
 ``mla_attention_plain`` for CPU tensors; on the card a shape that the
-kernels do not take raises.
+kernels do not take (a G outside ``MLA_GROUPS`` among them) raises.
 """
 from __future__ import annotations
 
@@ -27,13 +28,17 @@ from repro_torch.kernels.decode_attention import merge_counters, plan_splits
 from repro_torch.kernels.flash_attention import (ATTN_TRAIN_ROUTE, attention_plain, check_aligned,
                                                  launch_args, refuse_grad)
 
-MLA_SHAPE = (16, 576, 512)  # (G, Dk, Dv): query heads per latent head, latent and value widths
+MLA_DIMS = (576, 512)  # (Dk, Dv): the latent and value widths
+MLA_GROUPS = (16, 8, 4)  # query heads per latent head: the whole model's, and a rank's at M = 2, 4
+# (G, Dk, Dv) of every shape the kernels take
+MLA_SHAPES = frozenset((g,) + MLA_DIMS for g in MLA_GROUPS)
 
 
 def is_mla_shape(q, k, v) -> bool:
-    """Whether (q, k, v) have the absorbed-MLA shape, whatever their length."""
+    """Whether (q, k, v) have an absorbed-MLA shape of ``MLA_SHAPES``,
+    whatever their length."""
     H, Hkv = q.shape[-2], k.shape[-2]
-    return Hkv > 0 and H % Hkv == 0 and (H // Hkv, q.shape[-1], v.shape[-1]) == MLA_SHAPE
+    return Hkv > 0 and H % Hkv == 0 and (H // Hkv, q.shape[-1], v.shape[-1]) in MLA_SHAPES
 
 
 def mla_route(dtype) -> str:
@@ -64,7 +69,7 @@ def mla_checks(q, k, v) -> tuple[str, bool]:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
     if not is_mla_shape(q, k, v):
-        raise ValueError(f"the MLA kernels take (G, Dk, Dv) = {MLA_SHAPE}; got q "
+        raise ValueError(f"the MLA kernels take (G, Dk, Dv) in {sorted(MLA_SHAPES)}; got q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"q, k, v must share one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -80,7 +85,7 @@ def mla_checks(q, k, v) -> tuple[str, bool]:
 
 def mla_attention(q, k, v, *, causal=True, q_offset=0, kv_len=None, window=None,
                   softcap=None, scale=None):
-    """q (B,T,16·Hkv,576), T >= 1; k (B,Smax,Hkv,576) contiguous; v
+    """q (B,T,G·Hkv,576), G in ``MLA_GROUPS``, T >= 1; k (B,Smax,Hkv,576) contiguous; v
     (B,Smax,Hkv,512) contiguous, or the first 512 columns of k
     (``k[..., :512]``, the latent cache's c_kv) -> (B,T,H,512) in q's dtype.
     Query t of row b sits at ``q_offset[b] + t``; keys at or past ``kv_len``
@@ -99,8 +104,8 @@ def mla_attention(q, k, v, *, causal=True, q_offset=0, kv_len=None, window=None,
     scale = scale if scale is not None else Dk ** -0.5
     n_splits, split_len = plan_splits(Smax, B, Hkv)
     out = torch.empty((B, T, H, Dv), dtype=q.dtype, device=q.device)
-    rows = B * Hkv * T  # row groups: 16 heads at one query position
-    part = torch.empty(rows * n_splits * MLA_SHAPE[0] * (Dv + 4), dtype=torch.float32,
+    rows = B * Hkv * T  # row groups: G heads at one query position
+    part = torch.empty(rows * n_splits * (H // Hkv) * (Dv + 4), dtype=torch.float32,
                        device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     counters = merge_counters(q.device, stream, rows)

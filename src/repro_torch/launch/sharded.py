@@ -7,9 +7,12 @@ the time limit fails the whole call: every rank's exit code is read, and
 a rank still running at the limit is killed.
 
 ``generate_rank`` is one such ``fn``: for each job, a ``ModelWorker`` on a
-(1, N) debug mesh that runs ``generate`` on the rank's shard of a model
+(1, N) debug mesh that runs ``generate`` (the bucketed mode: encoder frames
+and a pad mask where the job has them) on the rank's shard of a model
 whose weights come from a tree of numpy arrays in the JAX package's layout
-(``convert.params_from_numpy``). ``train_rank`` is another: for each job,
+(``convert.params_from_numpy``). ``engine_rank`` runs the continuous
+engine on a (D, M) mesh (``serve_job``). Every family the port serves
+takes a model axis of M > 1 in both. ``train_rank`` is another: for each job,
 a few AdamW steps of the rank's shard on a (D, M) mesh (``train_loop``),
 with the step-0 gradients and the final weights gathered whole on request
 and a checkpoint saved or restored. Both run on the card unless the
@@ -93,7 +96,9 @@ def generate_rank(rank: int, jobs: Sequence[dict], world: int,
                   device: str = "cuda") -> List[dict]:
     """One rank of sharded ``ModelWorker.generate`` runs on ``device``, one
     per job: ``cfg``, a numpy ``tree`` in the JAX package's layout,
-    ``prompts`` (B, S), ``max_new`` and ``max_len``. The model is cut to
+    ``prompts`` (B, S), ``max_new`` and ``max_len``, and optionally
+    ``enc_inputs`` (B, T, d_model) of an encoder-decoder model and
+    ``pad_mask`` (B, S) of LEFT-padded SSM prompts. The model is cut to
     this rank's shard on a (1, ``world``) mesh. Returns per job the tokens
     and the worker's sharding report's counts."""
     from repro_torch.convert import params_from_numpy
@@ -107,7 +112,9 @@ def generate_rank(rank: int, jobs: Sequence[dict], world: int,
         cfg = job["cfg"]
         worker = ModelWorker(f"{cfg.name} rank {rank}", cfg,
                              params_from_numpy(job["tree"], cfg, device), job["max_len"], ctx)
-        out.append({"tokens": worker.generate(job["prompts"], job["max_new"]),
+        out.append({"tokens": worker.generate(job["prompts"], job["max_new"],
+                                              enc_inputs=job.get("enc_inputs"),
+                                              pad_mask=job.get("pad_mask")),
                     "sharded": worker.shard_report.sharded,
                     "replicated": worker.shard_report.replicated,
                     "shard": worker.params.shard})
@@ -242,13 +249,18 @@ def serve_job(job: dict, ctx, device: str = "cuda") -> dict:
     """One continuous engine on ``ctx`` (no mesh: the unsharded run). A job
     holds ``cfg``, ``seed`` (weights drawn as this rank's shard) or
     ``tree`` (a numpy tree in the JAX package's layout), ``requests``
-    ((uid, prompt, max_new) triples), ``max_slots``, ``max_len``, and
-    optionally ``temperature``, ``fsdp`` and ``plan`` (read by
+    ((uid, prompt, max_new) triples, or with a fourth entry an
+    encoder-decoder request's frames (T, d_model)), ``max_slots``,
+    ``max_len``, and optionally ``max_enc_len`` (the cross region per
+    slot), ``temperature``, ``fsdp`` and ``plan`` (read by
     ``engine_rank``), ``scheduled`` (the AdaOper scheduler of
     ``launch.serve.make_scheduler`` under ``run_trace``'s virtual clock,
-    arrivals 10 ms apart; FIFO ``run_all`` without). Returns the tokens by
-    uid, the worker's pass counts, the kernels' launches, the wall seconds
-    and the peak device bytes (0 on the CPU)."""
+    arrivals 10 ms apart; FIFO ``run_all`` without) and ``logit_prompts``
+    (G, S) (with ``logit_frames`` for an encoder-decoder model), whose
+    last-position prefill logits it returns after the serve. Returns the
+    tokens by uid, the worker's pass counts, the flash and decode kernels'
+    launches, the model axis's collectives, the wall seconds and the peak
+    device bytes (0 on the CPU)."""
     import numpy as np
     import torch
 
@@ -258,23 +270,28 @@ def serve_job(job: dict, ctx, device: str = "cuda") -> dict:
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.slots import Request
+    from repro_torch.sharding import collectives
     kernels = (flash_attention.flash_attention, decode_attention.decode_attention)
     cfg = job["cfg"]
     params = (params_from_numpy(job["tree"], cfg, device) if "tree" in job
               else init_params(cfg, job["seed"], device, ctx=ctx))
-    reqs = [Request(uid, np.asarray(p, np.int32), n) for uid, p, n in job["requests"]]
+    reqs = [Request(r[0], np.asarray(r[1], np.int32), r[2],
+                    enc_inputs=None if len(r) < 4 else np.asarray(r[3], np.float32))
+            for r in job["requests"]]
     sched = None
     if job.get("scheduled"):
         sched = make_scheduler([cfg], max(len(r.prompt) for r in reqs),
                                max(r.max_new_tokens for r in reqs))
     eng = ServingEngine(scheduler=sched, max_slots=job["max_slots"])
-    eng.add_model(cfg.name, cfg, params, max_len=job["max_len"], ctx=ctx)
+    eng.add_model(cfg.name, cfg, params, max_len=job["max_len"], ctx=ctx,
+                  max_enc_len=job.get("max_enc_len"))
     w = eng.workers[cfg.name]
     dev = w.device
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     before = [k.launches for k in kernels]
+    calls = collectives.all_reduce.calls, collectives.all_gather_last.calls
     t0 = time.perf_counter()
     temp = job.get("temperature", 0.0)
     if sched is not None:
@@ -290,11 +307,17 @@ def serve_job(job: dict, ctx, device: str = "cuda") -> dict:
            "errors": [r.error for r in resp if r.error],
            "prefill_calls": w.prefill_calls, "decode_calls": w.decode_calls,
            "launches": {k.__name__: k.launches - b for k, b in zip(kernels, before)},
+           "all_reduces": collectives.all_reduce.calls - calls[0],
+           "all_gathers": collectives.all_gather_last.calls - calls[1],
            "wall_s": time.perf_counter() - t0, "shard": w.params.shard,
            "data_shard": w.params.data_shard,
            "pool_rows": int(next(iter(eng.pools[cfg.name].cache.values())).shape[1]),
            "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else 0)}
+    if job.get("logit_prompts") is not None:
+        logits, _ = w.prefill_batch(np.asarray(job["logit_prompts"], np.int32),
+                                    enc_inputs=job.get("logit_frames"))
+        out["logits"] = logits.float().cpu().numpy()
     del eng, w, params
     if dev.type == "cuda":
         torch.cuda.empty_cache()

@@ -18,10 +18,13 @@ same values at the same positions. Its absorbed decode attends with that
 row as the single KV head and its first ``kv_lora_rank`` columns as the
 values, views of one tensor, so no step concatenates the cache.
 
-On a model axis of M > 1 the GQA projections hold the rank's heads
-(column-parallel q/k/v, row-parallel wo): the functions take the head
-count from the tensors, so they run unchanged on H/M query and Hkv/M kv
-heads, and the caller sums the ranks' wo outputs.
+On a model axis of M > 1 the GQA, cross-attention and MLA projections
+hold the rank's heads (column-parallel q/k/v, MLA's ``wq`` and ``w_ukv``,
+row-parallel wo): the functions take the head count from the tensors, so
+they run unchanged on H/M query and Hkv/M kv heads, and the caller sums the
+ranks' wo outputs. MLA's ``w_dkv`` and ``kv_norm`` are whole on every rank,
+which writes the whole latent row; its absorbed decode scores the rank's
+H/M heads against that one latent head (the MLA kernels at G = H/M).
 
 Cross-attention (``gqa_cross``) has no rope and no causal mask; at decode
 it reads a cross cache preallocated at the slot pool's ``max_enc_len`` and
@@ -36,7 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import RMSNorm, apply_rope, rms_norm_head
+from repro_torch.models.layers import RMSNorm, apply_rope, rms_norm_head, row_linear
 from repro_torch.sharding.context import ATTN_IMPLS
 
 # the JAX package's differentiable XLA attention (its impl="xla"): train
@@ -200,7 +203,7 @@ def gqa_forward(p: GQA, x, cfg, *, window=None, impl=None):
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = attend(q, k, v, causal=True, window=window, softcap=cfg.attn_softcap, impl=impl)
-    return p.wo(o.reshape(B, S, -1)), (k, v)
+    return row_linear(p.wo, o.reshape(B, S, -1)), (k, v)
 
 
 def gqa_encode(p: GQA, x, cfg, *, impl=None):
@@ -210,7 +213,7 @@ def gqa_encode(p: GQA, x, cfg, *, impl=None):
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = attend(q, k, v, causal=False, impl=impl)
-    return p.wo(o.reshape(B, S, -1))
+    return row_linear(p.wo, o.reshape(B, S, -1))
 
 
 def gqa_cross(p: GQA, x, cfg, enc_k, enc_v, enc_len=None, impl=None):
@@ -218,16 +221,16 @@ def gqa_cross(p: GQA, x, cfg, enc_k, enc_v, enc_len=None, impl=None):
     rope, no causal mask, no qkv bias; ``enc_len`` (an int or (B,)) masks
     each row to its own encoder length, None attends to all T."""
     B, S, _ = x.shape
-    q = p.wq(x).view(B, S, cfg.num_heads, cfg.head_dim)
+    q = p.wq(x).view(B, S, -1, cfg.head_dim)  # the rank's heads on a model axis
     o = attend(q, enc_k, enc_v, causal=False, kv_len=enc_len, impl=impl)
-    return p.wo(o.reshape(B, S, -1))
+    return row_linear(p.wo, o.reshape(B, S, -1))
 
 
 def cross_kv(p: GQA, enc_out, cfg):
     """The cross-attention's K/V of the encoder output (B,T,D)."""
     B, T, _ = enc_out.shape
-    return (p.wk(enc_out).view(B, T, cfg.num_kv_heads, cfg.head_dim),
-            p.wv(enc_out).view(B, T, cfg.num_kv_heads, cfg.head_dim))
+    return (p.wk(enc_out).view(B, T, -1, cfg.head_dim),
+            p.wv(enc_out).view(B, T, -1, cfg.head_dim))
 
 
 def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None):
@@ -261,13 +264,13 @@ def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None)
         write_rows(cache_v, v[:, 0], pos)
         o = attend(q, cache_k, cache_v, causal=False, window=window,
                    softcap=cfg.attn_softcap, q_offset=pos, kv_len=pos + 1, impl=impl)
-        return p.wo(o.reshape(B, 1, -1)), (cache_k, cache_v)
+        return row_linear(p.wo, o.reshape(B, 1, -1)), (cache_k, cache_v)
     idx = _scalar_pos(pos, Smax)
     cache_k[:, idx] = k[:, 0].to(cache_k.dtype)
     cache_v[:, idx] = v[:, 0].to(cache_v.dtype)
     o = attend(q, cache_k, cache_v, causal=False, window=window,
                softcap=cfg.attn_softcap, q_offset=idx, kv_len=idx + 1, impl=impl)
-    return p.wo(o.reshape(B, 1, -1)), (cache_k, cache_v)
+    return row_linear(p.wo, o.reshape(B, 1, -1)), (cache_k, cache_v)
 
 
 def _scalar_pos(pos, Smax: int) -> int:
@@ -316,7 +319,7 @@ def _verify(p: GQA, x, cfg, cache_k, cache_v, pos, window, impl):
     write_grid(cache_v, v, pos)
     o = attend(q, cache_k, cache_v, causal=True, window=window, softcap=cfg.attn_softcap,
                q_offset=pos, kv_len=None, impl=impl)
-    return p.wo(o.reshape(B, T, -1)), (cache_k, cache_v)
+    return row_linear(p.wo, o.reshape(B, T, -1)), (cache_k, cache_v)
 
 
 # ---------------------------------------------------------------------------
@@ -361,8 +364,8 @@ def _mla_compress(p: MLA, x, cfg, positions):
 
 def _mla_queries(p: MLA, x, cfg, positions):
     B, S, _ = x.shape
-    H, nope, rope_d = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = p.wq(x).view(B, S, H, nope + rope_d)
+    nope, rope_d = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = p.wq(x).view(B, S, -1, nope + rope_d)  # the rank's heads on a model axis
     return q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
 
 
@@ -371,7 +374,7 @@ def mla_forward(p: MLA, x, cfg, impl=None):
     causal attention with Dk = nope + rope, Dv = vd through the flash
     kernel. Returns (out, (c_kv, k_rope)), the latent cache's two parts."""
     B, S, _ = x.shape
-    H, nope, vd = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    H, nope, vd = p.w_ukv.shape[1], cfg.qk_nope_dim, cfg.v_head_dim  # H: the rank's heads
     positions = torch.arange(S, device=x.device).expand(B, S)
     c_kv, k_rope = _mla_compress(p, x, cfg, positions)
     q_nope, q_rope = _mla_queries(p, x, cfg, positions)
@@ -380,7 +383,7 @@ def mla_forward(p: MLA, x, cfg, impl=None):
                   dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     o = attend(q, k, kv[..., nope:].contiguous(), causal=True, scale=_mla_scale(cfg), impl=impl)
-    return p.wo(o.reshape(B, S, H * vd)), (c_kv, k_rope)
+    return row_linear(p.wo, o.reshape(B, S, H * vd)), (c_kv, k_rope)
 
 
 def mla_decode(p: MLA, x, cfg, cache, pos, impl=None):
@@ -393,7 +396,7 @@ def mla_decode(p: MLA, x, cfg, cache, pos, impl=None):
     the (B,T) grid, the new queries causal, stale latents of a rejected
     suffix causal-masked until overwritten). Returns (out, cache)."""
     B, T = x.shape[0], x.shape[1]
-    H, nope, vd, lr = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    H, nope, vd, lr = p.w_ukv.shape[1], cfg.qk_nope_dim, cfg.v_head_dim, cfg.kv_lora_rank
     pos = torch.as_tensor(pos, device=x.device)
     Smax = cache.shape[1]
     if T > 1:
@@ -423,4 +426,4 @@ def mla_decode(p: MLA, x, cfg, cache, pos, impl=None):
                    q_offset=q_off, kv_len=kv_len, scale=_mla_scale(cfg), impl=impl)
     w_uv = p.w_ukv[..., nope:]  # (lr, H, vd)
     o = torch.einsum("bqhr,rhd->bqhd", o_lat.float(), w_uv.float()).to(x.dtype)
-    return p.wo(o.reshape(B, T, H * vd)), cache
+    return row_linear(p.wo, o.reshape(B, T, H * vd)), cache

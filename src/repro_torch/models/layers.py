@@ -15,7 +15,10 @@ package's names and numerics:
   dtype;
 * logits are cast to fp32 before the final softcap.
 
-On a model axis of M > 1 (``ctx.model_parallel``) the embedding and the
+On a model axis of M > 1 (``ctx.model_parallel``) the MLPs hold a 1/M
+slice of ``d_ff`` (gate/up or the GELU FFN's ``wi`` column-parallel,
+``w_down`` or ``wo`` row-parallel through ``row_linear``, whose partial
+sums the caller adds over the ranks), and the embedding and the
 LM head hold a 1/M slice of the vocab: ``embed_tokens`` looks up the ids
 its slice holds, 0 for the rest, and sums the ranks' rows; ``lm_logits``
 gathers the ranks' vocab columns, so every rank has the whole logits (in
@@ -116,15 +119,30 @@ def init_mlp(cfg, device=None, dtype=None):
     return FFN(cfg, device, dtype) if cfg.norm == "layernorm" else MLP(cfg, device, dtype)
 
 
+def row_linear(lin: nn.Linear, x):
+    """``lin(x)``; when serving (no grad) with a row-parallel weight of a
+    model rank (one whose input dim the rank holds 1/M of, marked
+    ``partial_fp32`` by ``models.model.place``), the rank's partial sum in
+    fp32, from fp32 operands: the caller sums the ranks' partials over the
+    model axis and casts the sum to the activation dtype, so a bf16 output
+    is rounded once, as the unsharded layer's is, not once per rank. Train
+    mode keeps the partials in the activation dtype: fp32 ones double the
+    bytes of every all-reduce, which doubled a (1, 2) train step over gloo
+    (PERF.md)."""
+    if getattr(lin, "partial_fp32", False) and not torch.is_grad_enabled():
+        return F.linear(x.float(), lin.weight.float())
+    return lin(x)
+
+
 def apply_mlp(p, x, cfg):
     if isinstance(p, FFN):
-        return p.wo(F.gelu(p.wi(x), approximate="tanh"))
+        return row_linear(p.wo, F.gelu(p.wi(x), approximate="tanh"))
     gate = p.w_gate(x)
     if cfg.name.startswith("gemma2"):
         act = F.gelu(gate, approximate="tanh")
     else:
         act = F.silu(gate)
-    return p.w_down(act * p.w_up(x))
+    return row_linear(p.w_down, act * p.w_up(x))
 
 
 def embed_tokens(embedding, ids, cfg, ctx=None):

@@ -117,13 +117,27 @@ def set_param(model: nn.Module, name: str, tensor: torch.Tensor) -> None:
             nn.Parameter(tensor, requires_grad=False))
 
 
-def shard_slice(t: torch.Tensor, dim, M: int, rank: int) -> torch.Tensor:
+def kept_ranges(size: int, M: int, rank: int, segments=None):
+    """The [lo, hi) ranges of a dim of ``size`` that rank ``rank`` of M
+    holds, in order: its 1/M slice, or with ``segments`` ((length, cut),
+    ...) its 1/M slice of each cut segment and each other segment whole."""
+    out, off = [], 0
+    for length, split in segments or ((size, True),):
+        n = length // M if split else length
+        lo = off + (rank * n if split else 0)
+        out.append((lo, lo + n))
+        off += length
+    return out
+
+
+def shard_slice(t: torch.Tensor, dim, M: int, rank: int, segments=None) -> torch.Tensor:
     """Rank ``rank``'s 1/M slice of ``t`` along ``dim`` (``t`` itself when
-    ``dim`` is None)."""
+    ``dim`` is None; its ranges of ``segments`` where given, ``kept_ranges``)."""
     if dim is None:
         return t
-    n = t.shape[dim] // M
-    return t.narrow(dim, rank * n, n)
+    parts = [t.narrow(dim, lo, hi - lo) for lo, hi in kept_ranges(t.shape[dim], M, rank,
+                                                                  segments)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 
 def mesh_rank(ctx) -> int:
@@ -133,32 +147,37 @@ def mesh_rank(ctx) -> int:
 
 
 def cuts(plan, name: str, rank: int):
-    """The (dim, ways, index) cuts of parameter ``name`` held by mesh rank
-    ``rank`` under ``plan`` (a ``placement.ParamPlan``): its model dim and
-    its FSDP dim."""
+    """The (dim, ways, index, segments) cuts of parameter ``name`` held by
+    mesh rank ``rank`` under ``plan`` (a ``placement.ParamPlan``): its model
+    dim, with its segments where the plan has them, and its FSDP dim."""
     D, M = plan.shape
     d, m = divmod(rank, M)
     out = []
     if plan.dims[name] is not None and M > 1:
-        out.append((plan.dims[name], M, m))
+        out.append((plan.dims[name], M, m, plan.segments.get(name)))
     if plan.data_dims[name] is not None:
-        out.append((plan.data_dims[name], D, d))
+        out.append((plan.data_dims[name], D, d, None))
     return out
 
 
 def cut(t: torch.Tensor, leaf_cuts) -> torch.Tensor:
     """``t`` cut to one rank's piece by ``leaf_cuts`` (see ``cuts``)."""
-    for dim, n, i in leaf_cuts:
-        t = shard_slice(t, dim, n, i)
+    for dim, n, i, segs in leaf_cuts:
+        t = shard_slice(t, dim, n, i, segs)
     return t
 
 
 def place(model: "CausalLM", plan, rank: int) -> "CausalLM":
     """Stamp ``model`` (which holds mesh rank ``rank``'s pieces under
-    ``plan``) with its shard and each FSDP leaf's ``fsdp_dim``."""
+    ``plan``) with its shard, each FSDP leaf's ``fsdp_dim`` and, at M > 1,
+    ``partial_fp32`` on each row-parallel ``nn.Linear`` (its weight cut on
+    its input dim: ``layers.row_linear``)."""
     D, M = plan.shape
     d, m = divmod(rank, M)
     model.shard = (M, m) if M > 1 else None
+    for name, mod in model.named_modules():
+        if M > 1 and isinstance(mod, nn.Linear) and plan.dims[f"{name}.weight"] == 1:
+            mod.partial_fp32 = True
     fsdp = False
     for name, p in model.named_parameters():
         if plan.data_dims[name] is not None:
@@ -222,23 +241,28 @@ def init_params(cfg, seed: int = 0, device="cuda", ctx=None, rank=None) -> Causa
         rows = full[0] if per_row * full[0] <= _WHOLE_DRAW else max(1, _PIECE // per_row)
         lc = leaf_cuts.get(name, [])
         inner = [c for c in lc if c[0] != 0]
-        row_cut = [c for c in lc if c[0] == 0]
+        # the rows this rank keeps: (first row, end, where they go in its piece)
+        keep, at = [], 0
+        for _, n, i, segs in [c for c in lc if c[0] == 0]:
+            for lo, hi in kept_ranges(full[0], n, i, segs):
+                keep.append((lo, hi, at))
+                at += hi - lo
         for r0 in range(0, full[0], rows):
             r1 = min(full[0], r0 + rows)
             x = cut(torch.randn((r1 - r0, *full[1:]), generator=gen, device=dev,
                                 dtype=torch.float32) * scale, inner)
-            if not row_cut:
+            if not keep:
                 t[r0:r1].copy_(x)
-            else:  # keep the rows of this rank's slice [lo, lo + n)
-                n = t.shape[0]
-                lo = row_cut[0][2] * n
-                a, b = max(r0, lo), min(r1, lo + n)
+            for lo, hi, dst in keep:
+                a, b = max(r0, lo), min(r1, hi)
                 if a < b:
-                    t[a - lo:b - lo].copy_(x[a - r0:b - r0])
+                    t[dst + a - lo:dst + b - lo].copy_(x[a - r0:b - r0])
 
     for layer in model.layers:
-        if layer.kind == "ssd":
-            layer.mixer.init_constants(cfg.ssm_num_heads)
+        if layer.kind == "ssd":  # the rank's heads of A_log's whole ramp
+            heads = layer.mixer.A_log.shape[0]
+            m = 0 if plan is None else divmod(rank, plan.shape[1])[1]
+            layer.mixer.init_constants(cfg.ssm_num_heads, first=m * heads)
         elif layer.kind == "mamba":
             layer.mixer.init_constants()
     for name, p in model.named_parameters():

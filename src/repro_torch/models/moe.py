@@ -221,5 +221,5 @@ def moe_apply(p: MoE, x, cfg, ctx=ExecContext()):
         out = out.view(B, S, D).to(x.dtype)
     if p.shared is not None:
         y = apply_mlp(p.shared, collectives.copy_to_model(x, ctx), cfg)
-        out = out + collectives.reduce_from_model(y, ctx)
+        out = out + collectives.reduce_from_model(y, ctx).to(out.dtype)
     return out, aux

@@ -22,6 +22,16 @@ over 256 steps; a product that underflows here is a true decay to 0.
 
 Decode (``mamba2_decode``, ``mamba1_decode``) is the single-step
 recurrence against the carried (conv_state, ssm_state).
+
+On a model axis of M > 1 (``ctx.model_parallel``; the placement is
+``sharding.placement``'s) a rank runs its 1/M of the heads (Mamba2) or
+inner channels (Mamba1), the sizes read from its parameters. Mamba2's
+``in_proj`` yields the rank's z, x and dt and B and C whole, so the scan
+needs no collective; its gated RMSNorm normalises over all of d_inner, so
+the ranks' sums of squares are all-reduced before the scale. Mamba1's
+``x_proj`` takes the rank's channels and gives a partial sum of dt_rank +
+2N columns, all-reduced in fp32 before the dt / B / C norms, which act on
+the whole. ``out_proj`` is row-parallel: the caller sums its outputs.
 """
 from __future__ import annotations
 
@@ -31,7 +41,8 @@ from torch import nn
 
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan, ssd_scan_plain
 from repro_torch.models.attention import TRAIN_IMPL
-from repro_torch.models.layers import rms_norm_head
+from repro_torch.models.layers import rms_norm_head, row_linear
+from repro_torch.sharding import collectives
 
 
 def _causal_conv(x, w, b):
@@ -52,9 +63,24 @@ def _conv_step(state, x_new, w, b):
     return y, full[:, 1:, :]
 
 
-def _gated_rmsnorm(y, z, scale, eps=1e-6):
-    """Mamba2 norm: rmsnorm(y * silu(z))."""
-    return rms_norm_head(y * F.silu(z), scale, eps)
+def _gated_rmsnorm(y, z, scale, cfg, ctx=None, eps=1e-6):
+    """Mamba2 norm: rmsnorm(y * silu(z)) over all of d_inner; a model
+    rank holds its channels of y, z and ``scale``, and the sum of squares
+    is all-reduced over the model axis."""
+    g = y * F.silu(z)
+    if ctx is None or ctx.model_parallel == 1:
+        return rms_norm_head(g, scale, eps)
+    gf = g.float()
+    ss = collectives.reduce_from_model(gf.square().sum(dim=-1, keepdim=True), ctx)
+    return (gf * torch.rsqrt(ss / cfg.d_inner + eps) * scale).to(g.dtype)
+
+
+def _row_parallel(lin: nn.Linear, x, ctx):
+    """``lin(x)`` for a weight whose input dim a model rank holds 1/M of:
+    the ranks' fp32 partial sums (``row_linear``) all-reduced, in x's dtype."""
+    if ctx is None or ctx.model_parallel == 1:
+        return lin(x)
+    return collectives.reduce_from_model(row_linear(lin, x), ctx).to(x.dtype)
 
 
 class Mamba2(nn.Module):
@@ -79,31 +105,37 @@ class Mamba2(nn.Module):
         self.out_proj = nn.Linear(di, cfg.d_model, bias=False, device=device, dtype=dtype)
 
     @torch.no_grad()
-    def init_constants(self, H: int) -> None:
-        """The JAX init's deterministic leaves: zero conv bias, A = -(1..16),
-        D = 1, dt_bias = softplus^-1(0.01), unit norm scale."""
+    def init_constants(self, H: int, first: int = 0) -> None:
+        """The JAX init's deterministic leaves: zero conv bias, A = -(1..16)
+        over the H heads, D = 1, dt_bias = softplus^-1(0.01), unit norm
+        scale. A model rank's shard holds heads [first, first + its heads)."""
         self.conv_b.zero_()
-        self.A_log.copy_(torch.log(torch.linspace(1.0, 16.0, H)))
+        n = self.A_log.shape[0]
+        self.A_log.copy_(torch.log(torch.linspace(1.0, 16.0, H))[first:first + n])
         self.D.fill_(1.0)
         self.dt_bias.fill_(float(torch.log(torch.expm1(torch.tensor(0.01)))))
         self.norm.fill_(1.0)
 
 
-def _split(zxbcdt, cfg):
-    di, N = cfg.d_inner, cfg.ssm_d_state
-    return torch.split(zxbcdt, [di, di + 2 * N, cfg.ssm_num_heads], dim=-1)
+def _split(zxbcdt, p: Mamba2, cfg):
+    """[z | x B C | dt] of ``in_proj``'s output, at the widths ``p``
+    holds (a model rank's di/M and H/M, or the whole)."""
+    di, H = p.norm.shape[0], p.A_log.shape[0]
+    return torch.split(zxbcdt, [di, di + 2 * cfg.ssm_d_state, H], dim=-1)
 
 
-def mamba2_forward(p: Mamba2, xin, cfg, mask=None, impl=None):
+def mamba2_forward(p: Mamba2, xin, cfg, mask=None, impl=None, ctx=None):
     """xin (B,S,D) -> (y (B,S,D), (conv_state, ssm_state)).
 
     ``mask`` (B,S) bool, True at valid positions, makes LEFT-padded
     (bucketed) prompts pad-safe: the conv input is zeroed at masked
     positions and ``dt`` is zeroed, so pad steps neither write into nor
-    decay the state (``dA = dt * A = 0``, ``exp(0) = 1``)."""
+    decay the state (``dA = dt * A = 0``, ``exp(0) = 1``). ``ctx`` at a
+    model axis of M > 1: ``p`` holds a rank's heads (module docstring) and
+    y is its partial sum of ``out_proj``."""
     B, S, _ = xin.shape
-    di, N, H, P = cfg.d_inner, cfg.ssm_d_state, cfg.ssm_num_heads, cfg.ssm_head_dim
-    z, xBC, dt_raw = _split(p.in_proj(xin), cfg)
+    di, N, H, P = p.norm.shape[0], cfg.ssm_d_state, p.A_log.shape[0], cfg.ssm_head_dim
+    z, xBC, dt_raw = _split(p.in_proj(xin), p, cfg)
     if mask is not None:
         xBC = xBC * mask.to(xBC.dtype)[..., None]
     xBC_conv = F.silu(_causal_conv(xBC, p.conv_w.float(), p.conv_b).to(xin.dtype))
@@ -118,18 +150,19 @@ def mamba2_forward(p: Mamba2, xin, cfg, mask=None, impl=None):
                      Cm.contiguous(), chunk=cfg.ssm_chunk)
     y = y + p.D[None, None, :, None] * xh.float()
     y = y.reshape(B, S, di).to(xin.dtype)
-    y = _gated_rmsnorm(y, z, p.norm)
+    y = _gated_rmsnorm(y, z, p.norm, cfg, ctx)
     W1 = cfg.ssm_d_conv - 1
     conv_state = xBC[:, -W1:, :] if S >= W1 else F.pad(xBC, (0, 0, W1 - S, 0))
-    return p.out_proj(y), (conv_state.to(xin.dtype), h_last)
+    return row_linear(p.out_proj, y), (conv_state.to(xin.dtype), h_last)
 
 
-def mamba2_decode(p: Mamba2, xin, cfg, conv_state, ssm_state):
-    """xin (B,1,D); conv_state (B,W-1,conv_dim); ssm_state (B,H,P,N).
-    Returns (y (B,1,D), (new conv_state, new ssm_state))."""
+def mamba2_decode(p: Mamba2, xin, cfg, conv_state, ssm_state, ctx=None):
+    """xin (B,1,D); conv_state (B,W-1,conv_dim); ssm_state (B,H,P,N), a
+    model rank's conv channels and heads at M > 1. Returns (y (B,1,D),
+    (new conv_state, new ssm_state))."""
     B = xin.shape[0]
-    di, N, H, P = cfg.d_inner, cfg.ssm_d_state, cfg.ssm_num_heads, cfg.ssm_head_dim
-    z, xBC, dt_raw = _split(p.in_proj(xin)[:, 0], cfg)
+    di, N, H, P = p.norm.shape[0], cfg.ssm_d_state, p.A_log.shape[0], cfg.ssm_head_dim
+    z, xBC, dt_raw = _split(p.in_proj(xin)[:, 0], p, cfg)
     y_conv, conv_state = _conv_step(conv_state.float(), xBC.float(), p.conv_w.float(), p.conv_b)
     xs, Bm, Cm = torch.split(F.silu(y_conv), [di, N, N], dim=-1)
     dt = F.softplus(dt_raw.float() + p.dt_bias)  # (B,H)
@@ -139,8 +172,8 @@ def mamba2_decode(p: Mamba2, xin, cfg, conv_state, ssm_state):
     ssm_state = ssm_state * dA[:, :, None, None] + torch.einsum("bh,bn,bhp->bhpn", dt, Bm, xh)
     y = torch.einsum("bn,bhpn->bhp", Cm, ssm_state) + p.D[None, :, None] * xh
     y = y.reshape(B, di).to(xin.dtype)
-    y = _gated_rmsnorm(y, z.to(xin.dtype), p.norm)
-    return p.out_proj(y)[:, None, :], (conv_state.to(xin.dtype), ssm_state)
+    y = _gated_rmsnorm(y, z.to(xin.dtype), p.norm, cfg, ctx)
+    return row_linear(p.out_proj, y)[:, None, :], (conv_state.to(xin.dtype), ssm_state)
 
 
 # ===========================================================================
@@ -225,17 +258,18 @@ def selective_scan(u, dt, Bm, Cm, A, chunk):
     return torch.cat(ys, dim=1), h
 
 
-def mamba1_forward(p: Mamba1, xin, cfg, mask=None):
+def mamba1_forward(p: Mamba1, xin, cfg, mask=None, ctx=None):
     """xin (B,S,D) -> (y (B,S,D), (conv_state, ssm_state)). ``mask`` (B,S)
     bool, True at valid positions: the pad-safe scan of LEFT-padded prompts,
-    as in ``mamba2_forward`` (zeroed conv input and ``dt``)."""
+    as in ``mamba2_forward`` (zeroed conv input and ``dt``). ``ctx`` at a
+    model axis of M > 1: ``p`` holds a rank's channels (module docstring)."""
     B, S, _ = xin.shape
     N, rank = cfg.ssm_d_state, dt_rank(cfg)
     x, z = p.in_proj(xin).chunk(2, dim=-1)
     if mask is not None:
         x = x * mask.to(x.dtype)[..., None]
     x_conv = F.silu(_causal_conv(x, p.conv_w.float(), p.conv_b).to(xin.dtype))
-    dt_r, Bm, Cm = torch.split(p.x_proj(x_conv), [rank, N, N], dim=-1)
+    dt_r, Bm, Cm = torch.split(_row_parallel(p.x_proj, x_conv, ctx), [rank, N, N], dim=-1)
     dt_r = rms_norm_head(dt_r, p.dt_norm)
     Bm = rms_norm_head(Bm, p.b_norm)
     Cm = rms_norm_head(Cm, p.c_norm)
@@ -247,17 +281,18 @@ def mamba1_forward(p: Mamba1, xin, cfg, mask=None):
     y = y.to(xin.dtype) * F.silu(z)
     W1 = cfg.ssm_d_conv - 1
     conv_state = x[:, -W1:, :] if S >= W1 else F.pad(x, (0, 0, W1 - S, 0))
-    return p.out_proj(y), (conv_state.to(xin.dtype), h_last)
+    return row_linear(p.out_proj, y), (conv_state.to(xin.dtype), h_last)
 
 
-def mamba1_decode(p: Mamba1, xin, cfg, conv_state, ssm_state):
-    """xin (B,1,D); conv_state (B,W-1,d_inner); ssm_state (B,d_inner,N).
-    Returns (y (B,1,D), (new conv_state, new ssm_state))."""
+def mamba1_decode(p: Mamba1, xin, cfg, conv_state, ssm_state, ctx=None):
+    """xin (B,1,D); conv_state (B,W-1,d_inner); ssm_state (B,d_inner,N),
+    a model rank's channels at M > 1. Returns (y (B,1,D), (new conv_state,
+    new ssm_state))."""
     N, rank = cfg.ssm_d_state, dt_rank(cfg)
     x, z = p.in_proj(xin)[:, 0].chunk(2, dim=-1)
     y_conv, conv_state = _conv_step(conv_state.float(), x.float(), p.conv_w.float(), p.conv_b)
     x_conv = F.silu(y_conv).to(xin.dtype)
-    dt_r, Bm, Cm = torch.split(p.x_proj(x_conv), [rank, N, N], dim=-1)
+    dt_r, Bm, Cm = torch.split(_row_parallel(p.x_proj, x_conv, ctx), [rank, N, N], dim=-1)
     dt_r = rms_norm_head(dt_r, p.dt_norm)
     Bm = rms_norm_head(Bm, p.b_norm).float()
     Cm = rms_norm_head(Cm, p.c_norm).float()
@@ -266,4 +301,4 @@ def mamba1_decode(p: Mamba1, xin, cfg, conv_state, ssm_state):
     ssm_state = ssm_state * dA + (dt * x_conv.float())[..., None] * Bm[:, None, :]
     y = torch.einsum("bdn,bn->bd", ssm_state, Cm) + p.D * x_conv.float()
     y = y.to(xin.dtype) * F.silu(z)
-    return p.out_proj(y)[:, None, :], (conv_state.to(xin.dtype), ssm_state)
+    return row_linear(p.out_proj, y)[:, None, :], (conv_state.to(xin.dtype), ssm_state)

@@ -52,15 +52,20 @@ Mamba1 (``mamba``) mixers, dense (SwiGLU/GeGLU, or the layernorm models'
 GELU FFN) or MoE MLPs with a dense prefix of ``first_dense_layers``,
 gemma2's post-block norms, and the decoder's cross-attention.
 
-On a model axis of M > 1 (``ctx.model_parallel``; GQA stacks with dense or
-MoE MLPs, ``sharding.placement``) each rank holds its 1/M of the heads,
-``d_ff`` and experts, and its K/V cache holds its Hkv/M kv heads: the
-normed input of the attention and of the dense MLP enters through
-``collectives.copy_to_model`` and their row-parallel outputs are summed
-over the ranks (``reduce_from_model``) here, before any post-block norm;
-the MoE layer does its own. In train mode these are Megatron's pair, so
-the gradients are those of the unsharded layer. With FSDP on a data axis
-of D > 1 every layer gathers its cut weights for its own span
+On a model axis of M > 1 (``ctx.model_parallel``; ``sharding.placement``)
+each rank holds its 1/M of the heads, ``d_ff`` and experts, its K/V and
+cross caches hold its Hkv/M kv heads, MLA's latent cache is whole on every
+rank, and an SSM mixer holds its 1/M of the heads or inner channels with
+its state (``models.ssm``): the normed input of the mixer (attention, MLA,
+Mamba2 or Mamba1), of the decoder's cross-attention and of the dense MLP
+enters through ``collectives.copy_to_model`` and their row-parallel
+outputs (fp32 partial sums when serving, ``layers.row_linear``) are
+summed over the ranks (``reduce_from_model``) and cast to the activation
+dtype here, before any post-block norm; the MoE layer does its own. The
+encoder's layers run the same way. In train mode these are Megatron's
+pair, so the gradients are those of the unsharded layer (train mode takes
+GQA stacks only at M > 1). With FSDP on a data axis of D > 1 every layer
+gathers its cut weights for its own span
 (``collectives.gathered``), inside the remat step, so that the backward's
 recompute gathers them again instead of keeping them.
 """
@@ -206,28 +211,29 @@ def layer_caches(layers, cache):
     return out
 
 
-def _apply_ssm(lp: Block, h, cfg, impl, mode, cache, ssm_mask):
+def _apply_ssm(lp: Block, h, cfg, ctx, impl, mode, cache, ssm_mask):
     if mode == "decode":
         if h.shape[1] != 1:
             raise ValueError(f"SSM decode is single-token; got {h.shape[1]} positions "
                              f"for layer kind {lp.kind!r}")
         step = ssm.mamba2_decode if lp.kind == "ssd" else ssm.mamba1_decode
-        mix, (conv_s, ssm_s) = step(lp.mixer, h, cfg, cache["conv"], cache["ssm"])
+        mix, (conv_s, ssm_s) = step(lp.mixer, h, cfg, cache["conv"], cache["ssm"], ctx=ctx)
     elif lp.kind == "ssd":
-        mix, (conv_s, ssm_s) = ssm.mamba2_forward(lp.mixer, h, cfg, mask=ssm_mask, impl=impl)
+        mix, (conv_s, ssm_s) = ssm.mamba2_forward(lp.mixer, h, cfg, mask=ssm_mask, impl=impl,
+                                                  ctx=ctx)
     else:
-        mix, (conv_s, ssm_s) = ssm.mamba1_forward(lp.mixer, h, cfg, mask=ssm_mask)
+        mix, (conv_s, ssm_s) = ssm.mamba1_forward(lp.mixer, h, cfg, mask=ssm_mask, ctx=ctx)
     if cache is not None:
         cache["conv"].copy_(conv_s)
         cache["ssm"].copy_(ssm_s)
     return mix
 
 
-def _apply_mixer(lp: Block, h, cfg, impl, mode, cache, pos, ssm_mask):
+def _apply_mixer(lp: Block, h, cfg, ctx, impl, mode, cache, pos, ssm_mask):
     """The layer's mixer; ``cache`` holds this layer's (batch, ...) views,
     written in place (None in train and encode mode)."""
     if lp.kind in SSM_KINDS:
-        return _apply_ssm(lp, h, cfg, impl, mode, cache, ssm_mask)
+        return _apply_ssm(lp, h, cfg, ctx, impl, mode, cache, ssm_mask)
     if ssm_mask is not None:
         raise ValueError("pad_mask/ssm_mask is only supported for pure-SSM stacks; "
                          f"layer kind {lp.kind!r} attends over absolute positions")
@@ -254,22 +260,26 @@ def _apply_mixer(lp: Block, h, cfg, impl, mode, cache, pos, ssm_mask):
     return mix
 
 
-def _apply_cross(lp: Block, x, cfg, impl, mode, cache, enc_out, enc_len):
+def _apply_cross(lp: Block, x, cfg, ctx, impl, mode, cache, enc_out, enc_len):
     """The decoder's cross-attention. Prefill computes the encoder's K/V and
     writes them into the cross cache at [0, T_frames) (the region may be
     preallocated wider, at a slot pool's ``max_enc_len``); decode reads the
     cache, each row masked to its ``enc_len`` (None: all of it); train mode
-    attends to the encoder's K/V and keeps no cache."""
-    hc = apply_norm(lp.cross_norm, x)
+    attends to the encoder's K/V and keeps no cache. At M > 1 the rank's
+    heads: its input through ``copy_to_model`` (the encoder output too,
+    whose K/V it projects), its wo output summed over the ranks."""
+    hc = collectives.copy_to_model(apply_norm(lp.cross_norm, x), ctx)
     if mode == "decode":
-        return att.gqa_cross(lp.cross, hc, cfg, cache["xk"], cache["xv"], enc_len=enc_len,
-                             impl=impl)
-    ek, ev = att.cross_kv(lp.cross, enc_out, cfg)
+        out = att.gqa_cross(lp.cross, hc, cfg, cache["xk"], cache["xv"], enc_len=enc_len,
+                            impl=impl)
+        return collectives.reduce_from_model(out, ctx).to(x.dtype)
+    ek, ev = att.cross_kv(lp.cross, collectives.copy_to_model(enc_out, ctx), cfg)
     if cache is not None:
         T = ek.shape[1]
         cache["xk"][:, :T] = ek.to(cache["xk"].dtype)
         cache["xv"][:, :T] = ev.to(cache["xv"].dtype)
-    return att.gqa_cross(lp.cross, hc, cfg, ek, ev, impl=impl)
+    return collectives.reduce_from_model(att.gqa_cross(lp.cross, hc, cfg, ek, ev, impl=impl),
+                                         ctx).to(x.dtype)
 
 
 def apply_layer(lp: Block, x, cfg, ctx, mode, cache, pos, ssm_mask=None, enc_out=None,
@@ -281,13 +291,13 @@ def apply_layer(lp: Block, x, cfg, ctx, mode, cache, pos, ssm_mask=None, enc_out
     tensor, or 0.0 without an MoE)."""
     impl = att.TRAIN_IMPL if mode == "train" or train_route else ctx.attn_impl
     h = collectives.copy_to_model(apply_norm(lp.pre_norm, x), ctx)
-    mix = _apply_mixer(lp, h, cfg, impl, mode, cache, pos, ssm_mask)
-    mix = collectives.reduce_from_model(mix, ctx)  # the ranks' wo outputs
+    mix = _apply_mixer(lp, h, cfg, ctx, impl, mode, cache, pos, ssm_mask)
+    mix = collectives.reduce_from_model(mix, ctx).to(x.dtype)  # the ranks' wo outputs
     if cfg.post_block_norm:
         mix = apply_norm(lp.post_norm, mix)
     x = x + mix
     if lp.cross is not None:
-        x = x + _apply_cross(lp, x, cfg, impl, mode, cache, enc_out, enc_len)
+        x = x + _apply_cross(lp, x, cfg, ctx, impl, mode, cache, enc_out, enc_len)
     aux = 0.0
     if lp.mlp_kind == "none":
         return x, aux
@@ -296,7 +306,7 @@ def apply_layer(lp: Block, x, cfg, ctx, mode, cache, pos, ssm_mask=None, enc_out
         y, aux = moe.moe_apply(lp.mlp, h, cfg, ctx)
     else:
         y = apply_mlp(lp.mlp, collectives.copy_to_model(h, ctx), cfg)
-        y = collectives.reduce_from_model(y, ctx)  # the ranks' w_down outputs
+        y = collectives.reduce_from_model(y, ctx).to(x.dtype)  # the ranks' w_down outputs
     if cfg.post_block_norm:
         y = apply_norm(lp.mlp_post_norm, y)
     return x + y, aux

@@ -23,10 +23,13 @@ rank, so beyond the table's own divisibility it refuses, with a
 ``NotImplementedError`` that names the leaf, M or D, and ROADMAP.md:
 
 * at M > 1, a leaf the table left whole on the model axis (heads, kv
-  heads, d_ff, vocab or experts not divisible by M), attention heads or
-  kv heads not divisible by M, and a KV cache that the table would shard
-  on its sequence instead of its heads (``plan_cache``);
-* at M > 1, MLA, SSM, encoder-decoder and hybrid stacks, in every mode;
+  heads, d_ff, vocab or experts not divisible by M), attention heads, kv
+  heads or SSM heads (Mamba1: inner channels) not divisible by M, and a KV
+  or state cache that the table would shard on its sequence or leave
+  whole instead of cutting its heads or channels (``plan_cache``);
+* at M > 1 in train mode, MLA, SSM, encoder-decoder and hybrid stacks
+  (``check_mesh``, which ``models.model.check_train_mesh`` calls): their
+  serving is ported, their sharded training is not;
 * at D > 1, a cache whose batch (the slot pool) does not divide D, which
   the table would shard on its sequence over the data axis (``plan_cache``).
 
@@ -35,11 +38,33 @@ qkv bias, which the table replicates, is cut to the rank's heads with its
 projection (the rank's projection yields only those heads). The qk-norm
 scales stay whole on every rank but act on the rank's heads only, so their
 gradient is a partial sum over the model axis (``partial``).
+
+Where the explicit-SPMD layers need another placement than the table's
+contiguous 1/M cut, the port departs from it; the sharding report keeps
+the table's decisions and counts all the same:
+
+* segmented leaves (``ParamPlan.segments``): Mamba2's ``in_proj`` is
+  ``[z | x | B | C | dt]`` on its output dim and its ``conv_w`` / ``conv_b``
+  ``[x | B | C]``; a rank holds its 1/M of each of z, x and dt (its heads)
+  and B and C whole (one group). Mamba1's ``in_proj`` ``[x | z]``: its 1/M
+  of each. The Mamba2 ``conv`` cache holds the rank's x channels and B and
+  C whole, di/M + 2N wide (``local_cache_shape``);
+* per-channel leaves the table replicates are cut to the rank's heads or
+  channels: Mamba2's ``A_log``, ``D``, ``dt_bias`` and gated-norm scale
+  ``norm``, Mamba1's ``conv_b``, ``dt_proj_b``, ``A_log`` and ``D``;
+* Mamba1's ``x_proj`` (di, dt_rank + 2N), whose columns the table puts on
+  the model axis, is cut by its rows: its input is the rank's channels, so
+  it runs row-parallel and its partial sums are all-reduced before the
+  dt / B / C norms, which act on the whole;
+* MLA's ``latent`` cache, whose rank dim the table's ``c_kv`` rule puts on
+  the model axis, stays whole on every model rank: the absorbed decode
+  scores each of the rank's heads against all 576 columns, and every rank
+  writes the same rows from the replicated ``w_dkv`` and ``kv_norm``.
 """
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -55,9 +80,26 @@ from repro_torch.sharding.context import axis_sizes
 
 ROADMAP = "see ROADMAP.md"
 # the leaves the explicit-SPMD layers cut on the model axis
-_CUT_LEAVES = {"embedding", "lm_head", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
+_CUT_LEAVES = {"embedding", "lm_head", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "wi",
+               "w_ukv", "in_proj", "x_proj", "dt_proj", "conv_w", "out_proj"}
 _BIASES = {"bq": "num_heads", "bk": "num_kv_heads", "bv": "num_kv_heads"}
-_HEADS = {"wq": "num_heads", "wo": "num_heads", "wk": "num_kv_heads", "wv": "num_kv_heads"}
+_HEADS = {"wq": "num_heads", "wo": "num_heads", "wk": "num_kv_heads", "wv": "num_kv_heads",
+          "w_ukv": "num_heads"}
+# the port's model dim of each SSM mixer leaf at M > 1, by mixer kind: its
+# segments (length, cut) along that dim, or None for a contiguous 1/M cut
+# (module docstring); leaves not named stay whole on every model rank
+_SSM_CUTS = {
+    "ssd": lambda di, N, H: {
+        "in_proj": (0, ((di, True), (di, True), (N, False), (N, False), (H, True))),
+        "conv_w": (0, ((di, True), (N, False), (N, False))),
+        "conv_b": (0, ((di, True), (N, False), (N, False))),
+        "A_log": (0, None), "D": (0, None), "dt_bias": (0, None), "norm": (0, None),
+        "out_proj": (1, None)},
+    "mamba": lambda di, N, H: {
+        "in_proj": (0, ((di, True), (di, True))), "conv_w": (0, None), "conv_b": (0, None),
+        "x_proj": (1, None), "dt_proj": (0, None), "dt_proj_b": (0, None), "A_log": (0, None),
+        "D": (0, None), "out_proj": (1, None)},
+}
 # whole leaves applied to the rank's heads only (their gradient sums over the model axis)
 _HEAD_SHARED = ("q_norm", "k_norm")
 
@@ -161,32 +203,13 @@ def _data_dim(spec, batch_axes) -> Optional[int]:
     return None
 
 
-def _refuse(path: str, what: str, M: int):
+def _refuse(path: str, what: str, M: int, mode: str = "serving or training"):
     raise NotImplementedError(f"{path}: {what} at a model axis of {M} is not ported "
-                              f"to repro_torch's sharded serving or training ({ROADMAP})")
+                              f"to repro_torch's sharded {mode} ({ROADMAP})")
 
 
 def _axes(ctx):
     return ctx.model_axis or "model", tuple(ctx.batch_axes) or ("data",)
-
-
-def check_serving_mesh(cfg, ctx, paths: List[str]) -> None:
-    """The refusals that hold whatever the leaf shapes (module docstring),
-    in every mode."""
-    model_axis, _ = _axes(ctx)
-    M = axis_sizes(ctx.mesh)[model_axis]
-    if M == 1:
-        return
-    kinds = set(cfg.layer_kinds())
-
-    def first(part):
-        return next(p for p in paths if part in p)
-    if cfg.is_encoder_decoder:
-        _refuse(first("encoder/"), "an encoder-decoder stack", M)
-    if cfg.use_mla:
-        _refuse(first("attn/w_dkv"), "MLA attention", M)
-    if kinds - set(ATTN_KINDS) or cfg.family == "hybrid":
-        _refuse(first("mixer/"), f"a stack with SSM layers ({cfg.family})", M)
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,9 +218,22 @@ def _paths(cfg) -> List[str]:
 
 
 def check_mesh(cfg, ctx) -> None:
-    """``check_serving_mesh`` on ``cfg``'s leaves (train mode's check)."""
-    if ctx.model_parallel > 1:
-        check_serving_mesh(cfg, ctx, _paths(cfg))
+    """Train mode's refusals at a model axis of M > 1 (module docstring):
+    MLA, SSM, encoder-decoder and hybrid stacks, each naming a leaf of the
+    family, M and ROADMAP.md. Their serving at M > 1 is ported."""
+    M = ctx.model_parallel
+    if M == 1:
+        return
+    paths = _paths(cfg)
+
+    def first(part):
+        return next(p for p in paths if part in p)
+    if cfg.is_encoder_decoder:
+        _refuse(first("encoder/"), "an encoder-decoder stack", M, "training")
+    if cfg.use_mla:
+        _refuse(first("attn/w_dkv"), "MLA attention", M, "training")
+    if set(cfg.layer_kinds()) - set(ATTN_KINDS) or cfg.family == "hybrid":
+        _refuse(first("mixer/"), f"a stack with SSM layers ({cfg.family})", M, "training")
 
 
 @dataclass(frozen=True)
@@ -209,6 +245,9 @@ class ParamPlan:
     # port names of whole leaves whose gradient is a partial sum over the model axis
     partial: frozenset
     shape: Tuple[int, int]  # (D, M)
+    # port name -> the segments (length, cut) of its model dim, for the leaves
+    # that hold 1/M of some segments and the others whole (module docstring)
+    segments: Dict[str, tuple] = field(default_factory=dict)
 
     def replicas(self, name: str) -> int:
         """How many ranks of the mesh hold the same piece of ``name``."""
@@ -236,14 +275,15 @@ def plan_params(cfg, ctx, report: Optional[ps.ShardingReport] = None) -> ParamPl
         report.replicated += own.replicated
         report.events.extend(own.events)
     M = axis_sizes(ctx.mesh)[model_axis]
-    check_serving_mesh(cfg, ctx, list(shapes))
     if M > 1:
         for path, dim, size, axis in own.events:
-            if model_axis in axis.split("+"):
+            # x_proj is cut by its rows, whatever the table does with its columns
+            if model_axis in axis.split("+") and not path.endswith("/x_proj"):
                 _refuse(path, f"dim {dim} of {size}, not divisible by the model axis,", M)
     sizes = axis_sizes(ctx.mesh)
     D = int(np.prod([sizes[a] for a in batch_axes]))
-    dims, data_dims, partial = {}, {}, set()
+    dims, data_dims, partial, segments = {}, {}, set(), {}
+    kinds = cfg.layer_kinds()
     for lf in layout:
         spec = specs[lf.path]
         core = spec[1:] if lf.repeat is not None else spec
@@ -258,7 +298,7 @@ def plan_params(cfg, ctx, report: Optional[ps.ShardingReport] = None) -> ParamPl
         if d is not None and M > 1:
             if leaf not in _CUT_LEAVES:
                 _refuse(lf.path, "a leaf the sharded layers do not cut", M)
-            heads = _HEADS.get(leaf) if "/attn/" in lf.path else None
+            heads = _HEADS.get(leaf) if ("/attn/" in lf.path or "/cross/" in lf.path) else None
             if heads and getattr(cfg, heads) % M:
                 _refuse(lf.path, f"{getattr(cfg, heads)} {heads.split('_', 1)[1]} "
                                  "(whole heads per rank)", M)
@@ -266,8 +306,18 @@ def plan_params(cfg, ctx, report: Optional[ps.ShardingReport] = None) -> ParamPl
             d = len(core) - 1 - d
         if leaf in _BIASES and M > 1:
             d = 0  # the rank's heads of a replicated bias (module docstring)
+        if "/mixer/" in lf.path and M > 1:  # the SSM mixers' own cuts (module docstring)
+            kind = kinds[int(lf.name.split(".")[1])]
+            width = cfg.ssm_num_heads if kind == "ssd" else cfg.d_inner
+            if width % M:
+                _refuse(lf.path, f"{width} {'SSM heads' if kind == 'ssd' else 'inner channels'}"
+                                 " (whole heads per rank)", M)
+            d, segs = _SSM_CUTS[kind](cfg.d_inner, cfg.ssm_d_state, cfg.ssm_num_heads).get(
+                leaf, (None, None))
+            if segs is not None:
+                segments[lf.name] = segs
         dims[lf.name] = d
-    return ParamPlan(specs, dims, data_dims, frozenset(partial), (D, M))
+    return ParamPlan(specs, dims, data_dims, frozenset(partial), (D, M), segments)
 
 
 def cache_shapes(cfg, batch: int, max_len: int, enc_len: int = 0) -> Dict[str, Tuple[int, ...]]:
@@ -277,14 +327,30 @@ def cache_shapes(cfg, batch: int, max_len: int, enc_len: int = 0) -> Dict[str, T
     return {n: tuple(t.shape) for n, t in cache.items()}
 
 
+def local_cache_shape(cfg, ctx, name: str, shape: Tuple[int, ...],
+                      spec: ps.Spec) -> Tuple[int, ...]:
+    """The shape of this rank's piece of cache leaf ``name`` (whole
+    ``shape``) placed by ``spec``: the table's local shape, but for a
+    Mamba2 stack's ``conv`` leaf on the model axis, which holds the rank's
+    di/M x channels and B and C whole (module docstring)."""
+    local = ps.local_shape(shape, spec, ctx.mesh)
+    model_axis, _ = _axes(ctx)
+    if name == "conv" and "ssd" in cfg.layer_kinds() and _model_dim(spec, model_axis) is not None:
+        M = axis_sizes(ctx.mesh)[model_axis]
+        local = local[:-1] + (cfg.d_inner // M + 2 * cfg.ssm_d_state,)
+    return local
+
+
 def init_placed_cache(cfg, ctx, specs: Dict[str, ps.Spec], batch: int, max_len: int, device,
                       enc_len: int = 0) -> Dict[str, torch.Tensor]:
     """A zeroed (batch, max_len) cache of which every leaf holds this
-    rank's piece under ``specs`` (``plan_cache``'s placement): the K/V
-    leaves this rank's kv heads at a model axis of M > 1."""
+    rank's piece under ``specs`` (``plan_cache``'s placement,
+    ``local_cache_shape``): at a model axis of M > 1 the K/V leaves this
+    rank's kv heads, the SSM state its heads or channels, the MLA latent
+    whole."""
     full = init_stack_cache(cfg, batch, max_len, dtype_of(cfg.dtype), "meta", enc_len=enc_len)
-    return {n: torch.zeros(ps.local_shape(tuple(t.shape), specs[n], ctx.mesh), dtype=t.dtype,
-                           device=device)
+    return {n: torch.zeros(local_cache_shape(cfg, ctx, n, tuple(t.shape), specs[n]),
+                           dtype=t.dtype, device=device)
             for n, t in full.items()}
 
 
@@ -299,10 +365,12 @@ def plan_cache(cfg, ctx, batch: int, max_len: int, enc_len: int = 0,
                report: Optional[ps.ShardingReport] = None,
                rows_split: bool = True) -> Dict[str, ps.Spec]:
     """The activation rules' placement of a (batch, max_len) cache; at
-    M > 1 every KV leaf must shard on its heads, at D > 1 on its batch (the
-    table's KV-sequence fallbacks are refused). ``rows_split=False``: a
-    cache whose rows every data rank holds whole (a prefill group's), placed
-    on the model axis only."""
+    M > 1 every KV leaf must shard on its heads and every SSM state leaf on
+    its heads or channels, and the MLA latent stays whole on the model axis
+    (module docstring); at D > 1 every leaf shards on its batch (the table's
+    KV-sequence fallbacks are refused). ``rows_split=False``: a cache whose
+    rows every data rank holds whole (a prefill group's), placed on the
+    model axis only."""
     model_axis, batch_axes = _axes(ctx)
     sizes = axis_sizes(ctx.mesh)
     mesh = ctx.mesh
@@ -321,8 +389,13 @@ def plan_cache(cfg, ctx, batch: int, max_len: int, enc_len: int = 0,
             f"repro_torch's sharded serving ({ROADMAP})")
     M = sizes[model_axis]
     if M > 1:
-        for name in ("k", "v"):
+        for name in ("k", "v", "xk", "xv"):
             if name in specs and specs[name][3] != model_axis:
                 _refuse(name, f"a KV cache of {cfg.num_kv_heads} kv heads, which the rule table "
                               "shards on its sequence (a flash-decode partial softmax),", M)
+        for name, dim in (("ssm", 2), ("conv", 3)):
+            if name in specs and specs[name][dim] != model_axis:
+                _refuse(name, "an SSM state cache the rule table leaves whole", M)
+        if "latent" in specs:  # whole on every model rank (module docstring)
+            specs["latent"] = specs["latent"][:3] + (None,)
     return specs

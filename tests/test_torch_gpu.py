@@ -373,6 +373,65 @@ def test_mla_decode_kernel_matches_plain_on_card(dtype, Smax, shared, T):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [8, 4])
+@pytest.mark.parametrize("T", [1, 5])
+def test_mla_kernels_at_a_ranks_heads_on_card(dtype, G, T):
+    """A model rank's heads of deepseek-v2-lite on one latent head (G = 8
+    at a model axis of 2, 4 at 4): 8 slots against a 1024-entry cache, the
+    decode step (T = 1, a slot parked at Smax) and the verify (T = 5, causal
+    at per-row offsets), through ``ops.flash_attention``, which sends them
+    to ``mla_attention`` and never flash or decode; then two latent heads
+    (Hkv 2) with a window and a softcap, and a verify row bit for bit equal
+    to the decode step at its position."""
+    from repro_torch.kernels import mla_attention as mmod
+    from repro_torch.kernels import ops
+    dev = _card()
+    B, Smax = 8, 1024
+    pos = torch.tensor([0, 1, 63, 64, 500, 1000, 1023, 1024], dtype=torch.int32, device=dev)
+    q = _randn(48, (B, T, G, 576), dtype, dev)
+    k = _randn(49, (B, Smax, 1, 576), dtype, dev)
+    kw = (dict(causal=False, q_offset=pos, kv_len=pos + 1) if T == 1 else
+          dict(causal=True, q_offset=torch.clamp(pos, max=Smax - 2)))
+    kw["scale"] = 192 ** -0.5
+    wrappers = (fmod.flash_attention, dmod.decode_attention, mmod.mla_attention)
+    before = [w.launches for w in wrappers]
+    out = ops.flash_attention(q, k, k[..., :512], **kw)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [0, 0, 1]
+    assert out.shape == (B, T, G, 512)
+    _close(out, mmod.mla_attention_plain(q, k, k[..., :512], **kw), dtype)
+    q2 = _randn(50, (B, T, 2 * G, 576), dtype, dev)
+    k2 = _randn(51, (B, Smax, 2, 576), dtype, dev)
+    v2 = _randn(52, (B, Smax, 2, 512), dtype, dev)
+    kw2 = dict(kw, window=300, softcap=30.0)
+    _close(mmod.mla_attention(q2, k2, v2, **kw2), mmod.mla_attention_plain(q2, k2, v2, **kw2),
+           dtype)
+    if T > 1:
+        offs = kw["q_offset"]
+        for t in range(T):
+            dec = mmod.mla_attention(q[:, t:t + 1].contiguous(), k, k[..., :512], causal=False,
+                                     q_offset=offs + t, kv_len=offs + t + 1, scale=kw["scale"])
+            live = (offs + t) < Smax
+            assert torch.equal(dec[live, 0], out[live, t])
+
+
+@pytest.mark.gpu
+def test_mla_kernels_refuse_other_groups_on_card():
+    """A G outside ``MLA_GROUPS`` at the latent widths raises before any
+    launch, in both routes; it never runs the plain version on the card."""
+    from repro_torch.kernels import mla_attention as mmod
+    dev = _card()
+    for dtype in ("float32", "bfloat16"):
+        for G in (2, 6, 32):
+            q = _randn(53, (2, 1, G, 576), dtype, dev)
+            k = _randn(54, (2, 64, 1, 576), dtype, dev)
+            before = mmod.mla_attention.launches
+            with pytest.raises(ValueError, match="MLA kernels take"):
+                mmod.mla_attention(q, k, k[..., :512], causal=False, kv_len=32)
+            assert mmod.mla_attention.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mla_rows_do_not_depend_on_T_on_card(dtype):
     """A verify row and a decode step at the same position run the same
     arithmetic: T = 5 causal rows at per-row offsets give, bit for bit, the

@@ -104,7 +104,9 @@ def test_ops_sends_every_mla_shape_to_mla_attention(Sq, monkeypatch):
         q2, k2 = q[..., :Dk].contiguous(), k[..., :Dk].contiguous()
         ops.flash_attention(q2, k2, k2[..., :Dv].contiguous(), **kw)
     assert calls == ["decode_attention" if Sq == 1 else "_flash"] * 2
-    assert mmod.is_mla_shape(q, k, v) and not mmod.is_mla_shape(q[:, :, :8], k, v)
+    # a model rank's 8 or 4 heads on the latent head are MLA shapes too; 6 is not
+    assert mmod.is_mla_shape(q, k, v) and not mmod.is_mla_shape(q[:, :, :6], k, v)
+    assert all(mmod.is_mla_shape(q[:, :, :g], k, v) for g in mmod.MLA_GROUPS)
 
 
 def test_mla_route_by_dtype():
@@ -122,11 +124,12 @@ def test_mla_route_by_dtype():
 
 
 def test_mla_checks_refuse_what_the_kernels_do_not_take():
-    """Checked before any launch: other group sizes and widths, mixed or
-    other dtypes, non-contiguous q, a value tensor that is neither
-    contiguous nor the latent rows' leading columns, mismatched batches."""
+    """Checked before any launch: group sizes outside ``MLA_GROUPS`` (6
+    here) and other widths, mixed or other dtypes, non-contiguous q, a
+    value tensor that is neither contiguous nor the latent rows' leading
+    columns, mismatched batches."""
     q, k, v = (torch.from_numpy(a) for a in _mla_inputs(2, 2, 3, 32, shared=False))
-    bad = [(q[:, :, :8].contiguous(), k, v, "take"),
+    bad = [(q[:, :, :6].contiguous(), k, v, "take"),
            (q[..., :512].contiguous(), k[..., :512].contiguous(), v, "take"),
            (q, k, v[..., :256].contiguous(), "take"),
            (q.half(), k.half(), v.half(), "no kernel"),

@@ -303,12 +303,15 @@ def test_fleet_mesh_of_one_equals_no_mesh():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "kimi-k2-1t-a32b", "gemma2-2b", "qwen2-7b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "kimi-k2-1t-a32b", "gemma2-2b", "qwen2-7b",
+                                  "deepseek-v2-lite-16b", "mamba2-2.7b", "seamless-m4t-medium",
+                                  "jamba-v0.1-52b"])
 def test_sharded_draw_is_a_slice_of_the_whole_draw(arch, monkeypatch):
     """``init_params(ctx=...)`` at a model axis of 2 draws each rank's
     shard without the whole model, and the shard is ``shard_params`` of the
     whole model's weights, leaf by leaf; also when the large leaves are
-    drawn in pieces (thresholds lowered so that the reduced leaves are)."""
+    drawn in pieces (thresholds lowered so that the reduced leaves are),
+    the SSM mixers' segmented leaves included (``placement``)."""
     cfg = configs.reduced(configs.get_config(arch))
     ctx = ExecContext(mesh=_FakeMesh(data=1, model=2), batch_axes=("data",), model_axis="model")
     for pieces in (False, True):
@@ -327,7 +330,8 @@ def test_sharded_draw_is_a_slice_of_the_whole_draw(arch, monkeypatch):
         # the cut leaves are halves: q heads, kv heads, d_ff or experts, vocab
         half = dict(want.named_parameters())
         assert half["embedding"].shape[0] == cfg.padded_vocab // 2
-        assert half["layers.0.attn.wk.weight"].shape[0] == cfg.kv_dim // 2
+        if "layers.0.attn.wk.weight" in half:
+            assert half["layers.0.attn.wk.weight"].shape[0] == cfg.kv_dim // 2
 
 
 def test_two_ranks_match_the_jax_unsharded_tokens():
@@ -356,22 +360,29 @@ def test_two_ranks_match_the_jax_unsharded_tokens():
 
 def test_refusals_name_the_leaf_and_the_roadmap():
     """No process group needed: reduced tinyllama (2 kv heads) on a model
-    axis of 4, reduced deepseek-v2-lite (MLA) and reduced mamba2 on 2 are
-    refused, each naming a leaf, M and ROADMAP.md; an expert count that
-    does not divide M too. A data axis of 2 is taken (data-parallel
-    serving and training), but a slot pool that it does not divide is
-    refused naming the leaf, D and ROADMAP.md."""
+    axis of 4 is refused, naming a leaf, M and ROADMAP.md; reduced
+    deepseek-v2-lite (MLA), mamba2 and seamless-m4t on 2 are placed for
+    serving, and train mode refuses them (``check_train_mesh``), each
+    naming a leaf, M and ROADMAP.md; an expert count that does not divide
+    M is refused too. A data axis of 2 is taken (data-parallel serving and
+    training), but a slot pool that it does not divide is refused naming
+    the leaf, D and ROADMAP.md."""
     def ctx(**shape):
         return ExecContext(mesh=_FakeMesh(**shape), batch_axes=("data",), model_axis="model")
-    cases = [("tinyllama-1.1b", dict(data=1, model=4), "stages/0/l0/attn/wk", "4"),
-             ("deepseek-v2-lite-16b", dict(data=1, model=2), "attn/w_dkv", "2"),
-             ("mamba2-2.7b", dict(data=1, model=2), "mixer/", "2"),
-             ("seamless-m4t-medium", dict(data=1, model=2), "encoder/", "2")]
-    for arch, shape, leaf, m in cases:
+    cases = [("tinyllama-1.1b", dict(data=1, model=4), "stages/0/l0/attn/wk", "4", False),
+             ("deepseek-v2-lite-16b", dict(data=1, model=2), "attn/w_dkv", "2", True),
+             ("mamba2-2.7b", dict(data=1, model=2), "mixer/", "2", True),
+             ("seamless-m4t-medium", dict(data=1, model=2), "encoder/", "2", True)]
+    for arch, shape, leaf, m, served in cases:
         cfg = configs.reduced(configs.get_config(arch))
         with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-            placement.plan_params(cfg, ctx(**shape))
+            if served:  # serving takes it at M > 1; training does not
+                assert placement.plan_params(cfg, ctx(**shape)).shape == (1, int(m))
+                tmodel.check_train_mesh(None, cfg, ctx(**shape))
+            else:
+                placement.plan_params(cfg, ctx(**shape))
         assert leaf in str(e.value) and f"model axis of {m}" in str(e.value), str(e.value)
+        assert ("sharded training" in str(e.value)) == served, str(e.value)
     kimi = dataclasses.replace(configs.reduced(configs.get_config("kimi-k2-1t-a32b")),
                                num_experts=6)
     with pytest.raises(NotImplementedError, match="stages/0/l0/mlp/w_down: dim 0 of 6"):
