@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases kimi,mesh1,shard2  # kimi-k2, a mesh of one, two ranks
     python3 chip_smoke.py --phases train    # training: tinyllama-1.1b, remat, pipeline, MoE
     python3 chip_smoke.py --phases kernels,mesh_families  # four families at a model axis of 2
+    python3 chip_smoke.py --phases mesh_wide  # three GQA models at a model axis of 8
 
 Phases:
   1. device     the card's name and count, its power limit from nvidia-smi,
@@ -43,7 +44,10 @@ Phases:
                 kernels at G = 8 and 4 (T = 1 and 5; their verify rows
                 bit for bit equal to decode steps), flash at deepseek's
                 8-head prefill, seamless's 8 heads and jamba's 16 on 4,
-                decode at those heads, the SSD scan on 40 heads
+                decode at those heads, the SSD scan on 40 heads; and one
+                rank's heads of the mesh_wide phase: flash at 4 on 1 (D 64,
+                128) and 1 on 1 (D 256, softcap, window), decode at G 4 and
+                1
   3. parity     each model at full width, cut to 2 layers, fp32 and bf16:
                 prefill (mamba2: a masked pow2 bucket) and 8 ragged decode
                 steps through the kernels and through the plain versions
@@ -54,7 +58,10 @@ Phases:
                 encoder lengths) and jamba-v0.1-52b cut to (mamba, mamba,
                 attn), its second Mamba1 layer carrying the MoE; and
                 kimi-k2-1t-a32b at full width, 1 layer, bf16 only (its
-                router's top-8 flips among 384 experts held to ROUTER_TIE)
+                router's top-8 flips among 384 experts held to ROUTER_TIE);
+                then full mamba2-2.7b's 64 layers, each layer's distance
+                from the exact-fp32 route through the bf16 kernels and
+                through the bf16 plain versions (``bf16_depth_attribution``)
   4. serve      the FIFO path: tinyllama-1.1b and gemma2-2b at their full
                 configs served concurrently by one continuous engine; every
                 attention kernel must have launched there
@@ -191,25 +198,35 @@ Phases:
  16. mesh_families  MLA (deepseek-v2-lite-16b), Mamba2 (mamba2-2.7b), the
                 encoder-decoder (seamless-m4t-medium) and the Mamba1 +
                 attention + MoE hybrid (jamba-v0.1-52b) on two ranks of the
-                one card (a model axis of 2, gloo): fp32 at full width cut
-                to 2 layers (jamba to its attention layer and a Mamba1 MoE
+                one card (a model axis of 2): fp32 at full width cut to 2
+                layers (jamba to its attention layer and a Mamba1 MoE
                 layer), ``generate`` and the continuous FIFO engine with
                 tokens equal to the unsharded run's; bf16 at full width
                 (jamba 8 of 32 layers), the FIFO engine on the serve's 8
-                requests, the ranks' tokens identical, agreement with the
-                unsharded run reported with top-2 gaps, prefill logits
-                within MODEL_TOL_BF16 (the unsharded experts replayed), or
-                twice the unsharded run's own kernel-vs-plain distance where
-                that is larger (mamba2's 64 layers); launches, collectives,
-                wall and peak memory per rank
- 17. times      CUDA-event device times of each kernel, its plain version
+                requests fed the unsharded run's tokens, its expert choices
+                replayed: every decision where a rank's own choice differs
+                sits at a near-tie of the unsharded run, no router flip past
+                ROUTER_TIE with each layer fed the unsharded run's input,
+                the prefill logits at most MESH_FP32_FACTOR times as far
+                from the exact-fp32 route (the same weights cast up) as the
+                unsharded run's; launches, collectives, wall and peak
+                memory per rank
+ 17. mesh_wide  tinyllama-1.1b, gemma2-2b and qwen2-7b at full width and
+                depth on eight ranks of the one card (a model axis of 8
+                over their 4 kv heads: each kv head whole on 2 ranks,
+                qwen2's groups of 7 query heads padded with a zero head),
+                fp32 (2 layers) and bf16 judged as mesh_families; the ranks
+                holding a padded head check that it adds nothing
+ 18. times      CUDA-event device times of each kernel, its plain version
                 and one PyTorch library call (a yardstick only), beside the
                 bound; for the attention kernels and the library call also
                 the wall time per call back to back (host enqueue included);
                 flash also at the verify's shapes (T query rows per slot
                 against the cache), the MLA kernel at T = 1 and T = 5 at
                 16 heads and at a model rank's 8 and 4 (with the
-                mesh_families phase's launches); the SSD scan on 40 heads
+                mesh_families phase's launches); flash and decode at a
+                mesh_wide rank's heads (with that phase's launches); the SSD
+                scan on 40 heads
                 (a rank's) at B 8 S 512, and at the scheduled
                 serve's (B, S) (``SSD_SERVE``, and any other this run's
                 scheduled phase gave it); flash and decode at the
@@ -239,6 +256,10 @@ Phases:
                 phase's full tinyllama-1.1b: device busy time, idle
                 share, device time by kernel group and under the forward
                 and the AdamW update (the backward is the rest)
+  collectives   (only when asked for) an all-reduce among 2 and 8 ranks on the
+                card through gloo and through the card's memory
+                (``collectives.SameCard``), at a decode step's and a
+                prefill's fp32 partial sums: the wall per call
   mla_parts     (only when asked for) the MLA kernel's device time taken
                 apart: the timing floor, slots that keep one latent row or
                 one tile, rows over 2, 4 and 16 splits (the merge), the
@@ -259,6 +280,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -269,10 +291,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "kernels", "parity", "serve", "scheduled", "joint", "spec", "archs",
           "encdec_hybrid", "bucketed", "fleet", "kimi", "mesh1", "shard2", "train", "yolo",
-          "train_mesh", "serve_mesh", "mesh_families", "times")
+          "train_mesh", "serve_mesh", "mesh_families", "mesh_wide", "times")
 EXTRA = ("profile", "profile_scheduled", "profile_spec", "profile_archs",
          "profile_spec_deepseek", "mla_parts", "profile_encdec_hybrid", "profile_bucketed",
-         "profile_fleet", "profile_train")  # only when asked for
+         "profile_fleet", "profile_train", "parity_mamba2", "collectives")  # only when asked for
 SERVE = dict(names=("tinyllama-1.1b", "gemma2-2b"), requests=8, prompt_lens=(64, 128, 256, 512),
              max_new=16, max_slots=8, max_len=1024, seed=0, device="cuda", full=True,
              scheduler=False)
@@ -882,6 +904,11 @@ MLA_PREFILL_RANK = dict(H=8, Hkv=8, Dk=192, Dv=128)
 SEAMLESS_RANK = dict(H=8, Hkv=8, D=64)
 JAMBA_RANK = dict(H=16, Hkv=4, D=128)
 MAMBA_RANK_H = 40
+# one rank's attention at a model axis of 8 (the mesh_wide phase): each kv
+# head whole on 2 ranks, 4 query heads on it (qwen2: 3 of 7, or 4, real)
+WIDE_RANK = {"tinyllama-1.1b": dict(H=4, Hkv=1, D=64, softcap=None),
+             "gemma2-2b": dict(H=1, Hkv=1, D=256, softcap=50.0),
+             "qwen2-7b": dict(H=4, Hkv=1, D=128, softcap=None)}
 
 
 def mesh_rank_cases(torch, gen, fmod, dmod, mmod, smod, dtype):
@@ -892,8 +919,27 @@ def mesh_rank_cases(torch, gen, fmod, dmod, mmod, smod, dtype):
     naive-form prefill on 8 heads, seamless's encoder and cross prefill on
     8 heads (no causal mask) and jamba's 16 on 4 heads; decode at
     seamless's 8 heads with per-slot kv_len down to 0 and at jamba's 16 on
-    4; the SSD scan on 40 heads at dt ~0.02 and ~0.7."""
+    4; the SSD scan on 40 heads at dt ~0.02 and ~0.7; and a rank's heads of
+    the mesh_wide phase (``WIDE_RANK``): flash causal at B 2 S 256 (gemma2
+    1 on 1 at D 256 with its softcap, with and without a window of 64),
+    decode at 8 slots x 1024 (DECODE_POS clipped; gemma2 also with a window
+    of 256)."""
     Smax, B = 1024, len(DECODE_POS)
+    for arch, hd in WIDE_RANK.items():
+        gemma = hd["softcap"] is not None
+        for window in ((None, 64) if gemma else (None,)):
+            q, k, v = qkv(torch, gen, 2, 256, 256, hd["H"], hd["Hkv"], hd["D"], dtype)
+            kw = dict(causal=True, window=window, softcap=hd["softcap"])
+            yield ("flash_attention", f"{arch} rank {hd['H']} on 1 B=2 S=256 w={window}",
+                   fmod.flash_attention(q, k, v, **kw), fmod.flash_attention_plain(q, k, v, **kw))
+        pos = torch.tensor([min(p, Smax - 1) for p in DECODE_POS], dtype=torch.int32,
+                           device="cuda")
+        for window in ((None, 256) if gemma else (None,)):
+            q, _, _ = qkv(torch, gen, B, 1, 1, hd["H"], hd["Hkv"], hd["D"], dtype)
+            _, k, v = qkv(torch, gen, B, 1, Smax, hd["H"], hd["Hkv"], hd["D"], dtype)
+            kw = dict(q_offset=pos, kv_len=pos + 1, window=window, softcap=hd["softcap"])
+            yield ("decode_attention", f"{arch} rank G={hd['H']} Smax={Smax} w={window}",
+                   dmod.decode_attention(q, k, v, **kw), dmod.decode_attention_plain(q, k, v, **kw))
     for G in MLA_RANK_G:
         for T in (1, 5):
             q, k, v = mla_inputs(torch, gen, B, T, Smax, dtype, H=G)
@@ -1184,6 +1230,7 @@ def phase_times(torch, report):
     rows += encdec_hybrid_times(torch, gen, flush, sdpa)
     rows += kimi_times(torch, gen, flush, sdpa, report.get("launches_kimi", {}))
     rows += mesh_rank_times(torch, gen, flush, sdpa, report.get("mesh_families", {}))
+    rows += wide_rank_times(torch, gen, flush, sdpa, report.get("mesh_wide", {}))
     from repro_torch.kernels import ssd_scan as smod
     serve_shapes = [(B, S) for B, S, _ in SSD_SERVE] + sorted(report.get("ssd_calls", {}))
     for B, S in dict.fromkeys([(8, 512), (1, 512)] + serve_shapes):
@@ -1367,6 +1414,51 @@ def kimi_times(torch, gen, flush, sdpa, launches):
     return rows
 
 
+def wide_rank_times(torch, gen, flush, sdpa, wide):
+    """A model rank's attention at a model axis of 8 (``WIDE_RANK``), bf16:
+    flash causal at B 8 S 512 and decode at 8 slots x 2048 (DECODE_POS),
+    each beside SDPA (none with gemma2's softcap) and its bound, with the
+    launches per serve on rank 0 of the mesh_wide phase of the same run
+    (``wide``)."""
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    bf16, rows = torch.bfloat16, []
+    for arch, hd in WIDE_RANK.items():
+        arm = wide.get(f"{arch} bfloat16")
+        served = None if arm is None else arm["ranks"]["launches"]
+        B, S = 8, 512
+        q, k, v = qkv(torch, gen, B, S, S, hd["H"], hd["Hkv"], hd["D"], bf16)
+        kw = dict(causal=True, softcap=hd["softcap"])
+        lib = None if hd["softcap"] else time_ms(torch, lambda: sdpa(q, k, v, is_causal=True),
+                                                 flush)
+        b_ms, b_by = flash_bound(B, S, hd["H"], hd["Hkv"], hd["D"], None, "bfloat16", 2)
+        rows.append(dict(kernel="flash_attention", model=f"{arch} rank (M 8)", B=B, S=S,
+                         dtype="bfloat16", heads=f"{hd['H']} on 1",
+                         ms=time_ms(torch, lambda: fmod.flash_attention(q, k, v, **kw), flush),
+                         plain_ms=time_ms(torch, lambda: fmod.flash_attention_plain(q, k, v, **kw),
+                                          flush),
+                         library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                         launches_per_serve=None if served is None else served["flash_attention"]))
+        Smax = 2048
+        pos = torch.tensor(DECODE_POS, dtype=torch.int32, device="cuda")
+        q, _, _ = qkv(torch, gen, len(DECODE_POS), 1, 1, hd["H"], hd["Hkv"], hd["D"], bf16)
+        _, k, v = qkv(torch, gen, len(DECODE_POS), 1, Smax, hd["H"], hd["Hkv"], hd["D"], bf16)
+        kw = dict(q_offset=pos, kv_len=pos + 1, softcap=hd["softcap"])
+        mask = (torch.arange(Smax, device="cuda")[None, :] <= pos[:, None])[:, None, None]
+        lib = None if hd["softcap"] else time_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask),
+                                                 flush)
+        b_ms, b_by = decode_bound(list(DECODE_POS), Smax, hd["H"], hd["Hkv"], hd["D"], None,
+                                  "bfloat16", 2)
+        rows.append(dict(kernel="decode_attention", model=f"{arch} rank (M 8)",
+                         B=len(DECODE_POS), S=Smax, dtype="bfloat16", G=hd["H"],
+                         ms=time_ms(torch, lambda: dmod.decode_attention(q, k, v, **kw), flush),
+                         plain_ms=time_ms(torch, lambda: dmod.decode_attention_plain(q, k, v, **kw),
+                                          flush),
+                         library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                         launches_per_serve=None if served is None else served["decode_attention"]))
+    return rows
+
+
 def mesh_rank_times(torch, gen, flush, sdpa, families):
     """A model rank's kernel shapes at a model axis of 2 (4 for MLA's G =
     4), bf16: the MLA attention at G = 8 and 4 heads on the latent head, 8
@@ -1382,7 +1474,7 @@ def mesh_rank_times(torch, gen, flush, sdpa, families):
 
     def serve_launches(arch, kernel):
         row = families.get(f"{arch} bfloat16")
-        return None if row is None else row["ranks"][0]["launches"][kernel]
+        return None if row is None else row["ranks"]["launches"][kernel]
     for G in MLA_RANK_G:
         for T, offs in ((1, [min(p, Smax - 1) for p in DECODE_POS]), (5, list(VERIFY_POS))):
             B = len(offs)
@@ -1664,6 +1756,106 @@ def phase_parity_mamba2(torch, report):
             raise SmokeFailure(f"{arch} {dtype}: SSD kernel launches {launches}, expected "
                                f"{cfg.num_layers} on the kernel run and 0 on the plain run")
         report.setdefault("parity", {})[f"{arch} {dtype}"] = err
+    bf16_depth_attribution(torch, report)
+
+
+# A.2-style attribution of bf16 at depth: full-width mamba2-2.7b (64
+# layers), one (B, S) prefill through the bf16 kernels, the bf16 plain
+# versions and the exact-fp32 route on the same (bf16-valued) weights
+DEPTH = dict(arch="mamba2-2.7b", B=2, S=256, seed=0)
+
+
+@contextlib.contextmanager
+def layer_tap(feed=None):
+    """Taps ``transformer.apply_layer`` while the block runs: yields the
+    list of (input, output) of each call, in call order; with ``feed``, each
+    call's input is replaced by ``feed[i]`` first (another run's inputs of
+    the same layers, so each layer adds only its own rounding)."""
+    from repro_torch.models import transformer as tfm
+    apply_layer, taps = tfm.apply_layer, []
+
+    def tap(lp, x, *a, **kw):
+        if feed is not None:
+            x = feed[len(taps)].to(x.device, x.dtype)
+        y = apply_layer(lp, x, *a, **kw)
+        taps.append((x, y[0]))
+        return y
+
+    tfm.apply_layer = tap
+    try:
+        yield taps
+    finally:
+        tfm.apply_layer = apply_layer
+
+
+def row_dist(a, ref):
+    """The largest |a - ref| over each row's largest |ref|, over all rows."""
+    a, ref = a.float(), ref.float()
+    return float(((a - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def cast_up(params):
+    """Every parameter of ``params`` cast to fp32 in place, leaf by leaf,
+    so that the card never holds more than one leaf in both dtypes."""
+    from repro_torch.models.model import set_param
+    for name in [n for n, _ in params.named_parameters()]:
+        set_param(params, name, params.get_parameter(name).float())
+
+
+def layer_outputs(params, cfg, ids, ctx):
+    """(each layer's output of a prefill of ``ids`` through ``ctx``'s
+    route, fp32; the last position's logits, fp32)."""
+    from repro_torch.models.model import prefill
+    with layer_tap() as taps:
+        logits = prefill(params, cfg, ids, None, ctx, last_only=True)[0]
+    return [y.float() for _, y in taps], logits.float()
+
+
+def bf16_depth_attribution(torch, report):
+    """Per layer of full-width mamba2-2.7b, the largest distance of the
+    bf16 kernels' and of the bf16 plain versions' output from the
+    exact-fp32 route (each row's largest |difference| over its largest
+    |fp32 value|), and of the last position's logits; the two bf16 routes
+    differ only in the SSD scan (the bf16 kernel splits M and the carried
+    state into bf16 hi and lo parts, the plain version keeps fp32)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ssd_scan as smod
+    from repro_torch.kernels.flash_attention import exact_fp32
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding.context import ExecContext
+    k = DEPTH
+    cfg = dataclasses.replace(get_config(k["arch"]), dtype="bfloat16", param_dtype="bfloat16")
+    params = init_params(cfg, seed=k["seed"], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ids = torch.randint(1, cfg.vocab_size, (k["B"], k["S"]), generator=gen, device="cuda")
+    runs = {}
+    with torch.no_grad():
+        for route, impl in (("kernels", None), ("plain", "plain")):
+            smod.ssd_scan.launches = 0
+            runs[route] = layer_outputs(params, cfg, ids, ExecContext(attn_impl=impl))
+            runs[route] += (smod.ssd_scan.launches,)
+        cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+        cast_up(params)
+        params.cfg = cfg32
+        with exact_fp32():
+            ref, ref_logits = layer_outputs(params, cfg32, ids, ExecContext())
+    out = {"card": report["smi"], "B": k["B"], "S": k["S"]}
+    for route, (outs, logits, launches) in runs.items():
+        out[route] = {"per_layer": [round(row_dist(a, f), 6) for a, f in zip(outs, ref)],
+                      "logits": row_dist(logits, ref_logits), "ssd_launches": launches}
+    per = zip(out["kernels"]["per_layer"], out["plain"]["per_layer"])
+    out["kernels_over_plain_last"] = out["kernels"]["per_layer"][-1] / out["plain"]["per_layer"][-1]
+    out["layers_kernels_farther"] = sum(a > b for a, b in per)
+    report["bf16_depth"] = out
+    log(f"bf16 at depth, {k['arch']} ({cfg.num_layers} layers, full width, B {k['B']} S "
+        f"{k['S']}), each "
+        f"layer's largest distance from the exact-fp32 route: {json.dumps(out)}")
+    if (runs["kernels"][2], runs["plain"][2]) != (cfg.num_layers, 0) or not all(
+            math.isfinite(x) for r in ("kernels", "plain") for x in out[r]["per_layer"]):
+        raise SmokeFailure(f"bf16 depth attribution: SSD launches {runs['kernels'][2]} / "
+                           f"{runs['plain'][2]} (expected {cfg.num_layers} / 0), or a distance "
+                           "is not finite")
+    del params, runs, ref
 
 
 def kernel_wrappers():
@@ -2026,30 +2218,44 @@ class Gaps(dict):
 
 
 @contextlib.contextmanager
-def record_gaps(torch, eng, reqs, temperature, name=None):
+def record_gaps(torch, eng, reqs, temperature, name=None, prefills=False):
     """Yields the ``Gaps`` of the engine's worker ``name`` (its first by
-    default), recorded from its decode steps while the block runs; the
-    worker's own ``decode_pool`` is back in place after it."""
+    default), recorded from its decode steps while the block runs and, with
+    ``prefills``, the first tokens' from the serve's own prefill logits (an
+    MoE that drops sizes its capacity by the prefill group, so a prefill of
+    the prompt alone may decide otherwise); the worker's own methods are
+    back in place after it."""
     name = next(iter(eng.workers)) if name is None else name
     w = eng.workers[name]
-    plain_pool = w.decode_pool
+    plain_pool, plain_group = w.decode_pool, w.group_tokens
     gaps = Gaps(torch, eng, name, {r[0]: r[1] for r in reqs}, temperature,
                 {r[0]: r[3] for r in reqs if len(r) > 3})
+
+    def record(seqs, rows):
+        for s, g in zip(seqs, decision_gaps(torch, rows, [s.rng for s in seqs],
+                                            [len(s.tokens) for s in seqs], temperature)):
+            gaps[(s.req.uid, len(s.tokens))] = g
 
     def recorded(cache, tokens, pos, enc_len=None):
         nt, logits, cache = plain_pool(cache, tokens, pos, enc_len=enc_len)
         active = list(eng.pools[name].active.values())
-        for s, g in zip(active, decision_gaps(torch, logits[[s.slot for s in active]],
-                                              [s.rng for s in active],
-                                              [len(s.tokens) for s in active], temperature)):
-            gaps[(s.req.uid, len(s.tokens))] = g
+        record(active, logits[[s.slot for s in active]])
         return nt, logits, cache
 
+    def recorded_group(logits, slots, n_slots, pick):
+        active = eng.pools[name].active
+        record([active[int(s)] for s in slots], logits[:len(slots)])
+        return plain_group(logits, slots, n_slots, pick)
+
     w.decode_pool = recorded
+    if prefills:
+        w.group_tokens = recorded_group
     try:
         yield gaps
     finally:
-        del w.decode_pool  # the method of the worker's class again
+        del w.decode_pool  # the methods of the worker's class again
+        if prefills:
+            del w.group_tokens
 
 
 def token_check(label, spec_out, plain_out, gaps, exact, report_only=False,
@@ -3896,13 +4102,6 @@ TRAIN_MESH_MOE = dict(arch="deepseek-v2-lite-16b", layers=2, batch=4, seq=512, s
 # but for jamba; generate's batch (B, S) in fp32, mamba2's odd rows
 # LEFT-padded by gen_pad; the (B, S) prefill whose logits are compared;
 # seamless's frames for both; the serve's max_new; the ranks' time limit
-# bf16 at full depth: the unsharded run's logits through the kernels and
-# through their plain versions, which round elsewhere, part by 4.7% of a
-# row's largest |logit| at mamba2's 64 layers (every bf16 rounding
-# difference grows with depth; 1.1-2.4% for the other three); where that
-# noise exceeds MODEL_TOL_BF16, a sharded run, which sums its partials in
-# another order, is held to this many times the noise instead
-FAMILIES_NOISE_MARGIN = 2.0
 MESH_FAMILIES = dict(archs=("deepseek-v2-lite-16b", "mamba2-2.7b", "seamless-m4t-medium",
                             "jamba-v0.1-52b"),
                      fp32_cuts={"seamless-m4t-medium": dict(num_layers=2, num_encoder_layers=2),
@@ -3910,6 +4109,21 @@ MESH_FAMILIES = dict(archs=("deepseek-v2-lite-16b", "mamba2-2.7b", "seamless-m4t
                                                        layer_pattern=JAMBA_PARITY)},
                      bf16_layers={"jamba-v0.1-52b": 8}, gen=(4, 64), gen_pad=24, gen_new=8,
                      logit_prompts=(4, 64), frames=100, max_new=16, world=2, timeout=600.0)
+# the mesh_wide phase: the GQA stacks with 4 kv heads on eight ranks of the
+# one card (a model axis of 8, each kv head whole on 2 ranks, qwen2's query
+# groups padded from 7 to 8 heads), fp32 cut to 2 layers, bf16 at full width
+# and depth; the rest as MESH_FAMILIES
+MESH_WIDE = dict(MESH_FAMILIES, archs=("tinyllama-1.1b", "gemma2-2b", "qwen2-7b"), fp32_cuts={},
+                 bf16_layers={}, world=8, timeout=600.0)
+# A bf16 arm on a mesh against the unsharded bf16 arm, both held against the
+# exact-fp32 route at the same weights and inputs (the bf16 weights cast up,
+# the unsharded run's expert choices replayed): the sharded run rounds at the
+# same points as the unsharded one (one bf16 rounding of each row-parallel
+# sum, ``layers.row_linear``), so it should lie as far from fp32; this factor
+# leaves room for the spread of a largest relative error between two equally
+# noisy runs, and is exceeded by a run that rounds twice where the unsharded
+# one rounds once (bf16 partials per rank, ~1.4-2x as far)
+MESH_FP32_FACTOR = 1.5
 SERVE_MESH = dict(SERVE, names=("tinyllama-1.1b",), meshes=((2, 1), (2, 2)),
                   dtypes=("float32", "bfloat16"), timeout=600.0)
 
@@ -4186,24 +4400,24 @@ def phase_serve_mesh(torch, report):
 # ---------------------------------------------------------------------------
 
 
-def families_cfg(arch, dtype):
-    """``arch`` in ``dtype``: fp32 at full width cut to 2 layers (seamless 2
-    + 2, jamba to JAMBA_PARITY: its attention layer and a Mamba1 layer with
-    MoE), bf16 at full width (jamba cut to ``bf16_layers``)."""
+def families_cfg(arch, dtype, spec=MESH_FAMILIES):
+    """``arch`` in ``dtype``: fp32 at full width cut to 2 layers (or as
+    ``spec["fp32_cuts"]`` says: seamless 2 + 2, jamba to JAMBA_PARITY, its
+    attention layer and a Mamba1 layer with MoE), bf16 at full width (cut
+    to ``spec["bf16_layers"]`` where named)."""
     from repro_torch.configs.base import get_config
-    k = MESH_FAMILIES
-    cut = (k["fp32_cuts"].get(arch, dict(num_layers=2)) if dtype == "float32" else
-           {"num_layers": k["bf16_layers"][arch]} if arch in k["bf16_layers"] else {})
+    cut = (spec["fp32_cuts"].get(arch, dict(num_layers=2)) if dtype == "float32" else
+           {"num_layers": spec["bf16_layers"][arch]} if arch in spec["bf16_layers"] else {})
     return dataclasses.replace(get_config(arch), **cut, dtype=dtype, param_dtype=dtype)
 
 
-def families_job(cfg):
+def families_job(cfg, spec=MESH_FAMILIES):
     """One arm's inputs, the same for the unsharded run and the ranks: the
     serve's requests (seamless's with frames from ``ENCDEC``), the prefill
     whose logits are compared, and in fp32 ``generate``'s batch (mamba2's
     rows 1 and 3 LEFT-padded under a pad mask, seamless with frames)."""
     import numpy as np
-    k = MESH_FAMILIES
+    k = spec
     rng = np.random.default_rng(3)
     enc = cfg.is_encoder_decoder
 
@@ -4217,8 +4431,8 @@ def families_job(cfg):
     else:
         reqs = serve_requests(cfg, dict(SERVE, max_new=k["max_new"]))
     B, S = k["logit_prompts"]
-    job = dict(cfg=cfg, seed=SERVE["seed"], requests=reqs,
-               max_enc_len=ENCDEC["max_enc_len"] if enc else None,
+    job = dict(cfg=cfg, seed=SERVE["seed"], requests=reqs, gen_new=k["gen_new"],
+               max_new=k["max_new"], max_enc_len=ENCDEC["max_enc_len"] if enc else None,
                logits=(rng.integers(1, cfg.vocab_size, (B, S), dtype=np.int32),
                        frames(B, k["frames"]) if enc else None))
     if cfg.dtype == "float32":
@@ -4250,76 +4464,172 @@ def families_launches_expected(cfg, prefills, decodes):
             "mla_attention": n_attn * decodes if cfg.use_mla else 0}
 
 
+@contextlib.contextmanager
+def forced_tokens(eng, name, want):
+    """Feed the engine's worker ``name`` the tokens ``want`` (uid -> the
+    unsharded run's greedy tokens) in place of its own greedy choices, at
+    the first token (``group_tokens``) and at every decode step
+    (``decode_pool``), so that each pass sees the unsharded run's inputs.
+    Yields the list of (uid, token index, own choice, fed token) where its
+    own choice differed; the worker's methods are back after the block."""
+    w = eng.workers[name]
+    decode, group = w.decode_pool, w.group_tokens
+    differ = []
+
+    def pick(seq, own):
+        ref = int(want[seq.req.uid][len(seq.tokens)])
+        if int(own) != ref:
+            differ.append((seq.req.uid, len(seq.tokens), int(own), ref))
+        return ref
+
+    def forced_decode(cache, tokens, pos, enc_len=None):
+        nt, logits, cache = decode(cache, tokens, pos, enc_len=enc_len)
+        nt = nt.copy()
+        for seq in eng.pools[name].active.values():
+            nt[seq.slot] = pick(seq, nt[seq.slot])
+        return nt, logits, cache
+
+    def forced_group(logits, slots, n_slots, choose):
+        toks = group(logits, slots, n_slots, choose)
+        active = eng.pools[name].active
+        return [pick(active[int(s)], t) for s, t in zip(slots, toks)]
+
+    w.decode_pool, w.group_tokens = forced_decode, forced_group
+    try:
+        yield differ
+    finally:
+        del w.decode_pool, w.group_tokens  # the methods of the worker's class again
+
+
+def padded_head_check(torch, params, cfg, M, rank):
+    """On model rank ``rank`` of M that holds zero heads of a padded kv
+    group (``placement.PaddedHeads``): every layer's pad rows of ``wq`` and
+    ``bq`` and pad columns of ``wo`` are 0, and through layer 0's attention
+    (the kernels) a pad head's query is 0 and its share of the wo output is
+    exactly 0. Returns (pad heads held, all of that holds)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import attention as att
+    from repro_torch.sharding.placement import query_padding
+    pad = query_padding(cfg, M) if cfg.num_kv_heads and not cfg.use_mla else None
+    if pad is None:
+        return 0, True
+    ranges, n = pad.ranges(M, rank)
+    lo, hi = ranges[0]
+    if not n:
+        return 0, True
+    real = hi - lo
+    ok = True
+    for lp in params.layers:
+        a = lp.attn
+        ok = ok and not a.wq.weight[real:].any() and not a.wo.weight[:, real:].any()
+        ok = ok and not (cfg.qkv_bias and a.bq[real:].any())
+    a, dev = params.layers[0].attn, params.embedding.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(2, 16, cfg.d_model, generator=gen, device=dev).to(params.embedding.dtype)
+    q, k, v = att._project_qkv(a, x, cfg, torch.arange(16, device=dev).expand(2, 16))
+    o = att.attend(q, k, v, causal=True)
+    h0 = real // cfg.head_dim
+    share = F.linear(o[:, :, h0:].reshape(2, 16, -1).float(), a.wo.weight[:, real:].float())
+    ok = ok and not q[:, :, h0:].any() and not share.any()
+    return n // cfg.head_dim, bool(ok)
+
+
 def families_arm(torch, job, ctx, device="cuda"):
-    """One arm on ``ctx`` (no mesh: the unsharded run, which records its
-    router's choices, its decisions' top-2 gaps and, in bf16, the same
-    prefill's logits through the kernels' plain versions, its own noise):
-    the weights drawn as this rank's shard; in fp32 ``generate``; the
-    prefill logits of
-    ``job["logits"]`` (an MoE replaying ``job["routes"]`` where given, as
-    ``RouterReplay`` does); then the continuous FIFO engine on the
-    requests. Returns tokens, logits, launches against their expected
-    counts, the model axis's collectives per serve, the wall and the peak
-    memory."""
+    """One arm on ``ctx`` (no mesh: the unsharded run): the weights drawn
+    as this rank's shard (a rank holding padded query heads checks them,
+    ``padded_head_check``); in fp32 ``generate``; the prefill logits of
+    ``job["logits"]``; then the continuous FIFO engine on the requests.
+
+    The unsharded run records its router's choices in that prefill and in
+    the serve, its decisions' top-2 gaps and, in bf16, that prefill's
+    logits through the exact-fp32 route at the same weights (the bf16
+    weights cast up after the serve), its choices replayed. A sharded bf16
+    run replays the unsharded choices in both (``RouterReplay``: each flip
+    of its own router recorded with the unsharded logit gap) and is fed the
+    unsharded run's tokens in the serve (``forced_tokens``), so every pass
+    sees the unsharded run's inputs and each decision where its own greedy
+    choice differs is recorded. Returns tokens, logits, launches against
+    their expected counts, the model axis's collectives per serve, the
+    wall and the peak memory."""
     from contextlib import nullcontext
 
+    from repro_torch.kernels.flash_attention import exact_fp32
     from repro_torch.models import moe
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.workers import ModelWorker
     from repro_torch.sharding import collectives
-    cfg, k = job["cfg"], MESH_FAMILIES
+    cfg = job["cfg"]
+    sharded, bf16 = ctx.mesh is not None, cfg.dtype == "bfloat16"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, job["seed"], device, ctx=ctx)
-    res = {"init_s": time.perf_counter() - t0, "shard": params.shard}
+    res = {"init_s": time.perf_counter() - t0, "shard": params.shard,
+           "pad_heads": (padded_head_check(torch, params, cfg, ctx.model_parallel,
+                                           ctx.model_rank) if sharded else (0, True))}
     max_enc = job["max_enc_len"]
     if job.get("gen") is not None:
         prompts, mask, frames = job["gen"]
         w = ModelWorker(cfg.name, cfg, params, SERVE["max_len"], ctx)
-        toks, launches = drive(w.generate, prompts=prompts, max_new=k["gen_new"],
+        toks, launches = drive(w.generate, prompts=prompts, max_new=job["gen_new"],
                                enc_inputs=frames, pad_mask=mask)
         res["gen"] = {"tokens": toks.tolist(), "launches": launches,
                       "expected": families_launches_expected(cfg, w.prefill_calls,
                                                              w.decode_calls)}
         del w
-    replay = RouterReplay(moe)
-    if job.get("routes") is not None:
-        replay.plain = [(torch.as_tensor(p, device=device), torch.as_tensor(i, device=device))
-                        for p, i in job["routes"]]
-        replay.mode, replay.step = "sharded", "prefill"
+
+    def replaying(routes, step):
+        replay, dev = RouterReplay(moe), params.embedding.device
+        if sharded and routes is not None:
+            replay.plain = [(torch.as_tensor(p, device=dev), torch.as_tensor(i, device=dev))
+                            for p, i in routes]
+            replay.mode, replay.step = "sharded", step
+        return replay
+
+    replay = replaying(job.get("routes"), "prefill")
     w = ModelWorker(cfg.name, cfg, params, SERVE["max_len"], ctx, max_enc_len=max_enc)
-    with replay:
+    with replay, layer_tap() as taps:
         logits = w.prefill_batch(*job["logits"])[0]
     res["logits"] = logits.float().cpu().numpy()
     res["logit_flips"] = list(replay.flips)
-    if job.get("routes") is None:  # the unsharded run
-        if replay.plain:
-            res["routes"] = [(p.cpu().numpy(), i.cpu().numpy()) for p, i in replay.plain]
-        if cfg.dtype == "bfloat16":  # its own bf16 noise: the same prefill through
-            # the kernels' plain versions, which round elsewhere (experts replayed)
-            replay.mode, replay.step, replay.i = "sharded", "noise", 0
-            plain = ModelWorker(cfg.name, cfg, params, SERVE["max_len"],
-                                dataclasses.replace(ctx, attn_impl="plain"), max_enc_len=max_enc)
-            with replay:
-                res["logits_noise"] = plain.prefill_batch(*job["logits"])[0].float().cpu().numpy()
-            del plain
-    del w, logits, replay
+    routes = replay.plain
+    if bf16 and not sharded:  # each layer call's input and output
+        res["layer_io"] = [(x.cpu(), y.cpu()) for x, y in taps]
+    del taps
+    if bf16 and sharded:  # the same prefill, each layer fed the unsharded run's input
+        dev = params.embedding.device
+        replay = replaying(job.get("routes"), "layer")
+        with replay, layer_tap([x for x, _ in job["layer_io"]]) as taps:
+            w.prefill_batch(*job["logits"])
+        res["layer_flips"] = list(replay.flips)
+        res["layer_dist"] = [row_dist(y, ref.to(dev))
+                             for (_, y), (_, ref) in zip(taps, job["layer_io"])]
+        del taps
+    del w, logits
     eng = ServingEngine(max_slots=SERVE["max_slots"])
     eng.add_model(cfg.name, cfg, params, max_len=SERVE["max_len"], ctx=ctx, max_enc_len=max_enc)
     w = eng.workers[cfg.name]
     calls = collectives.all_reduce.calls, collectives.all_gather_last.calls
-    record = ctx.mesh is None
-    with (record_gaps(torch, eng, job["requests"], 0.0) if record else nullcontext()) as gaps:
-        resp, launches, wall, peak = spec_run(torch, eng, job["requests"], False, 0.0)
+    serve_replay = replaying(job.get("serve_routes"), "serve")
+    force = sharded and bf16
+    with (record_gaps(torch, eng, job["requests"], 0.0, prefills=True) if not sharded
+          else nullcontext()) as gaps:
+        with serve_replay, (forced_tokens(eng, cfg.name, job["ref_tokens"]) if force
+                            else nullcontext()) as differ:
+            resp, launches, wall, peak = spec_run(torch, eng, job["requests"], False, 0.0)
         passes = w.prefill_calls, w.decode_calls
-        if record:  # the first tokens' gaps (from a prefill) while the engine lives
+        if not sharded:
             res["gaps"] = dict(gaps)
-            res["gaps"].update({(r.uid, 0): gaps[(r.uid, 0)] for r in resp})
+            if serve_replay.plain:
+                res["serve_routes"] = [(p.cpu().numpy(), i.cpu().numpy())
+                                       for p, i in serve_replay.plain]
+    res["forced"] = differ if force else None
+    res["serve_flips"] = list(serve_replay.flips)
     res["serve"] = {"tokens": tokens_by_uid(resp),
                     "errors": [r.error for r in resp if r.error]
-                    + [r.uid for r in resp if len(r.tokens) != k["max_new"]],
+                    + [r.uid for r in resp if len(r.tokens) != job["max_new"]],
                     "launches": launches,
                     "expected": families_launches_expected(cfg, *passes),
                     "prefill_calls": passes[0], "decode_calls": passes[1],
@@ -4328,15 +4638,30 @@ def families_arm(torch, job, ctx, device="cuda"):
                     "wall_s": wall, "peak_mem_bytes": peak,
                     "sharded": None if w.shard_report is None else w.shard_report.sharded,
                     "pool": {n: list(t.shape) for n, t in eng.pools[cfg.name].cache.items()}}
+    del eng, w, serve_replay, gaps  # the recorded gaps hold the engine
+    if bf16 and not sharded:  # the exact-fp32 yardstick at the same weights
+        cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+        cast_up(params)
+        params.cfg = cfg32
+        torch.cuda.empty_cache()
+        replay = RouterReplay(moe)
+        replay.plain, replay.mode, replay.step = routes, "sharded", "fp32"
+        w = ModelWorker(cfg.name, cfg32, params, SERVE["max_len"], ctx, max_enc_len=max_enc)
+        with exact_fp32(), replay:
+            res["logits_fp32"] = w.prefill_batch(*job["logits"])[0].float().cpu().numpy()
+        res["fp32_flips"] = [f[-1] for f in replay.flips]
+        del w, replay
+    if routes and not sharded:
+        res["routes"] = [(p.cpu().numpy(), i.cpu().numpy()) for p, i in routes]
     res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-    del eng, w, params
+    del params, routes
     return res
 
 
-def mesh_families_rank(rank, jobs, device="cuda"):
-    """One of the mesh_families phase's two ranks (its own process, gloo
-    over CUDA tensors on the one card): ``families_arm`` on a (1, 2) mesh
-    for every job, in turn, freeing the card between."""
+def mesh_families_rank(rank, jobs, device="cuda", world=MESH_FAMILIES["world"]):
+    """One rank of a mesh phase (its own process, gloo over CUDA tensors
+    on the one card): ``families_arm`` on a (1, ``world``) mesh for every
+    job, in turn, freeing the card between."""
     import gc
 
     import torch
@@ -4344,8 +4669,7 @@ def mesh_families_rank(rank, jobs, device="cuda"):
     from repro_torch.kernels.flash_attention import exact_fp32
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.sharding.context import ExecContext
-    ctx = ExecContext(mesh=make_debug_mesh(1, MESH_FAMILIES["world"]), batch_axes=("data",),
-                      model_axis="model")
+    ctx = ExecContext(mesh=make_debug_mesh(1, world), batch_axes=("data",), model_axis="model")
     out = []
     for job in jobs:
         with exact_fp32():
@@ -4355,30 +4679,73 @@ def mesh_families_rank(rank, jobs, device="cuda"):
     return out
 
 
-def phase_mesh_families(torch, report):
-    """MLA (deepseek-v2-lite-16b), Mamba2 (mamba2-2.7b), the encoder-decoder
-    (seamless-m4t-medium) and the Mamba1 + attention + MoE hybrid
-    (jamba-v0.1-52b) served on a model axis of 2: two ranks on the one card
-    (``launch.sharded.run_ranks``, gloo over CUDA tensors, one spawn for
-    every arm), each holding half the heads, inner channels and experts,
-    after the parent has built the kernels and run every arm unsharded
-    (``families_arm``), freeing the card between. fp32 (exact fp32, 2
-    layers; ``families_cfg``): ``generate`` and the continuous FIFO
-    engine's greedy tokens equal the unsharded run's on every request on
-    both ranks, prefill logits within MODEL_TOL of each row's largest
-    |logit|. bf16 at full width (jamba cut to 8 layers): every request of
-    the serve completes, the ranks' tokens, logits and router choices are
-    identical, token agreement with the unsharded run is reported with the
-    unsharded top-2 gap at each first divergence, and the prefill logits,
-    the unsharded run's experts replayed, lie within MODEL_TOL_BF16 of each
-    row's largest |logit|, or, where the unsharded run's own bf16 noise is
-    larger (its logits through the kernels' plain versions, which round
-    elsewhere: mamba2's 64 layers), within FAMILIES_NOISE_MARGIN times that
-    noise (the router's flips are counted, with the largest margin among
-    them and how many lie past ROUTER_TIE). Every
-    rank launches each kernel as its passes imply (the MLA kernel at G = 8,
-    the SSD scan on 40 heads); printed: launches, collectives per serve,
-    wall and peak memory per rank."""
+def judge_bf16_arm(label, ref, mine):
+    """A sharded bf16 arm against the unsharded one: every decision where
+    a rank's own greedy choice differed from the token it was fed must sit
+    at a near-tie of the unsharded run (top-2 gap within MODEL_TOL_BF16 of
+    its largest |logit|); with each layer fed the unsharded run's input and
+    its expert choices replayed, no router flip past ROUTER_TIE; and the
+    prefill logits at most MESH_FP32_FACTOR times as far from the
+    exact-fp32 route as the unsharded run's. The flips of the free-running
+    prefill and serve (27 layers of bf16 rounding apart in deepseek) are
+    printed beside the unsharded run's own flips against exact fp32 in the
+    same prefill. Returns the arm's numbers."""
+    import numpy as np
+    for uid, i, own, fed in mine["forced"]:
+        gap, scale = ref["gaps"][(uid, i)]
+        log(f"{label}: uid {uid} token {i}: own choice {own}, unsharded {fed}; unsharded "
+            f"top-2 gap {gap} at largest |logit| {scale}")
+        if gap is None or gap > MODEL_TOL_BF16 * scale:
+            raise SmokeFailure(f"{label}: uid {uid} token {i} differs away from a near-tie "
+                               f"(unsharded top-2 gap {gap}, largest |logit| {scale})")
+    for st, r, left, took, margin in mine["layer_flips"]:
+        log(f"{label}: router flip with the layer's input replayed, call row {r}: unsharded "
+            f"{left} -> sharded {took}, unsharded logit gap {margin:.4g} (bound {ROUTER_TIE})")
+    far = [f for f in mine["layer_flips"] if f[-1] > ROUTER_TIE]
+    free = {"prefill": [f[-1] for f in mine["logit_flips"]],
+            "serve": [f[-1] for f in mine["serve_flips"]]}
+    own = ref.get("fp32_flips") or []
+    f32 = ref["logits_fp32"]
+    fscale = np.abs(f32).max(axis=-1, keepdims=True)
+    dist = {"sharded": float((np.abs(mine["logits"] - f32) / fscale).max()),
+            "unsharded": float((np.abs(ref["logits"] - f32) / fscale).max())}
+    row = {"decisions_differing": len(mine["forced"]),
+           "uids_differing": len({f[0] for f in mine["forced"]}),
+           "layer_flips": len(mine["layer_flips"]), "layer_flips_past_tie": len(far),
+           "layer_dist_max": max(mine["layer_dist"]), "layer_dist": [
+               round(d, 5) for d in mine["layer_dist"]],
+           **{f"free_flips_{k}": len(v) for k, v in free.items()},
+           **{f"free_flips_{k}_past_tie": sorted(round(m, 4) for m in v if m > ROUTER_TIE)
+              for k, v in free.items()},
+           "unsharded_vs_fp32_flips_prefill": len(own),
+           "unsharded_vs_fp32_flips_prefill_past_tie": sorted(
+               round(m, 4) for m in own if m > ROUTER_TIE),
+           "fp32_dist_sharded": dist["sharded"], "fp32_dist_unsharded": dist["unsharded"],
+           "fp32_dist_ratio": dist["sharded"] / max(dist["unsharded"], 1e-30)}
+    fault = (f"{len(far)} router flips past ROUTER_TIE ({ROUTER_TIE}) with the layers' inputs "
+             "replayed" if far else
+             f"prefill logits {dist['sharded']:.4g} from the exact-fp32 route, more than "
+             f"{MESH_FP32_FACTOR} times the unsharded run's {dist['unsharded']:.4g}"
+             if dist["sharded"] > MESH_FP32_FACTOR * dist["unsharded"] else None)
+    if fault:
+        log(f"{label}: {json.dumps(row)}")
+        raise SmokeFailure(f"{label}: {fault}")
+    return row
+
+
+def mesh_phase(torch, report, key, spec):
+    """A mesh phase (``phase_mesh_families``, ``phase_mesh_wide``): the
+    parent builds the kernels and runs every arm of ``spec`` unsharded
+    (``families_arm``), fp32 then bf16, freeing the card between; then one
+    spawn of ``spec["world"]`` ranks (``launch.sharded.run_ranks``, gloo
+    over CUDA tensors on the one card) runs every arm on a (1, world)
+    mesh. fp32: ``generate``'s and the FIFO engine's greedy tokens equal
+    the unsharded run's on every rank, prefill logits within MODEL_TOL of
+    each row's largest |logit|. bf16: every request completes, the ranks
+    agree bit for bit (logits, their own choices, router flips), and each
+    arm is judged by ``judge_bf16_arm``. Every rank launches each kernel as
+    its passes imply; printed per rank: launches, collectives per serve,
+    wall and peak memory."""
     import gc
     from types import SimpleNamespace
 
@@ -4388,30 +4755,32 @@ def phase_mesh_families(torch, report):
     from repro_torch.kernels.flash_attention import exact_fp32
     from repro_torch.launch.sharded import run_ranks
     from repro_torch.sharding.context import ExecContext
-    k = MESH_FAMILIES
+    world = spec["world"]
     gc.collect()
     torch.cuda.empty_cache()
     build.load_library()  # built once here, before the ranks load it
     jobs, refs = [], []
     t0 = time.perf_counter()
     for dtype in ("float32", "bfloat16"):
-        for arch in k["archs"]:
-            job = families_job(families_cfg(arch, dtype))
+        for arch in spec["archs"]:
+            job = families_job(families_cfg(arch, dtype, spec), spec)
             with exact_fp32():
                 ref = families_arm(torch, job, ExecContext())
             refs.append(ref)
-            jobs.append(dict(job, routes=ref.get("routes")))
+            jobs.append(dict(job, routes=ref.get("routes"), serve_routes=ref.get("serve_routes"),
+                             ref_tokens=ref["serve"]["tokens"],
+                             layer_io=ref.pop("layer_io", None)))
             gc.collect()
             torch.cuda.empty_cache()
     unsharded_wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ranks = run_ranks(mesh_families_rank, k["world"], (jobs, "cuda"), timeout=k["timeout"],
+    ranks = run_ranks(mesh_families_rank, world, (jobs, "cuda", world), timeout=spec["timeout"],
                       device_type="cuda")
     spawn_wall = time.perf_counter() - t0
     out = {"card": report["smi"], "unsharded_wall_s": unsharded_wall, "spawn_wall_s": spawn_wall}
     for j, (job, ref) in enumerate(zip(jobs, refs)):
         cfg = job["cfg"]
-        label = f"mesh_families {cfg.name} {cfg.dtype}"
+        label = f"{key} {cfg.name} {cfg.dtype}"
         fp32 = cfg.dtype == "float32"
         mine = [r[j] for r in ranks]
         for rank, a in enumerate(mine):
@@ -4420,60 +4789,138 @@ def phase_mesh_families(torch, report):
                 raise SmokeFailure(f"{label} rank {rank}: errors {a['serve']['errors']}, "
                                    f"launches {[x['launches'] for x in runs]} (expected "
                                    f"{[x['expected'] for x in runs]})")
-            if a["shard"] != (2, rank):
-                raise SmokeFailure(f"{label} rank {rank}: holds the shard {a['shard']}")
+            if a["shard"] != (world, rank) or not a["pad_heads"][1]:
+                raise SmokeFailure(f"{label} rank {rank}: holds the shard {a['shard']}, padded "
+                                   f"heads (held, all zero) {a['pad_heads']}")
+            if (a["serve"]["tokens"] != mine[0]["serve"]["tokens"]
+                    or not np.array_equal(a["logits"], mine[0]["logits"])
+                    or a["forced"] != mine[0]["forced"]
+                    or a["logit_flips"] != mine[0]["logit_flips"]
+                    or a["serve_flips"] != mine[0]["serve_flips"]
+                    or a.get("layer_flips") != mine[0].get("layer_flips")):
+                raise SmokeFailure(f"{label}: rank {rank}'s tokens, logits, choices or router "
+                                   "flips differ from rank 0's")
         if ref["serve"]["errors"] or ref["serve"]["launches"] != ref["serve"]["expected"]:
             raise SmokeFailure(f"{label} unsharded: errors {ref['serve']['errors']}, launches "
                                f"{ref['serve']['launches']}")
-        if (mine[0]["serve"]["tokens"] != mine[1]["serve"]["tokens"]
-                or not np.array_equal(mine[0]["logits"], mine[1]["logits"])):
-            raise SmokeFailure(f"{label}: the two ranks' tokens or logits differ")
-        if fp32 and not (mine[0]["gen"]["tokens"] == mine[1]["gen"]["tokens"]
-                         == ref["gen"]["tokens"]):
-            raise SmokeFailure(f"{label}: generate's tokens differ from the unsharded run's")
-        resp = [SimpleNamespace(uid=u, tokens=np.asarray(t))
-                for u, t in mine[0]["serve"]["tokens"].items()]
-        plain = [SimpleNamespace(uid=u, tokens=np.asarray(t))
-                 for u, t in ref["serve"]["tokens"].items()]
-        diverged = token_check(label, resp, plain, ref["gaps"], exact=fp32,
-                               report_only=not fp32, names=("sharded", "unsharded"))
         lscale = np.abs(ref["logits"]).max(axis=-1, keepdims=True)
-        lerr = np.abs(mine[0]["logits"] - ref["logits"])
-        noise = None if fp32 else float((np.abs(ref["logits_noise"] - ref["logits"])
-                                         / lscale).max())
-        tol = (MODEL_TOL if fp32 else MODEL_TOL_BF16 if noise <= MODEL_TOL_BF16
-               else FAMILIES_NOISE_MARGIN * noise)
-        # router flips of the sharded prefill against the unsharded run's
-        # choices (replayed): over 26 bf16 MoE layers the hidden states part
-        # by bf16 rounding, so flips are counted and their margins reported
-        margins = [f[-1] for f in mine[0]["logit_flips"]]
-        row = {"uids": len(plain), "diverged_uids": diverged,
-               "logits_max_rel_err": float((lerr / lscale).max()), "logits_tol_rel": tol,
-               "unsharded_noise_rel": noise,
-               "router_flips": len(margins),
-               "router_flips_past_tie": sum(m > ROUTER_TIE for m in margins),
-               "router_flip_max_margin": max(margins, default=None),
-               "unsharded": {x: ref["serve"][x] for x in ("wall_s", "peak_mem_bytes", "launches",
-                                                          "prefill_calls", "decode_calls")},
-               "ranks": [dict({x: a["serve"][x] for x in ("wall_s", "peak_mem_bytes", "launches",
-                                                           "all_reduces", "all_gathers",
-                                                           "sharded", "pool")},
-                              init_s=a["init_s"], arm_peak_mem_bytes=a["peak_mem_bytes"],
-                              gen_launches=a.get("gen", {}).get("launches"))
-                         for a in mine]}
+        lerr = float((np.abs(mine[0]["logits"] - ref["logits"]) / lscale).max())
+        row = {"uids": len(ref["serve"]["tokens"]), "logits_max_rel_err": lerr,
+               "pad_heads": [a["pad_heads"][0] for a in mine]}
+        if fp32:
+            if not all(a["gen"]["tokens"] == ref["gen"]["tokens"] for a in mine):
+                raise SmokeFailure(f"{label}: generate's tokens differ from the unsharded run's")
+            resp = [SimpleNamespace(uid=u, tokens=np.asarray(t))
+                    for u, t in mine[0]["serve"]["tokens"].items()]
+            plain = [SimpleNamespace(uid=u, tokens=np.asarray(t))
+                     for u, t in ref["serve"]["tokens"].items()]
+            row["diverged_uids"] = token_check(label, resp, plain, ref["gaps"], exact=True,
+                                               names=("sharded", "unsharded"))
+            if lerr > MODEL_TOL:
+                raise SmokeFailure(f"{label}: prefill logits max rel err {lerr} (tolerance "
+                                   f"{MODEL_TOL})")
+        else:
+            row.update(judge_bf16_arm(label, ref, mine[0]))
+        row.update(unsharded={x: ref["serve"][x] for x in ("wall_s", "peak_mem_bytes",
+                                                           "launches", "prefill_calls",
+                                                           "decode_calls")},
+                   ranks=dict({x: [a["serve"][x] for a in mine] for x in ("wall_s",
+                                                                           "peak_mem_bytes")},
+                              init_s=[a["init_s"] for a in mine],
+                              arm_peak_mem_bytes=[a["peak_mem_bytes"] for a in mine],
+                              gen_launches=mine[0].get("gen", {}).get("launches"),
+                              **{x: mine[0]["serve"][x] for x in ("launches", "all_reduces",
+                                                                  "all_gathers", "sharded",
+                                                                  "pool")}))
         out[f"{cfg.name} {cfg.dtype}"] = row
         log(f"{label}: {json.dumps(row)}")
-        if not bool((lerr <= tol * lscale).all()):
-            raise SmokeFailure(f"{label}: prefill logits max rel err "
-                               f"{row['logits_max_rel_err']} (tolerance {tol})")
     launches = collections.Counter()
     for j, job in enumerate(jobs):
         if job["cfg"].dtype == "bfloat16":
             launches.update(ranks[0][j]["serve"]["launches"])
-    report["launches_mesh_families"] = dict(launches)
-    report["mesh_families"] = out
-    log(f"mesh_families: unsharded arms {unsharded_wall:.1f} s, two ranks {spawn_wall:.1f} s "
+    report[f"launches_{key}"] = dict(launches)
+    report[key] = out
+    log(f"{key}: unsharded arms {unsharded_wall:.1f} s, {world} ranks {spawn_wall:.1f} s "
         f"(spawn included), on {report['smi']}")
+
+
+def phase_mesh_families(torch, report):
+    """MLA (deepseek-v2-lite-16b), Mamba2 (mamba2-2.7b), the encoder-decoder
+    (seamless-m4t-medium) and the Mamba1 + attention + MoE hybrid
+    (jamba-v0.1-52b) served on a model axis of 2 (``mesh_phase``): two
+    ranks on the one card, each holding half the heads, inner channels and
+    experts; fp32 exact, 2 layers (``families_cfg``), bf16 at full width
+    (jamba cut to 8 layers), judged by ``judge_bf16_arm``: the unsharded
+    run's expert choices replayed and its tokens fed, every differing
+    decision at a near-tie, no router flip past ROUTER_TIE, the logits at
+    most MESH_FP32_FACTOR times as far from exact fp32 as the unsharded
+    run's. The MLA kernel runs at G = 8, the SSD scan on 40 heads."""
+    mesh_phase(torch, report, "mesh_families", MESH_FAMILIES)
+
+
+def phase_mesh_wide(torch, report):
+    """tinyllama-1.1b (32 on 4 heads, 22 layers), gemma2-2b (8 on 4, D 256,
+    softcap, sliding window, 26 layers) and qwen2-7b (28 on 4, D 128, qkv
+    bias, 28 layers) served on a model axis of 8 (``mesh_phase``): eight
+    ranks on the one card, each kv head whole on 2 ranks (rank m holds kv
+    head m // 2), qwen2's groups of 7 query heads padded with a zero head
+    to 8 (the ranks that hold one check it adds nothing); fp32 exact, 2
+    layers; bf16 at full width and depth, judged as the mesh_families
+    phase's bf16 arms. Per rank flash runs on 4 on 1 (tinyllama, qwen2) or
+    1 on 1 heads (gemma2), decode at G = 4 or 1."""
+    mesh_phase(torch, report, "mesh_wide", MESH_WIDE)
+
+
+# the collectives phase: an all-reduce among ranks that share the card, through
+# gloo (host-staged) and through the card's memory (``collectives.SameCard``):
+# (rows, cols) fp32 of a decode step's and of a prefill's partial sums, calls
+COLLECTIVES = dict(worlds=(2, 8), sizes={"decode": ((8, 2048), 100),
+                                         "prefill": ((4096, 2048), 10)}, timeout=300.0)
+
+
+def collectives_rank(rank, world):
+    """One rank of the collectives phase: the wall per all-reduce through
+    gloo and through the same-card transport (each warmed up, between two
+    barriers, the stream synchronised), and whether a sum of rank + 1 over
+    the ranks came out right both ways."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.sharding import collectives
+    out = {}
+    for name, (shape, n) in COLLECTIVES["sizes"].items():
+        t = collectives.same_card(torch.empty(1, device="cuda"), None)
+        for way, fn in (("gloo", dist.all_reduce), ("same_card", t.all_reduce)):
+            x = torch.full(shape, float(rank + 1), device="cuda")
+            fn(x)
+            out[f"{way} {name} right"] = bool((x == world * (world + 1) / 2).all())
+            x.zero_()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn(x)
+            torch.cuda.synchronize()
+            out[f"{way} {name} ms"] = (time.perf_counter() - t0) / n * 1e3
+    return out
+
+
+def phase_collectives(torch, report):
+    """An all-reduce among 2 and 8 ranks on the one card (spawned, gloo
+    process group): host-staged through gloo, and through the card's
+    memory (``collectives.SameCard``, which the mesh phases take), fp32 at
+    a decode step's (8, 2048) and a prefill's (4096, 2048); the wall per
+    call on rank 0."""
+    from repro_torch.launch.sharded import run_ranks
+    out = {"card": report["smi"]}
+    for world in COLLECTIVES["worlds"]:
+        ranks = run_ranks(collectives_rank, world, (world,), timeout=COLLECTIVES["timeout"],
+                          device_type="cuda")
+        out[f"{world} ranks"] = ranks[0]
+        if not all(v for r in ranks for k, v in r.items() if k.endswith("right")):
+            raise SmokeFailure(f"collectives: a sum over {world} ranks came out wrong: {ranks}")
+    report["collectives"] = out
+    log(f"collectives: {json.dumps(out)}")
 
 
 # each kernel's row of the times phase in the kernels line: (model, B, S)
@@ -4492,7 +4939,7 @@ def kernels_line(report):
     paths = {p: report.get(f"launches_{p}", {})
              for p in ("scheduled", "joint", "spec", "spec_deepseek", "archs", "archs_fifo",
                        "encdec_hybrid", "bucketed", "fleet", "kimi", "train", "train_moe",
-                       "mesh_families")}
+                       "mesh_families", "mesh_wide")}
     paths = {"serve": report.get("launches", {}), **paths}
     out = []
     for name, (src, replaces) in SOURCES.items():
@@ -4531,14 +4978,15 @@ def main(argv=None):
            "fleet": phase_fleet, "kimi": phase_kimi, "mesh1": phase_mesh1,
            "shard2": phase_shard2, "train": phase_train, "profile_train": phase_profile_train,
            "yolo": phase_yolo, "train_mesh": phase_train_mesh, "serve_mesh": phase_serve_mesh,
-           "mesh_families": phase_mesh_families,
+           "mesh_families": phase_mesh_families, "mesh_wide": phase_mesh_wide,
            "profile_encdec_hybrid": phase_profile_encdec_hybrid,
            "profile_bucketed": phase_profile_bucketed, "profile_fleet": phase_profile_fleet,
            "profile": phase_profile,
            "profile_scheduled": phase_profile_scheduled, "profile_spec": phase_profile_spec,
            "profile_archs": phase_profile_archs,
            "profile_spec_deepseek": phase_profile_spec_deepseek,
-           "mla_parts": phase_mla_parts}
+           "mla_parts": phase_mla_parts, "parity_mamba2": phase_parity_mamba2,
+           "collectives": phase_collectives}
     t_start = time.perf_counter()
     try:
         for ph in ("device",) + tuple(p for p in PHASES + EXTRA

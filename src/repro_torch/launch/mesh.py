@@ -11,7 +11,9 @@ and starts no process group. Process-group start-up needs no network
 (``init_ranks``): a world of one meets in a ``HashStore``, more ranks in a
 ``FileStore`` in a directory they share. The backend is NCCL when each rank
 has a card of its own, and gloo on the CPU and for ranks that share one
-card (NCCL refuses two ranks on one device).
+card (NCCL refuses two ranks on one device); there the model's all-reduces
+and all-gathers of CUDA tensors go through the card's memory
+(``sharding.collectives.SameCard``) and gloo keeps the barriers.
 """
 from __future__ import annotations
 

@@ -20,6 +20,8 @@ caller asks for the CPU (``device_type="cpu"``, gloo).
 """
 from __future__ import annotations
 
+import os
+import pickle
 import queue as queue_mod
 import tempfile
 import time
@@ -29,11 +31,13 @@ from typing import Any, Callable, List, Sequence
 import torch.multiprocessing as mp
 
 
-def _rank_main(fn, rank, world, device_type, store_dir, args, results):
+def _rank_main(fn, rank, world, device_type, store_dir, args_path, results):
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_ranks
     try:
+        with open(args_path, "rb") as f:
+            args = pickle.load(f)
         init_ranks(world, rank, device_type, store_dir)
         out = fn(rank, *args)
         results.put((rank, True, out))
@@ -52,13 +56,18 @@ def run_ranks(fn: Callable, world: int, args: Sequence = (), timeout: float = 60
     importable by name); each result comes back pickled. ``device_type``
     "cuda" gives each rank a card (rank modulo the cards there are; NCCL
     when there are enough, else gloo), "cpu" runs the ranks on the CPU
-    over gloo."""
+    over gloo. ``args`` reach the ranks through a file: a process's start
+    would otherwise wait, for arguments larger than a pipe holds, until the
+    rank has read them, so the ranks would start one after another."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     deadline = time.monotonic() + timeout
     with tempfile.TemporaryDirectory() as store_dir:
+        args_path = os.path.join(store_dir, "args.pkl")
+        with open(args_path, "wb") as f:
+            pickle.dump(tuple(args), f, protocol=pickle.HIGHEST_PROTOCOL)
         procs = [ctx.Process(target=_rank_main, name=f"rank{r}",
-                             args=(fn, r, world, device_type, store_dir, tuple(args), results))
+                             args=(fn, r, world, device_type, store_dir, args_path, results))
                  for r in range(world)]
         for p in procs:
             p.start()

@@ -22,7 +22,11 @@ On a model axis of M > 1 the GQA, cross-attention and MLA projections
 hold the rank's heads (column-parallel q/k/v, MLA's ``wq`` and ``w_ukv``,
 row-parallel wo): the functions take the head count from the tensors, so
 they run unchanged on H/M query and Hkv/M kv heads, and the caller sums the
-ranks' wo outputs. MLA's ``w_dkv`` and ``kv_norm`` are whole on every rank,
+ranks' wo outputs. Where M is a multiple of Hkv, a rank holds one kv head
+whole and its H/M query heads of that head's group (the GQA kernels at
+G = H/M over one kv head); a group that its M/Hkv ranks do not divide is
+padded with zero query heads, whose zero ``wo`` columns add nothing
+(``sharding.placement``). MLA's ``w_dkv`` and ``kv_norm`` are whole on every rank,
 which writes the whole latent row; its absorbed decode scores the rank's
 H/M heads against that one latent head (the MLA kernels at G = H/M).
 

@@ -119,15 +119,19 @@ def set_param(model: nn.Module, name: str, tensor: torch.Tensor) -> None:
 
 def kept_ranges(size: int, M: int, rank: int, segments=None):
     """The [lo, hi) ranges of a dim of ``size`` that rank ``rank`` of M
-    holds, in order: its 1/M slice, or with ``segments`` ((length, cut),
-    ...) its 1/M slice of each cut segment and each other segment whole."""
+    holds, in order, and the zero rows its piece holds after them: its 1/M
+    slice, or with ``segments`` ((length, cut), ...) its 1/M slice of each
+    cut segment and each other segment whole, or with a
+    ``placement.PaddedHeads`` its run of real heads, then its zero heads."""
+    if hasattr(segments, "ranges"):
+        return segments.ranges(M, rank)
     out, off = [], 0
     for length, split in segments or ((size, True),):
         n = length // M if split else length
         lo = off + (rank * n if split else 0)
         out.append((lo, lo + n))
         off += length
-    return out
+    return out, 0
 
 
 def shard_slice(t: torch.Tensor, dim, M: int, rank: int, segments=None) -> torch.Tensor:
@@ -135,8 +139,12 @@ def shard_slice(t: torch.Tensor, dim, M: int, rank: int, segments=None) -> torch
     ``dim`` is None; its ranges of ``segments`` where given, ``kept_ranges``)."""
     if dim is None:
         return t
-    parts = [t.narrow(dim, lo, hi - lo) for lo, hi in kept_ranges(t.shape[dim], M, rank,
-                                                                  segments)]
+    ranges, pad = kept_ranges(t.shape[dim], M, rank, segments)
+    parts = [t.narrow(dim, lo, hi - lo) for lo, hi in ranges]
+    if pad:
+        shape = list(t.shape)
+        shape[dim] = pad
+        parts.append(t.new_zeros(shape))
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 
@@ -149,12 +157,14 @@ def mesh_rank(ctx) -> int:
 def cuts(plan, name: str, rank: int):
     """The (dim, ways, index, segments) cuts of parameter ``name`` held by
     mesh rank ``rank`` under ``plan`` (a ``placement.ParamPlan``): its model
-    dim, with its segments where the plan has them, and its FSDP dim."""
+    dim, with its segments where the plan has them (a GQA kv leaf of fewer
+    kv heads than M: Hkv ways, piece m // (M / Hkv)), and its FSDP dim."""
     D, M = plan.shape
     d, m = divmod(rank, M)
     out = []
     if plan.dims[name] is not None and M > 1:
-        out.append((plan.dims[name], M, m, plan.segments.get(name)))
+        ways = plan.ways.get(name, M)
+        out.append((plan.dims[name], ways, m * ways // M, plan.segments.get(name)))
     if plan.data_dims[name] is not None:
         out.append((plan.data_dims[name], D, d, None))
     return out
@@ -229,8 +239,8 @@ def init_params(cfg, seed: int = 0, device="cuda", ctx=None, rank=None) -> Causa
         leaf_cuts = {n: cuts(plan, n, rank) for n in shapes}
         model = CausalLM(cfg, device="meta")
         for name, p in list(model.named_parameters()):
-            local = cut(p, leaf_cuts[name])
-            set_param(model, name, torch.empty(local.shape, dtype=p.dtype, device=dev))
+            local = cut(p, leaf_cuts[name])  # zero heads of a padded leaf stay 0
+            set_param(model, name, torch.zeros(local.shape, dtype=p.dtype, device=dev))
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def normal(name, t, scale):
@@ -244,7 +254,7 @@ def init_params(cfg, seed: int = 0, device="cuda", ctx=None, rank=None) -> Causa
         # the rows this rank keeps: (first row, end, where they go in its piece)
         keep, at = [], 0
         for _, n, i, segs in [c for c in lc if c[0] == 0]:
-            for lo, hi in kept_ranges(full[0], n, i, segs):
+            for lo, hi in kept_ranges(full[0], n, i, segs)[0]:
                 keep.append((lo, hi, at))
                 at += hi - lo
         for r0 in range(0, full[0], rows):

@@ -27,6 +27,11 @@ values). In train mode the gates and the experts' input enter through
 ``collectives.copy_to_model``, so the router's and the input's gradients
 sum the ranks' experts.
 
+Experts that M does not divide (E % M != 0, serving only): every rank
+holds every expert whole and computes all of them, as the reference's
+``moe_apply`` does then (no all-reduce of the expert output); the shared
+experts stay cut and summed.
+
 With the batch split over the data axes (D > 1), x holds this data rank's
 rows, so each branch sizes its capacity from the local tokens, as the
 reference's expert-parallel branch does (``T_local``), and each data rank
@@ -195,8 +200,9 @@ class _Experts:
 
 def moe_apply(p: MoE, x, cfg, ctx=ExecContext()):
     """x (B,S,D) -> (out (B,S,D) in x's dtype, aux loss, an fp32 scalar).
-    On a model axis of M > 1, ``p`` holds this rank's E / M experts (and
-    its slice of the shared experts' width); on a data axis of D > 1, x
+    On a model axis of M > 1, ``p`` holds this rank's E / M experts, or
+    every expert where M does not divide E (and its slice of the shared
+    experts' width either way); on a data axis of D > 1, x
     holds this data rank's rows (module docstring)."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.top_k
@@ -213,9 +219,7 @@ def moe_apply(p: MoE, x, cfg, ctx=ExecContext()):
                                 collectives.copy_to_model(gates, ctx), ids, C,
                                 e0=ctx.model_rank * (E // M))
             out = collectives.reduce_from_model(out, ctx)  # psum over the model axis
-        elif M > 1:
-            raise NotImplementedError(f"{E} experts on a model axis of {M} (see ROADMAP.md)")
-        else:
+        else:  # M = 1, or experts that M does not divide: every expert whole here
             out = experts_apply(p, xt, gates, ids, C)
         aux = aux_loss(probs, ids, E)
         out = out.view(B, S, D).to(x.dtype)

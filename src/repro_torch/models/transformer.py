@@ -53,9 +53,11 @@ GELU FFN) or MoE MLPs with a dense prefix of ``first_dense_layers``,
 gemma2's post-block norms, and the decoder's cross-attention.
 
 On a model axis of M > 1 (``ctx.model_parallel``; ``sharding.placement``)
-each rank holds its 1/M of the heads, ``d_ff`` and experts, its K/V and
-cross caches hold its Hkv/M kv heads, MLA's latent cache is whole on every
-rank, and an SSM mixer holds its 1/M of the heads or inner channels with
+each rank holds its 1/M of the heads, ``d_ff`` and experts (every expert
+where M does not divide them), its K/V and cross caches hold its Hkv/M kv
+heads (one kv head where M is a multiple of Hkv; ``init_stack_cache``
+gives the whole cache, ``placement.local_cache_shape`` a rank's piece),
+MLA's latent cache is whole on every rank, and an SSM mixer holds its 1/M of the heads or inner channels with
 its state (``models.ssm``): the normed input of the mixer (attention, MLA,
 Mamba2 or Mamba1), of the decoder's cross-attention and of the dense MLP
 enters through ``collectives.copy_to_model`` and their row-parallel

@@ -22,12 +22,13 @@ layer gathers its FSDP weights over the data group for its span
 rank, so beyond the table's own divisibility it refuses, with a
 ``NotImplementedError`` that names the leaf, M or D, and ROADMAP.md:
 
-* at M > 1, a leaf the table left whole on the model axis (heads, kv
-  heads, d_ff, vocab or experts not divisible by M), attention heads, kv
-  heads or SSM heads (Mamba1: inner channels) not divisible by M, and a KV
-  or state cache that the table would shard on its sequence or leave
-  whole instead of cutting its heads or channels (``plan_cache``);
-* at M > 1 in train mode, MLA, SSM, encoder-decoder and hybrid stacks
+* at M > 1, a leaf the table left whole on the model axis (d_ff or vocab
+  not divisible by M), MLA or SSM heads (Mamba1: inner channels) not
+  divisible by M, GQA kv heads that neither divide M nor are divided by
+  it, and a state cache that the table would leave whole instead of
+  cutting its heads or channels (``plan_cache``);
+* at M > 1 in train mode, MLA, SSM, encoder-decoder and hybrid stacks,
+  GQA kv heads fewer than M and experts that M does not divide
   (``check_mesh``, which ``models.model.check_train_mesh`` calls): their
   serving is ported, their sharded training is not;
 * at D > 1, a cache whose batch (the slot pool) does not divide D, which
@@ -59,7 +60,29 @@ the table's decisions and counts all the same:
 * MLA's ``latent`` cache, whose rank dim the table's ``c_kv`` rule puts on
   the model axis, stays whole on every model rank: the absorbed decode
   scores each of the rank's heads against all 576 columns, and every rank
-  writes the same rows from the replicated ``w_dkv`` and ``kv_norm``.
+  writes the same rows from the replicated ``w_dkv`` and ``kv_norm``;
+* GQA kv heads fewer than M (M a multiple of Hkv: tinyllama-1.1b,
+  gemma2-2b and qwen2-7b, 4 kv heads, at M = 8): rank m holds kv head
+  m // (M / Hkv) whole, so each kv head lives on M / Hkv ranks.
+  ``wk``, ``wv``, ``bk`` and ``bv`` are cut Hkv ways (``ParamPlan.ways``)
+  and the K/V caches hold that one head (``local_cache_shape``), where the
+  table cuts the projections' columns mid-head and shards the KV cache on
+  its sequence. A sequence split would need a log-sum-exp merge of the
+  ranks' partial softmaxes in every layer, which the decode kernel does
+  not emit; replicating the kv heads is the layout Megatron and vLLM take
+  at this width, and costs M / Hkv times the K/V cache and projections;
+* query heads of a kv group that the group's M / Hkv ranks do not divide
+  (qwen2-7b's 7 per group at M = 8): each group is padded with zero heads
+  to a multiple of M / Hkv (``PaddedHeads``: 7 -> 8, 32 heads in all), the
+  pad heads with zero ``wq`` rows, ``bq`` entries and ``wo`` columns, so
+  their share of the rank's wo output is exactly 0. The padding lives only
+  in the rank's pieces (``convert.shard_params``, ``init_params(ctx=...)``),
+  never in the config or the unsharded model; it costs padded / per of the
+  attention's compute (8/7 for qwen2). The table replicates what does not
+  divide and never pads (``partition_specs``);
+* MoE experts that M does not divide: every rank holds every expert whole
+  and computes them all (``models.moe``), as the reference's MoE does when
+  E % M != 0; the shared experts stay cut.
 """
 from __future__ import annotations
 
@@ -82,9 +105,8 @@ ROADMAP = "see ROADMAP.md"
 # the leaves the explicit-SPMD layers cut on the model axis
 _CUT_LEAVES = {"embedding", "lm_head", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "wi",
                "w_ukv", "in_proj", "x_proj", "dt_proj", "conv_w", "out_proj"}
-_BIASES = {"bq": "num_heads", "bk": "num_kv_heads", "bv": "num_kv_heads"}
-_HEADS = {"wq": "num_heads", "wo": "num_heads", "wk": "num_kv_heads", "wv": "num_kv_heads",
-          "w_ukv": "num_heads"}
+# MLA's leaves cut by its query heads, which M must divide
+_MLA_HEADS = ("wq", "wo", "w_ukv")
 # the port's model dim of each SSM mixer leaf at M > 1, by mixer kind: its
 # segments (length, cut) along that dim, or None for a contiguous 1/M cut
 # (module docstring); leaves not named stay whole on every model rank
@@ -102,6 +124,54 @@ _SSM_CUTS = {
 }
 # whole leaves applied to the rank's heads only (their gradient sums over the model axis)
 _HEAD_SHARED = ("q_norm", "k_norm")
+# the port's dim of each GQA leaf (qkv biases included) that a model rank cuts
+# by heads (an nn.Linear weight is (d_out, d_in)), and those on the kv side
+_GQA_DIMS = {"wq": 0, "wk": 0, "wv": 0, "wo": 1, "bq": 0, "bk": 0, "bv": 0}
+_KV_LEAVES = {"wk", "wv", "bk", "bv"}
+_KV_CACHE = ("k", "v", "xk", "xv")
+
+
+@dataclass(frozen=True)
+class PaddedHeads:
+    """The segments of a query-side GQA leaf (``wq``, ``bq``, ``wo``'s
+    input) at a model axis whose ranks per kv head do not divide the
+    group: ``groups`` kv groups of ``per`` heads of ``width`` elements,
+    each padded with zero heads to ``padded``, then cut in M contiguous
+    pieces (module docstring). A rank's piece is one run of real heads of
+    its group, then its pad heads."""
+    groups: int
+    per: int
+    padded: int
+    width: int
+
+    def ranges(self, M: int, rank: int):
+        """([lo, hi) of the real rows rank ``rank`` holds], the zero rows after them)."""
+        local = self.groups * self.padded // M
+        g, j = divmod(rank * local, self.padded)
+        lo, hi = g * self.per + min(j, self.per), g * self.per + min(j + local, self.per)
+        return [(lo * self.width, hi * self.width)], (local - (hi - lo)) * self.width
+
+
+def kv_ways(cfg, M: int, path: str = "attn/wk") -> int:
+    """The ways a GQA stack's kv heads are cut at a model axis of M: M
+    where M divides them, else Hkv, each kv head whole on M / Hkv ranks
+    (module docstring); kv heads that neither divide M nor are divided by
+    it are refused, naming ``path``."""
+    Hkv = cfg.num_kv_heads
+    if Hkv % M == 0:
+        return M
+    if M % Hkv:
+        _refuse(path, f"{Hkv} kv heads (neither a multiple nor a divisor of M)", M)
+    return Hkv
+
+
+def query_padding(cfg, M: int) -> Optional[PaddedHeads]:
+    """The zero-head padding of each kv group's query heads at a model axis
+    of M, or None where the group's ranks divide its heads."""
+    Hkv = cfg.num_kv_heads
+    per, ranks = cfg.num_heads // Hkv, max(1, M // Hkv)
+    padded = -(-per // ranks) * ranks
+    return None if padded == per else PaddedHeads(Hkv, per, padded, cfg.head_dim)
 
 
 @dataclass(frozen=True)
@@ -219,8 +289,11 @@ def _paths(cfg) -> List[str]:
 
 def check_mesh(cfg, ctx) -> None:
     """Train mode's refusals at a model axis of M > 1 (module docstring):
-    MLA, SSM, encoder-decoder and hybrid stacks, each naming a leaf of the
-    family, M and ROADMAP.md. Their serving at M > 1 is ported."""
+    MLA, SSM, encoder-decoder and hybrid stacks, GQA kv heads fewer than M
+    (replicated, and query heads maybe padded) and experts that M does not
+    divide (held whole), each naming a leaf, M and ROADMAP.md. Their
+    serving at M > 1 is ported; their gradients would be partial sums
+    over sub-groups of the model axis."""
     M = ctx.model_parallel
     if M == 1:
         return
@@ -234,6 +307,12 @@ def check_mesh(cfg, ctx) -> None:
         _refuse(first("attn/w_dkv"), "MLA attention", M, "training")
     if set(cfg.layer_kinds()) - set(ATTN_KINDS) or cfg.family == "hybrid":
         _refuse(first("mixer/"), f"a stack with SSM layers ({cfg.family})", M, "training")
+    if cfg.num_experts and cfg.num_experts % M:
+        _refuse(first("mlp/w_gate"), f"{cfg.num_experts} experts, whole on every rank,", M,
+                "training")
+    if cfg.num_kv_heads and cfg.num_kv_heads % M:
+        _refuse(first("attn/wk"), f"{cfg.num_kv_heads} kv heads, each replicated on "
+                                  f"{M // cfg.num_kv_heads} ranks,", M, "training")
 
 
 @dataclass(frozen=True)
@@ -246,13 +325,17 @@ class ParamPlan:
     partial: frozenset
     shape: Tuple[int, int]  # (D, M)
     # port name -> the segments (length, cut) of its model dim, for the leaves
-    # that hold 1/M of some segments and the others whole (module docstring)
-    segments: Dict[str, tuple] = field(default_factory=dict)
+    # that hold 1/M of some segments and the others whole, or its
+    # ``PaddedHeads`` (module docstring)
+    segments: Dict[str, object] = field(default_factory=dict)
+    # port name -> the ways its model dim is cut where fewer than M (GQA kv
+    # leaves: Hkv ways, rank m holding piece m // (M / Hkv))
+    ways: Dict[str, int] = field(default_factory=dict)
 
     def replicas(self, name: str) -> int:
         """How many ranks of the mesh hold the same piece of ``name``."""
         D, M = self.shape
-        return ((M if self.dims[name] is None else 1)
+        return ((M if self.dims[name] is None else M // self.ways.get(name, M))
                 * (D if self.data_dims[name] is None else 1))
 
 
@@ -275,15 +358,23 @@ def plan_params(cfg, ctx, report: Optional[ps.ShardingReport] = None) -> ParamPl
         report.replicated += own.replicated
         report.events.extend(own.events)
     M = axis_sizes(ctx.mesh)[model_axis]
+    gqa = bool(cfg.num_kv_heads) and not cfg.use_mla
     if M > 1:
         for path, dim, size, axis in own.events:
-            # x_proj is cut by its rows, whatever the table does with its columns
-            if model_axis in axis.split("+") and not path.endswith("/x_proj"):
+            leaf = path.split("/")[-1]
+            # x_proj is cut by its rows, GQA leaves by the port's own head cut,
+            # and experts that M does not divide are whole on every rank
+            own_cut = (path.endswith("/x_proj")
+                       or (gqa and leaf in _GQA_DIMS and ("/attn/" in path or "/cross/" in path))
+                       or ("/mlp/" in path and dim == 0 and size == cfg.num_experts
+                           and cfg.num_experts % M))
+            if model_axis in axis.split("+") and not own_cut:
                 _refuse(path, f"dim {dim} of {size}, not divisible by the model axis,", M)
     sizes = axis_sizes(ctx.mesh)
     D = int(np.prod([sizes[a] for a in batch_axes]))
-    dims, data_dims, partial, segments = {}, {}, set(), {}
+    dims, data_dims, partial, segments, ways = {}, {}, set(), {}, {}
     kinds = cfg.layer_kinds()
+    pad = query_padding(cfg, M) if gqa and M > 1 else None
     for lf in layout:
         spec = specs[lf.path]
         core = spec[1:] if lf.repeat is not None else spec
@@ -295,17 +386,26 @@ def plan_params(cfg, ctx, report: Optional[ps.ShardingReport] = None) -> ParamPl
             partial.add(lf.name)
         d = _model_dim(core, model_axis)
         leaf = lf.path.split("/")[-1]
+        attn = "/attn/" in lf.path or "/cross/" in lf.path
         if d is not None and M > 1:
             if leaf not in _CUT_LEAVES:
                 _refuse(lf.path, "a leaf the sharded layers do not cut", M)
-            heads = _HEADS.get(leaf) if ("/attn/" in lf.path or "/cross/" in lf.path) else None
-            if heads and getattr(cfg, heads) % M:
-                _refuse(lf.path, f"{getattr(cfg, heads)} {heads.split('_', 1)[1]} "
-                                 "(whole heads per rank)", M)
+            if attn and not gqa and leaf in _MLA_HEADS and cfg.num_heads % M:
+                _refuse(lf.path, f"{cfg.num_heads} heads (whole heads per rank)", M)
         if d is not None and lf.transpose:
             d = len(core) - 1 - d
-        if leaf in _BIASES and M > 1:
-            d = 0  # the rank's heads of a replicated bias (module docstring)
+        # whole heads per rank; a 1-D qkv bias, which the table replicates, is
+        # cut to the rank's heads (module docstring)
+        if M > 1 and gqa and attn and leaf in _GQA_DIMS:
+            d = _GQA_DIMS[leaf]
+            if leaf in _KV_LEAVES:
+                n = kv_ways(cfg, M, lf.path)
+                if n < M:
+                    ways[lf.name] = n
+            elif pad is not None:
+                segments[lf.name] = pad
+        if "/mlp/" in lf.path and len(core) == 3 and M > 1 and cfg.num_experts % M:
+            d = None  # every expert whole on every rank (module docstring)
         if "/mixer/" in lf.path and M > 1:  # the SSM mixers' own cuts (module docstring)
             kind = kinds[int(lf.name.split(".")[1])]
             width = cfg.ssm_num_heads if kind == "ssd" else cfg.d_inner
@@ -317,7 +417,7 @@ def plan_params(cfg, ctx, report: Optional[ps.ShardingReport] = None) -> ParamPl
             if segs is not None:
                 segments[lf.name] = segs
         dims[lf.name] = d
-    return ParamPlan(specs, dims, data_dims, frozenset(partial), (D, M), segments)
+    return ParamPlan(specs, dims, data_dims, frozenset(partial), (D, M), segments, ways)
 
 
 def cache_shapes(cfg, batch: int, max_len: int, enc_len: int = 0) -> Dict[str, Tuple[int, ...]]:
@@ -332,12 +432,15 @@ def local_cache_shape(cfg, ctx, name: str, shape: Tuple[int, ...],
     """The shape of this rank's piece of cache leaf ``name`` (whole
     ``shape``) placed by ``spec``: the table's local shape, but for a
     Mamba2 stack's ``conv`` leaf on the model axis, which holds the rank's
-    di/M x channels and B and C whole (module docstring)."""
+    di/M x channels and B and C whole, and a K/V leaf of fewer kv heads
+    than M, which holds the rank's one kv head (module docstring)."""
     local = ps.local_shape(shape, spec, ctx.mesh)
     model_axis, _ = _axes(ctx)
+    M = axis_sizes(ctx.mesh)[model_axis]
     if name == "conv" and "ssd" in cfg.layer_kinds() and _model_dim(spec, model_axis) is not None:
-        M = axis_sizes(ctx.mesh)[model_axis]
         local = local[:-1] + (cfg.d_inner // M + 2 * cfg.ssm_d_state,)
+    if name in _KV_CACHE and _model_dim(spec, model_axis) == 3 and shape[3] % M:
+        local = local[:3] + (shape[3] // kv_ways(cfg, M),) + local[4:]
     return local
 
 
@@ -367,7 +470,9 @@ def plan_cache(cfg, ctx, batch: int, max_len: int, enc_len: int = 0,
     """The activation rules' placement of a (batch, max_len) cache; at
     M > 1 every KV leaf must shard on its heads and every SSM state leaf on
     its heads or channels, and the MLA latent stays whole on the model axis
-    (module docstring); at D > 1 every leaf shards on its batch (the table's
+    (module docstring): where M is a multiple of the kv heads, the K/V
+    leaves hold one kv head per rank in place of the table's KV-sequence
+    split; at D > 1 every leaf shards on its batch (the table's
     KV-sequence fallbacks are refused). ``rows_split=False``: a cache whose
     rows every data rank holds whole (a prefill group's), placed on the
     model axis only."""
@@ -389,10 +494,10 @@ def plan_cache(cfg, ctx, batch: int, max_len: int, enc_len: int = 0,
             f"repro_torch's sharded serving ({ROADMAP})")
     M = sizes[model_axis]
     if M > 1:
-        for name in ("k", "v", "xk", "xv"):
+        for name in _KV_CACHE:
             if name in specs and specs[name][3] != model_axis:
-                _refuse(name, f"a KV cache of {cfg.num_kv_heads} kv heads, which the rule table "
-                              "shards on its sequence (a flash-decode partial softmax),", M)
+                kv_ways(cfg, M, name)  # one kv head per rank, or refused
+                specs[name] = specs[name][:2] + (None, model_axis) + specs[name][4:]
         for name, dim in (("ssm", 2), ("conv", 3)):
             if name in specs and specs[name][dim] != model_axis:
                 _refuse(name, "an SSM state cache the rule table leaves whole", M)

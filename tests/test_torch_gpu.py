@@ -932,3 +932,43 @@ def test_data_parallel_serve_on_card_matches_no_mesh():
         got = r[0]
         assert got["tokens"] == want["tokens"] and got["pool_rows"] == 2
         assert min(got["launches"].values()) > 0
+
+
+def _same_card_rank(rank):
+    """One rank of a (2, 2) mesh on the card: the model and data groups'
+    all-reduces and all-gathers through ``collectives`` against gloo's own,
+    small tensors first, then one that grows the buffers."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.context import ExecContext
+    ctx = ExecContext(mesh=make_debug_mesh(2, 2, "cuda"), batch_axes=("data",),
+                      model_axis="model")
+    out = []
+    for shape in ((8, 64), (3, 5), (4096, 1024)):
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator().manual_seed(rank * 7 + len(out))
+            x = torch.randint(-8, 8, shape, generator=gen).to(dtype).cuda()
+            got = collectives.all_reduce(x.clone(), ctx)
+            want = x.cpu().float()
+            dist.all_reduce(want, group=ctx.model_group)
+            parts = collectives.all_gather(x, 0, 2, ctx.data_group)
+            ref = [torch.empty_like(x).cpu() for _ in range(2)]
+            dist.all_gather(ref, x.cpu(), group=ctx.data_group)
+            out.append((torch.equal(got.cpu().float(), want),
+                        torch.equal(parts.cpu(), torch.cat(ref)),
+                        collectives.same_card(x, ctx.model_group) is not None))
+    return out
+
+
+@pytest.mark.gpu
+def test_same_card_collectives_match_gloo():
+    """Four ranks of a (2, 2) mesh on the one card: the all-reduce over the
+    model group and the all-gather over the data group go through the
+    card's memory (``collectives.SameCard``) and give gloo's results bit
+    for bit (integer-valued sums), fp32 and bf16, across a buffer growth."""
+    from repro_torch.launch.sharded import run_ranks
+    _card()
+    for r in run_ranks(_same_card_rank, 4, (), timeout=300, device_type="cuda"):
+        assert r and all(all(case) for case in r), r

@@ -7,7 +7,8 @@ reference's plans; a mesh of one is token- and ledger-identical to no
 mesh, continuous and bucketed, greedy and sampled, and in the fleet
 replay; two CPU ranks (gloo) give the JAX package's unsharded greedy
 tokens for reduced tinyllama-1.1b and reduced kimi-k2; and what the port
-does not shard is refused naming the leaf, M and ROADMAP.md."""
+does not shard, or does not train sharded, is refused naming the leaf, M
+and ROADMAP.md."""
 import dataclasses
 import functools
 
@@ -360,36 +361,42 @@ def test_two_ranks_match_the_jax_unsharded_tokens():
 
 def test_refusals_name_the_leaf_and_the_roadmap():
     """No process group needed: reduced tinyllama (2 kv heads) on a model
-    axis of 4 is refused, naming a leaf, M and ROADMAP.md; reduced
-    deepseek-v2-lite (MLA), mamba2 and seamless-m4t on 2 are placed for
-    serving, and train mode refuses them (``check_train_mesh``), each
-    naming a leaf, M and ROADMAP.md; an expert count that does not divide
-    M is refused too. A data axis of 2 is taken (data-parallel serving and
-    training), but a slot pool that it does not divide is refused naming
-    the leaf, D and ROADMAP.md."""
+    axis of 4 is placed for serving (each kv head whole on 2 ranks, one kv
+    head per rank in the K/V cache), reduced kimi with 6 experts on 4 holds
+    every expert whole, and reduced deepseek-v2-lite (MLA), mamba2 and
+    seamless-m4t on 2 are placed too; train mode refuses each of them
+    (``check_train_mesh``), naming a leaf, M and ROADMAP.md. A data axis of
+    2 is taken (data-parallel serving and training), but a slot pool that
+    it does not divide is refused naming the leaf, D and ROADMAP.md."""
     def ctx(**shape):
         return ExecContext(mesh=_FakeMesh(**shape), batch_axes=("data",), model_axis="model")
-    cases = [("tinyllama-1.1b", dict(data=1, model=4), "stages/0/l0/attn/wk", "4", False),
-             ("deepseek-v2-lite-16b", dict(data=1, model=2), "attn/w_dkv", "2", True),
-             ("mamba2-2.7b", dict(data=1, model=2), "mixer/", "2", True),
-             ("seamless-m4t-medium", dict(data=1, model=2), "encoder/", "2", True)]
-    for arch, shape, leaf, m, served in cases:
-        cfg = configs.reduced(configs.get_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-            if served:  # serving takes it at M > 1; training does not
-                assert placement.plan_params(cfg, ctx(**shape)).shape == (1, int(m))
-                tmodel.check_train_mesh(None, cfg, ctx(**shape))
-            else:
-                placement.plan_params(cfg, ctx(**shape))
-        assert leaf in str(e.value) and f"model axis of {m}" in str(e.value), str(e.value)
-        assert ("sharded training" in str(e.value)) == served, str(e.value)
     kimi = dataclasses.replace(configs.reduced(configs.get_config("kimi-k2-1t-a32b")),
                                num_experts=6)
-    with pytest.raises(NotImplementedError, match="stages/0/l0/mlp/w_down: dim 0 of 6"):
-        placement.plan_params(kimi, ctx(data=1, model=4))
+    cases = [("tinyllama-1.1b", dict(data=1, model=4), "stages/0/l0/attn/wk", "4"),
+             ("deepseek-v2-lite-16b", dict(data=1, model=2), "attn/w_dkv", "2"),
+             ("mamba2-2.7b", dict(data=1, model=2), "mixer/", "2"),
+             ("seamless-m4t-medium", dict(data=1, model=2), "encoder/", "2"),
+             (kimi, dict(data=1, model=4), "stages/0/l0/mlp/w_gate: 6 experts", "4")]
+    for arch, shape, leaf, m in cases:
+        cfg = arch if not isinstance(arch, str) else configs.reduced(configs.get_config(arch))
+        # serving takes it at M > 1; training does not
+        assert placement.plan_params(cfg, ctx(**shape)).shape == (1, int(m))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
+            tmodel.check_train_mesh(None, cfg, ctx(**shape))
+        assert leaf in str(e.value) and f"model axis of {m}" in str(e.value), str(e.value)
+        assert "sharded training" in str(e.value), str(e.value)
+    kplan = placement.plan_params(kimi, ctx(data=1, model=4))
+    assert all(kplan.dims[f"layers.0.mlp.{w}"] is None for w in ("w_gate", "w_up", "w_down"))
     tiny = configs.reduced(configs.get_config("tinyllama-1.1b"))
-    with pytest.raises(NotImplementedError, match="kv heads"):
-        placement.plan_cache(tiny, ctx(data=1, model=4), 8, 32)
+    wide = placement.plan_params(tiny, ctx(data=1, model=4))
+    wk = "layers.0.attn.wk.weight"
+    assert wide.dims[wk] == 0 and wide.ways[wk] == 2 and wide.replicas(wk) == 2
+    assert [tmodel.cuts(wide, wk, r)[0][1:3] for r in range(4)] == [(2, 0), (2, 0), (2, 1),
+                                                                     (2, 1)]
+    specs = placement.plan_cache(tiny, ctx(data=1, model=4), 8, 32)
+    assert specs["k"] == (None, ("data",), None, "model", None)
+    assert placement.local_cache_shape(tiny, ctx(data=1, model=4), "k", (2, 8, 32, 2, 64),
+                                       specs["k"]) == (2, 8, 32, 1, 64)
     assert placement.plan_params(tiny, ctx(data=2, model=1)).shape == (2, 1)
     with pytest.raises(NotImplementedError, match=r"k: a cache of 3 rows at a data axis of 2"
                                                   r".*ROADMAP.md"):
