@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases train    # training: tinyllama-1.1b, remat, pipeline, MoE
     python3 chip_smoke.py --phases kernels,mesh_families  # four families at a model axis of 2
     python3 chip_smoke.py --phases mesh_wide  # three GQA models at a model axis of 8
+    python3 chip_smoke.py --phases train_mesh  # four families trained on (2,1), (1,2), (2,2)
 
 Phases:
   1. device     the card's name and count, its power limit from nvidia-smi,
@@ -4089,12 +4090,27 @@ TRAIN_MESH = dict(arch="tinyllama-1.1b", layers=4, batch=8, seq=512, steps=3, lr
 # relative tolerances of each step's loss and grad norm against the unsharded
 # run in bf16 (PERF.md states them beside its predictions)
 TRAIN_MESH_TOL = dict(loss=1e-2, grad_norm=5e-2)
-# deepseek-v2-lite-16b at full width cut to 2 of its 27 layers (a dense layer,
-# then an MoE layer; cut from 4 to keep the whole run inside its time limit), GQA
-# attention in place of MLA (MLA training stays refused at M > 1):
-# expert-parallel on (1, 2), the 2-D MoE on (2, 2)
-TRAIN_MESH_MOE = dict(arch="deepseek-v2-lite-16b", layers=2, batch=4, seq=512, steps=3,
-                      lr=1e-3, seed=0)
+# the families beside tinyllama, at full width, bf16, 3 steps, each against its
+# unsharded run on the card (TRAIN_MESH_TOL): deepseek-v2-lite-16b (MLA) cut to 2
+# of its 27 layers (a dense layer, then an MoE layer), expert-parallel on (1, 2)
+# and the 2-D MoE on (2, 2) with FSDP; mamba2-2.7b cut to 4 of 64 layers on (1, 2)
+# and on (2, 2) with FSDP; seamless-m4t-medium cut to 2 encoder + 2 decoder
+# layers, 256 target tokens on 100 frames, on (1, 2). Each mesh entry: (mesh, fsdp,
+# ExecContext.plan)
+TRAIN_MESH_FAMILIES = {
+    "deepseek": dict(arch="deepseek-v2-lite-16b", cut=dict(num_layers=2), batch=4, seq=512,
+                     meshes=(((1, 2), None, None), ((2, 2), True, {"moe_2d": True}))),
+    "mamba2": dict(arch="mamba2-2.7b", cut=dict(num_layers=4), batch=4, seq=512,
+                   meshes=(((1, 2), None, None), ((2, 2), True, None))),
+    "seamless": dict(arch="seamless-m4t-medium", cut=dict(num_layers=2, num_encoder_layers=2),
+                     batch=4, seq=256, frames=100, meshes=(((1, 2), None, None),)),
+}
+# the fp32 arms on (1, 2), TF32 off: each family at full width cut to 2 layers
+# (seamless 1 + 1), one step; each rank's gradient of each leaf against its piece
+# of the unsharded gradient, within ``tol`` of that leaf's largest |value|
+TRAIN_MESH_FP32 = dict(cuts={"deepseek": dict(num_layers=2), "mamba2": dict(num_layers=2),
+                             "seamless": dict(num_layers=1, num_encoder_layers=1)},
+                       batch=2, seq=256, frames=100, tol=1e-4)
 # full tinyllama-1.1b, continuous FIFO, 8 requests, fp32 and bf16, on (2, 1)
 # and (2, 2) against the unsharded run
 # the mesh_families phase: the four families on two ranks of the one card
@@ -4169,16 +4185,60 @@ def phase_yolo(torch, report):
 def train_mesh_rank(rank, jobs, mesh):
     """One rank of a train_mesh spawn: each job through
     ``launch.sharded.train_rank`` on the card, with the MoE's assignments
-    counted (``DropCounter``: this rank's experts' kept, every offered)."""
+    counted (``DropCounter``: this rank's experts' kept, every offered);
+    a job that asks for its step-0 gradient ``pieces`` gets them held
+    against the unsharded gradient here (``fp32_grad_check``)."""
+    import torch
+
     from repro_torch.launch.sharded import train_rank
     from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     out = []
     for job in jobs:
         with DropCounter(moe) as drops:
             res = train_rank(rank, [job], mesh, "cuda")[0]
         res["moe_kept"], res["moe_offered"] = int(drops.kept), drops.offered
+        pieces = res.pop("pieces", None)
+        if pieces is not None:
+            res["fp32_check"] = fp32_grad_check(torch, job, pieces, rank, mesh)
+        del pieces
         out.append(res)
     return out
+
+
+def fp32_grad_check(torch, job, pieces, rank, mesh):
+    """The unsharded model of ``job`` (the very weights its shards are cut
+    from) on the card: its loss and gradients on the global step-0 batch,
+    each leaf cut to this rank's piece and held against the rank's synced
+    gradient ``pieces``. Returns the loss, the number of leaves, and the
+    leaf whose largest |error| over its largest |gradient| is the worst,
+    with that ratio."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import cut, cuts, init_params, train_params
+    from repro_torch.sharding.context import ExecContext
+    from repro_torch.sharding.placement import AxisSizes, plan_params
+    from repro_torch.training.train_loop import batch_to_device, loss_and_grads
+    cfg = job["cfg"]
+    params = init_params(cfg, job["seed"], "cuda")
+    train_params(params)
+    data = SyntheticLM(cfg, DataConfig(batch=job["batch"], seq_len=job["seq"],
+                                       seed=job["data_seed"], enc_frames=job["enc_frames"]))
+    dev = next(params.parameters()).device
+    loss, _, grads = loss_and_grads(params, cfg, batch_to_device(data.batch(0), dev))
+    plan = plan_params(cfg, ExecContext(mesh=AxisSizes(data=mesh[0], model=mesh[1]),
+                                        batch_axes=("data",), model_axis="model",
+                                        fsdp=job.get("fsdp")))
+    errs = {}
+    for name, g in grads.items():
+        want = cut(g, cuts(plan, name, rank)).float()
+        scale = float(g.float().abs().max())
+        errs[name] = float((pieces[name].float() - want).abs().max()) / max(scale, 1e-30)
+    worst = max(errs, key=errs.get)
+    del params, grads
+    torch.cuda.empty_cache()
+    return {"loss": float(loss.detach()), "worst_leaf": worst, "worst_rel_err": errs[worst],
+            "leaves": len(errs)}
 
 
 def mesh_drop_share(ranks, job, M):
@@ -4189,101 +4249,190 @@ def mesh_drop_share(ranks, job, M):
     return 1.0 - kept / offered if offered else 0.0
 
 
+def train_mesh_cfg(arch, cut, dtype="bfloat16"):
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(arch), **cut, dtype=dtype, param_dtype=dtype)
+
+
+def train_mesh_job(cfg, batch, seq, steps, frames=64, fsdp=None, plan=None, **kw):
+    """A train_rank job on TRAIN_MESH's seed and learning-rate schedule."""
+    from repro_torch.training.optimizer import OptConfig
+    t = TRAIN_MESH
+    oc = OptConfig(lr=t["lr"], warmup_steps=min(20, steps // 5), total_steps=steps)
+    return dict(cfg=cfg, seed=t["seed"], data_seed=t["seed"], batch=batch, seq=seq,
+                enc_frames=frames, steps=steps, oc=oc, fsdp=fsdp, plan=plan, **kw)
+
+
+def train_mesh_refs(torch, jobs):
+    """The unsharded run on the card of each bf16 job (name -> job):
+    name -> (history rows, its memory: the peak, what was held when the
+    steps began (the weights, the AdamW moments, anything left over) and
+    the weights' bytes), the train path's launches checked. The moments
+    take twice the weights' bytes (the weights' dtype), the gradients
+    once."""
+    import gc
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import init_params, train_params
+    from repro_torch.training.optimizer import init_opt_state
+    out = {}
+    for name, jb in jobs.items():
+        cfg = jb["cfg"]
+        data = SyntheticLM(cfg, DataConfig(batch=jb["batch"], seq_len=jb["seq"],
+                                           seed=jb["data_seed"], enc_frames=jb["enc_frames"]))
+        params = init_params(cfg, jb["seed"], "cuda")
+        named = train_params(params)
+        state = init_opt_state(named)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        hist, state, launches, peak = train_run(torch, cfg, params, data, jb["steps"],
+                                                jb["oc"], state=state)
+        train_checks(f"train_mesh unsharded {name}", hist, launches)
+        out[name] = (hist, {"peak_mem_bytes": peak, "base_mem_bytes": base,
+                            "param_bytes": sum(p.numel() * p.element_size()
+                                               for p in named.values())})
+        del params, named, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_arm_row(label, ranks, j, job, ref):
+    """One job of a spawn: its checks (finite, no kernel launched, every
+    rank the same losses, each step's loss and grad norm within
+    TRAIN_MESH_TOL of the unsharded run ``ref``'s history) and its row."""
+    for rank, r in enumerate(ranks):
+        train_checks(f"{label} rank {rank}", r[j]["history"], r[j]["launches"])
+    if len({tuple(h["loss"] for h in r[j]["history"]) for r in ranks}) != 1:
+        raise SmokeFailure(f"{label}: the ranks report other losses")
+    hist = ranks[0][j]["history"]
+    row = {"losses": [h["loss"] for h in hist], "grad_norms": [h["grad_norm"] for h in hist],
+           "step_s": [h["step_s"] for h in hist],
+           "warm_step_s": min((h["step_s"] for h in hist[1:]), default=None),
+           "peak_mem_bytes": [r[j]["peak_mem_bytes"] for r in ranks],
+           "base_mem_bytes": [r[j]["base_mem_bytes"] for r in ranks],
+           "param_bytes": [r[j]["param_bytes"] for r in ranks],
+           "collectives_per_step": ranks[0][j]["collectives"][-1],
+           "shards": [(r[j]["shard"], r[j]["data_shard"]) for r in ranks],
+           "launches": ranks[0][j]["launches"], "fsdp": job["fsdp"], "plan": job.get("plan")}
+    if ref is not None:
+        for i, h in enumerate(ref):
+            dl = abs(row["losses"][i] - h["loss"]) / abs(h["loss"])
+            dg = abs(row["grad_norms"][i] - h["grad_norm"]) / abs(h["grad_norm"])
+            if dl > TRAIN_MESH_TOL["loss"] or dg > TRAIN_MESH_TOL["grad_norm"]:
+                raise SmokeFailure(f"{label} step {i}: loss {row['losses'][i]} vs {h['loss']}, "
+                                   f"grad norm {row['grad_norms'][i]} vs {h['grad_norm']}")
+        row["max_rel_loss_diff"] = max(abs(a - h["loss"]) / abs(h["loss"])
+                                       for a, h in zip(row["losses"], ref))
+        row["max_rel_grad_norm_diff"] = max(abs(a - h["grad_norm"]) / abs(h["grad_norm"])
+                                            for a, h in zip(row["grad_norms"], ref))
+    return row
+
+
+def train_mesh_arms():
+    """The train_mesh phase's bf16 jobs by name (tinyllama and each of
+    TRAIN_MESH_FAMILIES, with the meshes each runs on) and its fp32 jobs."""
+    from repro_torch.configs.base import get_config
+    t = TRAIN_MESH
+    tiny = dataclasses.replace(get_config(t["arch"]), num_layers=t["layers"])
+    arms = {"tinyllama": (train_mesh_job(tiny, t["batch"], t["seq"], t["steps"]),
+                          tuple((mesh, fsdp, None) for mesh, fsdp in t["meshes"]))}
+    for name, f in TRAIN_MESH_FAMILIES.items():
+        arms[name] = (train_mesh_job(train_mesh_cfg(f["arch"], f["cut"]), f["batch"], f["seq"],
+                                     t["steps"], f.get("frames", 64)), f["meshes"])
+    p = TRAIN_MESH_FP32
+    fp32 = {name: train_mesh_job(train_mesh_cfg(TRAIN_MESH_FAMILIES[name]["arch"], cut,
+                                                "float32"),
+                                 p["batch"], p["seq"], 1, p["frames"], pieces=True)
+            for name, cut in p["cuts"].items()}
+    return arms, fp32
+
+
 def phase_train_mesh(torch, report):
     """Sharded training on the (data, model) mesh, ranks on the one card
-    over gloo (spawned by ``run_ranks``, one spawn per mesh): tinyllama-1.1b
-    at full width, 4 of 22 layers (B 8, S 512, bf16, remat "full") takes 3
-    steps on (2, 1)
-    with FSDP, (1, 2) and (2, 2) with FSDP, each step's loss and grad norm
-    against the unsharded run's on the card (TRAIN_MESH_TOL), each rank's
-    peak memory and collectives per step printed; deepseek-v2-lite (GQA
-    attention, 2 of 27 layers) trains expert-parallel on (1, 2) and with
-    the 2-D MoE on (2, 2), its drop share printed; the checkpoint (2, 2)
-    saves is restored on no mesh into the very pieces each rank held, bit
-    for bit (SHA-1 of each rank's pieces of every param and moment). The
-    train path launches no hand-written kernel."""
+    (spawned by ``run_ranks``, one spawn per mesh), each arm 3 steps, bf16,
+    remat "full", each step's loss and grad norm against the arm's
+    unsharded run on the card (TRAIN_MESH_TOL), each rank's peak memory
+    (beside what it held at the first step and its weights' bytes),
+    collectives per step and warm step time printed: tinyllama-1.1b at
+    full width, 4 of 22 layers (B 8, S 512) on (2, 1) with FSDP, (1, 2)
+    and (2, 2) with FSDP; deepseek-v2-lite (MLA, 2 of 27 layers)
+    expert-parallel on (1, 2) and with the 2-D MoE on (2, 2), its drop
+    share printed; mamba2-2.7b (4 of 64 layers) on (1, 2) and on (2, 2)
+    with FSDP; seamless-m4t-medium (2 + 2 layers) on (1, 2). On (1, 2) an
+    fp32 arm of each family (2 layers, seamless 1 + 1, one step, TF32
+    off): each rank's gradient of each leaf within TRAIN_MESH_FP32's tol
+    of the unsharded gradient's largest |value|. The tinyllama checkpoint
+    (2, 2) saves is restored on no mesh into the very pieces each rank
+    held, bit for bit (SHA-1 of each rank's pieces of every param and
+    moment). The train path launches no hand-written kernel."""
     import gc
     import tempfile
 
-    from repro_torch.configs.base import get_config
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.sharded import piece_digests, run_ranks
     from repro_torch.models.model import cut, cuts, init_params, train_params
     from repro_torch.sharding.context import ExecContext
     from repro_torch.sharding.placement import AxisSizes, plan_params
     from repro_torch.training.checkpoint import leaves, restore_checkpoint
-    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.optimizer import init_opt_state
     t = TRAIN_MESH
-    cfg = dataclasses.replace(get_config(t["arch"]), num_layers=t["layers"])
-    oc = OptConfig(lr=t["lr"], warmup_steps=min(20, t["steps"] // 5), total_steps=t["steps"])
-    data = SyntheticLM(cfg, DataConfig(batch=t["batch"], seq_len=t["seq"], seed=t["seed"]))
-    params = init_params(cfg, t["seed"], "cuda")
-    ref, _, launches, peak = train_run(torch, cfg, params, data, t["steps"], oc)
-    train_checks("train_mesh unsharded", ref, launches)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    m = TRAIN_MESH_MOE
-    moe_cfg = dataclasses.replace(get_config(m["arch"]), num_layers=m["layers"], use_mla=False)
-    moe_oc = OptConfig(lr=m["lr"], warmup_steps=min(20, m["steps"] // 5), total_steps=m["steps"])
-
-    def job(c, o, B, S, seed, fsdp, **kw):
-        return dict(cfg=c, seed=seed, data_seed=seed, batch=B, seq=S, steps=t["steps"], oc=o,
-                    fsdp=fsdp, **kw)
-    out = {"unsharded": {"losses": [h["loss"] for h in ref],
-                         "grad_norms": [h["grad_norm"] for h in ref],
-                         "warm_step_s": [h["step_s"] for h in ref[1:]],
-                         "peak_mem_bytes": peak}, "card": report["smi"]}
+    arms, fp32 = train_mesh_arms()
+    refs = train_mesh_refs(torch, {name: jb for name, (jb, _) in arms.items()})
+    out = {"unsharded": {name: {"losses": [h["loss"] for h in hist],
+                                "grad_norms": [h["grad_norm"] for h in hist],
+                                "warm_step_s": min(h["step_s"] for h in hist[1:]),
+                                **mem}
+                         for name, (hist, mem) in refs.items()},
+           "card": report["smi"]}
+    for name, row in out["unsharded"].items():
+        log(f"train_mesh unsharded {name}: losses {row['losses']}, grad norms "
+            f"{row['grad_norms']}, warm step {row['warm_step_s']:.3f} s, peak "
+            f"{row['peak_mem_bytes'] / 2**30:.2f} GiB (held at the first step "
+            f"{row['base_mem_bytes'] / 2**30:.2f}, weights {row['param_bytes'] / 2**30:.2f}), "
+            f"on {report['smi']}")
+    meshes = []
+    for _, ms in arms.values():
+        meshes += [m[0] for m in ms if m[0] not in meshes]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_ckpt_") as tmp:
-        for mesh, fsdp in t["meshes"]:
+        for mesh in meshes:
             D, M = mesh
-            jobs = [job(cfg, oc, t["batch"], t["seq"], t["seed"], fsdp,
-                        save=tmp if mesh == (2, 2) else None, digest=mesh == (2, 2))]
-            if M > 1:
-                jobs.append(job(moe_cfg, moe_oc, m["batch"], m["seq"], m["seed"],
-                                True if D > 1 else None,
-                                plan={"moe_2d": True} if D > 1 else None))
+            names, jobs = [], []
+            for name, (jb, ms) in arms.items():
+                for m, fsdp, plan in ms:
+                    if m == mesh:
+                        extra = dict(save=tmp, digest=True) if name == "tinyllama" and \
+                            mesh == (2, 2) else {}
+                        names.append(name)
+                        jobs.append(dict(jb, fsdp=fsdp, plan=plan, **extra))
+            if mesh == (1, 2):
+                names += [f"{n} fp32" for n in fp32]
+                jobs += list(fp32.values())
             t0 = time.perf_counter()
             ranks = run_ranks(train_mesh_rank, D * M, (jobs, mesh), timeout=t["timeout"],
                               device_type="cuda")
             wall = time.perf_counter() - t0
             label = f"train_mesh {D}x{M}"
             rows = {}
-            for j, jb in enumerate(jobs):
-                name = "tinyllama" if j == 0 else "deepseek"
-                for rank, r in enumerate(ranks):
-                    train_checks(f"{label} {name} rank {rank}", r[j]["history"],
-                                 r[j]["launches"])
-                hist = ranks[0][j]["history"]
-                rows[name] = {
-                    "losses": [h["loss"] for h in hist],
-                    "grad_norms": [h["grad_norm"] for h in hist],
-                    "step_s": [h["step_s"] for h in hist],
-                    "peak_mem_bytes": [r[j]["peak_mem_bytes"] for r in ranks],
-                    "collectives_per_step": ranks[0][j]["collectives"][-1],
-                    "shards": [(r[j]["shard"], r[j]["data_shard"]) for r in ranks],
-                    "launches": ranks[0][j]["launches"], "fsdp": jb["fsdp"],
-                    "plan": jb.get("plan")}
-                if len({tuple(h["loss"] for h in r[j]["history"]) for r in ranks}) != 1:
-                    raise SmokeFailure(f"{label} {name}: the ranks report other losses")
-            tiny = rows["tinyllama"]
-            for i, h in enumerate(ref):
-                dl = abs(tiny["losses"][i] - h["loss"]) / abs(h["loss"])
-                dg = abs(tiny["grad_norms"][i] - h["grad_norm"]) / abs(h["grad_norm"])
-                if dl > TRAIN_MESH_TOL["loss"] or dg > TRAIN_MESH_TOL["grad_norm"]:
-                    raise SmokeFailure(f"{label} tinyllama step {i}: loss {tiny['losses'][i]} "
-                                       f"vs {h['loss']}, grad norm {tiny['grad_norms'][i]} vs "
-                                       f"{h['grad_norm']}")
-            tiny["max_rel_loss_diff"] = max(abs(a - h["loss"]) / abs(h["loss"])
-                                            for a, h in zip(tiny["losses"], ref))
-            tiny["max_rel_grad_norm_diff"] = max(abs(a - h["grad_norm"]) / abs(h["grad_norm"])
-                                                 for a, h in zip(tiny["grad_norms"], ref))
-            if "deepseek" in rows:
-                rows["deepseek"]["drop_share"] = mesh_drop_share(ranks, 1, M)
-                if not all(a > 0 for a in (h["aux"] for h in ranks[0][1]["history"])):
-                    raise SmokeFailure(f"{label} deepseek: aux loss not positive")
+            for j, (name, jb) in enumerate(zip(names, jobs)):
+                if jb.get("pieces"):
+                    rows[name] = row = mesh_arm_row(f"{label} {name}", ranks, j, jb, None)
+                    row["fp32_grads"] = [r[j]["fp32_check"] for r in ranks]
+                    for rank, c in enumerate(row["fp32_grads"]):
+                        dl = abs(row["losses"][0] - c["loss"]) / abs(c["loss"])
+                        if c["worst_rel_err"] > TRAIN_MESH_FP32["tol"] or dl > 1e-5:
+                            raise SmokeFailure(f"{label} {name} rank {rank}: gradient of "
+                                               f"{c['worst_leaf']} off by {c['worst_rel_err']} "
+                                               f"of its largest, loss {row['losses'][0]} vs "
+                                               f"{c['loss']}")
+                    continue
+                rows[name] = mesh_arm_row(f"{label} {name}", ranks, j, jb, refs[name][0])
+                if jb["cfg"].num_experts:
+                    rows[name]["drop_share"] = mesh_drop_share(ranks, j, M)
+                    if not all(h["aux"] > 0 for h in ranks[0][j]["history"]):
+                        raise SmokeFailure(f"{label} {name}: aux loss not positive")
             if mesh == (2, 2):
                 # the checkpoint on no mesh, cut into each rank's pieces
+                cfg = arms["tinyllama"][0]["cfg"]
                 params = init_params(cfg, t["seed"] + 1, "cuda")
                 state = init_opt_state(train_params(params))
                 if restore_checkpoint(tmp, params, state) != t["steps"]:
@@ -4296,23 +4445,28 @@ def phase_train_mesh(torch, report):
                     pieces = {n: cut(v, cuts(plan, n.split(".", 2)[-1] if n.startswith("opt.")
                                                   else n.split(".", 1)[1], rank))
                               for n, v in whole.items()}
-                    if piece_digests(pieces) != r[0]["digest"]:
+                    if piece_digests(pieces) != r[names.index("tinyllama")]["digest"]:
                         raise SmokeFailure(f"{label}: rank {rank}'s pieces differ from the "
                                            "checkpoint restored on no mesh")
-                tiny["checkpoint_restored_bit_for_bit"] = True
+                rows["tinyllama"]["checkpoint_restored_bit_for_bit"] = True
                 del params, state, whole
                 gc.collect()
                 torch.cuda.empty_cache()
             out[f"{D}x{M}"] = dict(rows, spawn_wall_s=wall)
             log(f"{label}: {json.dumps(rows)} (spawn wall {wall:.1f} s, on {report['smi']})")
-            for rank, r in enumerate(ranks):
-                log(f"{label} rank {rank}: peak memory "
-                    + ", ".join(f"{n} {x['peak_mem_bytes'] / 2**30:.2f} GiB"
-                                for n, x in zip(("tinyllama", "deepseek"), r))
+            for name, row in rows.items():
+                log(f"{label} {name}: warm step {row['warm_step_s']} s, collectives per step "
+                    f"{row['collectives_per_step']}, peak per rank "
+                    + ", ".join(f"{b / 2**30:.2f}" for b in row["peak_mem_bytes"])
+                    + " GiB (held at the first step "
+                    + ", ".join(f"{b / 2**30:.2f}" for b in row["base_mem_bytes"])
+                    + ", weights "
+                    + ", ".join(f"{b / 2**30:.2f}" for b in row["param_bytes"])
+                    + f"), max rel loss / grad norm diff {row.get('max_rel_loss_diff')} / "
+                    f"{row.get('max_rel_grad_norm_diff')}"
+                    + (f", fp32 grads {row['fp32_grads']}" if "fp32_grads" in row else "")
                     + f", on {report['smi']}")
     report["train_mesh"] = out
-    log(f"train_mesh unsharded tinyllama: losses {out['unsharded']['losses']}, grad norms "
-        f"{out['unsharded']['grad_norms']}, on {report['smi']}")
 
 
 def phase_serve_mesh(torch, report):

@@ -136,16 +136,21 @@ def train_rank(rank: int, jobs: Sequence[dict], mesh: tuple, device: str = "cuda
     ``seed`` (weights drawn as this rank's shard by ``init_params(ctx=)``,
     or ``tree``, a numpy tree in the JAX package's layout, cut by
     ``convert.shard_params``), ``batch`` and ``seq`` (the global batch of
-    ``SyntheticLM`` with ``data_seed``, 0 by default), ``steps``, ``oc`` (an
-    ``OptConfig``), and optionally ``fsdp``, ``plan`` (``ExecContext.plan``),
-    ``grads`` (return the step-0 gradients gathered whole, numpy fp32),
+    ``SyntheticLM`` with ``data_seed``, 0 by default, and an
+    encoder-decoder model's ``enc_frames`` frames per row, whose
+    ``enc_inputs`` split over the data ranks with the tokens), ``steps``,
+    ``oc`` (an ``OptConfig``), and optionally ``fsdp``, ``plan``
+    (``ExecContext.plan``), ``grads`` (return the step-0 gradients
+    gathered whole, numpy fp32), ``pieces`` (return this rank's pieces of
+    them, tensors on the device, for a caller in the rank's process),
     ``weights`` (return the final weights gathered whole), ``save`` /
     ``restore`` (a checkpoint directory, written after / read before the
     steps) and ``digest`` (return ``piece_digests`` of this rank's piece
-    of every param and moment after the steps). Returns per job the history rows, the
-    collectives per step (``collectives.counts``), the hand-written
-    kernels' launches, the shard and the peak device bytes (0 on the
-    CPU)."""
+    of every param and moment after the steps). Returns per job the
+    history rows, the collectives per step (``collectives.counts``), the
+    hand-written kernels' launches, the shard, the bytes of this rank's
+    weights, and the device bytes held when the steps begin and at their
+    peak (0 on the CPU)."""
     import torch
 
     from repro_torch.convert import params_from_numpy, shard_params
@@ -173,18 +178,25 @@ def train_rank(rank: int, jobs: Sequence[dict], mesh: tuple, device: str = "cuda
         named = train_params(params)
         state = init_opt_state(named)
         plan = plan_params(cfg, ctx)
-        res = {"shard": params.shard, "data_shard": params.data_shard}
+        res = {"shard": params.shard, "data_shard": params.data_shard,
+               "param_bytes": sum(p.numel() * p.element_size() for p in named.values()),
+               "base_mem_bytes": 0}
         if job.get("restore"):
             res["restored_step"] = restore_checkpoint(job["restore"], params, state, ctx)
         data = SyntheticLM(cfg, DataConfig(batch=job["batch"], seq_len=job["seq"],
-                                           seed=job.get("data_seed", 0)))
+                                           seed=job.get("data_seed", 0),
+                                           enc_frames=job.get("enc_frames",
+                                                              DataConfig.enc_frames)))
         dev = next(iter(named.values())).device
-        if job.get("grads"):
+        if job.get("grads") or job.get("pieces"):
             b = batch_to_device(shard_batch(data.batch(0), cfg, ctx), dev)
             loss, _, grads = loss_and_grads(params, cfg, b, ctx, plan)
-            res["grads"] = {n: whole(g, n, plan, ctx).float().cpu().numpy()
-                            for n, g in grads.items()}
-            res["local_loss"] = float(loss)
+            if job.get("grads"):
+                res["grads"] = {n: whole(g, n, plan, ctx).float().cpu().numpy()
+                                for n, g in grads.items()}
+            if job.get("pieces"):
+                res["pieces"] = grads
+            res["local_loss"] = float(loss.detach())
             for p in named.values():
                 p.grad = None
         step_fn = make_train_step(cfg, ctx, job["oc"])
@@ -193,6 +205,7 @@ def train_rank(rank: int, jobs: Sequence[dict], mesh: tuple, device: str = "cuda
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
+            res["base_mem_bytes"] = torch.cuda.memory_allocated(dev)
         hist, per_step = [], []
         for i in range(job["steps"]):
             before = dict(collectives.counts)

@@ -28,7 +28,12 @@ G = H/M over one kv head); a group that its M/Hkv ranks do not divide is
 padded with zero query heads, whose zero ``wo`` columns add nothing
 (``sharding.placement``). MLA's ``w_dkv`` and ``kv_norm`` are whole on every rank,
 which writes the whole latent row; its absorbed decode scores the rank's
-H/M heads against that one latent head (the MLA kernels at G = H/M).
+H/M heads against that one latent head (the MLA kernels at G = H/M). In
+train mode a rank's latent feeds only its own heads, so the gradients of
+``w_dkv`` and ``kv_norm`` are partial sums, marked ``ParamPlan.partial``
+and summed over the model axis after the backward; the latent's input is
+the mixer's ``copy_to_model`` output, whose backward already sums the
+residual stream's gradient once over the ranks.
 
 Cross-attention (``gqa_cross``) has no rope and no causal mask; at decode
 it reads a cross cache preallocated at the slot pool's ``max_enc_len`` and

@@ -126,8 +126,9 @@ def row_linear(lin: nn.Linear, x):
     fp32, from fp32 operands: the caller sums the ranks' partials over the
     model axis and casts the sum to the activation dtype, so a bf16 output
     is rounded once, as the unsharded layer's is, not once per rank. Train
-    mode keeps the partials in the activation dtype: fp32 ones double the
-    bytes of every all-reduce, which doubled a (1, 2) train step over gloo
+    mode keeps the partials in the activation dtype: on the card fp32 ones
+    made a warm (1, 2) step 5-22% slower and did not keep the loss and
+    grad norm nearer the unsharded run's over 6 steps on every family
     (PERF.md)."""
     if getattr(lin, "partial_fp32", False) and not torch.is_grad_enabled():
         return F.linear(x.float(), lin.weight.float())

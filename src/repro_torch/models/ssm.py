@@ -28,7 +28,11 @@ On a model axis of M > 1 (``ctx.model_parallel``; the placement is
 inner channels (Mamba1), the sizes read from its parameters. Mamba2's
 ``in_proj`` yields the rank's z, x and dt and B and C whole, so the scan
 needs no collective; its gated RMSNorm normalises over all of d_inner, so
-the ranks' sums of squares are all-reduced before the scale. Mamba1's
+the ranks' sums of squares are all-reduced before the scale (forward and
+backward). In train mode the B and C columns of ``in_proj`` and of the
+conv, which every rank holds whole but applies to its own heads, get a
+partial gradient that ``training.train_loop.sync_grads`` sums over the
+model axis (``ParamPlan.shared_rows``). Mamba1's
 ``x_proj`` takes the rank's channels and gives a partial sum of dt_rank +
 2N columns, all-reduced in fp32 before the dt / B / C norms, which act on
 the whole. ``out_proj`` is row-parallel: the caller sums its outputs.
@@ -65,13 +69,15 @@ def _conv_step(state, x_new, w, b):
 
 def _gated_rmsnorm(y, z, scale, cfg, ctx=None, eps=1e-6):
     """Mamba2 norm: rmsnorm(y * silu(z)) over all of d_inner; a model
-    rank holds its channels of y, z and ``scale``, and the sum of squares
-    is all-reduced over the model axis."""
+    rank holds its channels of y, z and ``scale``, and the fp32 sum of
+    squares is all-reduced over the model axis (``sum_over_model``: every
+    rank's channels are divided by the whole sum, so in train mode its
+    gradient is the sum of the ranks' gradients)."""
     g = y * F.silu(z)
     if ctx is None or ctx.model_parallel == 1:
         return rms_norm_head(g, scale, eps)
     gf = g.float()
-    ss = collectives.reduce_from_model(gf.square().sum(dim=-1, keepdim=True), ctx)
+    ss = collectives.sum_over_model(gf.square().sum(dim=-1, keepdim=True), ctx)
     return (gf * torch.rsqrt(ss / cfg.d_inner + eps) * scale).to(g.dtype)
 
 

@@ -65,8 +65,13 @@ outputs (fp32 partial sums when serving, ``layers.row_linear``) are
 summed over the ranks (``reduce_from_model``) and cast to the activation
 dtype here, before any post-block norm; the MoE layer does its own. The
 encoder's layers run the same way. In train mode these are Megatron's
-pair, so the gradients are those of the unsharded layer (train mode takes
-GQA stacks only at M > 1). With FSDP on a data axis of D > 1 every layer
+pair, so the gradients are those of the unsharded layer; the leaves
+that every rank holds whole but applies to its own heads (MLA's latent
+projection and its norm, Mamba2's B and C columns) get partial gradients,
+which ``training.train_loop.sync_grads`` sums over the model axis, while
+the residual stream's gradient is summed once, by the ``copy_to_model``
+before the mixer (train mode refuses Mamba1 and hybrid stacks at M > 1).
+With FSDP on a data axis of D > 1 every layer
 gathers its cut weights for its own span
 (``collectives.gathered``), inside the remat step, so that the backward's
 recompute gathers them again instead of keeping them.

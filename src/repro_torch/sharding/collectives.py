@@ -16,6 +16,9 @@ goes before a column-parallel input and ``reduce_from_model`` (all-reduce
 forward, identity backward) after a row-parallel output, so a loss that
 every model rank computes alike gets each weight's gradient once, not M
 times; ``all_gather_last``'s backward takes the rank's own slice.
+``sum_over_model`` (all-reduce forward and backward) sums a statistic
+that every rank applies to its own channels, so its gradient is the sum of
+the ranks' gradients.
 ``torch.distributed.nn.functional.all_reduce`` is not used: its backward
 all-reduces the gradient too, which gives M times the gradient here.
 
@@ -209,6 +212,17 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return _all_reduce(x, ctx.model_group, "all_reduce")
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_reduce(g, fctx.ctx.model_group, "all_reduce"), None
+
+
 class _GatherLast(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, ctx):
@@ -245,6 +259,20 @@ def reduce_from_model(x: torch.Tensor, ctx) -> torch.Tensor:
         return x
     if _grad_path(x):
         return _ReduceFromModel.apply(x, ctx)
+    return all_reduce(x, ctx)
+
+
+def sum_over_model(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The sum over the model axis of a statistic that every rank then
+    applies to its own part of the output (Mamba2's gated-norm sum of
+    squares): in place without grad (``all_reduce``), else with an
+    all-reduce backward, since each rank's output depends on every rank's
+    input (``reduce_from_model``'s identity backward would keep only the
+    rank's own share of the gradient)."""
+    if ctx.model_parallel == 1:
+        return x
+    if _grad_path(x):
+        return _SumOverModel.apply(x, ctx)
     return all_reduce(x, ctx)
 
 
@@ -329,7 +357,9 @@ def all_reduce_data(x: torch.Tensor, ctx) -> torch.Tensor:
 
 def all_reduce_model(x: torch.Tensor, ctx) -> torch.Tensor:
     """The sum over the model axis, without grad and off the serving
-    counter (the qk-norm scales' partial gradients)."""
+    counter (the partial gradients of whole leaves, or of whole segments,
+    that a rank applies to its own heads: ``ParamPlan.partial`` and
+    ``shared_rows``)."""
     if ctx.model_parallel == 1:
         return x
     return _all_reduce(x, ctx.model_group, "all_reduce")

@@ -27,18 +27,22 @@ rank, so beyond the table's own divisibility it refuses, with a
   divisible by M, GQA kv heads that neither divide M nor are divided by
   it, and a state cache that the table would leave whole instead of
   cutting its heads or channels (``plan_cache``);
-* at M > 1 in train mode, MLA, SSM, encoder-decoder and hybrid stacks,
+* at M > 1 in train mode, stacks with Mamba1 layers (Jamba's hybrid),
   GQA kv heads fewer than M and experts that M does not divide
   (``check_mesh``, which ``models.model.check_train_mesh`` calls): their
-  serving is ported, their sharded training is not;
+  serving is ported, their sharded training is not. MLA, pure Mamba2 and
+  encoder-decoder stacks train at M > 1;
 * at D > 1, a cache whose batch (the slot pool) does not divide D, which
   the table would shard on its sequence over the data axis (``plan_cache``).
 
 A mesh of one takes every family, and so does a data axis at M = 1. A 1-D
 qkv bias, which the table replicates, is cut to the rank's heads with its
 projection (the rank's projection yields only those heads). The qk-norm
-scales stay whole on every rank but act on the rank's heads only, so their
-gradient is a partial sum over the model axis (``partial``).
+scales, and MLA's latent projection ``w_dkv`` and its ``kv_norm``, stay
+whole on every rank but act on the rank's heads only, so their gradient
+is a partial sum over the model axis (``partial``); so is that of the
+segments a segmented leaf holds whole (Mamba2's B and C, below:
+``ParamPlan.shared_rows``).
 
 Where the explicit-SPMD layers need another placement than the table's
 contiguous 1/M cut, the port departs from it; the sharding report keeps
@@ -97,7 +101,7 @@ from torch import nn
 from repro_torch.models import attention as att
 from repro_torch.models.layers import LayerNorm, RMSNorm
 from repro_torch.models.model import dtype_of
-from repro_torch.models.transformer import ATTN_KINDS, compute_stages, init_stack_cache
+from repro_torch.models.transformer import compute_stages, init_stack_cache
 from repro_torch.sharding import partition_specs as ps
 from repro_torch.sharding.context import axis_sizes
 
@@ -122,8 +126,9 @@ _SSM_CUTS = {
         "x_proj": (1, None), "dt_proj": (0, None), "dt_proj_b": (0, None), "A_log": (0, None),
         "D": (0, None), "out_proj": (1, None)},
 }
-# whole leaves applied to the rank's heads only (their gradient sums over the model axis)
-_HEAD_SHARED = ("q_norm", "k_norm")
+# whole leaves applied to the rank's heads only (their gradient sums over the model
+# axis): the qk-norm scales, MLA's latent projection and its norm
+_HEAD_SHARED = ("q_norm", "k_norm", "w_dkv", "kv_norm")
 # the port's dim of each GQA leaf (qkv biases included) that a model rank cuts
 # by heads (an nn.Linear weight is (d_out, d_in)), and those on the kv side
 _GQA_DIMS = {"wq": 0, "wk": 0, "wv": 0, "wo": 1, "bq": 0, "bk": 0, "bv": 0}
@@ -289,11 +294,13 @@ def _paths(cfg) -> List[str]:
 
 def check_mesh(cfg, ctx) -> None:
     """Train mode's refusals at a model axis of M > 1 (module docstring):
-    MLA, SSM, encoder-decoder and hybrid stacks, GQA kv heads fewer than M
-    (replicated, and query heads maybe padded) and experts that M does not
-    divide (held whole), each naming a leaf, M and ROADMAP.md. Their
-    serving at M > 1 is ported; their gradients would be partial sums
-    over sub-groups of the model axis."""
+    stacks with Mamba1 layers or of the hybrid family (Mamba1's
+    row-parallel ``x_proj`` and its dt / B / C norms have no backward of
+    their own yet), GQA kv heads fewer than M (replicated, and query heads
+    maybe padded) and experts that M does not divide (held whole), each
+    naming a leaf, M and ROADMAP.md. Their serving at M > 1 is ported;
+    their gradients would be partial sums over sub-groups of the model
+    axis. MLA, pure Mamba2 and encoder-decoder stacks train."""
     M = ctx.model_parallel
     if M == 1:
         return
@@ -301,12 +308,9 @@ def check_mesh(cfg, ctx) -> None:
 
     def first(part):
         return next(p for p in paths if part in p)
-    if cfg.is_encoder_decoder:
-        _refuse(first("encoder/"), "an encoder-decoder stack", M, "training")
-    if cfg.use_mla:
-        _refuse(first("attn/w_dkv"), "MLA attention", M, "training")
-    if set(cfg.layer_kinds()) - set(ATTN_KINDS) or cfg.family == "hybrid":
-        _refuse(first("mixer/"), f"a stack with SSM layers ({cfg.family})", M, "training")
+    if "mamba" in cfg.layer_kinds() or cfg.family == "hybrid":
+        _refuse(first("mixer/"), f"a stack with Mamba1 or hybrid layers ({cfg.family})", M,
+                "training")
     if cfg.num_experts and cfg.num_experts % M:
         _refuse(first("mlp/w_gate"), f"{cfg.num_experts} experts, whole on every rank,", M,
                 "training")
@@ -333,10 +337,31 @@ class ParamPlan:
     ways: Dict[str, int] = field(default_factory=dict)
 
     def replicas(self, name: str) -> int:
-        """How many ranks of the mesh hold the same piece of ``name``."""
+        """How many ranks of the mesh hold the same piece of ``name`` (of
+        its own rows, where ``shared_rows`` names others: those are held
+        by M times as many)."""
         D, M = self.shape
         return ((M if self.dims[name] is None else M // self.ways.get(name, M))
                 * (D if self.data_dims[name] is None else 1))
+
+    def shared_rows(self, name: str) -> Tuple[Tuple[int, int], ...]:
+        """The [lo, hi) ranges of the model dim, in a rank's piece of
+        ``name``, that every model rank holds whole but applies to its own
+        heads (the segments ``segments`` leaves whole: Mamba2's B and C),
+        adjacent ones merged: their gradient is a partial sum over the
+        model axis, like ``partial``'s."""
+        segs, M = self.segments.get(name), self.shape[1]
+        if not isinstance(segs, tuple):
+            return ()
+        out, at = [], 0
+        for length, split in segs:
+            n = length // M if split else length
+            if not split and out and out[-1][1] == at:
+                out[-1] = (out[-1][0], at + n)
+            elif not split:
+                out.append((at, at + n))
+            at += n
+        return tuple(out)
 
 
 def plan_params(cfg, ctx, report: Optional[ps.ShardingReport] = None) -> ParamPlan:

@@ -16,7 +16,12 @@ On a (data, model) mesh (``ctx``) the leaves are this rank's pieces: a
 save gathers every leaf whole over both axes and rank 0 writes it in the
 unsharded layout, a restore reads the whole leaves on every rank and
 copies in this rank's piece (``models.model.cuts``), so a checkpoint moves
-between meshes and to and from no mesh.
+between meshes and to and from no mesh. A leaf whose model rank holds
+other rows than its contiguous 1/M slice (the segments of Mamba2's
+``in_proj``, ``conv_w`` and ``conv_b``, padded query heads, kv heads cut
+fewer ways than M: ``ParamPlan.segments`` and ``ways``) is put back
+together by writing each rank's piece into the rows it holds
+(``models.model.kept_ranges``).
 """
 from __future__ import annotations
 
@@ -66,10 +71,25 @@ def whole(t, name, plan, ctx):
     """Parameter ``name``'s leaf (or a tensor laid out as it is: its
     gradient, a moment) gathered whole from this rank's piece ``t`` under
     ``plan`` (``placement.plan_params``); every rank of the mesh calls it."""
+    from repro_torch.models.model import kept_ranges
     from repro_torch.sharding import collectives
     D, M = plan.shape
-    if plan.dims[name] is not None and M > 1:
-        t = collectives.all_gather(t, plan.dims[name], M, ctx.model_group)
+    d = plan.dims[name]
+    if d is not None and M > 1:
+        t = collectives.all_gather(t, d, M, ctx.model_group)
+        segs, ways = plan.segments.get(name), plan.ways.get(name, M)
+        if segs is not None or ways != M:  # each rank's piece into the rows it holds
+            pieces = t.chunk(M, dim=d)
+            kept = [kept_ranges(pieces[0].shape[d] * ways, ways, r * ways // M, segs)[0]
+                    for r in range(M)]
+            shape = list(t.shape)
+            shape[d] = max(hi for ranges in kept for _, hi in ranges)
+            t = t.new_empty(shape)
+            for piece, ranges in zip(pieces, kept):
+                at = 0
+                for lo, hi in ranges:
+                    t.narrow(d, lo, hi - lo).copy_(piece.narrow(d, at, hi - lo))
+                    at += hi - lo
     if plan.data_dims[name] is not None:
         t = collectives.all_gather(t, plan.data_dims[name], D, ctx.data_group)
     return t

@@ -12,9 +12,12 @@ its decay, bias correction and moment dtype differ from the reference's.
 
 On a (data, model) mesh each rank updates its own pieces: ``plan`` (a
 ``sharding.placement.ParamPlan``) and ``ctx`` make ``global_norm`` the
-norm of the whole gradient (each leaf's local sum of squares divided by
-the number of ranks that hold the same piece, summed over every rank), so
-clipping and the elementwise AdamW arithmetic reproduce the unsharded step.
+norm of the whole gradient (each element's square divided by the number
+of ranks that hold it, summed over every rank: the rows of a segmented
+leaf that every model rank holds whole, ``ParamPlan.shared_rows``, count
+M times as many holders as the rank's own rows), so every element of the
+tree counts once and clipping and the elementwise AdamW arithmetic
+reproduce the unsharded step.
 
 Each fp32 operation is its own rounding step, in the reference's order
 (no fused multiply-add, no ``alpha=`` forms), and the scalars (learning
@@ -69,7 +72,10 @@ def global_norm(tensors: dict, plan=None, ctx=None) -> torch.Tensor:
     total = None
     for name, t in tensors.items():
         s = torch.sum(torch.square(t.float()))
-        if plan is not None:
+        if plan is not None:  # each element over the ranks that hold it
+            for lo, hi in plan.shared_rows(name):  # held by M times as many
+                shared = torch.sum(torch.square(t.narrow(plan.dims[name], lo, hi - lo).float()))
+                s = s - (1 - 1 / plan.shape[1]) * shared
             s = s / plan.replicas(name)
         total = s if total is None else total + s
     if plan is not None:

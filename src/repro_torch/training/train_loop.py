@@ -12,12 +12,18 @@ the model (``convert.shard_params`` / ``init_params(ctx=...)``) and its
 rows of the global batch (``shard_batch``: ``batch_shardings``' split of
 dim 0 over the batch axes, from the same ``SyntheticLM`` batch). The loss
 is the global mean over tokens, the mean of the data ranks' means (equal
-row counts): after the backward each gradient is summed over the data
-group (an all-reduce for the leaves every data rank holds whole; the FSDP
-leaves' gather already reduce-scattered theirs) and divided by D, the qk-
-norm scales' partial gradients are summed over the model axis, and the
-optimizer clips by the whole tree's norm (``optimizer.global_norm``). The
-metrics are the data group's means.
+row counts): after the backward the partial gradients of the leaves and
+segments that every model rank holds whole but applies to its own heads
+(``ParamPlan.partial``: the qk-norm scales, MLA's ``w_dkv`` and
+``kv_norm``; ``ParamPlan.shared_rows``: the B and C segments of Mamba2's
+``in_proj``, ``conv_w`` and ``conv_b``) are summed over the model axis,
+then each gradient is summed over the data group (an all-reduce for the
+leaves every data rank holds whole; the FSDP leaves' gather already
+reduce-scattered theirs) and divided by D, and the optimizer clips by the
+whole tree's norm (``optimizer.global_norm``). The metrics are the data
+group's means. Every family trains at M > 1 but those
+``sharding.placement.check_mesh`` refuses: Mamba1 and hybrid stacks, kv
+heads fewer than M and experts that M does not divide.
 """
 from __future__ import annotations
 
@@ -61,6 +67,9 @@ def sync_grads(grads: dict, plan, ctx: ExecContext) -> dict:
     for name, g in grads.items():
         if name in plan.partial:
             g = collectives.all_reduce_model(g, ctx)
+        for lo, hi in plan.shared_rows(name):
+            rows = g.narrow(plan.dims[name], lo, hi - lo)
+            rows.copy_(collectives.all_reduce_model(rows, ctx))
         if D > 1:
             if plan.data_dims[name] is None:
                 g = collectives.all_reduce_data(g, ctx)

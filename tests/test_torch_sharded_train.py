@@ -1,8 +1,9 @@
 """Sharded training in the port on a (data, model) mesh of gloo ranks on
 the CPU: (2, 1), (1, 2) and (2, 2), with FSDP on and off, on reduced
-tinyllama-1.1b, reduced deepseek-v2-lite-16b (MLA, at M = 1 only: MLA stays
-refused at M > 1) and reduced deepseek-v2-lite with GQA attention in place
-of MLA (its MoE on a model axis). The JAX package's own sharded
+tinyllama-1.1b, reduced deepseek-v2-lite-16b (MLA, at M = 1 here; MLA,
+Mamba2 and the encoder-decoder at M > 1 are in
+``tests/test_torch_sharded_train_families.py``) and reduced deepseek-v2-lite
+with GQA attention in place of MLA (its MoE on a model axis). The JAX package's own sharded
 ``loss_fn`` raises ``ShardingTypeError`` on every mesh here (ROADMAP.md,
 Queue 3), so each mesh is held against the port's unsharded step and the
 JAX package's unsharded ``loss_fn``, run on each data shard's rows where

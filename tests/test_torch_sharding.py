@@ -11,6 +11,7 @@ does not shard, or does not train sharded, is refused naming the leaf, M
 and ROADMAP.md."""
 import dataclasses
 import functools
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -363,19 +364,19 @@ def test_refusals_name_the_leaf_and_the_roadmap():
     """No process group needed: reduced tinyllama (2 kv heads) on a model
     axis of 4 is placed for serving (each kv head whole on 2 ranks, one kv
     head per rank in the K/V cache), reduced kimi with 6 experts on 4 holds
-    every expert whole, and reduced deepseek-v2-lite (MLA), mamba2 and
-    seamless-m4t on 2 are placed too; train mode refuses each of them
-    (``check_train_mesh``), naming a leaf, M and ROADMAP.md. A data axis of
-    2 is taken (data-parallel serving and training), but a slot pool that
-    it does not divide is refused naming the leaf, D and ROADMAP.md."""
+    every expert whole, and reduced jamba (Mamba1 layers) on 2 is placed
+    too; train mode refuses each of them (``check_train_mesh``), naming a
+    leaf, M and ROADMAP.md. Reduced deepseek-v2-lite (MLA), mamba2 and
+    seamless-m4t on 2 are placed and train (their gradients:
+    tests/test_torch_sharded_train_families.py). A data axis of 2 is taken
+    (data-parallel serving and training), but a slot pool that it does not
+    divide is refused naming the leaf, D and ROADMAP.md."""
     def ctx(**shape):
         return ExecContext(mesh=_FakeMesh(**shape), batch_axes=("data",), model_axis="model")
     kimi = dataclasses.replace(configs.reduced(configs.get_config("kimi-k2-1t-a32b")),
                                num_experts=6)
     cases = [("tinyllama-1.1b", dict(data=1, model=4), "stages/0/l0/attn/wk", "4"),
-             ("deepseek-v2-lite-16b", dict(data=1, model=2), "attn/w_dkv", "2"),
-             ("mamba2-2.7b", dict(data=1, model=2), "mixer/", "2"),
-             ("seamless-m4t-medium", dict(data=1, model=2), "encoder/", "2"),
+             ("jamba-v0.1-52b", dict(data=1, model=2), "mixer/", "2"),
              (kimi, dict(data=1, model=4), "stages/0/l0/mlp/w_gate: 6 experts", "4")]
     for arch, shape, leaf, m in cases:
         cfg = arch if not isinstance(arch, str) else configs.reduced(configs.get_config(arch))
@@ -385,6 +386,10 @@ def test_refusals_name_the_leaf_and_the_roadmap():
             tmodel.check_train_mesh(None, cfg, ctx(**shape))
         assert leaf in str(e.value) and f"model axis of {m}" in str(e.value), str(e.value)
         assert "sharded training" in str(e.value), str(e.value)
+    for arch in ("deepseek-v2-lite-16b", "mamba2-2.7b", "seamless-m4t-medium"):
+        cfg = configs.reduced(configs.get_config(arch))
+        assert placement.plan_params(cfg, ctx(data=1, model=2)).shape == (1, 2)
+        tmodel.check_train_mesh(SimpleNamespace(shard=(2, 0)), cfg, ctx(data=1, model=2))
     kplan = placement.plan_params(kimi, ctx(data=1, model=4))
     assert all(kplan.dims[f"layers.0.mlp.{w}"] is None for w in ("w_gate", "w_up", "w_down"))
     tiny = configs.reduced(configs.get_config("tinyllama-1.1b"))

@@ -607,19 +607,24 @@ class _FakeMesh:
 
 
 def test_train_mode_refused_on_a_model_axis():
-    """Train mode on a model axis of 2 is ported for the GQA stacks
-    (tests/test_torch_sharded_train.py); an SSM stack stays refused there,
-    naming a leaf, M and the roadmap, and a GQA model whose params are not
-    this rank's shard is refused."""
-    cfg = configs.reduced(configs.get_config("mamba2-2.7b"))
+    """Train mode on a model axis of 2 is ported for the GQA, MLA, Mamba2
+    and encoder-decoder stacks (tests/test_torch_sharded_train.py,
+    tests/test_torch_sharded_train_families.py): their loss_fn passes the
+    mesh check and refuses only params that are not this rank's shard. A
+    stack with Mamba1 layers (reduced jamba) stays refused there, naming a
+    leaf, M and the roadmap."""
     ctx = ExecContext(mesh=_FakeMesh(data=1, model=2), model_axis="model")
-    b = batch_to_device(SyntheticLM(cfg, DataConfig(batch=2, seq_len=8)).batch(0), "cpu")
+    jamba = configs.reduced(configs.get_config("jamba-v0.1-52b"))
+    b = batch_to_device(SyntheticLM(jamba, DataConfig(batch=2, seq_len=8)).batch(0), "cpu")
     with pytest.raises(NotImplementedError, match=r"mixer/.*model axis of 2.*ROADMAP.md"):
-        tmodel.loss_fn(tmodel.init_params(cfg, 0, "cpu"), cfg, b, ctx)
-    tiny = _jax_pair("tinyllama-1.1b")[2]
-    b = batch_to_device(SyntheticLM(tiny, DataConfig(batch=2, seq_len=8)).batch(0), "cpu")
-    with pytest.raises(ValueError, match="shard_params"):
-        tmodel.loss_fn(tmodel.init_params(tiny, 0, "cpu"), tiny, b, ctx)
+        tmodel.loss_fn(tmodel.init_params(jamba, 0, "cpu"), jamba, b, ctx)
+    for arch in ("tinyllama-1.1b", "deepseek-v2-lite-16b", "mamba2-2.7b",
+                 "seamless-m4t-medium"):
+        cfg = _jax_pair(arch)[2]
+        data = DataConfig(batch=2, seq_len=8, enc_frames=4)
+        b = batch_to_device(SyntheticLM(cfg, data).batch(0), "cpu")
+        with pytest.raises(ValueError, match="shard_params"):
+            tmodel.loss_fn(tmodel.init_params(cfg, 0, "cpu"), cfg, b, ctx)
 
 
 @pytest.mark.parametrize("wrapper", ["flash", "decode", "mla", "ssd"])
