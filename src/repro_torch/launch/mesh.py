@@ -86,13 +86,15 @@ def make_production_mesh(*, multi_pod: bool = False):
     return _mesh("cuda", shape, axes)
 
 
-def make_debug_mesh(data: int = 1, model: int = 1, device_type: Optional[str] = None):
-    """A small (data, model) mesh over ``device_type``: by default the card
-    where there is one, else the CPU. A mesh of one starts its own world of
-    one when the process has no group; a larger one needs the process group
-    of its ``data * model`` ranks (``init_ranks``)."""
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+def make_debug_mesh(data: int = 1, model: int = 1, device_type: str = "cuda"):
+    """A small (data, model) mesh over ``device_type``: the card by default,
+    which raises where there is none; the CPU only when the caller passes
+    ``device_type="cpu"``. A mesh of one starts its own world of one when
+    the process has no group; a larger one needs the process group of its
+    ``data * model`` ranks (``init_ranks``)."""
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_debug_mesh: no CUDA card here; pass device_type=\"cpu\" for "
+                           "a mesh on the CPU")
     return _mesh(device_type, (data, model), ("data", "model"))
 
 

@@ -4,7 +4,8 @@ them to one process group (``launch.mesh.init_ranks``, a ``FileStore`` in
 a temporary directory, no network), runs ``fn(rank, *args)`` in each and
 returns the ranks' results. A rank that raises, exits nonzero or outlives
 the time limit fails the whole call: every rank's exit code is read, and
-a rank still running at the limit is killed.
+a rank still running at the limit is killed, as are the others at once
+when one raises (they may be waiting on it in a collective).
 
 ``generate_rank`` is one such ``fn``: for each job, a ``ModelWorker`` on a
 (1, N) debug mesh that runs ``generate`` (the bucketed mode: encoder frames
@@ -85,10 +86,12 @@ def run_ranks(fn: Callable, world: int, args: Sequence = (), timeout: float = 60
                     continue
                 if ok:
                     got[rank] = out
-                else:
+                else:  # the others may wait on it in a collective: stop them
                     errors.append(f"rank {rank}:\n{out}")
+                    break
+            end = time.monotonic() + 2.0 if errors else deadline + 5.0
             for p in procs:
-                p.join(max(0.0, deadline - time.monotonic()) + 5.0)
+                p.join(max(0.0, end - time.monotonic()))
         finally:
             for p in procs:
                 if p.is_alive():
@@ -147,16 +150,20 @@ def train_rank(rank: int, jobs: Sequence[dict], mesh: tuple, device: str = "cuda
     ``restore`` (a checkpoint directory, written after / read before the
     steps) and ``digest`` (return ``piece_digests`` of this rank's piece
     of every param and moment after the steps). Returns per job the
-    history rows, the collectives per step (``collectives.counts``), the
-    hand-written kernels' launches, the shard, the bytes of this rank's
-    weights, and the device bytes held when the steps begin and at their
-    peak (0 on the CPU)."""
+    history rows, the collectives per step (``collectives.counts``; those
+    of the step-0 gradient pass too, where it runs), the hand-written
+    kernels' launches, the shard, the bytes of this rank's weights, the
+    largest |value| in the rows and columns of its params and moments that
+    hold pad heads after the steps (``ParamPlan.pad_rows``; 0.0 where it
+    holds none) and how many leaves have such rows, and the device bytes
+    held when the steps (or the gradient pass before them) begin and at
+    their peak (0 on the CPU)."""
     import torch
 
     from repro_torch.convert import params_from_numpy, shard_params
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.models.model import init_params, train_params
+    from repro_torch.models.model import init_params, mesh_rank, train_params
     from repro_torch.sharding import collectives
     from repro_torch.sharding.context import ExecContext
     from repro_torch.sharding.placement import plan_params
@@ -188,24 +195,29 @@ def train_rank(rank: int, jobs: Sequence[dict], mesh: tuple, device: str = "cuda
                                            enc_frames=job.get("enc_frames",
                                                               DataConfig.enc_frames)))
         dev = next(iter(named.values())).device
+        if dev.type == "cuda":  # the peak spans the gradient pass, where it runs, and the steps
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            res["base_mem_bytes"] = torch.cuda.memory_allocated(dev)
         if job.get("grads") or job.get("pieces"):
+            before = dict(collectives.counts)
             b = batch_to_device(shard_batch(data.batch(0), cfg, ctx), dev)
             loss, _, grads = loss_and_grads(params, cfg, b, ctx, plan)
+            res["grad_collectives"] = {k: v - before.get(k, 0)
+                                       for k, v in collectives.counts.items()
+                                       if v != before.get(k, 0)}
             if job.get("grads"):
                 res["grads"] = {n: whole(g, n, plan, ctx).float().cpu().numpy()
                                 for n, g in grads.items()}
             if job.get("pieces"):
                 res["pieces"] = grads
             res["local_loss"] = float(loss.detach())
+            del grads  # not held into the next job (``pieces`` keeps its own reference)
             for p in named.values():
                 p.grad = None
         step_fn = make_train_step(cfg, ctx, job["oc"])
         wrappers = _kernel_wrappers()
         before_launches = {n: w.launches for n, w in wrappers.items()}
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-            res["base_mem_bytes"] = torch.cuda.memory_allocated(dev)
         hist, per_step = [], []
         for i in range(job["steps"]):
             before = dict(collectives.counts)
@@ -215,8 +227,10 @@ def train_rank(rank: int, jobs: Sequence[dict], mesh: tuple, device: str = "cuda
             hist.append(dict(row, step_s=time.perf_counter() - t0))
             per_step.append({k: v - before.get(k, 0) for k, v in collectives.counts.items()
                              if v != before.get(k, 0)})
+        pads = pad_maxima(leaves(params, state), plan, mesh_rank(ctx))
         res.update(history=hist, collectives=per_step,
                    launches={n: w.launches - before_launches[n] for n, w in wrappers.items()},
+                   pad_max=max(pads.values(), default=0.0), pad_leaves=len(pads),
                    peak_mem_bytes=(torch.cuda.max_memory_allocated(dev)
                                    if dev.type == "cuda" else 0))
         if job.get("digest"):
@@ -230,6 +244,21 @@ def train_rank(rank: int, jobs: Sequence[dict], mesh: tuple, device: str = "cuda
         del params, named, state
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    return out
+
+
+def pad_maxima(tensors: dict, plan, rank: int) -> dict:
+    """Leaf -> the largest |value| in the rows and columns that hold pad
+    heads (``ParamPlan.pad_rows``) of mesh rank ``rank``'s piece, for each
+    of ``tensors`` (named as ``training.checkpoint.leaves`` names them)
+    that has such rows."""
+    from repro_torch.training.checkpoint import param_name
+    out = {}
+    for leaf, t in tensors.items():
+        name = param_name(leaf)
+        for lo, hi in plan.pad_rows(name, rank):
+            rows = t.detach().narrow(plan.dims[name], lo, hi - lo)
+            out[leaf] = max(out.get(leaf, 0.0), float(rows.abs().max()))
     return out
 
 

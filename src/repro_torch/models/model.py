@@ -360,13 +360,12 @@ def train_params(params: CausalLM) -> dict:
     return dict(params.named_parameters())
 
 
-def check_train_mesh(params: CausalLM, cfg, ctx) -> None:
-    """Train mode on a mesh: the families ``placement`` refuses at M > 1
-    stay refused, and ``params`` must hold this rank's shard."""
+def check_train_mesh(params: CausalLM, ctx) -> None:
+    """Train mode on a mesh: ``params`` must hold this rank's shard (the
+    layouts ``placement`` refuses are refused there, for serving and
+    training alike)."""
     if ctx.mesh is None:
         return
-    from repro_torch.sharding.placement import check_mesh
-    check_mesh(cfg, ctx)
     M = ctx.model_parallel
     if M > 1 and params.shard != (M, ctx.model_rank):
         raise ValueError(f"params hold the shard {params.shard}, not this rank's (M, rank) = "
@@ -379,7 +378,7 @@ def train_logits(params: CausalLM, cfg, batch, ctx=ExecContext()):
     summed load-balance loss, an fp32 scalar). An encoder-decoder model
     encodes ``batch["enc_inputs"]`` first; the encoder, like the decoder,
     takes the differentiable train route of attention."""
-    check_train_mesh(params, cfg, ctx)
+    check_train_mesh(params, ctx)
     enc_out = None
     if cfg.is_encoder_decoder:
         enc_out = encode(params, cfg, batch["enc_inputs"], ctx, train_route=True)

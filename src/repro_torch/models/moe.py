@@ -27,10 +27,14 @@ values). In train mode the gates and the experts' input enter through
 ``collectives.copy_to_model``, so the router's and the input's gradients
 sum the ranks' experts.
 
-Experts that M does not divide (E % M != 0, serving only): every rank
-holds every expert whole and computes all of them, as the reference's
-``moe_apply`` does then (no all-reduce of the expert output); the shared
-experts stay cut and summed.
+Experts that M does not divide (E % M != 0): every rank holds every
+expert whole and computes all of them, as the reference's ``moe_apply``
+does then (no all-reduce of the expert output); the shared experts stay
+cut and summed. In train mode the routed path reads the replicated input
+outside ``collectives.copy_to_model``, so its input's, the router's and
+the experts' gradients are whole and equal on every model rank: the
+input's is not summed over the ranks, and the experts' and the router's
+need no model-axis sum (``sharding.placement``).
 
 With the batch split over the data axes (D > 1), x holds this data rank's
 rows, so each branch sizes its capacity from the local tokens, as the

@@ -34,8 +34,13 @@ conv, which every rank holds whole but applies to its own heads, get a
 partial gradient that ``training.train_loop.sync_grads`` sums over the
 model axis (``ParamPlan.shared_rows``). Mamba1's
 ``x_proj`` takes the rank's channels and gives a partial sum of dt_rank +
-2N columns, all-reduced in fp32 before the dt / B / C norms, which act on
-the whole. ``out_proj`` is row-parallel: the caller sums its outputs.
+2N columns, all-reduced (in fp32 when serving) before the dt / B / C norms,
+which act on the whole. Every rank then applies the whole dt / B / C to its
+own channels, so that all-reduce has an all-reduce backward
+(``collectives.sum_over_model``): the gradient of the summed columns is the
+sum of the ranks' gradients. The norms' scales, whole on every rank, get a
+partial gradient (``ParamPlan.partial``). ``out_proj`` is row-parallel: the
+caller sums its outputs.
 """
 from __future__ import annotations
 
@@ -82,11 +87,15 @@ def _gated_rmsnorm(y, z, scale, cfg, ctx=None, eps=1e-6):
 
 
 def _row_parallel(lin: nn.Linear, x, ctx):
-    """``lin(x)`` for a weight whose input dim a model rank holds 1/M of:
-    the ranks' fp32 partial sums (``row_linear``) all-reduced, in x's dtype."""
+    """``lin(x)`` for a weight whose input dim a model rank holds 1/M of
+    (Mamba1's ``x_proj``): the ranks' partial sums (``row_linear``: fp32
+    when serving) all-reduced, in x's dtype. Every rank applies the whole
+    sum to its own channels, so in train mode the backward sums the ranks'
+    gradients (``sum_over_model``); serving's call is the same in-place
+    all-reduce as ``reduce_from_model``'s."""
     if ctx is None or ctx.model_parallel == 1:
         return lin(x)
-    return collectives.reduce_from_model(row_linear(lin, x), ctx).to(x.dtype)
+    return collectives.sum_over_model(row_linear(lin, x), ctx).to(x.dtype)
 
 
 class Mamba2(nn.Module):

@@ -365,6 +365,28 @@ def all_reduce_model(x: torch.Tensor, ctx) -> torch.Tensor:
     return _all_reduce(x, ctx.model_group, "all_reduce")
 
 
+def all_reduce_model_groups(x: torch.Tensor, groups: int, ctx) -> torch.Tensor:
+    """The sum of ``x`` over this rank's group of the model axis, its M
+    ranks cut into ``groups`` runs of M / groups (the ranks that hold one
+    kv head of a GQA leaf cut Hkv ways: ``ParamPlan.ways``), without grad,
+    in place. One all-reduce over the model group of ``groups`` slots of
+    ``x``'s shape, in which each rank fills its group's slot, then reads it
+    back; counted on ``counts["all_reduce_kv_group"]``. A process group per
+    sub-group would need every rank of the world to create each one in the
+    same order at the mesh's start, and ``SameCard`` a pair of buffers
+    mapped for each; the slots reuse the model group and its transport at
+    ``groups`` times the bytes of the kv leaves, the smallest projections."""
+    M = ctx.model_parallel
+    if M == 1 or groups == M:
+        return x
+    slot = ctx.model_rank // (M // groups)
+    buf = x.new_zeros((groups,) + tuple(x.shape))
+    buf[slot] = x
+    _reduce(buf, ctx.model_group)
+    counts["all_reduce_kv_group"] += 1
+    return x.copy_(buf[slot])
+
+
 def all_reduce_world(x: torch.Tensor, ctx) -> torch.Tensor:
     """The sum over every rank of the mesh, without grad."""
     if ctx.batch_parallel * ctx.model_parallel == 1:

@@ -27,22 +27,35 @@ rank, so beyond the table's own divisibility it refuses, with a
   divisible by M, GQA kv heads that neither divide M nor are divided by
   it, and a state cache that the table would leave whole instead of
   cutting its heads or channels (``plan_cache``);
-* at M > 1 in train mode, stacks with Mamba1 layers (Jamba's hybrid),
-  GQA kv heads fewer than M and experts that M does not divide
-  (``check_mesh``, which ``models.model.check_train_mesh`` calls): their
-  serving is ported, their sharded training is not. MLA, pure Mamba2 and
-  encoder-decoder stacks train at M > 1;
 * at D > 1, a cache whose batch (the slot pool) does not divide D, which
   the table would shard on its sequence over the data axis (``plan_cache``).
 
-A mesh of one takes every family, and so does a data axis at M = 1. A 1-D
-qkv bias, which the table replicates, is cut to the rank's heads with its
-projection (the rank's projection yields only those heads). The qk-norm
-scales, and MLA's latent projection ``w_dkv`` and its ``kv_norm``, stay
-whole on every rank but act on the rank's heads only, so their gradient
-is a partial sum over the model axis (``partial``); so is that of the
-segments a segmented leaf holds whole (Mamba2's B and C, below:
-``ParamPlan.shared_rows``).
+Serving and training share these refusals: train mode takes every layout
+that serving places. A mesh of one takes every family, and so does a data
+axis at M = 1. A 1-D qkv bias, which the table replicates, is cut to the
+rank's heads with its projection (the rank's projection yields only those
+heads).
+
+What training adds. The qk-norm scales, MLA's latent projection ``w_dkv``
+and its ``kv_norm``, and Mamba1's ``dt_norm``, ``b_norm`` and ``c_norm``
+stay whole on every rank but act on the rank's heads or channels only, so
+their gradient is a partial sum over the model axis (``partial``); so is
+that of the segments a segmented leaf holds whole (Mamba2's B and C,
+below: ``ParamPlan.shared_rows``). A kv leaf cut fewer ways than M
+(``ParamPlan.ways``) gets from each rank a partial sum over that rank's
+query heads, summed over the M / Hkv ranks that hold its kv head; the pad
+heads' rows and columns (``PaddedHeads``) get a zero gradient
+(``training.train_loop.sync_grads``). Every other Mamba1 leaf's gradient
+is the rank's own: ``in_proj``'s ``[x | z]`` segments are column-parallel
+from the replicated input, so the rank's rows make exactly its channels;
+``conv_w``, ``conv_b``, ``A_log`` and ``D`` act on its channels alone;
+``dt_proj`` and ``dt_proj_b`` map the whole dt onto its channels (its rows
+of the output); ``x_proj``'s rows read its channels, and the backward of
+the all-reduce after it (``collectives.sum_over_model``) hands each rank
+the whole gradient of the summed columns; ``out_proj`` reads its channels
+and its output is summed with an identity backward. Experts held whole
+on every rank run outside the model axis's collectives, so their gradient
+and the router's are whole and equal on every rank.
 
 Where the explicit-SPMD layers need another placement than the table's
 contiguous 1/M cut, the port departs from it; the sharding report keeps
@@ -90,7 +103,6 @@ the table's decisions and counts all the same:
 """
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -126,9 +138,10 @@ _SSM_CUTS = {
         "x_proj": (1, None), "dt_proj": (0, None), "dt_proj_b": (0, None), "A_log": (0, None),
         "D": (0, None), "out_proj": (1, None)},
 }
-# whole leaves applied to the rank's heads only (their gradient sums over the model
-# axis): the qk-norm scales, MLA's latent projection and its norm
-_HEAD_SHARED = ("q_norm", "k_norm", "w_dkv", "kv_norm")
+# whole leaves applied to the rank's heads or channels only (their gradient sums
+# over the model axis): the qk-norm scales, MLA's latent projection and its norm,
+# Mamba1's dt / B / C norm scales
+_HEAD_SHARED = ("q_norm", "k_norm", "w_dkv", "kv_norm", "dt_norm", "b_norm", "c_norm")
 # the port's dim of each GQA leaf (qkv biases included) that a model rank cuts
 # by heads (an nn.Linear weight is (d_out, d_in)), and those on the kv side
 _GQA_DIMS = {"wq": 0, "wk": 0, "wv": 0, "wo": 1, "bq": 0, "bk": 0, "bv": 0}
@@ -278,45 +291,13 @@ def _data_dim(spec, batch_axes) -> Optional[int]:
     return None
 
 
-def _refuse(path: str, what: str, M: int, mode: str = "serving or training"):
+def _refuse(path: str, what: str, M: int):
     raise NotImplementedError(f"{path}: {what} at a model axis of {M} is not ported "
-                              f"to repro_torch's sharded {mode} ({ROADMAP})")
+                              f"to repro_torch's sharded serving or training ({ROADMAP})")
 
 
 def _axes(ctx):
     return ctx.model_axis or "model", tuple(ctx.batch_axes) or ("data",)
-
-
-@functools.lru_cache(maxsize=None)
-def _paths(cfg) -> List[str]:
-    return list(jax_shapes(cfg))
-
-
-def check_mesh(cfg, ctx) -> None:
-    """Train mode's refusals at a model axis of M > 1 (module docstring):
-    stacks with Mamba1 layers or of the hybrid family (Mamba1's
-    row-parallel ``x_proj`` and its dt / B / C norms have no backward of
-    their own yet), GQA kv heads fewer than M (replicated, and query heads
-    maybe padded) and experts that M does not divide (held whole), each
-    naming a leaf, M and ROADMAP.md. Their serving at M > 1 is ported;
-    their gradients would be partial sums over sub-groups of the model
-    axis. MLA, pure Mamba2 and encoder-decoder stacks train."""
-    M = ctx.model_parallel
-    if M == 1:
-        return
-    paths = _paths(cfg)
-
-    def first(part):
-        return next(p for p in paths if part in p)
-    if "mamba" in cfg.layer_kinds() or cfg.family == "hybrid":
-        _refuse(first("mixer/"), f"a stack with Mamba1 or hybrid layers ({cfg.family})", M,
-                "training")
-    if cfg.num_experts and cfg.num_experts % M:
-        _refuse(first("mlp/w_gate"), f"{cfg.num_experts} experts, whole on every rank,", M,
-                "training")
-    if cfg.num_kv_heads and cfg.num_kv_heads % M:
-        _refuse(first("attn/wk"), f"{cfg.num_kv_heads} kv heads, each replicated on "
-                                  f"{M // cfg.num_kv_heads} ranks,", M, "training")
 
 
 @dataclass(frozen=True)
@@ -362,6 +343,24 @@ class ParamPlan:
                 out.append((at, at + n))
             at += n
         return tuple(out)
+
+    def pad_rows(self, name: str, rank: int) -> Tuple[Tuple[int, int], ...]:
+        """The [lo, hi) ranges of the model dim, in mesh rank ``rank``'s
+        piece of ``name``, that hold pad heads (``PaddedHeads``: zero in
+        the weights, and kept zero by a zero gradient), after the rank's
+        FSDP cut where that cuts the same dim."""
+        segs = self.segments.get(name)
+        if not isinstance(segs, PaddedHeads):
+            return ()
+        D, M = self.shape
+        d, m = divmod(rank, M)
+        real, pad = segs.ranges(M, m)
+        lo = sum(h - l for l, h in real)  # the model piece: real rows, then pad rows
+        hi = lo + pad
+        if self.data_dims[name] == self.dims[name]:  # FSDP cuts the piece D ways
+            n = hi // D
+            lo, hi = max(lo - d * n, 0), min(hi - d * n, n)
+        return ((lo, hi),) if lo < hi else ()
 
 
 def plan_params(cfg, ctx, report: Optional[ps.ShardingReport] = None) -> ParamPlan:

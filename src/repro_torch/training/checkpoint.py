@@ -62,7 +62,9 @@ def _placement(params, ctx):
     return (plan, mesh_rank(ctx)) if is_cut(plan) else None
 
 
-def _param_name(leaf: str) -> str:
+def param_name(leaf: str) -> str:
+    """The parameter a leaf of ``leaves`` belongs to (its own name, or the
+    one its moment is of)."""
     return leaf.split(".", 2)[-1] if leaf.startswith("opt.") else leaf.split(".", 1)[1]
 
 
@@ -75,6 +77,10 @@ def whole(t, name, plan, ctx):
     from repro_torch.sharding import collectives
     D, M = plan.shape
     d = plan.dims[name]
+    # the data group first: a rank's FSDP cut is of its model piece, along the
+    # same dim where both cut one (Mamba1's x_proj, by its input channels)
+    if plan.data_dims[name] is not None:
+        t = collectives.all_gather(t, plan.data_dims[name], D, ctx.data_group)
     if d is not None and M > 1:
         t = collectives.all_gather(t, d, M, ctx.model_group)
         segs, ways = plan.segments.get(name), plan.ways.get(name, M)
@@ -90,8 +96,6 @@ def whole(t, name, plan, ctx):
                 for lo, hi in ranges:
                     t.narrow(d, lo, hi - lo).copy_(piece.narrow(d, at, hi - lo))
                     at += hi - lo
-    if plan.data_dims[name] is not None:
-        t = collectives.all_gather(t, plan.data_dims[name], D, ctx.data_group)
     return t
 
 
@@ -102,7 +106,7 @@ def save_checkpoint(path: str, params, opt_state=None, step: int = 0, ctx=None) 
     tensors = leaves(params, opt_state)
     placed = _placement(params, ctx)
     if placed is not None:
-        tensors = {n: whole(t, _param_name(n), placed[0], ctx) for n, t in tensors.items()}
+        tensors = {n: whole(t, param_name(n), placed[0], ctx) for n, t in tensors.items()}
     if placed is None or dist.get_rank() == 0:
         os.makedirs(path, exist_ok=True)
         np.savez(os.path.join(path, ARRAYS),
@@ -137,7 +141,7 @@ def restore_checkpoint(path: str, params, opt_state=None, ctx=None) -> int:
                    if dtype == "bfloat16" else torch.from_numpy(a))
             if placed is not None:
                 from repro_torch.models.model import cut, cuts
-                src = cut(src, cuts(placed[0], _param_name(name), placed[1]))
+                src = cut(src, cuts(placed[0], param_name(name), placed[1]))
             if tuple(src.shape) != tuple(t.shape):
                 raise ValueError(f"{name}: checkpoint shape {tuple(src.shape)}, "
                                  f"target {tuple(t.shape)}")

@@ -14,16 +14,24 @@ dim 0 over the batch axes, from the same ``SyntheticLM`` batch). The loss
 is the global mean over tokens, the mean of the data ranks' means (equal
 row counts): after the backward the partial gradients of the leaves and
 segments that every model rank holds whole but applies to its own heads
-(``ParamPlan.partial``: the qk-norm scales, MLA's ``w_dkv`` and
-``kv_norm``; ``ParamPlan.shared_rows``: the B and C segments of Mamba2's
-``in_proj``, ``conv_w`` and ``conv_b``) are summed over the model axis,
-then each gradient is summed over the data group (an all-reduce for the
-leaves every data rank holds whole; the FSDP leaves' gather already
-reduce-scattered theirs) and divided by D, and the optimizer clips by the
-whole tree's norm (``optimizer.global_norm``). The metrics are the data
-group's means. Every family trains at M > 1 but those
-``sharding.placement.check_mesh`` refuses: Mamba1 and hybrid stacks, kv
-heads fewer than M and experts that M does not divide.
+or channels (``ParamPlan.partial``: the qk-norm scales, MLA's ``w_dkv``
+and ``kv_norm``, Mamba1's dt / B / C norm scales;
+``ParamPlan.shared_rows``: the B and C segments of Mamba2's ``in_proj``,
+``conv_w`` and ``conv_b``) are summed over the model axis, those of a GQA
+kv leaf cut fewer ways than M (``ParamPlan.ways``: each kv head on
+M / Hkv ranks, each rank's gradient a partial sum over its query heads)
+over the ranks that hold its kv head (``collectives.all_reduce_model_groups``),
+and those of zero-padded query heads (``ParamPlan.pad_rows``: ``wq`` and
+``bq`` rows, ``wo`` columns) are set to 0. A pad head has q = 0, so its
+attention output is the running mean of v, not 0, and the gradient of its
+``wo`` columns would not be 0: zeroed, the pad weights and their moments
+stay exactly 0 under AdamW (its decay of a zero weight is 0) and add
+nothing to the norm. Then each gradient is summed over the data group (an
+all-reduce for the leaves every data rank holds whole; the FSDP leaves'
+gather already reduce-scattered theirs) and divided by D, and the
+optimizer clips by the whole tree's norm (``optimizer.global_norm``). The
+metrics are the data group's means. Train mode takes every layout that
+serving places (``sharding.placement``).
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.models.model import loss_fn, train_params
+from repro_torch.models.model import loss_fn, mesh_rank, train_params
 from repro_torch.sharding import collectives
 from repro_torch.sharding import partition_specs as ps
 from repro_torch.sharding.context import ExecContext
@@ -64,12 +72,17 @@ def sync_grads(grads: dict, plan, ctx: ExecContext) -> dict:
     """The gradients of the global mean loss from this rank's backward
     (module docstring), in place where they can be."""
     D = ctx.batch_parallel
+    rank = mesh_rank(ctx)
     for name, g in grads.items():
         if name in plan.partial:
             g = collectives.all_reduce_model(g, ctx)
         for lo, hi in plan.shared_rows(name):
             rows = g.narrow(plan.dims[name], lo, hi - lo)
             rows.copy_(collectives.all_reduce_model(rows, ctx))
+        if name in plan.ways:
+            g = collectives.all_reduce_model_groups(g, plan.ways[name], ctx)
+        for lo, hi in plan.pad_rows(name, rank):
+            g.narrow(plan.dims[name], lo, hi - lo).zero_()
         if D > 1:
             if plan.data_dims[name] is None:
                 g = collectives.all_reduce_data(g, ctx)
@@ -81,7 +94,9 @@ def sync_grads(grads: dict, plan, ctx: ExecContext) -> dict:
 def loss_and_grads(params, cfg, batch, ctx: ExecContext = ExecContext(), plan=None):
     """The forward and backward of one step: (loss, metrics, gradients by
     name), the gradients those of the global mean loss on a mesh
-    (``plan``: ``placement.plan_params(cfg, ctx)``)."""
+    (``plan``: ``placement.plan_params(cfg, ctx)``). The loss and metrics
+    are detached: their graph's nodes would keep the model alive after
+    the caller has let it go."""
     if (plan is not None and any(d is not None for d in plan.data_dims.values())
             and params.data_shard != (plan.shape[0], ctx.data_rank)):
         raise ValueError(f"the plan cuts weights on the data axis (FSDP), but params hold "
@@ -95,7 +110,7 @@ def loss_and_grads(params, cfg, batch, ctx: ExecContext = ExecContext(), plan=No
     grads = {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in named.items()}
     if plan is not None:
         sync_grads(grads, plan, ctx)
-    return loss, metrics, grads
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def batch_to_device(batch: dict, device) -> dict:

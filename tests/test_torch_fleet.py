@@ -137,7 +137,7 @@ def test_serving_replay_accounts_for_every_arrival_and_repeats(tiny):
     assert a.fleet["counters"]["faults"] > 0 and a.fleet["counters"]["recoveries"] > 0
     assert fleet.FleetReport.from_dict(a.to_dict()).to_dict() == a.to_dict()
 
-    mesh1 = ExecContext(mesh=make_debug_mesh(1, 1), batch_axes=("data",), model_axis="model")
+    mesh1 = ExecContext(mesh=make_debug_mesh(1, 1, "cpu"), batch_axes=("data",), model_axis="model")
     assert fleet.FleetReplay(pop, **dict(kw, serving_ctx=mesh1)).run().to_dict() == a.to_dict()
 
     class DataMesh:

@@ -17,7 +17,7 @@ largest |logit|. The JAX package's own sharded path raises
 ``ShardingTypeError`` here (ROADMAP.md, Queue 3). Without a process group:
 the plans (the kv ways, the padded heads, whole experts, one kv head per
 rank in the cache), a padded head's zero share of the output, and train
-mode's refusal of these layouts. ``test_torch_mesh_wide8.py`` takes the
+mode taking these layouts. ``test_torch_mesh_wide8.py`` takes the
 shipped ratio of 32 on 4 heads at a model axis of 8.
 """
 import dataclasses
@@ -231,13 +231,23 @@ def test_a_padded_head_adds_nothing_to_the_output():
 
 
 @pytest.mark.parametrize("arch", list(CASES))
-def test_train_mode_refuses_these_layouts(arch):
-    """Train mode at M = 4 refuses kv heads fewer than M and experts that M
-    does not divide, naming the leaf, M and ROADMAP.md; serving places them."""
+def test_train_mode_takes_these_layouts_and_draws_their_plan(arch):
+    """Train mode at M = 4 takes what serving places: kv heads fewer than M
+    (each whole on M / Hkv ranks), padded query heads and experts that M
+    does not divide pass train mode's mesh check (``check_train_mesh``,
+    which asks only for this rank's shard) and ``make_train_step`` draws
+    their plan (their gradients: tests/test_torch_sharded_train_families.py)."""
+    from types import SimpleNamespace
+
+    from repro_torch.training.train_loop import make_train_step
     cfg = _pair(arch)[2]
-    assert placement.plan_params(cfg, _ctx()).shape == (1, M)
-    leaf = "mlp/w_gate" if cfg.num_experts else "attn/wk"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        tmodel.check_train_mesh(None, cfg, _ctx())
-    msg = str(e.value)
-    assert leaf in msg and f"model axis of {M}" in msg and "sharded training" in msg, msg
+    plan = placement.plan_params(cfg, _ctx())
+    assert plan.shape == (1, M)
+    tmodel.check_train_mesh(SimpleNamespace(shard=(M, 0)), _ctx())
+    make_train_step(cfg, _ctx())
+    if cfg.num_experts:
+        assert plan.dims["layers.0.mlp.w_gate"] is None
+    else:
+        assert plan.ways["layers.0.attn.wk.weight"] == cfg.num_kv_heads
+        padded = isinstance(plan.segments.get("layers.0.attn.wq.weight"), placement.PaddedHeads)
+        assert padded == (arch == "qwen2-7b")

@@ -173,7 +173,7 @@ def test_comm_stamps_the_reference_plans(n):
 
 
 def _mesh1():
-    return ExecContext(mesh=make_debug_mesh(1, 1), batch_axes=("data",), model_axis="model")
+    return ExecContext(mesh=make_debug_mesh(1, 1, "cpu"), batch_axes=("data",), model_axis="model")
 
 
 @functools.cache
@@ -362,34 +362,38 @@ def test_two_ranks_match_the_jax_unsharded_tokens():
 
 def test_refusals_name_the_leaf_and_the_roadmap():
     """No process group needed: reduced tinyllama (2 kv heads) on a model
-    axis of 4 is placed for serving (each kv head whole on 2 ranks, one kv
-    head per rank in the K/V cache), reduced kimi with 6 experts on 4 holds
-    every expert whole, and reduced jamba (Mamba1 layers) on 2 is placed
-    too; train mode refuses each of them (``check_train_mesh``), naming a
-    leaf, M and ROADMAP.md. Reduced deepseek-v2-lite (MLA), mamba2 and
-    seamless-m4t on 2 are placed and train (their gradients:
-    tests/test_torch_sharded_train_families.py). A data axis of 2 is taken
-    (data-parallel serving and training), but a slot pool that it does not
-    divide is refused naming the leaf, D and ROADMAP.md."""
+    axis of 4 (each kv head whole on 2 ranks, one kv head per rank in the
+    K/V cache), reduced kimi with 6 experts on 4 (every expert whole on
+    every rank) and reduced jamba (Mamba1 layers) on 2 are placed for
+    serving and train alike: train mode's mesh check
+    (``check_train_mesh``) takes each, as it takes reduced
+    deepseek-v2-lite (MLA), mamba2 and seamless-m4t on 2 (their gradients:
+    tests/test_torch_sharded_train_families.py), and ``make_train_step``
+    draws each plan. What stays refused is refused for serving and
+    training alike, naming the leaf, M or D, and ROADMAP.md: kv heads that
+    neither divide M nor are divided by it (6 on a model axis of 4), and a
+    slot pool that a data axis of 2 does not divide."""
+    from repro_torch.training.train_loop import make_train_step
+
     def ctx(**shape):
         return ExecContext(mesh=_FakeMesh(**shape), batch_axes=("data",), model_axis="model")
     kimi = dataclasses.replace(configs.reduced(configs.get_config("kimi-k2-1t-a32b")),
                                num_experts=6)
-    cases = [("tinyllama-1.1b", dict(data=1, model=4), "stages/0/l0/attn/wk", "4"),
-             ("jamba-v0.1-52b", dict(data=1, model=2), "mixer/", "2"),
-             (kimi, dict(data=1, model=4), "stages/0/l0/mlp/w_gate: 6 experts", "4")]
-    for arch, shape, leaf, m in cases:
+    cases = [("tinyllama-1.1b", 4), ("jamba-v0.1-52b", 2), (kimi, 4),
+             ("deepseek-v2-lite-16b", 2), ("mamba2-2.7b", 2), ("seamless-m4t-medium", 2)]
+    for arch, m in cases:
         cfg = arch if not isinstance(arch, str) else configs.reduced(configs.get_config(arch))
-        # serving takes it at M > 1; training does not
-        assert placement.plan_params(cfg, ctx(**shape)).shape == (1, int(m))
+        assert placement.plan_params(cfg, ctx(data=1, model=m)).shape == (1, m)
+        tmodel.check_train_mesh(SimpleNamespace(shard=(m, 0)), ctx(data=1, model=m))
+        make_train_step(cfg, ctx(data=1, model=m))
+    six = dataclasses.replace(configs.reduced(configs.get_config("tinyllama-1.1b")),
+                              num_heads=12, num_kv_heads=6)
+    for draw in (placement.plan_params, make_train_step):
         with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-            tmodel.check_train_mesh(None, cfg, ctx(**shape))
-        assert leaf in str(e.value) and f"model axis of {m}" in str(e.value), str(e.value)
-        assert "sharded training" in str(e.value), str(e.value)
-    for arch in ("deepseek-v2-lite-16b", "mamba2-2.7b", "seamless-m4t-medium"):
-        cfg = configs.reduced(configs.get_config(arch))
-        assert placement.plan_params(cfg, ctx(data=1, model=2)).shape == (1, 2)
-        tmodel.check_train_mesh(SimpleNamespace(shard=(2, 0)), cfg, ctx(data=1, model=2))
+            draw(six, ctx(data=1, model=4))
+        msg = str(e.value)
+        assert "attn/wk: 6 kv heads" in msg and "model axis of 4" in msg, msg
+        assert "serving or training" in msg, msg
     kplan = placement.plan_params(kimi, ctx(data=1, model=4))
     assert all(kplan.dims[f"layers.0.mlp.{w}"] is None for w in ("w_gate", "w_up", "w_down"))
     tiny = configs.reduced(configs.get_config("tinyllama-1.1b"))
@@ -409,6 +413,47 @@ def test_refusals_name_the_leaf_and_the_roadmap():
     plan = placement.plan_params(tiny, ctx(data=1, model=2))
     assert plan.dims["layers.0.attn.wq.weight"] == 0 and plan.dims["layers.0.attn.wo.weight"] == 1
     assert plan.dims["embedding"] == 0 and plan.dims["final_norm.scale"] is None
+
+
+def _fail_or_linger(rank):
+    """Rank 0 raises; rank 1 would go on for minutes (as a rank waiting on
+    rank 0 in a collective does)."""
+    import time
+    if rank == 0:
+        raise RuntimeError("rank 0 fails on purpose")
+    time.sleep(300)
+
+
+def test_run_ranks_fails_at_once_when_a_rank_raises():
+    """``run_ranks`` reports a rank's error as soon as it comes and kills
+    the other ranks, instead of waiting for them until its time limit."""
+    import time
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 0 fails on purpose"):
+        run_ranks(_fail_or_linger, 2, (), timeout=240.0, device_type="cpu")
+    assert time.monotonic() - t0 < 60.0
+
+
+def test_make_debug_mesh_asks_for_the_card_by_default(monkeypatch):
+    """``launch.mesh.make_debug_mesh`` runs on the card unless the caller
+    asks for the CPU: with no card there, the default raises naming
+    ``device_type="cpu"`` (and starts no process group) instead of falling
+    back to the CPU; with a card it asks for "cuda"."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as tmesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    was = dist.is_initialized()
+    with pytest.raises(RuntimeError, match='device_type="cpu"'):
+        tmesh.make_debug_mesh(1, 1)
+    assert dist.is_initialized() == was
+    asked = []
+    monkeypatch.setattr(tmesh, "_mesh", lambda device_type, shape, names: asked.append(
+        (device_type, shape)))
+    tmesh.make_debug_mesh(1, 1, "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    tmesh.make_debug_mesh(2, 2)
+    assert asked == [("cpu", (1, 1)), ("cuda", (2, 2))]
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ import functools
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -216,6 +217,30 @@ def test_adamw_update_rounds_as_the_formula(grad_scale):
             ref[k] = (bf16(p - delta), bf16(m_new), bf16(v_new))
             for got, want in zip((tp[k], ts["m"][k], ts["v"][k]), ref[k]):
                 np.testing.assert_array_equal(got.float().numpy(), want, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adamw_in_pieces_is_the_whole_update(monkeypatch, dtype):
+    """Every leaf is updated ``optimizer.PIECE`` elements at a time (its
+    fp32 temporaries stay small); the arithmetic is elementwise, so three
+    steps in pieces of 100 elements give the params and moments of three
+    steps in one piece a leaf bit for bit, each piece boundary falling
+    inside a row of the (1000, 8) and (64, 48) leaves."""
+    shapes, p0, grads = _opt_inputs(dtype, 3, 1.0, seed=3)
+    oc = topt.OptConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    tdt = getattr(torch, dtype)
+    runs = []
+    for piece in (topt.PIECE, 100):
+        monkeypatch.setattr(topt, "PIECE", piece)
+        tp = {k: torch.from_numpy(v).to(tdt, copy=True) for k, v in p0.items()}
+        ts = topt.init_opt_state(tp)
+        for g in grads:
+            topt.adamw_update(tp, {k: torch.from_numpy(v).to(tdt) for k, v in g.items()}, ts, oc)
+        runs.append((tp, ts))
+    (wp, ws), (gp, gs) = runs
+    for k in shapes:
+        for want, got in ((wp[k], gp[k]), (ws["m"][k], gs["m"][k]), (ws["v"][k], gs["v"][k])):
+            assert torch.equal(got, want), k
 
 
 def test_grad_clip_reports_the_raw_norm():
@@ -607,17 +632,19 @@ class _FakeMesh:
 
 
 def test_train_mode_refused_on_a_model_axis():
-    """Train mode on a model axis of 2 is ported for the GQA, MLA, Mamba2
-    and encoder-decoder stacks (tests/test_torch_sharded_train.py,
-    tests/test_torch_sharded_train_families.py): their loss_fn passes the
-    mesh check and refuses only params that are not this rank's shard. A
-    stack with Mamba1 layers (reduced jamba) stays refused there, naming a
-    leaf, M and the roadmap."""
+    """Train mode on a model axis of 2 is ported for every family: the GQA,
+    MLA, Mamba2, encoder-decoder and Jamba hybrid stacks
+    (tests/test_torch_sharded_train.py,
+    tests/test_torch_sharded_train_families.py). Their loss_fn passes the
+    mesh check and refuses only params that are not this rank's shard,
+    naming ``shard_params``: reduced jamba (Mamba1 layers) too, which
+    nothing refuses any more on the mesh."""
     ctx = ExecContext(mesh=_FakeMesh(data=1, model=2), model_axis="model")
     jamba = configs.reduced(configs.get_config("jamba-v0.1-52b"))
     b = batch_to_device(SyntheticLM(jamba, DataConfig(batch=2, seq_len=8)).batch(0), "cpu")
-    with pytest.raises(NotImplementedError, match=r"mixer/.*model axis of 2.*ROADMAP.md"):
+    with pytest.raises(ValueError, match="shard_params"):
         tmodel.loss_fn(tmodel.init_params(jamba, 0, "cpu"), jamba, b, ctx)
+    tmodel.check_train_mesh(SimpleNamespace(shard=(2, 0)), ctx)
     for arch in ("tinyllama-1.1b", "deepseek-v2-lite-16b", "mamba2-2.7b",
                  "seamless-m4t-medium"):
         cfg = _jax_pair(arch)[2]
