@@ -307,6 +307,8 @@ SCHEDULED = dict(SERVE, names=("tinyllama-1.1b", "gemma2-2b", "mamba2-2.7b"),
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+# the decode kernel's piece mode writes fp32 o and lse in both dtypes
+PIECE_TOL = {"bfloat16": TOL["float32"], "float32": TOL["float32"]}
 # the SSD scan sums up to 256 x 128 fp32 products per output in another
 # order than its plain version; its final state is fp32 in both dtypes
 SSD_TOL = {"bfloat16": 3e-2, "float32": 1e-3}
@@ -412,6 +414,10 @@ SOURCES = {
                  "src/repro/kernels/ssd_scan.py:92"),
     "mla_attention": ("src/repro_torch/kernels/csrc/mla_attention_bf16.cu",
                       "src/repro/kernels/decode_attention.py:87"),
+    # the decode kernel's piece mode: one data rank's piece of a KV cache cut
+    # on its sequence (the serve_mesh phase's odd buckets)
+    "decode_attention_piece": ("src/repro_torch/kernels/csrc/decode_attention_piece.cu",
+                               "src/repro/kernels/decode_attention.py:87"),
 }
 
 
@@ -616,7 +622,8 @@ def phase_kernels(torch, report):
     from repro_torch.kernels import mla_attention as mmod
     from repro_torch.kernels import ssd_scan as smod
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}, "mla_attention": {}}
+    errs = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}, "mla_attention": {},
+            "decode_attention_piece": {}}
     verify_errs, kimi_errs, rank_errs = {}, {}, {}
     misses = []
 
@@ -689,6 +696,12 @@ def phase_kernels(torch, report):
                 compare(kernel, f"{case} {dtype} state", torch.float32, out[1], ref[1], SSD_TOL)
             else:
                 compare(kernel, f"{case} {dtype}", dtype, out, ref)
+        for case, out, ref in piece_cases(torch, gen, dmod, dtype):
+            # a piece's o and lse are fp32 on both sides, from the same
+            # inputs: fp32's tolerance whatever the inputs' dtype; the merged
+            # halves, cast once, against the whole-cache kernel at the dtype's
+            compare("decode_attention_piece", f"{case} {dtype}", dtype, out, ref,
+                    TOL if case.endswith("merged vs whole") else PIECE_TOL)
         for case, (y, h), (ry, rh) in ssd_edge_cases(torch, gen, smod, dtype):
             compare("ssd_scan", f"{case} {dtype} y", dtype, y, ry, SSD_TOL)
             compare("ssd_scan", f"{case} {dtype} state", torch.float32, h, rh, SSD_TOL)
@@ -1114,6 +1127,55 @@ def bucketed_fleet_cases(torch, gen, fmod, dmod, smod, dtype):
                    smod.ssd_scan_plain(*args, **kw))
 
 
+def piece_inputs(torch, gen, hd, pos_list, Smax, D, dtype):
+    """q and a (B, Smax) cache at ``hd``'s heads, cut on its sequence in D
+    pieces of ceil(Smax / D) (the last zero-padded), with per-row positions
+    ``pos_list``: (q, k, v, [(k_start, k piece, v piece)], pos)."""
+    B = len(pos_list)
+    q, _, _ = qkv(torch, gen, B, 1, 1, hd["H"], hd["Hkv"], hd["D"], dtype)
+    _, k, v = qkv(torch, gen, B, 1, Smax, hd["H"], hd["Hkv"], hd["D"], dtype)
+    n = -(-Smax // D)
+    pieces = []
+    for d in range(D):
+        m = min(n, Smax - d * n)
+        kp = torch.zeros((B, n) + tuple(k.shape[2:]), dtype=dtype, device="cuda")
+        vp = torch.zeros_like(kp)
+        kp[:, :m], vp[:, :m] = k[:, d * n:d * n + m], v[:, d * n:d * n + m]
+        pieces.append((d * n, kp, vp))
+    return q, k, v, pieces, torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+
+
+def piece_cases(torch, gen, dmod, dtype):
+    """(case, kernel output, plain output) of the decode kernel's piece mode
+    (o, then lse, each fp32) at the serve_mesh phase's shapes, every piece
+    of a cache cut in D = 2: tinyllama's and gemma2's heads (softcap 50, and
+    a window of 256 that crosses the halves' boundary from rows at 1023 and
+    beyond), 8 rows at DECODE_POS over 2048; the odd bucket's 3 rows of
+    tinyllama over 1024 (PIECE_ODD; the second half keeps no key), at
+    per-row and at one shared position; then the merged halves
+    (``collectives.merge_states``, cast once) against the whole-cache
+    kernel."""
+    from repro_torch.sharding.collectives import merge_states
+    shapes = [("tinyllama", TINY, DECODE_POS, 2048, None), ("gemma2", GEMMA, DECODE_POS, 2048, None),
+              ("gemma2", GEMMA, DECODE_POS, 2048, 256),
+              ("odd bucket tinyllama", TINY, PIECE_ODD["pos"], PIECE_ODD["Smax"], None),
+              ("odd bucket tinyllama shared", TINY, (PIECE_ODD["pos"][-1],) * 3, PIECE_ODD["Smax"],
+               None)]
+    for name, hd, pos_list, Smax, window in shapes:
+        q, k, v, pieces, pos = piece_inputs(torch, gen, hd, list(pos_list), Smax, 2, dtype)
+        kw = dict(q_offset=pos, kv_len=pos + 1, window=window, softcap=hd["softcap"])
+        states = []
+        for d, (start, kp, vp) in enumerate(pieces):
+            o, lse = dmod.decode_attention_piece(q, kp, vp, k_start=start, **kw)
+            po, plse = dmod.decode_attention_piece_plain(q, kp, vp, k_start=start, **kw)
+            case = f"{name} Smax={Smax} w={window} half {d}"
+            yield f"{case} o", o, po
+            yield f"{case} lse", lse, plse
+            states.append(torch.cat([o, lse[..., None]], dim=-1))
+        yield (f"{name} Smax={Smax} w={window} merged vs whole",
+               merge_states(torch.stack(states)).to(dtype), dmod.decode_attention(q, k, v, **kw))
+
+
 def left_padded(torch, B, S):
     """A (B, S) mask whose rows are left-padded by different widths, as a
     mamba2 pow2 prefill bucket is (row 0 by S // 3, the last by S // 2)."""
@@ -1233,6 +1295,8 @@ def phase_times(torch, report):
     rows += kimi_times(torch, gen, flush, sdpa, report.get("launches_kimi", {}))
     rows += mesh_rank_times(torch, gen, flush, sdpa, report.get("mesh_families", {}))
     rows += wide_rank_times(torch, gen, flush, sdpa, report.get("mesh_wide", {}))
+    rows += piece_times(torch, gen, flush,
+                        report.get("launches_serve_mesh", {}).get("decode_attention_piece"))
     from repro_torch.kernels import ssd_scan as smod
     serve_shapes = [(B, S) for B, S, _ in SSD_SERVE] + sorted(report.get("ssd_calls", {}))
     for B, S in dict.fromkeys([(8, 512), (1, 512)] + serve_shapes):
@@ -1304,6 +1368,56 @@ def time_row(torch, flush, kernel, model, B, S, fn, plain, lib, b, **extra):
                 plain_ms=time_ms(torch, plain, flush), library_ms=time_ms(torch, lib, flush),
                 bound_ms=b[0], bound_by=b[1], call_ms=call_ms(torch, fn),
                 library_call_ms=call_ms(torch, lib), **extra)
+
+
+def piece_times(torch, gen, flush, served):
+    """The decode kernel's piece mode at the serve_mesh phase's shapes
+    (``piece_cases``), bf16, each half of a cache cut in 2: its device time,
+    its plain version's, and its bound (the K / V entries that the piece's
+    rows keep, q, and the fp32 o and lse, once each). No PyTorch call takes
+    this shape: ``_scaled_dot_product_efficient_attention`` (which returns
+    the log-sum-exp) needs as many kv heads as query heads, so
+    ``library_ms`` is None and ``library_ms_repeated_kv`` times it on K / V
+    repeated to the query heads (8x their bytes, made before the timing),
+    beside a float mask of the kept keys; none with gemma2's softcap.
+    ``served``: the piece launches of the serve_mesh phase's odd bucket
+    (on the odd bucket's rows)."""
+    from repro_torch.kernels import decode_attention as dmod
+    bf16, rows = torch.bfloat16, []
+    eff = torch.ops.aten._scaled_dot_product_efficient_attention
+    shapes = [("tinyllama", TINY, DECODE_POS, 2048), ("gemma2", GEMMA, DECODE_POS, 2048),
+              ("tinyllama odd bucket", TINY, PIECE_ODD["pos"], PIECE_ODD["Smax"])]
+    for name, hd, pos_list, Smax in shapes:
+        q, _, _, pieces, pos = piece_inputs(torch, gen, hd, list(pos_list), Smax, 2, bf16)
+        kw = dict(q_offset=pos, kv_len=pos + 1, softcap=hd["softcap"])
+        G = hd["H"] // hd["Hkv"]
+        for half, (start, kp, vp) in enumerate(pieces):
+            n, B = kp.shape[1], len(pos_list)
+            kept = sum(max(0, min(p + 1, start + n) - start) for p in pos_list)
+            nbytes = 2 * (kept * hd["Hkv"] * 2 * hd["D"] + B * hd["H"] * hd["D"]) + \
+                4 * B * hd["H"] * (hd["D"] + 1)
+            b_ms, b_by = bound(4 * hd["H"] * hd["D"] * kept, nbytes, "bfloat16")
+            lib_rep = None
+            if not hd["softcap"]:
+                qt = q.transpose(1, 2)
+                kr = kp.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+                vr = vp.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+                keep = (start + torch.arange(n, device="cuda"))[None, :] <= pos[:, None]
+                bias = torch.zeros((B, hd["H"], 1, n), dtype=bf16, device="cuda")
+                bias.masked_fill_(~keep[:, None, None], float("-inf"))
+                lib_rep = time_ms(torch, lambda: eff(qt, kr, vr, bias, True, 0.0, False), flush)
+            row = dict(kernel="decode_attention_piece", model=name.split(" ")[0], B=B, S=Smax,
+                       half=half, kept_keys=kept, dtype="bfloat16",
+                       ms=time_ms(torch, lambda: dmod.decode_attention_piece(
+                           q, kp, vp, k_start=start, **kw), flush),
+                       plain_ms=time_ms(torch, lambda: dmod.decode_attention_piece_plain(
+                           q, kp, vp, k_start=start, **kw), flush),
+                       library_ms=None, library_ms_repeated_kv=lib_rep, bound_ms=b_ms,
+                       bound_by=b_by, launches_per_serve=served if "odd" in name else None)
+            if half or "odd" in name:
+                row["shape"] = f"{'odd bucket ' if 'odd' in name else ''}half {half}"
+            rows.append(row)
+    return rows
 
 
 def encdec_hybrid_times(torch, gen, flush, sdpa):
@@ -2220,16 +2334,22 @@ class Gaps(dict):
 
 
 @contextlib.contextmanager
-def record_gaps(torch, eng, reqs, temperature, name=None, prefills=False):
+def record_gaps(torch, eng, reqs, temperature, name=None, prefills=False, served=False):
     """Yields the ``Gaps`` of the engine's worker ``name`` (its first by
     default), recorded from its decode steps while the block runs and, with
     ``prefills``, the first tokens' from the serve's own prefill logits (an
     MoE that drops sizes its capacity by the prefill group, so a prefill of
-    the prompt alone may decide otherwise); the worker's own methods are
-    back in place after it."""
+    the prompt alone may decide otherwise); with ``served`` also from the
+    speculative verify's rows (a row's position j decides the slot's token
+    len(tokens) + j; a later round rewrites the positions past a rejected
+    draft) and from the bucketed mode's ``generate`` steps (rows matched to
+    uids by their prompts), so that every decision of a greedy serve in any
+    mode is its own; the worker's own methods are back in place after it."""
+    import numpy as np
     name = next(iter(eng.workers)) if name is None else name
     w = eng.workers[name]
     plain_pool, plain_group = w.decode_pool, w.group_tokens
+    plain_verify, plain_generate = w.decode_verify, w.generate
     gaps = Gaps(torch, eng, name, {r[0]: r[1] for r in reqs}, temperature,
                 {r[0]: r[3] for r in reqs if len(r) > 3})
 
@@ -2249,15 +2369,46 @@ def record_gaps(torch, eng, reqs, temperature, name=None, prefills=False):
         record([active[int(s)] for s in slots], logits[:len(slots)])
         return plain_group(logits, slots, n_slots, pick)
 
+    def recorded_verify(cache, tokens, pos):
+        greedy, logits, cache = plain_verify(cache, tokens, pos)
+        for s in eng.pools[name].active.values():
+            g0 = len(s.tokens)
+            for j, g in enumerate(decision_gaps(torch, logits[s.slot], [s.rng] * logits.shape[1],
+                                                range(g0, g0 + logits.shape[1]), temperature)):
+                gaps[(s.req.uid, g0 + j)] = g
+        return greedy, logits, cache
+
+    uid_of = {np.asarray(r[1], np.int32).tobytes(): r[0] for r in reqs}
+
+    def recorded_generate(prompts, max_new, **kw):
+        uids = [uid_of.get(np.asarray(p, np.int32).tobytes()) for p in prompts]
+
+        def pick(logits, temp, gen, row_keys=None, token_idx=0):
+            for u, g in zip(uids, decision_gaps(torch, logits, row_keys or [None] * len(uids),
+                                                [token_idx] * len(uids), temp)):
+                if u is not None:
+                    gaps[(u, token_idx)] = g
+            return type(w)._pick(logits, temp, gen, row_keys, token_idx)
+
+        w._pick = pick
+        try:
+            return plain_generate(prompts, max_new, **kw)
+        finally:
+            del w._pick
+
     w.decode_pool = recorded
     if prefills:
         w.group_tokens = recorded_group
+    if served:
+        w.decode_verify, w.generate = recorded_verify, recorded_generate
     try:
         yield gaps
     finally:
         del w.decode_pool  # the methods of the worker's class again
         if prefills:
             del w.group_tokens
+        if served:
+            del w.decode_verify, w.generate
 
 
 def token_check(label, spec_out, plain_out, gaps, exact, report_only=False,
@@ -4145,8 +4296,10 @@ TRAIN_MESH_FP32 = dict(cuts={"deepseek": dict(num_layers=2), "mamba2": dict(num_
 # full tinyllama-1.1b, continuous FIFO, 8 requests, fp32 and bf16, on (2, 1)
 # and (2, 2) against the unsharded run
 # the mesh_families phase: the four families on two ranks of the one card
-# (a model axis of 2); fp32 cut as ``families_cfg`` says, bf16 at full width
-# but for jamba; generate's batch (B, S) in fp32, mamba2's odd rows
+# (a model axis of 2); fp32 cut as ``families_cfg`` says, bf16 at full width,
+# cut in depth to keep the whole run inside its time limit (deepseek 8 of 27
+# layers, mamba2 16 of 64, jamba 8 of 32), seamless whole; generate's batch
+# (B, S) in fp32, mamba2's odd rows
 # LEFT-padded by gen_pad; the (B, S) prefill whose logits are compared;
 # seamless's frames for both; the serve's max_new; the ranks' time limit
 MESH_FAMILIES = dict(archs=("deepseek-v2-lite-16b", "mamba2-2.7b", "seamless-m4t-medium",
@@ -4154,14 +4307,17 @@ MESH_FAMILIES = dict(archs=("deepseek-v2-lite-16b", "mamba2-2.7b", "seamless-m4t
                      fp32_cuts={"seamless-m4t-medium": dict(num_layers=2, num_encoder_layers=2),
                                 "jamba-v0.1-52b": dict(num_layers=len(JAMBA_PARITY),
                                                        layer_pattern=JAMBA_PARITY)},
-                     bf16_layers={"jamba-v0.1-52b": 8}, gen=(4, 64), gen_pad=24, gen_new=8,
+                     bf16_layers={"jamba-v0.1-52b": 8, "deepseek-v2-lite-16b": 8,
+                                  "mamba2-2.7b": 16}, gen=(4, 64), gen_pad=24, gen_new=8,
                      logit_prompts=(4, 64), frames=100, max_new=16, world=2, timeout=600.0)
 # the mesh_wide phase: the GQA stacks with 4 kv heads on eight ranks of the
 # one card (a model axis of 8, each kv head whole on 2 ranks, qwen2's query
 # groups padded from 7 to 8 heads), fp32 cut to 2 layers, bf16 at full width
-# and depth; the rest as MESH_FAMILIES
+# cut to 8 layers (to keep the whole run inside its time limit); the rest as
+# MESH_FAMILIES
 MESH_WIDE = dict(MESH_FAMILIES, archs=("tinyllama-1.1b", "gemma2-2b", "qwen2-7b"), fp32_cuts={},
-                 bf16_layers={}, world=8, timeout=600.0)
+                 bf16_layers={"tinyllama-1.1b": 8, "gemma2-2b": 8, "qwen2-7b": 8}, world=8,
+                 timeout=600.0)
 # A bf16 arm on a mesh against the unsharded bf16 arm, both held against the
 # exact-fp32 route at the same weights and inputs (the bf16 weights cast up,
 # the unsharded run's expert choices replayed): the sharded run rounds at the
@@ -4171,8 +4327,26 @@ MESH_WIDE = dict(MESH_FAMILIES, archs=("tinyllama-1.1b", "gemma2-2b", "qwen2-7b"
 # noisy runs, and is exceeded by a run that rounds twice where the unsharded
 # one rounds once (bf16 partials per rank, ~1.4-2x as far)
 MESH_FP32_FACTOR = 1.5
-SERVE_MESH = dict(SERVE, names=("tinyllama-1.1b",), meshes=((2, 1), (2, 2)),
-                  dtypes=("float32", "bfloat16"), timeout=600.0)
+# and, in the same spawns, the data axis's serving modes at full width: on
+# (2, 1) the bucketed mode under the scheduler on tinyllama-1.1b and
+# mamba2-2.7b (MESH_BUCKETED: buckets of 4 and 3 requests, so some batch is
+# odd and its cache cut on its sequence), SPEC's tinyllama with its truncated
+# draft (FIFO: a scheduler-less engine always speculates) and FLEET's replay
+# of its first phone (the whole population's replays took ~30 s each); the
+# bucketed tinyllama on (2, 2); FIFO tinyllama on (pod 2, data 2, model 1),
+# the two 4-rank meshes in one spawn
+SERVE_MESH = dict(SERVE, names=("tinyllama-1.1b",), meshes=((2, 1), (2, 2), (2, 2, 1)),
+                  dtypes=("float32", "bfloat16"), timeout=900.0,
+                  arms={(2, 1): ("fifo", "bucketed tinyllama-1.1b", "bucketed mamba2-2.7b",
+                                 "spec", "fleet"),
+                        (2, 2): ("fifo", "bucketed tinyllama-1.1b"), (2, 2, 1): ("fifo",)})
+MESH_BUCKETED = dict(requests=7, prompt_lens=(64, 200), max_new=8, max_slots=8, max_len=1024,
+                     seed=0)
+# the kernels and times phases' piece-mode shapes: tinyllama's and gemma2's
+# heads, 8 rows at DECODE_POS over a cache of 2048 cut in 2 halves, and the
+# odd bucket's (3 rows of tinyllama at MESH_BUCKETED's positions, 1024 in
+# 2 halves: the second half holds no kept key)
+PIECE_ODD = dict(pos=(64 + 7, 200 + 3, 200 + 7), Smax=1024)
 
 
 def phase_yolo(torch, report):
@@ -4598,82 +4772,260 @@ def phase_train_mesh(torch, report):
     report["train_mesh"] = out
 
 
-def phase_serve_mesh(torch, report):
-    """Data-parallel serving on the card: full tinyllama-1.1b, continuous
-    FIFO, 8 requests, on (2, 1) and (2, 2) meshes of ranks on the one card
-    (gloo; one spawn per mesh, fp32 then bf16), each rank holding 4 of the
-    8 slots. Every rank's tokens equal the unsharded run's, or each
-    divergence sits at a near-tie of the unsharded run's own decision
-    (``token_check``: its top-2 gap within MODEL_TOL_BF16 of its largest
-    |logit|); each rank launches flash once per attention layer per
-    prefill and decode once per attention layer per decode pass (printed)."""
+def mesh_bucketed_requests(cfg):
+    """MESH_BUCKETED's (uid, prompt, max_new): 4 prompts of the first
+    length, then 3 of the second."""
+    import numpy as np
+    b = MESH_BUCKETED
+    rng = np.random.default_rng(b["seed"])
+    per = -(-b["requests"] // len(b["prompt_lens"]))
+    return [(i, rng.integers(1, cfg.vocab_size, b["prompt_lens"][i // per], dtype=np.int32),
+             b["max_new"]) for i in range(b["requests"])]
+
+
+def mesh_arm_job(arm, cfg):
+    """The ``launch.sharded.serve_job`` / ``fleet_job`` job of a serve_mesh
+    arm for ``cfg``'s dtype (weights drawn from the serve's seed)."""
+    k = SERVE_MESH
+    if arm == "fifo":
+        return dict(cfg=cfg, seed=k["seed"], requests=serve_requests(cfg, k),
+                    max_slots=k["max_slots"], max_len=k["max_len"])
+    if arm.startswith("bucketed"):
+        b = MESH_BUCKETED
+        return dict(cfg=cfg, seed=k["seed"], requests=mesh_bucketed_requests(cfg),
+                    max_slots=b["max_slots"], max_len=b["max_len"], mode="bucketed",
+                    scheduled=True)
+    if arm == "spec":
+        return dict(cfg=cfg, seed=SPEC["seed"], draft="truncated", max_slots=SPEC["max_slots"],
+                    max_len=SPEC["max_len"],
+                    requests=spec_requests(cfg, SPEC["requests"], SPEC["prompt_lens"],
+                                           SPEC["max_new"], SPEC["seed"]))
+    f = FLEET
+    return dict(cfg=cfg, seed=f["seed"], replay=dict(
+        devices=1, population_seed=f["population_seed"], scenario=f["scenario"],
+        duration_s=f["duration_s"], seed=f["seed"], calib_samples=f["calib_samples"],
+        uncertainty=True, risk_level=f["risk_level"], max_slots=f["max_slots"]))
+
+
+def mesh_arm_cfg(arm, dtype):
+    from repro_torch.configs.base import get_config
+    name = arm.split(" ")[1] if arm.startswith("bucketed") else SERVE_MESH["names"][0]
+    return dataclasses.replace(get_config(name), dtype=dtype, param_dtype=dtype)
+
+
+@contextlib.contextmanager
+def recording_served_gaps(torch, reqs):
+    """Yields a dict that fills with the decision gaps (``record_gaps``
+    with ``prefills`` and ``served``: first tokens, decode steps, verify
+    rows, bucketed steps) of the one model that a ``ServingEngine`` built
+    inside the block serves, so that a greedy serve's gaps are its own;
+    unrecorded decisions are (None, None). ``ServingEngine.add_model`` is
+    its own again after the block, and the dict holds no engine."""
+    from repro_torch.serving.engine import ServingEngine
+    plain_add = ServingEngine.add_model
+    out = collections.defaultdict(lambda: (None, None))
+    with contextlib.ExitStack() as stack:
+        recorded = []
+
+        def add_model(eng, name, *args, **kw):
+            plain_add(eng, name, *args, **kw)
+            recorded.append(stack.enter_context(record_gaps(torch, eng, reqs, 0.0, name,
+                                                            prefills=True, served=True)))
+
+        ServingEngine.add_model = add_model
+        try:
+            yield out
+        finally:
+            ServingEngine.add_model = plain_add
+            for g in recorded:
+                out.update(g)
+
+
+def mesh_arm_ref(torch, arm, cfg):
+    """The unsharded run of a serve_mesh arm on the card (TF32 off): its
+    ``serve_job`` / ``fleet_job`` result and, in bf16, the decision gaps of
+    that very run (``recording_served_gaps``; the fleet's bf16 tokens are
+    reported, not judged)."""
     import gc
+
+    from repro_torch.kernels.flash_attention import exact_fp32
+    from repro_torch.launch.sharded import fleet_job, serve_job
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding.context import ExecContext
+    job = mesh_arm_job(arm, cfg)
+    gaps = None
+    with exact_fp32():
+        params = init_params(cfg, job["seed"], "cuda")
+        if "replay" in job:
+            ref = fleet_job(dict(job, params=params), ExecContext(), "cuda")
+        else:
+            with (recording_served_gaps(torch, job["requests"]) if cfg.dtype == "bfloat16"
+                  else contextlib.nullcontext()) as gaps:
+                ref = serve_job(dict(job, params=params), ExecContext(), "cuda")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref, gaps
+
+
+def mesh_launch_check(label, cfg, got, odd):
+    """A rank's launches against its passes: flash once per attention layer
+    per prefill and verify (the truncated draft's one layer per draft
+    prefill and catch-up), decode or its piece mode once per attention layer
+    per single-token pass, the SSD scan once per layer per prefill of an SSD
+    stack; the piece mode launched where a cache was cut on its sequence
+    (``odd``), and only there."""
+    n, L = attention_layers(cfg), got["launches"]
+    if "calls" in got:  # a fleet replay: each device engine's worker
+        p, d, v = (sum(c[i] for c in got["calls"]) for i in range(3))
+        dp = dd = dv = 0
+    else:
+        p, d, v = got["prefill_calls"], got["decode_calls"], got["verify_calls"]
+        dp, dd, dv = got["draft_calls"] or (0, 0, 0)
+    ssd = "ssd" in cfg.layer_kinds()
+    want_flash = n * (p + v) + dp + dv
+    want_dec = n * d + dd
+    ok = (L["flash_attention"] == want_flash and L["mla_attention"] == 0
+          and L["decode_attention"] + L["decode_attention_piece"] == want_dec
+          and L["ssd_scan"] == (cfg.num_layers * p if ssd else 0)
+          and (L["decode_attention_piece"] > 0) == (odd and n > 0))
+    if not ok:
+        raise SmokeFailure(f"{label}: launches {L}; expected flash {want_flash}, decode + piece "
+                           f"{want_dec}, piece {'> 0' if odd and n else '0'}, ssd "
+                           f"{cfg.num_layers * p if ssd else 0}")
+
+
+def mesh_pool_check(label, arm, D, got):
+    """A rank's slot pools hold only its own rows, ``max_slots / D``,
+    where D divides the slots, and every row (the cache cut on its
+    sequence) where it does not; the bucketed mode keeps no pool."""
+    slots = {"fifo": SERVE_MESH["max_slots"], "spec": SPEC["max_slots"],
+             "fleet": FLEET["max_slots"]}.get(arm)
+    if slots is None:
+        ok = got["pool_rows"] is None
+    else:
+        want = slots // D if slots % D == 0 else slots
+        rows = got["pool_rows"] if arm == "fleet" else [got["pool_rows"]]
+        ok = bool(rows) and all(r == want for r in rows)
+    if not ok:
+        raise SmokeFailure(f"{label}: pool rows {got['pool_rows']}, expected "
+                           + ("none" if slots is None else str(want)))
+
+
+def mesh_arm_check(label, arm, cfg, mesh, rank, got, ref, gaps):
+    """One rank's arm against its unsharded run: no error, the tokens per
+    uid equal (fp32) or apart only from a printed near-tie of the unsharded
+    decisions (bf16, ``token_check``; a fleet's bf16 tokens are reported,
+    its report must equal the unsharded one in both dtypes), the bucketed
+    batches equal, the launches as the passes imply, the slot pools the
+    rank's rows (``mesh_pool_check``). Returns its row."""
     from types import SimpleNamespace
 
     import numpy as np
+    D = int(np.prod(mesh[:-1]))
+    exact = cfg.dtype == "float32"
+    if arm == "fleet":
+        if got["report"] != ref["report"]:
+            raise SmokeFailure(f"{label}: the fleet report differs from the unsharded one")
+        diverged = 0
+        for dev, (mine, want) in enumerate(zip(got["tokens"], ref["tokens"])):
+            diverged += token_check(
+                f"{label} device {dev}", [SimpleNamespace(uid=u, tokens=t) for u, t in mine.items()],
+                [SimpleNamespace(uid=u, tokens=t) for u, t in want.items()],
+                collections.defaultdict(lambda: (None, None)), exact, report_only=not exact,
+                names=("meshed", "unsharded"))
+        odd = False
+    else:
+        if got["errors"]:
+            raise SmokeFailure(f"{label}: errors {got['errors']}")
+        if got["batches"] != ref["batches"]:
+            raise SmokeFailure(f"{label}: batches {got['batches']}, unsharded {ref['batches']}")
+        diverged = token_check(label, [SimpleNamespace(uid=u, tokens=np.asarray(t))
+                                       for u, t in got["tokens"].items()],
+                               [SimpleNamespace(uid=u, tokens=np.asarray(t))
+                                for u, t in ref["tokens"].items()],
+                               gaps or collections.defaultdict(lambda: (None, None)), exact,
+                               names=("meshed", "unsharded"))
+        odd = any(b % D for b in got["batches"])
+        if arm == "spec" and got["spec"] != ref["spec"] and exact:
+            raise SmokeFailure(f"{label}: spec counters {got['spec']}, unsharded {ref['spec']}")
+    mesh_launch_check(label, cfg, got, odd)
+    mesh_pool_check(label, arm, D, got)
+    row = {"launches": got["launches"], "merges": got["merges"], "diverged_uids": diverged,
+           "wall_s": got["wall_s"]}
+    for key in ("prefill_calls", "decode_calls", "verify_calls", "batches", "spec",
+                "peak_mem_bytes", "shard", "pool_rows"):
+        if key in got:
+            row[key] = got[key]
+    return row
 
-    from repro_torch.configs.base import get_config
+
+def serve_mesh_rank(rank, plan, device="cuda"):
+    """One rank of a serve_mesh spawn: for each (mesh shape, jobs) of
+    ``plan``, the engines of ``launch.sharded.engine_rank`` on that mesh
+    (every mesh of the plan has the spawn's number of ranks)."""
+    from repro_torch.launch.sharded import engine_rank
+    return [engine_rank(rank, jobs, mesh, device) for mesh, jobs in plan]
+
+
+def phase_serve_mesh(torch, report):
+    """Data-parallel serving on the card, ranks sharing the one card over
+    gloo, one spawn per world size (the two 4-rank meshes share one), every
+    arm in fp32 then bf16 (SERVE_MESH): full tinyllama-1.1b continuous
+    FIFO, 8 requests, on (2, 1), (2, 2) and (pod 2, data 2, model 1), each
+    rank holding 8 / D of the slots; on (2, 1) the bucketed mode under the
+    scheduler on full tinyllama-1.1b and mamba2-2.7b (MESH_BUCKETED; an
+    odd batch's cache cut on its sequence over the data axis, its decode
+    through the piece mode and one merge per attention layer per step),
+    full tinyllama with its truncated draft and FLEET's replay of its
+    first phone; the bucketed tinyllama on (2, 2). Each arm first runs
+    unsharded on the card (``mesh_arm_ref``); every rank's tokens
+    equal its tokens in fp32, or each divergence sits at a near-tie of its
+    own decision in bf16 (``token_check``); each rank's flash, decode and
+    piece launches match its passes (printed). The piece launches of rank
+    0's bucketed tinyllama bf16 on (2, 1) are the kernels line's."""
+    import gc
+
+    import numpy as np
+
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import exact_fp32
-    from repro_torch.launch.sharded import engine_rank, run_ranks
-    from repro_torch.models.model import init_params
+    from repro_torch.launch.sharded import run_ranks
     k = SERVE_MESH
     build.load_library()
-    base = get_config(k["names"][0])
-    cfgs = {dt: dataclasses.replace(base, dtype=dt, param_dtype=dt) for dt in k["dtypes"]}
-    reqs = serve_requests(base, k)
-    plain = {}
-    for dt, cfg in cfgs.items():
-        with exact_fp32():
-            params = init_params(cfg, k["seed"], "cuda")
-            eng = fifo_engine(cfg, params, k)
-            with record_gaps(torch, eng, reqs, 0.0) as recorded:
-                resp, launches, wall, peak = spec_run(torch, eng, reqs, False, 0.0)
-            # the first tokens' gaps (from a prefill) while the engine lives
-            gaps = dict(recorded)
-            gaps.update({(r.uid, 0): recorded[(r.uid, 0)] for r in resp})
-        plain[dt] = dict(out=resp, gaps=gaps, launches=launches, wall_s=wall, peak=peak)
-        del eng, params
-        gc.collect()
-        torch.cuda.empty_cache()
-    out = {"card": report["smi"], "unsharded": {dt: {"wall_s": p["wall_s"],
-                                                     "launches": p["launches"]}
-                                                for dt, p in plain.items()}}
-    n_attn = attention_layers(base)
-    for mesh in k["meshes"]:
-        D, M = mesh
-        jobs = [dict(cfg=cfgs[dt], seed=k["seed"], requests=reqs, max_slots=k["max_slots"],
-                     max_len=k["max_len"]) for dt in k["dtypes"]]
+    refs = {}
+    for arm in dict.fromkeys(a for arms in k["arms"].values() for a in arms):
+        for dt in k["dtypes"]:
+            cfg = mesh_arm_cfg(arm, dt)
+            t0 = time.perf_counter()
+            refs[(arm, dt)] = (cfg,) + mesh_arm_ref(torch, arm, cfg)
+            log(f"serve_mesh unsharded {arm} {dt}: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": report["smi"],
+           "unsharded": {f"{a} {dt}": {key: r[1].get(key) for key in
+                                       ("launches", "wall_s", "batches", "spec", "merges")}
+                         for (a, dt), r in refs.items()}}
+    arms = {mesh: [(a, dt) for a in k["arms"][mesh] for dt in k["dtypes"]] for mesh in k["meshes"]}
+    for world in dict.fromkeys(int(np.prod(m)) for m in k["meshes"]):
+        meshes = [m for m in k["meshes"] if int(np.prod(m)) == world]
+        plan = [(m, [mesh_arm_job(a, refs[(a, dt)][0]) for a, dt in arms[m]]) for m in meshes]
         t0 = time.perf_counter()
-        ranks = run_ranks(engine_rank, D * M, (jobs, mesh, "cuda"), timeout=k["timeout"],
+        ranks = run_ranks(serve_mesh_rank, world, (plan, "cuda"), timeout=k["timeout"],
                           device_type="cuda")
         wall = time.perf_counter() - t0
-        label = f"serve_mesh {D}x{M}"
-        rows = {}
-        for j, dt in enumerate(k["dtypes"]):
-            per_rank = []
-            for rank, r in enumerate(ranks):
-                got = r[j]
-                want = {"flash_attention": n_attn * got["prefill_calls"],
-                        "decode_attention": n_attn * got["decode_calls"]}
-                if got["errors"] or got["launches"] != want:
-                    raise SmokeFailure(f"{label} {dt} rank {rank}: errors {got['errors']}, "
-                                       f"launches {got['launches']} (expected {want})")
-                if got["pool_rows"] != k["max_slots"] // D:
-                    raise SmokeFailure(f"{label} {dt} rank {rank}: {got['pool_rows']} pool rows")
-                mine = [SimpleNamespace(uid=u, tokens=np.asarray(tk))
-                        for u, tk in got["tokens"].items()]
-                diverged = token_check(f"{label} {dt} rank {rank}", mine, plain[dt]["out"],
-                                       plain[dt]["gaps"], exact=False,
-                                       names=("meshed", "unsharded"))
-                per_rank.append({"launches": got["launches"], "diverged_uids": diverged,
-                                 "prefill_calls": got["prefill_calls"],
-                                 "decode_calls": got["decode_calls"], "wall_s": got["wall_s"],
-                                 "peak_mem_bytes": got["peak_mem_bytes"],
-                                 "shard": got["shard"]})
-            rows[dt] = {"uids": len(ranks[0][j]["tokens"]), "ranks": per_rank}
-        out[f"{D}x{M}"] = dict(rows, spawn_wall_s=wall)
-        log(f"{label}: {json.dumps(rows)} (spawn wall {wall:.1f} s, on {report['smi']})")
+        for i, mesh in enumerate(meshes):
+            name = "x".join(map(str, mesh))
+            rows = {}
+            for j, (arm, dt) in enumerate(arms[mesh]):
+                cfg, ref, gaps = refs[(arm, dt)]
+                rows[f"{arm} {dt}"] = [
+                    mesh_arm_check(f"serve_mesh {name} {arm} {dt} rank {rank}", arm, cfg, mesh,
+                                   rank, r[i][j], ref, gaps) for rank, r in enumerate(ranks)]
+                if mesh == (2, 1) and arm == "bucketed tinyllama-1.1b" and dt == "bfloat16":
+                    report["launches_serve_mesh"] = ranks[0][i][j]["launches"]
+            out[name] = dict(rows, spawn_wall_s=wall)
+            log(f"serve_mesh {name}: {json.dumps(rows)} (spawn of {world} ranks: wall {wall:.1f} "
+                f"s, on {report['smi']})")
     report["serve_mesh"] = out
 
 
@@ -5208,12 +5560,14 @@ def phase_collectives(torch, report):
 
 # each kernel's row of the times phase in the kernels line: (model, B, S)
 LINE_ROWS = {"flash_attention": ("tinyllama", 8, 512), "decode_attention": ("tinyllama", 8, 2048),
-             "ssd_scan": ("mamba2", 8, 512), "mla_attention": ("mla", 8, 1024)}
+             "ssd_scan": ("mamba2", 8, 512), "mla_attention": ("mla", 8, 1024),
+             "decode_attention_piece": ("tinyllama", 8, 2048)}
 # each kernel's count on the path of its own slice: attention on the FIFO
 # serve path, the SSD scan on the scheduled path, the MLA attention on the
-# scheduled deepseek-v2-lite-16b serve with its draft (the spec phase)
+# scheduled deepseek-v2-lite-16b serve with its draft (the spec phase), the
+# piece mode on rank 0 of the serve_mesh phase's bucketed tinyllama (2, 1)
 MAIN_PATH = {"flash_attention": "serve", "decode_attention": "serve", "ssd_scan": "scheduled",
-             "mla_attention": "spec_deepseek"}
+             "mla_attention": "spec_deepseek", "decode_attention_piece": "serve_mesh"}
 
 
 def kernels_line(report):
@@ -5222,7 +5576,7 @@ def kernels_line(report):
     paths = {p: report.get(f"launches_{p}", {})
              for p in ("scheduled", "joint", "spec", "spec_deepseek", "archs", "archs_fifo",
                        "encdec_hybrid", "bucketed", "fleet", "kimi", "train", "train_moe",
-                       "mesh_families", "mesh_wide")}
+                       "mesh_families", "mesh_wide", "serve_mesh")}
     paths = {"serve": report.get("launches", {}), **paths}
     out = []
     for name, (src, replaces) in SOURCES.items():

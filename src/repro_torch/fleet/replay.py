@@ -22,8 +22,9 @@ Backends:
     the device its params lie on (the CUDA kernels on the card, their plain
     versions on the CPU); models without a serving worker resolve against
     the graph registry. A mesh in ``serving_ctx`` shards every worker over
-    its model axis (a mesh of one gives the same report and tokens as
-    none).
+    its model and data axes (a mesh of one gives the same report and tokens
+    as none; every rank of a larger one replays the whole population and
+    gives the same report, the engine behind each device data-parallel).
 
 The simulated device's joules, latencies and battery are DeviceSim's (a
 mobile SoC's rails on a virtual clock), never the serving card's.
@@ -171,10 +172,6 @@ class DeviceReplay:
             # serving_drafts: model name -> (draft_cfg, draft_params) turns
             # on energy-aware speculative decoding for that worker
             # (repro_torch.serving.speculative); absent names keep plain decode
-            D = serving_ctx.batch_parallel if serving_ctx is not None else 1
-            if D > 1 and serving_models:
-                raise NotImplementedError(f"the fleet replay's serving backend on a data axis "
-                                          f"of {D} is not ported (see ROADMAP.md)")
             for name, (cfg, params) in (serving_models or {}).items():
                 kw = {}
                 if serving_ctx is not None:

@@ -42,6 +42,10 @@ ARGTYPES = {
     # q, k, v, o, q_offset, kv_len, part, counters, B, Smax, H, Hkv, Dk, Dv,
     # window, n_splits, split_len, softcap, scale, dtype, stream
     "decode_attention_fwd": [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P],
+    # q, k, v, o (fp32), q_offset, kv_len, lse (fp32), part, counters, B,
+    # Smax (the piece's keys), k_start, H, Hkv, Dk, Dv, window, n_splits,
+    # split_len, softcap, scale, dtype, stream (decode_attention_piece.cu)
+    "decode_attention_piece_fwd": [_P] * 9 + [_I] * 10 + [_F, _F, _I, _P],
     # q, k, v, o, q_offset, kv_len, part, counters, B, T, Smax, H, Hkv, Dk,
     # Dv, k_row, v_row, v_head, v_shared, causal, window, n_splits, split_len,
     # softcap, scale, stream

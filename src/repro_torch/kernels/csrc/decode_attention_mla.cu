@@ -3,7 +3,7 @@
 // 512 + qk_rope_dim 64; 8 and 4 are a rank's heads of DeepSeek-V2-Lite's 16
 // on a model axis of 2 and 4), values of width Dv = 512, T >= 1 query positions per
 // batch row, split across blocks along the KV axis like
-// decode_attention.cu. It is the exact fp32 route (the parity checks run
+// decode_attention.cuh. It is the exact fp32 route (the parity checks run
 // through it); bf16 runs on the tensor cores in mla_attention_bf16.cu.
 // DeepSeek-V2-Lite's absorbed decode (T = 1) and its speculative verify
 // (T > 1) reach this shape (src/repro/models/attention.py, mla_decode).
@@ -37,7 +37,7 @@
 //   g mod 8 (two heads per warp at G = 16, one at 8, warps 4-7 idle at 4),
 //   one key per lane; (3) P V, each warp owning 64 value columns, each lane
 //   2 columns of all G heads: 2 G fp32 accumulators.
-// - The splits merge as in decode_attention.cu: a row whose kept keys lie
+// - The splits merge as in decode_attention.cuh: a row whose kept keys lie
 //   in one split writes its output directly, otherwise the last block of
 //   the (row group, kv head) to finish (an atomic counter) merges the
 //   splits' fp32 (m, l, acc) and resets its counter to 0. Masked keys are

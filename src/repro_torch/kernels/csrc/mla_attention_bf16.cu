@@ -38,7 +38,7 @@
 //   (t is the grid's fastest index), so the second to T-th read of each
 //   latent row hits L2. O (16 x 512 fp32) fits in registers for any T:
 //   each warp owns 64 value columns, 32 accumulators per lane.
-// - The split plan and the merge are decode_attention.cu's
+// - The split plan and the merge are decode_attention.cuh's
 //   (decode_attention.plan_splits, from the shapes alone): a row whose kept
 //   keys lie in one split writes its output directly, otherwise each live
 //   split writes its fp32 (m, l, acc) to scratch and the last block of the

@@ -1,6 +1,7 @@
 """Decode attention: the hand-written CUDA kernel and its plain version.
 
-The kernel (``csrc/decode_attention.cu``) replaces the Pallas TPU kernel
+The kernel (``csrc/decode_attention.cuh``, its whole-cache entry
+``csrc/decode_attention.cu``) replaces the Pallas TPU kernel
 ``repro.kernels.decode_attention.decode_attention``: one query token per
 batch row against the KV cache, all G q heads of a kv group against each
 K/V entry read once, with sliding window, logit softcap and
@@ -20,6 +21,16 @@ names no entry point for it.
 ``decode_attention`` launches a kernel for CUDA tensors and runs
 ``decode_attention_plain`` for CPU tensors; on the card a shape that no
 kernel takes raises.
+
+The piece mode (``decode_attention_piece``, the same kernel through its
+own entry point) attends over one piece of the sequence: a cache that the
+data ranks hold cut on its sequence (``sharding.placement.plan_cache``),
+whose first key sits at global position ``k_start``. ``q_offset``,
+``kv_len`` and the window stay in global positions. It returns each (row,
+query head)'s fp32 output normalised over the piece's kept keys and its
+fp32 log-sum-exp ``m + log l`` (0 and ``NEG_INF`` for a row that keeps no
+key of the piece), which ``sharding.collectives.merge_attention`` merges
+over the ranks; ``decode_attention_piece_plain`` is its plain version.
 """
 from __future__ import annotations
 
@@ -91,6 +102,37 @@ def decode_attention_split_plain(q, k, v, *, q_offset=0, kv_len=None, window=Non
         f = torch.exp(m - mx)
         o = (acc * f[..., None]).sum(dim=3) / (l * f).sum(dim=-1, keepdim=True).clamp_min(1e-30)
     return o.reshape(B, 1, H, Dv).to(q.dtype)
+
+
+def decode_attention_piece_plain(q, k, v, *, k_start, q_offset=0, kv_len=None, window=None,
+                                 softcap=None, scale=None):
+    """The piece mode in plain PyTorch: q (B,1,H,Dk) against the piece k
+    (B,Sp,Hkv,Dk), v (B,Sp,Hkv,Dv) whose key j sits at global position
+    ``k_start + j``; ``q_offset``/``kv_len`` (int or (B,)) global, None
+    keeping every key of the piece. Returns (o (B,1,H,Dv) fp32, lse
+    (B,1,H) fp32), o normalised over the piece's kept keys (0 where none)
+    and lse = m + log l in natural log (``NEG_INF`` where none)."""
+    B, _, H, Dk = q.shape
+    Sp, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // Hkv
+    scale = scale if scale is not None else Dk ** -0.5
+    dev = q.device
+    with exact_fp32():
+        s = torch.einsum("bhgd,bkhd->bhgk", q.float().reshape(B, Hkv, G, Dk), k.float()) * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = k_start + torch.arange(Sp, device=dev)
+        keep = kpos < per_row(k_start + Sp if kv_len is None else kv_len, B, dev)[:, None]
+        if window is not None:
+            keep = keep & (per_row(q_offset, B, dev)[:, None] - kpos < window)
+        keep = keep[:, None, None]
+        s = s.masked_fill(~keep, NEG_INF)
+        m = s.amax(dim=-1)  # (B,Hkv,G); NEG_INF where the piece keeps no key
+        p = torch.exp(s - m[..., None]) * keep
+        l = p.sum(dim=-1)
+        o = torch.einsum("bhgk,bkhd->bhgd", p, v.float()) / l.clamp_min(1e-30)[..., None]
+        lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), torch.full_like(m, NEG_INF))
+    return o.reshape(B, 1, H, Dv), lse.reshape(B, 1, H)
 
 
 def merge_counters(device, stream: int, n: int) -> torch.Tensor:
@@ -166,3 +208,46 @@ def decode_attention(q, k, v, *, q_offset=0, kv_len=None, window=None,
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_piece(q, k, v, *, k_start, q_offset=0, kv_len=None, window=None,
+                           softcap=None, scale=None):
+    """The piece mode (module docstring): q (B,1,H,Dk) against the cache
+    piece k (B,Sp,Hkv,Dk), v (B,Sp,Hkv,Dv) whose first key sits at global
+    position ``k_start`` -> (o (B,1,H,Dv) fp32, lse (B,1,H) fp32), as
+    ``decode_attention_piece_plain`` gives them."""
+    kw = dict(k_start=k_start, q_offset=q_offset, kv_len=kv_len, window=window,
+              softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        return decode_attention_piece_plain(q, k, v, **kw)
+    refuse_grad("decode_attention_piece", ATTN_TRAIN_ROUTE, q, k, v)
+    _on_card("decode_attention_piece", q)
+    decode_route(q.shape[2] // k.shape[2], q.shape[-1], v.shape[-1])
+    check_cuda_inputs(q, k, v, DECODE_DV)
+    B, _, H, Dk = q.shape
+    Sp, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // Hkv
+    if (Dk * q.element_size()) % 16:
+        raise ValueError(f"key head dim {Dk} is not a multiple of 16 bytes")
+    check_aligned(q, k, v)
+    scale = scale if scale is not None else Dk ** -0.5
+    n_splits, split_len = plan_splits(Sp, B, Hkv)
+    out = torch.empty((B, 1, H, Dv), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, 1, H), dtype=torch.float32, device=q.device)
+    part = torch.empty(B * Hkv * n_splits * G * (Dv + 4), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = merge_counters(q.device, stream, B * Hkv)
+    ptrs, _keep = launch_args(q, k, v, out, q_offset,
+                              int(k_start) + Sp if kv_len is None else kv_len)
+    lib = build.load_library()
+    with torch.cuda.device(q.device):
+        rc = lib.decode_attention_piece_fwd(
+            *ptrs, lse.data_ptr(), part.data_ptr(), counters.data_ptr(), B, Sp, int(k_start), H,
+            Hkv, Dk, Dv, int(window or 0), n_splits, split_len, float(softcap or 0.0),
+            float(scale), build.DTYPE_CODES[DTYPES[q.dtype]], stream)
+    build.check(rc, "decode_attention_piece_fwd")
+    decode_attention_piece.launches += 1
+    return out, lse
+
+
+decode_attention_piece.launches = 0

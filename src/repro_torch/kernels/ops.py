@@ -4,9 +4,12 @@ Dv 512: the whole deepseek-v2-lite and a rank of it on a model axis of 2 or
 4) go to the MLA kernels at any query length (the decode step and the speculative
 verify), any other single query token to the decode kernel, everything else
 to the prefill (flash) kernel. ``plain=True`` takes the kernels' plain
-versions on any device (the kernel-versus-plain parity runs on the card)."""
+versions on any device (the kernel-versus-plain parity runs on the card).
+``decode_attention_piece`` is the decode over one data rank's piece of a
+sequence-cut cache (``kernels.decode_attention``'s piece mode)."""
 from __future__ import annotations
 
+from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.flash_attention import flash_attention_plain
@@ -26,3 +29,13 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     fn = flash_attention_plain if plain else _flash
     return fn(q, k, v, causal=causal, window=window, softcap=softcap,
               q_offset=q_offset, kv_len=kv_len, scale=scale)
+
+
+def decode_attention_piece(q, k, v, *, k_start, q_offset=0, kv_len=None, window=None,
+                           softcap=None, scale=None, plain=False):
+    """One query token per row against a cache piece whose first key sits
+    at global position ``k_start``: (o fp32, lse fp32) for
+    ``sharding.collectives.merge_attention``."""
+    fn = _decode.decode_attention_piece_plain if plain else _decode.decode_attention_piece
+    return fn(q, k, v, k_start=k_start, q_offset=q_offset, kv_len=kv_len, window=window,
+              softcap=softcap, scale=scale)

@@ -4,7 +4,12 @@
 On a (D, M) mesh rank r sits at (r // M, r % M): its model group is the M
 ranks of its row (one data shard, the model cut M ways), its data group
 the D ranks of its column (one model shard, the batch cut D ways), both
-from ``DeviceMesh.get_group`` (``sharding.context.ExecContext``).
+from ``DeviceMesh.get_group`` (``sharding.context.ExecContext``). On a
+(P, D, M) mesh rank r sits at (r // (D M), r // M % D, r % M) and both
+batch axes cut the batch: its data group is the P D ranks that hold its
+model shard, data rank p D + d, a process group that ``_mesh`` makes beside
+the mesh's own (``data_groups``; every rank creates every such group, in
+the same order, as ``torch.distributed.new_group`` asks).
 
 Functions, not module constants: importing this module touches no device
 and starts no process group. Process-group start-up needs no network
@@ -17,6 +22,7 @@ and all-gathers of CUDA tensors go through the card's memory
 """
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional
 
@@ -68,7 +74,19 @@ def _mesh(device_type: str, shape, names):
     if dist.get_world_size() != n:
         raise RuntimeError(f"a mesh of {n} devices needs a process group of {n} ranks, "
                            f"not {dist.get_world_size()} (launch.sharded.run_ranks starts one)")
-    return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=names)
+    ranks = torch.arange(n).reshape(shape)
+    mesh = DeviceMesh(device_type, ranks, mesh_dim_names=names)
+    batch = [i for i, a in enumerate(names) if a in ("pod", "data") and shape[i] > 1]
+    mesh.data_groups = {}
+    if len(batch) > 1:  # the product group of the batch axes, one per model shard
+        other = [i for i in range(len(names)) if i not in batch]
+        cols = ranks.permute(*other, *batch).reshape(-1, math.prod(shape[i] for i in batch))
+        me = dist.get_rank()
+        for col in cols.tolist():
+            g = dist.new_group(col)
+            if me in col:
+                mesh.data_groups[tuple(names[i] for i in batch)] = g
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False):
@@ -86,17 +104,28 @@ def make_production_mesh(*, multi_pod: bool = False):
     return _mesh("cuda", shape, axes)
 
 
-def make_debug_mesh(data: int = 1, model: int = 1, device_type: str = "cuda"):
-    """A small (data, model) mesh over ``device_type``: the card by default,
-    which raises where there is none; the CPU only when the caller passes
+def make_debug_mesh(data: int = 1, model: int = 1, device_type: str = "cuda", pod: int = 1):
+    """A small (data, model) mesh over ``device_type``, or with ``pod`` > 1
+    a (pod, data, model) one: the card by default, which raises where
+    there is none; the CPU only when the caller passes
     ``device_type="cpu"``. A mesh of one starts its own world of one when
     the process has no group; a larger one needs the process group of its
-    ``data * model`` ranks (``init_ranks``)."""
+    ``pod * data * model`` ranks (``init_ranks``)."""
     if device_type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_debug_mesh: no CUDA card here; pass device_type=\"cpu\" for "
                            "a mesh on the CPU")
+    if pod > 1:
+        return _mesh(device_type, (pod, data, model), ("pod", "data", "model"))
     return _mesh(device_type, (data, model), ("data", "model"))
 
 
+def mesh_of(shape, device_type: str = "cuda"):
+    """``make_debug_mesh`` of a shape: (data, model) or (pod, data, model)."""
+    if len(shape) == 3:
+        return make_debug_mesh(shape[1], shape[2], device_type, pod=shape[0])
+    return make_debug_mesh(shape[0], shape[1], device_type)
+
+
 def batch_axes_for(mesh):
+    """The mesh's axes that cut the batch: ("data",) or ("pod", "data")."""
     return tuple(a for a in axis_sizes(mesh) if a in ("pod", "data"))

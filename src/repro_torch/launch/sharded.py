@@ -8,12 +8,15 @@ a rank still running at the limit is killed, as are the others at once
 when one raises (they may be waiting on it in a collective).
 
 ``generate_rank`` is one such ``fn``: for each job, a ``ModelWorker`` on a
-(1, N) debug mesh that runs ``generate`` (the bucketed mode: encoder frames
-and a pad mask where the job has them) on the rank's shard of a model
-whose weights come from a tree of numpy arrays in the JAX package's layout
-(``convert.params_from_numpy``). ``engine_rank`` runs the continuous
-engine on a (D, M) mesh (``serve_job``). Every family the port serves
-takes a model axis of M > 1 in both. ``train_rank`` is another: for each job,
+(1, N) debug mesh, or a (D, M) or (P, D, M) one, that runs ``generate``
+(the bucketed mode: encoder frames and a pad mask where the job has them)
+on the rank's shard of a model whose weights come from a tree of numpy
+arrays in the JAX package's layout (``convert.params_from_numpy``).
+``engine_rank`` runs the serving engine on such a mesh, continuous or
+bucketed, FIFO or scheduled, with a speculative draft where the job asks
+for one (``serve_job``), or a fleet replay with the serving backend
+(``fleet_job``). Every family the port serves takes a model axis of M > 1
+in both. ``train_rank`` is another: for each job,
 a few AdamW steps of the rank's shard on a (D, M) mesh (``train_loop``),
 with the step-0 gradients and the final weights gathered whole on request
 and a checkpoint saved or restored. Both run on the card unless the
@@ -104,21 +107,21 @@ def run_ranks(fn: Callable, world: int, args: Sequence = (), timeout: float = 60
     return [got[r] for r in range(world)]
 
 
-def generate_rank(rank: int, jobs: Sequence[dict], world: int,
-                  device: str = "cuda") -> List[dict]:
+def generate_rank(rank: int, jobs: Sequence[dict], world, device: str = "cuda") -> List[dict]:
     """One rank of sharded ``ModelWorker.generate`` runs on ``device``, one
     per job: ``cfg``, a numpy ``tree`` in the JAX package's layout,
     ``prompts`` (B, S), ``max_new`` and ``max_len``, and optionally
     ``enc_inputs`` (B, T, d_model) of an encoder-decoder model and
     ``pad_mask`` (B, S) of LEFT-padded SSM prompts. The model is cut to
-    this rank's shard on a (1, ``world``) mesh. Returns per job the tokens
-    and the worker's sharding report's counts."""
+    this rank's shard on a (1, ``world``) mesh, or on the mesh of shape
+    ``world`` where it is a tuple ((D, M) or (P, D, M)). Returns per job
+    the tokens and the worker's sharding report's counts."""
     from repro_torch.convert import params_from_numpy
-    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.mesh import batch_axes_for, mesh_of
     from repro_torch.serving.workers import ModelWorker
     from repro_torch.sharding.context import ExecContext
-    ctx = ExecContext(mesh=make_debug_mesh(1, world, device), batch_axes=("data",),
-                      model_axis="model")
+    dm = mesh_of(world if isinstance(world, tuple) else (1, world), device)
+    ctx = ExecContext(mesh=dm, batch_axes=batch_axes_for(dm), model_axis="model")
     out = []
     for job in jobs:
         cfg = job["cfg"]
@@ -134,7 +137,8 @@ def generate_rank(rank: int, jobs: Sequence[dict], world: int,
 
 
 def train_rank(rank: int, jobs: Sequence[dict], mesh: tuple, device: str = "cuda") -> List[dict]:
-    """One rank of sharded training on a (D, M) = ``mesh`` debug mesh, one
+    """One rank of sharded training on a (D, M) or (P, D, M) = ``mesh``
+    debug mesh (the batch cut over every batch axis), one
     run per job, each from a fresh optimizer state. A job holds ``cfg``,
     ``seed`` (weights drawn as this rank's shard by ``init_params(ctx=)``,
     or ``tree``, a numpy tree in the JAX package's layout, cut by
@@ -162,7 +166,7 @@ def train_rank(rank: int, jobs: Sequence[dict], mesh: tuple, device: str = "cuda
 
     from repro_torch.convert import params_from_numpy, shard_params
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.mesh import batch_axes_for, mesh_of
     from repro_torch.models.model import init_params, mesh_rank, train_params
     from repro_torch.sharding import collectives
     from repro_torch.sharding.context import ExecContext
@@ -172,11 +176,11 @@ def train_rank(rank: int, jobs: Sequence[dict], mesh: tuple, device: str = "cuda
     from repro_torch.training.optimizer import init_opt_state
     from repro_torch.training.train_loop import (batch_to_device, loss_and_grads,
                                                  make_train_step, shard_batch)
-    dm = make_debug_mesh(mesh[0], mesh[1], device)
+    dm = mesh_of(mesh, device)
     out = []
     for job in jobs:
         cfg = job["cfg"]
-        ctx = ExecContext(mesh=dm, batch_axes=("data",), model_axis="model",
+        ctx = ExecContext(mesh=dm, batch_axes=batch_axes_for(dm), model_axis="model",
                           fsdp=job.get("fsdp"), plan=dict(job.get("plan") or {}))
         if "tree" in job:
             params = shard_params(params_from_numpy(job["tree"], cfg, device), ctx)
@@ -266,6 +270,7 @@ def _kernel_wrappers() -> dict:
     from repro_torch.kernels import decode_attention, flash_attention, mla_attention, ssd_scan
     return {"flash_attention": flash_attention.flash_attention,
             "decode_attention": decode_attention.decode_attention,
+            "decode_attention_piece": decode_attention.decode_attention_piece,
             "mla_attention": mla_attention.mla_attention, "ssd_scan": ssd_scan.ssd_scan}
 
 
@@ -286,14 +291,87 @@ def piece_digests(leaves: dict) -> dict:
 
 
 def engine_rank(rank: int, jobs: Sequence[dict], mesh: tuple, device: str = "cuda") -> List[dict]:
-    """One rank of the continuous serving engine on a (D, M) = ``mesh``
-    debug mesh, one engine per job (``serve_job``)."""
-    from repro_torch.launch.mesh import make_debug_mesh
+    """One rank of the serving engine on a (D, M) or (P, D, M) = ``mesh``
+    debug mesh, one engine per job (``serve_job``), or one fleet replay
+    for a job that names ``replay`` (``fleet_job``)."""
+    from repro_torch.launch.mesh import batch_axes_for, mesh_of
     from repro_torch.sharding.context import ExecContext
-    dm = make_debug_mesh(mesh[0], mesh[1], device)
-    return [serve_job(job, ExecContext(mesh=dm, batch_axes=("data",), model_axis="model",
-                                       fsdp=job.get("fsdp"), plan=dict(job.get("plan") or {})),
-                      device) for job in jobs]
+    dm = mesh_of(mesh, device)
+    out = []
+    for job in jobs:
+        ctx = ExecContext(mesh=dm, batch_axes=batch_axes_for(dm), model_axis="model",
+                          fsdp=job.get("fsdp"), plan=dict(job.get("plan") or {}))
+        out.append((fleet_job if "replay" in job else serve_job)(job, ctx, device))
+    return out
+
+
+def _job_params(job, ctx, device):
+    """A job's weights: ``params`` (a model, for a caller in this
+    process), from its numpy ``tree``, or drawn from its ``seed`` (as this
+    rank's shard, but whole where the job takes a truncated draft, which
+    is cut from the whole model)."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.model import init_params
+    cfg = job["cfg"]
+    if "params" in job:
+        return job["params"]
+    if "tree" in job:
+        return params_from_numpy(job["tree"], cfg, device)
+    return init_params(cfg, job["seed"], device, ctx=None if job.get("draft") else ctx)
+
+
+def _launch_counts():
+    from repro_torch.sharding import collectives
+    return ({n: w.launches for n, w in _kernel_wrappers().items()},
+            collectives.counts["merge_attention"])
+
+
+def _pool_rows(pool) -> int:
+    """The rows of a slot pool's cache on this rank: its share of the
+    slots where the data axis splits them, every slot where the cache is
+    cut on its sequence."""
+    return int(next(iter(pool.cache.values())).shape[1])
+
+
+def fleet_job(job, ctx, device: str = "cuda") -> dict:
+    """One ``FleetReplay`` with the serving backend on ``ctx``: ``cfg`` and
+    ``seed`` or ``tree`` the assistant model, ``replay`` the replay's
+    keywords (``devices``, the population's size and ``population_seed``,
+    beside ``FleetReplay``'s own). Returns the report's ``to_dict()``, each
+    device engine's tokens per uid and its worker's (prefill, decode,
+    verify) passes, the rows of each device engine's slot pool, the kernels'
+    launches and the merges of sequence-cut decodes, the wall seconds and the peak device bytes (0 on the CPU)."""
+    import torch
+
+    from repro_torch import fleet
+    from repro_torch.fleet.workloads import ASSISTANT
+    kw = dict(job["replay"])
+    pop = fleet.sample_population(kw.pop("devices"), seed=kw.pop("population_seed", 0))
+    params = _job_params(job, ctx, device)
+    dev = params.embedding.device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    before, merges = _launch_counts()
+    t0 = time.perf_counter()
+    rep = fleet.FleetReplay(pop, backend="serving", serving_models={ASSISTANT: (job["cfg"], params)},
+                            serving_ctx=ctx, **kw)
+    report = rep.run().to_dict()
+    after, merges_after = _launch_counts()
+    out = {"report": report, "wall_s": time.perf_counter() - t0,
+            "tokens": [{r.uid: [int(t) for t in r.tokens] for r in dr.responses}
+                       for dr in rep.device_replays],
+            "calls": [(w.prefill_calls, w.decode_calls, w.verify_calls)
+                      for dr in rep.device_replays for w in dr.engine.workers.values()],
+            "pool_rows": [_pool_rows(pool) for dr in rep.device_replays
+                          for pool in dr.engine.pools.values()],
+            "launches": {n: after[n] - before[n] for n in after},
+            "merges": merges_after - merges,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0}
+    del rep, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def serve_job(job: dict, ctx, device: str = "cuda") -> dict:
@@ -308,24 +386,29 @@ def serve_job(job: dict, ctx, device: str = "cuda") -> dict:
     ``launch.serve.make_scheduler`` under ``run_trace``'s virtual clock,
     arrivals 10 ms apart; FIFO ``run_all`` without) and ``logit_prompts``
     (G, S) (with ``logit_frames`` for an encoder-decoder model), whose
-    last-position prefill logits it returns after the serve. Returns the
-    tokens by uid, the worker's pass counts, the flash and decode kernels'
-    launches, the model axis's collectives, the wall seconds and the peak
+    last-position prefill logits it returns after the serve; ``mode``
+    ("continuous" by default, or "bucketed": a scheduled bucketed engine
+    serves ``run_all`` under the scheduler) and ``draft`` ("truncated":
+    ``speculative.truncated_draft`` of the weights, drawn whole). Returns
+    the tokens by uid, the worker's pass counts (with the draft's), the
+    flash, decode and sequence-piece decode kernels' launches, the merges
+    of sequence-cut decodes, the scheduler's bucketed batches, the spec
+    counters, the model axis's collectives, the wall seconds and the peak
     device bytes (0 on the CPU)."""
     import numpy as np
     import torch
 
-    from repro_torch.convert import params_from_numpy
-    from repro_torch.kernels import decode_attention, flash_attention
     from repro_torch.launch.serve import make_scheduler
-    from repro_torch.models.model import init_params
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.slots import Request
+    from repro_torch.serving.speculative import truncated_draft
     from repro_torch.sharding import collectives
-    kernels = (flash_attention.flash_attention, decode_attention.decode_attention)
     cfg = job["cfg"]
-    params = (params_from_numpy(job["tree"], cfg, device) if "tree" in job
-              else init_params(cfg, job["seed"], device, ctx=ctx))
+    params = _job_params(job, ctx, device)
+    draft = None
+    if job.get("draft") == "truncated":
+        dcfg, dparams, params = truncated_draft(cfg, params)
+        draft = (dcfg, dparams)
     reqs = [Request(r[0], np.asarray(r[1], np.int32), r[2],
                     enc_inputs=None if len(r) < 4 else np.asarray(r[3], np.float32))
             for r in job["requests"]]
@@ -333,19 +416,20 @@ def serve_job(job: dict, ctx, device: str = "cuda") -> dict:
     if job.get("scheduled"):
         sched = make_scheduler([cfg], max(len(r.prompt) for r in reqs),
                                max(r.max_new_tokens for r in reqs))
-    eng = ServingEngine(scheduler=sched, max_slots=job["max_slots"])
+    mode = job.get("mode", "continuous")
+    eng = ServingEngine(scheduler=sched, max_slots=job["max_slots"], mode=mode)
     eng.add_model(cfg.name, cfg, params, max_len=job["max_len"], ctx=ctx,
-                  max_enc_len=job.get("max_enc_len"))
+                  max_enc_len=job.get("max_enc_len"), draft=draft)
     w = eng.workers[cfg.name]
     dev = w.device
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    before = [k.launches for k in kernels]
+    before, merges = _launch_counts()
     calls = collectives.all_reduce.calls, collectives.all_gather_last.calls
     t0 = time.perf_counter()
     temp = job.get("temperature", 0.0)
-    if sched is not None:
+    if sched is not None and mode == "continuous":
         resp = eng.run_trace([(0.01 * i, cfg.name, r) for i, r in enumerate(reqs)],
                              temperature=temp)
     else:
@@ -354,15 +438,24 @@ def serve_job(job: dict, ctx, device: str = "cuda") -> dict:
         resp = eng.run_all(temperature=temp)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    after, merges_after = _launch_counts()
+    spec = eng.spec.get(cfg.name)
     out = {"tokens": {r.uid: [int(t) for t in r.tokens] for r in resp},
            "errors": [r.error for r in resp if r.error],
            "prefill_calls": w.prefill_calls, "decode_calls": w.decode_calls,
-           "launches": {k.__name__: k.launches - b for k, b in zip(kernels, before)},
+           "verify_calls": w.verify_calls,
+           "draft_calls": None if spec is None else (spec.worker.prefill_calls,
+                                                     spec.worker.decode_calls,
+                                                     spec.worker.verify_calls),
+           "launches": {n: after[n] - before[n] for n in after},
+           "merges": merges_after - merges,
+           "batches": [st["batch"] for st in eng.stats[cfg.name] if "batch" in st],
+           "spec": {k: v for k, v in eng.ledger.counters.items() if k.startswith("spec_")},
            "all_reduces": collectives.all_reduce.calls - calls[0],
            "all_gathers": collectives.all_gather_last.calls - calls[1],
            "wall_s": time.perf_counter() - t0, "shard": w.params.shard,
            "data_shard": w.params.data_shard,
-           "pool_rows": int(next(iter(eng.pools[cfg.name].cache.values())).shape[1]),
+           "pool_rows": _pool_rows(eng.pools[cfg.name]) if cfg.name in eng.pools else None,
            "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else 0)}
     if job.get("logit_prompts") is not None:

@@ -13,7 +13,9 @@ optimizer state there (``training.checkpoint``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --mesh 2,2 --fsdp
 
-trains on a (data, model) mesh of D x M ranks, spawned from this process
+trains on a (data, model) mesh of D x M ranks (``--mesh P,D,M``: a
+(pod, data, model) mesh whose pod and data axes both cut the batch),
+spawned from this process
 (``launch.sharded.run_ranks`` / ``train_rank``: each rank one process,
 gloo on the CPU and for ranks that share a card), each rank on its shard
 and its rows of the global ``--batch``; ``--fsdp`` cuts the weights over
@@ -23,6 +25,7 @@ peak memory is each rank's.
 from __future__ import annotations
 
 import argparse
+import math
 
 import numpy as np
 import torch
@@ -49,7 +52,8 @@ def main(argv=None):
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--mesh", default=None, help="D,M: a (data, model) mesh of D*M ranks")
+    ap.add_argument("--mesh", default=None, help="D,M: a (data, model) mesh of D*M ranks; P,D,M "
+                    "a (pod, data, model) mesh")
     ap.add_argument("--fsdp", action="store_true", help="cut the weights over the data axis")
     args = ap.parse_args(argv)
 
@@ -61,12 +65,12 @@ def main(argv=None):
           f"{cfg.num_layers}L d={cfg.d_model} N={cfg.param_count()/1e6:.1f}M")
     oc = OptConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5), total_steps=args.steps)
     mesh = tuple(int(x) for x in args.mesh.split(",")) if args.mesh else (1, 1)
-    if mesh[0] * mesh[1] > 1:
+    if math.prod(mesh) > 1:
         job = dict(cfg=cfg, seed=args.seed, data_seed=args.seed, batch=args.batch,
                    seq=args.seq, steps=args.steps, oc=oc, fsdp=True if args.fsdp else None,
                    save=args.ckpt)
         # a training run has no time limit of its own, sharded or not
-        ranks = run_ranks(train_rank, mesh[0] * mesh[1], ([job], mesh, dev.type),
+        ranks = run_ranks(train_rank, math.prod(mesh), ([job], mesh, dev.type),
                           timeout=float("inf"), device_type=dev.type)
         hist = ranks[0][0]["history"]
         report(args, hist, dev, [r[0]["peak_mem_bytes"] for r in ranks], mesh)
@@ -91,13 +95,14 @@ def report(args, hist, dev, peaks, mesh):
     step_s = float(np.median(warm))
     line = (f"warm step {step_s * 1e3:.1f} ms (median of {len(warm)}), "
             f"{args.batch * args.seq / step_s:.0f} tokens/s")
-    if mesh != (1, 1):
-        line += f" on a {mesh[0]}x{mesh[1]} (data, model) mesh"
+    if math.prod(mesh) > 1:
+        axes = "(pod, data, model)" if len(mesh) == 3 else "(data, model)"
+        line += f" on a {'x'.join(map(str, mesh))} {axes} mesh"
     if dev.type == "cuda":
         line += (f", peak memory {', '.join(f'{p / 2**30:.2f}' for p in peaks)} GiB (per rank) "
                  f"on {torch.cuda.get_device_name(dev)}")
     print(line)
-    if args.ckpt and mesh != (1, 1):
+    if args.ckpt and math.prod(mesh) > 1:
         print(f"saved checkpoint to {args.ckpt}")
 
 

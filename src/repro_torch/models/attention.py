@@ -39,6 +39,19 @@ Cross-attention (``gqa_cross``) has no rope and no causal mask; at decode
 it reads a cross cache preallocated at the slot pool's ``max_enc_len`` and
 masks each row to its own encoder length (``kv_len = enc_len``; 0 on a
 slot never admitted, whose row the kernels write as 0).
+
+On a data axis whose ranks hold the K/V caches cut on their sequence
+(``ExecContext.kv_seq``; a cache whose batch the data ranks do not divide,
+``sharding.placement.plan_cache``), each rank holds the positions [d n,
+(d + 1) n) of every row of ``k``, ``v``, ``xk`` and ``xv``: prefill and
+decode write only the positions the rank holds (``write_prefix``, and
+``write_rows`` / ``write_grid`` at the piece's local positions), and a
+decode attends over the rank's piece through the decode kernel's piece
+mode, the ranks' partial softmax states merged over the data group
+(``attend_piece``). A verify of T positions is T such decodes with one
+merge. The prefill's own attention runs over the prompt's whole K/V, which
+every rank computes, so it is unchanged. MLA's latent cache is never cut on
+its sequence.
 """
 from __future__ import annotations
 
@@ -49,6 +62,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import RMSNorm, apply_rope, rms_norm_head, row_linear
+from repro_torch.sharding import collectives
 from repro_torch.sharding.context import ATTN_IMPLS
 
 # the JAX package's differentiable XLA attention (its impl="xla"): train
@@ -164,6 +178,47 @@ def attend(q, k, v, *, causal=True, window=None, softcap=None, q_offset=0,
                                plain=impl == "plain")
 
 
+def piece_start(cache, ctx) -> int:
+    """The global position of the first entry of this data rank's piece of
+    a sequence-cut cache (its pieces are all ``cache.shape[1]`` long)."""
+    return ctx.data_rank * cache.shape[1]
+
+
+def attend_piece(q, k, v, ctx, *, window=None, softcap=None, q_offset=0, kv_len=None,
+                 impl=None):
+    """Decode attention (q (B,T,H,Dk), T query positions at ``q_offset``,
+    ``q_offset + 1``, ... per row, each with its own ``kv_len``) over this
+    data rank's piece ``k``, ``v`` of a sequence-cut cache, through the
+    decode kernel's piece mode, one launch per query position, and one
+    merge of the ranks' states over the data group (module docstring).
+    ``q_offset`` (B,) or int; ``kv_len`` a list of T per-row lengths (or
+    one for T = 1). Returns (B,T,H,Dv) in q's dtype."""
+    T = q.shape[1]
+    lens = kv_len if isinstance(kv_len, (list, tuple)) else [kv_len]
+    start = piece_start(k, ctx)
+    parts = [ops.decode_attention_piece(q[:, t:t + 1].contiguous(), k, v, k_start=start,
+                                        q_offset=q_offset + t, kv_len=lens[t], window=window,
+                                        softcap=softcap, plain=impl == "plain")
+             for t in range(T)]
+    o = torch.cat([a for a, _ in parts], dim=1)
+    lse = torch.cat([b for _, b in parts], dim=1)
+    return collectives.merge_attention(o, lse, ctx).to(q.dtype)
+
+
+def write_prefix(cache, new, ctx):
+    """cache (B, n, ...) [:, :S] = new (B, S, ...) (a prefill's K/V), cast
+    to the cache's dtype; of a sequence-cut cache (``ctx.kv_seq``) only the
+    positions this data rank's piece holds."""
+    S = new.shape[1]
+    if not ctx.kv_seq:
+        cache[:, :S] = new.to(cache.dtype)
+        return
+    lo = piece_start(cache, ctx)
+    hi = min(lo + cache.shape[1], S)
+    if hi > lo:
+        cache[:, :hi - lo] = new[:, lo:hi].to(cache.dtype)
+
+
 class GQA(nn.Module):
     """GQA projections (counterpart of ``init_gqa``'s param dict). The qkv
     biases (qwen2) and the per-head qk-norm scales (chameleon) are fp32, as
@@ -225,13 +280,20 @@ def gqa_encode(p: GQA, x, cfg, *, impl=None):
     return row_linear(p.wo, o.reshape(B, S, -1))
 
 
-def gqa_cross(p: GQA, x, cfg, enc_k, enc_v, enc_len=None, impl=None):
+def gqa_cross(p: GQA, x, cfg, enc_k, enc_v, enc_len=None, impl=None, ctx=None):
     """Cross-attention of x (B,S,D) over the encoder's K/V (B,T,Hkv,Dh): no
     rope, no causal mask, no qkv bias; ``enc_len`` (an int or (B,)) masks
-    each row to its own encoder length, None attends to all T."""
+    each row to its own encoder length, None attends to all T. With
+    ``ctx.kv_seq`` (a decode over this data rank's piece of the cross
+    cache) ``enc_len`` must be given."""
     B, S, _ = x.shape
     q = p.wq(x).view(B, S, -1, cfg.head_dim)  # the rank's heads on a model axis
-    o = attend(q, enc_k, enc_v, causal=False, kv_len=enc_len, impl=impl)
+    if ctx is not None and ctx.kv_seq:
+        if enc_len is None:
+            raise ValueError("a decode over a sequence-cut cross cache needs enc_len")
+        o = attend_piece(q, enc_k, enc_v, ctx, kv_len=enc_len, impl=impl)
+    else:
+        o = attend(q, enc_k, enc_v, causal=False, kv_len=enc_len, impl=impl)
     return row_linear(p.wo, o.reshape(B, S, -1))
 
 
@@ -242,7 +304,7 @@ def cross_kv(p: GQA, enc_out, cfg):
             p.wv(enc_out).view(B, T, -1, cfg.head_dim))
 
 
-def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None):
+def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None, ctx=None):
     """Decode against the cache. x (B,T,D); cache_k/v (B,Smax,Hkv,Dh),
     updated in place (the JAX package donates the buffers instead).
 
@@ -259,27 +321,51 @@ def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None)
     dropped; the new queries attend causally with no kv_len. Stale entries
     past a row's committed frontier (a rejected draft suffix of an earlier
     round) sit at kpos > qpos, so the causal mask hides them until they are
-    overwritten. Returns (out, (cache_k, cache_v))."""
+    overwritten. Returns (out, (cache_k, cache_v)).
+
+    ``ctx.kv_seq``: the caches are this data rank's pieces of a sequence
+    of ``kv_seq`` positions (module docstring): the new K/V are written
+    where the rank holds their positions (and below ``kv_seq``), and the T
+    query positions attended through ``attend_piece`` (kv_len = position +
+    1, at most ``kv_seq``: the whole cache's causal bound)."""
     B, T = x.shape[0], x.shape[1]
     pos = torch.as_tensor(pos, device=x.device)
-    Smax = cache_k.shape[1]
-    if T > 1:
-        if not pos.dim():
+    piece = ctx is not None and bool(ctx.kv_seq)
+    n = cache_k.shape[1]
+    S, start = (ctx.kv_seq, piece_start(cache_k, ctx)) if piece else (n, 0)
+    if not pos.dim():  # position-synchronous: one token at one position
+        if T > 1:
             raise ValueError("multi-position decode takes (B,) per-row positions")
-        return _verify(p, x, cfg, cache_k, cache_v, pos, window, impl)
-    q, k, v = _project_qkv(p, x, cfg, pos.reshape(-1, 1).expand(B, 1))
-    if pos.dim():  # ragged: per-slot positions
-        write_rows(cache_k, k[:, 0], pos)
-        write_rows(cache_v, v[:, 0], pos)
-        o = attend(q, cache_k, cache_v, causal=False, window=window,
-                   softcap=cfg.attn_softcap, q_offset=pos, kv_len=pos + 1, impl=impl)
+        idx = _scalar_pos(pos, S)
+        q, k, v = _project_qkv(p, x, cfg, pos.reshape(-1, 1).expand(B, 1))
+        if 0 <= idx - start < n:
+            cache_k[:, idx - start] = k[:, 0].to(cache_k.dtype)
+            cache_v[:, idx - start] = v[:, 0].to(cache_v.dtype)
+        kw = dict(window=window, softcap=cfg.attn_softcap, q_offset=idx, kv_len=idx + 1,
+                  impl=impl)
+        o = (attend_piece(q, cache_k, cache_v, ctx, **kw) if piece else
+             attend(q, cache_k, cache_v, causal=False, **kw))
         return row_linear(p.wo, o.reshape(B, 1, -1)), (cache_k, cache_v)
-    idx = _scalar_pos(pos, Smax)
-    cache_k[:, idx] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, idx] = v[:, 0].to(cache_v.dtype)
-    o = attend(q, cache_k, cache_v, causal=False, window=window,
-               softcap=cfg.attn_softcap, q_offset=idx, kv_len=idx + 1, impl=impl)
-    return row_linear(p.wo, o.reshape(B, 1, -1)), (cache_k, cache_v)
+    positions = (pos.reshape(-1, 1).expand(B, 1) if T == 1 else
+                 pos[:, None] + torch.arange(T, device=x.device))
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    local, limit = (pos - start if start else pos), min(n, max(S - start, 0))
+    if T == 1:  # ragged: per-slot positions
+        if limit < n:  # the last piece's padding past the sequence
+            local = torch.where(local < limit, local, torch.full_like(local, n))
+        write_rows(cache_k, k[:, 0], local)
+        write_rows(cache_v, v[:, 0], local)
+    else:
+        write_grid(cache_k, k, local, limit)
+        write_grid(cache_v, v, local, limit)
+    if piece:
+        lens = [torch.clamp(pos + t + 1, max=S) for t in range(T)]
+        o = attend_piece(q, cache_k, cache_v, ctx, window=window, softcap=cfg.attn_softcap,
+                         q_offset=pos, kv_len=lens, impl=impl)
+    else:  # a verify (T > 1) attends causally with no kv_len
+        o = attend(q, cache_k, cache_v, causal=T > 1, window=window, softcap=cfg.attn_softcap,
+                   q_offset=pos, kv_len=pos + 1 if T == 1 else None, impl=impl)
+    return row_linear(p.wo, o.reshape(B, T, -1)), (cache_k, cache_v)
 
 
 def _scalar_pos(pos, Smax: int) -> int:
@@ -291,44 +377,36 @@ def _scalar_pos(pos, Smax: int) -> int:
 
 def write_rows(cache, new, pos):
     """cache (B, Smax, ...) [b, pos[b]] = new (B, ...), cast to the cache's
-    dtype; a row whose position is past the cache writes nothing (JAX's
+    dtype; a row whose position is past the cache (or before it: a piece's
+    local position of a key another rank holds) writes nothing (JAX's
     ``mode="drop"``)."""
     Smax = cache.shape[1]
     bidx = torch.arange(cache.shape[0], device=cache.device)
-    keep = (pos < Smax).view(-1, *([1] * (new.dim() - 1)))
-    row = pos.long().clamp(max=Smax - 1)
+    keep = ((pos >= 0) & (pos < Smax)).view(-1, *([1] * (new.dim() - 1)))
+    row = pos.long().clamp(0, Smax - 1)
     cache[bidx, row] = torch.where(keep, new.to(cache.dtype), cache[bidx, row])
 
 
-def write_grid(cache, new, pos):
+def write_grid(cache, new, pos, limit=None):
     """cache (B, Smax, ...) [b, pos[b] + t] = new (B, T, ...) for every t,
-    writes past the cache dropped, in one indexed write: a position past
-    the cache takes the index and value of its row's last position inside
-    it, and a row with none writes the cache's last entry back unchanged,
-    so every repeated index carries one value and the drop needs no host
-    sync."""
+    writes outside [0, ``limit``) (the cache's length by default) dropped,
+    in one indexed write: a dropped position takes the index and value of
+    its row's nearest position inside, and a row with none writes an entry
+    back unchanged, so every repeated index carries one value and the drop
+    needs no host sync. ``pos`` may be negative (a piece's local start)."""
     B, T = new.shape[:2]
     Smax = cache.shape[1]
+    lim = Smax if limit is None else limit
     ar = torch.arange(T, device=cache.device)
-    t_src = torch.minimum(ar, (Smax - 1 - pos).clamp(min=0)[:, None])  # (B,T)
-    rows = (pos[:, None] + t_src).long().clamp(max=Smax - 1)
-    live = (pos < Smax).view(-1, 1, *([1] * (new.dim() - 2)))
+    t0 = (-pos).clamp(min=0)  # the row's first t inside, and one past its last
+    t1 = (lim - pos).clamp(max=T)
+    t_src = torch.minimum(torch.maximum(ar, t0[:, None]),
+                          torch.maximum(t1 - 1, t0)[:, None]).clamp(max=T - 1)  # (B,T)
+    rows = (pos[:, None] + t_src).long().clamp(0, Smax - 1)
+    live = (t0 < t1).view(-1, 1, *([1] * (new.dim() - 2)))
     bidx = torch.arange(B, device=cache.device)[:, None]
     src = new[bidx, t_src].to(cache.dtype)
     cache[bidx, rows] = torch.where(live, src, cache[bidx, rows])
-
-
-def _verify(p: GQA, x, cfg, cache_k, cache_v, pos, window, impl):
-    """The multi-position branch of ``gqa_decode``: K/V scattered at the
-    (B,T) grid (``write_grid``), then causal attention over the cache."""
-    B, T = x.shape[0], x.shape[1]
-    ar = torch.arange(T, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, pos[:, None] + ar)
-    write_grid(cache_k, k, pos)
-    write_grid(cache_v, v, pos)
-    o = attend(q, cache_k, cache_v, causal=True, window=window, softcap=cfg.attn_softcap,
-               q_offset=pos, kv_len=None, impl=impl)
-    return row_linear(p.wo, o.reshape(B, T, -1)), (cache_k, cache_v)
 
 
 # ---------------------------------------------------------------------------

@@ -257,13 +257,12 @@ def _apply_mixer(lp: Block, h, cfg, ctx, impl, mode, cache, pos, ssm_mask):
         return mix
     if mode == "decode":
         mix, _ = att.gqa_decode(lp.attn, h, cfg, cache["k"], cache["v"], pos,
-                                window=lp.window, impl=impl)
+                                window=lp.window, impl=impl, ctx=ctx)
         return mix
     mix, (k, v) = att.gqa_forward(lp.attn, h, cfg, window=lp.window, impl=impl)
     if cache is not None:
-        S = k.shape[1]
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
+        att.write_prefix(cache["k"], k, ctx)
+        att.write_prefix(cache["v"], v, ctx)
     return mix
 
 
@@ -278,13 +277,12 @@ def _apply_cross(lp: Block, x, cfg, ctx, impl, mode, cache, enc_out, enc_len):
     hc = collectives.copy_to_model(apply_norm(lp.cross_norm, x), ctx)
     if mode == "decode":
         out = att.gqa_cross(lp.cross, hc, cfg, cache["xk"], cache["xv"], enc_len=enc_len,
-                            impl=impl)
+                            impl=impl, ctx=ctx)
         return collectives.reduce_from_model(out, ctx).to(x.dtype)
     ek, ev = att.cross_kv(lp.cross, collectives.copy_to_model(enc_out, ctx), cfg)
     if cache is not None:
-        T = ek.shape[1]
-        cache["xk"][:, :T] = ek.to(cache["xk"].dtype)
-        cache["xv"][:, :T] = ev.to(cache["xv"].dtype)
+        att.write_prefix(cache["xk"], ek, ctx)
+        att.write_prefix(cache["xv"], ev, ctx)
     return collectives.reduce_from_model(att.gqa_cross(lp.cross, hc, cfg, ek, ev, impl=impl),
                                          ctx).to(x.dtype)
 

@@ -137,16 +137,9 @@ class ServingEngine:
         region per slot (``max_len`` by default). ``draft=(draft_cfg,
         draft_params)`` attaches a speculative-decoding draft worker to this
         model (``spec`` is an optional ``speculative.SpecConfig``); the
-        default ``draft=None`` leaves every decode the plain step. On a
-        data axis of D > 1 (data-parallel serving, ``serving.workers``) the
-        continuous mode without a draft is taken; the bucketed mode and
-        speculation are refused."""
-        D = ctx.batch_parallel
-        for what, on in (("the bucketed serving mode", self.mode == "bucketed"),
-                         ("speculative decoding", draft is not None)):
-            if on and D > 1:
-                raise NotImplementedError(f"{name}: {what} on a data axis of {D} is not "
-                                          "ported (see ROADMAP.md)")
+        default ``draft=None`` leaves every decode the plain step. Every
+        mode takes a data axis of D > 1 (data-parallel serving,
+        ``serving.workers``; the draft on the target's context)."""
         self.workers[name] = ModelWorker(name, cfg, params, max_len, ctx,
                                          max_enc_len=max_enc_len)
         self.queues[name] = []

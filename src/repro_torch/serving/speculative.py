@@ -24,6 +24,14 @@ plan's rail fractions), ``AdmissionPolicy.spec_decision`` declines
 speculation when its energy premium beats the latency win on per-token EDP
 (``spec_fallbacks``), and k adapts per slot from a windowed acceptance-rate
 estimate. ``draft=None`` (the default everywhere) never reaches this module.
+
+On a data group of D > 1 the draft worker takes the target's context, so
+its pool is cut as the target's is (``serving.workers``). On a row-split
+pool each rank drafts, verifies and accepts for the slots it holds, and
+every slot's accepted count and committed tokens are all-gathered, so every
+rank updates every sequence alike and takes the same k from the same
+acceptance history: k is a joint decision. On a sequence-cut pool every
+rank runs every slot.
 """
 from __future__ import annotations
 
@@ -170,7 +178,7 @@ def prefill_draft(eng, model: str, spec: SpecState, group: List[_ActiveSeq],
     prefill scattered into the draft pool's rows, charged as a
     ``spec_draft`` event with the draft prefill plan's rails."""
     cache = spec.pool_cache(eng.max_slots)
-    _, g_cache = spec.worker.prefill_batch(prompts)
+    _, g_cache = spec.worker.prefill_batch(prompts, slots=slots, n_slots=eng.max_slots)
     spec.cache = spec.worker.write_slots(cache, g_cache, slots)
     for seq in group:
         seq.draft_pos = len(seq.req.prompt)
@@ -235,7 +243,11 @@ def step_round(eng, model: str, pool, spec: SpecState, out: List,
         for seq in seqs:
             if seq.rng is None:
                 seq.rng = eng._stream_key(model, seq.req.uid)
-    slot_rows = [s.slot for s in seqs]
+    # the slots this rank holds (every slot but on a row-split pool at D > 1),
+    # as indices of ``seqs`` and as rows of the rank's logits
+    lo, n_rows = w.pool_rows(eng.max_slots)
+    mine = [i for i, s in enumerate(seqs) if lo <= s.slot < lo + n_rows]
+    slot_rows = [seqs[i].slot - lo for i in mine]
     # ---- draft catch-up: feed each slot the committed tokens its cache has
     # not consumed (1 normally; 2 after a fully-accepted round; more only
     # after plain-step fallbacks), left-aligned at per-slot draft_pos ----
@@ -255,7 +267,7 @@ def step_round(eng, model: str, pool, spec: SpecState, out: List,
         logits_c = logits_c[:, None]  # (max_slots, 1, V)
     else:
         _, logits_c, dcache = spec.worker.decode_verify(dcache, tok_c, pos_c)
-    head = logits_c[slot_rows, [len(c) - 1 for c in chunks]]  # (n_active, V)
+    head = logits_c[slot_rows, [len(chunks[i]) - 1 for i in mine]]  # (len(mine), V)
     # ---- k draft proposals: d_1 from the catch-up logits, then k-1 more
     # single-token draft steps; sampled mode draws with the TARGET's stream
     # keys (d_j tries to match s_{j-1} = draw #(g+j-1)), so a draft whose
@@ -264,12 +276,12 @@ def step_round(eng, model: str, pool, spec: SpecState, out: List,
     d = np.zeros((n_active, k), np.int32)
 
     def _draw(rows, j):
-        if temperature <= 0.0:
+        if temperature <= 0.0 or not mine:
             return rows.argmax(dim=-1).to(torch.int32).cpu().numpy()
-        return sampling._sample_rows([s.rng for s in seqs], [g + j for g in g0], rows,
-                                     temperature)
+        return sampling._sample_rows([seqs[i].rng for i in mine], [g0[i] + j for i in mine],
+                                     rows, temperature)
 
-    d[:, 0] = _draw(head, 0)
+    d[mine, 0] = _draw(head, 0)
     dpos = np.zeros(eng.max_slots, np.int32)
     cur = np.zeros((eng.max_slots, 1), np.int32)
     for i, (s, c) in enumerate(zip(seqs, chunks)):
@@ -277,7 +289,7 @@ def step_round(eng, model: str, pool, spec: SpecState, out: List,
         cur[s.slot, 0] = d[i, 0]
     for j in range(1, k):
         _, dl, dcache = spec.worker.decode_pool(dcache, cur, dpos)
-        d[:, j] = _draw(dl[slot_rows], j)
+        d[mine, j] = _draw(dl[slot_rows], j)
         for i, s in enumerate(seqs):
             cur[s.slot, 0] = d[i, j]
         dpos += 1
@@ -288,10 +300,23 @@ def step_round(eng, model: str, pool, spec: SpecState, out: List,
         vt[s.slot, 0] = pool.tokens[s.slot, 0]
         vt[s.slot, 1:] = d[i]
     greedy_v, logits_v, pool.cache = w.decode_verify(pool.cache, vt, pool.pos)
-    if temperature > 0.0:
-        s_tok = sampling.sample_grid(seqs, logits_v[slot_rows], temperature)
+    if temperature > 0.0 and mine:
+        s_tok = sampling.sample_grid([seqs[i] for i in mine], logits_v[slot_rows], temperature)
     else:
         s_tok = greedy_v[slot_rows]
+    # ---- per-slot acceptance of this rank's slots: the longest matching
+    # prefix, then the bonus; every slot's (accepted, committed tokens)
+    # all-gathered where the ranks hold other slots ----
+    caps_mine = [caps[i] for i in mine]
+    accepted = np.zeros((len(mine), k + 2), np.int64)
+    for r, (i, cap) in enumerate(zip(mine, caps_mine)):
+        a = 0
+        while a < cap and d[i, a] == s_tok[r, a]:
+            a += 1
+        accepted[r, 0] = a
+        accepted[r, 1:a + 2] = s_tok[r, : a + 1]
+    if w.rows_split:  # every rank gathers, whether or not it holds a slot
+        accepted = w.gather_rows(mine, accepted, n_active, k + 2)
     # ---- accounting: k draft steps + one verify, charged per rail ----
     if eng.scheduler is not None:
         b = base["batch"]
@@ -307,13 +332,10 @@ def step_round(eng, model: str, pool, spec: SpecState, out: List,
                         EnergyBreakdown.from_total(v_en * n_active / b, base["rails"]),
                         t_s=t0, model=model, n_active=n_active)
         eng._advance_vtime(d_lat + v_lat)
-    # ---- per-slot acceptance: longest matching prefix, then the bonus ----
     n_drafted = n_accepted = 0
     for i, (seq, cap) in enumerate(zip(seqs, caps)):
-        a = 0
-        while a < cap and d[i, a] == s_tok[i, a]:
-            a += 1
-        commit = [int(t) for t in s_tok[i, : a + 1]]
+        a = int(accepted[i, 0])
+        commit = [int(t) for t in accepted[i, 1:a + 2]]
         n_drafted += cap
         n_accepted += a
         if cap > 0:

@@ -34,21 +34,35 @@ through an admission SLO or a request deadline, both off by default (under
 take the same decisions in the same order and issue the same
 collectives.
 
-Data-parallel serving (a data axis of D > 1, continuous mode): each data
-rank holds ``max_slots / D`` rows of the slot pool, slots [d n, (d+1) n)
-(the cache rule's ``batch_ok``; ``placement.plan_cache`` refuses a pool
-that D does not divide), and ``decode_pool`` decodes only those rows. A
-prefill group (``prefill_batch`` with the group's ``slots``) is split
-where each data rank owns the same number of its slots, each rank running
-the rows whose slots it owns, and otherwise replicated, every rank running
-the whole group (``ExecContext.batch_split`` False); either way every data
-rank runs every pass at the same shapes, so FSDP weights and the 2-D MoE
-can gather over the data axis, and each rank writes only the slots it owns
-(``write_slots``). Each rank draws the tokens of its own rows (greedy or
-per-request streams, ``group_tokens`` / ``slot_tokens``) and the tokens
-are all-gathered over the data group, so every rank holds every token and
-takes the same admission and retirement decisions. ``generate`` (the
-bucketed mode) is not data-parallel and refuses D > 1.
+Data-parallel serving (a data group of D > 1 ranks: the data axis, or
+the pod and data axes together). A slot pool that D divides is split on
+its rows: each data rank holds ``max_slots / D`` rows, slots [d n, (d+1) n)
+(the cache rule's ``batch_ok``), and ``decode_pool`` decodes only those
+rows. A prefill group (``prefill_batch`` with the group's ``slots``) is
+split where each data rank owns the same number of its slots, each rank
+running the rows whose slots it owns, and otherwise replicated, every rank
+running the whole group (``ExecContext.batch_split`` False); each rank
+writes only the slots it owns (``write_slots``), draws the tokens of its
+own rows (greedy or per-request streams, ``group_tokens`` /
+``slot_tokens``), and the tokens are all-gathered over the data group, so
+every rank holds every token and takes the same admission and retirement
+decisions.
+
+A pool that D does not divide is cut on its K/V sequence instead, the
+rule table's fallback (``placement.plan_cache``, ``pool_seq``): every rank
+holds every row, the K/V leaves' positions [d n, (d+1) n) and every other
+leaf whole, and runs every row of every pass with ``ExecContext.kv_seq``
+(``models.attention``: its writes land in its piece, its decode attends
+over its piece and the ranks' softmax states merge over the data group).
+Every rank then computes every row's logits in the same bits and draws
+every token itself, so no token is gathered.
+
+``generate`` (the bucketed mode) takes the same two layouts per batch: B
+rows that D divides are split, each rank running its B / D rows and the
+tokens all-gathered; otherwise the batch's cache is cut on its sequence
+and every rank runs every row. Either way every data rank runs every pass
+at the same shapes, so FSDP weights and the 2-D MoE gather over the data
+group in step.
 """
 from __future__ import annotations
 
@@ -99,19 +113,33 @@ class ModelWorker:
         self.data_parallel = ctx.batch_parallel
         self.data_rank = ctx.data_rank if self.data_parallel > 1 else 0
         self._held: Optional[List[int]] = None
+        # the context of a cache cut on its K/V sequence over the data group,
+        # and whether the slot pool is one (``init_pool``; module docstring)
+        self.seq_ctx = (dataclasses.replace(ctx, batch_split=False, kv_seq=max_len)
+                        if self.data_parallel > 1 else None)
+        self.pool_seq = False
 
-    def _new_cache(self, batch: int, enc_len: int, rows_split: bool = True):
+    @property
+    def rows_split(self) -> bool:
+        """Whether the data ranks hold other rows of the slot pool."""
+        return self.data_parallel > 1 and not self.pool_seq
+
+    def _new_cache(self, batch: int, enc_len: int, rows_split: bool = True,
+                   kv_seq: bool = False):
         """Allocate a cache; under a mesh, every leaf holds this rank's
         piece of the activation rules' placement (``placement.plan_cache``:
         the K/V leaves this rank's kv heads, the rows this data rank's
-        slots). ``rows_split=False``: all ``batch`` rows on this rank (a
-        prefill group's rows)."""
+        slots, or the K/V sequence's piece where D does not divide
+        ``batch``). ``rows_split=False``: all ``batch`` rows on this rank
+        (a prefill group's rows); ``kv_seq``: the K/V sequence cut, every
+        row here, whatever D and ``batch`` are (a prefill group of a
+        sequence-cut pool)."""
         if self.mesh is None:
             return model_lib.init_cache(self.cfg, batch, self.max_len, self.device,
                                         enc_len=enc_len)
-        if self.data_parallel > 1 and not rows_split:
+        if self.data_parallel > 1 and (not rows_split or kv_seq):
             specs = placement.plan_cache(self.cfg, self.ctx, batch, self.max_len, enc_len,
-                                         rows_split=False)
+                                         rows_split=rows_split, kv_seq=kv_seq)
         else:
             specs = self._cache_shardings.get((batch, enc_len))
             if specs is None:
@@ -128,15 +156,29 @@ class ModelWorker:
             return self.data_parallel
         return slot // (n_slots // self.data_parallel)
 
+    def pool_rows(self, n_slots: int):
+        """(first slot, number of slots) of the slot pool's rows this rank
+        holds: all of them unless the data ranks split the rows."""
+        if not self.rows_split:
+            return 0, n_slots
+        n = n_slots // self.data_parallel
+        return self.data_rank * n, n
+
+    def gather_rows(self, idx: Sequence[int], rows, n: int, W: int) -> np.ndarray:
+        """Every rank's non-negative integer ``rows`` (len(idx), W) of its
+        rows ``idx`` (of ``n``), all-gathered over the data group: (n, W)
+        in row order."""
+        mine = torch.full((n, W), -1, dtype=torch.int64, device=self.device)
+        if len(idx):
+            mine[torch.as_tensor(list(idx), device=self.device)] = torch.as_tensor(
+                np.asarray(rows, np.int64).reshape(len(idx), W), device=self.device)
+        every = collectives.all_gather(mine[None], 0, self.data_parallel, self.ctx.data_group)
+        return every.max(dim=0).values.cpu().numpy()
+
     def _gather_tokens(self, idx: Sequence[int], toks: Sequence[int], n: int) -> List[int]:
         """Every rank's tokens of its rows ``idx`` (of ``n``), all-gathered
         over the data group: the n tokens in row order."""
-        mine = torch.full((n,), -1, dtype=torch.int64, device=self.device)
-        if len(idx):
-            mine[torch.as_tensor(list(idx), device=self.device)] = torch.as_tensor(
-                [int(t) for t in toks], dtype=torch.int64, device=self.device)
-        every = collectives.all_gather(mine[None], 0, self.data_parallel, self.ctx.data_group)
-        return [int(t) for t in every.max(dim=0).values.cpu().numpy()]
+        return [int(t) for t in self.gather_rows(idx, [[int(t)] for t in toks], n, 1)[:, 0]]
 
     def group_tokens(self, logits, slots: Sequence[int], n_slots: int,
                      pick: Callable) -> List[int]:
@@ -145,7 +187,7 @@ class ModelWorker:
         tokens of group rows ``idx`` from their logits ``rows``. At D > 1
         each rank draws those of the slots it owns and all-gathers them."""
         G = len(slots)
-        if self.data_parallel == 1:
+        if not self.rows_split:
             return list(pick(logits[:G], list(range(G))))
         pos = {i: j for j, i in enumerate(self._held)}  # the rank's rows hold its slots
         idx = [i for i in range(G) if self._slot_owner(int(slots[i]), n_slots) == self.data_rank]
@@ -156,7 +198,7 @@ class ModelWorker:
                     pick: Callable) -> List[int]:
         """The tokens of the pool slots ``slots`` from ``decode_pool``'s
         logits, ``pick`` as in ``group_tokens``."""
-        if self.data_parallel == 1:
+        if not self.rows_split:
             return list(pick(logits[list(slots)], list(range(len(slots)))))
         n = n_slots // self.data_parallel
         lo = self.data_rank * n
@@ -180,10 +222,10 @@ class ModelWorker:
                                           enc_inputs=enc_inputs)
         return logits[:, -1], cache
 
-    def _decode(self, cache, token, pos, enc_len=None):
+    def _decode(self, cache, token, pos, enc_len=None, ctx=None):
         self.decode_calls += 1
         logits, cache = model_lib.decode_step(self.params, self.cfg, token, cache, pos,
-                                              self.ctx, enc_len=enc_len)
+                                              ctx or self.ctx, enc_len=enc_len)
         return logits[:, -1], cache
 
     @torch.no_grad()
@@ -203,29 +245,53 @@ class ModelWorker:
         the cross cache holds exactly T_frames, unmasked. ``pad_mask`` (B,
         S) bool marks the valid tokens of LEFT-padded prompts bucketed to a
         shared length — pure-SSM stacks only (the scan passes masked
-        positions through untouched)."""
-        if self.data_parallel > 1:
-            raise NotImplementedError(f"{self.name}: generate (the bucketed serving mode) on a "
-                                      f"data axis of {self.data_parallel} is not ported "
-                                      "(see ROADMAP.md)")
+        positions through untouched).
+
+        On a data group of D > 1 (module docstring) the batch's rows are
+        split where D divides B (each rank runs its B / D rows, the tokens
+        all-gathered; with one shared generator the logits are gathered
+        and every rank draws every row), else its cache is cut on its K/V
+        sequence and every rank runs every row; every rank returns every
+        row's tokens."""
         B, S = prompts.shape
         if pad_mask is not None and self.cfg.is_encoder_decoder:
             raise ValueError("pad_mask is only supported for pure-SSM stacks, not "
                              "encoder-decoder models")
-        frames = self._frames(enc_inputs)
+        D = self.data_parallel
+        seq, split = D > 1 and B % D != 0, D > 1 and B % D == 0
+        ctx = self.seq_ctx if seq else self.ctx
+        rows = slice(None)
+        if split:  # this rank's rows
+            n = B // D
+            rows = slice(self.data_rank * n, (self.data_rank + 1) * n)
+        frames = self._frames(None if enc_inputs is None else np.asarray(enc_inputs)[rows])
+        enc_len = None if frames is None or not seq else frames.shape[1]
         cache = self._new_cache(B, 0 if frames is None else frames.shape[1])
-        mask = None if pad_mask is None else torch.as_tensor(np.asarray(pad_mask),
+        mask = None if pad_mask is None else torch.as_tensor(np.asarray(pad_mask)[rows],
                                                              device=self.device)
-        logits, cache = self._prefill(cache, self._ids(prompts), mask, frames)
+        logits, cache = self._prefill(cache, self._ids(np.asarray(prompts)[rows]), mask, frames,
+                                      ctx)
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        keys = None if row_keys is None else list(row_keys)[rows]
+
+        def pick(logits, i):  # every row's tokens (B, 1)
+            if not split:
+                return self._pick(logits, temperature, gen, keys, i)
+            grp = self.ctx.data_group
+            if temperature > 0.0 and keys is None:  # one generator over every row
+                return self._pick(collectives.all_gather(logits, 0, D, grp), temperature, gen,
+                                  None, i)
+            return collectives.all_gather(self._pick(logits, temperature, gen, keys, i), 0, D,
+                                          grp)
+
         out = np.zeros((B, max_new), np.int32)
-        tok = self._pick(logits, temperature, gen, row_keys, 0)
+        tok = pick(logits, 0)
         for i in range(max_new):
             out[:, i] = tok[:, 0].cpu().numpy()
             if i == max_new - 1:
                 break
-            logits, cache = self._decode(cache, tok, S + i)
-            tok = self._pick(logits, temperature, gen, row_keys, i + 1)
+            logits, cache = self._decode(cache, tok[rows], S + i, enc_len, ctx)
+            tok = pick(logits, i + 1)
         return out
 
     @staticmethod
@@ -244,7 +310,10 @@ class ModelWorker:
         """Preallocated cache with one row per request slot (plus a
         ``max_enc_len`` cross-attention region for encoder-decoder
         models), placed under the activation rules when the worker carries
-        a mesh."""
+        a mesh: at a data group of D > 1 split on its rows where D divides
+        ``max_slots``, else cut on its K/V sequence (``pool_seq``; module
+        docstring)."""
+        self.pool_seq = self.data_parallel > 1 and max_slots % self.data_parallel != 0
         return self._new_cache(max_slots, self.max_enc_len)
 
     def prefill_one(self, prompt: np.ndarray, enc_inputs=None):
@@ -270,12 +339,19 @@ class ModelWorker:
         of a pool of ``n_slots`` (out of range: a padding row): the rank
         runs the rows of the slots it owns when every rank owns as many,
         else every row (module docstring), and the logits and cache hold
-        those rows."""
+        those rows. A sequence-cut pool's group runs every row on every
+        rank, its cache cut on its K/V sequence as the pool is."""
         if pad_mask is not None and self.cfg.is_encoder_decoder:
             # the decoder's attention layers would mis-serve left-padded
             # prompts: refuse as the stack does
             raise ValueError("pad_mask is only supported for pure-SSM stacks, not "
                              "encoder-decoder models")
+        if self.pool_seq:
+            frames = self._frames(enc_inputs)
+            cache = self._new_cache(prompts.shape[0], self.max_enc_len, kv_seq=True)
+            mask = None if pad_mask is None else torch.as_tensor(np.asarray(pad_mask),
+                                                                 device=self.device)
+            return self._prefill(cache, self._ids(prompts), mask, frames, self.seq_ctx)
         ctx = None
         if self.data_parallel > 1:
             if slots is None or n_slots is None:
@@ -306,7 +382,7 @@ class ModelWorker:
         out-of-range entries (pow2 batch padding) are dropped. At D > 1 the
         cache holds the rows the last ``prefill_batch`` ran, and only the
         slots this rank owns are written, at their local rows."""
-        if self.data_parallel > 1:
+        if self.rows_split:
             n = next(iter(pool_cache.values())).shape[1]  # this rank's rows
             lo = self.data_rank * n
             local = np.full(len(self._held), n, np.int64)
@@ -324,21 +400,23 @@ class ModelWorker:
         encoder-decoder models (each row's cross-attention masked to its
         own region; 0 on a slot never admitted). Returns (greedy next tokens
         (max_slots,) np.int32, logits (max_slots, V) for per-slot sampling,
-        cache). At D > 1 the rank decodes its own slots: the logits are
-        those rows', the greedy tokens all-gathered for every slot."""
+        cache). At D > 1 on a row-split pool the rank decodes its own slots:
+        the logits are those rows', the greedy tokens all-gathered for every
+        slot; a sequence-cut pool's rank decodes every slot."""
         D = self.data_parallel
-        if D > 1:
-            n = next(iter(pool_cache.values())).shape[1]
-            rows = slice(self.data_rank * n, (self.data_rank + 1) * n)
+        if self.rows_split:
+            lo, n = self.pool_rows(len(pos))
+            rows = slice(lo, lo + n)
             tokens, pos = np.asarray(tokens)[rows], np.asarray(pos)[rows]
             enc_len = None if enc_len is None else np.asarray(enc_len)[rows]
         el = None if enc_len is None else torch.as_tensor(np.asarray(enc_len, np.int32),
                                                           device=self.device)
         logits, pool_cache = self._decode(pool_cache, self._ids(tokens),
                                           torch.as_tensor(np.asarray(pos, np.int32),
-                                                          device=self.device), el)
+                                                          device=self.device), el,
+                                          self.seq_ctx if self.pool_seq else None)
         next_tok = logits.argmax(dim=-1).to(torch.int32)
-        if D > 1:
+        if self.rows_split:
             next_tok = collectives.all_gather(next_tok, 0, D, self.ctx.data_group)
         return next_tok.cpu().numpy(), logits, pool_cache
 
@@ -349,9 +427,15 @@ class ModelWorker:
         feed positions pos..pos+T-1 per row against the cache (writes past
         the cache drop; stale entries past a slot's frontier are causally
         masked, see ``gqa_decode``). Returns (greedy tokens (max_slots, T)
-        np.int32, logits (max_slots, T, V), cache)."""
+        np.int32, logits (max_slots, T, V), cache). On a row-split pool at
+        D > 1 the rank verifies its own slots (``pool_rows``), and the
+        tokens and logits are those rows'."""
         self.verify_calls += 1
+        if self.rows_split:
+            lo, n = self.pool_rows(len(pos))
+            tokens, pos = np.asarray(tokens)[lo:lo + n], np.asarray(pos)[lo:lo + n]
         logits, pool_cache = model_lib.decode_step(
             self.params, self.cfg, self._ids(tokens), pool_cache,
-            torch.as_tensor(np.asarray(pos, np.int32), device=self.device), self.ctx)
+            torch.as_tensor(np.asarray(pos, np.int32), device=self.device),
+            self.seq_ctx if self.pool_seq else self.ctx)
         return logits.argmax(dim=-1).to(torch.int32).cpu().numpy(), logits, pool_cache

@@ -31,6 +31,12 @@ activation rows over the data group the same two ways (the 2-D MoE).
 Gloo has no reduce-scatter: there it is an all-reduce followed by the
 rank's slice (NCCL's ``reduce_scatter_tensor`` elsewhere).
 
+``merge_attention`` merges the data ranks' partial softmax states of a
+decode over a K/V cache cut on its sequence (``ExecContext.kv_seq``): one
+all-gather of each rank's fp32 (output, log-sum-exp) over the data group,
+then the same merge in fp32 on every rank, so every rank gets the same
+bits.
+
 Every differentiable call is counted on ``counts`` by kind, forward and
 backward alike. All return their input untouched on an axis of one (a
 mesh of one runs no collective, so it computes exactly what the
@@ -385,6 +391,30 @@ def all_reduce_model_groups(x: torch.Tensor, groups: int, ctx) -> torch.Tensor:
     _reduce(buf, ctx.model_group)
     counts["all_reduce_kv_group"] += 1
     return x.copy_(buf[slot])
+
+
+def merge_attention(o: torch.Tensor, lse: torch.Tensor, ctx) -> torch.Tensor:
+    """The attention over the whole sequence from each data rank's
+    attention over its piece: ``o`` (..., Dv) fp32, normalised over the
+    piece's kept keys, and ``lse`` (...) fp32, their log-sum-exp (the
+    kernels' ``NEG_INF``, a finite floor, where the piece keeps none).
+    One all-gather of (o, lse) over the data group, B H (Dv + 1) floats a
+    decode row, then sum_r e^(lse_r - L) o_r / sum_r e^(lse_r - L) with L
+    the largest lse, in fp32: 0 where no rank keeps a key (every weight is
+    then 1 and every o 0), never inf - inf. Counted on
+    ``counts["merge_attention"]``."""
+    D = ctx.batch_parallel
+    packed = torch.cat([o.float(), lse.float()[..., None]], dim=-1)
+    counts["merge_attention"] += 1
+    return merge_states(torch.stack(_gather(packed, D, ctx.data_group)))
+
+
+def merge_states(parts: torch.Tensor) -> torch.Tensor:
+    """``merge_attention``'s arithmetic on the ranks' states stacked on
+    dim 0: ``parts`` (D, ..., Dv + 1) fp32, each rank's o then its lse."""
+    lses = parts[..., -1]
+    w = torch.exp(lses - lses.amax(dim=0))
+    return (parts[..., :-1] * w[..., None]).sum(dim=0) / w.sum(dim=0)[..., None]
 
 
 def all_reduce_world(x: torch.Tensor, ctx) -> torch.Tensor:

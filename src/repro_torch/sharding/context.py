@@ -13,9 +13,20 @@ SPMD know their shard counts, their ranks and process groups on both axes:
   the weights the rule table cuts on the data axes, gathered per layer.
 
 ``ExecContext()`` (no mesh) is the single-device path; a mesh of one takes
-the same code path and runs no collective. The port's process groups cover
-one batch axis: a real mesh whose ("pod", "data") axes both span more than
-one device is refused (a stand-in mesh is read for its sizes only).
+the same code path and runs no collective. Where several batch axes span
+more than one device (the multi-pod mesh's ("pod", "data")), the data group
+is their product: the ranks that hold the same model shard, numbered
+row-major over the batch axes (``launch.mesh`` makes that group when it
+builds the mesh; a stand-in mesh is read for its sizes only).
+
+``kv_seq`` marks a context whose K/V caches the data ranks hold pieces of
+along the sequence (the rule table's KV-sequence placement of a cache whose
+batch the data group does not divide, ``sharding.placement.plan_cache``):
+``kv_seq`` is the caches' global length, data rank d holds the positions
+[d n, (d + 1) n) with n = ceil(kv_seq / D), every rank runs every row
+(``batch_split`` False), writes only the positions it holds, and decode
+attends over its piece and merges the ranks' partial softmax states
+(``collectives.merge_attention``).
 
 ``plan`` carries the reference's per-model overrides. The port reads
 ``"remat_policy"`` (``"full"``, the default, ``"dots"`` or ``"none"``) and
@@ -59,6 +70,9 @@ class ExecContext:
     # whether the data ranks hold other rows (False: a batch every data rank
     # runs whole, as a serving worker's replicated prefill group)
     batch_split: bool = True
+    # the global length of K/V caches cut on their sequence over the data
+    # group (module docstring); 0: the caches hold whole sequences
+    kv_seq: int = 0
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -98,25 +112,32 @@ class ExecContext:
             n *= sizes[a]
         return n
 
-    def _data_axis(self) -> str:
-        sizes = axis_sizes(self.mesh)
-        split = [a for a in self.batch_axes if sizes[a] > 1]
-        if len(split) > 1:
-            raise NotImplementedError(f"batch axes {split} that each span more than one "
-                                      "device: the port's data group is one mesh axis "
-                                      "(see ROADMAP.md)")
-        return split[0]
-
     @property
     def data_rank(self) -> int:
-        """This process's index on the batch axes (0 without a mesh, at one
-        data shard, or on a stand-in mesh that has no process group)."""
+        """This process's index in the data group: row-major over the batch
+        axes (0 without a mesh, at one data shard, or on a stand-in mesh
+        that has no process group)."""
         if self.batch_parallel == 1 or not hasattr(self.mesh, "get_local_rank"):
             return 0
-        return int(self.mesh.get_local_rank(self._data_axis()))
+        sizes = axis_sizes(self.mesh)
+        r = 0
+        for a in self.batch_axes:
+            r = r * sizes[a] + (int(self.mesh.get_local_rank(a)) if sizes[a] > 1 else 0)
+        return r
 
     @property
     def data_group(self):
-        """The batch axis's process group: the ranks that hold the same
-        model shard and other rows of the batch."""
-        return self.mesh.get_group(self._data_axis())
+        """The data group's process group: the ranks that hold the same
+        model shard and other rows of the batch (or other pieces of a
+        ``kv_seq`` cache). One batch axis's own group where only one spans
+        more than one device, else the product group that ``launch.mesh``
+        made for these axes (``data_groups``)."""
+        sizes = axis_sizes(self.mesh)
+        split = [a for a in self.batch_axes if sizes[a] > 1]
+        if len(split) == 1:
+            return self.mesh.get_group(split[0])
+        groups = getattr(self.mesh, "data_groups", {})
+        if tuple(split) not in groups:
+            raise ValueError(f"a mesh whose batch axes {split} each span more than one device "
+                             "needs the data group that launch.mesh makes with it")
+        return groups[tuple(split)]

@@ -27,9 +27,6 @@ rank, so beyond the table's own divisibility it refuses, with a
   divisible by M, GQA kv heads that neither divide M nor are divided by
   it, and a state cache that the table would leave whole instead of
   cutting its heads or channels (``plan_cache``);
-* at D > 1, a cache whose batch (the slot pool) does not divide D, which
-  the table would shard on its sequence over the data axis (``plan_cache``).
-
 Serving and training share these refusals: train mode takes every layout
 that serving places. A mesh of one takes every family, and so does a data
 axis at M = 1. A 1-D qkv bias, which the table replicates, is cut to the
@@ -456,11 +453,17 @@ def local_cache_shape(cfg, ctx, name: str, shape: Tuple[int, ...],
     """The shape of this rank's piece of cache leaf ``name`` (whole
     ``shape``) placed by ``spec``: the table's local shape, but for a
     Mamba2 stack's ``conv`` leaf on the model axis, which holds the rank's
-    di/M x channels and B and C whole, and a K/V leaf of fewer kv heads
-    than M, which holds the rank's one kv head (module docstring)."""
+    di/M x channels and B and C whole, a K/V leaf of fewer kv heads than M,
+    which holds the rank's one kv head (module docstring), and a K/V leaf
+    cut on its sequence over D data ranks, which holds ceil(S / D)
+    positions (the last piece runs past S where D does not divide it)."""
     local = ps.local_shape(shape, spec, ctx.mesh)
     model_axis, _ = _axes(ctx)
     M = axis_sizes(ctx.mesh)[model_axis]
+    if name in _KV_CACHE and spec[2] not in (None, model_axis):  # a sequence piece
+        names = spec[2] if isinstance(spec[2], tuple) else (spec[2],)
+        D = int(np.prod([axis_sizes(ctx.mesh)[a] for a in names]))
+        local = local[:2] + (-(-shape[2] // D),) + local[3:]
     if name == "conv" and "ssd" in cfg.layer_kinds() and _model_dim(spec, model_axis) is not None:
         local = local[:-1] + (cfg.d_inner // M + 2 * cfg.ssm_d_state,)
     if name in _KV_CACHE and _model_dim(spec, model_axis) == 3 and shape[3] % M:
@@ -490,16 +493,22 @@ class AxisSizes:
 
 def plan_cache(cfg, ctx, batch: int, max_len: int, enc_len: int = 0,
                report: Optional[ps.ShardingReport] = None,
-               rows_split: bool = True) -> Dict[str, ps.Spec]:
+               rows_split: bool = True, kv_seq: bool = False) -> Dict[str, ps.Spec]:
     """The activation rules' placement of a (batch, max_len) cache; at
     M > 1 every KV leaf must shard on its heads and every SSM state leaf on
     its heads or channels, and the MLA latent stays whole on the model axis
     (module docstring): where M is a multiple of the kv heads, the K/V
     leaves hold one kv head per rank in place of the table's KV-sequence
-    split; at D > 1 every leaf shards on its batch (the table's
-    KV-sequence fallbacks are refused). ``rows_split=False``: a cache whose
+    split. At D > 1 every leaf shards on its batch where D divides it;
+    where it does not, the table's fallback: the K/V leaves (``k``, ``v``,
+    ``xk``, ``xv``) shard their sequence over the data group
+    (the table names the "data" axis, the port the whole data group, "pod"
+    included) and every other leaf holds every row whole
+    (the MLA latent too, whose table rule would cut its sequence: its
+    decode reads the whole latent). ``rows_split=False``: a cache whose
     rows every data rank holds whole (a prefill group's), placed on the
-    model axis only."""
+    model axis only. ``kv_seq``: the sequence-cut placement whatever D
+    and ``batch`` are (a prefill group of a sequence-cut slot pool)."""
     model_axis, batch_axes = _axes(ctx)
     sizes = axis_sizes(ctx.mesh)
     mesh = ctx.mesh
@@ -510,18 +519,24 @@ def plan_cache(cfg, ctx, batch: int, max_len: int, enc_len: int = 0,
     if not rows_split:
         specs = {n: (sp[0], None) + tuple(sp[2:]) for n, sp in specs.items()}
     D = int(np.prod([sizes[a] for a in batch_axes]))
-    if D > 1 and rows_split and batch % D:
-        name = next(iter(specs))
-        raise NotImplementedError(
-            f"{name}: a cache of {batch} rows at a data axis of {D} (the rule table shards the "
-            f"KV sequence on the data axis when the batch does not divide it) is not ported to "
-            f"repro_torch's sharded serving ({ROADMAP})")
+    seq = D > 1 and rows_split and (batch % D != 0 or kv_seq)
+    if seq:
+        specs = ps.cache_shardings(cache_shapes(cfg, batch, max_len, enc_len), cfg,
+                                   AxisSizes(**dict(sizes, **{a: 1 for a in batch_axes})),
+                                   batch, model_axis, batch_axes)
+        specs = {n: (sp[0], None) + tuple(sp[2:]) for n, sp in specs.items()}
+        data = tuple(a for a in batch_axes if sizes[a] > 1)
+        data = data[0] if len(data) == 1 else data
+        for n, sp in specs.items():
+            if n in _KV_CACHE or n == "latent":
+                specs[n] = sp[:2] + (data if n in _KV_CACHE else None,) + sp[3:]
     M = sizes[model_axis]
     if M > 1:
         for name in _KV_CACHE:
             if name in specs and specs[name][3] != model_axis:
                 kv_ways(cfg, M, name)  # one kv head per rank, or refused
-                specs[name] = specs[name][:2] + (None, model_axis) + specs[name][4:]
+                s_spec = None if specs[name][2] == model_axis else specs[name][2]
+                specs[name] = specs[name][:2] + (s_spec, model_axis) + specs[name][4:]
         for name, dim in (("ssm", 2), ("conv", 3)):
             if name in specs and specs[name][dim] != model_axis:
                 _refuse(name, "an SSM state cache the rule table leaves whole", M)

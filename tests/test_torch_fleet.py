@@ -121,8 +121,9 @@ def test_serving_replay_accounts_for_every_arrival_and_repeats(tiny):
     arrivals, and a second run of the same replay gives the same report
     (virtual time, seeded traces and weights); an explicit single-device
     context is taken, a mesh of one gives the same report, and a serving
-    mesh the port refuses (two devices on its data axis) names the
-    roadmap."""
+    mesh of two devices on its data axis is taken: each device's engine
+    serves data-parallel (the replay on two ranks:
+    tests/test_torch_data_axis.py)."""
     _, _, tcfg, tp = tiny
     kw = dict(FLEET, scenario="chaos_voice", backend="serving", uncertainty=True,
               risk_level=0.9, serving_models={ASSISTANT: (tcfg, tp)},
@@ -143,8 +144,10 @@ def test_serving_replay_accounts_for_every_arrival_and_repeats(tiny):
     class DataMesh:
         shape = {"data": 2, "model": 1}
     data2 = ExecContext(mesh=DataMesh(), batch_axes=("data",), model_axis="model")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fleet.FleetReplay(pop, **dict(kw, serving_ctx=data2)).run()
+    dr = fleet.replay.DeviceReplay(pop[0], fleet.default_graph_registry(),
+                                   calib_samples=FLEET["calib_samples"], backend="serving",
+                                   serving_models={ASSISTANT: (tcfg, tp)}, serving_ctx=data2)
+    assert dr.engine.workers[ASSISTANT].data_parallel == 2
 
 
 @pytest.mark.parametrize("scenario", ["mixed", "chaos_voice"])

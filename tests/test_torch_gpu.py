@@ -207,6 +207,46 @@ def test_decode_kernel_at_split_edges(dtype, G, D):
         _close(out, dmod.decode_attention_plain(q, k, v, **kw), dtype)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pieces", [2, 3])
+@pytest.mark.parametrize("G,D", [(8, 64), (2, 256), (7, 128)])
+def test_decode_piece_mode_matches_plain_and_merges_to_the_whole_cache(dtype, pieces, G, D):
+    """The decode kernel's piece mode on each piece of a (8, 1000) cache cut
+    in 2 or 3 (the last zero-padded): o and lse (fp32 for either input
+    dtype) against its plain version at fp32's tolerance, rows that keep
+    no key of a piece (0 and -1e30), a window and softcap across the
+    pieces' boundaries; the pieces' states merged
+    (``collectives.merge_states``) and cast once against the whole-cache
+    kernel."""
+    from repro_torch.sharding.collectives import merge_states
+    dev = _card()
+    B, Smax, Hkv = 8, 1000, 2
+    pos = torch.tensor([0, 1, 332, 333, 334, 500, 667, 999], dtype=torch.int32, device=dev)
+    q = _randn(20, (B, 1, G * Hkv, D), dtype, dev)
+    k, v = (_randn(s, (B, Smax, Hkv, D), dtype, dev) for s in (21, 22))
+    n = -(-Smax // pieces)
+    for window, softcap in ((None, None), (40, 50.0)):
+        kw = dict(q_offset=pos, kv_len=pos + 1, window=window, softcap=softcap)
+        states = []
+        for d in range(pieces):
+            m = min(n, Smax - d * n)
+            kp = torch.zeros((B, n, Hkv, D), dtype=k.dtype, device=dev)
+            vp = torch.zeros_like(kp)
+            kp[:, :m], vp[:, :m] = k[:, d * n:d * n + m], v[:, d * n:d * n + m]
+            before = dmod.decode_attention_piece.launches
+            o, lse = dmod.decode_attention_piece(q, kp, vp, k_start=d * n, **kw)
+            assert dmod.decode_attention_piece.launches == before + 1
+            po, plse = dmod.decode_attention_piece_plain(q, kp, vp, k_start=d * n, **kw)
+            assert o.dtype == lse.dtype == torch.float32
+            # both sides fp32 from the same inputs: fp32's tolerance in both dtypes
+            _close(o, po, "float32")
+            _close(lse, plse, "float32")
+            states.append(torch.cat([o, lse[..., None]], dim=-1))
+        merged = merge_states(torch.stack(states)).to(q.dtype)
+        _close(merged, dmod.decode_attention(q, k, v, **kw), dtype)
+
+
 # sums of up to 256 x 128 fp32 products in another order than the plain
 # version's; bf16: y is rounded to bf16 on both sides, and the tensor-core
 # kernels feed their fp32 operands as bf16 hi + lo (~2^-17 per product)
@@ -931,7 +971,7 @@ def test_data_parallel_serve_on_card_matches_no_mesh():
     for r in ranks:
         got = r[0]
         assert got["tokens"] == want["tokens"] and got["pool_rows"] == 2
-        assert min(got["launches"].values()) > 0
+        assert got["launches"]["flash_attention"] > 0 and got["launches"]["decode_attention"] > 0
 
 
 def _same_card_rank(rank):

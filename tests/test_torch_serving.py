@@ -149,10 +149,10 @@ def test_unported_paths_raise_naming_the_roadmap():
     assert ServingEngine(mode="bucketed").mode == "bucketed"
     with pytest.raises(ValueError, match="unknown serving mode"):
         ServingEngine(mode="pipelined")
-    # sharded serving is ported, data-parallel continuous serving too
-    # (tests/test_torch_sharding.py); a model added in the bucketed mode on
-    # a serving mesh of two devices on its data axis is refused naming the
-    # mode, D and the roadmap
+    # sharded serving is ported, data-parallel serving in every mode too
+    # (tests/test_torch_sharding.py, tests/test_torch_data_axis.py): a model
+    # added in the bucketed mode on a serving mesh of two devices on its
+    # data axis is taken
     from repro_torch.models.model import init_params
     from repro_torch.sharding.context import ExecContext
 
@@ -160,9 +160,9 @@ def test_unported_paths_raise_naming_the_roadmap():
         shape = {"data": 2, "model": 1}
     cfg = configs.reduced(configs.get_config("tinyllama-1.1b"))
     ctx = ExecContext(mesh=DataMesh(), batch_axes=("data",), model_axis="model")
-    with pytest.raises(NotImplementedError, match="bucketed serving mode on a data axis of 2 "
-                                                  r"is not ported \(see ROADMAP.md\)"):
-        ServingEngine(mode="bucketed").add_model("m", cfg, init_params(cfg, 0, "cpu"), ctx=ctx)
+    eng = ServingEngine(mode="bucketed")
+    eng.add_model("m", cfg, init_params(cfg, 0, "cpu"), ctx=ctx)
+    assert eng.workers["m"].data_parallel == 2
     # joint planning is ported (tests/test_torch_coexec.py): coexec= is accepted
     planner = CoexecPlanner()
     assert AdaOperScheduler(RuntimeEnergyProfiler(), DeviceSim(), coexec=planner).coexec is planner

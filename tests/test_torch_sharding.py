@@ -370,9 +370,11 @@ def test_refusals_name_the_leaf_and_the_roadmap():
     deepseek-v2-lite (MLA), mamba2 and seamless-m4t on 2 (their gradients:
     tests/test_torch_sharded_train_families.py), and ``make_train_step``
     draws each plan. What stays refused is refused for serving and
-    training alike, naming the leaf, M or D, and ROADMAP.md: kv heads that
-    neither divide M nor are divided by it (6 on a model axis of 4), and a
-    slot pool that a data axis of 2 does not divide."""
+    training alike, naming the leaf, M and ROADMAP.md: kv heads that
+    neither divide M nor are divided by it (6 on a model axis of 4). A
+    slot pool that a data axis of 2 does not divide is placed with its
+    K/V sequence cut over the data axis and its rows whole, the rule
+    table's fallback."""
     from repro_torch.training.train_loop import make_train_step
 
     def ctx(**shape):
@@ -407,9 +409,10 @@ def test_refusals_name_the_leaf_and_the_roadmap():
     assert placement.local_cache_shape(tiny, ctx(data=1, model=4), "k", (2, 8, 32, 2, 64),
                                        specs["k"]) == (2, 8, 32, 1, 64)
     assert placement.plan_params(tiny, ctx(data=2, model=1)).shape == (2, 1)
-    with pytest.raises(NotImplementedError, match=r"k: a cache of 3 rows at a data axis of 2"
-                                                  r".*ROADMAP.md"):
-        placement.plan_cache(tiny, ctx(data=2, model=1), 3, 32)
+    odd = placement.plan_cache(tiny, ctx(data=2, model=1), 3, 33)
+    assert odd["k"] == odd["v"] == (None, None, "data", "model", None)
+    assert placement.local_cache_shape(tiny, ctx(data=2, model=1), "k", (2, 3, 33, 2, 64),
+                                       odd["k"]) == (2, 3, 17, 2, 64)
     plan = placement.plan_params(tiny, ctx(data=1, model=2))
     assert plan.dims["layers.0.attn.wq.weight"] == 0 and plan.dims["layers.0.attn.wo.weight"] == 1
     assert plan.dims["embedding"] == 0 and plan.dims["final_norm.scale"] is None
@@ -595,19 +598,20 @@ def test_data_parallel_serving_matches_the_unsharded_port(dp_runs, mesh, i):
 
 
 def test_data_axis_refusals_name_the_mode_and_the_roadmap():
-    """On a data axis of 2: the bucketed mode's ``generate`` and a
-    speculative draft are refused naming the mode, D and ROADMAP.md (the
-    engine's bucketed mode and the fleet replay too:
-    ``tests/test_torch_serving.py``, ``tests/test_torch_fleet.py``), and a
-    prefill without the group's slots is refused."""
+    """On a data axis of 2 nothing of the serving modes is refused: the
+    bucketed mode and a speculative draft are taken (their runs on two
+    ranks: ``tests/test_torch_data_axis.py``), a pool of 3 slots is cut
+    on its K/V sequence, one of 4 on its rows; a prefill of a row-split
+    pool without the group's slots is refused."""
     cfg, params = _tiny()
     ctx = ExecContext(mesh=_FakeMesh(data=2, model=1), batch_axes=("data",), model_axis="model")
     w = ModelWorker("a", cfg, params, max_len=32, ctx=ctx)
-    with pytest.raises(NotImplementedError, match=r"bucketed serving mode\) on a data axis "
-                                                  r"of 2 is not ported \(see ROADMAP.md\)"):
-        w.generate(np.ones((2, 4), np.int32), 2)
     with pytest.raises(ValueError, match="needs the group's slots"):
         w.prefill_batch(np.ones((2, 4), np.int32))
-    with pytest.raises(NotImplementedError, match=r"speculative decoding on a data axis of 2 "
-                                                  r"is not ported \(see ROADMAP.md\)"):
-        ServingEngine().add_model("m", cfg, params, ctx=ctx, draft=(cfg, params))
+    assert next(iter(w.init_pool(4).values())).shape[1:3] == (2, 32) and w.rows_split
+    assert next(iter(w.init_pool(3).values())).shape[1:3] == (3, 16) and w.pool_seq
+    eng = ServingEngine(mode="bucketed")
+    eng.add_model("b", cfg, params, ctx=ctx)
+    eng = ServingEngine()
+    eng.add_model("m", cfg, params, ctx=ctx, draft=(cfg, params))
+    assert eng.spec["m"].worker.ctx is eng.workers["m"].ctx
