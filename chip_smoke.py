@@ -14,7 +14,8 @@
     python3 chip_smoke.py --phases kimi,mesh1,shard2  # kimi-k2, a mesh of one, two ranks
     python3 chip_smoke.py --phases train    # training: tinyllama-1.1b, remat, pipeline, MoE
     python3 chip_smoke.py --phases kernels,mesh_families  # four families at a model axis of 2
-    python3 chip_smoke.py --phases mesh_wide  # three GQA models at a model axis of 8
+    python3 chip_smoke.py --phases mesh_wide  # three GQA models and MLA at a model axis of 8
+    python3 chip_smoke.py --phases dryrun  # the production mesh's dry run, on the meta device
     python3 chip_smoke.py --phases train_mesh  # seven arms trained on (2,1), (1,2), (2,2), (1,8)
 
 Phases:
@@ -42,8 +43,9 @@ Phases:
                 a parked slot and a slot of kv_len 0, with the error of
                 output columns 0-63 and 64-111 printed apart; then one
                 model rank's shapes of the mesh_families phase: the MLA
-                kernels at G = 8 and 4 (T = 1 and 5; their verify rows
-                bit for bit equal to decode steps), flash at deepseek's
+                kernels at G = 8, 4, 2 and 1 (a rank's heads at M = 2, 4,
+                8 and 16; T = 1 and 5; their verify rows bit for bit
+                equal to decode steps), flash at deepseek's
                 8-head prefill, seamless's 8 heads and jamba's 16 on 4,
                 decode at those heads, the SSD scan on 40 heads; and one
                 rank's heads of the mesh_wide phase: flash at 4 on 1 (D 64,
@@ -212,20 +214,28 @@ Phases:
                 from the exact-fp32 route (the same weights cast up) as the
                 unsharded run's; launches, collectives, wall and peak
                 memory per rank
- 17. mesh_wide  tinyllama-1.1b, gemma2-2b and qwen2-7b at full width and
-                depth on eight ranks of the one card (a model axis of 8
-                over their 4 kv heads: each kv head whole on 2 ranks,
-                qwen2's groups of 7 query heads padded with a zero head),
-                fp32 (2 layers) and bf16 judged as mesh_families; the ranks
-                holding a padded head check that it adds nothing
- 18. times      CUDA-event device times of each kernel, its plain version
+ 17. mesh_wide  tinyllama-1.1b, gemma2-2b and qwen2-7b at full width on
+                eight ranks of the one card (a model axis of 8 over their 4
+                kv heads: each kv head whole on 2 ranks, qwen2's groups of
+                7 query heads padded with a zero head), and
+                deepseek-v2-lite-16b (2 MLA heads a rank: the MLA kernels
+                at G = 2, launched on every rank), fp32 (2 layers) and bf16
+                (8 layers) judged as mesh_families; the ranks holding a
+                padded head check that it adds nothing; every rank's
+                parameter and slot-pool bytes equal the dry run's count
+ 18. dryrun     the production mesh's dry run (``repro_torch.launch.dryrun``)
+                of deepseek-v2-lite-16b decode_32k (the MLA kernels at G = 1)
+                and tinyllama-1.1b long_500k (the piece mode) on (16, 16),
+                on the meta device: each rank's bytes, FLOPs, collectives
+ 19. times      CUDA-event device times of each kernel, its plain version
                 and one PyTorch library call (a yardstick only), beside the
                 bound; for the attention kernels and the library call also
                 the wall time per call back to back (host enqueue included);
                 flash also at the verify's shapes (T query rows per slot
                 against the cache), the MLA kernel at T = 1 and T = 5 at
-                16 heads and at a model rank's 8 and 4 (with the
-                mesh_families phase's launches); flash and decode at a
+                16 heads and at a model rank's 8, 4, 2 and 1 (with the
+                mesh_families and mesh_wide phases' launches); flash and
+                decode at a
                 mesh_wide rank's heads (with that phase's launches); the SSD
                 scan on 40 heads
                 (a rank's) at B 8 S 512, and at the scheduled
@@ -292,7 +302,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "kernels", "parity", "serve", "scheduled", "joint", "spec", "archs",
           "encdec_hybrid", "bucketed", "fleet", "kimi", "mesh1", "shard2", "train", "yolo",
-          "train_mesh", "serve_mesh", "mesh_families", "mesh_wide", "times")
+          "train_mesh", "serve_mesh", "mesh_families", "mesh_wide", "dryrun", "times")
 EXTRA = ("profile", "profile_scheduled", "profile_spec", "profile_archs",
          "profile_spec_deepseek", "mla_parts", "profile_encdec_hybrid", "profile_bucketed",
          "profile_fleet", "profile_train", "parity_mamba2", "collectives")  # only when asked for
@@ -302,10 +312,6 @@ SERVE = dict(names=("tinyllama-1.1b", "gemma2-2b"), requests=8, prompt_lens=(64,
 # prompt lengths off the pow2 grid, so mamba2 admits masked, left-padded groups
 SCHEDULED = dict(SERVE, names=("tinyllama-1.1b", "gemma2-2b", "mamba2-2.7b"),
                  prompt_lens=(64, 96, 200, 512), scheduler=True, workload="moderate")
-# NVIDIA H100 SXM data sheet: HBM rate and dense peaks (bf16 on the tensor
-# cores, fp32 on the CUDA cores)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 # the decode kernel's piece mode writes fp32 o and lse in both dtypes
 PIECE_TOL = {"bfloat16": TOL["float32"], "float32": TOL["float32"]}
@@ -452,44 +458,39 @@ def qkv(torch, gen, B, Sq, Sk, H, Hkv, D, dtype):
     return r(B, Sq, H, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, D)
 
 
-def kept_keys(qpos, kv_len, Sk, causal, window):
-    """Keys one query row keeps."""
-    hi = min(kv_len, Sk, qpos + 1) if causal else min(kv_len, Sk)
-    lo = max(0, qpos - window + 1) if window else 0
-    return max(0, hi - lo)
+# the bounds' formulas live in the package (``repro_torch.kernels.cost``),
+# which the kernel wrappers' meta route (the dry run) counts by too; these
+# fix this script's shapes
+
+
+def _cost():
+    from repro_torch.kernels import cost
+    return cost
 
 
 def bound(flops, nbytes, dtype_name):
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+    return _cost().bound(flops, nbytes, dtype_name)
 
 
 def flash_bound(B, S, H, Hkv, D, window, dtype_name, elem, Dv=None):
     """2·H·(Dk + Dv) FLOPs per kept (query, key) pair; q, k, v, o once."""
-    Dv = D if Dv is None else Dv
-    pairs = B * sum(kept_keys(i, S, S, True, window) for i in range(S))
-    nbytes = elem * (B * S * H * (D + Dv) + B * S * Hkv * (D + Dv))
-    return bound(2 * H * (D + Dv) * pairs, nbytes, dtype_name)
+    return _cost().flash_bound(B, S, H, Hkv, D, window, dtype_name, elem, Dv=Dv)
 
 
 def flash_bound_full(B, Sq, Sk, H, Hkv, D, dtype_name, elem):
     """Flash without a mask (the encoder, the cross-attention's prefill):
     every (query, key) pair kept; q, k, v, o once."""
-    nbytes = elem * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D)
-    return bound(4 * H * D * B * Sq * Sk, nbytes, dtype_name)
+    return _cost().flash_bound_full(B, Sq, Sk, H, Hkv, D, dtype_name, elem)
 
 
 def decode_bound_kept(kept, B, H, Hkv, D, dtype_name, elem):
     """Decode over ``kept`` K/V entries in all: each read once, q and o
     once, 4·H·D FLOPs per entry."""
-    nbytes = elem * (kept * Hkv * 2 * D + 2 * B * H * D)
-    return bound(4 * H * D * kept, nbytes, dtype_name)
+    return _cost().decode_bound_kept(kept, B, H, Hkv, D, dtype_name, elem)
 
 
 def decode_bound(pos, Smax, H, Hkv, D, window, dtype_name, elem):
-    kept = sum(kept_keys(p, p + 1, Smax, False, window) for p in pos)
-    return decode_bound_kept(kept, len(pos), H, Hkv, D, dtype_name, elem)
+    return _cost().decode_bound(list(pos), Smax, H, Hkv, D, window, dtype_name, elem)
 
 
 def mla_bound(offs, T, Smax, dtype_name, elem, H=MLA_DECODE["H"]):
@@ -499,10 +500,7 @@ def mla_bound(offs, T, Smax, dtype_name, elem, H=MLA_DECODE["H"]):
     once, its first 512 columns being the values, q and o once; 2·H·(Dk +
     Dv) FLOPs per kept (row, key) pair."""
     Hkv, Dk, Dv = (MLA_DECODE[x] for x in ("Hkv", "Dk", "Dv"))
-    pairs = sum(kept_keys(o + t, Smax, Smax, True, None) for o in offs for t in range(T))
-    rows = sum(kept_keys(o + T - 1, Smax, Smax, True, None) for o in offs)
-    nbytes = elem * (rows * Hkv * Dk + len(offs) * T * H * (Dk + Dv))
-    return bound(2 * H * (Dk + Dv) * pairs, nbytes, dtype_name)
+    return _cost().mla_bound(list(offs), T, Smax, dtype_name, elem, H=H, Hkv=Hkv, Dk=Dk, Dv=Dv)
 
 
 def verify_offsets(Smax, T):
@@ -516,10 +514,7 @@ def verify_bound(offs, T, Smax, H, Hkv, D, window, dtype_name, elem):
     """Flash at a verify's shape: the (query, key) pairs the causal mask
     keeps; q and o once, and K and V of the keys some query of the row
     keeps (the rest of the cache is never needed)."""
-    pairs = sum(kept_keys(o + t, Smax, Smax, True, window) for o in offs for t in range(T))
-    keys = sum(min(Smax, o + T) - (max(0, o - window + 1) if window else 0) for o in offs)
-    nbytes = elem * (2 * len(offs) * T * H * D + 2 * keys * Hkv * D)
-    return bound(4 * H * D * pairs, nbytes, dtype_name)
+    return _cost().verify_bound(list(offs), T, Smax, H, Hkv, D, window, dtype_name, elem)
 
 
 def ssd_inputs(torch, gen, B, S, dtype, H=MAMBA["H"], P=MAMBA["P"], N=MAMBA["N"],
@@ -541,16 +536,8 @@ def ssd_bound(B, S, dtype_name, elem, H=MAMBA["H"]):
     matrix times x, C.h and the state update. Bytes: x, dA, dt, B, C read
     once, y and the fp32 final state written once. H heads (mamba2's 80, or
     a model rank's 40)."""
-    P, N, Qmax = MAMBA["P"], MAMBA["N"], MAMBA["chunk"]
-    Q = min(Qmax, S)
-    flops = 0
-    for c0 in range(0, S, Q):
-        q = min(Q, S - c0)
-        tri = q * (q + 1) // 2
-        flops += B * (2 * tri * N + H * (2 * tri * P + 4 * q * P * N))
-    nbytes = (2 * elem * B * S * H * P + 2 * 4 * B * S * H + 2 * elem * B * S * N
-              + 4 * B * H * P * N)
-    return bound(flops, nbytes, dtype_name)
+    return _cost().ssd_bound(B, S, dtype_name, elem, H=H, P=MAMBA["P"], N=MAMBA["N"],
+                             chunk=MAMBA["chunk"])
 
 
 def time_ms(torch, fn, flush, iters=20, warmup=3):
@@ -716,7 +703,8 @@ def phase_kernels(torch, report):
     log("kernel vs plain, max abs err:", json.dumps(errs))
     log("kimi-k2 head dim 112, max abs err by output columns:", json.dumps(kimi_errs))
     log("flash at verify shapes, max abs err:", json.dumps(verify_errs))
-    log("MLA at a model rank's heads (G = 8, 4), max abs err:", json.dumps(rank_errs))
+    log(f"MLA at a model rank's heads (G = {', '.join(map(str, MLA_RANK_G))}), max abs err:",
+        json.dumps(rank_errs))
     log("MLA verify rows bit for bit equal to decode steps at the same positions: "
         f"{not any('verify row' in m for m in misses)}")
     if misses:
@@ -914,7 +902,7 @@ def mla_rows_match_decode_steps(torch, gen, mmod, dtype, H=MLA_DECODE["H"]):
 # MLA kernels at G = 8 (and 4, a model axis of 4), deepseek's naive-form
 # prefill on 8 of 16 heads, seamless's 8 on 8 and jamba's 16 on 4 heads,
 # and 40 of mamba2's 80 SSD heads
-MLA_RANK_G = (8, 4)
+MLA_RANK_G = (8, 4, 2, 1)  # a rank's MLA heads at a model axis of 2, 4, 8, 16
 MLA_PREFILL_RANK = dict(H=8, Hkv=8, Dk=192, Dv=128)
 SEAMLESS_RANK = dict(H=8, Hkv=8, D=64)
 JAMBA_RANK = dict(H=16, Hkv=4, D=128)
@@ -928,7 +916,7 @@ WIDE_RANK = {"tinyllama-1.1b": dict(H=4, Hkv=1, D=64, softcap=None),
 
 def mesh_rank_cases(torch, gen, fmod, dmod, mmod, smod, dtype):
     """(kernel, case, kernel output, plain output) at one rank's shapes of
-    the mesh_families phase: the MLA attention at G = 8 and 4, 8 slots x
+    the mesh_families phase: the MLA attention at G = 8, 4, 2 and 1, 8 slots x
     1024, the decode step (T = 1 at DECODE_POS clipped, a slot parked at
     Smax) and the verify (T = 5, causal at VERIFY_POS); flash at deepseek's
     naive-form prefill on 8 heads, seamless's encoder and cross prefill on
@@ -1293,7 +1281,8 @@ def phase_times(torch, report):
     rows += arch_times(torch, gen, flush, sdpa)
     rows += encdec_hybrid_times(torch, gen, flush, sdpa)
     rows += kimi_times(torch, gen, flush, sdpa, report.get("launches_kimi", {}))
-    rows += mesh_rank_times(torch, gen, flush, sdpa, report.get("mesh_families", {}))
+    rows += mesh_rank_times(torch, gen, flush, sdpa, report.get("mesh_families", {}),
+                            report.get("mesh_wide", {}))
     rows += wide_rank_times(torch, gen, flush, sdpa, report.get("mesh_wide", {}))
     rows += piece_times(torch, gen, flush,
                         report.get("launches_serve_mesh", {}).get("decode_attention_piece"))
@@ -1575,21 +1564,23 @@ def wide_rank_times(torch, gen, flush, sdpa, wide):
     return rows
 
 
-def mesh_rank_times(torch, gen, flush, sdpa, families):
+def mesh_rank_times(torch, gen, flush, sdpa, families, wide):
     """A model rank's kernel shapes at a model axis of 2 (4 for MLA's G =
-    4), bf16: the MLA attention at G = 8 and 4 heads on the latent head, 8
+    4, 8 for G = 2, 16 for G = 1), bf16: the MLA attention at G = 8, 4, 2
+    and 1 heads on the latent head, 8
     slots x 1024 at T = 1 (DECODE_POS clipped) and T = 5 (VERIFY_POS,
     causal), beside SDPA with a bool mask; the SSD scan on 40 heads at B 8
     S 512 (no single PyTorch call computes it); each with its bound and,
-    from the mesh_families phase of the same run (``families``), its
-    launches per serve on rank 0 (deepseek's for MLA at G = 8, mamba2's for
-    the SSD scan; G = 4 is not on that path)."""
+    from the mesh_families and mesh_wide phases of the same run
+    (``families``, ``wide``), its launches per serve on rank 0 (deepseek's
+    for MLA at G = 8 and, at M = 8, G = 2; mamba2's for the SSD scan; G = 4
+    and 1 are not on a served path)."""
     from repro_torch.kernels import mla_attention as mmod
     from repro_torch.kernels import ssd_scan as smod
     bf16, rows, Smax = torch.bfloat16, [], 1024
 
-    def serve_launches(arch, kernel):
-        row = families.get(f"{arch} bfloat16")
+    def serve_launches(arch, kernel, phase=families):
+        row = phase.get(f"{arch} bfloat16")
         return None if row is None else row["ranks"]["launches"][kernel]
     for G in MLA_RANK_G:
         for T, offs in ((1, [min(p, Smax - 1) for p in DECODE_POS]), (5, list(VERIFY_POS))):
@@ -1608,8 +1599,8 @@ def mesh_rank_times(torch, gen, flush, sdpa, families):
                 lambda: sdpa(q, k, v, attn_mask=mask, scale=MLA_SCALE),
                 mla_bound(offs, T, Smax, "bfloat16", 2, H=G), T=T, G=G,
                 shape="decode" if T == 1 else "verify",
-                launches_per_serve=(serve_launches("deepseek-v2-lite-16b", "mla_attention")
-                                    if G == 8 and T == 1 else None)))
+                launches_per_serve=(None if T > 1 or G not in (8, 2) else serve_launches(
+                    "deepseek-v2-lite-16b", "mla_attention", families if G == 8 else wide))))
     B, S = 8, 512
     args = ssd_inputs(torch, gen, B, S, bf16, H=MAMBA_RANK_H)
     b_ms, b_by = ssd_bound(B, S, "bfloat16", 2, H=MAMBA_RANK_H)
@@ -4312,12 +4303,15 @@ MESH_FAMILIES = dict(archs=("deepseek-v2-lite-16b", "mamba2-2.7b", "seamless-m4t
                      logit_prompts=(4, 64), frames=100, max_new=16, world=2, timeout=600.0)
 # the mesh_wide phase: the GQA stacks with 4 kv heads on eight ranks of the
 # one card (a model axis of 8, each kv head whole on 2 ranks, qwen2's query
-# groups padded from 7 to 8 heads), fp32 cut to 2 layers, bf16 at full width
-# cut to 8 layers (to keep the whole run inside its time limit); the rest as
+# groups padded from 7 to 8 heads) and deepseek-v2-lite's 16 MLA heads (2 a
+# rank: the MLA kernels at G = 2; 8 of its 64 experts a rank), fp32 cut to
+# 2 layers, bf16 at full width cut to 8 layers (to keep the whole run inside
+# its time limit; deepseek 8 of 27, as mesh_families cuts it); the rest as
 # MESH_FAMILIES
-MESH_WIDE = dict(MESH_FAMILIES, archs=("tinyllama-1.1b", "gemma2-2b", "qwen2-7b"), fp32_cuts={},
-                 bf16_layers={"tinyllama-1.1b": 8, "gemma2-2b": 8, "qwen2-7b": 8}, world=8,
-                 timeout=600.0)
+MESH_WIDE = dict(MESH_FAMILIES, archs=("tinyllama-1.1b", "gemma2-2b", "qwen2-7b",
+                                      "deepseek-v2-lite-16b"), fp32_cuts={},
+                 bf16_layers={"tinyllama-1.1b": 8, "gemma2-2b": 8, "qwen2-7b": 8,
+                              "deepseek-v2-lite-16b": 8}, world=8, timeout=600.0)
 # A bf16 arm on a mesh against the unsharded bf16 arm, both held against the
 # exact-fp32 route at the same weights and inputs (the bf16 weights cast up,
 # the unsharded run's expert choices replayed): the sharded run rounds at the
@@ -4379,7 +4373,7 @@ def phase_yolo(torch, report):
         flops = sum(n.flops for n in build_yolo_graph(B, YOLO["res"]).nodes)
         rows.append({"B": B, "shape": shape, "max_abs_err": err, "max_abs_y": scale,
                      "device_ms": ms, "gflop": flops / 1e9,
-                     "fp32_peak_share": flops / (ms * 1e-3) / PEAK_FLOPS["float32"],
+                     "fp32_peak_share": flops / (ms * 1e-3) / _cost().PEAK_FLOPS["float32"],
                      "card": report["smi"]})
         log(f"yolo B={B}: {shape}, {ms:.4f} ms per batch, {flops / 1e9:.2f} GFLOP "
             f"({flops / B / 1e9:.2f} an image), {rows[-1]['fp32_peak_share']:.3f} of the fp32 "
@@ -5273,6 +5267,14 @@ def families_arm(torch, job, ctx, device="cuda"):
                     "wall_s": wall, "peak_mem_bytes": peak,
                     "sharded": None if w.shard_report is None else w.shard_report.sharded,
                     "pool": {n: list(t.shape) for n, t in eng.pools[cfg.name].cache.items()}}
+    if sharded:  # what the rank holds against the dry run's count on the meta device
+        from repro_torch.launch.dryrun import rank_bytes
+        res["bytes"] = {"params": sum(p.numel() * p.element_size() for p in params.parameters()),
+                        "cache": sum(t.numel() * t.element_size()
+                                     for t in eng.pools[cfg.name].cache.values())}
+        res["dryrun_bytes"] = rank_bytes(cfg, {"data": 1, "model": ctx.model_parallel},
+                                         ctx.model_rank, SERVE["max_slots"], SERVE["max_len"],
+                                         max_enc or 0)
     del eng, w, serve_replay, gaps  # the recorded gaps hold the engine
     if bf16 and not sharded:  # the exact-fp32 yardstick at the same weights
         cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
@@ -5427,6 +5429,10 @@ def mesh_phase(torch, report, key, spec):
             if a["shard"] != (world, rank) or not a["pad_heads"][1]:
                 raise SmokeFailure(f"{label} rank {rank}: holds the shard {a['shard']}, padded "
                                    f"heads (held, all zero) {a['pad_heads']}")
+            if a["bytes"] != a["dryrun_bytes"]:
+                raise SmokeFailure(f"{label} rank {rank}: holds {a['bytes']} bytes of "
+                                   f"parameters and slot pool, the dry run counts "
+                                   f"{a['dryrun_bytes']}")
             if (a["serve"]["tokens"] != mine[0]["serve"]["tokens"]
                     or not np.array_equal(a["logits"], mine[0]["logits"])
                     or a["forced"] != mine[0]["forced"]
@@ -5438,10 +5444,16 @@ def mesh_phase(torch, report, key, spec):
         if ref["serve"]["errors"] or ref["serve"]["launches"] != ref["serve"]["expected"]:
             raise SmokeFailure(f"{label} unsharded: errors {ref['serve']['errors']}, launches "
                                f"{ref['serve']['launches']}")
+        if cfg.use_mla:  # the MLA kernels at G = heads / M on every rank
+            mla = [a["serve"]["launches"]["mla_attention"] for a in mine]
+            if min(mla) == 0 or len(set(mla)) != 1:
+                raise SmokeFailure(f"{label}: MLA launches at G = {cfg.num_heads // world} per "
+                                   f"rank {mla}")
         lscale = np.abs(ref["logits"]).max(axis=-1, keepdims=True)
         lerr = float((np.abs(mine[0]["logits"] - ref["logits"]) / lscale).max())
         row = {"uids": len(ref["serve"]["tokens"]), "logits_max_rel_err": lerr,
-               "pad_heads": [a["pad_heads"][0] for a in mine]}
+               "pad_heads": [a["pad_heads"][0] for a in mine],
+               "rank_bytes": mine[0]["bytes"], "rank_bytes_equal_dryrun": True}
         if fp32:
             if not all(a["gen"]["tokens"] == ref["gen"]["tokens"] for a in mine):
                 raise SmokeFailure(f"{label}: generate's tokens differ from the unsharded run's")
@@ -5499,11 +5511,50 @@ def phase_mesh_wide(torch, report):
     bias, 28 layers) served on a model axis of 8 (``mesh_phase``): eight
     ranks on the one card, each kv head whole on 2 ranks (rank m holds kv
     head m // 2), qwen2's groups of 7 query heads padded with a zero head
-    to 8 (the ranks that hold one check it adds nothing); fp32 exact, 2
-    layers; bf16 at full width and depth, judged as the mesh_families
-    phase's bf16 arms. Per rank flash runs on 4 on 1 (tinyllama, qwen2) or
-    1 on 1 heads (gemma2), decode at G = 4 or 1."""
+    to 8 (the ranks that hold one check it adds nothing); and
+    deepseek-v2-lite-16b (MLA, 16 heads, 64 experts): 2 heads and 8 experts
+    a rank, the latent whole on every rank. fp32 exact, 2 layers; bf16 at
+    full width cut to 8 layers, judged as the mesh_families phase's bf16
+    arms. Per rank flash runs on 4 on 1 (tinyllama, qwen2) or 1 on 1 heads
+    (gemma2), decode at G = 4 or 1, the MLA kernels at G = 2 (launched on
+    every rank, as many times on each). Each rank's parameter and slot-pool
+    bytes equal the dry run's count for its shard (``launch.dryrun.
+    rank_bytes``), here and in the mesh_families phase."""
     mesh_phase(torch, report, "mesh_wide", MESH_WIDE)
+
+
+# the dryrun phase: the production mesh's dry run (launch.dryrun) of two
+# pairs on (16, 16) on the meta device: deepseek's decode (16 MLA heads on a
+# model axis of 16: the MLA kernels' meta route at G = 1) and tinyllama's
+# 500k decode (B 1: the K/V cut on its sequence over 16 data ranks, the
+# piece mode and the merge)
+DRYRUN = (("deepseek-v2-lite-16b", "decode_32k"), ("tinyllama-1.1b", "long_500k"))
+
+
+def phase_dryrun(torch, report):
+    """``DRYRUN``'s pairs through ``launch.dryrun.run_one`` on the
+    production (16, 16) mesh, on the meta device (no card memory): status
+    ok, deepseek's MLA kernel counted once per layer at G = 1, tinyllama's
+    piece mode once per layer; printed per pair: the rank's argument and
+    temp GiB, FLOPs, bytes, collective bytes, the kernels' counts and the
+    wall."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    out = {}
+    for arch, shape in DRYRUN:
+        rec = dryrun.run_one(arch, shape, False, None)
+        if rec["status"] != "ok":
+            raise SmokeFailure(f"dryrun {arch} {shape}: {rec['status']} {rec.get('error')}")
+        cfg = dryrun.config_for_shape(get_config(arch), shape)[0]
+        kernel = "mla_attention" if cfg.use_mla else "decode_attention_piece"
+        if rec["kernels"].get(kernel, {}).get("calls") != cfg.num_layers:
+            raise SmokeFailure(f"dryrun {arch} {shape}: kernels {rec['kernels']}, expected "
+                               f"{kernel} once per layer ({cfg.num_layers})")
+        out[f"{arch} {shape}"] = {k: rec[k] for k in (
+            "argument_size_in_bytes", "temp_size_in_bytes", "flops", "bytes_accessed",
+            "collective_bytes", "kernels", "hbm_fits", "ranks_differ", "total_s")}
+        log(f"dryrun {arch} {shape} on (16, 16): {json.dumps(out[f'{arch} {shape}'])}")
+    report["dryrun"] = out
 
 
 # the collectives phase: an all-reduce among ranks that share the card, through
@@ -5616,6 +5667,7 @@ def main(argv=None):
            "shard2": phase_shard2, "train": phase_train, "profile_train": phase_profile_train,
            "yolo": phase_yolo, "train_mesh": phase_train_mesh, "serve_mesh": phase_serve_mesh,
            "mesh_families": phase_mesh_families, "mesh_wide": phase_mesh_wide,
+           "dryrun": phase_dryrun,
            "profile_encdec_hybrid": phase_profile_encdec_hybrid,
            "profile_bucketed": phase_profile_bucketed, "profile_fleet": phase_profile_fleet,
            "profile": phase_profile,

@@ -1,8 +1,8 @@
 """Model configs, the registry of ported archs, and reduced variants.
 
 A copy of ``repro.configs.base`` (``ModelConfig`` with its parameter
-counts, ``get_config``, ``reduced``) kept here so the port imports nothing
-of the JAX package.
+counts, the input shapes ``SHAPES``, ``get_config``, ``reduced``) kept here
+so the port imports nothing of the JAX package.
 ``get_config`` knows the archs of the JAX registry, every one of which the
 port serves, and the paper's own evaluation model.
 """
@@ -12,6 +12,23 @@ import dataclasses
 import importlib
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+# the production shapes of the dry run (launch.dryrun)
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
 
 
 @dataclass(frozen=True)

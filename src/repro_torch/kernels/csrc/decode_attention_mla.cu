@@ -1,7 +1,7 @@
 // Absorbed-MLA attention on the CUDA cores for Hopper (sm_90a), fp32: G =
-// 16, 8 or 4 query heads per latent KV head of width Dk = 576 (kv_lora_rank
-// 512 + qk_rope_dim 64; 8 and 4 are a rank's heads of DeepSeek-V2-Lite's 16
-// on a model axis of 2 and 4), values of width Dv = 512, T >= 1 query positions per
+// 16, 8, 4, 2 or 1 query heads per latent KV head of width Dk = 576
+// (kv_lora_rank 512 + qk_rope_dim 64; 8, 4, 2 and 1 are a rank's heads of
+// DeepSeek-V2-Lite's 16 on a model axis of 2, 4, 8 and 16), values of width Dv = 512, T >= 1 query positions per
 // batch row, split across blocks along the KV axis like
 // decode_attention.cuh. It is the exact fp32 route (the parity checks run
 // through it); bf16 runs on the tensor cores in mla_attention_bf16.cu.
@@ -34,7 +34,8 @@
 // - Per tile: (1) scores, one key per warp at a time, each lane 18 of the
 //   576 products per head against q in fp32 shared memory, reduced by
 //   shuffles; (2) the fp32 online softmax in powers of two, head g on warp
-//   g mod 8 (two heads per warp at G = 16, one at 8, warps 4-7 idle at 4),
+//   g mod 8 (two heads per warp at G = 16, one at 8, warps G..7 idle below
+//   8: correct, not fast, at G = 2 and 1),
 //   one key per lane; (3) P V, each warp owning 64 value columns, each lane
 //   2 columns of all G heads: 2 G fp32 accumulators.
 // - The splits merge as in decode_attention.cuh: a row whose kept keys lie
@@ -63,7 +64,7 @@ size_t smem_bytes(int G, bool v_shared) {
   return sizeof(float) * (G * kDk + ring + G * kTile + 3 * G);
 }
 
-template <int G>  // query heads per latent head: 16, 8 or 4
+template <int G>  // query heads per latent head: 16, 8, 4, 2 or 1
 __global__ void __launch_bounds__(kThreads)
 mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
@@ -307,8 +308,12 @@ extern "C" int mla_attention_fwd_fp32(const void* q, const void* k, const void* 
       n_splits < 1 || split_len < 1)
     return -1;
   const int G = H / Hkv;  // one instance per head group the port serves
-  const decltype(&launch_fp32<16>) launch =
-      G == 16 ? launch_fp32<16> : G == 8 ? launch_fp32<8> : G == 4 ? launch_fp32<4> : nullptr;
+  const decltype(&launch_fp32<16>) launch = G == 16 ? launch_fp32<16>
+                                            : G == 8 ? launch_fp32<8>
+                                            : G == 4 ? launch_fp32<4>
+                                            : G == 2 ? launch_fp32<2>
+                                            : G == 1 ? launch_fp32<1>
+                                                     : nullptr;
   if (launch == nullptr) return -1;
   return launch(q, k, v, o, q_offset, kv_len, part, counters, B, T, Smax, Hkv, k_row, v_row,
                 v_head, v_shared, causal, window, n_splits, split_len, softcap, scale, stream);

@@ -1,12 +1,13 @@
 // Absorbed-MLA attention on the tensor cores for Hopper (sm_90a), bf16:
-// G = 16, 8 or 4 query heads per latent KV head of width Dk = 576
+// G = 16, 8, 4, 2 or 1 query heads per latent KV head of width Dk = 576
 // (kv_lora_rank 512 + qk_rope_dim 64), values of width Dv = 512 (the
 // latent rows' first 512 columns, or a tensor of their own), T >= 1 query
 // positions per batch row, per-row q_offset / kv_len, causal mask, sliding
 // window and logit softcap. DeepSeek-V2-Lite's absorbed decode (T = 1) and
 // its speculative verify and draft catch-up (T > 1) reach this shape
 // (src/repro/models/attention.py, mla_decode): G = 16 unsharded, and a
-// rank's 8 or 4 of the 16 heads on a model axis of 2 or 4. The fp32 route
+// rank's 8, 4, 2 or 1 of the 16 heads on a model axis of 2, 4, 8 or 16.
+// The fp32 route
 // is decode_attention_mla.cu (CUDA cores, exact fp32 for the parity checks).
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/decode_attention.py
@@ -25,8 +26,8 @@
 // Design:
 // - One block of 8 warps per (latent head, query position t, split of the
 //   cache, batch row): its G rows are the G heads at one position, held in
-//   one m16 row tile of mma.sync.m16n8k16 (a template parameter; at G = 8
-//   or 4 rows G..15 of the tile are zero-filled q rows whose scores,
+//   one m16 row tile of mma.sync.m16n8k16 (a template parameter; at G < 16
+//   rows G..15 of the tile are zero-filled q rows whose scores,
 //   probabilities and sums are computed and never stored, merged or
 //   written: the kernel is bound by the latent rows it reads, which all G
 //   share, so the idle rows cost tensor-core work only). All rows share one mask,
@@ -100,7 +101,7 @@ size_t smem_bytes(int stages, bool v_shared) {
          sizeof(float) * kKSplit * kG * kLds + sizeof(bf16) * kG * kLdp + sizeof(float) * 3 * kG;
 }
 
-template <int G>  // query heads per latent head: 16, 8 or 4
+template <int G>  // query heads per latent head: 16, 8, 4, 2 or 1
 __global__ void __launch_bounds__(kThreads, 2)
 mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -124,7 +125,7 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int hk = rg / T, t = rg - hk * T;
   const int split = blockIdx.y, b = blockIdx.z;
   const int n_splits = gridDim.y;
-  static_assert(G >= 1 && G <= kG && G * (kDv / 4) % kThreads == 0, "G heads in one m16 tile");
+  static_assert(G >= 1 && G <= kG, "G heads in one m16 tile");
   const int H = Hkv * G;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;   // mma fragment: rows g, g + 8; columns 2tq, 2tq + 1
@@ -352,8 +353,10 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     c_s[tid] = 1.f / fmaxf(L, 1e-30f);
   }
   __syncthreads();
-  constexpr int NV = kDv / 4;                  // float4 per row
-  constexpr int kItems = G * NV / kThreads;    // 8, 4 or 2 float4 per thread, loaded per split
+  constexpr int NV = kDv / 4;  // float4 per row
+  // float4 per thread, loaded per split: 8, 4, 2 or 1; at G = 1 the row's
+  // 128 float4 leave threads 128..255 of the block without one (``live``)
+  constexpr int kItems = (G * NV + kThreads - 1) / kThreads;
   float4 os[kItems];
 #pragma unroll
   for (int e = 0; e < kItems; ++e) os[e] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -364,11 +367,13 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
     for (int e = 0; e < kItems; ++e) {
       const int i = tid + e * kThreads, r = i / NV, c = i - r * NV;
-      a[e] = __ldcg(reinterpret_cast<const float4*>(src + r * kPart) + c);
+      a[e] = i < G * NV ? __ldcg(reinterpret_cast<const float4*>(src + r * kPart) + c)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
     for (int e = 0; e < kItems; ++e) {
-      const float w = mw[((tid + e * kThreads) / NV) * n_live + sj];
+      const int i = tid + e * kThreads;
+      const float w = i < G * NV ? mw[(i / NV) * n_live + sj] : 0.f;
       os[e].x += w * a[e].x;
       os[e].y += w * a[e].y;
       os[e].z += w * a[e].z;
@@ -378,6 +383,7 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
   for (int e = 0; e < kItems; ++e) {
     const int i = tid + e * kThreads, r = i / NV, c = i - r * NV;
+    if (i >= G * NV) continue;
     const float inv = c_s[r];
     *reinterpret_cast<uint2*>(ob + r * kDv + 4 * c) =
         make_uint2(pack_bf16(os[e].x * inv, os[e].y * inv), pack_bf16(os[e].z * inv, os[e].w * inv));
@@ -410,7 +416,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, const void
 }  // namespace
 }  // namespace repro_torch
 
-// q (B,T,H,576) contiguous, H = G * Hkv with G in {16, 8, 4}; k: rows of (Hkv, 576), row b, s
+// q (B,T,H,576) contiguous, H = G * Hkv with G in {16, 8, 4, 2, 1}; k: rows of (Hkv, 576), row b, s
 // at k + (b * Smax + s) * k_row; v: rows of (Hkv, 512) at v + (b * Smax +
 // s) * v_row + h * v_head. v_shared != 0 says that v is the first 512
 // columns of k's rows (the latent cache), which the kernel then reads
@@ -434,8 +440,12 @@ extern "C" int mla_attention_fwd_bf16(const void* q, const void* k, const void* 
       n_splits < 1 || split_len < 1)
     return -1;
   const int G = H / Hkv;  // one instance per head group the port serves
-  const decltype(&launch_bf16<16>) launch =
-      G == 16 ? launch_bf16<16> : G == 8 ? launch_bf16<8> : G == 4 ? launch_bf16<4> : nullptr;
+  const decltype(&launch_bf16<16>) launch = G == 16 ? launch_bf16<16>
+                                            : G == 8 ? launch_bf16<8>
+                                            : G == 4 ? launch_bf16<4>
+                                            : G == 2 ? launch_bf16<2>
+                                            : G == 1 ? launch_bf16<1>
+                                                     : nullptr;
   if (launch == nullptr) return -1;
   return launch(q, k, v, o, q_offset, kv_len, part, counters, B, T, Smax, Hkv, k_row, v_row,
                 v_head, v_shared, causal, window, n_splits, split_len, softcap, scale, stream);

@@ -13,14 +13,16 @@ design does about it. The kernel splits the KV axis across blocks
 states in the same launch; ``decode_attention_split_plain`` is that
 split-and-merge arithmetic in plain PyTorch, for the tests.
 
-The absorbed-MLA shape (16 query heads on one latent head, Dk 576, Dv
-512) has kernels of their own (``kernels.mla_attention``), to which
+The absorbed-MLA shapes (16, 8, 4, 2 or 1 query heads on one latent
+head, Dk 576, Dv 512) have kernels of their own (``kernels.mla_attention``), to which
 ``ops.flash_attention`` sends it at any query length; ``decode_route``
 names no entry point for it.
 
 ``decode_attention`` launches a kernel for CUDA tensors and runs
 ``decode_attention_plain`` for CPU tensors; on the card a shape that no
-kernel takes raises.
+kernel takes raises. Meta tensors take the meta route (the card's checks,
+a meta output, the call's work on the op counter: ``kernels.cost``), the
+piece mode's too.
 
 The piece mode (``decode_attention_piece``, the same kernel through its
 own entry point) attends over one piece of the sequence: a cache that the
@@ -36,7 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.flash_attention import (ATTN_TRAIN_ROUTE, NEG_INF, DTYPES, attention_plain,
                                                  check_aligned, check_cuda_inputs, exact_fp32,
                                                  launch_args, per_row, refuse_grad)
@@ -165,7 +167,7 @@ def decode_route(G: int, Dk: int, Dv: int) -> str:
 
 
 def _on_card(name, q):
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"{name} takes one query token, (B, 1, H, Dk); got {tuple(q.shape)}")
@@ -191,6 +193,11 @@ def decode_attention(q, k, v, *, q_offset=0, kv_len=None, window=None,
     check_aligned(q, k, v)
     scale = scale if scale is not None else Dk ** -0.5
     n_splits, split_len = plan_splits(Smax, B, Hkv)
+    if q.is_meta:
+        work = cost.decode_work(B, Smax, H, Hkv, Dk, Dv, q.element_size(), window=window,
+                                q_offset=cost.host_rows(q_offset, Smax - 1),
+                                kv_len=cost.host_rows(kv_len, None))
+        return cost.meta_call("decode_attention", work, q.new_empty((B, 1, H, Dv)))
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
     part = torch.empty(B * Hkv * n_splits * G * (Dv + 4), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -232,6 +239,13 @@ def decode_attention_piece(q, k, v, *, k_start, q_offset=0, kv_len=None, window=
     check_aligned(q, k, v)
     scale = scale if scale is not None else Dk ** -0.5
     n_splits, split_len = plan_splits(Sp, B, Hkv)
+    if q.is_meta:
+        work = cost.decode_work(B, Sp, H, Hkv, Dk, Dv, q.element_size(), window=window,
+                                q_offset=cost.host_rows(q_offset, int(k_start) + Sp - 1),
+                                kv_len=cost.host_rows(kv_len, None), k_start=int(k_start))
+        return cost.meta_call("decode_attention_piece", work,
+                              q.new_empty((B, 1, H, Dv), dtype=torch.float32),
+                              q.new_empty((B, 1, H), dtype=torch.float32))
     out = torch.empty((B, 1, H, Dv), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, 1, H), dtype=torch.float32, device=q.device)
     part = torch.empty(B * Hkv * n_splits * G * (Dv + 4), dtype=torch.float32, device=q.device)

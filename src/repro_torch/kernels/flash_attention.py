@@ -12,7 +12,10 @@ tensor cores (``csrc/flash_attention_bf16.cu``), fp32 exactly on the CUDA
 cores (``csrc/flash_attention.cu``, for the fp32 parity checks).
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
-``flash_attention_plain`` for CPU tensors; on CUDA tensors it refuses
+``flash_attention_plain`` for CPU tensors; meta tensors (the dry run,
+``launch.dryrun``) take the meta route: the card's checks, an empty meta
+output, and the call's work added to the op counter (``kernels.cost``),
+with no launch counted. On CUDA and meta tensors it refuses
 inputs that require grad (``refuse_grad``: the kernels have no backward). Both give 0 for a query row that
 keeps no key, as the TPU kernel does (``repro.models.attention
 .full_attention`` gives the mean of v there instead; the serving path never
@@ -25,7 +28,7 @@ import contextlib
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -181,11 +184,16 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
         return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap,
                                      q_offset=q_offset, kv_len=kv_len, scale=scale)
     refuse_grad("flash_attention", ATTN_TRAIN_ROUTE, q, k, v)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     route = flash_checks(q, k, v)
     B, Sq, H, Dk = q.shape
     Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if q.is_meta:
+        work = cost.attention_work(B, Sq, Sk, H, Hkv, Dk, Dv, q.element_size(), causal=causal,
+                                   window=window, q_offset=cost.host_rows(q_offset, Sk - Sq),
+                                   kv_len=cost.host_rows(kv_len, None))
+        return cost.meta_call("flash_attention", work, q.new_empty((B, Sq, H, Dv)))
     scale = scale if scale is not None else Dk ** -0.5
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     ptrs, _keep = launch_args(q, k, v, out, q_offset, kv_len)

@@ -2,8 +2,9 @@
 
 At DeepSeek's absorbed shape, G query heads on one latent KV head of
 width 576 (kv_lora_rank 512 + qk_rope_dim 64) whose first 512 columns are
-the values, with G = 16 (deepseek-v2-lite's heads) or a model rank's 8 or
-4 of them (``MLA_GROUPS``), the kernels replace two Pallas TPU kernels:
+the values, with G = 16 (deepseek-v2-lite's heads) or a model rank's 8,
+4, 2 or 1 of them at a model axis of 2, 4, 8 or 16 (``MLA_GROUPS``), the
+kernels replace two Pallas TPU kernels:
 ``repro.kernels.decode_attention.decode_attention`` (one query position,
 the decode step) and ``repro.kernels.flash_attention.flash_attention``
 (T > 1 query positions per row: the speculative verify and the draft's
@@ -17,19 +18,24 @@ the sources say what their designs do about it.
 
 ``mla_attention`` launches a kernel for CUDA tensors and runs
 ``mla_attention_plain`` for CPU tensors; on the card a shape that the
-kernels do not take (a G outside ``MLA_GROUPS`` among them) raises.
+kernels do not take (a G outside ``MLA_GROUPS`` among them) raises. Meta
+tensors (the dry run) take the meta route: the card's checks, a meta
+output, the call's work on the op counter (``kernels.cost``); there the
+values are the latent's leading columns when they share its storage,
+offset and strides (every meta tensor's ``data_ptr()`` is 0).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.decode_attention import merge_counters, plan_splits
 from repro_torch.kernels.flash_attention import (ATTN_TRAIN_ROUTE, attention_plain, check_aligned,
                                                  launch_args, refuse_grad)
 
 MLA_DIMS = (576, 512)  # (Dk, Dv): the latent and value widths
-MLA_GROUPS = (16, 8, 4)  # query heads per latent head: the whole model's, and a rank's at M = 2, 4
+# query heads per latent head: the whole model's, and a rank's at M = 2, 4, 8, 16
+MLA_GROUPS = (16, 8, 4, 2, 1)
 # (G, Dk, Dv) of every shape the kernels take
 MLA_SHAPES = frozenset((g,) + MLA_DIMS for g in MLA_GROUPS)
 
@@ -76,7 +82,11 @@ def mla_checks(q, k, v) -> tuple[str, bool]:
     route = mla_route(q.dtype)
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must lie on one device")
-    v_shared = v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+    if q.is_meta:  # the same storage, start and strides: v is k's leading columns
+        v_shared = (v.untyped_storage()._cdata == k.untyped_storage()._cdata
+                    and v.storage_offset() == k.storage_offset() and v.stride() == k.stride())
+    else:
+        v_shared = v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
     if not (q.is_contiguous() and k.is_contiguous() and (v_shared or v.is_contiguous())):
         raise ValueError("q and k must be contiguous, v contiguous or the leading columns of k")
     check_aligned(q, k, v)
@@ -96,11 +106,16 @@ def mla_attention(q, k, v, *, causal=True, q_offset=0, kv_len=None, window=None,
     if q.device.type == "cpu":
         return mla_attention_plain(q, k, v, **kw)
     refuse_grad("mla_attention", ATTN_TRAIN_ROUTE, q, k, v)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"mla_attention runs on cuda or cpu, not {q.device}")
     route, v_shared = mla_checks(q, k, v)
     B, T, H, Dk = q.shape
     Smax, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if q.is_meta:
+        work = cost.mla_work(B, T, Smax, H, Hkv, Dk, Dv, q.element_size(), causal=causal,
+                             window=window, q_offset=cost.host_rows(q_offset, Smax - T),
+                             kv_len=cost.host_rows(kv_len, None), v_shared=v_shared)
+        return cost.meta_call("mla_attention", work, q.new_empty((B, T, H, Dv)))
     scale = scale if scale is not None else Dk ** -0.5
     n_splits, split_len = plan_splits(Smax, B, Hkv)
     out = torch.empty((B, T, H, Dv), dtype=q.dtype, device=q.device)

@@ -1,7 +1,7 @@
 """Attention dispatch, the counterpart of ``repro.kernels.ops``: the
-absorbed-MLA shapes (16, 8 or 4 query heads on one latent head, Dk 576,
-Dv 512: the whole deepseek-v2-lite and a rank of it on a model axis of 2 or
-4) go to the MLA kernels at any query length (the decode step and the speculative
+absorbed-MLA shapes (16, 8, 4, 2 or 1 query heads on one latent head, Dk
+576, Dv 512: the whole deepseek-v2-lite and a rank of it on a model axis
+of 2, 4, 8 or 16) go to the MLA kernels at any query length (the decode step and the speculative
 verify), any other single query token to the decode kernel, everything else
 to the prefill (flash) kernel. ``plain=True`` takes the kernels' plain
 versions on any device (the kernel-versus-plain parity runs on the card).

@@ -15,7 +15,9 @@ B=8 S=512, against 0.0165 ms of operations) and operations in fp32; the
 sources say what their designs do about it.
 
 ``ssd_scan`` launches a kernel for CUDA tensors and runs ``ssd_scan_plain``
-(the ``repro.models.ssm.ssd_chunked`` algorithm) for CPU tensors.
+(the ``repro.models.ssm.ssd_chunked`` algorithm) for CPU tensors. Meta
+tensors (the dry run) take the meta route: the card's checks, meta
+outputs, the call's work on the op counter (``kernels.cost``).
 ``ssd_scan_split_plain`` repeats the bf16 kernel's own arithmetic (its
 passes and its bf16 rounding points) for the CPU tests. ``mask`` (B, S),
 True at valid positions, zeroes x, dA, dt and B at the pads before the
@@ -27,7 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.flash_attention import DTYPES, check_aligned, exact_fp32, refuse_grad
 
 SSD_MAX_P = 64
@@ -216,13 +218,16 @@ def ssd_scan(x, dA, dt, Bm, Cm, *, mask=None, chunk=256):
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dA, dt, Bm, Cm, mask=mask, chunk=chunk)
     refuse_grad("ssd_scan", "kernels.ssd_scan.ssd_chunked", x, dA, dt, Bm, Cm)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
     x, dA, dt, Bm = _apply_mask(x, dA, dt, Bm, mask)
     route = ssd_checks(x, dA, dt, Bm, Cm, chunk)
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
+    if x.is_meta:
+        return cost.meta_call("ssd_scan", cost.ssd_work(B, S, H, P, N, chunk, x.element_size()),
+                              torch.empty_like(x), x.new_empty((B, H, P, N), dtype=torch.float32))
     y = torch.empty_like(x)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     ptrs = [t.data_ptr() for t in (x, dA, dt, Bm, Cm, y, h)]

@@ -456,6 +456,13 @@ def serve_job(job: dict, ctx, device: str = "cuda") -> dict:
            "wall_s": time.perf_counter() - t0, "shard": w.params.shard,
            "data_shard": w.params.data_shard,
            "pool_rows": _pool_rows(eng.pools[cfg.name]) if cfg.name in eng.pools else None,
+           # the bytes of the rank's parameters and slot pool (``launch.dryrun.rank_bytes``
+           # counts them on the meta device)
+           "rank_bytes": {"params": sum(p.numel() * p.element_size()
+                                        for p in w.params.parameters()),
+                          "cache": (sum(t.numel() * t.element_size()
+                                        for t in eng.pools[cfg.name].cache.values())
+                                    if cfg.name in eng.pools else None)},
            "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else 0)}
     if job.get("logit_prompts") is not None:

@@ -329,15 +329,14 @@ def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None,
     query positions attended through ``attend_piece`` (kv_len = position +
     1, at most ``kv_seq``: the whole cache's causal bound)."""
     B, T = x.shape[0], x.shape[1]
-    pos = torch.as_tensor(pos, device=x.device)
     piece = ctx is not None and bool(ctx.kv_seq)
     n = cache_k.shape[1]
     S, start = (ctx.kv_seq, piece_start(cache_k, ctx)) if piece else (n, 0)
-    if not pos.dim():  # position-synchronous: one token at one position
+    if not torch.is_tensor(pos) or not pos.dim():  # position-synchronous: one token, one position
         if T > 1:
             raise ValueError("multi-position decode takes (B,) per-row positions")
-        idx = _scalar_pos(pos, S)
-        q, k, v = _project_qkv(p, x, cfg, pos.reshape(-1, 1).expand(B, 1))
+        idx = _scalar_pos(pos, S)  # on the host: a meta position has no value
+        q, k, v = _project_qkv(p, x, cfg, torch.full((B, 1), idx, device=x.device))
         if 0 <= idx - start < n:
             cache_k[:, idx - start] = k[:, 0].to(cache_k.dtype)
             cache_v[:, idx - start] = v[:, 0].to(cache_v.dtype)
@@ -346,6 +345,7 @@ def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None,
         o = (attend_piece(q, cache_k, cache_v, ctx, **kw) if piece else
              attend(q, cache_k, cache_v, causal=False, **kw))
         return row_linear(p.wo, o.reshape(B, 1, -1)), (cache_k, cache_v)
+    pos = torch.as_tensor(pos, device=x.device)
     positions = (pos.reshape(-1, 1).expand(B, 1) if T == 1 else
                  pos[:, None] + torch.arange(T, device=x.device))
     q, k, v = _project_qkv(p, x, cfg, positions)
@@ -484,8 +484,10 @@ def mla_decode(p: MLA, x, cfg, cache, pos, impl=None):
     suffix causal-masked until overwritten). Returns (out, cache)."""
     B, T = x.shape[0], x.shape[1]
     H, nope, vd, lr = p.w_ukv.shape[1], cfg.qk_nope_dim, cfg.v_head_dim, cfg.kv_lora_rank
-    pos = torch.as_tensor(pos, device=x.device)
     Smax = cache.shape[1]
+    scalar = not torch.is_tensor(pos) or not pos.dim()
+    idx = _scalar_pos(pos, Smax) if scalar and T == 1 else None  # on the host
+    pos = torch.as_tensor(pos, device=x.device)
     if T > 1:
         if not pos.dim():
             raise ValueError("multi-position decode takes (B,) per-row positions")
@@ -494,14 +496,15 @@ def mla_decode(p: MLA, x, cfg, cache, pos, impl=None):
         write_grid(cache, torch.cat([c_kv.to(cache.dtype), k_rope.to(cache.dtype)], -1), pos)
         causal, q_off, kv_len = True, pos, None
     else:
-        positions = pos.reshape(-1, 1).expand(B, 1)
+        positions = (pos.reshape(-1, 1).expand(B, 1) if idx is None else
+                     torch.full((B, 1), idx, device=x.device))
         c_kv, k_rope = _mla_compress(p, x, cfg, positions)
         row = torch.cat([c_kv.to(cache.dtype), k_rope.to(cache.dtype)], -1)[:, 0]
-        if pos.dim():  # ragged: per-slot positions
+        if idx is None:  # ragged: per-slot positions
             write_rows(cache, row, pos)
             q_off = pos
         else:
-            q_off = _scalar_pos(pos, Smax)
+            q_off = idx
             cache[:, q_off] = row
         causal, kv_len = False, q_off + 1
     q_nope, q_rope = _mla_queries(p, x, cfg, positions)

@@ -223,7 +223,11 @@ def init_params(cfg, seed: int = 0, device="cuda", ctx=None, rank=None) -> Causa
     is drawn in the same order and pieces as the whole model's and the
     rank keeps its piece of each, so the shards are slices of the very
     weights that ``init_params(cfg, seed)`` gives, and no rank ever holds
-    the whole model."""
+    the whole model.
+
+    On ``device="meta"`` (the dry run, ``launch.dryrun``: the counterpart
+    of ``jax.eval_shape(init_params)``) the leaves are placed as above and
+    nothing is drawn or allocated: a meta generator cannot draw."""
     dev = resolve_device(device)
     shapes = {n: tuple(p.shape) for n, p in CausalLM(cfg, device="meta").named_parameters()}
     plan = None
@@ -241,6 +245,8 @@ def init_params(cfg, seed: int = 0, device="cuda", ctx=None, rank=None) -> Causa
         for name, p in list(model.named_parameters()):
             local = cut(p, leaf_cuts[name])  # zero heads of a padded leaf stay 0
             set_param(model, name, torch.zeros(local.shape, dtype=p.dtype, device=dev))
+    if dev.type == "meta":
+        return model if plan is None else place(model, plan, rank)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def normal(name, t, scale):

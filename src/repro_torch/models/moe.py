@@ -132,9 +132,11 @@ def experts_apply(p: MoE, xt, gates, ids, C: int, e0: int = 0):
         ids = torch.where((ids >= 0) & (ids < E), ids, torch.full_like(ids, E))
     order, slot, valid = dispatch(ids, E, C)
     tok = order // k  # the token of each sorted assignment
-    buf = xt.new_zeros(E * C, D)
-    buf[slot[valid]] = xt[tok[valid]]  # kept slots are distinct
-    buf = buf.view(E, C, D)
+    # kept slots are distinct; the dropped assignments all land in one spare
+    # row past the buffer (shapes that do not depend on how many are kept)
+    buf = xt.new_zeros(E * C + 1, D)
+    buf[torch.where(valid, slot, torch.full_like(slot, E * C))] = xt[tok]
+    buf = buf[:E * C].view(E, C, D)
     h = F.silu(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
     yb = torch.bmm(h, p.w_down).view(E * C, D)
     contrib = torch.where(valid[:, None], yb[slot], yb.new_zeros(())).float()
@@ -150,7 +152,9 @@ def experts_apply(p: MoE, xt, gates, ids, C: int, e0: int = 0):
 
 def aux_loss(probs, ids, E: int):
     """Switch-style load-balance loss: E * sum_e f_e * P_e."""
-    counts = torch.bincount(ids.reshape(-1), minlength=E).float()
+    flat = ids.reshape(-1)
+    counts = torch.zeros(E, device=ids.device).index_add_(
+        0, flat, torch.ones(flat.shape, device=ids.device))
     f_e = counts / counts.sum().clamp_min(1.0)
     return E * torch.sum(f_e * probs.mean(dim=0))
 

@@ -52,6 +52,13 @@ H100 an all-reduce of a decode step's 64 KB takes 35 ms through gloo and
 --phases collectives``). Every rank gets the same bits
 from a collective, so ranks that start from the same inputs take the same
 decisions (``serving.workers``).
+
+Meta tensors (the dry run, ``launch.dryrun``, on a
+``context.MeshStandIn``) take a meta transport: no process group is
+reached, each collective returns a meta result of the right shape and adds
+its kind and result bytes to the active op counter
+(``utils.op_cost.record_collective``), as the reference's
+``hlo_stats.collective_stats`` counts an HLO collective's result.
 """
 from __future__ import annotations
 
@@ -60,6 +67,8 @@ import contextlib
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.utils import op_cost
 
 counts: collections.Counter = collections.Counter()
 
@@ -148,6 +157,9 @@ def same_card(x: torch.Tensor, group):
 
 def _reduce(x: torch.Tensor, group) -> torch.Tensor:
     """Sum ``x`` over ``group`` in place."""
+    if x.is_meta:
+        op_cost.record_collective("all-reduce", op_cost.tensor_bytes(x))
+        return x
     t = same_card(x, group)
     if t is not None:
         return t.all_reduce(x)
@@ -158,6 +170,9 @@ def _reduce(x: torch.Tensor, group) -> torch.Tensor:
 def _gather(x: torch.Tensor, n: int, group) -> list:
     """The ``n`` ranks' ``x`` of ``group``, in rank order."""
     x = x.contiguous()
+    if x.is_meta:
+        op_cost.record_collective("all-gather", n * op_cost.tensor_bytes(x))
+        return [torch.empty_like(x) for _ in range(n)]
     t = same_card(x, group)
     if t is not None:
         return t.all_gather(x)
@@ -183,6 +198,13 @@ def all_gather(x: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
 def _reduce_scatter(x: torch.Tensor, dim: int, n: int, rank: int, group) -> torch.Tensor:
     """The sum over ``group`` of ``x``, cut in ``n`` along ``dim``: piece
     ``rank``."""
+    if x.is_meta:
+        shape = list(x.shape)
+        shape[dim] //= n
+        out = x.new_empty(shape)
+        op_cost.record_collective("reduce-scatter", op_cost.tensor_bytes(out))
+        counts["reduce_scatter"] += 1
+        return out
     if dist.get_backend(group) == "nccl":
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))

@@ -33,6 +33,11 @@ attends over its piece and merges the ranks' partial softmax states
 ``"pipeline"`` (``{"stages": S, "microbatches": M}``, the circular
 pipeline of ``sharding.pipeline``) in train mode, and ``"moe_2d"`` (the
 reference's weight-stationary 2-D MoE, ``models.moe``) in every mode.
+
+``MeshStandIn`` is a mesh of any size seen from one of its ranks, with no
+process group behind it: the dry run (``launch.dryrun``) builds a rank's
+shard of a production mesh with it on the meta device, where the
+collectives take their meta transport (``sharding.collectives``).
 """
 from __future__ import annotations
 
@@ -51,6 +56,50 @@ def axis_sizes(mesh) -> Dict[str, int]:
     if names is not None:
         return dict(zip(names, (int(n) for n in mesh.shape)))
     return {str(k): int(v) for k, v in dict(mesh.shape).items()}
+
+
+class GroupStandIn:
+    """The process group of ``MeshStandIn``'s axes ``axes``, of ``size``
+    ranks: what the collectives' meta transport is handed."""
+
+    def __init__(self, axes: Tuple[str, ...], size: int):
+        self.axes, self.size = tuple(axes), int(size)
+
+    def __repr__(self):
+        return f"GroupStandIn({self.axes}, {self.size})"
+
+
+class MeshStandIn:
+    """A mesh of axis sizes ``shape`` (name -> size, in mesh order) seen
+    from rank ``rank``, with no process group: the rank sits at its
+    row-major coordinates over the axes, as ``launch.mesh`` places rank r
+    (``get_local_rank``); ``get_group`` and ``data_groups`` (the batch
+    axes' product group where more than one spans more than one device)
+    hand out ``GroupStandIn``s. Only meta tensors run collectives over
+    them (``sharding.collectives``)."""
+
+    def __init__(self, shape: Dict[str, int], rank: int = 0):
+        self.shape = {str(k): int(v) for k, v in dict(shape).items()}
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        if not 0 <= rank < n:
+            raise ValueError(f"rank {rank} outside a mesh of {n}")
+        self.rank, coords, r = rank, {}, rank
+        for name in reversed(list(self.shape)):
+            r, coords[name] = divmod(r, self.shape[name])
+        self.coords = coords
+        split = tuple(a for a in self.shape if a in ("pod", "data") and self.shape[a] > 1)
+        size = 1
+        for a in split:
+            size *= self.shape[a]
+        self.data_groups = {split: GroupStandIn(split, size)} if len(split) > 1 else {}
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def get_group(self, axis: str) -> GroupStandIn:
+        return GroupStandIn((axis,), self.shape[axis])
 
 
 @dataclass(frozen=True)

@@ -413,11 +413,11 @@ def test_mla_decode_kernel_matches_plain_on_card(dtype, Smax, shared, T):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G", [8, 4])
+@pytest.mark.parametrize("G", [8, 4, 2, 1])
 @pytest.mark.parametrize("T", [1, 5])
 def test_mla_kernels_at_a_ranks_heads_on_card(dtype, G, T):
     """A model rank's heads of deepseek-v2-lite on one latent head (G = 8
-    at a model axis of 2, 4 at 4): 8 slots against a 1024-entry cache, the
+    at a model axis of 2, 4 at 4, 2 at 8, 1 at 16): 8 slots against a 1024-entry cache, the
     decode step (T = 1, a slot parked at Smax) and the verify (T = 5, causal
     at per-row offsets), through ``ops.flash_attention``, which sends them
     to ``mla_attention`` and never flash or decode; then two latent heads
@@ -461,7 +461,7 @@ def test_mla_kernels_refuse_other_groups_on_card():
     from repro_torch.kernels import mla_attention as mmod
     dev = _card()
     for dtype in ("float32", "bfloat16"):
-        for G in (2, 6, 32):
+        for G in (3, 6, 32):
             q = _randn(53, (2, 1, G, 576), dtype, dev)
             k = _randn(54, (2, 64, 1, 576), dtype, dev)
             before = mmod.mla_attention.launches

@@ -47,7 +47,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                  "fleet.workloads", "fleet.population", "fleet.report", "data.pipeline",
                  "training.optimizer", "training.checkpoint", "training.train_loop",
                  "sharding.pipeline", "launch.train", "models.convnet", "launch.sharded",
-                 "sharding.collectives", "sharding.placement", "launch.mesh"):
+                 "sharding.collectives", "sharding.placement", "launch.mesh", "launch.dryrun",
+                 "utils.op_cost", "kernels.cost"):
         assert f"repro_torch.{name}" in got["modules"]
 
 
@@ -68,7 +69,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                                     "repro_torch.fleet.replay", "repro_torch.models.convnet",
                                     "repro_torch.launch.sharded", "repro_torch.launch.train",
                                     "repro_torch.training.train_loop",
-                                    "repro_torch.training.checkpoint"])
+                                    "repro_torch.training.checkpoint",
+                                    "repro_torch.launch.dryrun", "repro_torch.utils.op_cost",
+                                    "repro_torch.kernels.cost"])
 def test_scheduled_path_modules_load_no_jax_and_no_repro(module):
     """Each module of the scheduled, speculative and joint-planning paths, of
     the closed loop, of the MoE layer, of the encoder-decoder and hybrid

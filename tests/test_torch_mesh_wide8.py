@@ -1,10 +1,13 @@
-"""GQA serving at the shipped head ratios on a model axis of 8, in the port,
-on eight gloo CPU ranks (a (1, 8) mesh), against the JAX package.
+"""GQA and MLA serving at the shipped head ratios on a model axis of 8, in
+the port, on eight gloo CPU ranks (a (1, 8) mesh), against the JAX package.
 
 tinyllama-1.1b's 32 query heads on 4 kv heads (each kv head whole on 2
 ranks, 4 query heads per rank) and qwen2-7b's 28 on 4 (each group of 7
 padded with a zero head to 8, 4 per rank), at the reduced configs' width
-but a head dim of 8, fp32, weights from the JAX package's ``init_params``.
+but a head dim of 8, and deepseek-v2-lite-16b's 16 MLA heads (2 per rank,
+the absorbed decode at G = 2 on the latent held whole; its reduced
+experts whole on every rank), at the reduced config's widths, fp32,
+weights from the JAX package's ``init_params``.
 One spawn of eight ranks runs ``ModelWorker.generate`` and the continuous
 FIFO engine: every rank's greedy tokens equal the port's unsharded run's
 and its prefill logits lie within 1e-5 of each row's largest |logit|; the
@@ -26,13 +29,15 @@ from repro.models import model as jax_model  # noqa: E402
 from repro.serving.workers import ModelWorker as JaxWorker  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import base as configs  # noqa: E402
+from repro_torch.launch.dryrun import rank_bytes  # noqa: E402
 from repro_torch.launch.sharded import engine_rank, generate_rank, run_ranks, serve_job  # noqa: E402
 from repro_torch.serving.workers import ModelWorker  # noqa: E402
 from repro_torch.sharding.context import ExecContext  # noqa: E402
 
 M = 8
 HEADS = {"tinyllama-1.1b": dict(num_heads=32, num_kv_heads=4, head_dim=8),
-         "qwen2-7b": dict(num_heads=28, num_kv_heads=4, head_dim=8)}
+         "qwen2-7b": dict(num_heads=28, num_kv_heads=4, head_dim=8),
+         "deepseek-v2-lite-16b": dict(num_heads=16, num_kv_heads=16)}
 MAX_LEN, SLOTS = 24, 4
 REQS = [(8, 4), (11, 3), (5, 4), (9, 2)]  # (prompt, max_new)
 GEN_B, GEN_S, GEN_NEW = 2, 7, 4
@@ -128,3 +133,16 @@ def test_eight_ranks_match_unsharded(ranks, arch):
         np.testing.assert_array_equal(got["logits"], ranks[0][1][i]["logits"])
         err = np.abs(got["logits"] - want["logits"])
         assert (err <= LOGIT_TOL * scale).all(), float((err / scale).max())
+
+
+@pytest.mark.parametrize("arch", list(HEADS))
+def test_rank_bytes_equal_the_dry_run_count(ranks, arch):
+    """Every rank's parameters and slot pool hold exactly the bytes that the
+    dry run counts for its shard on the meta device
+    (``launch.dryrun.rank_bytes``): qwen2's padded heads, the kv heads
+    whole on 2 ranks, deepseek's latent whole on every rank."""
+    i = list(HEADS).index(arch)
+    cfg = _pair(arch)[2]
+    for rank, (_, eng) in enumerate(ranks):
+        assert eng[i]["rank_bytes"] == rank_bytes(cfg, {"data": 1, "model": M}, rank, SLOTS,
+                                                  MAX_LEN), rank

@@ -2,7 +2,9 @@
 against the JAX package on the CPU: the plain version at the kernels' shape
 (16 query heads on one latent head, Dk 576, Dv 512) at T = 1, 2 and 5 query
 positions per row against the Pallas flash kernel in interpret mode, row by
-row (the Pallas wrapper takes one scalar ``q_offset``); the dispatch that
+row (the Pallas wrapper takes one scalar ``q_offset``), and at a model
+rank's 2 and 1 heads (M = 8, 16) against the Pallas decode and flash
+kernels; the dispatch that
 sends every MLA shape to ``mla_attention``; ``mla_route``; and the verify
 and decode branches of ``mla_decode`` at the kernels' shape against the
 JAX package's. fp32 throughout, tolerance 3e-5 for attention alone (the
@@ -19,6 +21,7 @@ jax = pytest.importorskip("jax")  # the reference; the GPU machine has no JAX
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import base as jax_configs  # noqa: E402
+from repro.kernels.decode_attention import decode_attention as jax_decode  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
 from repro.models import attention as jax_att  # noqa: E402
 from repro_torch.configs import base as configs  # noqa: E402
@@ -107,6 +110,42 @@ def test_ops_sends_every_mla_shape_to_mla_attention(Sq, monkeypatch):
     # a model rank's 8 or 4 heads on the latent head are MLA shapes too; 6 is not
     assert mmod.is_mla_shape(q, k, v) and not mmod.is_mla_shape(q[:, :, :6], k, v)
     assert all(mmod.is_mla_shape(q[:, :, :g], k, v) for g in mmod.MLA_GROUPS)
+
+
+@pytest.mark.parametrize("G", [2, 1])
+@pytest.mark.parametrize("T", [1, 3])
+def test_mla_at_a_ranks_two_and_one_heads_matches_pallas(G, T):
+    """A model rank's 2 (M = 8) or 1 (M = 16) of deepseek-v2-lite's 16 heads
+    on the latent head: an MLA shape, which ``ops.flash_attention`` sends to
+    ``mla_attention`` (the plain version on the CPU, no launch counted); at
+    T = 1 (the decode step, per-row positions, the values the latent rows'
+    first 512 columns) against the Pallas decode kernel and at T = 3 (the
+    verify, causal) against the Pallas flash kernel, both in interpret
+    mode, row by row."""
+    B, Smax = 4, 80
+    r = np.random.default_rng(10 * G + T)
+    q = r.standard_normal((B, T, G, 576)).astype(np.float32)
+    k = r.standard_normal((B, Smax, 1, 576)).astype(np.float32)
+    offs = np.asarray([0, 33, 64, Smax - T], np.int32)
+    if T == 1:
+        ref = np.concatenate([np.asarray(jax_decode(
+            jnp.asarray(q[b:b + 1]), jnp.asarray(k[b:b + 1]), jnp.asarray(k[b:b + 1, ..., :512]),
+            q_offset=int(offs[b]), kv_len=int(offs[b]) + 1, scale=SCALE, block_k=32),
+            np.float32) for b in range(B)])
+        kw = dict(causal=False, q_offset=torch.from_numpy(offs),
+                  kv_len=torch.from_numpy(offs + 1), scale=SCALE)
+    else:
+        ref = np.concatenate([np.asarray(jax_flash(
+            jnp.asarray(q[b:b + 1]), jnp.asarray(k[b:b + 1]), jnp.asarray(k[b:b + 1, ..., :512]),
+            causal=True, q_offset=int(offs[b]), scale=SCALE), np.float32) for b in range(B)])
+        kw = dict(causal=True, q_offset=torch.from_numpy(offs), scale=SCALE)
+    tq, tk = torch.from_numpy(q), torch.from_numpy(k)
+    assert G in mmod.MLA_GROUPS and mmod.is_mla_shape(tq, tk, tk[..., :512])
+    _close(mmod.mla_attention_plain(tq, tk, tk[..., :512], **kw), ref, KERNEL_TOL)
+    before = mmod.mla_attention.launches
+    _close(ops.flash_attention(tq, tk, tk[..., :512], **kw), ref, KERNEL_TOL)
+    assert mmod.mla_attention.launches == before
+    assert mmod.mla_checks(tq, tk, tk[..., :512]) == ("mla_attention_fwd_fp32", True)
 
 
 def test_mla_route_by_dtype():
