@@ -216,11 +216,16 @@ Phases:
                 memory per rank
  17. mesh_wide  tinyllama-1.1b, gemma2-2b and qwen2-7b at full width on
                 eight ranks of the one card (a model axis of 8 over their 4
-                kv heads: each kv head whole on 2 ranks, qwen2's groups of
-                7 query heads padded with a zero head), and
-                deepseek-v2-lite-16b (2 MLA heads a rank: the MLA kernels
-                at G = 2, launched on every rank), fp32 (2 layers) and bf16
-                (8 layers) judged as mesh_families; the ranks holding a
+                kv heads: each kv head's projections whole on 2 ranks, its
+                K/V cache cut on its sequence over them, qwen2's groups of 7
+                query heads padded with a zero head), and
+                deepseek-v2-lite-16b (2 MLA heads a rank, its latent cut on
+                its sequence in 8), fp32 (2 layers) and bf16 (8 layers)
+                judged as mesh_families; every decode through the piece
+                modes (the decode kernel's at the group's 8, 2 or 8 heads,
+                the MLA kernels' at 16), launched and merged over the kv
+                group once per attention layer per step on every rank, the
+                whole-cache decode kernels never; the ranks holding a
                 padded head check that it adds nothing; every rank's
                 parameter and slot-pool bytes equal the dry run's count
  18. dryrun     the production mesh's dry run (``repro_torch.launch.dryrun``)
@@ -238,7 +243,9 @@ Phases:
                 decode at a
                 mesh_wide rank's heads (with that phase's launches); the SSD
                 scan on 40 heads
-                (a rank's) at B 8 S 512, and at the scheduled
+                (a rank's) at B 8 S 512; the MLA piece mode at 16 heads over
+                the first piece of 1024 latent rows cut in 8 and in 2 (with
+                the mesh_wide phase's launches); the SSD scan at the scheduled
                 serve's (B, S) (``SSD_SERVE``, and any other this run's
                 scheduled phase gave it); flash and decode at the
                 encdec_hybrid serve's seamless and jamba shapes, and at
@@ -334,6 +341,9 @@ MAMBA = dict(H=80, P=64, N=128, chunk=256)     # mamba2-2.7b SSD heads
 SSD_SERVE = ((1, 64, 0), (2, 256, 56), (2, 512, 0), (4, 128, 32))
 DECODE_POS = (0, 1, 63, 64, 500, 1023, 2046, 2047)
 QWEN2 = dict(H=28, Hkv=4, D=128, softcap=None)  # qwen2-7b attention, G = 7
+# a kv group's gathered heads of qwen2-7b at a model axis of 8: its 7 query
+# heads padded to 8, on its one kv head (the decode kernel's piece mode)
+QWEN2_GROUP = dict(H=8, Hkv=1, D=128, softcap=None)
 # deepseek-v2-lite-16b: the naive-form MLA prefill (16 heads, Dk = nope +
 # rope = 192, Dv 128) and the absorbed attention of the decode and the
 # verify (16 heads on one latent head of 512 + 64, values its first 512
@@ -424,6 +434,11 @@ SOURCES = {
     # on its sequence (the serve_mesh phase's odd buckets)
     "decode_attention_piece": ("src/repro_torch/kernels/csrc/decode_attention_piece.cu",
                                "src/repro/kernels/decode_attention.py:87"),
+    # the MLA kernels' piece mode: a rank's piece of a latent cut on its
+    # sequence over the model ranks (the mesh_wide and serve_mesh deepseek
+    # arms); at T > 1 also flash's place (flash_attention.py:106)
+    "mla_attention_piece": ("src/repro_torch/kernels/csrc/mla_attention_bf16.cu",
+                            "src/repro/kernels/decode_attention.py:87"),
 }
 
 
@@ -610,8 +625,8 @@ def phase_kernels(torch, report):
     from repro_torch.kernels import ssd_scan as smod
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}, "mla_attention": {},
-            "decode_attention_piece": {}}
-    verify_errs, kimi_errs, rank_errs = {}, {}, {}
+            "decode_attention_piece": {}, "mla_attention_piece": {}}
+    verify_errs, kimi_errs, rank_errs, piece_errs = {}, {}, {}, {}
     misses = []
 
     def compare(kernel, case, dtype, out, ref, tols=TOL):
@@ -689,6 +704,16 @@ def phase_kernels(torch, report):
             # halves, cast once, against the whole-cache kernel at the dtype's
             compare("decode_attention_piece", f"{case} {dtype}", dtype, out, ref,
                     TOL if case.endswith("merged vs whole") else PIECE_TOL)
+        for case, out, ref in mla_piece_cases(torch, gen, mmod, dtype):
+            # as the decode kernel's piece mode: fp32 o and lse against the
+            # plain version at fp32's tolerance; the merged pieces against
+            # the whole-cache MLA kernel at the dtype's
+            compare("mla_attention_piece", f"{case} {dtype}", dtype, out, ref,
+                    TOL if case.endswith("merged vs whole") else PIECE_TOL)
+            if not case.endswith("merged vs whole"):
+                key = f"{case.rsplit(' ', 1)[-1]} {str(dtype).split('.')[-1]}"  # o or lse
+                piece_errs[key] = max(piece_errs.get(key, 0.0),
+                                      float((out.float() - ref.float()).abs().max()))
         for case, (y, h), (ry, rh) in ssd_edge_cases(torch, gen, smod, dtype):
             compare("ssd_scan", f"{case} {dtype} y", dtype, y, ry, SSD_TOL)
             compare("ssd_scan", f"{case} {dtype} state", torch.float32, h, rh, SSD_TOL)
@@ -705,6 +730,8 @@ def phase_kernels(torch, report):
     log("flash at verify shapes, max abs err:", json.dumps(verify_errs))
     log(f"MLA at a model rank's heads (G = {', '.join(map(str, MLA_RANK_G))}), max abs err:",
         json.dumps(rank_errs))
+    log("MLA piece mode (G = 16) vs its plain version, o and lse, max abs err:",
+        json.dumps(piece_errs))
     log("MLA verify rows bit for bit equal to decode steps at the same positions: "
         f"{not any('verify row' in m for m in misses)}")
     if misses:
@@ -1138,7 +1165,8 @@ def piece_cases(torch, gen, dmod, dtype):
     (o, then lse, each fp32) at the serve_mesh phase's shapes, every piece
     of a cache cut in D = 2: tinyllama's and gemma2's heads (softcap 50, and
     a window of 256 that crosses the halves' boundary from rows at 1023 and
-    beyond), 8 rows at DECODE_POS over 2048; the odd bucket's 3 rows of
+    beyond) and qwen2's padded kv group (QWEN2_GROUP: G = 8 at D 128, what
+    a rank of the mesh_wide phase gathers), 8 rows at DECODE_POS over 2048; the odd bucket's 3 rows of
     tinyllama over 1024 (PIECE_ODD; the second half keeps no key), at
     per-row and at one shared position; then the merged halves
     (``collectives.merge_states``, cast once) against the whole-cache
@@ -1146,6 +1174,7 @@ def piece_cases(torch, gen, dmod, dtype):
     from repro_torch.sharding.collectives import merge_states
     shapes = [("tinyllama", TINY, DECODE_POS, 2048, None), ("gemma2", GEMMA, DECODE_POS, 2048, None),
               ("gemma2", GEMMA, DECODE_POS, 2048, 256),
+              ("qwen2 padded group", QWEN2_GROUP, DECODE_POS, 2048, None),
               ("odd bucket tinyllama", TINY, PIECE_ODD["pos"], PIECE_ODD["Smax"], None),
               ("odd bucket tinyllama shared", TINY, (PIECE_ODD["pos"][-1],) * 3, PIECE_ODD["Smax"],
                None)]
@@ -1161,7 +1190,61 @@ def piece_cases(torch, gen, dmod, dtype):
             yield f"{case} lse", lse, plse
             states.append(torch.cat([o, lse[..., None]], dim=-1))
         yield (f"{name} Smax={Smax} w={window} merged vs whole",
-               merge_states(torch.stack(states)).to(dtype), dmod.decode_attention(q, k, v, **kw))
+               merge_states(torch.stack(states))[0].to(dtype), dmod.decode_attention(q, k, v, **kw))
+
+
+def mla_piece_inputs(torch, gen, T, pos_list, Smax, P, dtype):
+    """q (B,T,16,576) and a latent (B,Smax,1,576) (``mla_inputs``), the
+    latent cut on its sequence in P pieces of ceil(Smax / P) rows (the last
+    zero-padded): (q, k, v, [(k_start, piece)], pos), the values the first
+    512 columns of the whole latent and of each piece."""
+    B = len(pos_list)
+    q, k, v = mla_inputs(torch, gen, B, T, Smax, dtype)
+    n = -(-Smax // P)
+    pieces = []
+    for p in range(P):
+        m = max(0, min(n, Smax - p * n))
+        kp = torch.zeros((B, n) + tuple(k.shape[2:]), dtype=dtype, device="cuda")
+        kp[:, :m] = k[:, p * n:p * n + m]
+        pieces.append((p * n, kp))
+    return q, k, v, pieces, torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+
+
+def mla_piece_cases(torch, gen, mmod, dtype):
+    """(case, kernel output, plain output) of the MLA kernels' piece mode at
+    G = 16 (o, then lse, each fp32): 8 rows over a latent of 1024 rows cut
+    in MLA_PIECES pieces, the decode step (T = 1 at DECODE_POS clipped to
+    the cache, the last slot parked at 1024, kv_len = position + 1 at most
+    the cache) and a T = 5 verify (causal at ``verify_offsets``, rows past
+    the cache included, kv_len the cache), where rows 0-3 keep no key of the
+    later pieces; then every row at positions below the first of 8 pieces,
+    so that the other 7 keep no key of any row (o 0, lse -1e30); each set of
+    pieces merged (``collectives.merge_states``, cast once) against the
+    whole-cache MLA kernel."""
+    from repro_torch.sharding.collectives import merge_states
+    Smax, B = 1024, len(DECODE_POS)
+    decode = [min(p, Smax - 1) for p in DECODE_POS[:-1]] + [Smax]
+    early = (0, 5, 17, 63, 64, 100, 126, 127)
+    cases = [(f"decode P={P}", 1, decode, P) for P in MLA_PIECES] + [
+        (f"verify T=5 P={P}", 5, verify_offsets(Smax, 5), P) for P in MLA_PIECES] + [
+        ("decode empty pieces P=8", 1, early, 8)]
+    for name, T, pos_list, P in cases:
+        q, k, v, pieces, pos = mla_piece_inputs(torch, gen, T, pos_list, Smax, P, dtype)
+        if T == 1:
+            kw = dict(causal=False, q_offset=pos, kv_len=torch.clamp(pos + 1, max=Smax))
+        else:
+            kw = dict(causal=True, q_offset=pos, kv_len=Smax)
+        kw["scale"] = MLA_SCALE
+        states = []
+        for i, (start, kp) in enumerate(pieces):
+            vp = kp[..., :MLA_DECODE["Dv"]]
+            o, lse = mmod.mla_attention_piece(q, kp, vp, k_start=start, **kw)
+            po, plse = mmod.mla_attention_piece_plain(q, kp, vp, k_start=start, **kw)
+            yield f"MLA piece {name} piece {i} o", o, po
+            yield f"MLA piece {name} piece {i} lse", lse, plse
+            states.append(torch.cat([o, lse[..., None]], dim=-1))
+        yield (f"MLA piece {name} merged vs whole",
+               merge_states(torch.stack(states))[0].to(dtype), mmod.mla_attention(q, k, v, **kw))
 
 
 def left_padded(torch, B, S):
@@ -1286,6 +1369,8 @@ def phase_times(torch, report):
     rows += wide_rank_times(torch, gen, flush, sdpa, report.get("mesh_wide", {}))
     rows += piece_times(torch, gen, flush,
                         report.get("launches_serve_mesh", {}).get("decode_attention_piece"))
+    rows += mla_piece_times(torch, gen, flush,
+                            report.get("launches_mesh_wide", {}).get("mla_attention_piece"))
     from repro_torch.kernels import ssd_scan as smod
     serve_shapes = [(B, S) for B, S, _ in SSD_SERVE] + sorted(report.get("ssd_calls", {}))
     for B, S in dict.fromkeys([(8, 512), (1, 512)] + serve_shapes):
@@ -1406,6 +1491,45 @@ def piece_times(torch, gen, flush, served):
             if half or "odd" in name:
                 row["shape"] = f"{'odd bucket ' if 'odd' in name else ''}half {half}"
             rows.append(row)
+    return rows
+
+
+def mla_piece_times(torch, gen, flush, served):
+    """The MLA kernels' piece mode, bf16, G = 16, the decode step of 8 rows
+    at DECODE_POS (clipped, the last parked) over the first piece of a
+    1024-row latent cut in 8 (128 rows, mesh_wide's model axis of 8) and
+    in 2 (512 rows): its device time, its plain version's, and its bound
+    (``kernels.cost.mla_piece_bound``: the latent rows the piece's rows
+    keep, q, and the fp32 o and lse, once each). ``library_ms`` is None: no
+    PyTorch call returns the log-sum-exp of 16 query heads on one 576-wide
+    latent head whose values are its first 512 columns (the efficient
+    attention that returns it needs as many kv heads as query heads and one
+    head dim for q, k and v). ``served``: the piece launches of rank 0's
+    bf16 arms of the mesh_wide phase."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels import mla_attention as mmod
+    bf16, rows, Smax = torch.bfloat16, [], 1024
+    pos_list = [min(p, Smax - 1) for p in DECODE_POS[:-1]] + [Smax]
+    for P in sorted(MLA_PIECES, reverse=True):
+        q, _, _, pieces, pos = mla_piece_inputs(torch, gen, 1, pos_list, Smax, P, bf16)
+        start, kp = pieces[0]
+        vp = kp[..., :MLA_DECODE["Dv"]]
+        kw = dict(k_start=start, causal=False, q_offset=pos, kv_len=torch.clamp(pos + 1, max=Smax),
+                  scale=MLA_SCALE)
+        kept = sum(max(0, min(p + 1, start + kp.shape[1], Smax) - start) for p in pos_list)
+        b_ms, b_by = cost.mla_piece_bound(pos_list, 1, kp.shape[1], start, "bfloat16", 2,
+                                          MLA_DECODE["H"])
+        row = dict(kernel="mla_attention_piece", model="mla", B=len(pos_list), S=Smax,
+                   pieces=P, piece_rows=kp.shape[1], kept_rows=kept, dtype="bfloat16",
+                   ms=time_ms(torch, lambda: mmod.mla_attention_piece(q, kp, vp, **kw), flush),
+                   plain_ms=time_ms(torch, lambda: mmod.mla_attention_piece_plain(q, kp, vp, **kw),
+                                    flush),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   call_ms=call_ms(torch, lambda: mmod.mla_attention_piece(q, kp, vp, **kw)),
+                   launches_per_serve=served)
+        if P != 8:
+            row["shape"] = f"1024 / {P}"
+        rows.append(row)
     return rows
 
 
@@ -1971,7 +2095,9 @@ def kernel_wrappers():
     from repro_torch.kernels import mla_attention as mmod
     from repro_torch.kernels import ssd_scan as smod
     return {"flash_attention": fmod.flash_attention, "decode_attention": dmod.decode_attention,
-            "ssd_scan": smod.ssd_scan, "mla_attention": mmod.mla_attention}
+            "ssd_scan": smod.ssd_scan, "mla_attention": mmod.mla_attention,
+            "decode_attention_piece": dmod.decode_attention_piece,
+            "mla_attention_piece": mmod.mla_attention_piece}
 
 
 def drive(fn, **kw):
@@ -1996,8 +2122,9 @@ def attention_launches_expected(eng):
     each decode and multi-position pass (an MLA verify launches no flash);
     an encoder-decoder model adds flash once per encoder layer and once per
     cross-attention per prefill, and decode once per cross-attention per
-    step. Draft workers included. Prompts and encoder inputs are longer
-    than one position here (a single query row goes to the decode kernel)."""
+    step. Draft workers included; no piece mode (one card holds whole
+    caches). Prompts and encoder inputs are longer than one position here
+    (a single query row goes to the decode kernel)."""
     workers = list(eng.workers.values()) + [s.worker for s in eng.spec.values()]
     gqa = [w for w in workers if not w.cfg.use_mla]
     mla = [w for w in workers if w.cfg.use_mla]
@@ -2011,7 +2138,8 @@ def attention_launches_expected(eng):
             + sum(attention_layers(w.cfg) * w.verify_calls for w in gqa),
             "decode_attention": sum(per_pass(w) * w.decode_calls for w in gqa),
             "mla_attention": sum(attention_layers(w.cfg) * (w.decode_calls + w.verify_calls)
-                                 for w in mla)}
+                                 for w in mla),
+            "decode_attention_piece": 0, "mla_attention_piece": 0}
 
 
 def check_responses(phase, eng, responses, n_expected, max_new):
@@ -4328,14 +4456,23 @@ MESH_FP32_FACTOR = 1.5
 # draft (FIFO: a scheduler-less engine always speculates) and FLEET's replay
 # of its first phone (the whole population's replays took ~30 s each); the
 # bucketed tinyllama on (2, 2); FIFO tinyllama on (pod 2, data 2, model 1),
-# the two 4-rank meshes in one spawn
+# the two 4-rank meshes in one spawn; and on (2, 2) deepseek-v2-lite-16b at
+# full width cut to 2 layers, fp32, FIFO on an odd pool of 7 slots, so that
+# its latent is cut on its sequence over both the model and the data ranks
+# (4 pieces) and its decode merges at both levels
 SERVE_MESH = dict(SERVE, names=("tinyllama-1.1b",), meshes=((2, 1), (2, 2), (2, 2, 1)),
                   dtypes=("float32", "bfloat16"), timeout=900.0,
                   arms={(2, 1): ("fifo", "bucketed tinyllama-1.1b", "bucketed mamba2-2.7b",
                                  "spec", "fleet"),
-                        (2, 2): ("fifo", "bucketed tinyllama-1.1b"), (2, 2, 1): ("fifo",)})
+                        (2, 2): ("fifo", "bucketed tinyllama-1.1b",
+                                 "fifo_odd deepseek-v2-lite-16b"), (2, 2, 1): ("fifo",)},
+                  arm_dtypes={"fifo_odd deepseek-v2-lite-16b": ("float32",)},
+                  odd=dict(max_slots=7, num_layers=2))
 MESH_BUCKETED = dict(requests=7, prompt_lens=(64, 200), max_new=8, max_slots=8, max_len=1024,
                      seed=0)
+# the MLA kernels' piece mode (kernels and times phases): a 1024-row latent
+# cut in 2 (a model axis of 2) and in 8 (mesh_wide's model axis of 8)
+MLA_PIECES = (2, 8)
 # the kernels and times phases' piece-mode shapes: tinyllama's and gemma2's
 # heads, 8 rows at DECODE_POS over a cache of 2048 cut in 2 halves, and the
 # odd bucket's (3 rows of tinyllama at MESH_BUCKETED's positions, 1024 in
@@ -4781,9 +4918,10 @@ def mesh_arm_job(arm, cfg):
     """The ``launch.sharded.serve_job`` / ``fleet_job`` job of a serve_mesh
     arm for ``cfg``'s dtype (weights drawn from the serve's seed)."""
     k = SERVE_MESH
-    if arm == "fifo":
+    if arm == "fifo" or arm.startswith("fifo_odd"):
         return dict(cfg=cfg, seed=k["seed"], requests=serve_requests(cfg, k),
-                    max_slots=k["max_slots"], max_len=k["max_len"])
+                    max_slots=k["odd"]["max_slots"] if arm != "fifo" else k["max_slots"],
+                    max_len=k["max_len"])
     if arm.startswith("bucketed"):
         b = MESH_BUCKETED
         return dict(cfg=cfg, seed=k["seed"], requests=mesh_bucketed_requests(cfg),
@@ -4803,8 +4941,14 @@ def mesh_arm_job(arm, cfg):
 
 def mesh_arm_cfg(arm, dtype):
     from repro_torch.configs.base import get_config
-    name = arm.split(" ")[1] if arm.startswith("bucketed") else SERVE_MESH["names"][0]
-    return dataclasses.replace(get_config(name), dtype=dtype, param_dtype=dtype)
+    name = arm.split(" ")[1] if " " in arm else SERVE_MESH["names"][0]
+    cut = dict(num_layers=SERVE_MESH["odd"]["num_layers"]) if arm.startswith("fifo_odd") else {}
+    return dataclasses.replace(get_config(name), dtype=dtype, param_dtype=dtype, **cut)
+
+
+def mesh_arm_dtypes(arm):
+    """The dtypes a serve_mesh arm runs in: SERVE_MESH's, or its own."""
+    return SERVE_MESH["arm_dtypes"].get(arm, SERVE_MESH["dtypes"])
 
 
 @contextlib.contextmanager
@@ -4862,13 +5006,17 @@ def mesh_arm_ref(torch, arm, cfg):
     return ref, gaps
 
 
-def mesh_launch_check(label, cfg, got, odd):
+def mesh_launch_check(label, cfg, got, odd, M=1):
     """A rank's launches against its passes: flash once per attention layer
     per prefill and verify (the truncated draft's one layer per draft
     prefill and catch-up), decode or its piece mode once per attention layer
     per single-token pass, the SSD scan once per layer per prefill of an SSD
     stack; the piece mode launched where a cache was cut on its sequence
-    (``odd``), and only there."""
+    (``odd``), and only there. An MLA stack at a model axis of ``M`` > 1
+    (its latent cut on its sequence over the model ranks): the MLA piece
+    mode once per attention layer per single-token pass, the whole-cache
+    MLA and decode kernels never, and one kv-group merge per launch."""
+    from repro_torch.sharding.context import kv_group_size
     n, L = attention_layers(cfg), got["launches"]
     if "calls" in got:  # a fleet replay: each device engine's worker
         p, d, v = (sum(c[i] for c in got["calls"]) for i in range(3))
@@ -4879,22 +5027,29 @@ def mesh_launch_check(label, cfg, got, odd):
     ssd = "ssd" in cfg.layer_kinds()
     want_flash = n * (p + v) + dp + dv
     want_dec = n * d + dd
+    mla = cfg.use_mla and M > 1
+    kv = want_dec if kv_group_size(cfg, M) > 1 else 0
     ok = (L["flash_attention"] == want_flash and L["mla_attention"] == 0
-          and L["decode_attention"] + L["decode_attention_piece"] == want_dec
+          and L["decode_attention"] + L["decode_attention_piece"] == (0 if mla else want_dec)
+          and L["mla_attention_piece"] == (want_dec if mla else 0)
           and L["ssd_scan"] == (cfg.num_layers * p if ssd else 0)
-          and (L["decode_attention_piece"] > 0) == (odd and n > 0))
+          and (L["decode_attention_piece"] > 0) == (odd and n > 0 and not mla)
+          and got.get("kv_merges", 0) == kv)
     if not ok:
-        raise SmokeFailure(f"{label}: launches {L}; expected flash {want_flash}, decode + piece "
-                           f"{want_dec}, piece {'> 0' if odd and n else '0'}, ssd "
-                           f"{cfg.num_layers * p if ssd else 0}")
+        raise SmokeFailure(f"{label}: launches {L}, kv-group merges {got.get('kv_merges')}; "
+                           f"expected flash {want_flash}, "
+                           + (f"MLA piece {want_dec}" if mla else
+                              f"decode + piece {want_dec}, piece {'> 0' if odd and n else '0'}")
+                           + f", ssd {cfg.num_layers * p if ssd else 0}, kv-group merges {kv}")
 
 
 def mesh_pool_check(label, arm, D, got):
     """A rank's slot pools hold only its own rows, ``max_slots / D``,
     where D divides the slots, and every row (the cache cut on its
     sequence) where it does not; the bucketed mode keeps no pool."""
-    slots = {"fifo": SERVE_MESH["max_slots"], "spec": SPEC["max_slots"],
-             "fleet": FLEET["max_slots"]}.get(arm)
+    slots = (SERVE_MESH["odd"]["max_slots"] if arm.startswith("fifo_odd") else
+             {"fifo": SERVE_MESH["max_slots"], "spec": SPEC["max_slots"],
+              "fleet": FLEET["max_slots"]}.get(arm))
     if slots is None:
         ok = got["pool_rows"] is None
     else:
@@ -4943,10 +5098,10 @@ def mesh_arm_check(label, arm, cfg, mesh, rank, got, ref, gaps):
         odd = any(b % D for b in got["batches"])
         if arm == "spec" and got["spec"] != ref["spec"] and exact:
             raise SmokeFailure(f"{label}: spec counters {got['spec']}, unsharded {ref['spec']}")
-    mesh_launch_check(label, cfg, got, odd)
+    mesh_launch_check(label, cfg, got, odd, mesh[-1])
     mesh_pool_check(label, arm, D, got)
-    row = {"launches": got["launches"], "merges": got["merges"], "diverged_uids": diverged,
-           "wall_s": got["wall_s"]}
+    row = {"launches": got["launches"], "merges": got["merges"],
+           "kv_merges": got.get("kv_merges"), "diverged_uids": diverged, "wall_s": got["wall_s"]}
     for key in ("prefill_calls", "decode_calls", "verify_calls", "batches", "spec",
                 "peak_mem_bytes", "shard", "pool_rows"):
         if key in got:
@@ -4972,7 +5127,10 @@ def phase_serve_mesh(torch, report):
     odd batch's cache cut on its sequence over the data axis, its decode
     through the piece mode and one merge per attention layer per step),
     full tinyllama with its truncated draft and FLEET's replay of its
-    first phone; the bucketed tinyllama on (2, 2). Each arm first runs
+    first phone; the bucketed tinyllama on (2, 2), and there deepseek-v2-lite
+    (2 layers, fp32) FIFO on an odd pool of 7 slots: its latent cut in 4
+    pieces over the model and data ranks, decoded by the MLA piece mode and
+    merged over the kv group, then the data group. Each arm first runs
     unsharded on the card (``mesh_arm_ref``); every rank's tokens
     equal its tokens in fp32, or each divergence sits at a near-tie of its
     own decision in bf16 (``token_check``); each rank's flash, decode and
@@ -4988,7 +5146,7 @@ def phase_serve_mesh(torch, report):
     build.load_library()
     refs = {}
     for arm in dict.fromkeys(a for arms in k["arms"].values() for a in arms):
-        for dt in k["dtypes"]:
+        for dt in mesh_arm_dtypes(arm):
             cfg = mesh_arm_cfg(arm, dt)
             t0 = time.perf_counter()
             refs[(arm, dt)] = (cfg,) + mesh_arm_ref(torch, arm, cfg)
@@ -4999,7 +5157,8 @@ def phase_serve_mesh(torch, report):
            "unsharded": {f"{a} {dt}": {key: r[1].get(key) for key in
                                        ("launches", "wall_s", "batches", "spec", "merges")}
                          for (a, dt), r in refs.items()}}
-    arms = {mesh: [(a, dt) for a in k["arms"][mesh] for dt in k["dtypes"]] for mesh in k["meshes"]}
+    arms = {mesh: [(a, dt) for a in k["arms"][mesh] for dt in mesh_arm_dtypes(a)]
+            for mesh in k["meshes"]}
     for world in dict.fromkeys(int(np.prod(m)) for m in k["meshes"]):
         meshes = [m for m in k["meshes"] if int(np.prod(m)) == world]
         plan = [(m, [mesh_arm_job(a, refs[(a, dt)][0]) for a, dt in arms[m]]) for m in meshes]
@@ -5076,21 +5235,25 @@ def families_job(cfg, spec=MESH_FAMILIES):
     return job
 
 
-def families_launches_expected(cfg, prefills, decodes):
+def families_launches_expected(cfg, prefills, decodes, cut=False):
     """Each kernel's launches for ``prefills`` prefill and ``decodes``
     single-token passes of ``cfg`` (every prompt and encoder input longer
     than one position): flash per attention layer per prefill, the
     encoder-decoder's encoder and cross-attention included; decode per
     attention (and cross-attention) layer per step, or the MLA kernel for
-    an MLA stack; the SSD scan per Mamba2 layer per prefill (Mamba1 runs
-    no kernel)."""
+    an MLA stack, in their piece modes where the rank's caches are cut on
+    their sequence over its kv group (``cut``) and the whole-cache kernels
+    never; the SSD scan per Mamba2 layer per prefill (Mamba1 runs no
+    kernel)."""
     n_attn = attention_layers(cfg)
     per_pass = n_attn * (2 if cfg.is_encoder_decoder else 1)
     enc = cfg.num_encoder_layers if cfg.is_encoder_decoder else 0
+    dec = 0 if cfg.use_mla else per_pass * decodes
+    mla = n_attn * decodes if cfg.use_mla else 0
     return {"flash_attention": (per_pass + enc) * prefills,
-            "decode_attention": 0 if cfg.use_mla else per_pass * decodes,
+            "decode_attention": 0 if cut else dec, "decode_attention_piece": dec if cut else 0,
             "ssd_scan": sum(k == "ssd" for k in cfg.layer_kinds()) * prefills,
-            "mla_attention": n_attn * decodes if cfg.use_mla else 0}
+            "mla_attention": 0 if cut else mla, "mla_attention_piece": mla if cut else 0}
 
 
 @contextlib.contextmanager
@@ -5191,6 +5354,7 @@ def families_arm(torch, job, ctx, device="cuda"):
     from repro_torch.sharding import collectives
     cfg = job["cfg"]
     sharded, bf16 = ctx.mesh is not None, cfg.dtype == "bfloat16"
+    cut = ctx.kv_group(cfg) > 1  # the rank's caches cut on their sequence
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5206,7 +5370,7 @@ def families_arm(torch, job, ctx, device="cuda"):
                                enc_inputs=frames, pad_mask=mask)
         res["gen"] = {"tokens": toks.tolist(), "launches": launches,
                       "expected": families_launches_expected(cfg, w.prefill_calls,
-                                                             w.decode_calls)}
+                                                             w.decode_calls, cut)}
         del w
 
     def replaying(routes, step):
@@ -5241,6 +5405,7 @@ def families_arm(torch, job, ctx, device="cuda"):
     eng.add_model(cfg.name, cfg, params, max_len=SERVE["max_len"], ctx=ctx, max_enc_len=max_enc)
     w = eng.workers[cfg.name]
     calls = collectives.all_reduce.calls, collectives.all_gather_last.calls
+    kv_merges = collectives.counts["merge_kv_group"]
     serve_replay = replaying(job.get("serve_routes"), "serve")
     force = sharded and bf16
     with (record_gaps(torch, eng, job["requests"], 0.0, prefills=True) if not sharded
@@ -5260,8 +5425,9 @@ def families_arm(torch, job, ctx, device="cuda"):
                     "errors": [r.error for r in resp if r.error]
                     + [r.uid for r in resp if len(r.tokens) != job["max_new"]],
                     "launches": launches,
-                    "expected": families_launches_expected(cfg, *passes),
+                    "expected": families_launches_expected(cfg, *passes, cut),
                     "prefill_calls": passes[0], "decode_calls": passes[1],
+                    "kv_merges": collectives.counts["merge_kv_group"] - kv_merges,
                     "all_reduces": collectives.all_reduce.calls - calls[0],
                     "all_gathers": collectives.all_gather_last.calls - calls[1],
                     "wall_s": wall, "peak_mem_bytes": peak,
@@ -5444,11 +5610,19 @@ def mesh_phase(torch, report, key, spec):
         if ref["serve"]["errors"] or ref["serve"]["launches"] != ref["serve"]["expected"]:
             raise SmokeFailure(f"{label} unsharded: errors {ref['serve']['errors']}, launches "
                                f"{ref['serve']['launches']}")
-        if cfg.use_mla:  # the MLA kernels at G = heads / M on every rank
-            mla = [a["serve"]["launches"]["mla_attention"] for a in mine]
-            if min(mla) == 0 or len(set(mla)) != 1:
-                raise SmokeFailure(f"{label}: MLA launches at G = {cfg.num_heads // world} per "
-                                   f"rank {mla}")
+        from repro_torch.sharding.context import kv_group_size
+        if kv_group_size(cfg, world) > 1:  # the caches cut over the kv group: the piece modes
+            kind = "mla_attention" if cfg.use_mla else "decode_attention"
+            piece = [a["serve"]["launches"][f"{kind}_piece"] for a in mine]
+            per_step = attention_layers(cfg) * (2 if cfg.is_encoder_decoder else 1)
+            merges = [(a["serve"]["kv_merges"], per_step * a["serve"]["decode_calls"])
+                      for a in mine]
+            whole = [a["serve"]["launches"][kind] for a in mine]
+            if (min(piece) == 0 or len(set(piece)) != 1 or any(m != w for m, w in merges)
+                    or any(whole)):
+                raise SmokeFailure(f"{label}: piece launches per rank {piece}, kv-group merges "
+                                   f"(got, attention layers x steps) {merges}, whole-cache "
+                                   f"{kind} launches {whole}")
         lscale = np.abs(ref["logits"]).max(axis=-1, keepdims=True)
         lerr = float((np.abs(mine[0]["logits"] - ref["logits"]) / lscale).max())
         row = {"uids": len(ref["serve"]["tokens"]), "logits_max_rel_err": lerr,
@@ -5525,17 +5699,18 @@ def phase_mesh_wide(torch, report):
 
 # the dryrun phase: the production mesh's dry run (launch.dryrun) of two
 # pairs on (16, 16) on the meta device: deepseek's decode (16 MLA heads on a
-# model axis of 16: the MLA kernels' meta route at G = 1) and tinyllama's
-# 500k decode (B 1: the K/V cut on its sequence over 16 data ranks, the
-# piece mode and the merge)
+# model axis of 16, the latent cut in 16: the MLA piece mode's meta route at
+# G = 16) and tinyllama's 500k decode (B 1: the K/V cut on its sequence
+# over 16 data ranks and each kv group of 4, the piece mode and the merges)
 DRYRUN = (("deepseek-v2-lite-16b", "decode_32k"), ("tinyllama-1.1b", "long_500k"))
 
 
 def phase_dryrun(torch, report):
     """``DRYRUN``'s pairs through ``launch.dryrun.run_one`` on the
     production (16, 16) mesh, on the meta device (no card memory): status
-    ok, deepseek's MLA kernel counted once per layer at G = 1, tinyllama's
-    piece mode once per layer; printed per pair: the rank's argument and
+    ok, deepseek's MLA piece mode counted once per layer at G = 16 (the
+    latent cut over the 16 model ranks), tinyllama's piece mode once per
+    layer; printed per pair: the rank's argument and
     temp GiB, FLOPs, bytes, collective bytes, the kernels' counts and the
     wall."""
     from repro_torch.configs.base import get_config
@@ -5546,7 +5721,7 @@ def phase_dryrun(torch, report):
         if rec["status"] != "ok":
             raise SmokeFailure(f"dryrun {arch} {shape}: {rec['status']} {rec.get('error')}")
         cfg = dryrun.config_for_shape(get_config(arch), shape)[0]
-        kernel = "mla_attention" if cfg.use_mla else "decode_attention_piece"
+        kernel = "mla_attention_piece" if cfg.use_mla else "decode_attention_piece"
         if rec["kernels"].get(kernel, {}).get("calls") != cfg.num_layers:
             raise SmokeFailure(f"dryrun {arch} {shape}: kernels {rec['kernels']}, expected "
                                f"{kernel} once per layer ({cfg.num_layers})")
@@ -5612,13 +5787,16 @@ def phase_collectives(torch, report):
 # each kernel's row of the times phase in the kernels line: (model, B, S)
 LINE_ROWS = {"flash_attention": ("tinyllama", 8, 512), "decode_attention": ("tinyllama", 8, 2048),
              "ssd_scan": ("mamba2", 8, 512), "mla_attention": ("mla", 8, 1024),
-             "decode_attention_piece": ("tinyllama", 8, 2048)}
+             "decode_attention_piece": ("tinyllama", 8, 2048),
+             "mla_attention_piece": ("mla", 8, 1024)}
 # each kernel's count on the path of its own slice: attention on the FIFO
 # serve path, the SSD scan on the scheduled path, the MLA attention on the
 # scheduled deepseek-v2-lite-16b serve with its draft (the spec phase), the
-# piece mode on rank 0 of the serve_mesh phase's bucketed tinyllama (2, 1)
+# piece mode on rank 0 of the serve_mesh phase's bucketed tinyllama (2, 1),
+# the MLA piece mode on rank 0 of the mesh_wide phase's bf16 arms (deepseek)
 MAIN_PATH = {"flash_attention": "serve", "decode_attention": "serve", "ssd_scan": "scheduled",
-             "mla_attention": "spec_deepseek", "decode_attention_piece": "serve_mesh"}
+             "mla_attention": "spec_deepseek", "decode_attention_piece": "serve_mesh",
+             "mla_attention_piece": "mesh_wide"}
 
 
 def kernels_line(report):

@@ -34,6 +34,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _FLASH = [_P] * 6 + [_I] * 9 + [_F, _F, _P]
 _MLA = [_P] * 8 + [_I] * 15 + [_F, _F, _P]
+_MLA_PIECE = [_P] * 9 + [_I] * 16 + [_F, _F, _P]
 ARGTYPES = {
     # q, k, v, o, q_offset, kv_len, B, Sq, Sk, H, Hkv, Dk, Dv, causal,
     # window, softcap, scale, stream
@@ -51,6 +52,12 @@ ARGTYPES = {
     # softcap, scale, stream
     "mla_attention_fwd_bf16": _MLA,  # tensor cores (mla_attention_bf16.cu)
     "mla_attention_fwd_fp32": _MLA,  # CUDA cores (decode_attention_mla.cu)
+    # the piece mode: q, k, v, o (fp32), q_offset, kv_len, lse (fp32), part,
+    # counters, B, T, Smax (the piece's rows), k_start, H, Hkv, Dk, Dv, k_row,
+    # v_row, v_head, v_shared, causal, window, n_splits, split_len, softcap,
+    # scale, stream
+    "mla_attention_piece_fwd_bf16": _MLA_PIECE,
+    "mla_attention_piece_fwd_fp32": _MLA_PIECE,
     # x, dA, dt, Bm, Cm, y, h_out, h_in, cdt, B, S, H, P, N, Q, stream
     "ssd_scan_fwd_bf16": [_P] * 9 + [_I] * 6 + [_P],  # tensor cores (ssd_scan_bf16.cu)
     # x, dA, dt, Bm, Cm, y, h_out, B, S, H, P, N, Q, stream

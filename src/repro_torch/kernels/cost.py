@@ -28,13 +28,15 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
-def key_span(qpos_first, qpos_last, kv_len, Sk, causal, window):
+def key_span(qpos_first, qpos_last, kv_len, Sk, causal, window, start=0):
     """Keys that some query of a row keeps, its queries at ``qpos_first``
     .. ``qpos_last`` (ints, or numpy arrays of them): from the first
     query's window start to the last query's end; with ``qpos_first ==
-    qpos_last`` the keys one query keeps."""
-    hi = np.minimum(np.minimum(kv_len, Sk), qpos_last + 1) if causal else np.minimum(kv_len, Sk)
-    lo = np.maximum(0, qpos_first - window + 1) if window else 0
+    qpos_last`` the keys one query keeps. The cache holds keys [start,
+    start + Sk) (a piece of a cut sequence; 0 for a whole cache)."""
+    end = np.minimum(kv_len, start + Sk)
+    hi = np.minimum(end, qpos_last + 1) if causal else end
+    lo = np.maximum(start, np.maximum(0, qpos_first - window + 1) if window else 0)
     return np.maximum(0, hi - lo)
 
 
@@ -87,16 +89,20 @@ def decode_work(B, Smax, H, Hkv, Dk, Dv, elem, *, window=None, q_offset=0, kv_le
 
 
 def mla_work(B, T, Smax, H, Hkv, Dk, Dv, elem, *, causal, window=None, q_offset=0, kv_len=None,
-             v_shared=True):
+             v_shared=True, k_start=None):
     """The absorbed-MLA kernels' call, T rows per slot: each latent row that
     some row keeps read once (its first Dv columns being the values where
     ``v_shared``, else the values read beside it), q and o once; 2·H·(Dk +
-    Dv) FLOPs per kept (row, key) pair."""
-    qo, kl = _rows(q_offset, B, 0), _rows(kv_len, B, Smax)
+    Dv) FLOPs per kept (row, key) pair. With ``k_start`` the piece mode:
+    the cache holds keys [k_start, k_start + Smax), ``q_offset`` and
+    ``kv_len`` are global, and o and the log-sum-exp are written in fp32."""
+    start = 0 if k_start is None else k_start
+    qo, kl = _rows(q_offset, B, 0), _rows(kv_len, B, start + Smax)
     qpos = qo[:, None] + np.arange(T)
-    pairs = int(key_span(qpos, qpos, kl[:, None], Smax, causal, window).sum())
-    rows = int(key_span(qo, qo + T - 1, kl, Smax, causal, window).sum())
-    nbytes = elem * (rows * Hkv * (Dk + (0 if v_shared else Dv)) + B * T * H * (Dk + Dv))
+    pairs = int(key_span(qpos, qpos, kl[:, None], Smax, causal, window, start).sum())
+    rows = int(key_span(qo, qo + T - 1, kl, Smax, causal, window, start).sum())
+    nbytes = elem * (rows * Hkv * (Dk + (0 if v_shared else Dv)) + B * T * H * Dk)
+    nbytes += elem * B * T * H * Dv if k_start is None else 4 * B * T * H * (Dv + 1)
     return 2 * H * (Dk + Dv) * pairs, nbytes
 
 
@@ -153,6 +159,15 @@ def mla_bound(offs, T, Smax, dtype_name, elem, H, Hkv=1, Dk=576, Dv=512):
     offs = np.asarray(offs, dtype=np.int64)
     return bound(*mla_work(len(offs), T, Smax, H, Hkv, Dk, Dv, elem, causal=True, q_offset=offs),
                  dtype_name)
+
+
+def mla_piece_bound(offs, T, Sp, k_start, dtype_name, elem, H, Hkv=1, Dk=576, Dv=512):
+    """The MLA kernels' piece mode: T causal rows per slot at ``offs`` (T =
+    1: kv_len = offs + 1) over the piece of ``Sp`` latent rows from
+    ``k_start``, o and the log-sum-exp written in fp32."""
+    offs = np.asarray(offs, dtype=np.int64)
+    return bound(*mla_work(len(offs), T, Sp, H, Hkv, Dk, Dv, elem, causal=True, q_offset=offs,
+                           k_start=k_start), dtype_name)
 
 
 def verify_bound(offs, T, Smax, H, Hkv, D, window, dtype_name, elem):

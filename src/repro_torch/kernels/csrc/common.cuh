@@ -37,6 +37,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // 2^x on the special-function unit (relative error ~2^-22); 2^-1e30 is 0
 __device__ __forceinline__ float fast_exp2(float x) {

@@ -39,14 +39,16 @@
 // - Masked keys are never read; a row that keeps no key writes 0, and no
 //   merge ever computes inf - inf (live splits have a finite m).
 //
-// Piece mode (decode_attention_piece_fwd): the cache is one data rank's
-// piece of a sequence cut over the data ranks, its key j at global
-// position k_start + j. q_offset, kv_len and the window stay global: the
+// Piece mode (decode_attention_piece_fwd): the cache is one rank's piece
+// of a sequence cut over the ranks (those that share a kv head, the data
+// ranks, or both), its key j at global position k_start + j; q holds every
+// query head of the kv head. q_offset, kv_len and the window stay global: the
 // block maps its row's kept range [k_lo, kv_len) into the piece. Instead of
 // the normalised output in the input's dtype it writes each (row, q head)'s
 // fp32 output normalised over the piece's kept keys and its fp32
 // log-sum-exp m + log l (natural log), for the merge across the ranks
-// (sharding/collectives.py, merge_attention). A row that keeps no key of
+// (sharding/collectives.py, merge_kv_group, merge_attention); the MLA
+// kernels' piece mode writes the same. A row that keeps no key of
 // the piece writes o = 0 and lse = -1e30, a finite floor, so the merge
 // never computes inf - inf. The whole-cache entry (decode_attention.cu)
 // compiles the same template with k_start 0 and its own output, so its
@@ -124,8 +126,6 @@ size_t smem_bytes(int Dk, int tile) {
   const size_t merge = sizeof(float) * S::kGroups * G * (DV + 2);
   return sizeof(float) * G * Dk + (ring > merge ? ring : merge);
 }
-
-constexpr float kLn2 = 0.6931471805599453f;
 
 // the output's element type: the input's, or fp32 in piece mode
 template <typename T, bool PIECE>

@@ -43,6 +43,16 @@
 //   the (row group, kv head) to finish (an atomic counter) merges the
 //   splits' fp32 (m, l, acc) and resets its counter to 0. Masked keys are
 //   never read; a row that keeps no key writes 0.
+//
+// Piece mode (mla_attention_piece_fwd_fp32, the PIECE instance at G = 16):
+// the latent is one rank's piece of a sequence cut over the ranks, its row
+// j at global position k_start + j; q_offset, kv_len and the window stay
+// global, and the block maps its rows' kept range into the piece. It
+// writes each (position, head)'s fp32 output normalised over the piece's
+// kept keys and its log-sum-exp m + log l (natural log) for the merge
+// across the ranks (sharding/collectives.py); rows that keep no key of the
+// piece write o = 0 and lse = -1e30, as decode_attention.cuh's piece mode
+// does, so one merge serves both. The whole-cache entry runs k_start 0.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -64,15 +74,16 @@ size_t smem_bytes(int G, bool v_shared) {
   return sizeof(float) * (G * kDk + ring + G * kTile + 3 * G);
 }
 
-template <int G>  // query heads per latent head: 16, 8, 4, 2 or 1
+// G: query heads per latent head, 16, 8, 4, 2 or 1; PIECE: the piece mode
+template <int G, bool PIECE>
 __global__ void __launch_bounds__(kThreads)
 mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
                           const int32_t* __restrict__ q_offset,
-                          const int32_t* __restrict__ kv_len, float* __restrict__ part,
-                          int* __restrict__ counters, int T, int Smax, int Hkv, int k_row,
-                          int v_row, int v_head, int v_shared, int causal, int window,
-                          float softcap, float scale, int split_len) {
+                          const int32_t* __restrict__ kv_len, float* __restrict__ lse,
+                          float* __restrict__ part, int* __restrict__ counters, int T, int Smax,
+                          int k_start, int Hkv, int k_row, int v_row, int v_head, int v_shared,
+                          int causal, int window, float softcap, float scale, int split_len) {
   constexpr int VEC = 4;  // floats per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int is_last;
@@ -92,15 +103,20 @@ mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__
   const int H = Hkv * G;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int qpos = q_offset[b] + t;
-  int k_hi = min(kv_len[b], Smax);
-  if (causal) k_hi = min(k_hi, qpos + 1);
-  const int k_lo = window > 0 ? max(0, qpos - window + 1) : 0;
+  // the rows' kept keys as indices of this cache (of the piece: global
+  // position minus k_start, which is 0 for a whole cache)
+  int k_hi = min(kv_len[b] - k_start, Smax);
+  if (causal) k_hi = min(k_hi, qpos + 1 - k_start);
+  const int k_lo = window > 0 ? max(0, qpos - window + 1 - k_start) : 0;
   const size_t row0 = (static_cast<size_t>(b) * T + t) * H + static_cast<size_t>(hk) * G;
   float* ob = o + row0 * kDv;  // the block's G output rows
+  float* lb = PIECE ? lse + row0 : nullptr;  // their G log-sum-exps
 
-  if (k_hi <= k_lo) {  // the rows keep no key: they write 0
-    if (split == 0)
+  if (k_hi <= k_lo) {  // the rows keep no key: they write 0 (and lse -1e30)
+    if (split == 0) {
       for (int i = tid; i < G * kDv; i += kThreads) ob[i] = 0.f;
+      if (PIECE && tid < G) lb[tid] = kNegInf;
+    }
     return;
   }
   const int s_first = k_lo / split_len, s_last = (k_hi - 1) / split_len;
@@ -223,6 +239,7 @@ mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__
       *reinterpret_cast<float2*>(ob + g * kDv + col) = make_float2(acc[g][0] * inv,
                                                                     acc[g][1] * inv);
     }
+    if (PIECE && tid < G) lb[tid] = (m_s[tid] + log2f(l_s[tid])) * kLn2;
     return;
   }
   const size_t rgi = static_cast<size_t>(b) * gridDim.x + rg;  // (b, hk, t): counter and scratch
@@ -269,24 +286,29 @@ mla_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__
     const float inv = 1.f / fmaxf(lsum, 1e-30f);
     *reinterpret_cast<float4*>(ob + g * kDv + 4 * c) =
         make_float4(os.x * inv, os.y * inv, os.z * inv, os.w * inv);
+    if (PIECE && c == 0) lb[g] = (mx + log2f(lsum)) * kLn2;
   }
   if (tid == 0) counters[rgi] = 0;
 }
 
-template <int G>
+template <int G, bool PIECE>
 int launch_fp32(const void* q, const void* k, const void* v, void* o, const void* q_offset,
-                const void* kv_len, void* part, void* counters, int B, int T, int Smax, int Hkv,
-                int k_row, int v_row, int v_head, int v_shared, int causal, int window,
-                int n_splits, int split_len, float softcap, float scale, void* stream) {
+                const void* kv_len, void* lse, void* part, void* counters, int B, int T, int Smax,
+                int k_start, int Hkv, int k_row, int v_row, int v_head, int v_shared, int causal,
+                int window, int n_splits, int split_len, float softcap, float scale,
+                void* stream) {
   const size_t smem = smem_bytes(G, v_shared != 0);
-  const cudaError_t attr = allow_smem(mla_attention_fp32_kernel<G>, smem);
+  const cudaError_t attr = allow_smem(mla_attention_fp32_kernel<G, PIECE>, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(Hkv * T, n_splits, B);
-  mla_attention_fp32_kernel<G><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<const int32_t*>(q_offset),
-      static_cast<const int32_t*>(kv_len), static_cast<float*>(part), static_cast<int*>(counters),
-      T, Smax, Hkv, k_row, v_row, v_head, v_shared, causal, window, softcap, scale, split_len);
+  mla_attention_fp32_kernel<G, PIECE>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o),
+          static_cast<const int32_t*>(q_offset), static_cast<const int32_t*>(kv_len),
+          static_cast<float*>(lse), static_cast<float*>(part), static_cast<int*>(counters), T,
+          Smax, k_start, Hkv, k_row, v_row, v_head, v_shared, causal, window, softcap, scale,
+          split_len);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -308,13 +330,34 @@ extern "C" int mla_attention_fwd_fp32(const void* q, const void* k, const void* 
       n_splits < 1 || split_len < 1)
     return -1;
   const int G = H / Hkv;  // one instance per head group the port serves
-  const decltype(&launch_fp32<16>) launch = G == 16 ? launch_fp32<16>
-                                            : G == 8 ? launch_fp32<8>
-                                            : G == 4 ? launch_fp32<4>
-                                            : G == 2 ? launch_fp32<2>
-                                            : G == 1 ? launch_fp32<1>
-                                                     : nullptr;
+  const decltype(&launch_fp32<16, false>) launch = G == 16 ? launch_fp32<16, false>
+                                                   : G == 8 ? launch_fp32<8, false>
+                                                   : G == 4 ? launch_fp32<4, false>
+                                                   : G == 2 ? launch_fp32<2, false>
+                                                   : G == 1 ? launch_fp32<1, false>
+                                                            : nullptr;
   if (launch == nullptr) return -1;
-  return launch(q, k, v, o, q_offset, kv_len, part, counters, B, T, Smax, Hkv, k_row, v_row,
-                v_head, v_shared, causal, window, n_splits, split_len, softcap, scale, stream);
+  return launch(q, k, v, o, q_offset, kv_len, nullptr, part, counters, B, T, Smax, 0, Hkv, k_row,
+                v_row, v_head, v_shared, causal, window, n_splits, split_len, softcap, scale,
+                stream);
+}
+
+// The piece mode (file comment): k, v hold the Smax latent rows at global
+// positions [k_start, k_start + Smax) of each row; q_offset, kv_len global.
+// o (B,T,H,512) and lse (B,T,H) fp32. G = 16 only (a kv group's gathered
+// heads). The rest as mla_attention_fwd_fp32.
+extern "C" int mla_attention_piece_fwd_fp32(const void* q, const void* k, const void* v, void* o,
+                                            const void* q_offset, const void* kv_len, void* lse,
+                                            void* part, void* counters, int B, int T, int Smax,
+                                            int k_start, int H, int Hkv, int Dk, int Dv,
+                                            int k_row, int v_row, int v_head, int v_shared,
+                                            int causal, int window, int n_splits, int split_len,
+                                            float softcap, float scale, void* stream) {
+  using namespace repro_torch;
+  if (B < 1 || T < 1 || Smax < 1 || Hkv < 1 || H != 16 * Hkv || Dk != kDk || Dv != kDv ||
+      n_splits < 1 || split_len < 1)
+    return -1;
+  return launch_fp32<16, true>(q, k, v, o, q_offset, kv_len, lse, part, counters, B, T, Smax,
+                               k_start, Hkv, k_row, v_row, v_head, v_shared, causal, window,
+                               n_splits, split_len, softcap, scale, stream);
 }

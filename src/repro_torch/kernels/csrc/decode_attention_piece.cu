@@ -1,5 +1,5 @@
 // The piece-mode entry of the decode attention kernel (decode_attention.cuh):
-// one data rank's piece of a KV cache cut on its sequence, fp32 output and
+// one rank's piece of a KV cache cut on its sequence, fp32 output and
 // log-sum-exp for the merge across the ranks.
 #include "decode_attention.cuh"
 

@@ -67,7 +67,23 @@
 //   before the mask); P goes to shared memory as bf16, the A operand of
 //   O += P V, whose B operand is read by ldmatrix.trans straight from the
 //   latent tile (its first 512 columns).
+//
+// Piece mode (mla_attention_piece_fwd_bf16, the PIECE instance at G = 16):
+// the latent is one rank's piece of a sequence cut over the ranks, its row
+// j at global position k_start + j; q_offset, kv_len and the window stay
+// global, and the block maps its rows' kept range [k_lo, k_hi) into the
+// piece. In place of the bf16 output it writes each (position, head)'s
+// fp32 output normalised over the piece's kept keys and its log-sum-exp
+// m + log l (natural log) for the merge across the ranks
+// (sharding/collectives.py); rows that keep no key of the piece write o = 0
+// and lse = -1e30, as decode_attention.cuh's piece mode does, so one merge
+// serves both. Its P V takes P as two bf16 parts, hi + lo (two products),
+// so that the fp32 output is fp32-accurate (the plain version's tolerance),
+// where the whole-cache instance rounds P once to bf16; the rest of its
+// arithmetic is the whole-cache instance's, which runs k_start 0.
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -96,20 +112,28 @@ __host__ __device__ inline size_t stage_elems(bool v_shared) {  // bf16 per ring
   return static_cast<size_t>(kKeys) * (kLdk + (v_shared ? 0 : kLdv));
 }
 
-size_t smem_bytes(int stages, bool v_shared) {
+// the piece mode keeps P's low halves beside it (``piece``)
+size_t smem_bytes(int stages, bool v_shared, bool piece) {
   return sizeof(bf16) * (kG * kLdk + stages * stage_elems(v_shared)) +
-         sizeof(float) * kKSplit * kG * kLds + sizeof(bf16) * kG * kLdp + sizeof(float) * 3 * kG;
+         sizeof(float) * kKSplit * kG * kLds + sizeof(bf16) * kG * kLdp * (piece ? 2 : 1) +
+         sizeof(float) * 3 * kG;
 }
 
-template <int G>  // query heads per latent head: 16, 8, 4, 2 or 1
+// the output's element type: bf16, or fp32 in the piece mode
+template <bool PIECE>
+using OutT = std::conditional_t<PIECE, float, bf16>;
+
+// G: query heads per latent head, 16, 8, 4, 2 or 1; PIECE: the piece mode
+template <int G, bool PIECE>
 __global__ void __launch_bounds__(kThreads, 2)
 mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          const bf16* __restrict__ v, OutT<PIECE>* __restrict__ o,
                           const int32_t* __restrict__ q_offset,
-                          const int32_t* __restrict__ kv_len, float* __restrict__ part,
-                          int* __restrict__ counters, int T, int Smax, int Hkv, int k_row,
-                          int v_row, int v_head, int v_shared, int causal, int window,
-                          float softcap, float scale, int split_len, int stages) {
+                          const int32_t* __restrict__ kv_len, float* __restrict__ lse,
+                          float* __restrict__ part, int* __restrict__ counters, int T, int Smax,
+                          int k_start, int Hkv, int k_row, int v_row, int v_head, int v_shared,
+                          int causal, int window, float softcap, float scale, int split_len,
+                          int stages) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int is_last;
   const int stage = static_cast<int>(stage_elems(v_shared != 0));
@@ -117,7 +141,8 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   bf16* ring = qs + kG * kLdk;                                     // stages x stage
   float* spart = reinterpret_cast<float*>(ring + stages * stage);  // kKSplit x kG x kLds
   bf16* ps = reinterpret_cast<bf16*>(spart + kKSplit * kG * kLds);  // kG x kLdp
-  float* c_s = reinterpret_cast<float*>(ps + kG * kLdp);  // per row: rescale of the tile
+  bf16* pl = ps + kG * kLdp;  // the piece mode's low halves of P, kG x kLdp
+  float* c_s = reinterpret_cast<float*>(ps + (PIECE ? 2 : 1) * kG * kLdp);  // per row: rescale
   float* l_s = c_s + kG;
   float* m_s = l_s + kG;
 
@@ -131,15 +156,24 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int g = lane >> 2, tq = lane & 3;   // mma fragment: rows g, g + 8; columns 2tq, 2tq + 1
   const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: the matrix and row this lane addresses
   const int qpos = q_offset[b] + t;
-  int k_hi = min(kv_len[b], Smax);
-  if (causal) k_hi = min(k_hi, qpos + 1);
-  const int k_lo = window > 0 ? max(0, qpos - window + 1) : 0;
+  // the rows' kept keys as indices of this cache (of the piece: global
+  // position minus k_start, which is 0 for a whole cache)
+  int k_hi = min(kv_len[b] - k_start, Smax);
+  if (causal) k_hi = min(k_hi, qpos + 1 - k_start);
+  const int k_lo = window > 0 ? max(0, qpos - window + 1 - k_start) : 0;
   const size_t row0 = (static_cast<size_t>(b) * T + t) * H + static_cast<size_t>(hk) * G;
-  bf16* ob = o + row0 * kDv;  // the block's G output rows
+  OutT<PIECE>* ob = o + row0 * kDv;  // the block's G output rows
+  float* lb = PIECE ? lse + row0 : nullptr;  // their G log-sum-exps
 
-  if (k_hi <= k_lo) {  // the rows keep no key: they write 0
-    if (split == 0)
-      for (int i = tid; i < G * kDv / 2; i += kThreads) reinterpret_cast<uint32_t*>(ob)[i] = 0u;
+  if (k_hi <= k_lo) {  // the rows keep no key: they write 0 (and lse -1e30)
+    if (split == 0) {
+      if constexpr (PIECE) {
+        for (int i = tid; i < G * kDv; i += kThreads) ob[i] = 0.f;
+        if (tid < G) lb[tid] = kNegInf;
+      } else {
+        for (int i = tid; i < G * kDv / 2; i += kThreads) reinterpret_cast<uint32_t*>(ob)[i] = 0u;
+      }
+    }
     return;
   }
   const int s_first = k_lo / split_len, s_last = (k_hi - 1) / split_len;
@@ -250,8 +284,13 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       const float corr = fast_exp2(m_row[rr] - mn);
       l_row[rr] = l_row[rr] * corr + warp_sum(p0 + p1);
       m_row[rr] = mn;
-      ps[row * kLdp + lane] = __float2bfloat16(p0);
-      ps[row * kLdp + lane + 32] = __float2bfloat16(p1);
+      const bf16 h0 = __float2bfloat16(p0), h1 = __float2bfloat16(p1);
+      ps[row * kLdp + lane] = h0;
+      ps[row * kLdp + lane + 32] = h1;
+      if constexpr (PIECE) {  // P = hi + lo, each bf16: P V to ~2^-17 of P
+        pl[row * kLdp + lane] = __float2bfloat16(p0 - __bfloat162float(h0));
+        pl[row * kLdp + lane + 32] = __float2bfloat16(p1 - __bfloat162float(h1));
+      }
       if (lane == 0) {
         c_s[row] = corr;
         l_s[row] = l_row[rr];
@@ -271,8 +310,9 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     }
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
-      uint32_t a[4];
+      uint32_t a[4], al[4];
       ldmatrix_x4(a, ps + (lane & 15) * kLdp + kk * 16 + (lane >> 4) * 8);
+      if constexpr (PIECE) ldmatrix_x4(al, pl + (lane & 15) * kLdp + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
       for (int nd = 0; nd < kColsPerWarp / 16; ++nd) {
         uint32_t bv[4];
@@ -280,6 +320,10 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                                   nd * 16 + (mi >> 1) * 8);
         mma_bf16_16816(acc[2 * nd], a, bv[0], bv[1]);
         mma_bf16_16816(acc[2 * nd + 1], a, bv[2], bv[3]);
+        if constexpr (PIECE) {
+          mma_bf16_16816(acc[2 * nd], al, bv[0], bv[1]);
+          mma_bf16_16816(acc[2 * nd + 1], al, bv[2], bv[3]);
+        }
       }
     }
     if (stages == 1 && it + 1 < n_tiles) {  // the one stage is consumed: refill it
@@ -293,15 +337,23 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int col = warp * kColsPerWarp + 2 * tq;
   if (n_live == 1) {
     const float inv0 = 1.f / fmaxf(l_s[g], 1e-30f), inv1 = 1.f / fmaxf(l_s[g + 8], 1e-30f);
-    bf16* o0 = ob + g * kDv + col;
-    bf16* o1 = o0 + 8 * kDv;
+    OutT<PIECE>* o0 = ob + g * kDv + col;
+    OutT<PIECE>* o1 = o0 + 8 * kDv;
 #pragma unroll
     for (int j = 0; j < kColsPerWarp / 8; ++j) {
-      if (g < G)
-        *reinterpret_cast<uint32_t*>(o0 + j * 8) = pack_bf16(acc[j][0] * inv0, acc[j][1] * inv0);
-      if (g + 8 < G)
-        *reinterpret_cast<uint32_t*>(o1 + j * 8) = pack_bf16(acc[j][2] * inv1, acc[j][3] * inv1);
+      if constexpr (PIECE) {
+        if (g < G)
+          *reinterpret_cast<float2*>(o0 + j * 8) = make_float2(acc[j][0] * inv0, acc[j][1] * inv0);
+        if (g + 8 < G)
+          *reinterpret_cast<float2*>(o1 + j * 8) = make_float2(acc[j][2] * inv1, acc[j][3] * inv1);
+      } else {
+        if (g < G)
+          *reinterpret_cast<uint32_t*>(o0 + j * 8) = pack_bf16(acc[j][0] * inv0, acc[j][1] * inv0);
+        if (g + 8 < G)
+          *reinterpret_cast<uint32_t*>(o1 + j * 8) = pack_bf16(acc[j][2] * inv1, acc[j][3] * inv1);
+      }
     }
+    if (PIECE && tid < G) lb[tid] = (m_s[tid] + log2f(l_s[tid])) * kLn2;
     return;
   }
   // one partial per (row group, split): G rows of kPart floats
@@ -351,6 +403,7 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       mw[tid * n_live + sj] = w;
     }
     c_s[tid] = 1.f / fmaxf(L, 1e-30f);
+    if (PIECE) lb[tid] = (M + log2f(L)) * kLn2;
   }
   __syncthreads();
   constexpr int NV = kDv / 4;  // float4 per row
@@ -385,31 +438,37 @@ mla_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const int i = tid + e * kThreads, r = i / NV, c = i - r * NV;
     if (i >= G * NV) continue;
     const float inv = c_s[r];
-    *reinterpret_cast<uint2*>(ob + r * kDv + 4 * c) =
-        make_uint2(pack_bf16(os[e].x * inv, os[e].y * inv), pack_bf16(os[e].z * inv, os[e].w * inv));
+    if constexpr (PIECE)
+      *reinterpret_cast<float4*>(ob + r * kDv + 4 * c) =
+          make_float4(os[e].x * inv, os[e].y * inv, os[e].z * inv, os[e].w * inv);
+    else
+      *reinterpret_cast<uint2*>(ob + r * kDv + 4 * c) = make_uint2(
+          pack_bf16(os[e].x * inv, os[e].y * inv), pack_bf16(os[e].z * inv, os[e].w * inv));
   }
   if (tid == 0) counters[rgi] = 0;
 }
 
-template <int G>
+template <int G, bool PIECE>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, const void* q_offset,
-                const void* kv_len, void* part, void* counters, int B, int T, int Smax, int Hkv,
-                int k_row, int v_row, int v_head, int v_shared, int causal, int window,
-                int n_splits, int split_len, float softcap, float scale, void* stream) {
+                const void* kv_len, void* lse, void* part, void* counters, int B, int T, int Smax,
+                int k_start, int Hkv, int k_row, int v_row, int v_head, int v_shared, int causal,
+                int window, int n_splits, int split_len, float softcap, float scale,
+                void* stream) {
   // the merge keeps every split's (m, l) of its G rows in one ring stage
   const size_t merge_bytes = static_cast<size_t>(n_splits) * 2 * G * sizeof(float);
   if (merge_bytes > stage_elems(v_shared != 0) * sizeof(bf16)) return -1;
   const int stages = v_shared && split_len > kKeys ? 2 : 1;
-  const size_t smem = smem_bytes(stages, v_shared != 0);
-  const cudaError_t attr = allow_smem(mla_attention_bf16_kernel<G>, smem);
+  const size_t smem = smem_bytes(stages, v_shared != 0, PIECE);
+  const cudaError_t attr = allow_smem(mla_attention_bf16_kernel<G, PIECE>, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(Hkv * T, n_splits, B);
-  mla_attention_bf16_kernel<G><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<const int32_t*>(q_offset),
-      static_cast<const int32_t*>(kv_len), static_cast<float*>(part), static_cast<int*>(counters),
-      T, Smax, Hkv, k_row, v_row, v_head, v_shared, causal, window, softcap, scale, split_len,
-      stages);
+  mla_attention_bf16_kernel<G, PIECE>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<OutT<PIECE>*>(o), static_cast<const int32_t*>(q_offset),
+          static_cast<const int32_t*>(kv_len), static_cast<float*>(lse),
+          static_cast<float*>(part), static_cast<int*>(counters), T, Smax, k_start, Hkv, k_row,
+          v_row, v_head, v_shared, causal, window, softcap, scale, split_len, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -440,13 +499,34 @@ extern "C" int mla_attention_fwd_bf16(const void* q, const void* k, const void* 
       n_splits < 1 || split_len < 1)
     return -1;
   const int G = H / Hkv;  // one instance per head group the port serves
-  const decltype(&launch_bf16<16>) launch = G == 16 ? launch_bf16<16>
-                                            : G == 8 ? launch_bf16<8>
-                                            : G == 4 ? launch_bf16<4>
-                                            : G == 2 ? launch_bf16<2>
-                                            : G == 1 ? launch_bf16<1>
-                                                     : nullptr;
+  const decltype(&launch_bf16<16, false>) launch = G == 16 ? launch_bf16<16, false>
+                                                   : G == 8 ? launch_bf16<8, false>
+                                                   : G == 4 ? launch_bf16<4, false>
+                                                   : G == 2 ? launch_bf16<2, false>
+                                                   : G == 1 ? launch_bf16<1, false>
+                                                            : nullptr;
   if (launch == nullptr) return -1;
-  return launch(q, k, v, o, q_offset, kv_len, part, counters, B, T, Smax, Hkv, k_row, v_row,
-                v_head, v_shared, causal, window, n_splits, split_len, softcap, scale, stream);
+  return launch(q, k, v, o, q_offset, kv_len, nullptr, part, counters, B, T, Smax, 0, Hkv, k_row,
+                v_row, v_head, v_shared, causal, window, n_splits, split_len, softcap, scale,
+                stream);
+}
+
+// The piece mode (file comment): k, v hold the Smax latent rows at global
+// positions [k_start, k_start + Smax) of each row; q_offset, kv_len global.
+// o (B,T,H,512) and lse (B,T,H) fp32, q, k, v bf16. G = 16 only (a kv
+// group's gathered heads). The rest as mla_attention_fwd_bf16.
+extern "C" int mla_attention_piece_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                                            const void* q_offset, const void* kv_len, void* lse,
+                                            void* part, void* counters, int B, int T, int Smax,
+                                            int k_start, int H, int Hkv, int Dk, int Dv,
+                                            int k_row, int v_row, int v_head, int v_shared,
+                                            int causal, int window, int n_splits, int split_len,
+                                            float softcap, float scale, void* stream) {
+  using namespace repro_torch;
+  if (B < 1 || T < 1 || Smax < 1 || Hkv < 1 || H != 16 * Hkv || Dk != kDk || Dv != kDv ||
+      n_splits < 1 || split_len < 1)
+    return -1;
+  return launch_bf16<16, true>(q, k, v, o, q_offset, kv_len, lse, part, counters, B, T, Smax,
+                               k_start, Hkv, k_row, v_row, v_head, v_shared, causal, window,
+                               n_splits, split_len, softcap, scale, stream);
 }

@@ -26,13 +26,14 @@ piece mode's too.
 
 The piece mode (``decode_attention_piece``, the same kernel through its
 own entry point) attends over one piece of the sequence: a cache that the
-data ranks hold cut on its sequence (``sharding.placement.plan_cache``),
-whose first key sits at global position ``k_start``. ``q_offset``,
+ranks of a kv group, or the data ranks, hold cut on its sequence
+(``sharding.placement.plan_cache``), whose first key sits at global
+position ``k_start``, for every query head of the kv group. ``q_offset``,
 ``kv_len`` and the window stay in global positions. It returns each (row,
 query head)'s fp32 output normalised over the piece's kept keys and its
 fp32 log-sum-exp ``m + log l`` (0 and ``NEG_INF`` for a row that keeps no
-key of the piece), which ``sharding.collectives.merge_attention`` merges
-over the ranks; ``decode_attention_piece_plain`` is its plain version.
+key of the piece), which ``sharding.collectives`` merges over the ranks;
+``decode_attention_piece_plain`` is its plain version.
 """
 from __future__ import annotations
 

@@ -3,8 +3,10 @@
 At DeepSeek's absorbed shape, G query heads on one latent KV head of
 width 576 (kv_lora_rank 512 + qk_rope_dim 64) whose first 512 columns are
 the values, with G = 16 (deepseek-v2-lite's heads) or a model rank's 8,
-4, 2 or 1 of them at a model axis of 2, 4, 8 or 16 (``MLA_GROUPS``), the
-kernels replace two Pallas TPU kernels:
+4, 2 or 1 of them at a model axis of 2, 4, 8 or 16 (``MLA_GROUPS``; a
+sharded serve runs the piece mode below at 16 instead, so no serving path
+reaches G < 16 since the latent is cut on its sequence), the kernels
+replace two Pallas TPU kernels:
 ``repro.kernels.decode_attention.decode_attention`` (one query position,
 the decode step) and ``repro.kernels.flash_attention.flash_attention``
 (T > 1 query positions per row: the speculative verify and the draft's
@@ -15,6 +17,19 @@ Both split the cache as the decode kernel does (``plan_splits``, from the
 shapes alone) and run one block per query position, so a row's arithmetic
 does not depend on T. Their bound on an H100 is the latent rows they read;
 the sources say what their designs do about it.
+
+The piece mode (``mla_attention_piece``, a ``PIECE`` instance of each
+kernel with entry points of its own) attends over one piece of the
+sequence: a latent cut on its sequence over the model ranks (and the data
+ranks; ``sharding.placement.plan_cache``), whose first row sits at global
+position ``k_start``, at G = 16 (``MLA_PIECE_GROUPS``: each rank gathers
+its group's queries, so it runs every head over its rows). ``q_offset``,
+``kv_len`` and the window stay global, each query position's kept range
+ends at that position + 1, and it returns fp32 o normalised over the
+piece's kept keys and the fp32 log-sum-exp (0 and ``NEG_INF`` for a row
+that keeps none of the piece), which ``sharding.collectives`` merges, as
+it merges the decode kernel's piece mode's; ``mla_attention_piece_plain``
+is its plain version.
 
 ``mla_attention`` launches a kernel for CUDA tensors and runs
 ``mla_attention_plain`` for CPU tensors; on the card a shape that the
@@ -30,14 +45,17 @@ import torch
 
 from repro_torch.kernels import build, cost
 from repro_torch.kernels.decode_attention import merge_counters, plan_splits
-from repro_torch.kernels.flash_attention import (ATTN_TRAIN_ROUTE, attention_plain, check_aligned,
-                                                 launch_args, refuse_grad)
+from repro_torch.kernels.flash_attention import (ATTN_TRAIN_ROUTE, NEG_INF, attention_plain,
+                                                 check_aligned, exact_fp32, launch_args, per_row,
+                                                 refuse_grad)
 
 MLA_DIMS = (576, 512)  # (Dk, Dv): the latent and value widths
 # query heads per latent head: the whole model's, and a rank's at M = 2, 4, 8, 16
 MLA_GROUPS = (16, 8, 4, 2, 1)
 # (G, Dk, Dv) of every shape the kernels take
 MLA_SHAPES = frozenset((g,) + MLA_DIMS for g in MLA_GROUPS)
+# query heads per latent head of the piece mode: a kv group's gathered heads
+MLA_PIECE_GROUPS = (16,)
 
 
 def is_mla_shape(q, k, v) -> bool:
@@ -54,6 +72,11 @@ def mla_route(dtype) -> str:
     if dtype not in routes:
         raise ValueError(f"mla_attention has no kernel for {dtype}")
     return routes[dtype]
+
+
+def mla_piece_route(dtype) -> str:
+    """The piece mode's C entry point for a dtype (``mla_route``'s kernels)."""
+    return mla_route(dtype).replace("mla_attention_fwd", "mla_attention_piece_fwd")
 
 
 def mla_attention_plain(q, k, v, *, causal=True, q_offset=0, kv_len=None, window=None,
@@ -137,3 +160,94 @@ def mla_attention(q, k, v, *, causal=True, q_offset=0, kv_len=None, window=None,
 
 
 mla_attention.launches = 0
+
+
+def mla_attention_piece_plain(q, k, v, *, k_start, causal=True, q_offset=0, kv_len=None,
+                              window=None, softcap=None, scale=None):
+    """The piece mode in plain PyTorch: q (B,T,H,Dk) against the piece k
+    (B,Sp,Hkv,Dk), v (B,Sp,Hkv,Dv) whose row j sits at global position
+    ``k_start + j``. Query t of row b sits at ``q_offset[b] + t`` and keeps
+    the keys below ``kv_len[b]`` (None: every key of the piece), at or
+    before its position if ``causal``, within ``window``; ``q_offset`` /
+    ``kv_len`` int or (B,). Returns (o (B,T,H,Dv) fp32, lse (B,T,H) fp32),
+    o normalised over the piece's kept keys (0 where none) and lse = m +
+    log l in natural log (``NEG_INF`` where none)."""
+    B, T, H, Dk = q.shape
+    Sp, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // Hkv
+    scale = scale if scale is not None else Dk ** -0.5
+    dev = q.device
+    with exact_fp32():
+        s = torch.einsum("bthgd,bkhd->bhgtk", q.float().reshape(B, T, Hkv, G, Dk),
+                         k.float()) * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = k_start + torch.arange(Sp, device=dev)
+        qpos = per_row(q_offset, B, dev)[:, None] + torch.arange(T, device=dev)  # (B,T)
+        klen = per_row(k_start + Sp if kv_len is None else kv_len, B, dev)
+        keep = (kpos < klen[:, None, None]).expand(B, T, Sp)
+        if causal:
+            keep = keep & (kpos <= qpos[..., None])
+        if window is not None:
+            keep = keep & (qpos[..., None] - kpos < window)
+        keep = keep[:, None, None]  # (B,1,1,T,Sp)
+        s = s.masked_fill(~keep, NEG_INF)
+        m = s.amax(dim=-1)  # (B,Hkv,G,T); NEG_INF where the piece keeps no key
+        p = torch.exp(s - m[..., None]) * keep
+        l = p.sum(dim=-1)
+        o = torch.einsum("bhgtk,bkhd->bthgd", p, v.float()) / l.clamp_min(1e-30).permute(
+            0, 3, 1, 2)[..., None]
+        lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), torch.full_like(m, NEG_INF))
+    return o.reshape(B, T, H, Dv), lse.permute(0, 3, 1, 2).reshape(B, T, H)
+
+
+def mla_attention_piece(q, k, v, *, k_start, causal=True, q_offset=0, kv_len=None, window=None,
+                        softcap=None, scale=None):
+    """The piece mode (module docstring): q (B,T,16·Hkv,576), T >= 1,
+    against the piece k (B,Sp,Hkv,576), v (B,Sp,Hkv,512) or ``k[..., :512]``,
+    whose first row sits at global position ``k_start`` -> (o (B,T,H,512)
+    fp32, lse (B,T,H) fp32), as ``mla_attention_piece_plain`` gives them."""
+    kw = dict(k_start=k_start, causal=causal, q_offset=q_offset, kv_len=kv_len, window=window,
+              softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        return mla_attention_piece_plain(q, k, v, **kw)
+    refuse_grad("mla_attention_piece", ATTN_TRAIN_ROUTE, q, k, v)
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"mla_attention_piece runs on cuda or cpu, not {q.device}")
+    v_shared = mla_checks(q, k, v)[1]
+    route = mla_piece_route(q.dtype)
+    B, T, H, Dk = q.shape
+    Sp, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if H // Hkv not in MLA_PIECE_GROUPS:
+        raise ValueError(f"the MLA piece mode takes G in {MLA_PIECE_GROUPS}; got {H // Hkv}")
+    k_start = int(k_start)
+    if q.is_meta:
+        work = cost.mla_work(B, T, Sp, H, Hkv, Dk, Dv, q.element_size(), causal=causal,
+                             window=window, q_offset=cost.host_rows(q_offset, k_start + Sp - T),
+                             kv_len=cost.host_rows(kv_len, None), v_shared=v_shared,
+                             k_start=k_start)
+        return cost.meta_call("mla_attention_piece", work,
+                              q.new_empty((B, T, H, Dv), dtype=torch.float32),
+                              q.new_empty((B, T, H), dtype=torch.float32))
+    scale = scale if scale is not None else Dk ** -0.5
+    n_splits, split_len = plan_splits(Sp, B, Hkv)
+    out = torch.empty((B, T, H, Dv), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, T, H), dtype=torch.float32, device=q.device)
+    rows = B * Hkv * T
+    part = torch.empty(rows * n_splits * (H // Hkv) * (Dv + 4), dtype=torch.float32,
+                       device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = merge_counters(q.device, stream, rows)
+    ptrs, _keep = launch_args(q, k, v, out, q_offset, k_start + Sp if kv_len is None else kv_len)
+    lib = build.load_library()
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, route)(
+            *ptrs, lse.data_ptr(), part.data_ptr(), counters.data_ptr(), B, T, Sp, k_start, H,
+            Hkv, Dk, Dv, k.stride(1), v.stride(1), v.stride(2), int(v_shared), int(causal),
+            int(window or 0), n_splits, split_len, float(softcap or 0.0), float(scale), stream)
+    build.check(rc, route)
+    mla_attention_piece.launches += 1
+    return out, lse
+
+
+mla_attention_piece.launches = 0

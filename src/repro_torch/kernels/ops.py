@@ -5,11 +5,14 @@ of 2, 4, 8 or 16) go to the MLA kernels at any query length (the decode step and
 verify), any other single query token to the decode kernel, everything else
 to the prefill (flash) kernel. ``plain=True`` takes the kernels' plain
 versions on any device (the kernel-versus-plain parity runs on the card).
-``decode_attention_piece`` is the decode over one data rank's piece of a
-sequence-cut cache (``kernels.decode_attention``'s piece mode)."""
+``decode_attention_piece`` is the decode over one rank's piece of a
+sequence-cut cache: the MLA kernels' piece mode at the absorbed-MLA shape
+(``mla_attention_piece``, T >= 1 query positions), else the decode
+kernel's (``kernels.decode_attention``, one query position)."""
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import mla_attention as _mla
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.flash_attention import flash_attention_plain
@@ -32,10 +35,17 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
 
 
 def decode_attention_piece(q, k, v, *, k_start, q_offset=0, kv_len=None, window=None,
-                           softcap=None, scale=None, plain=False):
-    """One query token per row against a cache piece whose first key sits
-    at global position ``k_start``: (o fp32, lse fp32) for
-    ``sharding.collectives.merge_attention``."""
-    fn = _decode.decode_attention_piece_plain if plain else _decode.decode_attention_piece
-    return fn(q, k, v, k_start=k_start, q_offset=q_offset, kv_len=kv_len, window=window,
+                           softcap=None, scale=None, causal=False, plain=False):
+    """Query rows against a cache piece whose first key sits at global
+    position ``k_start``: (o fp32, lse fp32) for
+    ``sharding.collectives``' merges. The MLA shapes, and any call with
+    ``causal`` (T >= 1 rows, each kept up to its own position: MLA's
+    verify), take the MLA kernels' piece mode; any other shape one query
+    token per row against the decode kernel's, its bound ``kv_len``."""
+    kw = dict(k_start=k_start, q_offset=q_offset, kv_len=kv_len, window=window,
               softcap=softcap, scale=scale)
+    if causal or is_mla_shape(q, k, v):
+        fn = _mla.mla_attention_piece_plain if plain else _mla.mla_attention_piece
+        return fn(q, k, v, causal=causal, **kw)
+    fn = _decode.decode_attention_piece_plain if plain else _decode.decode_attention_piece
+    return fn(q, k, v, **kw)

@@ -18,10 +18,13 @@ that rank under an op counter (``utils.op_cost``):
 * ``prefill_32k``: ``models.model.prefill`` (the last position's logits);
 * ``decode_32k`` / ``long_500k``: one ``decode_step`` at a full cache,
   every row at position S - 1, which is what the reference's scalar
-  ``pos`` attends over. Where the data axes do not divide the batch (B = 1
-  at ``long_500k``), the K/V caches are cut on their sequence over the data
-  group (``ExecContext.kv_seq``, the decode kernel's piece mode and
-  ``collectives.merge_attention``).
+  ``pos`` attends over. A K/V cache whose kv heads are fewer than M, and
+  the MLA latent, are cut on their sequence over the model ranks that
+  share them (``sharding.placement.plan_cache``); where the data axes do
+  not divide the batch (B = 1 at ``long_500k``), every K/V cache and
+  latent over the data group too (``ExecContext.kv_seq``). Their decode
+  runs the kernels' piece modes and merges the pieces
+  (``collectives.merge_kv_group``, ``merge_attention``).
 
 The kernels take their meta route (the card's shape checks, so a shape the
 kernels refuse raises here too) and the collectives their meta transport.
@@ -127,8 +130,9 @@ def rank_context(mesh_shape: dict, rank: int, plan=None, fsdp=None) -> ExecConte
 def rank_cache(cfg, ctx, batch: int, max_len: int, enc_len: int = 0) -> dict:
     """The rank's piece of a (batch, max_len) cache on the meta device, placed
     as a serving worker places it (``placement.plan_cache``): its rows where
-    the data group divides ``batch``, else every row with the K/V sequence
-    cut over the data group."""
+    the data group divides ``batch``, else every row with the K/V and latent
+    sequence cut over the data group; at M > 1 the pieces of the kv
+    group's sequence."""
     specs = placement.plan_cache(cfg, ctx, batch, max_len, enc_len)
     return placement.init_placed_cache(cfg, ctx, specs, batch, max_len, META, enc_len=enc_len)
 

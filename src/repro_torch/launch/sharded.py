@@ -271,7 +271,8 @@ def _kernel_wrappers() -> dict:
     return {"flash_attention": flash_attention.flash_attention,
             "decode_attention": decode_attention.decode_attention,
             "decode_attention_piece": decode_attention.decode_attention_piece,
-            "mla_attention": mla_attention.mla_attention, "ssd_scan": ssd_scan.ssd_scan}
+            "mla_attention": mla_attention.mla_attention,
+            "mla_attention_piece": mla_attention.mla_attention_piece, "ssd_scan": ssd_scan.ssd_scan}
 
 
 def piece_digests(leaves: dict) -> dict:
@@ -321,9 +322,12 @@ def _job_params(job, ctx, device):
 
 
 def _launch_counts():
+    """The kernels' launches and the merges of sequence-cut decodes: over
+    the data group (``merge_attention``) and over a kv group
+    (``merge_kv_group``)."""
     from repro_torch.sharding import collectives
     return ({n: w.launches for n, w in _kernel_wrappers().items()},
-            collectives.counts["merge_attention"])
+            (collectives.counts["merge_attention"], collectives.counts["merge_kv_group"]))
 
 
 def _pool_rows(pool) -> int:
@@ -340,7 +344,9 @@ def fleet_job(job, ctx, device: str = "cuda") -> dict:
     beside ``FleetReplay``'s own). Returns the report's ``to_dict()``, each
     device engine's tokens per uid and its worker's (prefill, decode,
     verify) passes, the rows of each device engine's slot pool, the kernels'
-    launches and the merges of sequence-cut decodes, the wall seconds and the peak device bytes (0 on the CPU)."""
+    launches and the merges of sequence-cut decodes over the data group
+    (``merges``) and over kv groups (``kv_merges``), the wall seconds and
+    the peak device bytes (0 on the CPU)."""
     import torch
 
     from repro_torch import fleet
@@ -366,7 +372,7 @@ def fleet_job(job, ctx, device: str = "cuda") -> dict:
             "pool_rows": [_pool_rows(pool) for dr in rep.device_replays
                           for pool in dr.engine.pools.values()],
             "launches": {n: after[n] - before[n] for n in after},
-            "merges": merges_after - merges,
+            "merges": merges_after[0] - merges[0], "kv_merges": merges_after[1] - merges[1],
             "peak_mem_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0}
     del rep, params
     if dev.type == "cuda":
@@ -391,10 +397,10 @@ def serve_job(job: dict, ctx, device: str = "cuda") -> dict:
     serves ``run_all`` under the scheduler) and ``draft`` ("truncated":
     ``speculative.truncated_draft`` of the weights, drawn whole). Returns
     the tokens by uid, the worker's pass counts (with the draft's), the
-    flash, decode and sequence-piece decode kernels' launches, the merges
-    of sequence-cut decodes, the scheduler's bucketed batches, the spec
-    counters, the model axis's collectives, the wall seconds and the peak
-    device bytes (0 on the CPU)."""
+    kernels' launches, the merges of sequence-cut decodes over the data
+    group (``merges``) and over kv groups (``kv_merges``), the scheduler's
+    bucketed batches, the spec counters, the model axis's collectives, the
+    wall seconds and the peak device bytes (0 on the CPU)."""
     import numpy as np
     import torch
 
@@ -448,7 +454,7 @@ def serve_job(job: dict, ctx, device: str = "cuda") -> dict:
                                                      spec.worker.decode_calls,
                                                      spec.worker.verify_calls),
            "launches": {n: after[n] - before[n] for n in after},
-           "merges": merges_after - merges,
+           "merges": merges_after[0] - merges[0], "kv_merges": merges_after[1] - merges[1],
            "batches": [st["batch"] for st in eng.stats[cfg.name] if "batch" in st],
            "spec": {k: v for k, v in eng.ledger.counters.items() if k.startswith("spec_")},
            "all_reduces": collectives.all_reduce.calls - calls[0],

@@ -23,14 +23,12 @@ hold the rank's heads (column-parallel q/k/v, MLA's ``wq`` and ``w_ukv``,
 row-parallel wo): the functions take the head count from the tensors, so
 they run unchanged on H/M query and Hkv/M kv heads, and the caller sums the
 ranks' wo outputs. Where M is a multiple of Hkv, a rank holds one kv head
-whole and its H/M query heads of that head's group (the GQA kernels at
-G = H/M over one kv head); a group that its M/Hkv ranks do not divide is
-padded with zero query heads, whose zero ``wo`` columns add nothing
-(``sharding.placement``). MLA's ``w_dkv`` and ``kv_norm`` are whole on every rank,
-which writes the whole latent row; its absorbed decode scores the rank's
-H/M heads against that one latent head (the MLA kernels at G = H/M). In
-train mode a rank's latent feeds only its own heads, so the gradients of
-``w_dkv`` and ``kv_norm`` are partial sums, marked ``ParamPlan.partial``
+whole and its H/M query heads of that head's group; a group that its M/Hkv
+ranks do not divide is padded with zero query heads, whose zero ``wo``
+columns add nothing (``sharding.placement``). MLA's ``w_dkv`` and
+``kv_norm`` are whole on every rank, which computes the whole latent row.
+In train mode a rank's latent feeds only its own heads, so the gradients
+of ``w_dkv`` and ``kv_norm`` are partial sums, marked ``ParamPlan.partial``
 and summed over the model axis after the backward; the latent's input is
 the mixer's ``copy_to_model`` output, whose backward already sums the
 residual stream's gradient once over the ranks.
@@ -40,18 +38,24 @@ it reads a cross cache preallocated at the slot pool's ``max_enc_len`` and
 masks each row to its own encoder length (``kv_len = enc_len``; 0 on a
 slot never admitted, whose row the kernels write as 0).
 
-On a data axis whose ranks hold the K/V caches cut on their sequence
-(``ExecContext.kv_seq``; a cache whose batch the data ranks do not divide,
-``sharding.placement.plan_cache``), each rank holds the positions [d n,
-(d + 1) n) of every row of ``k``, ``v``, ``xk`` and ``xv``: prefill and
-decode write only the positions the rank holds (``write_prefix``, and
-``write_rows`` / ``write_grid`` at the piece's local positions), and a
-decode attends over the rank's piece through the decode kernel's piece
-mode, the ranks' partial softmax states merged over the data group
-(``attend_piece``). A verify of T positions is T such decodes with one
-merge. The prefill's own attention runs over the prompt's whole K/V, which
-every rank computes, so it is unchanged. MLA's latent cache is never cut on
-its sequence.
+A serving cache cut on its sequence (``sharding.placement.plan_cache``:
+over the kv group of the ranks that share a GQA kv head or MLA's latent,
+and over the data group where ``ExecContext.kv_seq`` says so) holds the
+rank's piece p = ``ctx.piece_index(cfg)`` of every row of ``k``, ``v``,
+``xk``, ``xv`` and ``latent``: the positions [p n, (p + 1) n), n its
+length. Prefill and decode write only the positions the rank holds
+(``write_prefix``, and ``write_rows`` / ``write_grid`` at the piece's local
+positions), and a decode attends over the piece (``attend_piece``): the
+kv group's queries gathered (``collectives.gather_kv_group``: the G =
+H / Hkv heads of the rank's kv head, padded; MLA's 16), one piece-mode
+launch for all of them (the decode kernel's ``decode_attention_piece``
+per query position, the MLA kernels' ``mla_attention_piece`` for all T
+positions at once), the pieces' fp32 (o, log-sum-exp) merged over the kv
+group (``collectives.merge_kv_group``), the rank's own heads kept, then
+merged over the data group (``collectives.merge_attention``) where it cuts
+the sequence too. A GQA verify of T positions is T piece decodes and one
+merge at each level. The prefill's own attention runs over the prompt's
+whole K/V (or latent), which every rank computes, so it is unchanged.
 """
 from __future__ import annotations
 
@@ -178,45 +182,80 @@ def attend(q, k, v, *, causal=True, window=None, softcap=None, q_offset=0,
                                plain=impl == "plain")
 
 
-def piece_start(cache, ctx) -> int:
-    """The global position of the first entry of this data rank's piece of
-    a sequence-cut cache (its pieces are all ``cache.shape[1]`` long)."""
-    return ctx.data_rank * cache.shape[1]
+def is_cut(cfg, ctx) -> bool:
+    """Whether ``ctx``'s caches of ``cfg`` are cut on their sequence
+    (module docstring)."""
+    return ctx is not None and ctx.seq_pieces(cfg) > 1
 
 
-def attend_piece(q, k, v, ctx, *, window=None, softcap=None, q_offset=0, kv_len=None,
-                 impl=None):
-    """Decode attention (q (B,T,H,Dk), T query positions at ``q_offset``,
-    ``q_offset + 1``, ... per row, each with its own ``kv_len``) over this
-    data rank's piece ``k``, ``v`` of a sequence-cut cache, through the
-    decode kernel's piece mode, one launch per query position, and one
-    merge of the ranks' states over the data group (module docstring).
-    ``q_offset`` (B,) or int; ``kv_len`` a list of T per-row lengths (or
-    one for T = 1). Returns (B,T,H,Dv) in q's dtype."""
-    T = q.shape[1]
-    lens = kv_len if isinstance(kv_len, (list, tuple)) else [kv_len]
-    start = piece_start(k, ctx)
-    parts = [ops.decode_attention_piece(q[:, t:t + 1].contiguous(), k, v, k_start=start,
-                                        q_offset=q_offset + t, kv_len=lens[t], window=window,
-                                        softcap=softcap, plain=impl == "plain")
-             for t in range(T)]
-    o = torch.cat([a for a, _ in parts], dim=1)
-    lse = torch.cat([b for _, b in parts], dim=1)
-    return collectives.merge_attention(o, lse, ctx).to(q.dtype)
+def piece_start(cache, cfg, ctx) -> int:
+    """The global position of the first entry of this rank's piece of a
+    sequence-cut cache: its piece index (data piece, position in the kv
+    group) times the pieces' length ``cache.shape[1]``."""
+    return ctx.piece_index(cfg) * cache.shape[1]
 
 
-def write_prefix(cache, new, ctx):
-    """cache (B, n, ...) [:, :S] = new (B, S, ...) (a prefill's K/V), cast
-    to the cache's dtype; of a sequence-cut cache (``ctx.kv_seq``) only the
-    positions this data rank's piece holds."""
+def piece_span(cache, cfg, ctx):
+    """(global length S, first position) of this rank's piece of a cut
+    cache: S is ``ctx.kv_seq``, else the pieces' length times their
+    number (the last piece holds no position past S)."""
+    return ctx.kv_seq or cache.shape[1] * ctx.seq_pieces(cfg), piece_start(cache, cfg, ctx)
+
+
+def attend_piece(q, k, v, cfg, ctx, *, causal=False, window=None, softcap=None, q_offset=0,
+                 kv_len=None, scale=None, impl=None):
+    """Decode attention (q (B,T,H,Dk), the rank's heads, T query positions
+    at ``q_offset``, ``q_offset + 1``, ... per row) over this rank's piece
+    ``k``, ``v`` of a sequence-cut cache (module docstring): the kv group's
+    queries gathered, the pieces' states merged over the kv group and the
+    rank's own heads kept, then merged over the data group with
+    ``ctx.kv_seq``. ``causal``: the MLA kernels' piece mode, all T
+    positions in one launch, each keeping the keys up to its own position
+    and below ``kv_len`` (an int or (B,)); else one decode piece launch
+    per position, ``kv_len`` a list of T per-row lengths (or one for
+    T = 1). ``q_offset`` (B,) or int. Returns (B,T,H,Dv) in q's dtype."""
+    T, H = q.shape[1], q.shape[2]
+    qg = collectives.gather_kv_group(q, cfg, ctx, dim=2)
+    kw = dict(k_start=piece_start(k, cfg, ctx), window=window, softcap=softcap, scale=scale,
+              plain=impl == "plain")
+    if causal:
+        o, lse = ops.decode_attention_piece(qg, k, v, q_offset=q_offset, kv_len=kv_len,
+                                            causal=True, **kw)
+    else:
+        lens = kv_len if isinstance(kv_len, (list, tuple)) else [kv_len]
+        parts = [ops.decode_attention_piece(qg[:, t:t + 1].contiguous(), k, v,
+                                            q_offset=q_offset + t, kv_len=lens[t], **kw)
+                 for t in range(T)]
+        o = torch.cat([a for a, _ in parts], dim=1)
+        lse = torch.cat([b for _, b in parts], dim=1)
+    o, lse = collectives.merge_kv_group(o, lse, cfg, ctx)
+    if qg.shape[2] != H:  # the rank's own heads of its group's
+        j = ctx.kv_group_rank(cfg)
+        o, lse = o[:, :, j * H:(j + 1) * H], lse[:, :, j * H:(j + 1) * H]
+    if ctx.kv_seq:
+        o = collectives.merge_attention(o, lse, ctx)
+    return o.to(q.dtype)
+
+
+def write_prefix(cache, new, cfg, ctx):
+    """cache (B, n, ...) [:, :S] = new (B, S, ...) (a prefill's K/V or
+    latent rows), cast to the cache's dtype; of a sequence-cut cache
+    (``is_cut``) only the positions this rank's piece holds."""
     S = new.shape[1]
-    if not ctx.kv_seq:
+    if not is_cut(cfg, ctx):
         cache[:, :S] = new.to(cache.dtype)
         return
-    lo = piece_start(cache, ctx)
+    lo = piece_start(cache, cfg, ctx)
     hi = min(lo + cache.shape[1], S)
     if hi > lo:
         cache[:, :hi - lo] = new[:, lo:hi].to(cache.dtype)
+
+
+def _local_rows(pos, start, n, S):
+    """(local positions, limit) of global positions ``pos`` in a piece of
+    ``n`` entries from ``start`` of a sequence of S: writes at or past the
+    limit (the last piece's padding past S) are dropped."""
+    return (pos - start if start else pos), min(n, max(S - start, 0))
 
 
 class GQA(nn.Module):
@@ -283,15 +322,15 @@ def gqa_encode(p: GQA, x, cfg, *, impl=None):
 def gqa_cross(p: GQA, x, cfg, enc_k, enc_v, enc_len=None, impl=None, ctx=None):
     """Cross-attention of x (B,S,D) over the encoder's K/V (B,T,Hkv,Dh): no
     rope, no causal mask, no qkv bias; ``enc_len`` (an int or (B,)) masks
-    each row to its own encoder length, None attends to all T. With
-    ``ctx.kv_seq`` (a decode over this data rank's piece of the cross
-    cache) ``enc_len`` must be given."""
+    each row to its own encoder length, None attends to all T. A decode
+    over this rank's piece of a sequence-cut cross cache (``is_cut``)
+    attends through ``attend_piece``; ``enc_len`` must be given."""
     B, S, _ = x.shape
     q = p.wq(x).view(B, S, -1, cfg.head_dim)  # the rank's heads on a model axis
-    if ctx is not None and ctx.kv_seq:
+    if is_cut(cfg, ctx):
         if enc_len is None:
             raise ValueError("a decode over a sequence-cut cross cache needs enc_len")
-        o = attend_piece(q, enc_k, enc_v, ctx, kv_len=enc_len, impl=impl)
+        o = attend_piece(q, enc_k, enc_v, cfg, ctx, kv_len=enc_len, impl=impl)
     else:
         o = attend(q, enc_k, enc_v, causal=False, kv_len=enc_len, impl=impl)
     return row_linear(p.wo, o.reshape(B, S, -1))
@@ -323,15 +362,15 @@ def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None,
     round) sit at kpos > qpos, so the causal mask hides them until they are
     overwritten. Returns (out, (cache_k, cache_v)).
 
-    ``ctx.kv_seq``: the caches are this data rank's pieces of a sequence
-    of ``kv_seq`` positions (module docstring): the new K/V are written
-    where the rank holds their positions (and below ``kv_seq``), and the T
-    query positions attended through ``attend_piece`` (kv_len = position +
-    1, at most ``kv_seq``: the whole cache's causal bound)."""
+    A sequence-cut cache (``is_cut``): the caches are this rank's pieces
+    of a sequence of S positions (module docstring, ``piece_span``): the
+    new K/V are written where the rank holds their positions (and below
+    S), and the T query positions attended through ``attend_piece``
+    (kv_len = position + 1, at most S: the whole cache's causal bound)."""
     B, T = x.shape[0], x.shape[1]
-    piece = ctx is not None and bool(ctx.kv_seq)
+    piece = is_cut(cfg, ctx)
     n = cache_k.shape[1]
-    S, start = (ctx.kv_seq, piece_start(cache_k, ctx)) if piece else (n, 0)
+    S, start = piece_span(cache_k, cfg, ctx) if piece else (n, 0)
     if not torch.is_tensor(pos) or not pos.dim():  # position-synchronous: one token, one position
         if T > 1:
             raise ValueError("multi-position decode takes (B,) per-row positions")
@@ -342,14 +381,14 @@ def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None,
             cache_v[:, idx - start] = v[:, 0].to(cache_v.dtype)
         kw = dict(window=window, softcap=cfg.attn_softcap, q_offset=idx, kv_len=idx + 1,
                   impl=impl)
-        o = (attend_piece(q, cache_k, cache_v, ctx, **kw) if piece else
+        o = (attend_piece(q, cache_k, cache_v, cfg, ctx, **kw) if piece else
              attend(q, cache_k, cache_v, causal=False, **kw))
         return row_linear(p.wo, o.reshape(B, 1, -1)), (cache_k, cache_v)
     pos = torch.as_tensor(pos, device=x.device)
     positions = (pos.reshape(-1, 1).expand(B, 1) if T == 1 else
                  pos[:, None] + torch.arange(T, device=x.device))
     q, k, v = _project_qkv(p, x, cfg, positions)
-    local, limit = (pos - start if start else pos), min(n, max(S - start, 0))
+    local, limit = _local_rows(pos, start, n, S)
     if T == 1:  # ragged: per-slot positions
         if limit < n:  # the last piece's padding past the sequence
             local = torch.where(local < limit, local, torch.full_like(local, n))
@@ -360,7 +399,7 @@ def gqa_decode(p: GQA, x, cfg, cache_k, cache_v, pos, *, window=None, impl=None,
         write_grid(cache_v, v, local, limit)
     if piece:
         lens = [torch.clamp(pos + t + 1, max=S) for t in range(T)]
-        o = attend_piece(q, cache_k, cache_v, ctx, window=window, softcap=cfg.attn_softcap,
+        o = attend_piece(q, cache_k, cache_v, cfg, ctx, window=window, softcap=cfg.attn_softcap,
                          q_offset=pos, kv_len=lens, impl=impl)
     else:  # a verify (T > 1) attends causally with no kv_len
         o = attend(q, cache_k, cache_v, causal=T > 1, window=window, softcap=cfg.attn_softcap,
@@ -473,7 +512,7 @@ def mla_forward(p: MLA, x, cfg, impl=None):
     return row_linear(p.wo, o.reshape(B, S, H * vd)), (c_kv, k_rope)
 
 
-def mla_decode(p: MLA, x, cfg, cache, pos, impl=None):
+def mla_decode(p: MLA, x, cfg, cache, pos, impl=None, ctx=None):
     """Absorbed decode against the latent cache (B, Smax, lr + rope),
     updated in place: scores and values live in the kv_lora latent space,
     one KV head of width lr + rope for all H query heads, values its first
@@ -481,39 +520,58 @@ def mla_decode(p: MLA, x, cfg, cache, pos, impl=None):
     per-slot positions (a row past the cache writes nothing), or with
     T > 1 a (B,) tensor for the speculative verify (latents scattered at
     the (B,T) grid, the new queries causal, stale latents of a rejected
-    suffix causal-masked until overwritten). Returns (out, cache)."""
+    suffix causal-masked until overwritten). A sequence-cut latent
+    (``is_cut``: over the model ranks at M > 1, and the data ranks with
+    ``ctx.kv_seq``) is this rank's piece: the rank writes only the rows it
+    holds, at local positions, and attends through ``attend_piece``, its
+    q_eff gathered over the kv group so that it runs every head over its
+    rows (the MLA kernels at G = 16), the pieces merged and its own heads
+    kept. Returns (out, cache)."""
     B, T = x.shape[0], x.shape[1]
     H, nope, vd, lr = p.w_ukv.shape[1], cfg.qk_nope_dim, cfg.v_head_dim, cfg.kv_lora_rank
-    Smax = cache.shape[1]
+    n = cache.shape[1]
+    piece = is_cut(cfg, ctx)
+    S, start = piece_span(cache, cfg, ctx) if piece else (n, 0)
     scalar = not torch.is_tensor(pos) or not pos.dim()
-    idx = _scalar_pos(pos, Smax) if scalar and T == 1 else None  # on the host
+    idx = _scalar_pos(pos, S) if scalar and T == 1 else None  # on the host
     pos = torch.as_tensor(pos, device=x.device)
     if T > 1:
         if not pos.dim():
             raise ValueError("multi-position decode takes (B,) per-row positions")
         positions = pos[:, None] + torch.arange(T, device=x.device)
         c_kv, k_rope = _mla_compress(p, x, cfg, positions)
-        write_grid(cache, torch.cat([c_kv.to(cache.dtype), k_rope.to(cache.dtype)], -1), pos)
-        causal, q_off, kv_len = True, pos, None
+        rows = torch.cat([c_kv.to(cache.dtype), k_rope.to(cache.dtype)], -1)
+        write_grid(cache, rows, *_local_rows(pos, start, n, S))
+        causal, q_off, kv_len = True, pos, (S if piece else None)
     else:
         positions = (pos.reshape(-1, 1).expand(B, 1) if idx is None else
                      torch.full((B, 1), idx, device=x.device))
         c_kv, k_rope = _mla_compress(p, x, cfg, positions)
         row = torch.cat([c_kv.to(cache.dtype), k_rope.to(cache.dtype)], -1)[:, 0]
         if idx is None:  # ragged: per-slot positions
-            write_rows(cache, row, pos)
+            local, limit = _local_rows(pos, start, n, S)
+            if limit < n:  # the last piece's padding past the sequence
+                local = torch.where(local < limit, local, torch.full_like(local, n))
+            write_rows(cache, row, local)
             q_off = pos
+            kv_len = torch.clamp(pos + 1, max=S) if piece else pos + 1
         else:
             q_off = idx
-            cache[:, q_off] = row
-        causal, kv_len = False, q_off + 1
+            if 0 <= idx - start < n:
+                cache[:, idx - start] = row
+            kv_len = q_off + 1
+        causal = False
     q_nope, q_rope = _mla_queries(p, x, cfg, positions)
     w_uk = p.w_ukv[..., :nope]  # (lr, H, nope)
     # absorb: q' = q_nope W_uk^T, latent-space queries (B,T,H,lr)
     q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk.float()).to(x.dtype)
     q_eff = torch.cat([q_lat, q_rope], dim=-1)
-    o_lat = attend(q_eff, cache[:, :, None, :], cache[:, :, None, :lr], causal=causal,
-                   q_offset=q_off, kv_len=kv_len, scale=_mla_scale(cfg), impl=impl)
+    kw = dict(causal=causal, q_offset=q_off, kv_len=kv_len, scale=_mla_scale(cfg), impl=impl)
+    if piece:
+        o_lat = attend_piece(q_eff, cache[:, :, None, :], cache[:, :, None, :lr], cfg, ctx,
+                             **kw)
+    else:
+        o_lat = attend(q_eff, cache[:, :, None, :], cache[:, :, None, :lr], **kw)
     w_uv = p.w_ukv[..., nope:]  # (lr, H, vd)
     o = torch.einsum("bqhr,rhd->bqhd", o_lat.float(), w_uv.float()).to(x.dtype)
     return row_linear(p.wo, o.reshape(B, T, H * vd)), cache

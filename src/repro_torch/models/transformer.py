@@ -55,9 +55,11 @@ gemma2's post-block norms, and the decoder's cross-attention.
 On a model axis of M > 1 (``ctx.model_parallel``; ``sharding.placement``)
 each rank holds its 1/M of the heads, ``d_ff`` and experts (every expert
 where M does not divide them), its K/V and cross caches hold its Hkv/M kv
-heads (one kv head where M is a multiple of Hkv; ``init_stack_cache``
-gives the whole cache, ``placement.local_cache_shape`` a rank's piece),
-MLA's latent cache is whole on every rank, and an SSM mixer holds its 1/M of the heads or inner channels with
+heads (one kv head and its piece of the sequence where M is a multiple of
+Hkv; ``init_stack_cache`` gives the whole cache,
+``placement.local_cache_shape`` a rank's piece), MLA's latent cache holds
+the rank's piece of the sequence (``models.attention``), and an SSM mixer
+holds its 1/M of the heads or inner channels with
 its state (``models.ssm``): the normed input of the mixer (attention, MLA,
 Mamba2 or Mamba1), of the decoder's cross-attention and of the dense MLP
 enters through ``collectives.copy_to_model`` and their row-parallel
@@ -248,12 +250,12 @@ def _apply_mixer(lp: Block, h, cfg, ctx, impl, mode, cache, pos, ssm_mask):
         return att.gqa_encode(lp.attn, h, cfg, impl=impl)
     if cfg.use_mla:
         if mode == "decode":
-            return att.mla_decode(lp.attn, h, cfg, cache["latent"], pos, impl=impl)[0]
+            return att.mla_decode(lp.attn, h, cfg, cache["latent"], pos, impl=impl, ctx=ctx)[0]
         mix, (c_kv, k_rope) = att.mla_forward(lp.attn, h, cfg, impl=impl)
         if cache is not None:
-            S, lr = c_kv.shape[1], cfg.kv_lora_rank
-            cache["latent"][:, :S, :lr] = c_kv.to(cache["latent"].dtype)
-            cache["latent"][:, :S, lr:] = k_rope.to(cache["latent"].dtype)
+            dt = cache["latent"].dtype
+            att.write_prefix(cache["latent"], torch.cat([c_kv.to(dt), k_rope.to(dt)], -1), cfg,
+                             ctx)
         return mix
     if mode == "decode":
         mix, _ = att.gqa_decode(lp.attn, h, cfg, cache["k"], cache["v"], pos,
@@ -261,8 +263,8 @@ def _apply_mixer(lp: Block, h, cfg, ctx, impl, mode, cache, pos, ssm_mask):
         return mix
     mix, (k, v) = att.gqa_forward(lp.attn, h, cfg, window=lp.window, impl=impl)
     if cache is not None:
-        att.write_prefix(cache["k"], k, ctx)
-        att.write_prefix(cache["v"], v, ctx)
+        att.write_prefix(cache["k"], k, cfg, ctx)
+        att.write_prefix(cache["v"], v, cfg, ctx)
     return mix
 
 
@@ -281,8 +283,8 @@ def _apply_cross(lp: Block, x, cfg, ctx, impl, mode, cache, enc_out, enc_len):
         return collectives.reduce_from_model(out, ctx).to(x.dtype)
     ek, ev = att.cross_kv(lp.cross, collectives.copy_to_model(enc_out, ctx), cfg)
     if cache is not None:
-        att.write_prefix(cache["xk"], ek, ctx)
-        att.write_prefix(cache["xv"], ev, ctx)
+        att.write_prefix(cache["xk"], ek, cfg, ctx)
+        att.write_prefix(cache["xv"], ev, cfg, ctx)
     return collectives.reduce_from_model(att.gqa_cross(lp.cross, hc, cfg, ek, ev, impl=impl),
                                          ctx).to(x.dtype)
 

@@ -50,10 +50,12 @@ decisions.
 
 A pool that D does not divide is cut on its K/V sequence instead, the
 rule table's fallback (``placement.plan_cache``, ``pool_seq``): every rank
-holds every row, the K/V leaves' positions [d n, (d+1) n) and every other
+holds every row, its piece of the K/V leaves' and the MLA latent's
+positions (over the data group, and the kv group at M > 1) and every other
 leaf whole, and runs every row of every pass with ``ExecContext.kv_seq``
 (``models.attention``: its writes land in its piece, its decode attends
-over its piece and the ranks' softmax states merge over the data group).
+over its piece and the pieces' softmax states merge over the kv group,
+then over the data group).
 Every rank then computes every row's logits in the same bits and draws
 every token itself, so no token is gathered.
 
@@ -265,7 +267,8 @@ class ModelWorker:
             n = B // D
             rows = slice(self.data_rank * n, (self.data_rank + 1) * n)
         frames = self._frames(None if enc_inputs is None else np.asarray(enc_inputs)[rows])
-        enc_len = None if frames is None or not seq else frames.shape[1]
+        cut = seq or self.ctx.kv_group(self.cfg) > 1  # a sequence-cut cross cache
+        enc_len = None if frames is None or not cut else frames.shape[1]
         cache = self._new_cache(B, 0 if frames is None else frames.shape[1])
         mask = None if pad_mask is None else torch.as_tensor(np.asarray(pad_mask)[rows],
                                                              device=self.device)

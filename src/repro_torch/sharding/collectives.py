@@ -31,11 +31,17 @@ activation rows over the data group the same two ways (the 2-D MoE).
 Gloo has no reduce-scatter: there it is an all-reduce followed by the
 rank's slice (NCCL's ``reduce_scatter_tensor`` elsewhere).
 
-``merge_attention`` merges the data ranks' partial softmax states of a
-decode over a K/V cache cut on its sequence (``ExecContext.kv_seq``): one
-all-gather of each rank's fp32 (output, log-sum-exp) over the data group,
-then the same merge in fp32 on every rank, so every rank gets the same
-bits.
+A decode over a cache cut on its sequence (``ExecContext``'s kv group and
+``kv_seq``) attends over the rank's piece and merges the pieces' partial
+softmax states: ``gather_kv_group`` hands every rank of a kv group the
+group's queries (each rank then attends for all of them), and
+``merge_kv_group`` merges the group's fp32 (output, log-sum-exp) states, a
+model-axis all-gather each with the group's slices kept (no process group
+per kv group); ``merge_attention`` then merges the data ranks' states
+over the data group where ``kv_seq`` cuts the sequence there too. The
+merge is the same fp32 arithmetic on every rank (``merge_states``), so
+every rank gets the same bits, and it returns the merged log-sum-exp, so
+the two levels compose.
 
 Every differentiable call is counted on ``counts`` by kind, forward and
 backward alike. All return their input untouched on an axis of one (a
@@ -415,28 +421,71 @@ def all_reduce_model_groups(x: torch.Tensor, groups: int, ctx) -> torch.Tensor:
     return x.copy_(buf[slot])
 
 
+def _group_slices(x: torch.Tensor, cfg, ctx, kind: str) -> list:
+    """Every rank's ``x`` of this rank's kv group, in group order: one
+    all-gather over the model group, the group's g slices kept. (A slot
+    all-reduce, ``all_reduce_model_groups``'s pattern, moves 2 M / g times
+    the group's bytes; this gather M / g times, and the queries and states
+    are small beside the cache.) Counted on ``counts[kind]``."""
+    g, M = ctx.kv_group(cfg), ctx.model_parallel
+    parts = _gather(x, M, ctx.model_group)
+    first = ctx.model_rank // g * g
+    counts[kind] += 1
+    return parts[first:first + g]
+
+
+def gather_kv_group(x: torch.Tensor, cfg, ctx, dim: int = 2) -> torch.Tensor:
+    """The queries of this rank's kv group, without grad: every rank's
+    ``x`` of the group concatenated along ``dim`` (the heads) in group
+    order, so each rank holds the G heads of its kv head (MLA's absorbed
+    q_eff: all 16). ``x`` itself where the group is one rank. Counted on
+    ``counts["gather_kv_group"]``."""
+    if ctx.kv_group(cfg) == 1:
+        return x
+    return torch.cat(_group_slices(x, cfg, ctx, "gather_kv_group"), dim=dim)
+
+
+def merge_kv_group(o: torch.Tensor, lse: torch.Tensor, cfg, ctx):
+    """The attention over the kv group's pieces of the sequence from each
+    rank's over its own: ``o`` (..., Dv) fp32 and ``lse`` (...) fp32 of
+    the same heads on every rank of the group (``merge_attention`` says
+    what they hold). One all-gather of (o, lse) over the model group, the
+    group's states merged by ``merge_states``; returns (o, lse) merged,
+    as they are where the group is one rank. Counted on
+    ``counts["merge_kv_group"]``."""
+    if ctx.kv_group(cfg) == 1:
+        return o, lse
+    packed = torch.cat([o.float(), lse.float()[..., None]], dim=-1)
+    return merge_states(torch.stack(_group_slices(packed, cfg, ctx, "merge_kv_group")))
+
+
 def merge_attention(o: torch.Tensor, lse: torch.Tensor, ctx) -> torch.Tensor:
     """The attention over the whole sequence from each data rank's
     attention over its piece: ``o`` (..., Dv) fp32, normalised over the
     piece's kept keys, and ``lse`` (...) fp32, their log-sum-exp (the
     kernels' ``NEG_INF``, a finite floor, where the piece keeps none).
     One all-gather of (o, lse) over the data group, B H (Dv + 1) floats a
-    decode row, then sum_r e^(lse_r - L) o_r / sum_r e^(lse_r - L) with L
-    the largest lse, in fp32: 0 where no rank keeps a key (every weight is
-    then 1 and every o 0), never inf - inf. Counted on
-    ``counts["merge_attention"]``."""
+    decode row, then ``merge_states`` in fp32. Returns the merged o.
+    Counted on ``counts["merge_attention"]``."""
     D = ctx.batch_parallel
     packed = torch.cat([o.float(), lse.float()[..., None]], dim=-1)
     counts["merge_attention"] += 1
-    return merge_states(torch.stack(_gather(packed, D, ctx.data_group)))
+    return merge_states(torch.stack(_gather(packed, D, ctx.data_group)))[0]
 
 
-def merge_states(parts: torch.Tensor) -> torch.Tensor:
-    """``merge_attention``'s arithmetic on the ranks' states stacked on
-    dim 0: ``parts`` (D, ..., Dv + 1) fp32, each rank's o then its lse."""
+def merge_states(parts: torch.Tensor):
+    """The merge of pieces' softmax states stacked on dim 0: ``parts``
+    (P, ..., Dv + 1) fp32, each piece's o then its lse. Returns (o, lse):
+    sum_p e^(lse_p - L) o_p / sum_p e^(lse_p - L) and L + log sum_p
+    e^(lse_p - L), L the largest lse: 0 and a log-sum-exp at the floor
+    where no piece keeps a key (every weight is then 1 and every o 0),
+    never inf - inf. The merge is associative, so pieces merged in groups
+    and the groups' states merged again give the same attention."""
     lses = parts[..., -1]
-    w = torch.exp(lses - lses.amax(dim=0))
-    return (parts[..., :-1] * w[..., None]).sum(dim=0) / w.sum(dim=0)[..., None]
+    top = lses.amax(dim=0)
+    w = torch.exp(lses - top)
+    total = w.sum(dim=0)
+    return (parts[..., :-1] * w[..., None]).sum(dim=0) / total[..., None], top + torch.log(total)
 
 
 def all_reduce_world(x: torch.Tensor, ctx) -> torch.Tensor:

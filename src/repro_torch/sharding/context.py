@@ -19,14 +19,25 @@ is their product: the ranks that hold the same model shard, numbered
 row-major over the batch axes (``launch.mesh`` makes that group when it
 builds the mesh; a stand-in mesh is read for its sizes only).
 
-``kv_seq`` marks a context whose K/V caches the data ranks hold pieces of
-along the sequence (the rule table's KV-sequence placement of a cache whose
-batch the data group does not divide, ``sharding.placement.plan_cache``):
-``kv_seq`` is the caches' global length, data rank d holds the positions
-[d n, (d + 1) n) with n = ceil(kv_seq / D), every rank runs every row
-(``batch_split`` False), writes only the positions it holds, and decode
-attends over its piece and merges the ranks' partial softmax states
-(``collectives.merge_attention``).
+A serving cache's K/V leaves and MLA latent are cut on their sequence
+(``sharding.placement.plan_cache``) over the ranks that share them:
+
+* the *kv group* (``kv_group``): on a model axis of M > 1, the M / Hkv
+  model ranks that hold GQA kv head m // (M / Hkv) (Hkv < M), or all M
+  model ranks for MLA's one latent head; of size 1 where Hkv >= M. A rank's
+  position in it is ``kv_group_rank``;
+* the data group, where it does not divide the batch (the rule table's
+  KV-sequence placement, ``kv_seq``): every rank runs every row
+  (``batch_split`` False).
+
+``kv_seq`` marks the second: it is the caches' global length. A cache is
+cut in P = (D if ``kv_seq`` else 1) x g pieces of n = ceil(S / P)
+positions (g the kv group's size, S the global length); the rank's piece
+index is (data piece, position in the kv group), ``piece_index``, and it
+holds the positions [p n, (p + 1) n). Each rank writes only the positions
+it holds, and decode attends over its piece and merges the pieces' partial
+softmax states over the kv group, then over the data group
+(``collectives.merge_kv_group``, ``merge_attention``).
 
 ``plan`` carries the reference's per-model overrides. The port reads
 ``"remat_policy"`` (``"full"``, the default, ``"dots"`` or ``"none"``) and
@@ -56,6 +67,18 @@ def axis_sizes(mesh) -> Dict[str, int]:
     if names is not None:
         return dict(zip(names, (int(n) for n in mesh.shape)))
     return {str(k): int(v) for k, v in dict(mesh.shape).items()}
+
+
+def kv_group_size(cfg, M: int) -> int:
+    """The size g of a kv group at a model axis of M (module docstring):
+    M / Hkv for GQA kv heads fewer than M, M for MLA's one latent head,
+    else 1."""
+    if M == 1:
+        return 1
+    if cfg.use_mla:
+        return M
+    Hkv = cfg.num_kv_heads
+    return M // Hkv if 0 < Hkv < M else 1
 
 
 class GroupStandIn:
@@ -119,8 +142,9 @@ class ExecContext:
     # whether the data ranks hold other rows (False: a batch every data rank
     # runs whole, as a serving worker's replicated prefill group)
     batch_split: bool = True
-    # the global length of K/V caches cut on their sequence over the data
-    # group (module docstring); 0: the caches hold whole sequences
+    # the global length of K/V caches (and MLA latents) cut on their
+    # sequence over the data group as well as the kv group (module
+    # docstring); 0: the data ranks hold whole sequences
     kv_seq: int = 0
 
     def __post_init__(self):
@@ -190,3 +214,23 @@ class ExecContext:
             raise ValueError(f"a mesh whose batch axes {split} each span more than one device "
                              "needs the data group that launch.mesh makes with it")
         return groups[tuple(split)]
+
+    def kv_group(self, cfg) -> int:
+        """The size g of this rank's kv group (``kv_group_size``)."""
+        return kv_group_size(cfg, self.model_parallel)
+
+    def kv_group_rank(self, cfg) -> int:
+        """This rank's position in its kv group."""
+        return self.model_rank % self.kv_group(cfg)
+
+    def seq_pieces(self, cfg) -> int:
+        """How many pieces a cut cache's sequence is cut in: D x g with
+        ``kv_seq``, else g."""
+        return (self.batch_parallel if self.kv_seq else 1) * self.kv_group(cfg)
+
+    def piece_index(self, cfg) -> int:
+        """The index of this rank's piece of a cut cache: the data piece
+        (its data rank with ``kv_seq``, else 0) times g plus its position
+        in the kv group."""
+        d = self.data_rank if self.kv_seq else 0
+        return d * self.kv_group(cfg) + self.kv_group_rank(cfg)

@@ -71,20 +71,35 @@ the table's decisions and counts all the same:
   the model axis, is cut by its rows: its input is the rank's channels, so
   it runs row-parallel and its partial sums are all-reduced before the
   dt / B / C norms, which act on the whole;
-* MLA's ``latent`` cache, whose rank dim the table's ``c_kv`` rule puts on
-  the model axis, stays whole on every model rank: the absorbed decode
-  scores each of the rank's heads against all 576 columns, and every rank
-  writes the same rows from the replicated ``w_dkv`` and ``kv_norm``;
 * GQA kv heads fewer than M (M a multiple of Hkv: tinyllama-1.1b,
   gemma2-2b and qwen2-7b, 4 kv heads, at M = 8): rank m holds kv head
-  m // (M / Hkv) whole, so each kv head lives on M / Hkv ranks.
-  ``wk``, ``wv``, ``bk`` and ``bv`` are cut Hkv ways (``ParamPlan.ways``)
-  and the K/V caches hold that one head (``local_cache_shape``), where the
-  table cuts the projections' columns mid-head and shards the KV cache on
-  its sequence. A sequence split would need a log-sum-exp merge of the
-  ranks' partial softmaxes in every layer, which the decode kernel does
-  not emit; replicating the kv heads is the layout Megatron and vLLM take
-  at this width, and costs M / Hkv times the K/V cache and projections;
+  m // (M / Hkv) (``wk``, ``wv``, ``bk`` and ``bv`` cut Hkv ways,
+  ``ParamPlan.ways``), where the table cuts the projections' columns
+  mid-head. A rank then projects its own kv head's K/V from the replicated
+  input, and no K/V is gathered;
+* the serving cache (``plan_cache``, ``local_cache_shape``). The K/V leaves
+  of kv heads fewer than M hold the rank's kv head and 1/g of the sequence,
+  g = M / Hkv the ranks that share the head (its *kv group*,
+  ``context.kv_group_size``): ceil(S / g) positions, the rank's piece
+  ``ExecContext.piece_index``. That is the table's rule (it cuts the K/V
+  sequence over "model" there, the flash-decode partial softmax) on the
+  port's heads: S Hkv / M head-positions a rank, the table's bytes. The MLA
+  ``latent`` ([c_kv | k_rope], 576 wide) is cut on its sequence over all M
+  model ranks, ceil(S / M) rows of all 576 columns, where the table cuts
+  c_kv's columns M ways and keeps k_rope whole: S 576 / M against the
+  table's S (512 / M + 64), never more. Every model rank writes the same
+  latent rows from the replicated ``w_dkv`` and ``kv_norm``, so each keeps
+  its piece's rows alone. The cut follows the sequence, not the columns:
+  the absorbed decode scores every head against all 576 columns, so a
+  column cut would all-reduce B H S fp32 partial scores, then the values,
+  in every layer; a sequence cut costs one gather of the group's queries
+  (B T H 576 for MLA) and one merge of the pieces' (o, log-sum-exp), B T H
+  (Dv + 1) floats (``collectives.gather_kv_group``, ``merge_kv_group``).
+  Decode runs every head of the group (G = H / Hkv, padded; 16 for MLA)
+  over the rank's piece through the kernels' piece mode
+  (``models.attention``). Where the data group cuts the sequence too (a
+  batch that D does not divide), the pieces are D g: ceil(S / (D g))
+  positions. Training keeps no cache and is untouched;
 * query heads of a kv group that the group's M / Hkv ranks do not divide
   (qwen2-7b's 7 per group at M = 8): each group is padded with zero heads
   to a multiple of M / Hkv (``PaddedHeads``: 7 -> 8, 32 heads in all), the
@@ -112,7 +127,7 @@ from repro_torch.models.layers import LayerNorm, RMSNorm
 from repro_torch.models.model import dtype_of
 from repro_torch.models.transformer import compute_stages, init_stack_cache
 from repro_torch.sharding import partition_specs as ps
-from repro_torch.sharding.context import axis_sizes
+from repro_torch.sharding.context import axis_sizes, kv_group_size
 
 ROADMAP = "see ROADMAP.md"
 # the leaves the explicit-SPMD layers cut on the model axis
@@ -453,20 +468,25 @@ def local_cache_shape(cfg, ctx, name: str, shape: Tuple[int, ...],
     """The shape of this rank's piece of cache leaf ``name`` (whole
     ``shape``) placed by ``spec``: the table's local shape, but for a
     Mamba2 stack's ``conv`` leaf on the model axis, which holds the rank's
-    di/M x channels and B and C whole, a K/V leaf of fewer kv heads than M,
-    which holds the rank's one kv head (module docstring), and a K/V leaf
-    cut on its sequence over D data ranks, which holds ceil(S / D)
-    positions (the last piece runs past S where D does not divide it)."""
+    di/M x channels and B and C whole; a K/V leaf of fewer kv heads than M,
+    which holds the rank's one kv head; and a K/V leaf or MLA latent cut on
+    its sequence (module docstring), which holds ceil(S / P) positions, P
+    the pieces: the data ranks its spec names times the kv group's g where
+    it names the model axis (the last piece runs past S where P does not
+    divide it)."""
     local = ps.local_shape(shape, spec, ctx.mesh)
     model_axis, _ = _axes(ctx)
-    M = axis_sizes(ctx.mesh)[model_axis]
-    if name in _KV_CACHE and spec[2] not in (None, model_axis):  # a sequence piece
+    sizes = axis_sizes(ctx.mesh)
+    M = sizes[model_axis]
+    if name in _KV_CACHE + ("latent",) and spec[2] is not None:  # a sequence piece
         names = spec[2] if isinstance(spec[2], tuple) else (spec[2],)
-        D = int(np.prod([axis_sizes(ctx.mesh)[a] for a in names]))
-        local = local[:2] + (-(-shape[2] // D),) + local[3:]
+        pieces = int(np.prod([sizes[a] for a in names if a != model_axis]))
+        if model_axis in names:
+            pieces *= kv_group_size(cfg, M)
+        local = local[:2] + (-(-shape[2] // pieces),) + local[3:]
     if name == "conv" and "ssd" in cfg.layer_kinds() and _model_dim(spec, model_axis) is not None:
         local = local[:-1] + (cfg.d_inner // M + 2 * cfg.ssm_d_state,)
-    if name in _KV_CACHE and _model_dim(spec, model_axis) == 3 and shape[3] % M:
+    if name in _KV_CACHE and spec[3] == model_axis and shape[3] % M:
         local = local[:3] + (shape[3] // kv_ways(cfg, M),) + local[4:]
     return local
 
@@ -476,8 +496,9 @@ def init_placed_cache(cfg, ctx, specs: Dict[str, ps.Spec], batch: int, max_len: 
     """A zeroed (batch, max_len) cache of which every leaf holds this
     rank's piece under ``specs`` (``plan_cache``'s placement,
     ``local_cache_shape``): at a model axis of M > 1 the K/V leaves this
-    rank's kv heads, the SSM state its heads or channels, the MLA latent
-    whole."""
+    rank's kv heads (and its piece of their sequence where its kv group is
+    wider than 1), the SSM state its heads or channels, the MLA latent its
+    piece of the sequence."""
     full = init_stack_cache(cfg, batch, max_len, dtype_of(cfg.dtype), "meta", enc_len=enc_len)
     return {n: torch.zeros(local_cache_shape(cfg, ctx, n, tuple(t.shape), specs[n]),
                            dtype=t.dtype, device=device)
@@ -494,21 +515,22 @@ class AxisSizes:
 def plan_cache(cfg, ctx, batch: int, max_len: int, enc_len: int = 0,
                report: Optional[ps.ShardingReport] = None,
                rows_split: bool = True, kv_seq: bool = False) -> Dict[str, ps.Spec]:
-    """The activation rules' placement of a (batch, max_len) cache; at
-    M > 1 every KV leaf must shard on its heads and every SSM state leaf on
-    its heads or channels, and the MLA latent stays whole on the model axis
-    (module docstring): where M is a multiple of the kv heads, the K/V
-    leaves hold one kv head per rank in place of the table's KV-sequence
-    split. At D > 1 every leaf shards on its batch where D divides it;
-    where it does not, the table's fallback: the K/V leaves (``k``, ``v``,
-    ``xk``, ``xv``) shard their sequence over the data group
-    (the table names the "data" axis, the port the whole data group, "pod"
-    included) and every other leaf holds every row whole
-    (the MLA latent too, whose table rule would cut its sequence: its
-    decode reads the whole latent). ``rows_split=False``: a cache whose
-    rows every data rank holds whole (a prefill group's), placed on the
-    model axis only. ``kv_seq``: the sequence-cut placement whatever D
-    and ``batch`` are (a prefill group of a sequence-cut slot pool)."""
+    """The activation rules' placement of a (batch, max_len) cache, on the
+    port's heads (module docstring). At M > 1 every SSM state leaf shards
+    on its heads or channels; a K/V leaf of kv heads that M divides shards
+    on its heads, one of fewer kv heads than M on its rank's kv head and
+    its sequence over the kv group (its seq dim names the model axis); the
+    MLA latent on its sequence over the model axis, all its columns whole.
+    At D > 1 every leaf shards on its batch where D divides it; where it
+    does not, the table's fallback: the K/V leaves (``k``, ``v``, ``xk``,
+    ``xv``) and the MLA latent shard their sequence over the data group
+    too (the table names the "data" axis, the port the whole data group,
+    "pod" included; its seq dim then names the data axes, and the model
+    axis after them where the kv group cuts it as well) and every other
+    leaf holds every row whole. ``rows_split=False``: a cache whose rows
+    every data rank holds whole (a prefill group's), placed on the model
+    axis only. ``kv_seq``: the data group's sequence cut whatever D and
+    ``batch`` are (a prefill group of a sequence-cut slot pool)."""
     model_axis, batch_axes = _axes(ctx)
     sizes = axis_sizes(ctx.mesh)
     mesh = ctx.mesh
@@ -520,6 +542,7 @@ def plan_cache(cfg, ctx, batch: int, max_len: int, enc_len: int = 0,
         specs = {n: (sp[0], None) + tuple(sp[2:]) for n, sp in specs.items()}
     D = int(np.prod([sizes[a] for a in batch_axes]))
     seq = D > 1 and rows_split and (batch % D != 0 or kv_seq)
+    data = None
     if seq:
         specs = ps.cache_shardings(cache_shapes(cfg, batch, max_len, enc_len), cfg,
                                    AxisSizes(**dict(sizes, **{a: 1 for a in batch_axes})),
@@ -529,17 +552,19 @@ def plan_cache(cfg, ctx, batch: int, max_len: int, enc_len: int = 0,
         data = data[0] if len(data) == 1 else data
         for n, sp in specs.items():
             if n in _KV_CACHE or n == "latent":
-                specs[n] = sp[:2] + (data if n in _KV_CACHE else None,) + sp[3:]
+                specs[n] = sp[:2] + (data,) + sp[3:]
     M = sizes[model_axis]
     if M > 1:
+        over_group = (model_axis if data is None else
+                      (data if isinstance(data, tuple) else (data,)) + (model_axis,))
         for name in _KV_CACHE:
-            if name in specs and specs[name][3] != model_axis:
-                kv_ways(cfg, M, name)  # one kv head per rank, or refused
-                s_spec = None if specs[name][2] == model_axis else specs[name][2]
-                specs[name] = specs[name][:2] + (s_spec, model_axis) + specs[name][4:]
+            if name in specs:
+                cut = kv_ways(cfg, M, name) < M  # one kv head per rank, or refused
+                specs[name] = specs[name][:2] + (over_group if cut else data,
+                                                 model_axis) + specs[name][4:]
         for name, dim in (("ssm", 2), ("conv", 3)):
             if name in specs and specs[name][dim] != model_axis:
                 _refuse(name, "an SSM state cache the rule table leaves whole", M)
-        if "latent" in specs:  # whole on every model rank (module docstring)
-            specs["latent"] = specs["latent"][:3] + (None,)
+        if "latent" in specs:  # its sequence over the model axis (module docstring)
+            specs["latent"] = specs["latent"][:2] + (over_group, None)
     return specs

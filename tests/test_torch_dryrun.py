@@ -20,10 +20,11 @@ argument bytes, exactly, and FLOPs:
 
 deepseek-v2-lite-16b at ``decode_32k`` on the same mesh: FLOPs within
 ``DECODE_TOL``; its parameters' bytes equal the reference's shards'
-(``params_shardings``); its cache's equal them once the MLA latent
-(``c_kv``, ``k_rope``) is counted whole on the model axis, where the port
-holds it (``sharding/placement.py``'s docstring), so the argument bytes
-are the reference's with that one departure.
+(``params_shardings``); its cache holds the MLA latent cut on its
+sequence over the model axis, all 576 columns (``sharding/placement.py``'s
+docstring), at most the reference's shards' bytes (c_kv's columns cut,
+k_rope whole), so the argument bytes are the reference's with that one
+departure.
 
 Then every arch at ``decode_32k`` on the (16, 16) production mesh, and
 ``train_4k`` / ``long_500k`` of several families and the (2, 16, 16)
@@ -112,20 +113,24 @@ def test_tinyllama_prefill_matches_jax_dryrun_after_masked_pairs(oracle):
 
 def test_deepseek_decode_matches_jax_dryrun(oracle):
     """Full deepseek-v2-lite-16b ``decode_32k`` on 2 x 2: FLOPs within
-    ``DECODE_TOL`` of the JAX dry run's; the argument bytes are the
-    reference's with the MLA latent held whole on the model axis (the
-    port's layout), which the reference cuts; the parameters' bytes equal
-    the reference's shards'."""
+    ``DECODE_TOL`` of the JAX dry run's; the parameters' bytes equal the
+    reference's shards'; the cache's are the latent's rows of the rank's
+    half of the batch and half of the sequence, all 576 columns (the
+    port's layout), at most the reference's shards' (its c_kv cut on its
+    columns, k_rope whole); the argument bytes are the reference's with
+    that cache."""
     want = oracle["deepseek-v2-lite-16b decode_32k"]
     got = _port("deepseek-v2-lite-16b", "decode_32k", MESH22)
     assert _rel(got["flops"], want["flops"]) <= DECODE_TOL, (got["flops"], want["flops"])
     shards = oracle["deepseek-v2-lite-16b decode_32k shards"]
-    assert got["argument_size_in_bytes"] == (want["argument_size_in_bytes"] - shards["cache"]
-                                             + shards["cache_latent_whole"])
-    b = dryrun.rank_bytes(get_config("deepseek-v2-lite-16b"), MESH22, 0,
-                          SHAPES["decode_32k"].global_batch, SHAPES["decode_32k"].seq_len)
+    cfg, shape = get_config("deepseek-v2-lite-16b"), SHAPES["decode_32k"]
+    b = dryrun.rank_bytes(cfg, MESH22, 0, shape.global_batch, shape.seq_len)
     assert b["params"] == shards["params"]
-    assert b["cache"] == shards["cache_latent_whole"] > shards["cache"]
+    width = cfg.kv_lora_rank + cfg.qk_rope_dim
+    assert b["cache"] == cfg.num_layers * shape.global_batch // 2 * shape.seq_len // 2 * width * 2
+    assert b["cache"] <= shards["cache"]
+    assert got["argument_size_in_bytes"] == (want["argument_size_in_bytes"] - shards["cache"]
+                                             + b["cache"])
     tiny = oracle["tinyllama-1.1b decode_32k shards"]  # the oracle's two counts agree
     rows = SHAPES["decode_32k"].global_batch // 2
     assert tiny["params"] + tiny["cache"] + rows * 4 + 4 == \
@@ -165,8 +170,10 @@ def test_train_and_long_context_on_the_production_meshes(arch, shape, multi_pod)
     """Training (forward, backward, AdamW) and the 500k decode of several
     families, and the (2, 16, 16) mesh: status ok. At ``long_500k`` (B = 1)
     a K/V cache is cut on its sequence over the data group (the piece mode,
-    merged over the ranks: one all-gather per attention layer) and the MLA
-    latent stays whole."""
+    merged over the ranks: one all-gather per attention layer), and over
+    the kv group too where it is wider than 1; the MLA latent is cut on its
+    sequence over every rank of the mesh (the data ranks times the model
+    ranks), decoded through the MLA kernels' piece mode."""
     rec = dryrun.run_one(arch, shape, multi_pod, None)
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["n_devices"] == (512 if multi_pod else 256)
@@ -179,7 +186,11 @@ def test_train_and_long_context_on_the_production_meshes(arch, shape, multi_pod)
         assert rec["kernels"]["decode_attention_piece"]["calls"] == n
     if cfg.use_mla and shape == "long_500k":
         S, lr = SHAPES[shape].seq_len, cfg.kv_lora_rank + cfg.qk_rope_dim
-        assert rec["argument_size_in_bytes"] > S * lr * 2 * cfg.num_layers
+        mesh = dryrun.production_shape(multi_pod)
+        pieces = int(np.prod(list(mesh.values())))
+        b = dryrun.rank_bytes(cfg, mesh, 0, SHAPES[shape].global_batch, S)
+        assert b["cache"] == cfg.num_layers * -(-S // pieces) * lr * 2
+        assert rec["kernels"]["mla_attention_piece"]["calls"] == cfg.num_layers
 
 
 def test_attn_seq_shard_is_refused_naming_the_roadmap():

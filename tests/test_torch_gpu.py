@@ -210,7 +210,7 @@ def test_decode_kernel_at_split_edges(dtype, G, D):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("pieces", [2, 3])
-@pytest.mark.parametrize("G,D", [(8, 64), (2, 256), (7, 128)])
+@pytest.mark.parametrize("G,D", [(8, 64), (2, 256), (7, 128), (8, 128)])
 def test_decode_piece_mode_matches_plain_and_merges_to_the_whole_cache(dtype, pieces, G, D):
     """The decode kernel's piece mode on each piece of a (8, 1000) cache cut
     in 2 or 3 (the last zero-padded): o and lse (fp32 for either input
@@ -243,7 +243,7 @@ def test_decode_piece_mode_matches_plain_and_merges_to_the_whole_cache(dtype, pi
             _close(o, po, "float32")
             _close(lse, plse, "float32")
             states.append(torch.cat([o, lse[..., None]], dim=-1))
-        merged = merge_states(torch.stack(states)).to(q.dtype)
+        merged = merge_states(torch.stack(states))[0].to(q.dtype)
         _close(merged, dmod.decode_attention(q, k, v, **kw), dtype)
 
 
@@ -452,6 +452,50 @@ def test_mla_kernels_at_a_ranks_heads_on_card(dtype, G, T):
                                      q_offset=offs + t, kv_len=offs + t + 1, scale=kw["scale"])
             live = (offs + t) < Smax
             assert torch.equal(dec[live, 0], out[live, t])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pieces", [2, 8])
+@pytest.mark.parametrize("T", [1, 5])
+def test_mla_piece_mode_matches_plain_and_merges_to_the_whole_cache(dtype, pieces, T):
+    """The MLA kernels' piece mode at G = 16 on each piece of a (8, 1024)
+    latent cut in 2 or 8, through ``ops.decode_attention_piece`` (one MLA
+    piece launch each, no other kernel): o and lse, fp32 for either input
+    dtype, against ``mla_attention_piece_plain`` at fp32's tolerance, the
+    decode step (T = 1, a slot parked at Smax) and the verify (T = 5,
+    causal), rows that keep no key of a piece (0 and -1e30); the pieces'
+    states merged (``collectives.merge_states``) and cast once against the
+    whole-cache kernel at the dtype's tolerance."""
+    from repro_torch.kernels import mla_attention as mmod
+    from repro_torch.kernels import ops
+    from repro_torch.sharding.collectives import merge_states
+    dev = _card()
+    B, Smax = 8, 1024
+    pos = torch.tensor([0, 1, 63, 64, 500, 1000, 1023, 1024], dtype=torch.int32, device=dev)
+    q = _randn(55, (B, T, 16, 576), dtype, dev)
+    k = _randn(56, (B, Smax, 1, 576), dtype, dev)
+    kw = (dict(causal=False, q_offset=pos, kv_len=torch.clamp(pos + 1, max=Smax)) if T == 1
+          else dict(causal=True, q_offset=torch.clamp(pos, max=Smax - 2), kv_len=Smax))
+    kw["scale"] = 192 ** -0.5
+    n = Smax // pieces
+    wrappers = (dmod.decode_attention_piece, mmod.mla_attention, mmod.mla_attention_piece)
+    states = []
+    for p in range(pieces):
+        kp = k[:, p * n:(p + 1) * n].contiguous()
+        before = [w.launches for w in wrappers]
+        o, lse = ops.decode_attention_piece(q, kp, kp[..., :512], k_start=p * n, **kw)
+        assert [w.launches - b for w, b in zip(wrappers, before)] == [0, 0, 1]
+        po, plse = mmod.mla_attention_piece_plain(q, kp, kp[..., :512], k_start=p * n, **kw)
+        assert o.dtype == lse.dtype == torch.float32
+        assert o.shape == (B, T, 16, 512) and lse.shape == (B, T, 16)
+        _close(o, po, "float32")
+        _close(lse, plse, "float32")
+        empty = plse <= -1e29
+        assert torch.equal(lse[empty], plse[empty]) and not o[empty].any()
+        states.append(torch.cat([o, lse[..., None]], dim=-1))
+    merged = merge_states(torch.stack(states))[0].to(q.dtype)
+    _close(merged, mmod.mla_attention(q, k, k[..., :512], **kw), dtype)
 
 
 @pytest.mark.gpu

@@ -17,8 +17,9 @@ and mamba2 with the port's unsharded tokens. The JAX package's own
 sharded path raises ``ShardingTypeError`` here (ROADMAP.md, Queue 3), so
 the meshes are held against unsharded runs. Without a process group: each
 rank's draw is ``shard_params`` of the whole draw, segmented leaves
-included, and a rank's cache holds the whole MLA latent and a Mamba2
-``conv`` state di/M + 2N wide.
+included, and a rank's cache holds its piece of the MLA latent's
+sequence, all 576 columns wide, and a Mamba2 ``conv`` state di/M + 2N
+wide.
 """
 import functools
 
@@ -268,10 +269,11 @@ def test_sharded_draw_cuts_the_segmented_leaves(arch):
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-2.7b", "jamba-v0.1-52b"])
 def test_a_ranks_cache_holds_the_whole_latent_and_its_ssm_channels(arch):
     """A worker on a stand-in mesh of model 2 allocates its slot pool as its
-    piece: the MLA ``latent`` whole on every model rank (the table's c_kv
-    rule would cut it: the port departs), a Mamba2 ``conv`` state di/2 +
-    2N wide and its ``ssm`` state on half the heads, a Mamba1 ``conv`` and
-    ``ssm`` on half the inner channels."""
+    piece: the MLA ``latent`` with all its columns (the table's c_kv rule
+    would cut them: the port departs) and half its sequence, cut over the
+    model axis (no model rank holds the whole latent), a Mamba2 ``conv``
+    state di/2 + 2N wide and its ``ssm`` state on half the heads, a Mamba1
+    ``conv`` and ``ssm`` on half the inner channels."""
     cfg = configs.reduced(configs.get_config(arch))
     ctx = ExecContext(mesh=_FakeMesh(data=1, model=2), batch_axes=("data",), model_axis="model")
     w = ModelWorker("a", cfg, tmodel.init_params(cfg, 0, "cpu"), max_len=MAX_LEN, ctx=ctx)
@@ -280,8 +282,9 @@ def test_a_ranks_cache_holds_the_whole_latent_and_its_ssm_channels(arch):
     shapes = {n: tuple(t.shape) for n, t in pool.cache.items()}
     di, N = cfg.d_inner, cfg.ssm_d_state
     if cfg.use_mla:
-        assert shapes["latent"] == tuple(full["latent"].shape)
-        assert pool.cache_shardings["latent"][3] is None
+        L, B, S, W = full["latent"].shape
+        assert shapes["latent"] == (L, B, S // 2, W)
+        assert pool.cache_shardings["latent"][2:] == ("model", None)
     if "ssd" in cfg.layer_kinds():
         assert shapes["conv"][-1] == di // 2 + 2 * N
         assert shapes["ssm"][2] == cfg.ssm_num_heads // 2

@@ -172,7 +172,8 @@ def test_engine_on_four_ranks_matches_unsharded(ranks, arch):
 def test_plans_replicate_kv_heads_pad_query_heads_and_keep_experts_whole():
     """No process group: at M = 4 reduced tinyllama's kv leaves are cut 2
     ways (rank m holds kv head m // 2 whole), its query leaves 4 ways, its
-    K/V cache holds one kv head per rank; qwen2's 6 on 2 heads are padded
+    K/V cache holds one kv head per rank and half its sequence (the kv
+    group of 2 ranks cuts it); qwen2's 6 on 2 heads are padded
     to 4 per group (a rank of odd index holds its group's last real head
     and a zero head); kimi's 6 experts are whole on every rank."""
     tiny = _pair("tinyllama-1.1b")[2]
@@ -183,9 +184,9 @@ def test_plans_replicate_kv_heads_pad_query_heads_and_keep_experts_whole():
     assert plan.replicas(a + "wv.weight") == 2 and plan.replicas(a + "wq.weight") == 1
     assert [tmodel.cuts(plan, a + "wk.weight", r)[0][2] for r in range(M)] == [0, 0, 1, 1]
     specs = placement.plan_cache(tiny, _ctx(), 8, MAX_LEN)
-    assert specs["k"][2:4] == (None, "model")
+    assert specs["k"][2:4] == ("model", "model")
     assert placement.local_cache_shape(tiny, _ctx(), "k", (2, 8, MAX_LEN, 2, 64),
-                                       specs["k"]) == (2, 8, MAX_LEN, 1, 64)
+                                       specs["k"]) == (2, 8, MAX_LEN // 2, 1, 64)
     qwen = _pair("qwen2-7b")[2]
     qplan = placement.plan_params(qwen, _ctx())
     assert qplan.segments[a + "wq.weight"] == placement.PaddedHeads(2, 3, 4, 64)

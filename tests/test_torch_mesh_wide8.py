@@ -2,11 +2,13 @@
 the port, on eight gloo CPU ranks (a (1, 8) mesh), against the JAX package.
 
 tinyllama-1.1b's 32 query heads on 4 kv heads (each kv head whole on 2
-ranks, 4 query heads per rank) and qwen2-7b's 28 on 4 (each group of 7
-padded with a zero head to 8, 4 per rank), at the reduced configs' width
-but a head dim of 8, and deepseek-v2-lite-16b's 16 MLA heads (2 per rank,
-the absorbed decode at G = 2 on the latent held whole; its reduced
-experts whole on every rank), at the reduced config's widths, fp32,
+ranks, which hold half its K/V sequence each, 4 query heads per rank) and
+qwen2-7b's 28 on 4 (each group of 7 padded with a zero head to 8, 4 per
+rank), at the reduced configs' width but a head dim of 8, and
+deepseek-v2-lite-16b's 16 MLA heads (2 per rank, the latent cut on its
+sequence in 8 pieces, each rank's absorbed decode running all 16 heads
+over its piece; its reduced experts whole on every rank), at the reduced
+config's widths, fp32,
 weights from the JAX package's ``init_params``.
 One spawn of eight ranks runs ``ModelWorker.generate`` and the continuous
 FIFO engine: every rank's greedy tokens equal the port's unsharded run's
@@ -32,6 +34,7 @@ from repro_torch.configs import base as configs  # noqa: E402
 from repro_torch.launch.dryrun import rank_bytes  # noqa: E402
 from repro_torch.launch.sharded import engine_rank, generate_rank, run_ranks, serve_job  # noqa: E402
 from repro_torch.serving.workers import ModelWorker  # noqa: E402
+from repro_torch.sharding import placement  # noqa: E402
 from repro_torch.sharding.context import ExecContext  # noqa: E402
 
 M = 8
@@ -140,9 +143,12 @@ def test_rank_bytes_equal_the_dry_run_count(ranks, arch):
     """Every rank's parameters and slot pool hold exactly the bytes that the
     dry run counts for its shard on the meta device
     (``launch.dryrun.rank_bytes``): qwen2's padded heads, the kv heads
-    whole on 2 ranks, deepseek's latent whole on every rank."""
+    whole on 2 ranks with half the K/V sequence each, deepseek's latent in 8
+    pieces of its sequence."""
     i = list(HEADS).index(arch)
     cfg = _pair(arch)[2]
+    whole = sum(int(np.prod(s)) * 4 for s in placement.cache_shapes(cfg, SLOTS, MAX_LEN).values())
     for rank, (_, eng) in enumerate(ranks):
         assert eng[i]["rank_bytes"] == rank_bytes(cfg, {"data": 1, "model": M}, rank, SLOTS,
                                                   MAX_LEN), rank
+        assert eng[i]["rank_bytes"]["cache"] * M == whole, rank  # 1/M of the cache a rank

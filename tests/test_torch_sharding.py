@@ -363,7 +363,7 @@ def test_two_ranks_match_the_jax_unsharded_tokens():
 def test_refusals_name_the_leaf_and_the_roadmap():
     """No process group needed: reduced tinyllama (2 kv heads) on a model
     axis of 4 (each kv head whole on 2 ranks, one kv head per rank in the
-    K/V cache), reduced kimi with 6 experts on 4 (every expert whole on
+    K/V cache and half its sequence), reduced kimi with 6 experts on 4 (every expert whole on
     every rank) and reduced jamba (Mamba1 layers) on 2 are placed for
     serving and train alike: train mode's mesh check
     (``check_train_mesh``) takes each, as it takes reduced
@@ -405,9 +405,9 @@ def test_refusals_name_the_leaf_and_the_roadmap():
     assert [tmodel.cuts(wide, wk, r)[0][1:3] for r in range(4)] == [(2, 0), (2, 0), (2, 1),
                                                                      (2, 1)]
     specs = placement.plan_cache(tiny, ctx(data=1, model=4), 8, 32)
-    assert specs["k"] == (None, ("data",), None, "model", None)
+    assert specs["k"] == (None, ("data",), "model", "model", None)
     assert placement.local_cache_shape(tiny, ctx(data=1, model=4), "k", (2, 8, 32, 2, 64),
-                                       specs["k"]) == (2, 8, 32, 1, 64)
+                                       specs["k"]) == (2, 8, 16, 1, 64)
     assert placement.plan_params(tiny, ctx(data=2, model=1)).shape == (2, 1)
     odd = placement.plan_cache(tiny, ctx(data=2, model=1), 3, 33)
     assert odd["k"] == odd["v"] == (None, None, "data", "model", None)

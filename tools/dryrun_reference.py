@@ -10,8 +10,7 @@ per-rank bytes side by side on the production mesh.
 ``decode_32k`` and ``prefill_32k`` and for deepseek-v2-lite-16b at
 ``decode_32k``; and the per-device bytes of the JAX leaves' shards under
 the reference's own shardings (``params_shardings``, ``cache_shardings``)
-on that mesh: parameters, cache, and the cache with the MLA latent
-(``c_kv``, ``k_rope``) whole on the model axis, as the port holds it.
+on that mesh: parameters and cache.
 
 The meshes are ``jax.sharding.Mesh`` over host devices, whose axes are
 Auto, as ``jax.make_mesh``'s were before jax 0.5 (``requirements-ci.txt``
@@ -39,15 +38,13 @@ import json  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P  # noqa: E402
+from jax.sharding import Mesh  # noqa: E402
 
 from repro.configs.base import ARCHS, SHAPES, get_config  # noqa: E402
 from repro.launch import dryrun as dr  # noqa: E402
 from repro.launch.mesh import batch_axes_for  # noqa: E402
 from repro.models import model as model_lib  # noqa: E402
 from repro.sharding.partition_specs import cache_shardings, params_shardings  # noqa: E402
-
-LATENT = ("c_kv", "k_rope")
 
 
 def host_mesh(data: int, model: int):
@@ -60,14 +57,6 @@ def compiled(arch: str, shape: str, mesh) -> dict:
     lowered, _ = dr.build_lowered(arch, shape, mesh=mesh)
     st = dr.analyse(lowered, lowered.compile(), mesh.size)
     return {"flops": st["flops"], "argument_size_in_bytes": st["argument_size_in_bytes"]}
-
-
-def _whole_on_model(sh: NamedSharding) -> NamedSharding:
-    def drop(a):
-        if isinstance(a, tuple):
-            return tuple(x for x in a if x != "model") or None
-        return None if a == "model" else a
-    return NamedSharding(sh.mesh, P(*(drop(a) for a in sh.spec)))
 
 
 def shard_bytes(arch: str, shape_name: str, mesh) -> dict:
@@ -83,16 +72,10 @@ def shard_bytes(arch: str, shape_name: str, mesh) -> dict:
     psh = params_shardings(p, cfg, mesh, batch_axes=baxes)
     csh = cache_shardings(c, cfg, mesh, B, batch_axes=baxes)
 
-    def total(tree, shs, whole=()):
-        n = 0
-        for (path, leaf), sh in zip(jax.tree_util.tree_flatten_with_path(tree)[0],
-                                    jax.tree.leaves(shs)):
-            if any(getattr(k, "key", None) in whole for k in path):
-                sh = _whole_on_model(sh)
-            n += int(np.prod(sh.shard_shape(leaf.shape))) * leaf.dtype.itemsize
-        return n
-    return {"params": total(p, psh), "cache": total(c, csh),
-            "cache_latent_whole": total(c, csh, LATENT)}
+    def total(tree, shs):
+        return sum(int(np.prod(sh.shard_shape(leaf.shape))) * leaf.dtype.itemsize
+                   for leaf, sh in zip(jax.tree.leaves(tree), jax.tree.leaves(shs)))
+    return {"params": total(p, psh), "cache": total(c, csh)}
 
 
 def oracle() -> dict:
