@@ -626,7 +626,7 @@ def phase_kernels(torch, report):
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"flash_attention": {}, "decode_attention": {}, "ssd_scan": {}, "mla_attention": {},
             "decode_attention_piece": {}, "mla_attention_piece": {}}
-    verify_errs, kimi_errs, rank_errs, piece_errs = {}, {}, {}, {}
+    verify_errs, kimi_errs, rank_errs, piece_errs, seq_errs = {}, {}, {}, {}, {}
     misses = []
 
     def compare(kernel, case, dtype, out, ref, tols=TOL):
@@ -690,6 +690,11 @@ def phase_kernels(torch, report):
                                      float((out.float() - ref.float()).abs().max()))
         for case, out, ref in arch_flash_cases(torch, gen, fmod, dtype):
             compare("flash_attention", f"{case} {dtype}", dtype, out, ref)
+        for kernel, case, out, ref in seq_shard_cases(torch, gen, dtype):
+            compare(kernel, f"{case} {dtype}", dtype, out, ref)
+            key = str(dtype).split(".")[-1]
+            seq_errs[key] = max(seq_errs.get(key, 0.0),
+                                float((out.float() - ref.float()).abs().max()))
         for kernel, case, out, ref in encdec_hybrid_cases(torch, gen, fmod, dmod, dtype):
             compare(kernel, f"{case} {dtype}", dtype, out, ref)
         for kernel, case, out, ref in bucketed_fleet_cases(torch, gen, fmod, dmod, smod, dtype):
@@ -728,6 +733,7 @@ def phase_kernels(torch, report):
     log("kernel vs plain, max abs err:", json.dumps(errs))
     log("kimi-k2 head dim 112, max abs err by output columns:", json.dumps(kimi_errs))
     log("flash at verify shapes, max abs err:", json.dumps(verify_errs))
+    log("flash at the attn_seq_shard pieces' shapes, max abs err:", json.dumps(seq_errs))
     log(f"MLA at a model rank's heads (G = {', '.join(map(str, MLA_RANK_G))}), max abs err:",
         json.dumps(rank_errs))
     log("MLA piece mode (G = 16) vs its plain version, o and lse, max abs err:",
@@ -1034,6 +1040,42 @@ def arch_flash_cases(torch, gen, fmod, dtype):
         q, k, v = qkv(torch, gen, B, S, S, QWEN2["H"], QWEN2["Hkv"], QWEN2["D"], dtype)
         yield (f"qwen2 G=7 B={B} S={S}", fmod.flash_attention(q, k, v, causal=True),
                fmod.flash_attention_plain(q, k, v, causal=True))
+
+
+# the plan knob attn_seq_shard's attention (models.attention.attend_seq_shard):
+# model rank r of M attends for every head with its piece of n = ceil(S / M)
+# queries from q_offset r n against all S keys, kv_len min(S, r n + n) (the
+# last pieces' rows past S are padding). (name, heads, B, S, M, window):
+# tinyllama on (1, 2); qwen2's 28 heads padded to 32 on (1, 8) at an S that
+# 8 divides and one it does not; gemma2's window and softcaps on (1, 8) at
+# an uneven S; and a piece of one query (the decode kernel's route)
+QWEN2_PADDED = dict(H=32, Hkv=4, D=128, softcap=None)
+SEQ_SHARD = (("tinyllama", TINY, 4, 512, 2, None), ("qwen2 padded", QWEN2_PADDED, 2, 512, 8, None),
+             ("qwen2 padded", QWEN2_PADDED, 2, 500, 8, None), ("gemma2", GEMMA, 2, 300, 8, 100),
+             ("tinyllama", TINY, 2, 6, 8, None))
+
+
+def seq_shard_piece(S, M, r):
+    """(n, q_offset, kv_len) of model rank r's query piece under the knob."""
+    n = -(-S // M)
+    return n, r * n, min(S, r * n + n)
+
+
+def seq_shard_cases(torch, gen, dtype):
+    """(kernel, case, kernel output, plain output) at the knob's shapes
+    (``SEQ_SHARD``), every rank's piece, through ``ops.flash_attention`` as
+    the model calls it (a piece of one query goes to the decode kernel)."""
+    from repro_torch.kernels import ops
+    for name, hd, B, S, M, window in SEQ_SHARD:
+        _, k, v = qkv(torch, gen, B, 1, S, hd["H"], hd["Hkv"], hd["D"], dtype)
+        for r in range(M):
+            n, lo, kl = seq_shard_piece(S, M, r)
+            q = qkv(torch, gen, B, n, 1, hd["H"], hd["Hkv"], hd["D"], dtype)[0]
+            kw = dict(causal=True, window=window, softcap=hd["softcap"], q_offset=lo, kv_len=kl)
+            yield ("flash_attention" if n > 1 else "decode_attention",
+                   f"attn_seq_shard {name} B={B} S={S} M={M} rank {r} w={window}",
+                   ops.flash_attention(q, k, v, **kw), ops.flash_attention(q, k, v, plain=True,
+                                                                           **kw))
 
 
 ENC_SQ_SK = (1, 17, 100, 255, 500, 512)  # the encoder's frames, around the tiles
@@ -1367,6 +1409,8 @@ def phase_times(torch, report):
     rows += mesh_rank_times(torch, gen, flush, sdpa, report.get("mesh_families", {}),
                             report.get("mesh_wide", {}))
     rows += wide_rank_times(torch, gen, flush, sdpa, report.get("mesh_wide", {}))
+    rows += seq_shard_times(torch, gen, flush, sdpa,
+                            report.get("launches_seq_shard", {}).get("flash_attention"))
     rows += piece_times(torch, gen, flush,
                         report.get("launches_serve_mesh", {}).get("decode_attention_piece"))
     rows += mla_piece_times(torch, gen, flush,
@@ -1685,6 +1729,35 @@ def wide_rank_times(torch, gen, flush, sdpa, wide):
                                           flush),
                          library_ms=lib, bound_ms=b_ms, bound_by=b_by,
                          launches_per_serve=None if served is None else served["decode_attention"]))
+    return rows
+
+
+def seq_shard_times(torch, gen, flush, sdpa, served):
+    """Flash at the plan knob attn_seq_shard's shapes, bf16: B 8 S 512,
+    tinyllama's 32 on 4 heads at rank 1 of (1, 2) and qwen2's 32 (padded)
+    on 4 heads at ranks 0 and 7 of (1, 8) (the fewest and the most keys),
+    each beside SDPA with a bool mask and its bound (``kernels.cost``),
+    with the flash launches per serve on rank 0 of the mesh_wide phase's
+    knob arm of the same run (``served``: qwen2, fp32, 2 layers)."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels import flash_attention as fmod
+    bf16, rows, B, S = torch.bfloat16, [], 8, 512
+    for name, hd, M, r in (("tinyllama", TINY, 2, 1), ("qwen2 padded", QWEN2_PADDED, 8, 0),
+                           ("qwen2 padded", QWEN2_PADDED, 8, 7)):
+        n, lo, kl = seq_shard_piece(S, M, r)
+        q = qkv(torch, gen, B, n, 1, hd["H"], hd["Hkv"], hd["D"], bf16)[0]
+        _, k, v = qkv(torch, gen, B, 1, S, hd["H"], hd["Hkv"], hd["D"], bf16)
+        kw = dict(causal=True, q_offset=lo, kv_len=kl)
+        mask = torch.arange(S, device="cuda") <= lo + torch.arange(n, device="cuda")[:, None]
+        work = cost.attention_work(B, n, S, hd["H"], hd["Hkv"], hd["D"], hd["D"], 2, causal=True,
+                                   q_offset=lo, kv_len=kl)
+        rows.append(time_row(
+            torch, flush, "flash_attention", f"{name} attn_seq_shard M={M} rank {r}", B, S,
+            lambda: fmod.flash_attention(q, k, v, **kw),
+            lambda: fmod.flash_attention_plain(q, k, v, **kw),
+            lambda: sdpa(q, k, v, attn_mask=mask), cost.bound(*work, "bfloat16"),
+            shape="attn_seq_shard", Sq=n, q_offset=lo, heads=f"{hd['H']} on {hd['Hkv']}",
+            launches_per_serve=served if name.startswith("qwen2") else None))
     return rows
 
 
@@ -4361,6 +4434,9 @@ TRAIN_MESH = dict(arch="tinyllama-1.1b", layers=4, batch=8, seq=512, steps=3, lr
 # relative tolerances of each step's loss and grad norm against the unsharded
 # run in bf16 (PERF.md states them beside its predictions)
 TRAIN_MESH_TOL = dict(loss=1e-2, grad_norm=5e-2)
+# tinyllama's arm again on (1, 2) with the plan knob attn_seq_shard (SEQ_PLAN:
+# its attention cut on the query sequence), held against the same unsharded run
+TRAIN_MESH_SEQ = "tinyllama attn_seq_shard"
 # the families beside tinyllama, at full width, bf16, 3 steps, each against its
 # unsharded run on the card (TRAIN_MESH_TOL): deepseek-v2-lite-16b (MLA) cut to 2
 # of its 27 layers (a dense layer, then an MoE layer), expert-parallel on (1, 2)
@@ -4439,7 +4515,12 @@ MESH_FAMILIES = dict(archs=("deepseek-v2-lite-16b", "mamba2-2.7b", "seamless-m4t
 MESH_WIDE = dict(MESH_FAMILIES, archs=("tinyllama-1.1b", "gemma2-2b", "qwen2-7b",
                                       "deepseek-v2-lite-16b"), fp32_cuts={},
                  bf16_layers={"tinyllama-1.1b": 8, "gemma2-2b": 8, "qwen2-7b": 8,
-                              "deepseek-v2-lite-16b": 8}, world=8, timeout=600.0)
+                              "deepseek-v2-lite-16b": 8}, world=8, timeout=600.0,
+                 seq_shard=("qwen2-7b",))
+# the plan knob attn_seq_shard (GQA prefill attention cut on its query
+# sequence over the model axis): the fp32 arms of ``seq_shard``'s archs again
+# with it, held against the same unsharded run
+SEQ_PLAN = {"attn_seq_shard": True}
 # A bf16 arm on a mesh against the unsharded bf16 arm, both held against the
 # exact-fp32 route at the same weights and inputs (the bf16 weights cast up,
 # the unsharded run's expert choices replayed): the sharded run rounds at the
@@ -4750,8 +4831,9 @@ def train_mesh_arms():
     from repro_torch.configs.base import get_config
     t = TRAIN_MESH
     tiny = dataclasses.replace(get_config(t["arch"]), num_layers=t["layers"])
-    arms = {"tinyllama": (train_mesh_job(tiny, t["batch"], t["seq"], t["steps"]),
-                          tuple((mesh, fsdp, None) for mesh, fsdp in t["meshes"]))}
+    job = train_mesh_job(tiny, t["batch"], t["seq"], t["steps"])
+    arms = {"tinyllama": (job, tuple((mesh, fsdp, None) for mesh, fsdp in t["meshes"])),
+            TRAIN_MESH_SEQ: (job, (((1, 2), None, SEQ_PLAN),))}
     for name, f in TRAIN_MESH_FAMILIES.items():
         arms[name] = (train_mesh_job(train_mesh_cfg(f["arch"], f["cut"]), f["batch"], f["seq"],
                                      t["steps"], f.get("frames", 64)), f["meshes"])
@@ -4779,7 +4861,9 @@ def phase_train_mesh(torch, report):
     share printed; mamba2-2.7b (4 of 64 layers) on (1, 2) and on (2, 2)
     with FSDP; seamless-m4t-medium (2 + 2 layers) on (1, 2); jamba-v0.1-52b
     (JAMBA_PARITY's 3 layers: Mamba1, Mamba1 with the MoE, attention)
-    expert-parallel on (1, 2); tinyllama-1.1b and qwen2-7b (2 layers) on
+    expert-parallel on (1, 2); tinyllama's arm again on (1, 2) with the
+    plan knob attn_seq_shard (``TRAIN_MESH_SEQ``); tinyllama-1.1b and
+    qwen2-7b (2 layers) on
     eight ranks, (1, 8): kv heads on 2 ranks each, qwen2's groups padded
     from 7 to 8 heads, whose pad rows and columns must stay exactly 0 in
     every param and moment. An fp32 arm of each family (2 layers, seamless
@@ -4802,13 +4886,14 @@ def phase_train_mesh(torch, report):
     t = TRAIN_MESH
     arms, fp32 = train_mesh_arms()
     judged = {name: f["judged"] for name, f in TRAIN_MESH_FAMILIES.items() if "judged" in f}
-    refs, floors = train_mesh_refs(torch, {name: jb for name, (jb, _) in arms.items()},
-                                   noise=tuple(judged))
+    refs, floors = train_mesh_refs(torch, {name: jb for name, (jb, _) in arms.items()
+                                           if name != TRAIN_MESH_SEQ}, noise=tuple(judged))
+    refs[TRAIN_MESH_SEQ] = refs["tinyllama"]
     out = {"unsharded": {name: {"losses": [h["loss"] for h in hist],
                                 "grad_norms": [h["grad_norm"] for h in hist],
                                 "warm_step_s": min(h["step_s"] for h in hist[1:]),
                                 **mem}
-                         for name, (hist, mem) in refs.items()},
+                         for name, (hist, mem) in refs.items() if name != TRAIN_MESH_SEQ},
            "card": report["smi"]}
     for name, row in out["unsharded"].items():
         log(f"train_mesh unsharded {name}: losses {row['losses']}, grad norms "
@@ -5405,7 +5490,7 @@ def families_arm(torch, job, ctx, device="cuda"):
     eng.add_model(cfg.name, cfg, params, max_len=SERVE["max_len"], ctx=ctx, max_enc_len=max_enc)
     w = eng.workers[cfg.name]
     calls = collectives.all_reduce.calls, collectives.all_gather_last.calls
-    kv_merges = collectives.counts["merge_kv_group"]
+    kv_merges, swaps = collectives.counts["merge_kv_group"], collectives.counts["all_to_all"]
     serve_replay = replaying(job.get("serve_routes"), "serve")
     force = sharded and bf16
     with (record_gaps(torch, eng, job["requests"], 0.0, prefills=True) if not sharded
@@ -5428,6 +5513,7 @@ def families_arm(torch, job, ctx, device="cuda"):
                     "expected": families_launches_expected(cfg, *passes, cut),
                     "prefill_calls": passes[0], "decode_calls": passes[1],
                     "kv_merges": collectives.counts["merge_kv_group"] - kv_merges,
+                    "all_to_alls": collectives.counts["all_to_all"] - swaps,
                     "all_reduces": collectives.all_reduce.calls - calls[0],
                     "all_gathers": collectives.all_gather_last.calls - calls[1],
                     "wall_s": wall, "peak_mem_bytes": peak,
@@ -5476,7 +5562,8 @@ def mesh_families_rank(rank, jobs, device="cuda", world=MESH_FAMILIES["world"]):
     out = []
     for job in jobs:
         with exact_fp32():
-            out.append(families_arm(torch, job, ctx, device))
+            out.append(families_arm(torch, job, dataclasses.replace(ctx, plan=job.get("plan", {})),
+                                    device))
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -5575,6 +5662,11 @@ def mesh_phase(torch, report, key, spec):
                              layer_io=ref.pop("layer_io", None)))
             gc.collect()
             torch.cuda.empty_cache()
+    for arch in spec.get("seq_shard", ()):  # the fp32 arm again, with the plan knob
+        i = next(i for i, jb in enumerate(jobs)
+                 if jb["cfg"].name == arch and jb["cfg"].dtype == "float32")
+        jobs.append(dict(jobs[i], plan=SEQ_PLAN))
+        refs.append(refs[i])
     unsharded_wall = time.perf_counter() - t0
     t0 = time.perf_counter()
     ranks = run_ranks(mesh_families_rank, world, (jobs, "cuda", world), timeout=spec["timeout"],
@@ -5583,7 +5675,7 @@ def mesh_phase(torch, report, key, spec):
     out = {"card": report["smi"], "unsharded_wall_s": unsharded_wall, "spawn_wall_s": spawn_wall}
     for j, (job, ref) in enumerate(zip(jobs, refs)):
         cfg = job["cfg"]
-        label = f"{key} {cfg.name} {cfg.dtype}"
+        label = f"{key} {cfg.name} {cfg.dtype}" + (" attn_seq_shard" if job.get("plan") else "")
         fp32 = cfg.dtype == "float32"
         mine = [r[j] for r in ranks]
         for rank, a in enumerate(mine):
@@ -5592,6 +5684,10 @@ def mesh_phase(torch, report, key, spec):
                 raise SmokeFailure(f"{label} rank {rank}: errors {a['serve']['errors']}, "
                                    f"launches {[x['launches'] for x in runs]} (expected "
                                    f"{[x['expected'] for x in runs]})")
+            swaps = 2 * attention_layers(cfg) * a["serve"]["prefill_calls"] if job.get("plan") else 0
+            if a["serve"]["all_to_alls"] != swaps:  # the knob's two per layer per prefill
+                raise SmokeFailure(f"{label} rank {rank}: {a['serve']['all_to_alls']} "
+                                   f"all-to-alls in the serve, expected {swaps}")
             if a["shard"] != (world, rank) or not a["pad_heads"][1]:
                 raise SmokeFailure(f"{label} rank {rank}: holds the shard {a['shard']}, padded "
                                    f"heads (held, all zero) {a['pad_heads']}")
@@ -5651,10 +5747,12 @@ def mesh_phase(torch, report, key, spec):
                               arm_peak_mem_bytes=[a["peak_mem_bytes"] for a in mine],
                               gen_launches=mine[0].get("gen", {}).get("launches"),
                               **{x: mine[0]["serve"][x] for x in ("launches", "all_reduces",
-                                                                  "all_gathers", "sharded",
-                                                                  "pool")}))
-        out[f"{cfg.name} {cfg.dtype}"] = row
+                                                                  "all_gathers", "all_to_alls",
+                                                                  "sharded", "pool")}))
+        out[label[len(key) + 1:]] = row
         log(f"{label}: {json.dumps(row)}")
+        if job.get("plan"):
+            report["launches_seq_shard"] = mine[0]["serve"]["launches"]
     launches = collections.Counter()
     for j, job in enumerate(jobs):
         if job["cfg"].dtype == "bfloat16":
@@ -5693,7 +5791,10 @@ def phase_mesh_wide(torch, report):
     (gemma2), decode at G = 4 or 1, the MLA kernels at G = 2 (launched on
     every rank, as many times on each). Each rank's parameter and slot-pool
     bytes equal the dry run's count for its shard (``launch.dryrun.
-    rank_bytes``), here and in the mesh_families phase."""
+    rank_bytes``), here and in the mesh_families phase. qwen2's fp32 arm
+    runs again with the plan knob attn_seq_shard (``SEQ_PLAN``): each
+    rank's prefill attends for all 32 heads over its eighth of the prompt
+    (flash at ``SEQ_SHARD``'s shapes), its tokens the unsharded run's."""
     mesh_phase(torch, report, "mesh_wide", MESH_WIDE)
 
 
@@ -5701,8 +5802,11 @@ def phase_mesh_wide(torch, report):
 # pairs on (16, 16) on the meta device: deepseek's decode (16 MLA heads on a
 # model axis of 16, the latent cut in 16: the MLA piece mode's meta route at
 # G = 16) and tinyllama's 500k decode (B 1: the K/V cut on its sequence
-# over 16 data ranks and each kv group of 4, the piece mode and the merges)
-DRYRUN = (("deepseek-v2-lite-16b", "decode_32k"), ("tinyllama-1.1b", "long_500k"))
+# over 16 data ranks and each kv group of 4, the piece mode and the merges),
+# and gemma2's train_4k step, whose loss keeps its 256k vocabulary cut over
+# the model axis (the vocabulary-parallel cross-entropy), so that it fits a card
+DRYRUN = (("deepseek-v2-lite-16b", "decode_32k"), ("tinyllama-1.1b", "long_500k"),
+          ("gemma2-2b", "train_4k"))
 
 
 def phase_dryrun(torch, report):
@@ -5710,7 +5814,8 @@ def phase_dryrun(torch, report):
     production (16, 16) mesh, on the meta device (no card memory): status
     ok, deepseek's MLA piece mode counted once per layer at G = 16 (the
     latent cut over the 16 model ranks), tinyllama's piece mode once per
-    layer; printed per pair: the rank's argument and
+    layer, gemma2's train step within 80 GB (``hbm_fits``), no kernel and
+    no all-gather of the logits on its train route; printed per pair: the rank's argument and
     temp GiB, FLOPs, bytes, collective bytes, the kernels' counts and the
     wall."""
     from repro_torch.configs.base import get_config
@@ -5722,7 +5827,12 @@ def phase_dryrun(torch, report):
             raise SmokeFailure(f"dryrun {arch} {shape}: {rec['status']} {rec.get('error')}")
         cfg = dryrun.config_for_shape(get_config(arch), shape)[0]
         kernel = "mla_attention_piece" if cfg.use_mla else "decode_attention_piece"
-        if rec["kernels"].get(kernel, {}).get("calls") != cfg.num_layers:
+        if shape == "train_4k":
+            if not rec["hbm_fits"] or rec["kernels"]:
+                gib = (rec["argument_size_in_bytes"] + rec["temp_size_in_bytes"]) / 2**30
+                raise SmokeFailure(f"dryrun {arch} {shape}: argument + temp {gib:.2f} GiB "
+                                   f"(fits 80 GB: {rec['hbm_fits']}), kernels {rec['kernels']}")
+        elif rec["kernels"].get(kernel, {}).get("calls") != cfg.num_layers:
             raise SmokeFailure(f"dryrun {arch} {shape}: kernels {rec['kernels']}, expected "
                                f"{kernel} once per layer ({cfg.num_layers})")
         out[f"{arch} {shape}"] = {k: rec[k] for k in (

@@ -65,7 +65,7 @@ from repro_torch.utils.op_cost import OpCost
 
 ENC_FRAMES = 512  # audio frontend stub: precomputed frames fed to the encoder
 HBM_BYTES = 80 * 10 ** 9  # an H100's device memory
-PLANS = ("moe_2d", "remat_policy")  # the reference's plan knobs the port takes
+PLANS = ("attn_seq_shard", "moe_2d", "remat_policy")  # the reference's plan knobs
 META = torch.device("meta")
 
 
@@ -92,12 +92,10 @@ def production_shape(multi_pod: bool) -> dict:
 
 
 def check_plan(plan) -> dict:
-    """The plan knobs the port takes; ``attn_seq_shard`` (the reference's
-    sequence-sharded attention) is not ported."""
+    """The plan knobs the port takes (``PLANS``, the reference's: the
+    sequence-sharded GQA attention, the 2-D MoE, the remat policy;
+    ``sharding.context`` says what each does); any other raises."""
     plan = dict(plan or {})
-    if plan.get("attn_seq_shard"):
-        raise NotImplementedError("the plan knob attn_seq_shard (sequence-sharded attention) is "
-                                  "not ported (see ROADMAP.md)")
     unknown = sorted(set(plan) - set(PLANS))
     if unknown:
         raise ValueError(f"unknown plan knobs {unknown}; the port takes {PLANS}")
@@ -244,10 +242,11 @@ def other_ranks(mesh_shape: dict) -> list:
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str, fsdp=None,
-            tag: str = "", plan=None, mesh_shape=None) -> dict:
+            tag: str = "", plan=None, mesh_shape=None, peak: bool = False) -> dict:
     """Build and count rank 0's step at (arch, shape) on the production mesh
     (or ``mesh_shape``), write its record to ``out_dir`` as JSON and
-    return it."""
+    return it. ``peak``: run the step a second time to record what is live
+    at its peak (``peak_live``, ``peak_stack``: ``OpCost``'s snapshot)."""
     mesh_shape = dict(mesh_shape or production_shape(multi_pod))
     mesh_name = ("pod2x16x16" if multi_pod else "pod16x16") if mesh_shape == production_shape(
         multi_pod) else "x".join(str(v) for v in mesh_shape.values())
@@ -275,6 +274,13 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: str, fsdp=None
                       for r in other_ranks(mesh_shape)}
             rec["ranks_differ"] = {str(r): b for r, b in others.items()
                                    if b != rec["argument_size_in_bytes"]}
+            if peak:
+                again = build(arch, shape_name, mesh_shape, plan, fsdp)[0]
+                snap = OpCost(snapshot_at=counter.peak_bytes)
+                snap.arguments(again.args)
+                with snap:
+                    again.run()
+                rec["peak_live"], rec["peak_stack"] = snap.peak_live, snap.peak_stack
             rec["status"] = "ok"
             rec["build_s"] = round(t1 - t0, 1)
             rec["step_s"] = round(time.time() - t1, 1)
@@ -322,7 +328,7 @@ def table(records) -> str:
 
 
 def parse_plan(text: str) -> dict:
-    """``--plan``'s comma list: ``moe_2d,remat_policy=dots``."""
+    """``--plan``'s comma list: ``attn_seq_shard,remat_policy=dots``."""
     plan = {}
     for item in filter(None, text.split(",")):
         if "=" in item:
@@ -343,8 +349,10 @@ def main(argv=None):
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--tag", default="")
     ap.add_argument("--no-fsdp", action="store_true")
+    ap.add_argument("--peak", action="store_true",
+                    help="record the storages live at each step's peak (a second run)")
     ap.add_argument("--plan", default="",
-                    help="comma list: moe_2d,remat_policy=dots (attn_seq_shard is not ported)")
+                    help="comma list: moe_2d,attn_seq_shard,remat_policy=dots")
     args = ap.parse_args(argv)
     plan = check_plan(parse_plan(args.plan))
 
@@ -353,7 +361,7 @@ def main(argv=None):
     meshes = [False, True] if (args.both_meshes or args.all) else [args.multi_pod]
     t0 = time.time()
     records = [run_one(arch, shape, mp, args.out, fsdp=False if args.no_fsdp else None,
-                       tag=args.tag, plan=plan)
+                       tag=args.tag, plan=plan, peak=args.peak)
                for arch in archs for shape in shapes for mp in meshes]
     n_fail = sum(r["status"] == "FAIL" for r in records)
     print(table(records))

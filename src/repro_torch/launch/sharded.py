@@ -24,6 +24,7 @@ caller asks for the CPU (``device_type="cpu"``, gloo).
 """
 from __future__ import annotations
 
+import math
 import os
 import pickle
 import queue as queue_mod
@@ -93,8 +94,9 @@ def run_ranks(fn: Callable, world: int, args: Sequence = (), timeout: float = 60
                     errors.append(f"rank {rank}:\n{out}")
                     break
             end = time.monotonic() + 2.0 if errors else deadline + 5.0
-            for p in procs:
-                p.join(max(0.0, end - time.monotonic()))
+            for p in procs:  # an infinite timeout (a training run's) joins without one
+                left = end - time.monotonic()
+                p.join(None if math.isinf(left) else max(0.0, left))
         finally:
             for p in procs:
                 if p.is_alive():
@@ -399,8 +401,9 @@ def serve_job(job: dict, ctx, device: str = "cuda") -> dict:
     the tokens by uid, the worker's pass counts (with the draft's), the
     kernels' launches, the merges of sequence-cut decodes over the data
     group (``merges``) and over kv groups (``kv_merges``), the scheduler's
-    bucketed batches, the spec counters, the model axis's collectives, the
-    wall seconds and the peak device bytes (0 on the CPU)."""
+    bucketed batches, the spec counters, the model axis's collectives (the
+    plan knob attn_seq_shard's all-to-alls among them), the wall seconds
+    and the peak device bytes (0 on the CPU)."""
     import numpy as np
     import torch
 
@@ -433,6 +436,7 @@ def serve_job(job: dict, ctx, device: str = "cuda") -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     before, merges = _launch_counts()
     calls = collectives.all_reduce.calls, collectives.all_gather_last.calls
+    swaps = collectives.counts["all_to_all"]
     t0 = time.perf_counter()
     temp = job.get("temperature", 0.0)
     if sched is not None and mode == "continuous":
@@ -459,6 +463,7 @@ def serve_job(job: dict, ctx, device: str = "cuda") -> dict:
            "spec": {k: v for k, v in eng.ledger.counters.items() if k.startswith("spec_")},
            "all_reduces": collectives.all_reduce.calls - calls[0],
            "all_gathers": collectives.all_gather_last.calls - calls[1],
+           "all_to_alls": collectives.counts["all_to_all"] - swaps,
            "wall_s": time.perf_counter() - t0, "shard": w.params.shard,
            "data_shard": w.params.data_shard,
            "pool_rows": _pool_rows(eng.pools[cfg.name]) if cfg.name in eng.pools else None,

@@ -19,8 +19,10 @@ spawned from this process
 (``launch.sharded.run_ranks`` / ``train_rank``: each rank one process,
 gloo on the CPU and for ranks that share a card), each rank on its shard
 and its rows of the global ``--batch``; ``--fsdp`` cuts the weights over
-the data axis too (by default only where ``fsdp_default`` says). The
-peak memory is each rank's.
+the data axis too (by default only where ``fsdp_default`` says), and
+``--plan attn_seq_shard`` (the reference's plan knobs, as the dry run's
+``--plan`` takes them) cuts GQA attention on its query sequence over the
+model axis. The peak memory is each rank's.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.configs.base import reduced as make_reduced
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.launch.dryrun import check_plan, parse_plan
 from repro_torch.launch.sharded import run_ranks, train_rank
 from repro_torch.models.model import init_params, resolve_device
 from repro_torch.training.checkpoint import save_checkpoint
@@ -55,6 +58,7 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None, help="D,M: a (data, model) mesh of D*M ranks; P,D,M "
                     "a (pod, data, model) mesh")
     ap.add_argument("--fsdp", action="store_true", help="cut the weights over the data axis")
+    ap.add_argument("--plan", default="", help="with --mesh: plan knobs, e.g. attn_seq_shard")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -68,7 +72,7 @@ def main(argv=None):
     if math.prod(mesh) > 1:
         job = dict(cfg=cfg, seed=args.seed, data_seed=args.seed, batch=args.batch,
                    seq=args.seq, steps=args.steps, oc=oc, fsdp=True if args.fsdp else None,
-                   save=args.ckpt)
+                   save=args.ckpt, plan=check_plan(parse_plan(args.plan)))
         # a training run has no time limit of its own, sharded or not
         ranks = run_ranks(train_rank, math.prod(mesh), ([job], mesh, dev.type),
                           timeout=float("inf"), device_type=dev.type)

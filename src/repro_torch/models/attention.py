@@ -56,6 +56,13 @@ merged over the data group (``collectives.merge_attention``) where it cuts
 the sequence too. A GQA verify of T positions is T piece decodes and one
 merge at each level. The prefill's own attention runs over the prompt's
 whole K/V (or latent), which every rank computes, so it is unchanged.
+
+The plan knob ``attn_seq_shard`` (``ExecContext.plan``, the reference's
+sequence-sharded attention) acts in GQA's train and prefill forward at
+M > 1 only (``gqa_forward``): each rank attends for every head over its
+piece of the query sequence against the whole K/V (``attend_seq_shard``).
+MLA, the encoder, cross-attention and decode do not read it, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -299,13 +306,45 @@ def _project_qkv(p: GQA, x, cfg, positions):
     return q, k, v
 
 
-def gqa_forward(p: GQA, x, cfg, *, window=None, impl=None):
-    """Prefill: full causal self-attention. Returns (out, (k, v)) so the
-    caller can fill the cache."""
+def attend_seq_shard(q, k, v, cfg, ctx, *, window=None, impl=None):
+    """Causal self-attention with the queries cut on their sequence over the
+    model axis (the plan knob ``attn_seq_shard``): q (B, S, h, Dk), k and v
+    (B, S, hkv, D) hold this rank's heads of the whole sequence. q goes to
+    this rank's piece of every head (``collectives.seq_to_heads``: pieces
+    of n = ceil(S / M) positions, rank r the positions [r n, (r + 1) n)),
+    every kv head is gathered whole (``gather_kv_heads``), the piece
+    attends causally from ``q_offset`` = r n against the whole K/V, and
+    the output goes back to the rank's heads of the whole sequence
+    (``heads_to_seq``): (B, S, h, Dv). Where M does not divide S the
+    sequence is padded with zero queries to M n and the pad rows dropped
+    after (``kv_len`` S keeps their keys inside the sequence), so every
+    rank runs the same ops and collectives, the backward's included.
+    Padded query heads travel with the rest (their zero ``wo`` columns
+    drop them)."""
+    B, S = q.shape[:2]
+    M, r = ctx.model_parallel, ctx.model_rank
+    n = -(-S // M)
+    if M * n != S:
+        q = F.pad(q, (0, 0, 0, 0, 0, M * n - S))
+    qs = collectives.seq_to_heads(q, ctx)  # (B, n, M h, Dk)
+    kw, vw = collectives.gather_kv_heads(k, cfg, ctx), collectives.gather_kv_heads(v, cfg, ctx)
+    o = attend(qs, kw, vw, causal=True, window=window, softcap=cfg.attn_softcap, q_offset=r * n,
+               kv_len=min(S, r * n + n), impl=impl)
+    return collectives.heads_to_seq(o, ctx)[:, :S]
+
+
+def gqa_forward(p: GQA, x, cfg, *, window=None, impl=None, ctx=None):
+    """Train and prefill: full causal self-attention. Returns (out, (k, v))
+    so the caller can fill the cache (this rank's kv heads). With the plan
+    knob ``attn_seq_shard`` on a model axis of M > 1 the attention runs
+    with the queries cut on their sequence (``attend_seq_shard``)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    o = attend(q, k, v, causal=True, window=window, softcap=cfg.attn_softcap, impl=impl)
+    if ctx is not None and ctx.model_parallel > 1 and ctx.plan.get("attn_seq_shard"):
+        o = attend_seq_shard(q, k, v, cfg, ctx, window=window, impl=impl)
+    else:
+        o = attend(q, k, v, causal=True, window=window, softcap=cfg.attn_softcap, impl=impl)
     return row_linear(p.wo, o.reshape(B, S, -1)), (k, v)
 
 

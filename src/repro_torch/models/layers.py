@@ -23,7 +23,8 @@ LM head hold a 1/M slice of the vocab: ``embed_tokens`` looks up the ids
 its slice holds, 0 for the rest, and sums the ranks' rows; ``lm_logits``
 gathers the ranks' vocab columns, so every rank has the whole logits (in
 train mode through the differentiable collectives: the head's input goes
-through ``copy_to_model``, so its gradient sums the ranks' columns).
+through ``copy_to_model``, so its gradient sums the ranks' columns), or
+with ``gather=False`` keeps the rank's slice (the train loss's route).
 """
 from __future__ import annotations
 
@@ -160,12 +161,16 @@ def embed_tokens(embedding, ids, cfg, ctx=None):
     return x
 
 
-def lm_logits(embedding, lm_head, x, cfg, ctx=None):
-    """``embedding`` (V, d) when tied, else ``lm_head`` (an ``nn.Linear``)."""
+def lm_logits(embedding, lm_head, x, cfg, ctx=None, gather=True):
+    """``embedding`` (V, d) when tied, else ``lm_head`` (an ``nn.Linear``).
+    The fp32 logits, softcapped: of the whole (padded) vocabulary, or
+    without ``gather`` the rank's own slice of it on a model axis of M > 1
+    (the columns [r V/M, (r + 1) V/M) of model rank r, no all-gather: the
+    vocabulary-parallel loss's input, ``models.model.loss_fn``)."""
     if ctx is not None:
         x = collectives.copy_to_model(x, ctx)
     logits = F.linear(x, embedding) if cfg.tie_embeddings else lm_head(x)
-    if ctx is not None:
+    if ctx is not None and gather:
         logits = collectives.all_gather_last(logits, ctx)
     logits = logits.float()
     if cfg.final_softcap:

@@ -352,11 +352,13 @@ def _embed_inputs(params: CausalLM, cfg, inputs, ctx):
         return embed_tokens(params.embedding, inputs, cfg, ctx).to(dtype_of(cfg.dtype))
 
 
-def _logits(params: CausalLM, cfg, x, ctx):
-    """The final norm and the LM head (FSDP leaves gathered for the call)."""
+def _logits(params: CausalLM, cfg, x, ctx, gather=True):
+    """The final norm and the LM head (FSDP leaves gathered for the call):
+    the whole vocabulary's logits, or without ``gather`` the model rank's
+    slice (``lm_logits``)."""
     x = apply_norm(params.final_norm, x)
     with collectives.gathered(ctx, params, params.lm_head, recurse=False):
-        return lm_logits(params.embedding, params.lm_head, x, cfg, ctx)
+        return lm_logits(params.embedding, params.lm_head, x, cfg, ctx, gather)
 
 
 def train_params(params: CausalLM) -> dict:
@@ -379,28 +381,46 @@ def check_train_mesh(params: CausalLM, ctx) -> None:
                          "them with init_params(ctx=...)")
 
 
-def train_logits(params: CausalLM, cfg, batch, ctx=ExecContext()):
-    """The train forward: (fp32 logits (B, S, padded vocab), the MoE layers'
-    summed load-balance loss, an fp32 scalar). An encoder-decoder model
-    encodes ``batch["enc_inputs"]`` first; the encoder, like the decoder,
-    takes the differentiable train route of attention."""
+def _train_hidden(params: CausalLM, cfg, batch, ctx):
+    """The train forward up to the final norm: (the stack's output, the MoE
+    layers' summed load-balance loss, an fp32 scalar). An encoder-decoder
+    model encodes ``batch["enc_inputs"]`` first; the encoder, like the
+    decoder, takes the differentiable train route of attention."""
     check_train_mesh(params, ctx)
     enc_out = None
     if cfg.is_encoder_decoder:
         enc_out = encode(params, cfg, batch["enc_inputs"], ctx, train_route=True)
     x = _embed_inputs(params, cfg, batch["tokens"], ctx)
-    x, aux = tfm.apply_stack(params.layers, cfg, x, ctx, "train", enc_out=enc_out)
+    return tfm.apply_stack(params.layers, cfg, x, ctx, "train", enc_out=enc_out)
+
+
+def train_logits(params: CausalLM, cfg, batch, ctx=ExecContext()):
+    """The train forward: (fp32 logits (B, S, padded vocab), the MoE aux
+    loss). Every rank gets whole rows of logits, gathered over the model
+    axis at M > 1; ``loss_fn`` takes its own route, which keeps them cut."""
+    x, aux = _train_hidden(params, cfg, batch, ctx)
     return _logits(params, cfg, x, ctx), aux
 
 
 def loss_fn(params: CausalLM, cfg, batch, ctx=ExecContext()):
     """Next-token cross-entropy over the fp32 logits (logsumexp minus the
     gold logit, averaged over every position) plus ``cfg.router_aux_loss``
-    times the MoE aux loss. Returns (loss, {"nll", "aux"})."""
-    logits, aux = train_logits(params, cfg, batch, ctx)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, batch["labels"][..., None].long())[..., 0]
-    nll = (lse - gold).mean()
+    times the MoE aux loss. Returns (loss, {"nll", "aux"}). At M = 1 (and
+    with no mesh) over ``train_logits``' whole rows; at M > 1 over the
+    model rank's slice of the vocabulary, never gathered
+    (``collectives.vocab_parallel_nll``): the padded columns stay in the
+    log-sum-exp, as in the reference, and every model rank gets the same
+    loss."""
+    labels = batch["labels"]
+    if ctx.model_parallel > 1:
+        x, aux = _train_hidden(params, cfg, batch, ctx)
+        nll = collectives.vocab_parallel_nll(_logits(params, cfg, x, ctx, gather=False), labels,
+                                             ctx).mean()
+    else:
+        logits, aux = train_logits(params, cfg, batch, ctx)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        nll = (lse - gold).mean()
     loss = nll + cfg.router_aux_loss * aux
     return loss, {"nll": nll, "aux": aux}
 

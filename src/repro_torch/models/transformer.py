@@ -261,7 +261,7 @@ def _apply_mixer(lp: Block, h, cfg, ctx, impl, mode, cache, pos, ssm_mask):
         mix, _ = att.gqa_decode(lp.attn, h, cfg, cache["k"], cache["v"], pos,
                                 window=lp.window, impl=impl, ctx=ctx)
         return mix
-    mix, (k, v) = att.gqa_forward(lp.attn, h, cfg, window=lp.window, impl=impl)
+    mix, (k, v) = att.gqa_forward(lp.attn, h, cfg, window=lp.window, impl=impl, ctx=ctx)
     if cache is not None:
         att.write_prefix(cache["k"], k, cfg, ctx)
         att.write_prefix(cache["v"], v, cfg, ctx)

@@ -43,6 +43,12 @@ merge is the same fp32 arithmetic on every rank (``merge_states``), so
 every rank gets the same bits, and it returns the merged log-sum-exp, so
 the two levels compose.
 
+The plan knob ``attn_seq_shard`` (``models.attention.gqa_forward``) moves
+a GQA layer's queries and outputs between head-cut and sequence-cut
+layouts over the model axis (``seq_to_heads`` / ``heads_to_seq``: one
+all-to-all each, each the other's backward) and gathers every kv head
+whole (``gather_kv_heads``, whose backward reduce-scatters).
+
 Every differentiable call is counted on ``counts`` by kind, forward and
 backward alike. All return their input untouched on an axis of one (a
 mesh of one runs no collective, so it computes exactly what the
@@ -138,6 +144,14 @@ class SameCard:
             acc += p
         return x.copy_(acc)
 
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise largest ``x`` over the group, in place."""
+        parts = self._exchange(x)
+        acc = parts[0].clone()
+        for p in parts[1:]:
+            torch.maximum(acc, p, out=acc)
+        return x.copy_(acc)
+
     def all_gather(self, x: torch.Tensor) -> list:
         return [p.clone() for p in self._exchange(x)]
 
@@ -170,6 +184,18 @@ def _reduce(x: torch.Tensor, group) -> torch.Tensor:
     if t is not None:
         return t.all_reduce(x)
     dist.all_reduce(x, group=group)
+    return x
+
+
+def _reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise largest ``x`` over ``group``, in place."""
+    if x.is_meta:
+        op_cost.record_collective("all-reduce", op_cost.tensor_bytes(x))
+        return x
+    t = same_card(x, group)
+    if t is not None:
+        return t.all_reduce_max(x)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     return x
 
 
@@ -261,6 +287,7 @@ class _GatherLast(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, ctx):
         fctx.ctx, fctx.n = ctx, x.shape[-1]
+        counts["all_gather_last"] += 1
         return all_gather(x, -1, ctx.model_parallel, ctx.model_group)
 
     @staticmethod
@@ -325,6 +352,48 @@ def all_gather_last(x: torch.Tensor, ctx) -> torch.Tensor:
 
 all_reduce.calls = 0
 all_gather_last.calls = 0
+
+
+class _VocabNLL(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, logits, labels, ctx):
+        n = logits.shape[-1]
+        v0 = ctx.model_rank * n
+        top = _reduce_max(logits.amax(dim=-1), ctx.model_group)
+        counts["all_reduce_max"] += 1
+        p = torch.exp(logits - top[..., None])
+        mine = (labels >= v0) & (labels < v0 + n)
+        idx = (labels - v0).clamp(0, n - 1).long()[..., None]
+        gold = torch.where(mine, torch.gather(logits, -1, idx)[..., 0], 0.0)
+        sums = _all_reduce(torch.stack([p.sum(dim=-1), gold]), ctx.model_group, "all_reduce")
+        p /= sums[0][..., None]
+        fctx.save_for_backward(p, idx, mine)
+        return top + torch.log(sums[0]) - sums[1]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(fctx, g):
+        p, idx, mine = fctx.saved_tensors
+        grad = p.mul_(g[..., None])  # the saved softmax, used once
+        grad.scatter_add_(-1, idx, -(g * mine)[..., None])
+        return grad, None, None
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, ctx) -> torch.Tensor:
+    """Per position, log-sum-exp minus the gold logit over the whole
+    vocabulary, from this model rank's slice of it: ``logits`` (..., V/M)
+    fp32, the columns [r V/M, (r + 1) V/M) of model rank r, and ``labels``
+    (...) global ids. Megatron's vocabulary-parallel cross-entropy: the
+    rows' largest logit by an all-reduce (max) over the model group
+    (``counts["all_reduce_max"]``), then one all-reduce (sum) of each row's
+    sum of exp and of its gold logit, which only the rank whose columns
+    hold the label contributes (``counts["all_reduce"]``). Every model rank
+    returns the same values. The backward gives the rank's slice of
+    softmax minus one-hot times the incoming gradient, from the softmax
+    saved in the forward (no collective: the loss is the same on every
+    rank, so is its gradient); no whole row is formed. For M > 1 (at M = 1
+    ``models.model.loss_fn`` keeps its whole-row route)."""
+    return _VocabNLL.apply(logits, labels, ctx)
 
 
 # ---- the data axes ----------------------------------------------------------
@@ -486,6 +555,109 @@ def merge_states(parts: torch.Tensor):
     w = torch.exp(lses - top)
     total = w.sum(dim=0)
     return (parts[..., :-1] * w[..., None]).sum(dim=0) / total[..., None], top + torch.log(total)
+
+
+# ---- sequence-sharded attention (the plan knob attn_seq_shard) ----------------
+
+
+def _all_to_all(chunks: list, group, rank: int) -> list:
+    """Chunk p of ``chunks`` (one per rank of ``group``, one shape) goes to
+    rank p; returns what every rank sent this one, in rank order. NCCL's
+    ``all_to_all``; elsewhere (gloo, the same-card transport) an all-gather
+    of the stacked chunks, of which each rank keeps its own."""
+    n = len(chunks)
+    if chunks[0].is_meta:
+        op_cost.record_collective("all-to-all", sum(op_cost.tensor_bytes(c) for c in chunks))
+        return [torch.empty_like(c) for c in chunks]
+    chunks = [c.contiguous() for c in chunks]
+    if dist.get_backend(group) == "nccl":
+        out = [torch.empty_like(c) for c in chunks]
+        dist.all_to_all(out, chunks, group=group)
+        return out
+    return [p[rank] for p in _gather(torch.stack(chunks), n, group)]
+
+
+def _seq_to_heads(x: torch.Tensor, ctx) -> torch.Tensor:
+    M, r = ctx.model_parallel, ctx.model_rank
+    n = x.shape[1] // M
+    counts["all_to_all"] += 1
+    return torch.cat(_all_to_all(list(x.split(n, dim=1)), ctx.model_group, r), dim=2)
+
+
+def _heads_to_seq(x: torch.Tensor, ctx) -> torch.Tensor:
+    M, r = ctx.model_parallel, ctx.model_rank
+    h = x.shape[2] // M
+    counts["all_to_all"] += 1
+    return torch.cat(_all_to_all(list(x.split(h, dim=2)), ctx.model_group, r), dim=1)
+
+
+class _Swap(torch.autograd.Function):
+    """One of the two all-to-alls, whose backward is the other."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, there, back):
+        fctx.ctx, fctx.back = ctx, back
+        return there(x, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.back(g, fctx.ctx), None, None, None
+
+
+def seq_to_heads(x: torch.Tensor, ctx) -> torch.Tensor:
+    """(B, M n, h, D) -> (B, n, M h, D): every model rank's h heads of this
+    rank's piece of the sequence (rank r: positions [r n, (r + 1) n)),
+    heads in rank order. One all-to-all over the model group; the backward
+    is ``heads_to_seq``'s. Counted on ``counts["all_to_all"]``."""
+    if _grad_path(x):
+        return _Swap.apply(x, ctx, _seq_to_heads, _heads_to_seq)
+    return _seq_to_heads(x, ctx)
+
+
+def heads_to_seq(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The inverse of ``seq_to_heads``: (B, n, M h, D), this rank's piece
+    of every head, -> (B, M n, h, D), the whole sequence of its own h
+    heads. One all-to-all; the backward is ``seq_to_heads``'s."""
+    if _grad_path(x):
+        return _Swap.apply(x, ctx, _heads_to_seq, _seq_to_heads)
+    return _heads_to_seq(x, ctx)
+
+
+def _kv_heads(x: torch.Tensor, cfg, ctx) -> torch.Tensor:
+    g = ctx.kv_group(cfg)
+    counts["gather_kv_heads"] += 1
+    return torch.cat(_gather(x, ctx.model_parallel, ctx.model_group)[::g], dim=2)
+
+
+class _GatherKVHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, cfg, ctx):
+        fctx.cfg, fctx.ctx = cfg, ctx
+        return _kv_heads(x, cfg, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        ctx, M = fctx.ctx, fctx.ctx.model_parallel
+        every = fctx.ctx.kv_group(fctx.cfg)
+        if every > 1:  # slot r: the gradient of rank r's kv head if r leads its group, else 0
+            slots = g.new_zeros(g.shape[:2] + (M,) + g.shape[3:])
+            slots[:, :, ::every] = g
+            g = slots
+        return _reduce_scatter(g, 2, M, ctx.model_rank, ctx.model_group), None, None
+
+
+def gather_kv_heads(x: torch.Tensor, cfg, ctx) -> torch.Tensor:
+    """Every kv head whole, from each model rank's own (B, S, h, D) K or V
+    (h = Hkv / M heads, or the one kv head that the M / Hkv ranks of a kv
+    group share): one all-gather over the model group, each kv head held
+    once, from the first rank of its group, in head order. The backward
+    reduce-scatters the gradient over the model group to the ranks it
+    came from, so a kv group's other ranks get 0 for their copy and the
+    sum over the group (``training.train_loop.sync_grads``) is the head's
+    gradient once. Counted on ``counts["gather_kv_heads"]``."""
+    if _grad_path(x):
+        return _GatherKVHeads.apply(x, cfg, ctx)
+    return _kv_heads(x, cfg, ctx)
 
 
 def all_reduce_world(x: torch.Tensor, ctx) -> torch.Tensor:

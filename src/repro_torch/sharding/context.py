@@ -42,8 +42,14 @@ softmax states over the kv group, then over the data group
 ``plan`` carries the reference's per-model overrides. The port reads
 ``"remat_policy"`` (``"full"``, the default, ``"dots"`` or ``"none"``) and
 ``"pipeline"`` (``{"stages": S, "microbatches": M}``, the circular
-pipeline of ``sharding.pipeline``) in train mode, and ``"moe_2d"`` (the
-reference's weight-stationary 2-D MoE, ``models.moe``) in every mode.
+pipeline of ``sharding.pipeline``) in train mode, ``"moe_2d"`` (the
+reference's weight-stationary 2-D MoE, ``models.moe``) in every mode, and
+``"attn_seq_shard"`` (the reference's sequence-sharded attention) in GQA's
+train and prefill forward at M > 1: each model rank attends for every
+head over its piece of the query sequence against the whole K/V
+(``models.attention.attend_seq_shard``; MLA, the encoder,
+cross-attention and decode do not read it). ``launch.sharded``'s jobs
+carry ``plan`` into the context, so a mesh serve or train takes it there.
 
 ``MeshStandIn`` is a mesh of any size seen from one of its ranks, with no
 process group behind it: the dry run (``launch.dryrun``) builds a rank's
@@ -135,7 +141,8 @@ class ExecContext:
     # It selects both the attention kernels and the SSD scan of the serving
     # modes; train mode takes its differentiable route whatever it says.
     attn_impl: Optional[str] = None
-    # per-model overrides: "remat_policy" and "pipeline" (train mode), "moe_2d"
+    # per-model overrides: "remat_policy" and "pipeline" (train mode), "moe_2d",
+    # "attn_seq_shard" (GQA train and prefill at M > 1)
     plan: dict = field(default_factory=dict)
     # FSDP over the batch axes: None follows partition_specs.fsdp_default
     fsdp: Optional[bool] = None

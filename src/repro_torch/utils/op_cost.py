@@ -22,15 +22,23 @@ every aten op of the step as it runs (on meta tensors in the dry run,
 * ``kernels``: per hand-written kernel, its calls and their FLOPs and
   bytes, added by each wrapper's meta route (``record_kernel``);
 * ``collectives``: per kind ("all-reduce", "all-gather",
-  "reduce-scatter"), its count and result bytes, added by the
-  collectives' meta transport (``record_collective``), as
-  ``collective_stats`` counts result bytes.
+  "reduce-scatter", "all-to-all"), its count and result bytes, added by
+  the collectives' meta transport (``record_collective``), as
+  ``collective_stats`` counts result bytes;
+* with ``snapshot_at`` (a byte count, the peak of an earlier run of the
+  same step), ``peak_live``: the storages live when the live bytes first
+  reach it, grouped by the op that made them, shape and dtype, the groups
+  of most bytes first (count and bytes each),
+  and ``peak_stack``: the model code's frames on the Python stack then
+  (what sets the peak; ``launch.dryrun --peak``).
 
 Eager runs every layer, so no trip-count correction is needed: a 61-layer
 stack runs 61 layers' ops (the reference's scan visits its body once and
 ``hlo_cost`` multiplies it by the loop's trip count).
 """
 from __future__ import annotations
+
+import traceback
 
 import torch
 from torch.multiprocessing.reductions import StorageWeakRef
@@ -76,8 +84,11 @@ def tensor_bytes(t: torch.Tensor) -> int:
 class OpCost(TorchDispatchMode):
     """Counts one span's ops (module docstring); ``summary()`` reads them."""
 
-    def __init__(self):
+    def __init__(self, snapshot_at=None):
         super().__init__()
+        self.snapshot_at = snapshot_at
+        self.peak_live: list = []
+        self.peak_stack: list = []
         self.flops = 0
         self.bytes = 0
         self.kernels: dict = {}
@@ -111,10 +122,10 @@ class OpCost(TorchDispatchMode):
         return super().__exit__(*exc)
 
     def _sweep(self) -> None:
-        for key in [k for k, (ref, _) in self._storages.items() if ref.expired()]:
+        for key in [k for k, v in self._storages.items() if v[0].expired()]:
             self._live -= self._storages.pop(key)[1]
 
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, op: str) -> None:
         st = t.untyped_storage()
         key = st._cdata
         if key in self.args:
@@ -124,11 +135,30 @@ class OpCost(TorchDispatchMode):
             if not known[0].expired():
                 return
             self._live -= known[1]  # a freed storage's address, reused
-        self._storages[key] = (StorageWeakRef(st), st.nbytes())
+        self._storages[key] = (StorageWeakRef(st), st.nbytes(), op, tuple(t.shape),
+                               str(t.dtype).replace("torch.", ""))
         self._live += st.nbytes()
         if self._live > self.peak_bytes:  # an upper bound: sweep the freed ones
             self._sweep()
             self.peak_bytes = max(self.peak_bytes, self._live)
+            if self.snapshot_at is not None and not self.peak_live \
+                    and self._live >= self.snapshot_at:
+                self._snapshot()
+
+    def _snapshot(self) -> None:
+        rows = sorted((v[1:] for v in self._storages.values() if not v[0].expired()),
+                      key=lambda r: -r[0])
+        groups: dict = {}
+        for b, op, shape, dt in rows:
+            row = groups.setdefault((op, shape, dt), [0, 0])
+            row[0] += 1
+            row[1] += b
+        top = sorted(groups.items(), key=lambda kv: -kv[1][1])[:16]
+        self.peak_live = [{"count": n, "bytes": b, "op": op, "shape": list(shape), "dtype": dt}
+                          for (op, shape, dt), (n, b) in top]
+        self.peak_stack = [f"{f.filename.split('src/')[-1]}:{f.lineno} {f.name}"
+                           for f in traceback.extract_stack()
+                           if "repro_torch" in f.filename and "op_cost" not in f.filename]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -141,7 +171,7 @@ class OpCost(TorchDispatchMode):
             ins = [t for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)]
             self.bytes += sum(tensor_bytes(t) for t in ins + outs)
         for t in outs:
-            self._track(t)
+            self._track(t, packet.__name__)
         return out
 
     def summary(self) -> dict:

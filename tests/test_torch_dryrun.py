@@ -26,10 +26,18 @@ docstring), at most the reference's shards' bytes (c_kv's columns cut,
 k_rope whole), so the argument bytes are the reference's with that one
 departure.
 
+With the plan knob ``attn_seq_shard`` (which the JAX dry run lowers on
+the same mesh, with the same FLOPs) the port's ``prefill_32k`` gives the
+same argument bytes, and FLOPs within ``PREFILL_TOL`` once rank 0's
+masked pairs (its half of the queries, every head, against all keys) are
+added; outside the flash kernel its count is the count without the knob.
+
 Then every arch at ``decode_32k`` on the (16, 16) production mesh, and
 ``train_4k`` / ``long_500k`` of several families and the (2, 16, 16)
 mesh, run with status ``ok`` (seamless ``long_500k`` skipped with the
-reference's note); the counter's units; each kernel wrapper's meta route
+reference's note); gemma2's ``train_4k`` fits 80 GB a rank with the
+vocabulary-cut loss; the knob's prefill on (16, 16); ``check_plan``; the
+counter's units; each kernel wrapper's meta route
 (the bound's formula, the card's refusals, no launch counted) and that CPU
 tensors never take it.
 """
@@ -67,7 +75,8 @@ def oracle():
     a process of its own: its host device count is set before JAX loads."""
     pytest.importorskip("jax")
     env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
-    out = subprocess.run([sys.executable, os.path.join("tools", "dryrun_reference.py"), "--json"],
+    out = subprocess.run([sys.executable, os.path.join("tools", "dryrun_reference.py"), "--json",
+                          "--plan", "attn_seq_shard"],
                          capture_output=True, env=env, text=True, cwd=REPO, timeout=300)
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith("ORACLE ")]
     assert lines, out.stderr[-3000:]
@@ -193,15 +202,83 @@ def test_train_and_long_context_on_the_production_meshes(arch, shape, multi_pod)
         assert rec["kernels"]["mla_attention_piece"]["calls"] == cfg.num_layers
 
 
-def test_attn_seq_shard_is_refused_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dryrun.build("tinyllama-1.1b", "decode_32k", dryrun.production_shape(False),
-                     plan={"attn_seq_shard": True})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dryrun.main(["--arch", "tinyllama-1.1b", "--shape", "decode_32k", "--plan",
-                     "attn_seq_shard"])
+# ---- the plan knob attn_seq_shard ----------------------------------------------
+
+SEQ = {"attn_seq_shard": True}
+
+
+def test_check_plan_takes_attn_seq_shard_and_refuses_unknown_knobs():
+    assert dryrun.check_plan(SEQ) == SEQ
+    assert dryrun.check_plan(dryrun.parse_plan("attn_seq_shard,remat_policy=dots")) == \
+        dict(SEQ, remat_policy="dots")
     with pytest.raises(ValueError, match="unknown plan knobs"):
         dryrun.check_plan({"attn_impl": "pallas"})
+    with pytest.raises(ValueError, match="unknown plan knobs"):
+        dryrun.main(["--arch", "tinyllama-1.1b", "--shape", "decode_32k", "--plan",
+                     "attn_seq_shard,seq_shard"])
+
+
+def _seq_shard_pairs(n, S, H, head_dim):
+    """The score pairs that the reference's XLA route multiplies and the
+    flash count drops for rank 0 under the knob: its piece of n queries
+    against all S keys, every head, keeping the causal n (n + 1) / 2."""
+    return (n * S - n * (n + 1) // 2) * 2 * H * 2 * head_dim
+
+
+def test_attn_seq_shard_prefill_matches_jax_dryrun(oracle):
+    """Full tinyllama-1.1b ``prefill_32k`` on 2 x 2 with the plan knob: the
+    JAX dry run lowers it, with the FLOPs it has without the knob. The port
+    gives its argument bytes; its FLOPs within ``PREFILL_TOL`` once rank
+    0's masked score pairs (its piece of S / 2 queries, all 32 heads, all
+    S keys) and the LM head's other positions are added; outside the flash
+    kernel its count is the count without the knob, exactly; its
+    collectives add the all-to-alls (two per layer) and the kv-head
+    gathers (two per layer)."""
+    want = oracle["tinyllama-1.1b prefill_32k plan"]
+    assert want["flops"] == oracle["tinyllama-1.1b prefill_32k"]["flops"]
+    assert "all-to-all" in want["collectives"]
+    got = dryrun.run_one("tinyllama-1.1b", "prefill_32k", False, None, mesh_shape=MESH22,
+                         plan=SEQ)
+    plain = _port("tinyllama-1.1b", "prefill_32k", MESH22)
+    assert got["status"] == "ok", got.get("traceback")
+    assert got["argument_size_in_bytes"] == want["argument_size_in_bytes"]
+    cfg = get_config("tinyllama-1.1b")
+    S, B = SHAPES["prefill_32k"].seq_len, SHAPES["prefill_32k"].global_batch // 2
+    masked = B * cfg.num_layers * _seq_shard_pairs(S // 2, S, cfg.num_heads, cfg.head_dim)
+    head = B * (S - 1) * 2 * cfg.d_model * cfg.padded_vocab // 2
+    assert _rel(got["flops"] + masked + head, want["flops"]) <= PREFILL_TOL
+    flash = got["kernels"]["flash_attention"]
+    assert flash["calls"] == cfg.num_layers
+    assert got["flops"] - flash["flops"] == \
+        plain["flops"] - plain["kernels"]["flash_attention"]["flops"]
+    assert got["collectives"]["all-to-all"]["count"] == 2 * cfg.num_layers
+    assert got["collectives"]["all-gather"]["count"] == \
+        plain["collectives"]["all-gather"]["count"] + 2 * cfg.num_layers
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-7b"])
+def test_attn_seq_shard_prefill_on_the_production_mesh(arch):
+    """``prefill_32k`` with the knob on (16, 16), where gemma2's 8 query
+    heads and qwen2's 28 are padded to 16 and 32: ok, one flash call per
+    layer for all the heads over rank 0's sixteenth of the sequence, the
+    non-kernel FLOPs those of the pair without the knob."""
+    got = dryrun.run_one(arch, "prefill_32k", False, None, plan=SEQ)
+    plain = dryrun.run_one(arch, "prefill_32k", False, None)
+    assert got["status"] == plain["status"] == "ok", got.get("traceback")
+    cfg = get_config(arch)
+    assert got["kernels"]["flash_attention"]["calls"] == cfg.num_layers
+    assert got["flops"] - got["kernels"]["flash_attention"]["flops"] == \
+        plain["flops"] - plain["kernels"]["flash_attention"]["flops"]
+    assert got["collectives"]["all-to-all"]["count"] == 2 * cfg.num_layers
+    assert got["argument_size_in_bytes"] == plain["argument_size_in_bytes"]
+
+
+def test_gemma2_train_4k_fits_a_card_with_the_vocabulary_cut():
+    """gemma2-2b ``train_4k`` on (16, 16): the loss keeps the 256k
+    vocabulary cut over the model axis (an fp32 copy of a rank's whole
+    rows of logits would be 62.5 GiB), so argument + temp bytes fit 80 GB."""
+    rec = dryrun.run_one("gemma2-2b", "train_4k", False, None)
+    assert rec["status"] == "ok" and rec["hbm_fits"], rec.get("temp_size_in_bytes")
 
 
 def test_mesh_stand_in_places_ranks_row_major():

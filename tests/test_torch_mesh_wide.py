@@ -17,7 +17,9 @@ largest |logit|. The JAX package's own sharded path raises
 ``ShardingTypeError`` here (ROADMAP.md, Queue 3). Without a process group:
 the plans (the kv ways, the padded heads, whole experts, one kv head per
 rank in the cache), a padded head's zero share of the output, and train
-mode taking these layouts. ``test_torch_mesh_wide8.py`` takes the
+mode taking these layouts. The spawn also serves qwen2 and gemma2 with
+the plan knob ``attn_seq_shard`` (prefill attention cut on its query
+sequence) against the same unsharded run. ``test_torch_mesh_wide8.py`` takes the
 shipped ratio of 32 on 4 heads at a model axis of 8.
 """
 import dataclasses
@@ -97,6 +99,16 @@ def _eng_job(arch):
                 logit_prompts=r.integers(1, cfg.vocab_size, (2, 9), dtype=np.int32))
 
 
+# the engine again with the plan knob attn_seq_shard: GQA prefill attention
+# cut on its query sequence (prompts of 5, 10 and 6 tokens: 4 does not
+# divide them); qwen2's padded heads, gemma2's window and softcaps
+SEQ_ARCHS = ("qwen2-7b", "gemma2-2b")
+
+
+def _seq_job(arch):
+    return dict(_eng_job(arch), plan={"attn_seq_shard": True})
+
+
 def _rank(rank, gen_jobs, eng_jobs):
     """One rank of the (1, 4) mesh: every ``generate`` job, then every
     continuous-engine job."""
@@ -107,7 +119,8 @@ def _rank(rank, gen_jobs, eng_jobs):
 @pytest.fixture(scope="module")
 def ranks():
     """The four ranks, spawned once for every job."""
-    return run_ranks(_rank, M, ([_gen_job(a) for a in CASES], [_eng_job(a) for a in CASES]),
+    return run_ranks(_rank, M, ([_gen_job(a) for a in CASES],
+                                [_eng_job(a) for a in CASES] + [_seq_job(a) for a in SEQ_ARCHS]),
                      timeout=RANK_LIMIT_S, device_type="cpu")
 
 
@@ -164,6 +177,26 @@ def test_engine_on_four_ranks_matches_unsharded(ranks, arch):
         assert (got["prefill_calls"], got["decode_calls"]) == (want["prefill_calls"],
                                                                want["decode_calls"])
         assert got["shard"] == (M, rank) and got["all_reduces"] > 0
+        np.testing.assert_array_equal(got["logits"], ranks[0][1][i]["logits"])
+        err = np.abs(got["logits"] - want["logits"])
+        assert (err <= LOGIT_TOL * scale).all(), float((err / scale).max())
+
+
+@pytest.mark.parametrize("arch", SEQ_ARCHS)
+def test_engine_with_attn_seq_shard_matches_unsharded(ranks, arch):
+    """The FIFO engine with the plan knob ``attn_seq_shard`` on every rank:
+    the port's unsharded greedy tokens and passes, the prefill logits
+    within ``LOGIT_TOL`` of each row's largest |logit|, equal on every
+    rank; two all-to-alls (queries, outputs) per layer per prefill pass."""
+    i = len(CASES) + SEQ_ARCHS.index(arch)
+    want = _unsharded(arch)[1]
+    scale = np.abs(want["logits"]).max(axis=-1, keepdims=True)
+    for rank, r in enumerate(ranks):
+        got = r[1][i]
+        assert got["errors"] == [] and got["tokens"] == want["tokens"], rank
+        assert (got["prefill_calls"], got["decode_calls"]) == (want["prefill_calls"],
+                                                               want["decode_calls"])
+        assert got["all_to_alls"] == 2 * _pair(arch)[2].num_layers * got["prefill_calls"] > 0
         np.testing.assert_array_equal(got["logits"], ranks[0][1][i]["logits"])
         err = np.abs(got["logits"] - want["logits"])
         assert (err <= LOGIT_TOL * scale).all(), float((err / scale).max())

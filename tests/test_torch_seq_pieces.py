@@ -21,7 +21,8 @@ continuous FIFO engine, reduced deepseek's FIFO engine, and a speculative
 verify of T = 3 positions per slot (``decode_verify``) of both, and on
 (2, 2) reduced deepseek's FIFO engine on an odd pool of 3 slots (the
 latent cut over the data and the model ranks, merged at both levels); a
-spawn of two ranks runs reduced deepseek's engine on (1, 2). fp32: every
+spawn of two ranks runs reduced deepseek's engine on (1, 2), and reduced
+tinyllama's and gemma2's with the plan knob ``attn_seq_shard``. fp32: every
 rank's tokens equal the port's unsharded run's, the verify's logits lie
 within 1e-5 of each row's largest |logit|, and each decode launched the
 piece mode and merged over its kv group once per attention layer.
@@ -250,9 +251,10 @@ def _requests(cfg):
             for i, (n, new) in enumerate(REQS)]
 
 
-def _serve(arch, slots=SLOTS):
+def _serve(arch, slots=SLOTS, plan=None):
     cfg, tree = _pair(arch)[2:]
-    return dict(cfg=cfg, tree=tree, requests=_requests(cfg), max_slots=slots, max_len=MAX_LEN)
+    return dict(cfg=cfg, tree=tree, requests=_requests(cfg), max_slots=slots, max_len=MAX_LEN,
+                plan=plan)
 
 
 def _gen(arch):
@@ -319,10 +321,16 @@ def ranks4():
                      timeout=RANK_LIMIT_S, device_type="cpu")
 
 
+# served on (1, 2) with the plan knob attn_seq_shard too (prompts of 11, 5
+# and 9 tokens: 2 does not divide them)
+SEQ12 = ("tinyllama-1.1b", "gemma2-2b")
+
+
 @pytest.fixture(scope="module")
 def ranks2():
-    return run_ranks(_rank2, 2, ([_serve("deepseek-v2-lite-16b")],), timeout=RANK_LIMIT_S,
-                     device_type="cpu")
+    return run_ranks(_rank2, 2, ([_serve("deepseek-v2-lite-16b")]
+                                 + [_serve(a, plan={"attn_seq_shard": True}) for a in SEQ12],),
+                     timeout=RANK_LIMIT_S, device_type="cpu")
 
 
 @functools.cache
@@ -399,3 +407,18 @@ def test_deepseek_on_1x2_matches_unsharded(ranks2):
     want = _unsharded("deepseek-v2-lite-16b")
     for rank, got in enumerate(ranks2):
         _check_serve(f"rank {rank}", got[0], want, _pair("deepseek-v2-lite-16b")[2])
+
+
+@pytest.mark.parametrize("arch", SEQ12)
+def test_attn_seq_shard_on_1x2_matches_unsharded(ranks2, arch):
+    """(1, 2) with the plan knob ``attn_seq_shard``: each rank's prefill
+    attends for both ranks' heads over its half of the prompt against the
+    whole K/V (two all-to-alls per layer per prefill); the serve's tokens
+    and passes are the unsharded run's."""
+    want = _unsharded(arch)
+    for rank, got in enumerate(ranks2):
+        got = got[1 + SEQ12.index(arch)]
+        assert got["errors"] == [] and got["tokens"] == want["tokens"], rank
+        assert (got["prefill_calls"], got["decode_calls"]) == (want["prefill_calls"],
+                                                               want["decode_calls"]), rank
+        assert got["all_to_alls"] == 2 * _pair(arch)[2].num_layers * got["prefill_calls"] > 0

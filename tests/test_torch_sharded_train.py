@@ -17,6 +17,11 @@ every gradient leaf and the clipping norm, one AdamW step's params, the
 MoE on a split batch against JAX's ``moe_apply`` per shard at capacity
 1.25 (with drops), the 2-D MoE against the whole batch, a checkpoint
 moved from (2, 2) to no mesh and to (1, 2), and the f/g pair's gradients.
+At M > 1 the loss is the vocabulary-parallel cross-entropy on each rank's
+slice of the logits (``collectives.vocab_parallel_nll``), gemma2's tied
+embedding and final softcap included; on (1, 2) tinyllama and gemma2 also
+train with the plan knob ``attn_seq_shard``, whose step is the step
+without it (both are held against the same unsharded references).
 Tolerances (fp32): the loss 1e-5 relative, each gradient leaf 1e-5 of its
 largest |value| against the port and 2e-5 against JAX.
 """
@@ -69,8 +74,9 @@ def _capacity(cfg):
     return dataclasses.replace(cfg, moe_capacity_factor=1.25)
 
 
-# name -> (JAX config, port config): reduced configs, fp32
-VARIANTS = {"tiny": ("tinyllama-1.1b", lambda c: c),
+# name -> (JAX config, port config): reduced configs, fp32; gemma2 ties its
+# embedding to the LM head and softcaps its logits and attention scores
+VARIANTS = {"tiny": ("tinyllama-1.1b", lambda c: c), "gemma": ("gemma2-2b", lambda c: c),
             "mla": ("deepseek-v2-lite-16b", lambda c: c),
             "moe": ("deepseek-v2-lite-16b", _gqa),
             "moe_cap": ("deepseek-v2-lite-16b", lambda c: _capacity(_gqa(c)))}
@@ -89,10 +95,12 @@ def _batch(tcfg):
     return SyntheticLM(tcfg, DataConfig(batch=B, seq_len=S)).batch(0)
 
 
+SEQ = {"attn_seq_shard": True}  # the plan knob: GQA attention cut on its query sequence
 # each mesh's jobs: (variant, fsdp, plan)
 JOBS = {"2x1": [("tiny", True, None), ("tiny", None, None), ("mla", True, None),
                 ("moe_cap", None, None)],
-        "1x2": [("tiny", None, None), ("moe", None, None)],
+        "1x2": [("tiny", None, None), ("moe", None, None), ("gemma", None, None),
+                ("tiny", None, SEQ), ("gemma", None, SEQ)],
         "2x2": [("tiny", True, None), ("moe", True, None), ("moe", None, {"moe_2d": True}),
                 ("moe_cap", True, None)]}
 MESHES = {"2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2)}
@@ -314,6 +322,26 @@ def test_shards_hold_their_pieces(runs):
             assert len({r["train"][i]["history"][0]["loss"] for r in rr}) == 1
     steps = runs["2x2"][0]["train"][0]["collectives"][0]
     assert steps.get("all_gather", 0) > 0 and steps.get("all_reduce", 0) > 0
+
+
+@pytest.mark.parametrize("name,i", [c for c in CASES if MESHES[c[0]][1] > 1],
+                         ids=[f"{m}-{JOBS[m][i][0]}-{i}" for m, i in CASES if MESHES[m][1] > 1])
+def test_the_loss_keeps_the_vocabulary_cut(runs, name, i):
+    """At M > 1 a train step's loss is the vocabulary-parallel
+    cross-entropy on each rank's slice of the logits: no
+    ``all_gather_last`` call, one all-reduce (max) of the rows' largest
+    logit; with the plan knob, per attention layer the two all-to-alls
+    (queries, outputs) and the two kv-head gathers of the forward, again
+    in the backward's recomputation (remat "full"), and the two
+    all-to-alls of the backward (the gathers' backward reduce-scatters)."""
+    cfg = _pair(JOBS[name][i][0])[2]
+    layers = sum(k in ("attn", "local", "global") for k in cfg.layer_kinds())
+    for r in runs[name]:
+        steps = r["train"][i]["collectives"][0]
+        assert "all_gather_last" not in steps and steps["all_reduce_max"] == 1, steps
+        knob = bool(JOBS[name][i][2] and JOBS[name][i][2].get("attn_seq_shard"))
+        assert steps.get("all_to_all", 0) == (6 * layers if knob else 0), steps
+        assert steps.get("gather_kv_heads", 0) == (4 * layers if knob else 0), steps
 
 
 def test_moe_on_a_split_batch_matches_jax_per_shard(runs):

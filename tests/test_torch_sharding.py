@@ -437,6 +437,17 @@ def test_run_ranks_fails_at_once_when_a_rank_raises():
     assert time.monotonic() - t0 < 60.0
 
 
+def _rank_index(rank):
+    return rank
+
+
+def test_run_ranks_takes_no_time_limit():
+    """``run_ranks`` with an infinite time limit (``launch.train --mesh``'s:
+    a training run has none) returns every rank's result; joining the
+    ranks with an infinite timeout raised ``OverflowError`` before."""
+    assert run_ranks(_rank_index, 2, (), timeout=float("inf"), device_type="cpu") == [0, 1]
+
+
 def test_make_debug_mesh_asks_for_the_card_by_default(monkeypatch):
     """``launch.mesh.make_debug_mesh`` runs on the card unless the caller
     asks for the CPU: with no card there, the default raises naming

@@ -2,13 +2,15 @@
 (``repro_torch.launch.dryrun``) is held against, and both packages'
 per-rank bytes side by side on the production mesh.
 
-    PYTHONPATH=src python tools/dryrun_reference.py --json     # tests/test_torch_dryrun.py's oracle
+    PYTHONPATH=src python tools/dryrun_reference.py --json --plan attn_seq_shard  # the test oracle
     PYTHONPATH=src python tools/dryrun_reference.py --layouts  # a markdown table at (16, 16)
 
 ``--json`` prints one JSON object: the JAX dry run (``build_lowered`` and
 ``analyse``, compiled) on a 2 x 2 host mesh for tinyllama-1.1b at
 ``decode_32k`` and ``prefill_32k`` and for deepseek-v2-lite-16b at
-``decode_32k``; and the per-device bytes of the JAX leaves' shards under
+``decode_32k`` (with ``--plan attn_seq_shard``, the tinyllama pairs under
+the plan knob too: it lowers at the installed jax, with the FLOPs of the
+pairs without it); and the per-device bytes of the JAX leaves' shards under
 the reference's own shardings (``params_shardings``, ``cache_shardings``)
 on that mesh: parameters and cache.
 
@@ -53,10 +55,11 @@ def host_mesh(data: int, model: int):
     return Mesh(devs, ("data", "model"))
 
 
-def compiled(arch: str, shape: str, mesh) -> dict:
-    lowered, _ = dr.build_lowered(arch, shape, mesh=mesh)
+def compiled(arch: str, shape: str, mesh, plan=None) -> dict:
+    lowered, _ = dr.build_lowered(arch, shape, mesh=mesh, plan=plan)
     st = dr.analyse(lowered, lowered.compile(), mesh.size)
-    return {"flops": st["flops"], "argument_size_in_bytes": st["argument_size_in_bytes"]}
+    return {"flops": st["flops"], "argument_size_in_bytes": st["argument_size_in_bytes"],
+            "collectives": st["collectives"]}
 
 
 def shard_bytes(arch: str, shape_name: str, mesh) -> dict:
@@ -78,12 +81,17 @@ def shard_bytes(arch: str, shape_name: str, mesh) -> dict:
     return {"params": total(p, psh), "cache": total(c, csh)}
 
 
-def oracle() -> dict:
+def oracle(plan=None) -> dict:
+    """The oracle's pairs; with ``plan`` (the reference's plan knobs, as
+    its ``--plan`` takes them) the tinyllama pairs again under that plan,
+    keyed "<arch> <shape> plan"."""
     m22 = host_mesh(2, 2)
     out = {}
     for arch, shape in (("tinyllama-1.1b", "decode_32k"), ("tinyllama-1.1b", "prefill_32k"),
                         ("deepseek-v2-lite-16b", "decode_32k")):
         out[f"{arch} {shape}"] = compiled(arch, shape, m22)
+        if plan and arch == "tinyllama-1.1b":
+            out[f"{arch} {shape} plan"] = compiled(arch, shape, m22, plan)
     for arch in ("tinyllama-1.1b", "deepseek-v2-lite-16b"):
         out[f"{arch} decode_32k shards"] = shard_bytes(arch, "decode_32k", m22)
     return out
@@ -117,9 +125,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", action="store_true")
     ap.add_argument("--layouts", action="store_true")
+    ap.add_argument("--plan", default="", help="with --json: plan knobs, e.g. attn_seq_shard")
     args = ap.parse_args()
     if args.json:
-        print("ORACLE " + json.dumps(oracle()))
+        plan = {k: True for k in filter(None, args.plan.split(","))}
+        print("ORACLE " + json.dumps(oracle(plan)))
     if args.layouts:
         print(layouts())
 
